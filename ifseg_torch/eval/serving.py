@@ -1,0 +1,64 @@
+"""Fixed-shape serving: precompute every batch-independent tensor once.
+
+All of SegOFA's attention biases and position embeddings depend only on the
+parameters and the (static) input shape.  A server therefore computes them
+once per checkpoint (``precompute``) and runs a lean per-request forward
+(``forward_served``) that skips the gathers, bias interpolations and q·k
+position products.
+
+    server = SegServer(model, src_len=32)            # on "cuda"
+    logits = server(src_tokens, images, bos)         # (B, 1+hw, C) fp32
+"""
+
+from typing import Dict, Optional, Union
+
+import torch
+
+from ifseg_torch.models.encoder import compute_dtype
+from ifseg_torch.models.segofa import SegOFA
+
+
+def precompute(model: SegOFA, src_len: int) -> Dict[str, Dict[str, torch.Tensor]]:
+    s = model.cfg.patch_image_size // 16
+    enc = model.encoder.precompute_biases(src_len, (s, s))
+    dec = model.decoder.precompute_biases(enc["pos_all"], (s, s))
+    return {"enc": enc, "dec": dec}
+
+
+def forward_served(model: SegOFA, pre, src_tokens, patch_images, bos_tokens):
+    enc_out = model.encoder.encode_served(src_tokens, patch_images, pre["enc"])
+    return model.decoder.decode_served(bos_tokens, enc_out, pre["dec"])
+
+
+class SegServer:
+    """Holds the model on its device, the bias pack, and the weights cast to
+    compute dtype once.
+
+    ``device=None`` means ``"cuda"`` and raises when no card is present; the
+    CPU is used only when the caller passes ``device="cpu"``.  The model is
+    moved and cast in place."""
+
+    def __init__(self, model: SegOFA, src_len: int,
+                 device: Optional[Union[str, torch.device]] = None,
+                 quantize: str = "none"):
+        if quantize == "int8":
+            raise NotImplementedError("int8 serving is not ported yet")
+        if quantize not in ("none", "", None):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SegServer: no CUDA device (pass device='cpu' to run on the CPU)")
+        self.model = model.to(self.device).eval()
+        self.src_len = src_len
+        with torch.inference_mode():
+            self.pre = precompute(self.model, src_len)
+        self.model.cast_for_serving(compute_dtype(model.cfg))
+
+    def __call__(self, src_tokens, patch_images, bos_tokens) -> torch.Tensor:
+        with torch.inference_mode():
+            return forward_served(
+                self.model, self.pre,
+                torch.as_tensor(src_tokens, device=self.device),
+                torch.as_tensor(patch_images, device=self.device),
+                torch.as_tensor(bos_tokens, device=self.device),
+            )
