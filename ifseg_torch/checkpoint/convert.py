@@ -15,6 +15,9 @@ layout (the inverse of that package's torch -> flax converter):
   LayerNorm scale/bias               -> weight/bias
   stacked (layers, ...) rel tables   -> per-layer ``*_rel_pos_table_list.{i}``
 
+``adam_state_from_jax`` carries the Adam moments of a JAX optimizer state
+over in the same layout, so both trainers can start from the same moments.
+
 ``load_torch_checkpoint`` reads a fairseq ``.pt`` file.  A pretrained
 ``ofa_base.pt`` still needs the vocab surgery and the backfill of the
 seg-specific tensors before it loads strictly; those come with the
@@ -133,3 +136,41 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd["decoder.embed_image_positions.weight"] = np.zeros((rows, dim), np.float32)
 
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def _find_adam_state(node):
+    """The first node of an optimizer-state tree that has count, mu and nu."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    children = node.values() if isinstance(node, dict) else (
+        node if isinstance(node, (tuple, list)) else ())
+    for child in children:
+        found = _find_adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def _fill_masked(tree, params):
+    """``tree`` with the shape of ``params``; leaves that are not arrays (the
+    placeholders of frozen parameters) become zeros."""
+    if isinstance(params, dict):
+        return {k: _fill_masked(tree[k], v) for k, v in params.items()}
+    return np.asarray(tree) if hasattr(tree, "shape") else np.zeros_like(np.asarray(params))
+
+
+def adam_state_from_jax(opt_state: Any, params: Dict[str, Any]) -> Dict[str, Any]:
+    """The Adam state inside a JAX optimizer state (any nesting of tuples and
+    dicts around a node with ``count``, ``mu`` and ``nu``) -> ``{"count": int,
+    "mu": state dict, "nu": state dict}`` under the port's parameter names,
+    for ``FairseqAdam.load_state``.  ``params`` is the JAX parameter tree; it
+    gives the moments of frozen parameters, which JAX does not keep, their
+    shape (zeros)."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+    return {
+        "count": int(np.asarray(adam.count)),
+        "mu": state_dict_from_jax(_fill_masked(adam.mu, params)),
+        "nu": state_dict_from_jax(_fill_masked(adam.nu, params)),
+    }

@@ -1,11 +1,13 @@
-"""Model configuration for the served SegOFA forward.
+"""Configuration of the port: the model, and what the training step reads.
 
-A copy of the fields of ``ModelConfig`` that the serving path reads, with
-the same names and defaults as the JAX package's configuration, so one set
-of keyword arguments builds both.
+Copies of the fields of the JAX package's ``ModelConfig``,
+``CriterionConfig``, ``OptimizationConfig``, ``CommonConfig`` and
+``TaskConfig`` that the served forward and the training step read, with the
+same names and defaults, so one set of keyword arguments builds both.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Tuple
 
 
 @dataclass
@@ -25,6 +27,14 @@ class ModelConfig:
 
     # "gelu_tanh" (default), "gelu"/"gelu_exact" (erf form) or "relu"
     activation_fn: str = "gelu_tanh"
+    dropout: float = 0.1
+    attention_dropout: float = 0.0
+    activation_dropout: float = 0.0
+    encoder_drop_path_rate: float = 0.1
+    decoder_drop_path_rate: float = 0.1
+    # LayerDrop: whole layers skipped iid during training
+    encoder_layerdrop: float = 0.0
+    decoder_layerdrop: float = 0.0
 
     layernorm_embedding: bool = True
     patch_layernorm_embedding: bool = True
@@ -49,6 +59,15 @@ class ModelConfig:
     num_seg_tokens: int = 150
     decoder_input_type: str = "encoder_output"  # encoder_input | encoder_output
     tie_seg_projection: bool = True
+
+    # freezing policy of the reference run scripts
+    freeze_encoder_embedding: bool = True
+    freeze_decoder_embedding: bool = True
+    freeze_seg_embedding: bool = True
+    freeze_entire_resnet: bool = True
+    freeze_resnet: bool = False
+    freeze_encoder_transformer: bool = False
+    freeze_encoder_transformer_layers: int = 0
 
     dtype: str = "bfloat16"  # compute dtype; params are always fp32
 
@@ -99,3 +118,54 @@ def model_config_for_arch(arch: str, **kwargs) -> ModelConfig:
     over = dict(_ARCH_OVERRIDES[arch])
     over.update(kwargs)
     return ModelConfig(arch=arch, **over)
+
+
+@dataclass
+class TaskConfig:
+    """The segmentation task's field that the training step reads."""
+
+    imagenet_default_mean_and_std: bool = False
+
+
+@dataclass
+class CriterionConfig:
+    """Seg criterion (criterions/seg_criterion.py)."""
+
+    label_smoothing: float = 0.0
+    unsupervised_segmentation: bool = True
+    full_context_alignment: bool = False
+    init_seg_with_text: bool = True
+    # the reference runs an inference-mode forward on the real batch every
+    # step purely for monitoring metrics; off trains faster with identical
+    # learning dynamics
+    monitor_real_batch: bool = True
+
+
+@dataclass
+class OptimizationConfig:
+    lr: float = 5e-5
+    optimizer: str = "adam"  # only adam is ported
+    lr_scheduler: str = "cosine"  # only cosine is ported
+    warmup_ratio: float = 0.0
+    warmup_updates: int = 0
+    weight_decay: float = 0.1
+    adam_betas: Tuple[float, float] = (0.9, 0.999)
+    adam_eps: float = 1e-8
+    clip_norm: float = 1.0
+    update_freq: int = 1
+    seed: int = 7
+
+
+@dataclass
+class CommonConfig:
+    ema_decay: float = 0.0  # 0 disables EMA
+    ema_fp32: bool = False
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    task: TaskConfig = field(default_factory=TaskConfig)
+    criterion: CriterionConfig = field(default_factory=CriterionConfig)
+    optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
+    common: CommonConfig = field(default_factory=CommonConfig)

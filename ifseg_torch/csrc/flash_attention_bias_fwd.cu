@@ -1,13 +1,17 @@
 // Fused attention forward with an additive per-head bias, for Hopper (sm_90a).
 //
 // Replaces ifseg_tpu/ops/flash_attention.py::_attn_kernel (the TPU Pallas
-// kernel behind flash_attention_bias_packed_infer).  It computes, per batch
-// row b and head h,
+// kernel behind flash_attention_bias_packed_infer and, with its row
+// logsumexp output, flash_attention_bias_packed_stats).  It computes, per
+// batch row b and head h,
 //
 //     out = softmax(q·kᵀ + bias[h] + mask_row[b], causal with offset lk-lq) · v
 //
 // with logits and softmax in fp32 and the output divided by the row sum after
-// the P·V product.  Operands use the packed projection layout: q (B, Lq, H·64),
+// the P·V product.  The STATS instantiation also writes the row logsumexp
+// lse = m + log(sum) as (B, H, Lq) fp32, which the backward kernels rebuild
+// the probabilities from; the inference instantiation is compiled without
+// that store, as a kernel of its own.  Operands use the packed projection layout: q (B, Lq, H·64),
 // k/v (B, Lk, H·64) and out (B, Lq, H·64) in bf16, addressed by strides, so no
 // head transpose is ever materialised.  bias is (H, Lq, Lk) in bf16 or fp32,
 // shared across the batch; the key-padding mask is (B, Lk) bytes (non-zero =
@@ -133,12 +137,12 @@ __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); 
 __device__ __forceinline__ void set_zero(float& x) { x = 0.f; }
 __device__ __forceinline__ void set_zero(bf16& x) { x = __ushort_as_bfloat16((unsigned short)0); }
 
-template <typename BiasT>
+template <typename BiasT, bool STATS>
 __global__ void __launch_bounds__(NTHREADS)
 attn_bias_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const BiasT* __restrict__ bias,
                      const uint8_t* __restrict__ mask, bf16* __restrict__ out,
-                     int H, int Lq, int Lk, int causal) {
+                     float* __restrict__ lse, int H, int Lq, int Lk, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
   bf16* k_s = q_s + BM * LDS;      // two stages of BN * LDS
@@ -362,18 +366,42 @@ attn_bias_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint32_t*>(og + (size_t)row1 * ld + nt * 8) =
           pack_f32(o[nt][2] * inv1, o[nt][3] * inv1);
   }
+  if constexpr (STATS) {
+    if (t == 0) {
+      float* lse_bh = lse + ((size_t)b * H + h) * Lq;
+      if (row0 < Lq) lse_bh[row0] = m_run[0] + logf(l_run[0]);
+      if (row1 < Lq) lse_bh[row1] = m_run[1] + logf(l_run[1]);
+    }
+  }
 }
 
-template <typename BiasT>
+template <typename BiasT, bool STATS>
 int launch(const bf16* q, const bf16* k, const bf16* v, const void* bias, const uint8_t* mask,
-           bf16* out, int B, int H, int Lq, int Lk, int causal, cudaStream_t st) {
+           bf16* out, float* lse, int B, int H, int Lq, int Lk, int causal, cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_bias_fwd_kernel<BiasT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      attn_bias_fwd_kernel<BiasT, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B, (Lq + BM - 1) / BM, H);
-  attn_bias_fwd_kernel<BiasT><<<grid, NTHREADS, SMEM_BYTES, st>>>(
-      q, k, v, static_cast<const BiasT*>(bias), mask, out, H, Lq, Lk, causal);
+  attn_bias_fwd_kernel<BiasT, STATS><<<grid, NTHREADS, SMEM_BYTES, st>>>(
+      q, k, v, static_cast<const BiasT*>(bias), mask, out, lse, H, Lq, Lk, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool STATS>
+int dispatch(const void* q, const void* k, const void* v, const void* bias, int bias_fp32,
+             const void* mask, void* out, void* lse, int B, int H, int Lq, int Lk, int causal,
+             void* stream) {
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const uint8_t* mp = static_cast<const uint8_t*>(mask);
+  bf16* op = static_cast<bf16*>(out);
+  float* lp = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bias_fp32)
+    return launch<float, STATS>(qp, kp, vp, bias, mp, op, lp, B, H, Lq, Lk, causal, st);
+  return launch<bf16, STATS>(qp, kp, vp, bias, mp, op, lp, B, H, Lq, Lk, causal, st);
 }
 
 }  // namespace
@@ -384,12 +412,14 @@ extern "C" int flash_attention_bias_fwd(const void* q, const void* k, const void
                                         const void* bias, int bias_fp32, const void* mask,
                                         void* out, int B, int H, int Lq, int Lk, int causal,
                                         void* stream) {
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const uint8_t* mp = static_cast<const uint8_t*>(mask);
-  bf16* op = static_cast<bf16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bias_fp32) return launch<float>(qp, kp, vp, bias, mp, op, B, H, Lq, Lk, causal, st);
-  return launch<bf16>(qp, kp, vp, bias, mp, op, B, H, Lq, Lk, causal, st);
+  return dispatch<false>(q, k, v, bias, bias_fp32, mask, out, nullptr, B, H, Lq, Lk, causal,
+                         stream);
+}
+
+// The same forward, also writing the row logsumexp lse (B, H, Lq) fp32.
+extern "C" int flash_attention_bias_fwd_stats(const void* q, const void* k, const void* v,
+                                              const void* bias, int bias_fp32, const void* mask,
+                                              void* out, void* lse, int B, int H, int Lq, int Lk,
+                                              int causal, void* stream) {
+  return dispatch<true>(q, k, v, bias, bias_fp32, mask, out, lse, B, H, Lq, Lk, causal, stream);
 }

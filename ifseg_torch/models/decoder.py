@@ -1,18 +1,22 @@
-"""SegOFA surrogate decoder for the served forward: one non-autoregressive
-parallel pass.
+"""SegOFA surrogate decoder: one non-autoregressive parallel pass.
 
 Mirrors models/segofa/decoder_module.py (``extract_features_scriptable_
-surrogate``) as the JAX package's ``Decoder.precompute_biases`` /
-``decode_served`` / ``output_layer`` compute it: decoder input = [BOS
+surrogate``) as the JAX package's ``Decoder`` computes it: decoder input = [BOS
 embedding ‖ encoder image rows], causal self-attention unless
 ``full_context_alignment``, cross-attention to the whole encoder sequence
 with a q·kᵀ cross position bias, and the seg head as an fp32 product with
 ``seg_embed_tokens``.  Output position i predicts grid cell i.
 
+``decode_served`` runs over biases precomputed once per checkpoint
+(``precompute_biases``); ``forward`` builds them in the graph, so the position
+parameters get their gradients through the attention kernels' dbias: the
+self-bias pack (layers, H, L, L) in compute dtype, and one cross bias shared
+by all layers, which therefore receives one dbias from each of them.
+
 The decoder also holds the parameters of the autoregressive path
 (``embed_positions``, ``embed_image_positions``, ``pos_ln``,
 ``token_rel_pos_table_list``, ``image_rel_pos_table_list``), which the
-served forward does not read, so a full state dict loads strictly.
+surrogate forward does not read, so a full state dict loads strictly.
 """
 
 from typing import Dict
@@ -23,10 +27,11 @@ from torch import nn
 
 from ifseg_torch.config import ModelConfig
 from ifseg_torch.ops.resize import resize_bilinear
-from .attention import Linear
-from .encoder import _ids, compute_dtype, stack_tables
+from .attention import Dropout, Linear
+from .encoder import LayerDrop, _ids, compute_dtype, stack_tables
 from .layers import DecoderLayer, LayerNorm
 from .position import (
+    gather_grid_bias_all_layers,
     gather_rel_bias_all_layers,
     image_num_rel_dis,
     interp_seg_bias_with_bos,
@@ -75,10 +80,14 @@ class Decoder(nn.Module):
                 attn_scale_factor=cfg.attn_scale_factor, scale_attn=cfg.scale_attn,
                 scale_fc=cfg.scale_fc, scale_heads=cfg.scale_heads,
                 scale_resids=cfg.scale_resids, activation_fn=cfg.activation_fn,
+                dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
+                activation_dropout=cfg.activation_dropout, drop_path_rate=float(rate),
             )
-            for _ in range(nl)
+            for rate in np.linspace(0, cfg.decoder_drop_path_rate, nl)
         )
         self.layer_norm = LayerNorm(d)
+        self.dropout_layer = Dropout(cfg.dropout)
+        self.layerdrop = LayerDrop(cfg.decoder_layerdrop)
 
     def _bias(self, q_pos, k_pos, q_linear, k_linear) -> torch.Tensor:
         cfg = self.cfg
@@ -100,6 +109,19 @@ class Decoder(nn.Module):
             pe = pe.reshape(h * w, -1)
         return torch.cat([self.embed_seg_positions.weight[:1], pe], dim=0)
 
+    def _abs_biases(self, enc_pos_all: torch.Tensor, h: int, w: int):
+        """fp32 absolute-position biases for an (h, w) target grid: self
+        (H, 1+hw, 1+hw) and cross (H, 1+hw, L_enc) to the encoder's post-LN
+        position embeddings ``enc_pos_all``."""
+        tgt_pos_ln = self.seg_pos_ln(self._seg_pos_embed(h, w))
+        self_bias0 = self._bias(
+            tgt_pos_ln, tgt_pos_ln, self.self_pos_q_linear, self.self_pos_k_linear
+        )
+        cross_bias = self._bias(
+            tgt_pos_ln, enc_pos_all, self.cross_pos_q_linear, self.cross_pos_k_linear
+        )
+        return self_bias0, cross_bias
+
     def precompute_biases(self, enc_pos_all: torch.Tensor, image_hw) -> Dict[str, torch.Tensor]:
         """Self biases (layers, H, 1+hw, 1+hw) — abs + per-layer seg rel — and
         the cross bias (H, 1+hw, L_enc) to a fixed encoder layout, in compute
@@ -108,13 +130,7 @@ class Decoder(nn.Module):
         cd = compute_dtype(cfg)
         h, w = image_hw
         sb = cfg.seg_bucket_size
-        tgt_pos_ln = self.seg_pos_ln(self._seg_pos_embed(h, w))
-        self_bias0 = self._bias(
-            tgt_pos_ln, tgt_pos_ln, self.self_pos_q_linear, self.self_pos_k_linear
-        )
-        cross_bias = self._bias(
-            tgt_pos_ln, enc_pos_all, self.cross_pos_q_linear, self.cross_pos_k_linear
-        )
+        self_bias0, cross_bias = self._abs_biases(enc_pos_all, h, w)
         seg_bucket = make_image_bucket_position(sb, (2 * sb - 1) * (2 * sb - 1) + 3)
         seg_all = gather_rel_bias_all_layers(stack_tables(self.seg_rel_pos_table_list), seg_bucket)
         self_biases = [
@@ -123,14 +139,13 @@ class Decoder(nn.Module):
         ]
         return {"self_biases": torch.stack(self_biases), "cross_bias": cross_bias.to(cd)}
 
-    def decode_served(self, bos_tokens, encoder_out, pre, full_context_alignment: bool = False):
-        """Surrogate decode with precomputed biases -> (B, 1+hw, num_seg) fp32."""
+    def _embed(self, bos_tokens, encoder_out):
+        """Decoder input (B, 1+hw, D): [BOS embedding ‖ image rows] + LN + dropout."""
         cfg = self.cfg
         cd = compute_dtype(cfg)
         h, w = encoder_out["image_embed_shape"]
-        enc = encoder_out["encoder_out"]
         if cfg.decoder_input_type == "encoder_output":
-            image_feats = enc[:, : h * w]
+            image_feats = encoder_out["encoder_out"][:, : h * w]
         elif cfg.decoder_input_type == "encoder_input":
             image_feats = encoder_out["image_embed_before_scale"]
         else:
@@ -138,6 +153,45 @@ class Decoder(nn.Module):
         x = torch.cat([self.embed_tokens(bos_tokens).to(cd), image_feats], dim=1)
         if self.layernorm_embedding is not None:
             x = self.layernorm_embedding(x).to(cd)
+        return self.dropout_layer(x)
+
+    def forward(self, bos_tokens, encoder_out, full_context_alignment: bool = False):
+        """Surrogate decode with the biases built in the graph -> (B, 1+hw,
+        num_seg) fp32 logits.  ``encoder_out``
+        is what ``Encoder.encode`` / ``encode_artificial`` return."""
+        cfg = self.cfg
+        cd = compute_dtype(cfg)
+        h, w = encoder_out["image_embed_shape"]
+        sb = cfg.seg_bucket_size
+        x = self._embed(bos_tokens, encoder_out)
+
+        self_bias0, cross_bias = self._abs_biases(encoder_out["position_embeddings"], h, w)
+        cross_bias = cross_bias.to(cd)
+        seg_bucket = make_image_bucket_position(sb, (2 * sb - 1) * (2 * sb - 1) + 3)
+        ident_interp = (sb, sb) == (h, w)
+        seg_all = gather_grid_bias_all_layers(
+            stack_tables(self.seg_rel_pos_table_list), seg_bucket, (sb, sb), bos=True,
+            dtype=cd if ident_interp else torch.float32,
+        )
+        if not ident_interp:
+            seg_all = torch.stack(
+                [interp_seg_bias_with_bos(b, (sb, sb), (h, w)) for b in seg_all]
+            )
+        pack = self_bias0[None].to(cd) + seg_all.to(cd)
+
+        enc = encoder_out["encoder_out"]
+        enc_pad = encoder_out["encoder_padding_mask"]
+        for layer, self_bias in zip(self.layers, pack.unbind(0)):
+            y = layer(x, enc, enc_pad, self_bias, cross_bias, None, not full_context_alignment)
+            x = self.layerdrop(y, x)
+        x = self.layer_norm(x).to(cd)
+        return self.output_layer(x)
+
+    def decode_served(self, bos_tokens, encoder_out, pre, full_context_alignment: bool = False):
+        """Surrogate decode with precomputed biases -> (B, 1+hw, num_seg) fp32."""
+        cd = compute_dtype(self.cfg)
+        enc = encoder_out["encoder_out"]
+        x = self._embed(bos_tokens, encoder_out)
         enc_pad = encoder_out["encoder_padding_mask"]
         for i, layer in enumerate(self.layers):
             x = layer(x, enc, enc_pad, pre["self_biases"][i], pre["cross_bias"],

@@ -1,25 +1,30 @@
-"""SegOFA encoder for the served forward: ResNet image stem + token path +
-OFA transformer stack.
+"""SegOFA encoder: ResNet image stem + token path + OFA transformer stack.
 
-Mirrors models/segofa/encoder_module.py (real-image path) as the JAX
-package's ``Encoder.precompute_biases`` / ``encode_served`` compute it.  The
-sequence order is [image ‖ text].  Every attention bias and position
-embedding depends only on the parameters and the input shape, so
-``precompute_biases`` builds them once per checkpoint as one (layers, H, L,
-L) pack in compute dtype, and ``encode_served`` runs the per-request part.
+Mirrors models/segofa/encoder_module.py as the JAX package's ``Encoder``
+computes it.  The sequence order is [image ‖ text].  Every attention bias
+and position embedding depends only on the parameters and the input shape.
+Serving builds them once per checkpoint (``precompute_biases``, one (layers,
+H, L, L) pack in compute dtype) and runs the per-request part
+(``encode_served``).  Training builds the same pack inside the graph
+(``_run_layers``), so the position parameters get their gradients through
+the attention kernels' dbias: ``encode`` is the real-image forward and
+``encode_artificial`` the image-free one, whose image tokens are the
+per-class mean embeddings of the category words laid out on a grid.
 """
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ifseg_torch.config import ModelConfig
 from ifseg_torch.ops.resize import resize_bilinear
-from .attention import Linear
+from .attention import Dropout, Linear
 from .layers import EncoderLayer, LayerNorm
 from .position import (
+    gather_grid_bias_all_layers,
     gather_rel_bias_all_layers,
     image_grid_position_ids,
     image_num_rel_dis,
@@ -43,6 +48,36 @@ def stack_tables(tables: nn.ModuleList) -> torch.Tensor:
 
 def _ids(ids: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(ids, dtype=np.int64)).to(device)
+
+
+class LayerDrop(nn.Module):
+    """LayerDrop (fairseq LayerDropModuleList): in training, keep a whole
+    layer's output with probability 1 - rate, else pass its input on.  The
+    layer is computed either way and the choice is a ``where`` on the
+    device, as in the JAX package, so no step waits for the host."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def forward(self, x_new, x_old):
+        if not self.training or self.rate == 0.0:
+            return x_new
+        keep = torch.rand((), generator=self.generator, device=x_new.device) < 1.0 - self.rate
+        return torch.where(keep, x_new, x_old)
+
+
+def class_mean_embeddings(embed_table, class_tokens, class_lengths):
+    """Per-class mean of category-word token embeddings (EmbeddingBag mean
+    mode, encoder_module.py:147-148).  embed_table (V, D); class_tokens
+    (C, T) padded ids; class_lengths (C,)."""
+    emb = embed_table[class_tokens]  # (C, T, D)
+    t = class_tokens.shape[1]
+    steps = torch.arange(t, device=class_tokens.device)
+    mask = (steps[None, :] < class_lengths[:, None]).to(emb.dtype)
+    summed = (emb * mask[:, :, None]).sum(1)
+    return summed / class_lengths[:, None].to(emb.dtype)
 
 
 class Encoder(nn.Module):
@@ -81,10 +116,14 @@ class Encoder(nn.Module):
                 attn_scale_factor=cfg.attn_scale_factor, scale_attn=cfg.scale_attn,
                 scale_fc=cfg.scale_fc, scale_heads=cfg.scale_heads,
                 scale_resids=cfg.scale_resids, activation_fn=cfg.activation_fn,
+                dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
+                activation_dropout=cfg.activation_dropout, drop_path_rate=float(rate),
             )
-            for _ in range(nl)
+            for rate in np.linspace(0, cfg.encoder_drop_path_rate, nl)
         )
         self.layer_norm = LayerNorm(d)
+        self.dropout_layer = Dropout(cfg.dropout)
+        self.layerdrop = LayerDrop(cfg.encoder_layerdrop)
 
     def _abs_bias(self, pos_embed: torch.Tensor) -> torch.Tensor:
         """(H, L, L) fp32 q·kᵀ bias from post-LN position embeddings
@@ -116,13 +155,9 @@ class Encoder(nn.Module):
         ``pos_all`` (L, D) fp32 and ``biases`` (layers, H, L, L) in compute
         dtype, L = h*w + src_len."""
         cfg = self.cfg
-        dev = self.pos_ln.weight.device
-        h, w = image_hw
-        hw = h * w
+        hw = image_hw[0] * image_hw[1]
         t = src_len
-        pos_text = self.pos_ln(self.embed_positions(torch.arange(t, device=dev)))
-        pos_img = self.image_pos_ln(self._image_pos_embed(h, w))
-        pos_all = torch.cat([pos_img, pos_text], dim=0)
+        pos_all = self._pos_all(src_len, image_hw)
 
         bias0 = self._abs_bias(pos_all)
         token_bucket = make_token_bucket_position(cfg.token_bucket_size)[:t, :t]
@@ -143,24 +178,24 @@ class Encoder(nn.Module):
         return {"pos_all": pos_all, "biases": torch.stack(biases)}
 
     def _text_embed(self, src_tokens):
-        """Token path: embed + type(0) + LN (encoder_module.py:573-586)."""
+        """Token path: embed + type(0) + LN + dropout (encoder_module.py:573-586)."""
         cd = compute_dtype(self.cfg)
         x = self.embed_tokens(src_tokens).to(cd)
         if self.type_embedding is not None:
             x = x + self.type_embedding.weight[0].to(cd)
         if self.layernorm_embedding is not None:
             x = self.layernorm_embedding(x).to(cd)
-        return x
+        return self.dropout_layer(x)
 
     def _image_token_embed(self, image_embed):
-        """Image path: + type(1) + patch LN (encoder_module.py:589-600)."""
+        """Image path: + type(1) + patch LN + dropout (encoder_module.py:589-600)."""
         cd = compute_dtype(self.cfg)
         x = image_embed.to(cd)
         if self.type_embedding is not None:
             x = x + self.type_embedding.weight[1].to(cd)
         if self.patch_layernorm_embedding is not None:
             x = self.patch_layernorm_embedding(x).to(cd)
-        return x
+        return self.dropout_layer(x)
 
     def encode_served(self, src_tokens, patch_images, pre) -> Dict:
         """Forward with precomputed biases.  src_tokens (B, T) int,
@@ -186,3 +221,91 @@ class Encoder(nn.Module):
             "image_embed_before_scale": image_embed_pre,
             "image_embed_shape": (h, w),
         }
+
+    # ------------------------------------------------- forward with in-graph biases
+
+    def _pos_all(self, src_len: int, image_hw: Tuple[int, int]) -> torch.Tensor:
+        """(L, D) fp32 post-LN position embeddings, [image ‖ text]."""
+        dev = self.pos_ln.weight.device
+        pos_text = self.pos_ln(self.embed_positions(torch.arange(src_len, device=dev)))
+        pos_img = self.image_pos_ln(self._image_pos_embed(*image_hw))
+        return torch.cat([pos_img, pos_text], dim=0)
+
+    def _run_layers(self, x, padding_mask, pos_all, src_len: int, image_hw: Tuple[int, int],
+                    rel_bias_grid_hw: Tuple[int, int]):
+        """The layer stack over an all-layer bias pack (layers, H, L, L) built
+        here, in the graph and in compute dtype: abs bias + token rel bias on
+        the text block + image rel bias (interpolated from
+        ``rel_bias_grid_hw`` when the runtime grid differs) on the image
+        block.  Each component is cast before the adds; the casts' backward
+        returns the table gradients to fp32."""
+        cfg = self.cfg
+        cd = compute_dtype(cfg)
+        hw = image_hw[0] * image_hw[1]
+        bias0 = self._abs_bias(pos_all)
+        token_bucket = make_token_bucket_position(cfg.token_bucket_size)[:src_len, :src_len]
+        tok_all = gather_rel_bias_all_layers(
+            stack_tables(self.token_rel_pos_table_list), token_bucket
+        )
+        image_bucket = image_rp_bucket_for_grid(*rel_bias_grid_hw, cfg.image_bucket_size)
+        ident_interp = tuple(rel_bias_grid_hw) == tuple(image_hw)
+        img_all = gather_grid_bias_all_layers(
+            stack_tables(self.image_rel_pos_table_list), image_bucket, rel_bias_grid_hw,
+            dtype=cd if ident_interp else torch.float32,
+        )
+        if not ident_interp:
+            img_all = torch.stack(
+                [interp_grid_bias(b, rel_bias_grid_hw, image_hw) for b in img_all]
+            )
+        pack = (
+            bias0[None].to(cd)
+            + F.pad(tok_all.to(cd), (hw, 0, hw, 0))
+            + F.pad(img_all.to(cd), (0, src_len, 0, src_len))
+        )
+        for layer, bias in zip(self.layers, pack.unbind(0)):
+            x = self.layerdrop(layer(x, padding_mask, bias), x)
+        return self.layer_norm(x).to(cd)
+
+    def _encode_tokens(self, src_tokens, image_embed, image_pad, image_hw, rel_bias_grid_hw,
+                       resnet_feats=None) -> Dict:
+        padding_mask = torch.cat([image_pad, src_tokens == PAD], dim=1)
+        x = torch.cat(
+            [self._image_token_embed(image_embed), self._text_embed(src_tokens)], dim=1
+        )
+        x = x * (1.0 - padding_mask[:, :, None].to(x.dtype))
+        t = src_tokens.shape[1]
+        pos_all = self._pos_all(t, image_hw)
+        x = self._run_layers(x, padding_mask, pos_all, t, image_hw, rel_bias_grid_hw)
+        return {
+            "encoder_out": x,
+            "encoder_padding_mask": padding_mask,
+            "position_embeddings": pos_all,
+            "image_embed_before_scale": image_embed,
+            "image_embed_before_proj": resnet_feats,
+            "image_embed_shape": tuple(image_hw),
+        }
+
+    def encode(self, src_tokens, patch_images, patch_masks: Optional[torch.Tensor] = None) -> Dict:
+        """Real-image forward (encoder_module.py:677-851).  src_tokens (B, T);
+        patch_images (B, H, W, 3) normalized; patch_masks (B,) bool."""
+        cfg = self.cfg
+        feats = self.embed_images(patch_images.to(compute_dtype(cfg)))
+        b, h, w, _ = feats.shape
+        resnet_feats = feats.reshape(b, h * w, -1)
+        image_embed = self.image_proj(resnet_feats)
+        image_pad = torch.zeros(b, h * w, dtype=torch.bool, device=src_tokens.device)
+        if patch_masks is not None:
+            image_pad = image_pad | (~patch_masks)[:, None]
+        orig_hw = cfg.orig_patch_image_size // 16
+        return self._encode_tokens(src_tokens, image_embed, image_pad, (h, w),
+                                   (orig_hw, orig_hw), resnet_feats)
+
+    def encode_artificial(self, src_tokens, grid_ids, class_tokens, class_lengths) -> Dict:
+        """Artificial-image forward (encoder_module.py:499-675).  grid_ids
+        (B, hw) class ids in [0, num_classes); class_tokens (C, Tname) padded
+        category-word token ids; class_lengths (C,)."""
+        h = w = self.cfg.patch_image_size // 16
+        class_embeds = class_mean_embeddings(self.embed_tokens.weight, class_tokens, class_lengths)
+        image_embed = class_embeds[grid_ids]  # (B, hw, D)
+        image_pad = torch.zeros(grid_ids.shape, dtype=torch.bool, device=src_tokens.device)
+        return self._encode_tokens(src_tokens, image_embed, image_pad, (h, w), (h, w))

@@ -9,9 +9,9 @@ Three bias systems feed every attention site:
      differs from the bucket grid.
 
 The bucket tables are static numpy, cached per shape; the lookups and the
-interpolation products run on tensors.  The serving path builds every bias
-once per checkpoint, so the all-layer lookup is a plain gather (its training
-backward is not needed here).
+interpolation products run on tensors.  The all-layer lookup is a plain
+gather; in training its backward is autograd's ``index_add_`` into the
+stacked tables, accumulated in fp32.
 """
 
 from functools import lru_cache
@@ -95,13 +95,28 @@ def gather_rel_bias_all_layers(table: torch.Tensor, rp_bucket: np.ndarray) -> to
     """All-layer bias lookup in one gather: (layers, num_rel, H) table x
     (L1, L2) int buckets -> (layers, H, L1, L2) fp32.
 
-    The JAX package's ``gather_grid_bias_all_layers`` computes the same
-    forward by delta expansion; its custom backward is training work."""
+    Differentiable in ``table`` by plain indexing: the backward is one
+    ``index_add_`` of the fp32 cotangent."""
     layers, num_rel, h = table.shape
     cat = table.permute(1, 0, 2).reshape(num_rel, layers * h)
     idx = torch.from_numpy(np.ascontiguousarray(rp_bucket, dtype=np.int64)).to(table.device)
     v = cat.index_select(0, idx.reshape(-1)).reshape(*rp_bucket.shape, layers, h)
     return v.permute(2, 3, 0, 1).float()
+
+
+def gather_grid_bias_all_layers(table: torch.Tensor, rp_bucket: np.ndarray, grid_hw,
+                                bos: bool = False, dtype=torch.float32) -> torch.Tensor:
+    """``gather_rel_bias_all_layers`` for 2-D grid buckets (with a leading
+    BOS/CLS slot when ``bos``), emitted in ``dtype``: (layers, H, L, L) with
+    L = h*w (+1).  The gather runs in fp32 and is cast after, so the table
+    gradient accumulates in fp32 whatever ``dtype`` is.  The JAX package
+    computes the same values by delta expansion with a hand-written
+    backward; here both directions are plain indexing."""
+    h, w = grid_hw
+    l = h * w + (1 if bos else 0)
+    if tuple(rp_bucket.shape) != (l, l):
+        raise ValueError(f"bucket matrix {rp_bucket.shape} does not fit grid {grid_hw}, bos={bos}")
+    return gather_rel_bias_all_layers(table, rp_bucket).to(dtype)
 
 
 def interp_grid_bias(bias: torch.Tensor, src_hw, dst_hw) -> torch.Tensor:

@@ -1,4 +1,9 @@
-"""SegOFA model assembly for the served forward.
+"""SegOFA model assembly.
+
+``forward`` routes the main input (real image) through ``encode`` + decoder
+and the ``aux_*`` input (artificial image) through ``encode_artificial`` +
+decoder, with every bias built in the graph; the served forward
+(``eval/serving.py``) runs over biases precomputed per checkpoint.
 
 One token embedding is shared by encoder and decoder (share_all_embeddings);
 it appears in the state dict under both reference names,
@@ -21,6 +26,30 @@ class SegOFA(nn.Module):
         embed_tokens = nn.Embedding(cfg.vocab_size, cfg.encoder_embed_dim)
         self.encoder = Encoder(cfg, embed_tokens)
         self.decoder = Decoder(cfg, embed_tokens)
+
+    def forward(self, src_tokens=None, patch_images=None, patch_masks=None, bos_tokens=None,
+                aux_grid_ids=None, aux_src_tokens=None, class_tokens=None, class_lengths=None,
+                full_context_alignment: bool = False):
+        """Returns (logits, extra).  The main branch runs iff ``src_tokens`` is
+        given; the aux (image-free) branch iff ``aux_grid_ids`` is, and puts
+        its logits in ``extra["aux_output"]``."""
+        logits = None
+        extra = {}
+        if src_tokens is not None:
+            enc = self.encoder.encode(src_tokens, patch_images, patch_masks)
+            logits = self.decoder(bos_tokens, enc, full_context_alignment)
+            extra["encoder_returns"] = enc
+        if aux_grid_ids is not None:
+            aux_enc = self.encoder.encode_artificial(
+                aux_src_tokens, aux_grid_ids, class_tokens, class_lengths
+            )
+            if bos_tokens is None:
+                bos_tokens = torch.zeros(
+                    aux_grid_ids.shape[0], 1, dtype=torch.long, device=aux_grid_ids.device
+                )
+            extra["aux_output"] = self.decoder(bos_tokens, aux_enc, full_context_alignment)
+            extra["aux_encoder_returns"] = aux_enc
+        return logits, extra
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "SegOFA":

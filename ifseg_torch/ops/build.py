@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``_build/lib<name>-<hash>.so`` for ``sm_90a``; the hash is taken over the
-source, so an edited kernel is never served from a stale library.  The build
+source and the shared ``csrc/*.cuh`` headers, so an edited kernel is never
+served from a stale library.  The build
 happens at first use (or when ``build`` is called up front); ``build`` starts
 one ``nvcc`` per source, all at once.
 """
@@ -49,8 +50,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    content = b"".join(src.read_bytes() for src in sources)
+    digest = hashlib.sha1(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,19 +1,30 @@
 """Fused attention with an additive per-head bias (packed layout).
 
-``flash_attention_bias_packed_infer`` is the port of the JAX package's
-inference entry point of the same name: q (B, Lq, H·D), k/v (B, Lk, H·D) —
-the raw projection outputs — a bias (H, Lq, Lk) shared across the batch, an
-optional key-padding mask (B, Lk) (True = pad) and causal masking with the
-offset lk - lq.  Output (B, Lq, H·D) in q's dtype.
+The port of the JAX package's packed entry points, with their names:
 
-On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/flash_attention_bias_fwd.cu`` (or raises); on a CPU tensor it runs the
-plain version ``attention_bias_reference``, which is also what the kernel is
-held against on the card.
+``flash_attention_bias_packed_infer``   output only, no gradient (serving);
+``flash_attention_bias_packed_stats``   (out, lse), differentiable in q, k, v
+                                        and bias (training);
+``flash_attention_bias_packed``         output only, differentiable.
+
+q (B, Lq, H·D), k/v (B, Lk, H·D) — the raw projection outputs — a bias
+(H, Lq, Lk) shared across the batch, an optional key-padding mask (B, Lk)
+(True = pad) and causal masking with the offset lk - lq.  Output (B, Lq, H·D)
+in q's dtype; lse, the row logsumexp of the masked logits, (B, H, Lq) fp32.
+
+On CUDA tensors these launch the hand-written Hopper kernels (or raise):
+``csrc/flash_attention_bias_fwd.cu`` for the forward, with or without the lse
+output, and for the gradient ``csrc/flash_attention_bias_bwd_dq.cu`` (the di
+pre-pass, then dq and dbias) and ``csrc/flash_attention_bias_bwd_dkv.cu`` (dk
+and dv), which rebuild the probabilities from the saved lse.  On CPU tensors
+they run the plain versions below — ``attention_bias_reference``,
+``attention_bias_stats_reference`` and the explicit
+``attention_bias_backward_reference`` (not autograd of the forward) — which
+are also what the kernels are held against on the card.
 """
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -21,21 +32,44 @@ from ifseg_torch.ops import build
 
 NEG_INF = -1e9
 KERNEL = "flash_attention_bias_fwd"
-HEAD_DIM = 64  # the kernel's head dim (OFA-Base and every larger SegOFA)
+KERNEL_BWD_DQ = "flash_attention_bias_bwd_dq"
+KERNEL_BWD_DKV = "flash_attention_bias_bwd_dkv"
+KERNELS = (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV)  # one source file each
+HEAD_DIM = 64  # the kernels' head dim (OFA-Base and every larger SegOFA)
+TILE = 64  # the kernels' query and key tile; the dbias workspace is padded to it
 
-# kernel launches since the count was last set to 0 (chip_smoke.py reads it)
+# kernel launches since the counts were last set to 0 (chip_smoke.py reads
+# them): the forward without stats, the forward with stats, the di pre-pass,
+# the dq + dbias kernel and the dk + dv kernel
 LAUNCHES = 0
+LAUNCHES_STATS = 0
+LAUNCHES_BWD_DI = 0
+LAUNCHES_BWD_DQ = 0
+LAUNCHES_BWD_DKV = 0
 
 
-def attention_bias_reference(q, k, v, bias, key_padding_mask, causal, num_heads):
-    """Plain version: einsum/softmax in fp32 in the packed layout, the
-    arithmetic of the JAX package's ``_attention_xla``."""
-    b, lq, e = q.shape
-    lk = k.shape[1]
-    d = e // num_heads
-    qh = q.reshape(b, lq, num_heads, d).float()
-    kh = k.reshape(b, lk, num_heads, d).float()
-    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
+def reset_launches():
+    global LAUNCHES, LAUNCHES_STATS, LAUNCHES_BWD_DI, LAUNCHES_BWD_DQ, LAUNCHES_BWD_DKV
+    LAUNCHES = LAUNCHES_STATS = LAUNCHES_BWD_DI = LAUNCHES_BWD_DQ = LAUNCHES_BWD_DKV = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(infer=LAUNCHES, stats=LAUNCHES_STATS, bwd_di=LAUNCHES_BWD_DI,
+                bwd_dq=LAUNCHES_BWD_DQ, bwd_dkv=LAUNCHES_BWD_DKV)
+
+
+# ------------------------------------------------------------ plain versions
+
+def _heads(x, num_heads):
+    b, l, e = x.shape
+    return x.reshape(b, l, num_heads, e // num_heads)
+
+
+def _masked_logits(q, k, bias, key_padding_mask, causal, num_heads):
+    """(B, H, Lq, Lk) fp32 logits with bias, causal and padding masks applied."""
+    lq, lk = q.shape[1], k.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", _heads(q, num_heads).float(),
+                          _heads(k, num_heads).float())
     if bias is not None:
         logits = logits + bias[None].float()
     if causal:
@@ -43,10 +77,82 @@ def attention_bias_reference(q, k, v, bias, key_padding_mask, causal, num_heads)
         logits = logits.masked_fill(~keep, NEG_INF)
     if key_padding_mask is not None:
         logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.reshape(b, lk, num_heads, d))
-    return out.reshape(b, lq, e).to(q.dtype)
+    return logits
 
+
+def attention_bias_reference(q, k, v, bias, key_padding_mask, causal, num_heads):
+    """Plain version: einsum/softmax in fp32 in the packed layout, the
+    arithmetic of the JAX package's ``_attention_xla``."""
+    logits = _masked_logits(q, k, bias, key_padding_mask, causal, num_heads)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, _heads(v, num_heads))
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def attention_bias_stats_reference(q, k, v, bias, key_padding_mask, causal, num_heads):
+    """Plain version of the forward with stats: (out, lse), lse (B, H, Lq)
+    fp32 the row logsumexp of the masked logits."""
+    logits = _masked_logits(q, k, bias, key_padding_mask, causal, num_heads)
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None]).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, _heads(v, num_heads))
+    return out.reshape(q.shape).to(q.dtype), lse
+
+
+def _backward_terms(q, k, v, bias, key_padding_mask, causal, g, out, lse, num_heads):
+    """(p, ds) of the backward, (B, H, Lq, Lk) fp32: p = exp(logits − lse) and
+    ds = p ∘ (g·vᵀ − di), from the saved (out, lse)."""
+    logits = _masked_logits(q, k, bias, key_padding_mask, causal, num_heads)
+    p = torch.exp(logits - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", _heads(g, num_heads).float(),
+                      _heads(v, num_heads).float())
+    return p, p * (dp - attention_di_reference(g, out, num_heads)[..., None])
+
+
+def attention_bias_dq_dbias_reference(q, k, v, bias, key_padding_mask, causal, g, out, lse,
+                                      num_heads):
+    """Plain version of the dq + dbias kernel: dq = ds·k and dbias = Σ_b ds
+    (fp32 sum, rounded once to the bias dtype; None without a bias)."""
+    _, ds32 = _backward_terms(q, k, v, bias, key_padding_mask, causal, g, out, lse, num_heads)
+    ds = ds32.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _heads(k, num_heads).float())
+    dbias = None if bias is None else ds32.sum(0).to(bias.dtype)
+    return dq.reshape(q.shape).to(q.dtype), dbias
+
+
+def attention_bias_dkv_reference(q, k, v, bias, key_padding_mask, causal, g, out, lse,
+                                 num_heads):
+    """Plain version of the dk + dv kernel: dk = dsᵀ·q and dv = pᵀ·g."""
+    p32, ds32 = _backward_terms(q, k, v, bias, key_padding_mask, causal, g, out, lse, num_heads)
+    p, ds = p32.to(q.dtype).float(), ds32.to(q.dtype).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, _heads(q, num_heads).float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, _heads(g, num_heads).float())
+    return dk.reshape(k.shape).to(k.dtype), dv.reshape(v.shape).to(v.dtype)
+
+
+def attention_bias_backward_reference(q, k, v, bias, key_padding_mask, causal, g, out, lse,
+                                      num_heads):
+    """Plain version of the backward, the five products of the JAX package's
+    ``_xla_stats_backward`` from the saved (out, lse):
+
+        p = exp(logits − lse),  di = rowsum(g ∘ out),  dp = g·vᵀ,
+        ds = p ∘ (dp − di),  dq = ds·k,  dk = dsᵀ·q,  dv = pᵀ·g,
+        dbias = Σ_b ds  (fp32 sum, rounded once to the bias dtype).
+
+    p and ds are rounded to the compute dtype before the last three products,
+    as the kernels round them.  Returns (dq, dk, dv, dbias or None)."""
+    args = (q, k, v, bias, key_padding_mask, causal, g, out, lse, num_heads)
+    dq, dbias = attention_bias_dq_dbias_reference(*args)
+    dk, dv = attention_bias_dkv_reference(*args)
+    return dq, dk, dv, dbias
+
+
+def attention_di_reference(g, out, num_heads):
+    """di = rowsum(g ∘ out) per head, (B, H, Lq) fp32."""
+    return (_heads(g, num_heads).float() * _heads(out, num_heads).float()).sum(-1).transpose(1, 2)
+
+
+# ------------------------------------------------------------------ launches
 
 def _check(q, k, v, bias, key_padding_mask, causal, num_heads):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -61,7 +167,7 @@ def _check(q, k, v, bias, key_padding_mask, causal, num_heads):
         raise ValueError("empty sequence")
     if causal and lk < lq:
         raise ValueError("causal with Lk < Lq leaves fully masked rows; not supported")
-    if -(-lq // 64) > 65535 or num_heads > 65535:
+    if -(-lq // TILE) > 65535 or -(-lk // TILE) > 65535 or num_heads > 65535:
         raise ValueError("grid too large")
     tensors = [("q", q), ("k", k), ("v", v)]
     for name, x in tensors:
@@ -87,37 +193,184 @@ def _check(q, k, v, bias, key_padding_mask, causal, num_heads):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(q, k, v, bias, key_padding_mask, causal, num_heads):
-    global LAUNCHES
-    _check(q, k, v, bias, key_padding_mask, causal, num_heads)
-    lib = build.load(KERNEL)
-    fn = lib.flash_attention_bias_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2 \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _check_backward(q, g, out, lse, num_heads):
+    b, lq, _ = q.shape
+    for name, x in (("g", g), ("out", out)):
+        if x.dtype != torch.bfloat16 or tuple(x.shape) != tuple(q.shape):
+            raise ValueError(f"{name} must be bfloat16 {tuple(q.shape)}, got {x.dtype} {tuple(x.shape)}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, num_heads, lq):
+        raise ValueError(f"lse must be float32 {(b, num_heads, lq)}")
+    if num_heads > 32:
+        raise ValueError("the di pre-pass takes at most 32 heads")
+    for name, x in (("g", g), ("out", out), ("lse", lse)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if g.data_ptr() % 16:
+        raise ValueError("g must be 16-byte aligned")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "flash_attention_bias_fwd": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
+    "flash_attention_bias_fwd_stats": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
+    "flash_attention_bwd_di": [_P] * 3 + [_I] * 3 + [_P],
+    "flash_attention_bias_bwd_dq": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    "flash_attention_bias_bwd_dkv": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
+}
+
+
+def _call(kernel: str, entry: str, device, *args):
+    """Call C entry ``entry`` of ``kernel``'s library on ``device``'s current
+    stream (appended as the last argument); raise unless it launched."""
+    fn = getattr(build.load(kernel), entry)
+    fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+
+
+def _launch(q, k, v, bias, key_padding_mask, causal, num_heads, with_stats=False):
+    global LAUNCHES, LAUNCHES_STATS
+    _check(q, k, v, bias, key_padding_mask, causal, num_heads)
     b, lq, _ = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            int(bias is not None and bias.dtype == torch.float32),
-            None if key_padding_mask is None else key_padding_mask.data_ptr(),
-            out.data_ptr(), b, num_heads, lq, k.shape[1], int(bool(causal)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return out
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            int(bias is not None and bias.dtype == torch.float32), _ptr(key_padding_mask),
+            out.data_ptr())
+    dims = (b, num_heads, lq, k.shape[1], int(bool(causal)))
+    if not with_stats:
+        _call(KERNEL, "flash_attention_bias_fwd", q.device, *head, *dims)
+        LAUNCHES += 1
+        return out
+    lse = torch.empty(b, num_heads, lq, dtype=torch.float32, device=q.device)
+    _call(KERNEL, "flash_attention_bias_fwd_stats", q.device, *head, lse.data_ptr(), *dims)
+    LAUNCHES_STATS += 1
+    return out, lse
 
+
+def _launch_di(g, out, num_heads):
+    global LAUNCHES_BWD_DI
+    b, lq, _ = g.shape
+    di = torch.empty(b, num_heads, lq, dtype=torch.float32, device=g.device)
+    _call(KERNEL_BWD_DQ, "flash_attention_bwd_di", g.device,
+          g.data_ptr(), out.data_ptr(), di.data_ptr(), b, num_heads, lq)
+    LAUNCHES_BWD_DI += 1
+    return di
+
+
+def _backward_args(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads):
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            int(bias is not None and bias.dtype == torch.float32), _ptr(key_padding_mask),
+            g.data_ptr(), lse.data_ptr(), di.data_ptr())
+    return head, (q.shape[0], num_heads, q.shape[1], k.shape[1], int(bool(causal)))
+
+
+def _launch_dq(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads, need_dbias=True):
+    """(dq, dbias or None) by the dq + dbias kernel; the caller has checked
+    the operands."""
+    global LAUNCHES_BWD_DQ
+    lq, lk = q.shape[1], k.shape[1]
+    head, dims = _backward_args(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads)
+    dq = torch.empty_like(q)
+    ws = None
+    if bias is not None and need_dbias:  # fp32 sum over the batch, by atomics
+        ws = torch.zeros(num_heads, -(-lq // TILE) * TILE, -(-lk // TILE) * TILE,
+                         dtype=torch.float32, device=q.device)
+    _call(KERNEL_BWD_DQ, "flash_attention_bias_bwd_dq", q.device,
+          *head, dq.data_ptr(), _ptr(ws), *dims)
+    LAUNCHES_BWD_DQ += 1
+    if ws is None:
+        return dq, None
+    return dq, torch.empty_like(bias).copy_(ws[:, :lq, :lk])  # rounded once to the bias dtype
+
+
+def _launch_dkv(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads):
+    """(dk, dv) by the dk + dv kernel; the caller has checked the operands."""
+    global LAUNCHES_BWD_DKV
+    head, dims = _backward_args(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _call(KERNEL_BWD_DKV, "flash_attention_bias_bwd_dkv", q.device,
+          *head, dk.data_ptr(), dv.data_ptr(), *dims)
+    LAUNCHES_BWD_DKV += 1
+    return dk, dv
+
+
+def _launch_backward(q, k, v, bias, key_padding_mask, causal, g, out, lse, num_heads,
+                     need_dbias=True):
+    """(dq, dk, dv, dbias or None) by the backward kernels."""
+    _check(q, k, v, bias, key_padding_mask, causal, num_heads)
+    _check_backward(q, g, out, lse, num_heads)
+    di = _launch_di(g, out, num_heads)
+    args = (q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads)
+    dq, dbias = _launch_dq(*args, need_dbias=need_dbias)
+    dk, dv = _launch_dkv(*args)
+    return dq, dk, dv, dbias
+
+
+def _device_kind(q) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    return q.device.type
+
+
+# --------------------------------------------------------------- entry points
 
 def flash_attention_bias_packed_infer(q, k, v, bias: Optional[torch.Tensor],
                                       key_padding_mask: Optional[torch.Tensor],
                                       causal: bool, num_heads: int):
     """Inference-only packed fused attention (no row logsumexp output)."""
-    if q.device.type == "cpu":
+    if _device_kind(q) == "cpu":
         return attention_bias_reference(q, k, v, bias, key_padding_mask, causal, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     return _launch(q, k, v, bias, key_padding_mask, causal, num_heads)
+
+
+class _PackedStats(torch.autograd.Function):
+    """Forward with stats; backward from the saved (out, lse) by the two
+    backward kernels (CUDA) or the plain explicit backward (CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, key_padding_mask, causal, num_heads):
+        if _device_kind(q) == "cpu":
+            out, lse = attention_bias_stats_reference(
+                q, k, v, bias, key_padding_mask, causal, num_heads)
+        else:
+            out, lse = _launch(q, k, v, bias, key_padding_mask, causal, num_heads,
+                               with_stats=True)
+        ctx.save_for_backward(q, k, v, bias, key_padding_mask, out, lse)
+        ctx.causal, ctx.num_heads = causal, num_heads
+        ctx.mark_non_differentiable(lse)  # stats only: its cotangent is dropped
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, bias, key_padding_mask, out, lse = ctx.saved_tensors
+        if _device_kind(q) == "cpu":
+            dq, dk, dv, dbias = attention_bias_backward_reference(
+                q, k, v, bias, key_padding_mask, ctx.causal, g, out, lse, ctx.num_heads)
+        else:
+            dq, dk, dv, dbias = _launch_backward(
+                q, k, v, bias, key_padding_mask, ctx.causal, g.contiguous(), out, lse,
+                ctx.num_heads, need_dbias=ctx.needs_input_grad[3])
+        return dq, dk, dv, dbias, None, None, None
+
+
+def flash_attention_bias_packed_stats(q, k, v, bias: Optional[torch.Tensor],
+                                      key_padding_mask: Optional[torch.Tensor],
+                                      causal: bool, num_heads: int):
+    """(out, lse), differentiable in q, k, v and bias; lse carries no gradient."""
+    return _PackedStats.apply(q, k, v, bias, key_padding_mask, causal, num_heads)
+
+
+def flash_attention_bias_packed(q, k, v, bias: Optional[torch.Tensor],
+                                key_padding_mask: Optional[torch.Tensor],
+                                causal: bool, num_heads: int):
+    """Differentiable packed fused attention, output only."""
+    return flash_attention_bias_packed_stats(q, k, v, bias, key_padding_mask, causal, num_heads)[0]

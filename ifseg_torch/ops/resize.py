@@ -48,3 +48,18 @@ def resize_bilinear(x: torch.Tensor, out_hw, h_axis: int = -3, w_axis: int = -2)
             a = bilinear_tensor(in_size, out_size, x.device)
             xf = torch.movedim(torch.tensordot(a, xf, dims=([1], [axis])), 0, axis)
     return xf.to(x.dtype)
+
+
+def nearest_indices(in_size: int, out_size: int) -> np.ndarray:
+    """Source index per output position, ``F.interpolate(mode="nearest")``
+    semantics: floor(i * in / out)."""
+    idx = np.floor(np.arange(out_size, dtype=np.float64) * in_size / out_size)
+    return np.clip(idx.astype(np.int64), 0, in_size - 1)
+
+
+def resize_nearest_np(x: np.ndarray, out_hw, h_axis: int = -2, w_axis: int = -1) -> np.ndarray:
+    """Numpy nearest-resize of two axes (host-side data pipeline)."""
+    h_axis %= x.ndim
+    w_axis %= x.ndim
+    x = np.take(x, nearest_indices(x.shape[h_axis], out_hw[0]), axis=h_axis)
+    return np.take(x, nearest_indices(x.shape[w_axis], out_hw[1]), axis=w_axis)

@@ -86,3 +86,32 @@ def _tiny_kwargs(cfg):
             "decoder_layers", "decoder_attention_heads", "resnet_type",
             "patch_image_size", "orig_patch_image_size", "num_seg_tokens", "dtype")
     return {k: getattr(cfg, k) for k in keys}
+
+
+def test_adam_state_from_jax_carries_count_and_moments(pair):
+    """The Adam moments of a JAX optimizer state land under the port's names
+    and layouts; frozen parameters, whose moments JAX does not keep, get
+    zeros of their shape."""
+    import jax
+    import jax.numpy as jnp
+
+    from ifseg_torch.checkpoint.convert import adam_state_from_jax
+    from ifseg_tpu.config import OptimizationConfig
+    from ifseg_tpu.train import optim as jo
+
+    jmodel, params, tmodel = pair
+    tx, _, _ = jo.build_optimizer(params, jmodel.cfg, OptimizationConfig(), 10)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    state = tx.init(jparams)
+    grads = jax.tree_util.tree_map(lambda p: jnp.full(p.shape, 0.5, p.dtype), jparams)
+    _, state = tx.update(grads, state, jparams)
+    got = adam_state_from_jax(jax.device_get(state), params)
+    assert got["count"] == 1
+    assert set(got["mu"]) == set(got["nu"]) == set(tmodel.state_dict())
+    w = "encoder.layers.0.self_attn.q_proj.weight"
+    assert got["mu"][w].shape == tmodel.state_dict()[w].shape
+    np.testing.assert_allclose(got["mu"][w].numpy(), 0.05, rtol=1e-6)  # (1 - b1) * g
+    np.testing.assert_allclose(got["nu"][w].numpy(), 0.00025, rtol=1e-5)  # (1 - b2) * g²
+    assert not got["mu"]["encoder.embed_tokens.weight"].any()  # frozen
+    with pytest.raises(ValueError, match="no Adam state"):
+        adam_state_from_jax({"not": "an optimizer state"}, params)

@@ -73,3 +73,30 @@ def serving_inputs(seed: int, batch: int = 2, src_len: int = 10, size: int = 64)
     img = rng.normal(size=(batch, size, size, 3)).astype(np.float32)
     bos = np.zeros((batch, 1), np.int32)
     return src, img, bos
+
+
+def class_table(num_seg: int, tmax: int = 3, seed: int = 1):
+    """(class_tokens (num_seg+1, tmax), class_lengths): random category-word
+    token ids, the trailing row standing for 'unknown'."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(4, 100, size=(num_seg + 1, tmax)).astype(np.int32)
+    lengths = rng.integers(1, tmax + 1, size=(num_seg + 1,)).astype(np.int32)
+    return tokens, lengths
+
+
+def train_batch(seed: int, batch: int = 2, src_len: int = 10, size: int = 64, num_seg: int = 5):
+    """A full training batch as numpy: real image and labels for the
+    monitoring pass, artificial grid and target for the image-free loss.
+    Some target cells are 'unknown' (= num_seg) and the last row's prompt ends
+    in PAD tokens."""
+    rng = np.random.default_rng(seed)
+    hw16 = (size // 16) ** 2
+    src, img, bos = serving_inputs(seed, batch, src_len, size)
+    target = rng.integers(0, num_seg + 1, size=(batch, size, size)).astype(np.int32)
+    aux_target = rng.integers(0, num_seg + 1, size=(batch, size, size)).astype(np.int32)
+    return {
+        "patch_images": img, "src_tokens": src, "bos_tokens": bos, "target": target,
+        "downsampled_target": rng.integers(0, num_seg + 1, size=(batch, hw16)).astype(np.int32),
+        "aux_grid_ids": rng.integers(0, num_seg, size=(batch, hw16)).astype(np.int32),
+        "aux_target": aux_target,
+    }
