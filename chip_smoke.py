@@ -9,10 +9,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      with the ``-Xptxas -v`` summary;
   3. each kernel against its plain PyTorch version, with its time, the plain
      version's, one PyTorch library call's (timed only here, never used by
-     the port) and the bound: the forward without stats at the serving
-     shapes (batch 32), then the forward with stats, the di pre-pass, the
-     dq + dbias kernel and the dk + dv kernel at the training shapes (batch
-     16), plus a small ragged case with an fp32 bias and one without a bias;
+     the port) and the bound: the attention forward without stats at the
+     serving shapes (batch 32) and at the three sites of an evaluation group
+     of 8 at the (512, 768) bucket (decoder self-attention causal WITH a key
+     mask), then the forward with stats, the di pre-pass, the dq + dbias
+     kernel and the dk + dv kernel at the training shapes (batch 16), plus a
+     small ragged case with an fp32 bias and one without a bias; the
+     LayerNorm kernel at every (rows, width, dtype) that a served batch-32
+     forward, an evaluation group of 8 at the (512, 768) bucket and a
+     monitoring forward at batch 16 give it (the fp32 position LayerNorms
+     included), a ragged row count, a narrow and the widest width, and its
+     autograd Function's forward + backward beside ``F.layer_norm``'s;
   4. the serving path at full OFA-Base 512px width, random weights from seed
      0: ``SegServer`` on the card answers batches of 1, 8 and 32; the launch
      counts of the kernels are set to 0 just before and read just after;
@@ -27,7 +34,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (bf16, kernels) against the CPU (fp32, plain versions), same weights,
      dropout off: loss, global gradient norm, and the cosine between the two
      gradients of a handful of tensors;
-  8. one JSON line listing every kernel, the nvidia-smi line, and the last
+  8. the native-resolution evaluation path at full width (150 classes,
+     label propagation top-3 x 25 iterations): ``Evaluator.eval_dataset`` on
+     the card over fabricated uint8 samples in two groups, one of 8 rows of
+     different pixel shapes inside the (512, 768) bucket and one at
+     (512, 512); launch counts set to 0 before and read after; areas, loss
+     and grouping checked; ms per group with and without label propagation,
+     peak memory of groups of 4, 32 and 64;
+  9. the padded forward against the exact-shape forward on the card, and the
+     card's evaluation output against the port's fp32 CPU ``Evaluator`` on
+     the same weights and one group of two rows;
+ 10. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -46,6 +63,7 @@ REPO = Path(__file__).resolve().parent
 
 # H100 SXM data-sheet peaks (dense bf16 tensor cores; HBM3), at 700 W
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 ATTN_TOL = 2e-2  # kernel (bf16 P in the P·V product, bf16 output) vs fp32 plain
@@ -60,8 +78,21 @@ LOGIT_REL_TOL = 5e-2  # card bf16 forward vs CPU fp32 forward, ||Δ|| / ||ref||
 TRAIN_LOSS_REL_TOL = 2e-2
 TRAIN_GNORM_REL_TOL = 2e-2
 TRAIN_COSINE_MIN = 0.99
+# LayerNorm kernel vs its plain version on the same inputs: a bf16 output is
+# the fp32 value rounded once on both sides, and the fp32 values differ in
+# their last bits (other summation order, rsqrt), so the two lie at most one
+# bf16 step apart (2^-7 of the value at most); an fp32 output differs by
+# those last bits, 1e-5 absolute
+LN_BF16_ULPS = 1
+LN_FP32_TOL = 1e-5
+# evaluation, card bf16 vs CPU fp32 (phase 9): the share of pixels whose
+# argmax differs (random weights have small margins: the served forward's
+# per-cell agreement is 0.98) and the relative error of the mean nll
+EVAL_PIXEL_SHARE_TOL = 5e-2
+EVAL_NLL_REL_TOL = 2e-2
 SEED = 0
 SRC_LEN = 32
+EVAL_CLASSES = 150
 TRAIN_BATCH = 16
 TRAIN_CLASSES = 15
 
@@ -80,6 +111,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_ms_queued(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` in ms for a kernel shorter than its own
+    launch costs the host: the launches are queued behind about 20 ms of
+    matrix products, so the card runs them back to back and the events
+    bracket device time alone."""
+    for _ in range(warmup):
+        fn()
+    a = torch.ones(8192, 8192, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(16):
+        torch.matmul(a, a)
     start.record()
     for _ in range(iters):
         fn()
@@ -116,15 +167,20 @@ def phase_card() -> str:
 def phase_build():
     from ifseg_torch.ops import build
     from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
 
     t0 = time.perf_counter()
-    results = build.build(list(fa.KERNELS))
+    results = build.build([*fa.KERNELS, ln.KERNEL])
     log(f"[2] built {sorted(results)} in {time.perf_counter() - t0:.1f} s")
     for res in results.values():
         log(f"[2] {res.name}: {res.path.name}, nvcc {res.seconds:.1f} s")
+        shown = set()
         for line in res.log.splitlines():  # registers, spills and stack of every kernel
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"[2]   {line.strip()}")
+            text = line.strip()
+            if ("registers" in line or "spill" in line or "error" in line.lower()) \
+                    and text not in shown:  # a template's instantiations repeat their lines
+                shown.add(text)
+                log(f"[2]   {text}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -136,6 +192,35 @@ SITES = [
     ("decoder self", 1 + 1024, 1 + 1024, True, False, 6),
     ("decoder cross", 1 + 1024, 1024 + SRC_LEN, False, True, 6),
 ]
+
+
+# The three attention sites of an evaluation group at the (512, 768) bucket:
+# a padded grid of 32 x 48 cells of which 32 x 43 are valid, so the padded
+# cells are masked as keys at every site, and decoder self-attention is causal
+# with a key mask; (name, Lq, Lk, causal, sites per group forward).
+EVAL_GRID = (32, 48, 32, 43)  # padded (Hp, Wp), valid (hp, wp)
+EVAL_ROWS = 8
+EVAL_SITES = [
+    ("eval encoder self", 32 * 48 + SRC_LEN, 32 * 48 + SRC_LEN, False, 6),
+    ("eval decoder self", 1 + 32 * 48, 1 + 32 * 48, True, 6),
+    ("eval decoder cross", 1 + 32 * 48, 32 * 48 + SRC_LEN, False, 6),
+]
+
+
+def eval_key_mask(b, lk):
+    """Key-padding mask of an evaluation site: the padded grid cells, behind
+    the BOS slot in decoder self-attention (Lk odd), before the prompt in the
+    other two, whose last row's prompt ends in padding."""
+    gh, gw, hp, wp = EVAL_GRID
+    cell = torch.arange(gh * gw, device="cuda")
+    grid_pad = ~((cell // gw < hp) & (cell % gw < wp))
+    mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
+    if lk == 1 + gh * gw:
+        mask[:, 1:] = grid_pad
+    else:
+        mask[:, : gh * gw] = grid_pad
+        mask[-1, lk - 5:] = True
+    return mask
 
 
 def visible_pairs(lq, lk, causal):
@@ -163,8 +248,8 @@ def attention_work(b, h, lq, lk, d, causal, bias_bytes, masked, kind="fwd"):
     return flops, nbytes
 
 
-def bound_ms(flops, nbytes):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -183,7 +268,9 @@ def site_inputs(b, h, lq, lk, causal, masked, bias_dtype, seed):
     v = rnd(b, lk, e).bfloat16()
     bias = rnd(h, lq, lk).to(bias_dtype)
     mask = None
-    if masked:  # the text rows of the last sample end in padding, as in serving
+    if masked == "eval":
+        mask = eval_key_mask(b, lk)
+    elif masked:  # the text rows of the last sample end in padding, as in serving
         mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
         mask[-1, lk - 7:] = True
     return q, k, v, bias, mask
@@ -215,11 +302,13 @@ def phase_kernels():
 
     h = 12
     rows = []
-    cases = [(name, 32, lq, lk, causal, masked, torch.bfloat16, n)
+    cases = [(name, 32, lq, lk, causal, masked, torch.bfloat16, n, 0)
              for name, lq, lk, causal, masked, n in SITES]
     # a small ragged shape with an fp32 bias, checked but not timed
-    cases.append(("ragged check", 3, 77, 130, True, True, torch.float32, 0))
-    for i, (name, b, lq, lk, causal, masked, bias_dtype, per_fwd) in enumerate(cases):
+    cases.append(("ragged check", 3, 77, 130, True, True, torch.float32, 0, 0))
+    cases += [(name, EVAL_ROWS, lq, lk, causal, "eval", torch.bfloat16, 0, n)
+              for name, lq, lk, causal, n in EVAL_SITES]
+    for i, (name, b, lq, lk, causal, masked, bias_dtype, per_fwd, per_group) in enumerate(cases):
         q, k, v, bias, mask = site_inputs(b, h, lq, lk, causal, masked, bias_dtype, seed=i)
         out = fa.flash_attention_bias_packed_infer(q, k, v, bias, mask, causal, h)
         torch.cuda.synchronize()
@@ -233,10 +322,10 @@ def phase_kernels():
         if not finite or not err <= ATTN_TOL:
             fail(f"kernel disagrees with its plain version at {name}: {err} > {ATTN_TOL}")
         row = dict(site=name, B=b, Lq=lq, Lk=lk, causal=causal, per_forward=per_fwd,
-                   max_abs_err=err)
-        if per_fwd:
+                   per_eval_group=per_group, max_abs_err=err)
+        if per_fwd or per_group:
             flops, nbytes = attention_work(b, h, lq, lk, fa.HEAD_DIM, causal,
-                                           bias.element_size(), masked)
+                                           bias.element_size(), bool(masked))
             row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
             row["gflop"], row["mb"] = flops / 1e9, nbytes / 1e6
             row["kernel_ms"] = cuda_ms(
@@ -257,6 +346,174 @@ def phase_kernels():
         del q, k, v, bias, mask
         torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------- phase 3, LayerNorm kernel
+
+def ln_launches_per_forward(model, position_lns: bool) -> int:
+    """LayerNorm sites one no-gradient forward runs, from the module list:
+    every LayerNorm but the decoder's ``pos_ln`` (autoregressive path only),
+    and without the three position LayerNorms where the biases are
+    precomputed (serving)."""
+    from ifseg_torch.models.layers import LayerNorm
+
+    names = [n for n, m in model.named_modules() if isinstance(m, LayerNorm)]
+    skip = {"decoder.pos_ln"}
+    if not position_lns:
+        skip |= {"encoder.pos_ln", "encoder.image_pos_ln", "decoder.seg_pos_ln"}
+    return len([n for n in names if n not in skip])
+
+
+def within_bf16_step(got, want) -> bool:
+    """Every element of bf16 ``got`` within one bf16 step of ``want``: a step
+    is at most 2^-7 of the value, plus the fp32 tolerance for values near 0,
+    where a last-bit difference before rounding spans many tiny steps."""
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= want.float().abs() * 2.0 ** -7 * LN_BF16_ULPS + LN_FP32_TOL).all())
+
+
+def ln_sites(batch: int, cells: int, position_lns: bool):
+    """The LayerNorm sites of one no-gradient forward of OFA-Base over a grid
+    of ``cells`` image tokens, src_len 32: (name, rows, width, input dtype,
+    output dtype, sites per forward).  The two embedding LayerNorms, then per
+    layer three (encoder) or five (decoder) of width 768 and the
+    ffn_layernorm of width 3,072, then the final one; where the biases are
+    built in the forward (evaluation, monitoring), the three fp32 position
+    LayerNorms, once per forward whatever the batch."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    enc, dec = cells + SRC_LEN, 1 + cells
+    sites = [
+        ("patch embedding", batch * cells, 768, bf16, bf16, 1),
+        ("text embedding", batch * SRC_LEN, 768, bf16, bf16, 1),
+        ("encoder layers + final", batch * enc, 768, bf16, bf16, 6 * 3 + 1),
+        ("encoder ffn", batch * enc, 3072, bf16, bf16, 6),
+        ("decoder embedding + layers + final", batch * dec, 768, bf16, bf16, 1 + 6 * 5 + 1),
+        ("decoder ffn", batch * dec, 3072, bf16, bf16, 6),
+    ]
+    if position_lns:
+        sites += [
+            ("text positions", SRC_LEN, 768, fp32, fp32, 1),
+            ("image positions", cells, 768, fp32, fp32, 1),
+            ("seg positions", dec, 768, fp32, fp32, 1),
+        ]
+    return sites
+
+
+# The three main paths that launch the LayerNorm kernel: the served batch-32
+# forward at 512px (biases precomputed), an evaluation group of EVAL_ROWS rows
+# on the padded grid of the (512, 768) bucket, and the trainer's monitoring
+# forward at batch TRAIN_BATCH; keyed by the count's name in a site's row.
+LN_PATHS = {
+    "per_forward": ("served", ln_sites(32, 1024, False)),
+    "per_eval_group": ("eval", ln_sites(EVAL_ROWS, EVAL_GRID[0] * EVAL_GRID[1], True)),
+    "per_monitor_forward": ("monitor", ln_sites(TRAIN_BATCH, 1024, True)),
+}
+
+
+def ln_sites_per_pass(per_key: str) -> int:
+    return sum(n for *_, n in LN_PATHS[per_key][1])
+
+
+def phase_layer_norm():
+    import torch.nn.functional as F
+    from ifseg_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [(f"{path} {name}", n, d, in_dt, out_dt, per_key, per)
+             for per_key, (path, sites) in LN_PATHS.items()
+             for name, n, d, in_dt, out_dt, per in sites]
+    cases += [
+        ("ragged row count", 1001, 768, bf16, bf16, None, 0),
+        ("narrow width", 77, 32, fp32, bf16, None, 0),
+        ("widest", 333, 4096, bf16, fp32, None, 0),
+    ]
+    rows = []
+    for name, n, d, in_dt, out_dt, per_key, per in cases:
+        x = (torch.randn(n, d, generator=gen, device="cuda") * 3 + 1).to(in_dt)
+        scale = torch.randn(d, generator=gen, device="cuda") * 0.2 + 1
+        bias = torch.randn(d, generator=gen, device="cuda") * 0.1
+        got = ln.fused_layer_norm(x, scale, bias, 1e-5, out_dt)
+        torch.cuda.synchronize()
+        want = ln.layer_norm_reference(x, scale, bias, 1e-5, out_dt)
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype != out_dt or not bool(torch.isfinite(got).all()):
+            fail(f"layer_norm kernel output at {name}: {got.dtype}, finite={bool(torch.isfinite(got).all())}")
+        if out_dt == bf16:
+            ok = within_bf16_step(got, want)
+            held = f"limit {LN_BF16_ULPS} bf16 step (2^-7 relative) + {LN_FP32_TOL}"
+        else:
+            ok, held = err <= LN_FP32_TOL, f"limit {LN_FP32_TOL}"
+        log(f"[3n] {name}: {n} x {d} {str(in_dt).split('.')[-1]} -> {str(out_dt).split('.')[-1]}: "
+            f"max_abs_err={err:.3e}, {held}")
+        if not ok:
+            fail(f"layer_norm kernel disagrees with its plain version at {name}: {err}, {held}")
+        row = dict(site=name, rows=n, width=d, max_abs_err=err, **{k: 0 for k in LN_PATHS})
+        if per_key:
+            row[per_key] = per
+            # x read once and y written once (scale and bias are 6 to 25 KB)
+            nbytes = n * d * (x.element_size() + got.element_size()) + 2 * 4 * d
+            flops = 8 * n * d
+            row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+            row["gflop"], row["mb"], row["peak_flops"] = flops / 1e9, nbytes / 1e6, PEAK_FP32_FLOPS
+            # queued behind other work: one launch costs the host more than the card
+            row["kernel_ms"] = cuda_ms_queued(
+                lambda: ln.fused_layer_norm(x, scale, bias, 1e-5, out_dt), 50)
+            row["plain_ms"] = cuda_ms_queued(
+                lambda: ln.layer_norm_reference(x, scale, bias, 1e-5, out_dt), 5)
+            # the library call: one F.layer_norm in the input's dtype (never called by the port)
+            sb, bb = scale.to(in_dt), bias.to(in_dt)
+            row["library_ms"] = cuda_ms_queued(lambda: F.layer_norm(x, (d,), sb, bb, 1e-5), 50)
+            # what the module ran at this site before: cast, fp32 F.layer_norm, cast
+            row["three_pass_ms"] = cuda_ms_queued(
+                lambda: F.layer_norm(x.float(), (d,), scale, bias, 1e-5).to(out_dt), 20)
+            row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+            log(f"[3n]   kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"library_ms={row['library_ms']:.4f} three_pass_ms={row['three_pass_ms']:.4f} "
+                f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; {row['mb']:.1f} MB) "
+                f"share_of_bound={row['share_of_bound']:.3f}")
+        rows.append(row)
+        del x, got, want
+    for per_key, (path, _) in LN_PATHS.items():
+        timed = [r for r in rows if r[per_key]]
+        log(f"[3n] {path} forward, {sum(r[per_key] for r in timed)} sites: kernel "
+            f"{sum(r['kernel_ms'] * r[per_key] for r in timed):.3f} ms, cast + fp32 F.layer_norm + "
+            f"cast {sum(r['three_pass_ms'] * r[per_key] for r in timed):.3f} ms, bound "
+            f"{sum(r['bound_ms'] * r[per_key] for r in timed):.3f} ms")
+    try:  # a width the kernel does not take raises; nothing falls back
+        ln.fused_layer_norm(torch.zeros(4, 100, device="cuda"), torch.ones(100, device="cuda"),
+                            torch.zeros(100, device="cuda"))
+    except ValueError as exc:
+        log(f"[3n] width 100 on a CUDA tensor raises: {exc}")
+    else:
+        fail("layer_norm on a CUDA tensor of width 100 did not raise")
+
+    # the autograd Function (kernel forward, plain backward) beside the route
+    # the module takes when a gradient flows, at one training site (16 x 1,056 rows)
+    n, d = TRAIN_BATCH * (1024 + SRC_LEN), 768
+    x = (torch.randn(n, d, generator=gen, device="cuda") * 3 + 1).bfloat16().requires_grad_(True)
+    scale = (torch.randn(d, generator=gen, device="cuda") * 0.2 + 1).requires_grad_(True)
+    bias = (torch.randn(d, generator=gen, device="cuda") * 0.1).requires_grad_(True)
+    g = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+
+    def fwd_bwd(fn):
+        def run():
+            y = fn()
+            return torch.autograd.grad(y, (x, scale, bias), g)
+        return run
+
+    fused = fwd_bwd(lambda: ln.fused_layer_norm(x, scale, bias, 1e-5, bf16))
+    stock = fwd_bwd(lambda: F.layer_norm(x.float(), (d,), scale, bias, 1e-5).to(bf16))
+    errs = [rel_err(a, b)[0] for a, b in zip(fused(), stock())]
+    train = dict(rows=n, width=d, function_fwd_bwd_ms=cuda_ms(fused, 10),
+                 f_layer_norm_fwd_bwd_ms=cuda_ms(stock, 10), grad_rel_err=max(errs))
+    log(f"[3n] forward + backward at {n} x {d} bf16: the Function (kernel forward, plain "
+        f"backward) {train['function_fwd_bwd_ms']:.4f} ms, F.layer_norm in fp32 with its casts "
+        f"{train['f_layer_norm_fwd_bwd_ms']:.4f} ms; gradients agree to {max(errs):.3e} "
+        f"of the largest value")
+    if not max(errs) <= GRAD_REL_TOL:
+        fail(f"layer_norm Function gradients differ from F.layer_norm's: {errs}")
+    return rows, train
 
 
 # ---------------------------------------------------------------- phases 4, 5
@@ -283,6 +540,7 @@ def phase_serve(card: str):
     from ifseg_torch.eval.serving import SegServer
     from ifseg_torch.models.segofa import SegOFA
     from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
 
     cfg = base_config("bfloat16")
     t0 = time.perf_counter()
@@ -296,8 +554,13 @@ def phase_serve(card: str):
         f"init + SegServer set-up {time.perf_counter() - t0:.1f} s")
     hw = (cfg.patch_image_size // 16) ** 2
     per_forward = sum(n for *_, n in SITES)
+    ln_per_forward = ln_launches_per_forward(model, position_lns=False)
+    if ln_per_forward != ln_sites_per_pass("per_forward"):
+        fail(f"{ln_per_forward} LayerNorm sites in the served forward, "
+             f"{ln_sites_per_pass('per_forward')} held against the plain version")
 
     fa.reset_launches()
+    ln.reset_launches()
     forwards = 0
     for i, batch in enumerate((1, 8, 32)):
         t1 = time.perf_counter()
@@ -325,11 +588,16 @@ def phase_serve(card: str):
         f"(expected {per_forward} x {forwards} = {per_forward * forwards})")
     if launches != per_forward * forwards:
         fail("the serving path did not launch the attention kernel at every site")
+    ln_launches = ln.LAUNCHES
+    log(f"[4] layer_norm kernel launches {ln_launches} (expected {ln_per_forward} x {forwards} "
+        f"= {ln_per_forward * forwards})")
+    if ln_launches != ln_per_forward * forwards:
+        fail("the serving path did not launch the layer_norm kernel at every LayerNorm")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     log(f"[4] steady state, batch 32: {dt * 1e3:.1f} ms/forward, {32 / dt:.2f} img/s, "
         f"max_memory_allocated {peak_gb:.2f} GiB, on {card}")
     serve = dict(img_per_s=32 / dt, ms_per_forward=dt * 1e3, max_memory_gib=peak_gb,
-                 launches=launches, forwards=forwards)
+                 launches=launches, ln_launches=ln_launches, forwards=forwards)
     return server, weights, serve
 
 
@@ -563,6 +831,7 @@ def train_batch(rng, batch: int, real: bool):
 
 def phase_train(card: str):
     from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
     from ifseg_torch.train.trainer import Trainer
 
     per_pass = sum(n for *_, n in SITES)
@@ -592,7 +861,8 @@ def phase_train(card: str):
         return logs, times
 
     fa.reset_launches()
-    warm_steps, timed_steps, monitor_steps = 1, 5, 3
+    ln.reset_launches()
+    warm_steps, timed_steps, monitor_steps = 2, 5, 3
     logs, times = run(warm_steps + timed_steps, real=False)
     trainer.cfg.criterion.monitor_real_batch = True
     mon_logs, mon_times = run(monitor_steps, real=True)
@@ -612,6 +882,17 @@ def phase_train(card: str):
         f"expected {want}")
     if counts != want:
         fail("the training path did not launch every attention kernel at every site")
+    # LayerNorm: the kernel where no gradient is needed (the monitoring
+    # forward, biases built in the graph), F.layer_norm in the training forward
+    ln_per_monitor = ln_launches_per_forward(trainer.model, position_lns=True)
+    if ln_per_monitor != ln_sites_per_pass("per_monitor_forward"):
+        fail(f"{ln_per_monitor} LayerNorm sites in a monitoring forward, "
+             f"{ln_sites_per_pass('per_monitor_forward')} held against the plain version")
+    ln_want = ln_per_monitor * monitor_steps
+    log(f"[6] layer_norm kernel launches {ln.LAUNCHES}, all from the {monitor_steps} monitoring "
+        f"forwards (expected {ln_want})")
+    if ln.LAUNCHES != ln_want:
+        fail("the monitoring forward did not launch the layer_norm kernel at every LayerNorm")
     if trainer.get_num_updates() != steps:
         fail(f"step counter {trainer.get_num_updates()} after {steps} steps")
     moved = frozen = 0
@@ -639,8 +920,8 @@ def phase_train(card: str):
     del trainer, start
     torch.cuda.empty_cache()
     return dict(s_per_step=s_step, s_per_step_monitor=s_mon, max_memory_gib=peak_gb,
-                launches=counts, steps=steps, monitor_steps=monitor_steps,
-                final_loss=mon_logs[-1]["loss"])
+                launches=counts, ln_launches=ln.LAUNCHES, steps=steps,
+                monitor_steps=monitor_steps, final_loss=mon_logs[-1]["loss"])
 
 
 GRAD_TENSORS = (
@@ -705,22 +986,255 @@ def phase_train_gradients():
                 cosines=cosines)
 
 
+# ---------------------------------------------------------------- phases 8, 9
+
+def eval_config(dtype: str):
+    """OFA-Base, 150 classes, the evaluation settings of
+    run_scripts/IFSeg/common.sh: label propagation top-3, 25 iterations."""
+    from ifseg_torch.config import Config
+
+    cfg = Config(model=base_config(dtype))
+    cfg.criterion.resnet_topk = 3
+    cfg.criterion.resnet_iters = 25
+    return cfg
+
+
+# (image (h, w), original (H, W)): eight keep-ratio shapes that differ in
+# pixels, share the ceil-16 extents (32, 43) and the (512, 768) buckets of
+# image and target; then four at (512, 512)
+EVAL_SHAPES_WIDE = [
+    ((512, 683), (480, 640)), ((512, 680), (450, 600)), ((512, 675), (512, 683)),
+    ((512, 683), (427, 640)), ((512, 678), (500, 667)), ((512, 673), (468, 624)),
+    ((512, 682), (512, 680)), ((512, 681), (400, 534)),
+]
+EVAL_SHAPES_SQUARE = [((512, 512), (512, 512)), ((512, 512), (500, 500)),
+                      ((512, 512), (480, 480)), ((512, 512), (375, 500))]
+
+
+def eval_samples(shapes, seed: int):
+    """Fabricated uint8 ``EvalSample``s; a tenth of the target is 'unknown'."""
+    from ifseg_torch.data.segmentation_dataset import EvalSample
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(4, 50000, size=SRC_LEN).astype(np.int32)
+    src[SRC_LEN - 5:] = 1  # PAD
+    samples = []
+    for i, ((h, w), (H, W)) in enumerate(shapes):
+        seg = rng.integers(0, EVAL_CLASSES, size=(H, W)).astype(np.int32)
+        seg[rng.random((H, W)) < 0.1] = EVAL_CLASSES
+        samples.append(EvalSample(
+            patch_image=rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8), src_tokens=src,
+            bos_token=np.zeros((1,), np.int32), ori_semantic_seg=seg, ori_shape=(H, W, 3), id=i))
+    return samples
+
+
+class ListDataset:
+    def __init__(self, samples):
+        self.samples = samples
+
+    def __len__(self):
+        return len(self.samples)
+
+    def get_eval_sample(self, i):
+        return self.samples[i]
+
+
+AREA_KEYS = ("area_intersect", "area_pred_label", "area_label", "area_union")
+
+
+def phase_eval(card: str, weights):
+    from ifseg_torch.eval.evaluator import Evaluator
+    from ifseg_torch.models.segofa import SegOFA
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+
+    cfg = eval_config("bfloat16")
+    model = SegOFA(cfg.model)
+    model.load_state_dict(weights, strict=True)
+    evaluator = Evaluator(cfg, model)  # the card, by default
+    log(f"[8] Evaluator, OFA-Base, {EVAL_CLASSES} classes, label propagation top-"
+        f"{cfg.criterion.resnet_topk} x {cfg.criterion.resnet_iters}; memory budget "
+        f"{evaluator.mem_budget / 2**30:.1f} GiB, at most "
+        f"{evaluator._max_group_rows(512, 768)} rows a group at the (512, 768) bucket")
+    wide, square = eval_samples(EVAL_SHAPES_WIDE, 500), eval_samples(EVAL_SHAPES_SQUARE, 501)
+    samples = wide + square
+    per_group = sum(n for *_, n in EVAL_SITES)
+    ln_per_group = ln_launches_per_forward(evaluator.model, position_lns=True)
+    if ln_per_group != ln_sites_per_pass("per_eval_group"):
+        fail(f"{ln_per_group} LayerNorm sites in an evaluation forward, "
+             f"{ln_sites_per_pass('per_eval_group')} held against the plain version")
+
+    fa.reset_launches()
+    ln.reset_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    logs = evaluator.eval_dataset(ListDataset(samples), batch_size=8, stats_out=stats)
+    dt = time.perf_counter() - t0
+    counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+    groups = len(logs)
+    log(f"[8] eval_dataset: {len(samples)} samples in groups {stats['group_sizes']} "
+        f"({dt:.2f} s, first run); attention launches {counts}, layer_norm launches {ln_launches} "
+        f"(expected {per_group} and {ln_per_group} a group)")
+    if stats["group_sizes"] != [len(wide), len(square)]:
+        fail(f"groups {stats['group_sizes']}, expected {[len(wide), len(square)]}")
+    if sum(stats["buckets"].values()) != len(samples) or len(stats["buckets"]) != 2:
+        fail(f"bucket counts {stats['buckets']}")
+    if counts != dict(infer=per_group * groups, stats=0, bwd_di=0, bwd_dq=0, bwd_dkv=0):
+        fail("the evaluation path did not launch the attention kernel at every site")
+    if ln_launches != ln_per_group * groups:
+        fail("the evaluation path did not launch the layer_norm kernel at every LayerNorm")
+    for out, group in zip(logs, (wide, square)):
+        n_valid = sum(int((s.ori_semantic_seg != EVAL_CLASSES).sum()) for s in group)
+        if not np.isfinite(out["nll_loss"]) or out["nll_cnt"] != n_valid:
+            fail(f"nll_loss {out['nll_loss']}, nll_cnt {out['nll_cnt']} vs {n_valid} valid pixels")
+        for suffix in ("", "_resnet_postprocess"):
+            ai, al, au = (out[f"area_{k}{suffix}"] for k in ("intersect", "label", "union"))
+            if ai.shape != (EVAL_CLASSES,) or al.sum() != n_valid or not (ai <= au).all():
+                fail(f"areas{suffix}: label sum {al.sum()} vs {n_valid} valid pixels")
+        log(f"[8]   group of {len(group)}: nll_loss {out['nll_loss']:.4f}, {n_valid} valid pixels, "
+            f"pixel accuracy {out['area_intersect'].sum() / n_valid:.4f} "
+            f"(with label propagation {out['area_intersect_resnet_postprocess'].sum() / n_valid:.4f})")
+
+    def group_seconds(group, iters=3):
+        evaluator._run_group(group)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(iters):
+            evaluator._run_group(group)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) / iters
+
+    result = dict(groups=stats["group_sizes"], launches=counts["infer"], ln_launches=ln_launches,
+                  first_run_s=dt)
+    for name, group in (("(512, 768)", wide), ("(512, 512)", square)):
+        with_lp = group_seconds(group)
+        cfg.criterion.resnet_iters = 0
+        without = group_seconds(group)
+        cfg.criterion.resnet_iters = 25
+        log(f"[8] bucket {name}, group of {len(group)}: {with_lp * 1e3:.1f} ms a group, "
+            f"{len(group) / with_lp:.2f} img/s; without label propagation "
+            f"{without * 1e3:.1f} ms, {len(group) / without:.2f} img/s, on {card}")
+        result[name] = dict(rows=len(group), ms_per_group=with_lp * 1e3,
+                            img_per_s=len(group) / with_lp, ms_per_group_no_lp=without * 1e3,
+                            img_per_s_no_lp=len(group) / without)
+
+    # peak memory of a group, above what is held between groups: the terms
+    # of Evaluator._max_group_rows
+    from ifseg_torch.eval import evaluator as ev
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    peaks = {}
+    for rows in (4, 32, 64):
+        torch.cuda.reset_peak_memory_stats()
+        evaluator._run_group((wide * 8)[:rows])
+        torch.cuda.synchronize()
+        peaks[rows] = torch.cuda.max_memory_allocated() - held
+    # a small group peaks while the once-per-group bias chains are built (the
+    # fixed term), a large one in the upsample, which grows by the row
+    per_row = (peaks[64] - peaks[32]) / 32
+    fixed = peaks[4]
+    ltok = 32 * 48 + 64
+    m = cfg.model
+    log(f"[8] peak memory above the {held / 2**30:.2f} GiB held: {peaks[4] / 2**30:.3f} GiB at 4 rows, "
+        f"{peaks[32] / 2**30:.3f} GiB at 32, {peaks[64] / 2**30:.3f} GiB at 64 -> "
+        f"{per_row / 2**20:.1f} MiB a row, {fixed / 2**30:.3f} GiB fixed "
+        f"= {per_row / (ltok * m.encoder_embed_dim * 4):.1f} activation buffers a row, "
+        f"{fixed / (m.encoder_attention_heads * ltok ** 2 * 4):.1f} bias buffers "
+        f"(evaluator.py states {ev.ROW_ACT_BUFFERS} and {ev.FIXED_BIAS_BUFFERS}), on {card}")
+    result["memory"] = dict(held_gib=held / 2**30, peak4_gib=peaks[4] / 2**30,
+                            peak32_gib=peaks[32] / 2**30, peak64_gib=peaks[64] / 2**30,
+                            per_row_mib=per_row / 2**20,
+                            fixed_gib=fixed / 2**30,
+                            row_act_buffers=per_row / (ltok * m.encoder_embed_dim * 4),
+                            fixed_bias_buffers=fixed / (m.encoder_attention_heads * ltok ** 2 * 4))
+    return evaluator, wide, result
+
+
+def phase_eval_reference(evaluator, wide, weights):
+    """The padded forward against the exact one on the card, then the card's
+    evaluation of one group of two rows against the fp32 CPU Evaluator."""
+    from ifseg_torch.eval.evaluator import Evaluator
+    from ifseg_torch.models.segofa import SegOFA
+
+    # one image through SegOFA.forward at its own shape and, zero-padded into
+    # its bucket, through eval_forward; both bf16 on the card, so they differ by
+    # bf16 rounding along two different summation orders (other cuDNN and
+    # cuBLAS shapes, static against dynamic-valid interpolation matrices)
+    model, dev = evaluator.model, evaluator.device
+    rng = np.random.default_rng(600)
+    h, w, hb, wb = 512, 683, 512, 768
+    img = torch.from_numpy(rng.normal(size=(1, h, w, 3)).astype(np.float32)).to(dev)
+    padded = torch.zeros(1, hb, wb, 3, device=dev)
+    padded[:, :h, :w] = img
+    src = torch.from_numpy(rng.integers(4, 50000, size=(1, SRC_LEN))).to(dev)
+    bos = torch.zeros(1, 1, dtype=torch.long, device=dev)
+    hp, wp = -(-h // 16), -(-w // 16)
+    with torch.no_grad():
+        exact, _ = model(src_tokens=src, patch_images=img, bos_tokens=bos)
+        got, _ = model.eval_forward(src, padded, h, w, bos)
+    # output position 0 is the BOS slot's, position 1 + i the i-th grid cell's
+    gh, gw = hb // 16, wb // 16
+    exact = exact[0].float()
+    got = torch.cat([got[0, :1], got[0, 1:].reshape(gh, gw, -1)[:hp, :wp].reshape(hp * wp, -1)])
+    got = got.float()
+    rel = ((got - exact).norm() / exact.norm()).item()
+    agree = (got.argmax(-1) == exact.argmax(-1)).float().mean().item()
+    log(f"[9] padded ({hb}, {wb}) vs exact ({h}, {w}) forward on the card, bf16: relative logit "
+        f"error {rel:.3e} (limit {LOGIT_REL_TOL}), per-cell argmax agreement {agree:.4f}")
+    if not rel <= LOGIT_REL_TOL:
+        fail(f"the padded forward differs from the exact one: {rel} > {LOGIT_REL_TOL}")
+
+    group = wide[:2]
+    card_out = evaluator._read_back(evaluator._run_group(group))
+    ref_model = SegOFA(base_config("float32"))
+    ref_model.load_state_dict(weights, strict=True)
+    t0 = time.perf_counter()
+    reference = Evaluator(eval_config("float32"), ref_model, device="cpu")
+    cpu_out = reference._read_back(reference._run_group(group))
+    n_px = float(cpu_out["area_label"].sum())
+    shares = {k: float(np.abs(card_out[k] - cpu_out[k]).sum() / 2 / n_px)
+              for k in ("area_pred_label", "area_pred_label_resnet_postprocess")}
+    nll_rel = abs(float(card_out["nll_loss"]) - float(cpu_out["nll_loss"])) / float(cpu_out["nll_loss"])
+    log(f"[9] card bf16 vs CPU fp32 Evaluator, group of 2 at the (512, 768) bucket "
+        f"({time.perf_counter() - t0:.1f} s on the CPU): nll_loss {float(card_out['nll_loss']):.5f} vs "
+        f"{float(cpu_out['nll_loss']):.5f} (rel {nll_rel:.3e}, limit {EVAL_NLL_REL_TOL}); share of "
+        f"pixels predicted otherwise {shares['area_pred_label']:.4f}, after label propagation "
+        f"{shares['area_pred_label_resnet_postprocess']:.4f} (limit {EVAL_PIXEL_SHARE_TOL})")
+    if not np.array_equal(card_out["area_label"], cpu_out["area_label"]):
+        fail("card and CPU count different label areas")
+    if not nll_rel <= EVAL_NLL_REL_TOL:
+        fail(f"card nll_loss differs from the CPU's: {nll_rel} > {EVAL_NLL_REL_TOL}")
+    if not max(shares.values()) <= EVAL_PIXEL_SHARE_TOL:
+        fail(f"card predictions differ from the CPU's on {shares} of the pixels")
+    return dict(padded_vs_exact_rel_err=rel, padded_vs_exact_argmax_agreement=agree,
+                nll_rel_err=nll_rel, pixel_share_differs=shares)
+
+
 # ---------------------------------------------------------------- main
+
+def pass_totals(rows, per_key):
+    """A kernel's times summed over the sites of one pass (``per_key`` calls
+    each): its own, the plain version's, the bound and the library call's."""
+    timed = [r for r in rows if r[per_key]]
+    total = lambda key: sum(r[key] * r[per_key] for r in timed)
+    t_ops = sum(r["gflop"] * 1e9 / r.get("peak_flops", PEAK_BF16_FLOPS) * 1e3 * r[per_key]
+                for r in timed)
+    t_bytes = sum(r["mb"] * 1e6 / PEAK_BYTES_PER_S * 1e3 * r[per_key] for r in timed)
+    lib = None if any(r["library_ms"] is None for r in timed) else total("library_ms")
+    return dict(ms=total("kernel_ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=lib,
+                calls=sum(r[per_key] for r in timed))
+
 
 def kernel_entry(name, source, replaces, launches, rows, unit, per_key):
     """One entry of the ``kernels`` line from a kernel's per-site rows; the
-    times are summed over the sites of one pass (``per_key`` calls each)."""
-    timed = [r for r in rows if r[per_key]]
-    total = lambda key: sum(r[key] * r[per_key] for r in timed)
-    t_ops = sum(r["gflop"] * 1e9 / PEAK_BF16_FLOPS * 1e3 * r[per_key] for r in timed)
-    t_bytes = sum(r["mb"] * 1e6 / PEAK_BYTES_PER_S * 1e3 * r[per_key] for r in timed)
-    lib = None if any(r["library_ms"] is None for r in timed) else total("library_ms")
+    times are those of one pass of ``unit``."""
+    totals = pass_totals(rows, per_key)
+    del totals["calls"]
     return dict(
         name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in rows),
-        ms=total("kernel_ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
-        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=lib,
-        unit=unit, sites=rows,
+        max_abs_err=max(r["max_abs_err"] for r in rows), **totals, unit=unit, sites=rows,
     )
 
 
@@ -730,10 +1244,15 @@ def main():
 
     phase_build()
     sites = phase_kernels()
+    ln_rows, ln_train = phase_layer_norm()
     train_rows = phase_train_kernels()
     server, weights, serve = phase_serve(card)
     cpu = phase_cpu_reference(server, weights)
-    del server, weights
+    del server
+    torch.cuda.empty_cache()
+    evaluator, wide, evaluation = phase_eval(card, weights)
+    evaluation.update(phase_eval_reference(evaluator, wide, weights))
+    del evaluator, weights
     torch.cuda.empty_cache()
     train = phase_train(card)
     grads = phase_train_gradients()
@@ -744,8 +1263,14 @@ def main():
     jax_fa = "ifseg_tpu/ops/flash_attention.py"
     step_unit = "one batch-16 training step: 6 calls at each of the three site shapes"
     counts = train["launches"]
+    # the forward without stats runs on three main paths; each was driven with
+    # the counts set to 0 just before and read just after
+    k1_paths = dict(serving=serve["launches"], evaluation=evaluation["launches"],
+                    monitoring=counts["infer"])
+    ln_paths = dict(serving=serve["ln_launches"], evaluation=evaluation["ln_launches"],
+                    monitoring=train["ln_launches"])
     kernels = [
-        kernel_entry("flash_attention_bias_fwd", fwd_src, f"{jax_fa}:134", serve["launches"],
+        kernel_entry("flash_attention_bias_fwd", fwd_src, f"{jax_fa}:134", sum(k1_paths.values()),
                      sites, "one batch-32 forward: 6 calls at each of the three site shapes",
                      "per_forward"),
         kernel_entry("flash_attention_bias_fwd_stats", fwd_src, f"{jax_fa}:134", counts["stats"],
@@ -756,18 +1281,24 @@ def main():
                      train_rows["dq"], step_unit, "per_step"),
         kernel_entry("flash_attention_bias_bwd_dkv", dkv_src, f"{jax_fa}:420", counts["bwd_dkv"],
                      train_rows["dkv"], step_unit, "per_step"),
+        kernel_entry("layer_norm", "ifseg_torch/csrc/layer_norm.cu",
+                     "ifseg_tpu/ops/layer_norm.py:43", sum(ln_paths.values()), ln_rows,
+                     "one batch-32 forward: its 65 LayerNorm sites at their six (rows, width) "
+                     "shapes", "per_forward"),
     ]
-    # the one TPU kernel not ported yet (ifseg_tpu/ops/layer_norm.py:43): its
-    # bound from the shapes it would see, bytes read and written once
-    for rows, width in ((32 * 1056, 768), (32 * 1056, 3072)):
-        nbytes = 2 * rows * width * 2  # bf16 in, bf16 out
-        log(f"[8] layer-norm kernel (not ported), rows {rows} x {width} bf16: "
-            f"{nbytes / 1e6:.1f} MB, bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    kernels[0]["launches_by_path"] = k1_paths
+    kernels[0]["per_pass"] = {"evaluation group of 8": pass_totals(sites, "per_eval_group")}
+    kernels[-1]["launches_by_path"] = ln_paths
+    kernels[-1]["per_pass"] = {
+        "evaluation group of 8": pass_totals(ln_rows, "per_eval_group"),
+        f"monitoring forward, batch {TRAIN_BATCH}": pass_totals(ln_rows, "per_monitor_forward"),
+    }
+    kernels[-1]["training_site"] = ln_train
     for entry in kernels:
-        if entry["launches"] < 1:
-            fail(f"kernel {entry['name']} was never launched by the main path")
-    log(json.dumps({"serve": serve, "cpu_reference": cpu, "train": train,
-                    "train_gradients": grads, "card_line": card}))
+        if entry["launches"] < 1 or any(n < 1 for n in entry.get("launches_by_path", {}).values()):
+            fail(f"kernel {entry['name']} was never launched by a main path")
+    log(json.dumps({"serve": serve, "cpu_reference": cpu, "evaluation": evaluation,
+                    "train": train, "train_gradients": grads, "card_line": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -139,6 +139,11 @@ class CriterionConfig:
     # step purely for monitoring metrics; off trains faster with identical
     # learning dynamics
     monitor_real_batch: bool = True
+    # ResNet label-propagation post-process at evaluation
+    # (seg_criterion.py:130-132, :195-214); resnet_iters = 0 turns it off
+    resnet_topk: int = 3
+    resnet_prob_temperature: float = 1.0
+    resnet_iters: int = 0
 
 
 @dataclass

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from ifseg_torch.config import ModelConfig
-from ifseg_torch.ops.resize import resize_bilinear
+from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .attention import Dropout, Linear
 from .encoder import LayerDrop, _ids, compute_dtype, stack_tables
 from .layers import DecoderLayer, LayerNorm
@@ -35,6 +35,7 @@ from .position import (
     gather_rel_bias_all_layers,
     image_num_rel_dis,
     interp_seg_bias_with_bos,
+    interp_seg_bias_with_bos_mats,
     make_image_bucket_position,
 )
 
@@ -97,23 +98,28 @@ class Decoder(nn.Module):
         k = k_linear(k_pos).reshape(k_pos.shape[0], heads, -1)
         return torch.einsum("qhd,khd->hqk", q, k)
 
-    def _seg_pos_embed(self, h: int, w: int) -> torch.Tensor:
+    def _seg_pos_embed(self, h: int, w: int, valid_mats=None) -> torch.Tensor:
         """(1 + h*w, D): the BOS slot, then the seg grid, interpolated from
-        the seg-bucket grid when (h, w) differs (decoder_module.py:541-550)."""
+        the seg-bucket grid when (h, w) differs (decoder_module.py:541-550);
+        with ``valid_mats`` (ah, aw), by those dynamic-valid matrices."""
         sb = self.cfg.seg_bucket_size
         dev = self.embed_seg_positions.weight.device
         grid_ids = (np.arange(sb)[None, :] + np.arange(sb)[:, None] * sb + 1).reshape(-1)
         pe = self.embed_seg_positions(_ids(grid_ids, dev))
-        if (h, w) != (sb, sb):
+        if valid_mats is not None:
+            ah, aw = valid_mats
+            pe = torch.einsum("Hi,ijd->Hjd", ah, pe.reshape(sb, sb, -1).float())
+            pe = torch.einsum("Wj,Hjd->HWd", aw, pe).reshape(h * w, -1)
+        elif (h, w) != (sb, sb):
             pe = resize_bilinear(pe.reshape(sb, sb, -1), (h, w), h_axis=0, w_axis=1)
             pe = pe.reshape(h * w, -1)
         return torch.cat([self.embed_seg_positions.weight[:1], pe], dim=0)
 
-    def _abs_biases(self, enc_pos_all: torch.Tensor, h: int, w: int):
+    def _abs_biases(self, enc_pos_all: torch.Tensor, h: int, w: int, valid_mats=None):
         """fp32 absolute-position biases for an (h, w) target grid: self
         (H, 1+hw, 1+hw) and cross (H, 1+hw, L_enc) to the encoder's post-LN
         position embeddings ``enc_pos_all``."""
-        tgt_pos_ln = self.seg_pos_ln(self._seg_pos_embed(h, w))
+        tgt_pos_ln = self.seg_pos_ln(self._seg_pos_embed(h, w, valid_mats))
         self_bias0 = self._bias(
             tgt_pos_ln, tgt_pos_ln, self.self_pos_q_linear, self.self_pos_k_linear
         )
@@ -152,28 +158,47 @@ class Decoder(nn.Module):
             raise ValueError(cfg.decoder_input_type)
         x = torch.cat([self.embed_tokens(bos_tokens).to(cd), image_feats], dim=1)
         if self.layernorm_embedding is not None:
-            x = self.layernorm_embedding(x).to(cd)
+            x = self.layernorm_embedding(x, cd)
         return self.dropout_layer(x)
 
     def forward(self, bos_tokens, encoder_out, full_context_alignment: bool = False):
         """Surrogate decode with the biases built in the graph -> (B, 1+hw,
-        num_seg) fp32 logits.  ``encoder_out``
-        is what ``Encoder.encode`` / ``encode_artificial`` return."""
+        num_seg) fp32 logits.  ``encoder_out`` is what ``Encoder.encode`` /
+        ``encode_artificial`` / ``encode_padded`` return.  After
+        ``encode_padded`` (``valid_hw`` present) the grid (h, w) is a padded
+        one: the seg positions and the seg relative bias are interpolated to
+        the valid corner by dynamic-valid matrices, and the padded cells are
+        masked as self-attention keys (the BOS slot stays valid, so no row
+        is fully masked)."""
         cfg = self.cfg
         cd = compute_dtype(cfg)
         h, w = encoder_out["image_embed_shape"]
         sb = cfg.seg_bucket_size
         x = self._embed(bos_tokens, encoder_out)
 
-        self_bias0, cross_bias = self._abs_biases(encoder_out["position_embeddings"], h, w)
+        valid_mats = self_padding_mask = None
+        if "valid_hw" in encoder_out:
+            hp, wp = encoder_out["valid_hw"]
+            valid_mats = (bilinear_dyn_tensor(sb, h, hp, device=x.device),
+                          bilinear_dyn_tensor(sb, w, wp, device=x.device))
+            grid_pad = ~encoder_out["grid_valid"]
+            self_padding_mask = torch.cat([grid_pad.new_zeros(1), grid_pad])[None, :].expand(
+                x.shape[0], 1 + h * w).contiguous()
+
+        self_bias0, cross_bias = self._abs_biases(
+            encoder_out["position_embeddings"], h, w, valid_mats)
         cross_bias = cross_bias.to(cd)
         seg_bucket = make_image_bucket_position(sb, (2 * sb - 1) * (2 * sb - 1) + 3)
-        ident_interp = (sb, sb) == (h, w)
+        ident_interp = valid_mats is None and (sb, sb) == (h, w)
         seg_all = gather_grid_bias_all_layers(
             stack_tables(self.seg_rel_pos_table_list), seg_bucket, (sb, sb), bos=True,
             dtype=cd if ident_interp else torch.float32,
         )
-        if not ident_interp:
+        if valid_mats is not None:
+            seg_all = torch.stack(
+                [interp_seg_bias_with_bos_mats(b, *valid_mats, (sb, sb)) for b in seg_all]
+            )
+        elif not ident_interp:
             seg_all = torch.stack(
                 [interp_seg_bias_with_bos(b, (sb, sb), (h, w)) for b in seg_all]
             )
@@ -182,9 +207,10 @@ class Decoder(nn.Module):
         enc = encoder_out["encoder_out"]
         enc_pad = encoder_out["encoder_padding_mask"]
         for layer, self_bias in zip(self.layers, pack.unbind(0)):
-            y = layer(x, enc, enc_pad, self_bias, cross_bias, None, not full_context_alignment)
+            y = layer(x, enc, enc_pad, self_bias, cross_bias, self_padding_mask,
+                      not full_context_alignment)
             x = self.layerdrop(y, x)
-        x = self.layer_norm(x).to(cd)
+        x = self.layer_norm(x, cd)
         return self.output_layer(x)
 
     def decode_served(self, bos_tokens, encoder_out, pre, full_context_alignment: bool = False):
@@ -196,7 +222,7 @@ class Decoder(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x, enc, enc_pad, pre["self_biases"][i], pre["cross_bias"],
                       None, not full_context_alignment)
-        x = self.layer_norm(x).to(cd)
+        x = self.layer_norm(x, cd)
         return self.output_layer(x)
 
     def output_layer(self, features):

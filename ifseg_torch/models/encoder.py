@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ifseg_torch.config import ModelConfig
-from ifseg_torch.ops.resize import resize_bilinear
+from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .attention import Dropout, Linear
 from .layers import EncoderLayer, LayerNorm
 from .position import (
@@ -28,8 +28,10 @@ from .position import (
     gather_rel_bias_all_layers,
     image_grid_position_ids,
     image_num_rel_dis,
+    image_rel_bucket_direct,
     image_rp_bucket_for_grid,
     interp_grid_bias,
+    interp_grid_bias_mats,
     make_token_bucket_position,
 )
 from .resnet import RESNET_LAYERS, ResNetStem
@@ -184,7 +186,7 @@ class Encoder(nn.Module):
         if self.type_embedding is not None:
             x = x + self.type_embedding.weight[0].to(cd)
         if self.layernorm_embedding is not None:
-            x = self.layernorm_embedding(x).to(cd)
+            x = self.layernorm_embedding(x, cd)
         return self.dropout_layer(x)
 
     def _image_token_embed(self, image_embed):
@@ -194,7 +196,7 @@ class Encoder(nn.Module):
         if self.type_embedding is not None:
             x = x + self.type_embedding.weight[1].to(cd)
         if self.patch_layernorm_embedding is not None:
-            x = self.patch_layernorm_embedding(x).to(cd)
+            x = self.patch_layernorm_embedding(x, cd)
         return self.dropout_layer(x)
 
     def encode_served(self, src_tokens, patch_images, pre) -> Dict:
@@ -214,7 +216,7 @@ class Encoder(nn.Module):
         x = x * (1.0 - padding_mask[:, :, None].to(x.dtype))
         for i, layer in enumerate(self.layers):
             x = layer(x, padding_mask, pre["biases"][i])
-        x = self.layer_norm(x).to(cd)
+        x = self.layer_norm(x, cd)
         return {
             "encoder_out": x,
             "encoder_padding_mask": padding_mask,
@@ -224,21 +226,26 @@ class Encoder(nn.Module):
 
     # ------------------------------------------------- forward with in-graph biases
 
-    def _pos_all(self, src_len: int, image_hw: Tuple[int, int]) -> torch.Tensor:
+    def _pos_all(self, src_len: int, image_hw: Tuple[int, int],
+                 pos_img: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(L, D) fp32 post-LN position embeddings, [image ‖ text]."""
         dev = self.pos_ln.weight.device
         pos_text = self.pos_ln(self.embed_positions(torch.arange(src_len, device=dev)))
-        pos_img = self.image_pos_ln(self._image_pos_embed(*image_hw))
+        if pos_img is None:
+            pos_img = self.image_pos_ln(self._image_pos_embed(*image_hw))
         return torch.cat([pos_img, pos_text], dim=0)
 
     def _run_layers(self, x, padding_mask, pos_all, src_len: int, image_hw: Tuple[int, int],
-                    rel_bias_grid_hw: Tuple[int, int]):
+                    rel_bias_grid_hw: Optional[Tuple[int, int]] = None,
+                    img_all: Optional[torch.Tensor] = None):
         """The layer stack over an all-layer bias pack (layers, H, L, L) built
         here, in the graph and in compute dtype: abs bias + token rel bias on
-        the text block + image rel bias (interpolated from
-        ``rel_bias_grid_hw`` when the runtime grid differs) on the image
-        block.  Each component is cast before the adds; the casts' backward
-        returns the table gradients to fp32."""
+        the text block + image rel bias on the image block.  The image bias
+        is ``img_all`` (layers, H, hw, hw) when the caller built it (padded
+        evaluation), else the gather over the ``rel_bias_grid_hw`` grid,
+        interpolated when the runtime grid differs.  Each component is cast
+        before the adds; the casts' backward returns the table gradients to
+        fp32."""
         cfg = self.cfg
         cd = compute_dtype(cfg)
         hw = image_hw[0] * image_hw[1]
@@ -247,16 +254,17 @@ class Encoder(nn.Module):
         tok_all = gather_rel_bias_all_layers(
             stack_tables(self.token_rel_pos_table_list), token_bucket
         )
-        image_bucket = image_rp_bucket_for_grid(*rel_bias_grid_hw, cfg.image_bucket_size)
-        ident_interp = tuple(rel_bias_grid_hw) == tuple(image_hw)
-        img_all = gather_grid_bias_all_layers(
-            stack_tables(self.image_rel_pos_table_list), image_bucket, rel_bias_grid_hw,
-            dtype=cd if ident_interp else torch.float32,
-        )
-        if not ident_interp:
-            img_all = torch.stack(
-                [interp_grid_bias(b, rel_bias_grid_hw, image_hw) for b in img_all]
+        if img_all is None:
+            image_bucket = image_rp_bucket_for_grid(*rel_bias_grid_hw, cfg.image_bucket_size)
+            ident_interp = tuple(rel_bias_grid_hw) == tuple(image_hw)
+            img_all = gather_grid_bias_all_layers(
+                stack_tables(self.image_rel_pos_table_list), image_bucket, rel_bias_grid_hw,
+                dtype=cd if ident_interp else torch.float32,
             )
+            if not ident_interp:
+                img_all = torch.stack(
+                    [interp_grid_bias(b, rel_bias_grid_hw, image_hw) for b in img_all]
+                )
         pack = (
             bias0[None].to(cd)
             + F.pad(tok_all.to(cd), (hw, 0, hw, 0))
@@ -264,18 +272,22 @@ class Encoder(nn.Module):
         )
         for layer, bias in zip(self.layers, pack.unbind(0)):
             x = self.layerdrop(layer(x, padding_mask, bias), x)
-        return self.layer_norm(x).to(cd)
+        return self.layer_norm(x, cd)
 
     def _encode_tokens(self, src_tokens, image_embed, image_pad, image_hw, rel_bias_grid_hw,
-                       resnet_feats=None) -> Dict:
+                       resnet_feats=None, pos_img=None, img_all=None) -> Dict:
+        """The token path shared by the three forwards.  ``pos_img`` (hw, D)
+        post-LN image position embeddings and ``img_all`` (layers, H, hw, hw)
+        image relative bias override what the grid alone gives (padded
+        evaluation)."""
         padding_mask = torch.cat([image_pad, src_tokens == PAD], dim=1)
         x = torch.cat(
             [self._image_token_embed(image_embed), self._text_embed(src_tokens)], dim=1
         )
         x = x * (1.0 - padding_mask[:, :, None].to(x.dtype))
         t = src_tokens.shape[1]
-        pos_all = self._pos_all(t, image_hw)
-        x = self._run_layers(x, padding_mask, pos_all, t, image_hw, rel_bias_grid_hw)
+        pos_all = self._pos_all(t, image_hw, pos_img)
+        x = self._run_layers(x, padding_mask, pos_all, t, image_hw, rel_bias_grid_hw, img_all)
         return {
             "encoder_out": x,
             "encoder_padding_mask": padding_mask,
@@ -299,6 +311,63 @@ class Encoder(nn.Module):
         orig_hw = cfg.orig_patch_image_size // 16
         return self._encode_tokens(src_tokens, image_embed, image_pad, (h, w),
                                    (orig_hw, orig_hw), resnet_feats)
+
+    def encode_padded(self, src_tokens, patch_images, img_h, img_w) -> Dict:
+        """Native-resolution evaluation forward (the JAX package's
+        ``encode_padded``).  ``patch_images`` (B, Hb, Wb, 3) are normalized
+        images zero-padded into a shape bucket; ``img_h`` / ``img_w`` are the
+        valid pixel extents, ints or (B,) integer arrays.  Per-row extents
+        feed only the stem's masking: positions and biases depend on the
+        ceil-16 patch extents, which the rows of one group share, so they are
+        built once for the batch.  The stem masks its padding, the position
+        embeddings and the image relative bias come from dynamic-valid
+        interpolation matrices (grids larger than the pretraining grid) or
+        from direct lookups (smaller ones), and padded patch tokens are
+        masked out of attention, so the valid tokens' outputs equal the
+        unpadded forward's.  Returns ``encode``'s dictionary plus
+        ``valid_hw`` (hp, wp) and ``grid_valid`` (Hp*Wp,) bool."""
+        cfg = self.cfg
+        dev = src_tokens.device
+        img_h, img_w = np.asarray(img_h), np.asarray(img_w)
+        to_dev = lambda v: int(v) if v.ndim == 0 else torch.from_numpy(v.astype(np.int64)).to(dev)
+        feats = self.embed_images(patch_images.to(compute_dtype(cfg)),
+                                  valid_hw=(to_dev(img_h), to_dev(img_w)))
+        b, Hp, Wp, _ = feats.shape
+        hw = Hp * Wp
+        hp, wp = -(-int(img_h.max()) // 16), -(-int(img_w.max()) // 16)
+        resnet_feats = feats.reshape(b, hw, -1)
+        image_embed = self.image_proj(resnet_feats)
+
+        cell = np.arange(hw)
+        r, c = cell // Wp, cell % Wp
+        grid_valid = torch.from_numpy((r < hp) & (c < wp)).to(dev)
+        image_pad = (~grid_valid)[None, :].expand(b, hw)
+
+        bucket = cfg.image_bucket_size
+        orig_hw = cfg.orig_patch_image_size // 16
+        tables = stack_tables(self.image_rel_pos_table_list)
+        if hp * wp > orig_hw * orig_hw:  # interpolate from the pretraining grid
+            ah = bilinear_dyn_tensor(orig_hw, Hp, hp, device=dev)
+            aw = bilinear_dyn_tensor(orig_hw, Wp, wp, device=dev)
+            ids = image_grid_position_ids(orig_hw, orig_hw, bucket)
+            pe = self.embed_image_positions(_ids(ids, dev)).reshape(orig_hw, orig_hw, -1)
+            pe = torch.einsum("Hi,ijd->Hjd", ah, pe.float())
+            pos_img = torch.einsum("Wj,Hjd->HWd", aw, pe).reshape(hw, -1)
+            orig_bucket = image_rp_bucket_for_grid(orig_hw, orig_hw, bucket)
+            img_all = torch.stack([
+                interp_grid_bias_mats(bias, ah, aw, (orig_hw, orig_hw))
+                for bias in gather_rel_bias_all_layers(tables, orig_bucket)
+            ])
+        else:  # look the padded grid's cells up directly
+            ids = np.clip(r * bucket + c + 1, 0, bucket**2)
+            pos_img = self.embed_image_positions(_ids(ids, dev)).float()
+            img_all = gather_rel_bias_all_layers(
+                tables, image_rel_bucket_direct(Hp, Wp, bucket))
+        out = self._encode_tokens(src_tokens, image_embed, image_pad, (Hp, Wp), None,
+                                  resnet_feats, self.image_pos_ln(pos_img), img_all)
+        out["valid_hw"] = (hp, wp)
+        out["grid_valid"] = grid_valid
+        return out
 
     def encode_artificial(self, src_tokens, grid_ids, class_tokens, class_lengths) -> Dict:
         """Artificial-image forward (encoder_module.py:499-675).  grid_ids

@@ -3,12 +3,12 @@
 Mirrors models/segofa/unify_transformer_layer.py as the JAX package's
 ``models/layers.py`` computes it: ``attn_ln`` after self-attention
 ("scale_attn"), ``ffn_layernorm`` between the FFN products ("scale_fc") and
-optional ``w_resid`` residual scaling ("scale_resids").  LayerNorms run in
-fp32 and are cast back to the compute dtype.  Dropout (after attention, after
-the FFN and on the FFN activation) and DropPath follow ``module.training`` and
-draw from an explicit ``torch.Generator`` (``attention.set_generator``); in
-eval mode they are the identity.  Adapters and MoE are option paths that are
-not ported.
+optional ``w_resid`` residual scaling ("scale_resids").  LayerNorms compute
+their row statistics in fp32 and write the compute dtype.  Dropout (after
+attention, after the FFN and on the FFN activation) and DropPath follow
+``module.training`` and draw from an explicit ``torch.Generator``
+(``attention.set_generator``); in eval mode they are the identity.  Adapters
+and MoE are option paths that are not ported.
 
 Parameter names are the reference torch names (``self_attn.q_proj``,
 ``fc1``, ``ffn_layernorm``, ``final_layer_norm``, ...), so a layer loads a
@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ifseg_torch.ops.layer_norm import fused_layer_norm
 from .attention import Dropout, Linear, MultiheadAttention
 
 
@@ -41,17 +42,29 @@ class DropPath(nn.Module):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last axis in fp32 (eps 1e-5), fp32 output.
+    """LayerNorm over the last axis (eps 1e-5): fp32 row statistics, output
+    written in ``out_dtype`` (fp32 unless the caller names its compute dtype).
 
-    Uses ``F.layer_norm`` (two-pass variance) where flax computes the fast
-    variance E[x²]−E[x]²; the served-forward parity test bounds the
-    difference."""
+    Where no gradient is needed (serving, evaluation, the trainer's
+    monitoring forward) it is ``ops.layer_norm.fused_layer_norm``: flax's
+    fast variance E[x²]−E[x]², by the one-pass Hopper kernel on a CUDA tensor
+    and by its plain version on a CPU tensor.  Where a gradient flows it is
+    ``F.layer_norm`` in fp32 and a cast, on both devices: the fused op's
+    backward is plain math, about ten elementwise passes a site against one
+    fused backward here.  That route keeps PyTorch's two-pass variance
+    E[(x−E[x])²], so under gradients the port still differs from flax's
+    formula in the last bits of fp32."""
 
     def __init__(self, dim: int):
         super().__init__(dim, eps=1e-5)
 
-    def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+    def forward(self, x, out_dtype=torch.float32):
+        if torch.is_grad_enabled() and (
+            x.requires_grad or self.weight.requires_grad or self.bias.requires_grad
+        ):
+            y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+            return y.to(out_dtype)
+        return fused_layer_norm(x, self.weight, self.bias, self.eps, out_dtype)
 
 
 _ACTIVATIONS = {
@@ -85,7 +98,7 @@ class FeedForward(nn.Module):
     def ffn(self, x):
         y = self.activation_dropout(self.act(self.fc1(x)))
         if self.ffn_layernorm is not None:
-            y = self.ffn_layernorm(y).to(x.dtype)
+            y = self.ffn_layernorm(y, x.dtype)
         return self.dropout(self.fc2(y))
 
 
@@ -111,14 +124,14 @@ class EncoderLayer(FeedForward):
     def forward(self, x, padding_mask=None, self_attn_bias=None):
         dt = x.dtype
         residual = x
-        y = self.self_attn_layer_norm(x).to(dt)
+        y = self.self_attn_layer_norm(x, dt)
         y = self.self_attn(y, bias=self_attn_bias, key_padding_mask=padding_mask)
         if self.attn_ln is not None:
-            y = self.attn_ln(y).to(dt)
+            y = self.attn_ln(y, dt)
         x = residual + self.drop_path(self.dropout(y))
 
         residual = x
-        y = self.ffn(self.final_layer_norm(x).to(dt))
+        y = self.ffn(self.final_layer_norm(x, dt))
         if self.w_resid is not None:
             residual = residual * self.w_resid.to(dt)
         return residual + self.drop_path(y)
@@ -152,24 +165,24 @@ class DecoderLayer(FeedForward):
                 causal: bool = True):
         dt = x.dtype
         residual = x
-        y = self.self_attn_layer_norm(x).to(dt)
+        y = self.self_attn_layer_norm(x, dt)
         y = self.self_attn(y, bias=self_attn_bias, key_padding_mask=self_padding_mask,
                            causal=causal)
         if self.self_attn_ln is not None:
-            y = self.self_attn_ln(y).to(dt)
+            y = self.self_attn_ln(y, dt)
         x = residual + self.drop_path(self.dropout(y))
 
         if encoder_out is not None:
             residual = x
-            y = self.encoder_attn_layer_norm(x).to(dt)
+            y = self.encoder_attn_layer_norm(x, dt)
             y = self.encoder_attn(y, key=encoder_out, bias=cross_attn_bias,
                                   key_padding_mask=encoder_padding_mask)
             if self.cross_attn_ln is not None:
-                y = self.cross_attn_ln(y).to(dt)
+                y = self.cross_attn_ln(y, dt)
             x = residual + self.drop_path(self.dropout(y))
 
         residual = x
-        y = self.ffn(self.final_layer_norm(x).to(dt))
+        y = self.ffn(self.final_layer_norm(x, dt))
         if self.w_resid is not None:
             residual = residual * self.w_resid.to(dt)
         return residual + self.drop_path(y)

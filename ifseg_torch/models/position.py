@@ -91,6 +91,21 @@ def image_rp_bucket_for_grid(h: int, w: int, image_bucket_size: int) -> np.ndarr
     return table[np.ix_(pos, pos)].astype(np.int32)
 
 
+@lru_cache(maxsize=None)
+def image_rel_bucket_direct(h: int, w: int, bucket_size: int) -> np.ndarray:
+    """(h*w, h*w) bucket indices straight from the grid coordinates: equal
+    to ``image_rp_bucket_for_grid`` for grids inside the bucket, and safe for
+    padded grids wider than ``bucket_size`` (out-of-range deltas clip).
+
+    idx = (dr + B - 1) * (2B - 1) + (dc + B - 1)."""
+    r = np.arange(h * w) // w
+    c = np.arange(h * w) % w
+    dr = np.clip(r[:, None] - r[None, :], -(bucket_size - 1), bucket_size - 1)
+    dc = np.clip(c[:, None] - c[None, :], -(bucket_size - 1), bucket_size - 1)
+    idx = (dr + bucket_size - 1) * (2 * bucket_size - 1) + (dc + bucket_size - 1)
+    return idx.astype(np.int32)
+
+
 def gather_rel_bias_all_layers(table: torch.Tensor, rp_bucket: np.ndarray) -> torch.Tensor:
     """All-layer bias lookup in one gather: (layers, num_rel, H) table x
     (L1, L2) int buckets -> (layers, H, L1, L2) fp32.
@@ -129,6 +144,16 @@ def interp_grid_bias(bias: torch.Tensor, src_hw, dst_hw) -> torch.Tensor:
         return bias
     ah = bilinear_tensor(sh, dh, bias.device)
     aw = bilinear_tensor(sw, dw, bias.device)
+    return interp_grid_bias_mats(bias, ah, aw, src_hw)
+
+
+def interp_grid_bias_mats(bias: torch.Tensor, ah: torch.Tensor, aw: torch.Tensor,
+                          src_hw) -> torch.Tensor:
+    """``interp_grid_bias`` with the matrices given: ``ah`` (dh, sh) and
+    ``aw`` (dw, sw) may be the dynamic-valid matrices of
+    ``ops.resize.bilinear_matrix_dyn`` (padded native-resolution eval)."""
+    sh, sw = src_hw
+    dh, dw = ah.shape[0], aw.shape[0]
     heads = bias.shape[0]
     b = bias.reshape(heads, sh, sw, sh, sw).float()
     b = torch.einsum("Hi,hiwjv->hHwjv", ah, b)
@@ -151,6 +176,15 @@ def interp_seg_bias_with_bos(bias: torch.Tensor, src_hw, dst_hw) -> torch.Tensor
         return bias
     ah = bilinear_tensor(sh, dh, bias.device)
     aw = bilinear_tensor(sw, dw, bias.device)
+    return interp_seg_bias_with_bos_mats(bias, ah, aw, src_hw)
+
+
+def interp_seg_bias_with_bos_mats(bias: torch.Tensor, ah: torch.Tensor, aw: torch.Tensor,
+                                  src_hw) -> torch.Tensor:
+    """``interp_seg_bias_with_bos`` with the matrices given (dynamic-valid
+    matrices allowed, see ``interp_grid_bias_mats``)."""
+    sh, sw = src_hw
+    dh, dw = ah.shape[0], aw.shape[0]
     heads = bias.shape[0]
 
     def interp_flat(x):  # (heads, N, sh*sw) -> (heads, N, dh*dw)

@@ -8,9 +8,19 @@ batch-norm affine is folded into each convolution, scale into the weight
 The public input is NHWC (B, H, W, 3) as in the JAX package; inside, the
 tensors are NCHW views in channels_last memory, the layout cuDNN prefers on
 the card, and the output is NHWC (B, H/16, W/16, 1024) again.
+
+``valid_hw`` marks the top-left valid pixel region of a zero-padded input
+(native-resolution evaluation).  Features outside the stage-wise
+ceil-halved region are zeroed after every stage and before every 3x3
+convolution, so the valid outputs equal an unpadded forward's: zeros beyond
+the valid edge are exactly a convolution's zero padding at the true border,
+and a max-pool window only ever adds ReLU-nonnegative zeros.  With the batch
+norm folded into a convolution *bias*, the padded region of a convolution's
+output is that bias and not 0, so each mask is applied after bias and ReLU,
+where the JAX package applies it.
 """
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +70,20 @@ def conv_bn(x, conv: nn.Conv2d, bn: FrozenBN):
     return F.conv2d(x, w, b, conv.stride, conv.padding)
 
 
+def _ceil2(v):
+    return -(-v // 2)
+
+
+def valid_mask(h: int, w: int, valid_hw, dtype, device) -> torch.Tensor:
+    """(B or 1, 1, h, w) mask in ``dtype``: 1 inside the top-left ``valid_hw``
+    region, 0 outside.  Each extent is an int (one region for the batch) or
+    a (B,) integer tensor (one per row)."""
+    vh, vw = (torch.as_tensor(v, device=device).reshape(-1, 1, 1, 1) for v in valid_hw)
+    r = torch.arange(h, device=device).reshape(1, 1, h, 1)
+    c = torch.arange(w, device=device).reshape(1, 1, 1, w)
+    return ((r < vh) & (c < vw)).to(dtype)
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
@@ -82,12 +106,19 @@ class Bottleneck(nn.Module):
             out.append((self.downsample[0], self.downsample[1]))
         return out
 
-    def forward(self, x):
+    def forward(self, x, mask_in: Optional[torch.Tensor] = None,
+                mask_out: Optional[torch.Tensor] = None):
+        """``mask_in`` zeroes the padded region before the 3x3 convolution
+        (its zero padding must see zeros beyond the valid edge); ``mask_out``
+        zeroes it in the block's output."""
         out = F.relu(conv_bn(x, self.conv1, self.bn1))
+        if mask_in is not None:
+            out = out * mask_in
         out = F.relu(conv_bn(out, self.conv2, self.bn2))
         out = conv_bn(out, self.conv3, self.bn3)
         identity = x if self.downsample is None else conv_bn(x, *self.downsample)
-        return F.relu(identity + out)
+        out = F.relu(identity + out)
+        return out if mask_out is None else out * mask_out
 
 
 class ResNetStem(nn.Module):
@@ -118,10 +149,33 @@ class ResNetStem(nn.Module):
             for conv, bn in pairs:
                 conv.folded = fold(conv, bn, dtype)
 
-    def forward(self, x):
-        """x (B, H, W, 3) -> (B, H/16, W/16, 1024), in x's dtype."""
+    def forward(self, x, valid_hw=None):
+        """x (B, H, W, 3) -> (B, H/16, W/16, 1024), in x's dtype.
+        ``valid_hw = (h, w)``, ints or (B,) integer tensors: the valid pixel
+        extents of a zero-padded ``x`` (see the module docstring)."""
         x = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-        x = F.relu(conv_bn(x, self.conv1, self.bn1))
-        x = F.max_pool2d(x, 3, 2, 1)
-        x = self.layer3(self.layer2(self.layer1(x)))
+        valid = None
+        if valid_hw is not None:
+            valid = tuple(torch.as_tensor(v, device=x.device) for v in valid_hw)
+
+        def halve():
+            """The next resolution's valid extents and mask (None unmasked);
+            one mask per resolution, shared by all of its blocks."""
+            nonlocal valid
+            if valid is None:
+                return None
+            valid = tuple(_ceil2(v) for v in valid)
+            return valid_mask(_ceil2(x.shape[2]), _ceil2(x.shape[3]), valid, x.dtype, x.device)
+
+        masked = lambda y, mask: y if mask is None else y * mask
+        mask = halve()
+        x = masked(F.relu(conv_bn(x, self.conv1, self.bn1)), mask)
+        mask = halve()
+        x = masked(F.max_pool2d(x, 3, 2, 1), mask)
+        for stage in (self.layer1, self.layer2, self.layer3):
+            for block in stage:
+                mask_in = mask
+                if block.conv2.stride[0] == 2:
+                    mask = halve()
+                x = block(x, mask_in, mask)
         return x.permute(0, 2, 3, 1).contiguous()

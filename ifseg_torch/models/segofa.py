@@ -2,8 +2,9 @@
 
 ``forward`` routes the main input (real image) through ``encode`` + decoder
 and the ``aux_*`` input (artificial image) through ``encode_artificial`` +
-decoder, with every bias built in the graph; the served forward
-(``eval/serving.py``) runs over biases precomputed per checkpoint.
+decoder, with every bias built in the graph; ``eval_forward`` is the
+native-resolution evaluation forward over bucket-padded images; the served
+forward (``eval/serving.py``) runs over biases precomputed per checkpoint.
 
 One token embedding is shared by encoder and decoder (share_all_embeddings);
 it appears in the state dict under both reference names,
@@ -50,6 +51,14 @@ class SegOFA(nn.Module):
             extra["aux_output"] = self.decoder(bos_tokens, aux_enc, full_context_alignment)
             extra["aux_encoder_returns"] = aux_enc
         return logits, extra
+
+    def eval_forward(self, src_tokens, patch_images, img_h, img_w, bos_tokens,
+                     full_context_alignment: bool = False):
+        """Native-resolution evaluation forward over images zero-padded into
+        a shape bucket (see ``Encoder.encode_padded``).  Returns (logits
+        (B, 1 + Hp*Wp, C), encoder_out)."""
+        enc = self.encoder.encode_padded(src_tokens, patch_images, img_h, img_w)
+        return self.decoder(bos_tokens, enc, full_context_alignment), enc
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "SegOFA":

@@ -7,6 +7,7 @@ package's ``ops/resize.py``.
 """
 
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,6 +34,47 @@ def bilinear_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 def bilinear_tensor(in_size: int, out_size: int, device) -> torch.Tensor:
     return torch.from_numpy(bilinear_matrix(in_size, out_size)).to(device)
+
+
+@lru_cache(maxsize=512)
+def bilinear_matrix_dyn(in_size: int, out_pad: int, out_valid: int,
+                        in_valid: Optional[int] = None) -> np.ndarray:
+    """(out_pad, in_size) fp32 interpolation matrix whose logical output size
+    is ``out_valid`` (rows past it are zero) and whose logical input size is
+    ``in_valid`` (default ``in_size``; columns past it are never read): the
+    resize of the valid corner of a zero-padded array, inside a padded shape.
+
+    The JAX package builds this matrix in fp32 from traced extents, inside
+    its evaluator's compiled function.  Here the extents are host integers,
+    and the matrix is built in numpy, in fp32 and in the same order of
+    operations, so that the weights are the same to the last bit: a weight
+    that differs there can flip an argmax of the upsampled logits.  The
+    source coordinate ``(i + 0.5)·scale − 0.5`` is rounded once, as the
+    compiler's fused multiply-add rounds it (the fp64 product of two fp32
+    values is exact); JAX run op by op rounds the product first and can
+    differ from both by one ulp."""
+    f32 = np.float32
+    out_v = f32(out_valid)
+    in_v = f32(in_size if in_valid is None else in_valid)
+    i = np.arange(out_pad, dtype=f32)
+    scale = np.float64(in_v / out_v)  # the fp32 quotient
+    src = np.maximum(((i.astype(np.float64) + 0.5) * scale - 0.5).astype(f32), f32(0.0))
+    lo = np.clip(np.floor(src), f32(0.0), in_v - f32(1.0))
+    hi = np.clip(lo + f32(1.0), f32(0.0), in_v - f32(1.0))
+    w_hi = np.clip(src - lo, f32(0.0), f32(1.0))
+    w_lo = f32(1.0) - w_hi
+    j = np.arange(in_size, dtype=f32)
+    mat = w_lo[:, None] * (j[None, :] == lo[:, None]).astype(f32) + w_hi[:, None] * (
+        j[None, :] == hi[:, None]
+    ).astype(f32)
+    mat = np.where(i[:, None] < out_v, mat, f32(0.0)).astype(f32)
+    mat.setflags(write=False)  # cached: shared by every caller
+    return mat
+
+
+def bilinear_dyn_tensor(in_size: int, out_pad: int, out_valid: int, in_valid=None,
+                        device=None) -> torch.Tensor:
+    return torch.tensor(bilinear_matrix_dyn(in_size, out_pad, out_valid, in_valid), device=device)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, h_axis: int = -3, w_axis: int = -2) -> torch.Tensor:

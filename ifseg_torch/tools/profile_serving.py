@@ -50,6 +50,8 @@ def kernel_class(name: str) -> str:
         return "convolutions (cuDNN)"
     if "gemm" in n or "nvjet" in n or "cublas" in n:
         return "matrix products (cuBLAS)"
+    if "layer_norm_kernel" in n and "vectorized" not in n and "native" not in n:
+        return "layer-norm kernel (K4)"  # PyTorch's own is at::native::vectorized_...
     if "layer_norm" in n:
         return "layer norms"
     return "elementwise, casts, copies, pooling"
@@ -105,7 +107,7 @@ def main():
     enc, dec = model.encoder, model.decoder
     with torch.inference_mode():
         enc_out = enc.encode_served(src, img, pre["enc"])
-        feats = dec.layer_norm(torch.randn(b, 1025, 768, device=dev)).bfloat16()
+        feats = dec.layer_norm(torch.randn(b, 1025, 768, device=dev), torch.bfloat16)
         stages = {
             "forward": lambda: server(src, img, bos),
             "resnet stem": lambda: enc.embed_images(img.bfloat16()),
@@ -156,6 +158,14 @@ def main():
         by_class[cls] = by_class.get(cls, 0.0) + ms
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"device {cls}: {ms:.3f} ms per forward", flush=True)
+    # the dtype casts (aten::_to_copy / aten::copy_ run as elementwise kernels)
+    for ev in prof.key_averages():
+        if ev.key in ("aten::_to_copy", "aten::copy_", "aten::to"):
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            print(f"op {ev.key}: {ev.count / PROFILED_FORWARDS:.0f} calls, "
+                  f"{t / 1e3 / PROFILED_FORWARDS:.3f} ms per forward", flush=True)
     busy = device_ms / wall_ms if wall_ms else float("nan")
     print(f"per forward: wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms, "
           f"busy share {busy:.3f}, on {card}", flush=True)

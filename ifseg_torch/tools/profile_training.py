@@ -45,6 +45,8 @@ def kernel_class(name: str) -> str:
         return "attention backward di pre-pass"
     if "gemm" in n or "nvjet" in n or "cublas" in n or "cutlass" in n:
         return "matrix products (cuBLAS)"
+    if "layer_norm_kernel" in n and "vectorized" not in n and "native" not in n:
+        return "layer-norm kernel (K4)"  # PyTorch's own is at::native::vectorized_...
     if "layer_norm" in n or "layernorm" in n:
         return "layer norms"
     if "index" in n or "gather" in n or "scatter" in n:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ifseg_torch.config import Config
+from ifseg_torch.data.segmentation_dataset import eval_mean_std
 from ifseg_torch.models.attention import set_generator
 from ifseg_torch.models.encoder import compute_dtype
 from ifseg_torch.models.segofa import SegOFA
@@ -43,9 +44,6 @@ from ifseg_torch.train.criterion import (
     upsampled_ce,
 )
 from ifseg_torch.train.ema import ema_init, ema_step
-
-IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
 
 
 class Trainer:
@@ -119,9 +117,7 @@ class Trainer:
         """uint8 RGB from the wire is normalised here; float images pass."""
         if imgs.dtype != torch.uint8:
             return imgs
-        task = self.cfg.task
-        mean, std = ((IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD)
-                     if task.imagenet_default_mean_and_std else ((0.5,) * 3, (0.5,) * 3))
+        mean, std = eval_mean_std(self.cfg.task)
         mean = torch.tensor(mean, dtype=torch.float32, device=imgs.device)
         std = torch.tensor(std, dtype=torch.float32, device=imgs.device)
         return (imgs.float() / 255.0 - mean) / std

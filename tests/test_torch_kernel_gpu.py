@@ -1,4 +1,4 @@
-"""The Hopper attention kernels against their plain versions, on the card.
+"""The Hopper kernels against their plain versions, on the card.
 
 Marked ``gpu``: they need an NVIDIA card and ``nvcc`` and skip without them
 (decided inside the test).  Run them on a card with
@@ -7,13 +7,16 @@ forward output 2e-2 (the kernel rounds the probabilities to bf16 inside its
 P·V product, the plain version computes in fp32 from the same bf16 inputs);
 the row logsumexp 1e-3 (fp32 on both sides); dq, dk, dv and dbias 2e-2 of
 the largest reference value (the kernels round p and ds to bf16 before their
-last products and write bf16).
+last products and write bf16); the LayerNorm kernel one bf16 step for a bf16
+output (the same fp32 value rounded once on both sides, the value itself
+differing in its last bits) and 1e-5 for an fp32 output.
 """
 
 import pytest
 import torch
 
 from ifseg_torch.ops import flash_attention as fa
+from ifseg_torch.ops import layer_norm as ln
 
 
 @pytest.mark.gpu
@@ -25,6 +28,8 @@ from ifseg_torch.ops import flash_attention as fa
         (1025, 1056, False, True, torch.float32),
         (77, 130, True, True, torch.bfloat16),
         (5, 3, False, False, None),
+        (1537, 1537, True, "grid", torch.bfloat16),  # evaluation decoder self: causal + mask
+        (203, 203, True, "grid", torch.float32),     # the same combination, ragged
     ],
 )
 def test_kernel_matches_plain(lq, lk, causal, with_mask, bias_dtype):
@@ -42,7 +47,10 @@ def test_kernel_matches_plain(lq, lk, causal, with_mask, bias_dtype):
     v = rnd(b, lk, e).bfloat16()
     bias = None if bias_dtype is None else rnd(h, lq, lk).to(bias_dtype)
     mask = None
-    if with_mask:
+    if with_mask == "grid":  # padded grid cells behind a BOS slot that stays valid
+        mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
+        mask[:, 1:] = (torch.arange(lk - 1, device="cuda") % 48) >= 43
+    elif with_mask:
         mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
         mask[-1, lk - 9:] = True
     before = fa.LAUNCHES
@@ -128,3 +136,87 @@ def test_bias_without_grad_skips_the_dbias_workspace():
     fa.flash_attention_bias_packed(q, k, v, bias, None, True, h).float().sum().backward()
     torch.cuda.synchronize()
     assert bias.grad is None and torch.isfinite(q.grad).all()
+
+
+def _within_bf16_step(got, want):
+    """One bf16 step is at most 2^-7 of the value; near 0 the fp32 tolerance."""
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= want.float().abs() * 2.0 ** -7 + 1e-5).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "rows,width,in_dtype,out_dtype",
+    [
+        (33792, 768, torch.bfloat16, torch.bfloat16),    # a served encoder site
+        (33792, 3072, torch.bfloat16, torch.bfloat16),   # ffn_layernorm
+        (1056, 768, torch.float32, torch.float32),       # position embeddings
+        (12544, 768, torch.bfloat16, torch.bfloat16),    # an evaluation group of 8, encoder
+        (12296, 3072, torch.bfloat16, torch.bfloat16),   # ... its decoder ffn_layernorm
+        (1537, 768, torch.float32, torch.float32),       # ... its seg position LayerNorm
+        (1001, 768, torch.bfloat16, torch.float32),      # ragged row count
+        (77, 32, torch.float32, torch.bfloat16),         # the tiny test width
+        (5, 8, torch.bfloat16, torch.bfloat16),          # narrowest
+        (333, 4096, torch.bfloat16, torch.bfloat16),     # widest
+        (64, 1000, torch.float32, torch.float32),        # tail groups predicated off
+    ],
+)
+def test_layer_norm_kernel_matches_plain(rows, width, in_dtype, out_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(rows, width, generator=g, device="cuda") * 3 + 1).to(in_dtype)
+    scale = torch.randn(width, generator=g, device="cuda") * 0.2 + 1
+    bias = torch.randn(width, generator=g, device="cuda") * 0.1
+    before = ln.LAUNCHES
+    got = ln.fused_layer_norm(x, scale, bias, 1e-5, out_dtype)
+    torch.cuda.synchronize()
+    assert ln.LAUNCHES == before + 1
+    want = ln.layer_norm_reference(x, scale, bias, 1e-5, out_dtype)
+    assert got.dtype == out_dtype and got.shape == x.shape and torch.isfinite(got).all()
+    if out_dtype == torch.bfloat16:
+        assert _within_bf16_step(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_layer_norm_kernel_takes_leading_axes_and_strided_input():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(4, 50, 64, generator=g, device="cuda").bfloat16()
+    scale, bias = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    view = x[:, :33]  # rows of the batch are not dense: copied once, then the kernel
+    got = ln.fused_layer_norm(view, scale, bias, 1e-5, torch.float32)
+    want = ln.layer_norm_reference(view, scale, bias, 1e-5, torch.float32)
+    assert got.shape == (4, 33, 64) and (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_layer_norm_on_cuda_raises_on_unsupported_width():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = ln.LAUNCHES
+    with pytest.raises(ValueError, match="width"):
+        ln.fused_layer_norm(torch.zeros(4, 100, device="cuda"), torch.ones(100, device="cuda"),
+                            torch.zeros(100, device="cuda"))
+    assert ln.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_layer_norm_function_gradients_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randn(512, 768, generator=g, device="cuda") * 2).bfloat16().requires_grad_(True)
+    scale = (torch.randn(768, generator=g, device="cuda") * 0.2 + 1).requires_grad_(True)
+    bias = torch.zeros(768, device="cuda", requires_grad=True)
+    dy = torch.randn(512, 768, generator=g, device="cuda").bfloat16()
+    got = torch.autograd.grad(ln.fused_layer_norm(x, scale, bias, 1e-5, torch.bfloat16),
+                              (x, scale, bias), dy)
+    want = torch.autograd.grad(
+        torch.nn.functional.layer_norm(x.float(), (768,), scale, bias, 1e-5).bfloat16(),
+        (x, scale, bias), dy)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and _rel(a, b) <= 2e-2

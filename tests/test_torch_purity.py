@@ -48,13 +48,23 @@ def test_importing_every_module_loads_no_jax():
                  "ifseg_torch.ops.histogram", "ifseg_torch.train.trainer",
                  "ifseg_torch.train.criterion", "ifseg_torch.train.optim",
                  "ifseg_torch.train.ema", "ifseg_torch.data.artificial",
-                 "ifseg_torch.tools.profile_training"):
+                 "ifseg_torch.tools.profile_training", "ifseg_torch.ops.layer_norm",
+                 "ifseg_torch.eval.evaluator", "ifseg_torch.data.segmentation_dataset",
+                 "ifseg_torch.tools.profile_eval"):
         assert name in report["modules"], name
 
 
 def _sources():
     files = sorted((REPO / "ifseg_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py"]
+
+
+def test_the_scan_covers_the_evaluation_slice():
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    for path in ("ifseg_torch/ops/layer_norm.py", "ifseg_torch/eval/evaluator.py",
+                 "ifseg_torch/data/segmentation_dataset.py",
+                 "ifseg_torch/tools/profile_eval.py", "chip_smoke.py"):
+        assert path in scanned, path
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
