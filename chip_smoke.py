@@ -14,7 +14,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      of 8 at the (512, 768) bucket (decoder self-attention causal WITH a key
      mask), then the forward with stats, the di pre-pass, the dq + dbias
      kernel and the dk + dv kernel at the training shapes (batch 16), plus a
-     small ragged case with an fp32 bias and one without a bias; the
+     small ragged case with an fp32 bias, one without a bias, and the edges
+     of the forward kernel's tiles (Lq and Lk of 1, 63 to 65, 127 to 129 and
+     257, causal with Lk > Lq, a padded key tile, row-padded bias storage),
+     checked but not timed; the host time of a launch's tensor-map encodes; the
      LayerNorm kernel at every (rows, width, dtype) that a served batch-32
      forward, an evaluation group of 8 at the (512, 768) bucket and a
      monitoring forward at batch 16 give it (the fp32 position LayerNorms
@@ -181,6 +184,40 @@ def phase_build():
                     and text not in shown:  # a template's instantiations repeat their lines
                 shown.add(text)
                 log(f"[2]   {text}")
+    # the forward's products must run on the warpgroup tensor-core path
+    hgmma = sass_counts(results[fa.KERNEL].path, "HGMMA")
+    log(f"[2] {fa.KERNEL}: HGMMA operations per instantiation (cuobjdump -sass): "
+        f"{sorted(hgmma.values())} over {len(hgmma)} kernels")
+    if len(hgmma) != 4 or min(hgmma.values()) < 1:
+        fail(f"the forward kernel's SASS shows no HGMMA in some instantiation: {hgmma}")
+    log(f"[2] {fa.KERNEL}: one CTA of 384 threads an SM; dynamic shared memory "
+        f"{fa.forward_smem_bytes(False)} bytes with a bf16 bias, "
+        f"{fa.forward_smem_bytes(True)} with an fp32 bias (of 232,448)")
+
+
+def sass_counts(library: Path, opcode: str):
+    """Occurrences of ``opcode`` in each kernel of a built library, from
+    ``cuobjdump -sass`` (the toolkit's, beside nvcc)."""
+    import shutil
+
+    from ifseg_torch.ops import build
+
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        fail("cuobjdump not found beside nvcc or on PATH")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump failed: {sass.stderr.strip()[:500]}")
+    counts, name = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and opcode in line:
+            counts[name] += 1
+    return counts
 
 
 # ---------------------------------------------------------------- phase 3
@@ -254,6 +291,29 @@ def bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# Edges of the forward kernel's 128-row query tile, its 128-key stages and the
+# two ways it stages the bias (by TMA where the rows are 16-byte aligned, else
+# by threads), checked against the plain version but not timed:
+# (name, B, Lq, Lk, causal, key mask, bias dtype or None, bias rows padded).
+# Mask "tile" pads a whole key tile (keys 128..255) and the last row's tail.
+EDGE_CASES = [
+    ("edge 1x1 causal", 2, 1, 1, True, False, torch.bfloat16, False),
+    ("edge 1x257", 1, 1, 257, False, True, torch.bfloat16, False),
+    ("edge 63x64 causal", 2, 63, 64, True, True, torch.bfloat16, False),
+    ("edge 64x63", 2, 64, 63, False, True, torch.float32, False),
+    ("edge 65x129 causal", 2, 65, 129, True, True, torch.bfloat16, False),
+    ("edge 127x128 no bias", 2, 127, 128, False, True, None, False),
+    ("edge 128x127", 2, 128, 127, False, False, torch.bfloat16, True),
+    ("edge 128x128 causal fp32 bias", 2, 128, 128, True, False, torch.float32, False),
+    ("edge 129x65 fp32 bias", 2, 129, 65, False, True, torch.float32, False),
+    ("edge 129x257 causal, padded key tile", 2, 129, 257, True, "tile", torch.bfloat16, False),
+    ("edge 257x257 causal, padded key tile, padded bias rows", 2, 257, 257, True, "tile",
+     torch.bfloat16, True),
+    ("edge 257x1", 2, 257, 1, False, False, torch.bfloat16, False),
+    ("edge 64x257 batch 1, padded key tile", 1, 64, 257, False, "tile", torch.bfloat16, False),
+]
+
+
 def site_inputs(b, h, lq, lk, causal, masked, bias_dtype, seed):
     from ifseg_torch.ops.flash_attention import HEAD_DIM
 
@@ -272,7 +332,9 @@ def site_inputs(b, h, lq, lk, causal, masked, bias_dtype, seed):
         mask = eval_key_mask(b, lk)
     elif masked:  # the text rows of the last sample end in padding, as in serving
         mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
-        mask[-1, lk - 7:] = True
+        mask[-1, max(lk - 7, 1):] = True
+        if masked == "tile":
+            mask[:, 128:256] = True
     return q, k, v, bias, mask
 
 
@@ -302,23 +364,30 @@ def phase_kernels():
 
     h = 12
     rows = []
-    cases = [(name, 32, lq, lk, causal, masked, torch.bfloat16, n, 0)
+    # the served biases are precomputed into row-padded storage (the decoder's
+    # 1,025 keys a row become a pitch of 1,032); the others are built dense
+    cases = [(name, 32, lq, lk, causal, masked, torch.bfloat16, True, n, 0)
              for name, lq, lk, causal, masked, n in SITES]
     # a small ragged shape with an fp32 bias, checked but not timed
-    cases.append(("ragged check", 3, 77, 130, True, True, torch.float32, 0, 0))
-    cases += [(name, EVAL_ROWS, lq, lk, causal, "eval", torch.bfloat16, 0, n)
+    cases.append(("ragged check", 3, 77, 130, True, True, torch.float32, False, 0, 0))
+    cases += [(name, EVAL_ROWS, lq, lk, causal, "eval", torch.bfloat16, False, 0, n)
               for name, lq, lk, causal, n in EVAL_SITES]
-    for i, (name, b, lq, lk, causal, masked, bias_dtype, per_fwd, per_group) in enumerate(cases):
-        q, k, v, bias, mask = site_inputs(b, h, lq, lk, causal, masked, bias_dtype, seed=i)
+    cases += [(*case, 0, 0) for case in EDGE_CASES]
+    for i, (name, b, lq, lk, causal, masked, bias_dtype, padded, per_fwd,
+            per_group) in enumerate(cases):
+        q, k, v, bias, mask = site_inputs(b, h, lq, lk, causal, masked,
+                                          bias_dtype or torch.bfloat16, seed=i)
+        bias = None if bias_dtype is None else fa.row_padded(bias) if padded else bias
         out = fa.flash_attention_bias_packed_infer(q, k, v, bias, mask, causal, h)
         torch.cuda.synchronize()
-        want = fa.attention_bias_reference(q.float(), k.float(), v.float(), bias.float(),
-                                           mask, causal, h)
+        want = fa.attention_bias_reference(q.float(), k.float(), v.float(),
+                                           None if bias is None else bias.float(), mask, causal, h)
         err = (out.float() - want).abs().max().item()
         finite = bool(torch.isfinite(out).all())
         del want, out
         log(f"[3] {name}: B={b} Lq={lq} Lk={lk} causal={causal} mask={masked} "
-            f"bias={str(bias_dtype).split('.')[-1]}: max_abs_err={err:.3e}")
+            f"bias={None if bias is None else str(bias_dtype).split('.')[-1]} "
+            f"pitch={None if bias is None else bias.stride(1)}: max_abs_err={err:.3e}")
         if not finite or not err <= ATTN_TOL:
             fail(f"kernel disagrees with its plain version at {name}: {err} > {ATTN_TOL}")
         row = dict(site=name, B=b, Lq=lq, Lk=lk, causal=causal, per_forward=per_fwd,
@@ -338,10 +407,13 @@ def phase_kernels():
                 log(f"[3]   scaled_dot_product_attention failed: {exc}")
                 row["library_ms"] = None
             row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+            # what the host pays per launch to encode the call's TMA tensor maps
+            row["encode_host_us"] = fa.tensor_map_encode_us(q, k, v, bias, h)
             log(f"[3]   kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
                 f"({row['bound_by']}; {row['gflop']:.1f} GFLOP, {row['mb']:.1f} MB) "
-                f"share_of_bound={row['share_of_bound']:.3f}")
+                f"share_of_bound={row['share_of_bound']:.3f} "
+                f"tensor-map encodes {row['encode_host_us']:.2f} us of host time a launch")
         rows.append(row)
         del q, k, v, bias, mask
         torch.cuda.empty_cache()
@@ -672,6 +744,10 @@ def phase_train_kernels():
              for name, lq, lk, causal, masked, n in SITES]
     cases.append(("ragged check", 3, 77, 130, True, True, torch.float32, 0))
     cases.append(("no-bias check", 2, 70, 70, False, False, None, 0))
+    # the forward's tile edges, with dense bias rows (the backward kernels take
+    # no others) and more than one key (with one, every gradient but dv is 0)
+    cases += [(name, b, lq, lk, causal, masked, bias_dtype, 0)
+              for name, b, lq, lk, causal, masked, bias_dtype, _ in EDGE_CASES if lk > 1]
     for i, (name, b, lq, lk, causal, masked, bias_dtype, per_step) in enumerate(cases):
         q, k, v, bias, mask = site_inputs(b, h, lq, lk, causal, masked,
                                           bias_dtype or torch.bfloat16, seed=10 + i)

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ifseg_torch.config import ModelConfig
+from ifseg_torch.ops.flash_attention import row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .attention import Dropout, Linear
 from .encoder import LayerDrop, _ids, compute_dtype, stack_tables
@@ -143,7 +144,10 @@ class Decoder(nn.Module):
             (self_bias0 + interp_seg_bias_with_bos(seg_all[i], (sb, sb), (h, w))).to(cd)
             for i in range(len(self.layers))
         ]
-        return {"self_biases": torch.stack(self_biases), "cross_bias": cross_bias.to(cd)}
+        # rows a multiple of 16 bytes apart (1 + hw keys is odd): the attention
+        # kernel then fetches the bias by TMA
+        return {"self_biases": row_padded(torch.stack(self_biases)),
+                "cross_bias": row_padded(cross_bias.to(cd))}
 
     def _embed(self, bos_tokens, encoder_out):
         """Decoder input (B, 1+hw, D): [BOS embedding ‖ image rows] + LN + dropout."""

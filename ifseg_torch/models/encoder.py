@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ifseg_torch.config import ModelConfig
+from ifseg_torch.ops.flash_attention import row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .attention import Dropout, Linear
 from .layers import EncoderLayer, LayerNorm
@@ -177,7 +178,7 @@ class Encoder(nn.Module):
             bias[:, hw:, hw:] += tok_all[i]
             bias[:, :hw, :hw] += interp_grid_bias(img_all[i], (orig_hw, orig_hw), image_hw)
             biases.append(bias.to(compute_dtype(cfg)))
-        return {"pos_all": pos_all, "biases": torch.stack(biases)}
+        return {"pos_all": pos_all, "biases": row_padded(torch.stack(biases))}
 
     def _text_embed(self, src_tokens):
         """Token path: embed + type(0) + LN + dropout (encoder_module.py:573-586)."""

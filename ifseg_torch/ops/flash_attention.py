@@ -8,13 +8,15 @@ The port of the JAX package's packed entry points, with their names:
 ``flash_attention_bias_packed``         output only, differentiable.
 
 q (B, Lq, H·D), k/v (B, Lk, H·D) — the raw projection outputs — a bias
-(H, Lq, Lk) shared across the batch, an optional key-padding mask (B, Lk)
+(H, Lq, Lk) shared across the batch (dense, or a view of row-padded storage
+as ``row_padded`` makes it), an optional key-padding mask (B, Lk)
 (True = pad) and causal masking with the offset lk - lq.  Output (B, Lq, H·D)
 in q's dtype; lse, the row logsumexp of the masked logits, (B, H, Lq) fp32.
 
 On CUDA tensors these launch the hand-written Hopper kernels (or raise):
-``csrc/flash_attention_bias_fwd.cu`` for the forward, with or without the lse
-output, and for the gradient ``csrc/flash_attention_bias_bwd_dq.cu`` (the di
+``csrc/flash_attention_bias_fwd.cu`` for the forward (wgmma and TMA; a bias
+whose rows are 16-byte aligned is fetched by TMA, any other is staged by
+threads, more slowly), with or without the lse output, and for the gradient ``csrc/flash_attention_bias_bwd_dq.cu`` (the di
 pre-pass, then dq and dbias) and ``csrc/flash_attention_bias_bwd_dkv.cu`` (dk
 and dv), which rebuild the probabilities from the saved lse.  On CPU tensors
 they run the plain versions below — ``attention_bias_reference``,
@@ -36,7 +38,7 @@ KERNEL_BWD_DQ = "flash_attention_bias_bwd_dq"
 KERNEL_BWD_DKV = "flash_attention_bias_bwd_dkv"
 KERNELS = (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV)  # one source file each
 HEAD_DIM = 64  # the kernels' head dim (OFA-Base and every larger SegOFA)
-TILE = 64  # the kernels' query and key tile; the dbias workspace is padded to it
+TILE = 64  # the backward kernels' query and key tile; the dbias workspace is padded to it
 
 # kernel launches since the counts were last set to 0 (chip_smoke.py reads
 # them): the forward without stats, the forward with stats, the di pre-pass,
@@ -186,11 +188,34 @@ def _check(q, k, v, bias, key_padding_mask, causal, num_heads):
     for name, x in tensors:
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, x in tensors[:3]:
+        if not (x.is_contiguous() or (x is bias and _is_row_padded(bias))):
+            raise ValueError(f"{name} must be contiguous" + (
+                " or a [..., :Lk] view of contiguous row-padded storage" if x is bias else ""))
+    for name, x in tensors[:3]:  # what TMA always reads
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _is_row_padded(bias) -> bool:
+    """A (H, Lq, Lk) view whose rows are ``pitch`` >= Lk elements apart, the
+    heads Lq such rows apart: what ``row_padded`` makes."""
+    _, lq, lk = bias.shape
+    pitch = bias.stride(1)
+    return bias.stride(2) == 1 and pitch >= lk and bias.stride(0) == lq * pitch
+
+
+def row_padded(bias: torch.Tensor) -> torch.Tensor:
+    """``bias`` (..., Lk) copied into zeroed storage whose rows are a multiple
+    of 8 elements apart, returned as the [..., :Lk] view: rows of bf16 (or
+    fp32) then start at multiples of 16 bytes whatever Lk is, which is what
+    lets the forward kernel fetch the bias by TMA.  Same values, same shape."""
+    lk = bias.shape[-1]
+    pitch = -(-lk // 8) * 8
+    if pitch == lk:
+        return bias.contiguous()
+    out = torch.zeros(*bias.shape[:-1], pitch, dtype=bias.dtype, device=bias.device)
+    out[..., :lk] = bias
+    return out[..., :lk]
 
 
 def _check_backward(q, g, out, lse, num_heads):
@@ -217,8 +242,10 @@ def _ptr(x):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "flash_attention_bias_fwd": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
-    "flash_attention_bias_fwd_stats": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
+    "flash_attention_bias_fwd": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_I] * 5 + [_P],
+    "flash_attention_bias_fwd_stats": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 5 + [_P],
+    "flash_attention_bias_fwd_encode_us": [_P] * 4 + [_I] * 7,
+    "flash_attention_bias_fwd_smem_bytes": [_I],
     "flash_attention_bwd_di": [_P] * 3 + [_I] * 3 + [_P],
     "flash_attention_bias_bwd_dq": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
     "flash_attention_bias_bwd_dkv": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
@@ -237,14 +264,20 @@ def _call(kernel: str, entry: str, device, *args):
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
 
 
+def _bias_args(bias, lk):
+    """(pointer, is fp32, row pitch in elements) of the bias for the forward's C entries."""
+    if bias is None:
+        return None, 0, lk
+    return bias.data_ptr(), int(bias.dtype == torch.float32), bias.stride(1)
+
+
 def _launch(q, k, v, bias, key_padding_mask, causal, num_heads, with_stats=False):
     global LAUNCHES, LAUNCHES_STATS
     _check(q, k, v, bias, key_padding_mask, causal, num_heads)
     b, lq, _ = q.shape
     out = torch.empty_like(q)
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-            int(bias is not None and bias.dtype == torch.float32), _ptr(key_padding_mask),
-            out.data_ptr())
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias, k.shape[1]),
+            _ptr(key_padding_mask), out.data_ptr())
     dims = (b, num_heads, lq, k.shape[1], int(bool(causal)))
     if not with_stats:
         _call(KERNEL, "flash_attention_bias_fwd", q.device, *head, *dims)
@@ -254,6 +287,28 @@ def _launch(q, k, v, bias, key_padding_mask, causal, num_heads, with_stats=False
     _call(KERNEL, "flash_attention_bias_fwd_stats", q.device, *head, lse.data_ptr(), *dims)
     LAUNCHES_STATS += 1
     return out, lse
+
+
+def tensor_map_encode_us(q, k, v, bias, num_heads, iters=200) -> float:
+    """Host microseconds one forward launch spends encoding its TMA tensor
+    maps (q, k, v, and the bias where its rows are 16-byte aligned), the mean
+    of ``iters`` repetitions.  Launches nothing."""
+    fn = build.load(KERNEL).flash_attention_bias_fwd_encode_us
+    fn.argtypes = _ARGTYPES["flash_attention_bias_fwd_encode_us"]
+    fn.restype = ctypes.c_double
+    us = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias, k.shape[1]),
+            q.shape[0], num_heads, q.shape[1], k.shape[1], iters)
+    if us < 0:
+        raise RuntimeError("cuTensorMapEncodeTiled refused a tensor map")
+    return us
+
+
+def forward_smem_bytes(bias_fp32: bool) -> int:
+    """Dynamic shared memory one CTA of the forward kernel takes, in bytes."""
+    fn = build.load(KERNEL).flash_attention_bias_fwd_smem_bytes
+    fn.argtypes = _ARGTYPES["flash_attention_bias_fwd_smem_bytes"]
+    fn.restype = ctypes.c_int
+    return fn(int(bias_fp32))
 
 
 def _launch_di(g, out, num_heads):
@@ -308,6 +363,8 @@ def _launch_backward(q, k, v, bias, key_padding_mask, causal, g, out, lse, num_h
     """(dq, dk, dv, dbias or None) by the backward kernels."""
     _check(q, k, v, bias, key_padding_mask, causal, num_heads)
     _check_backward(q, g, out, lse, num_heads)
+    if bias is not None:
+        bias = bias.contiguous()  # the backward kernels take dense rows
     di = _launch_di(g, out, num_heads)
     args = (q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads)
     dq, dbias = _launch_dq(*args, need_dbias=need_dbias)

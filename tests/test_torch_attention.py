@@ -106,6 +106,8 @@ def _bf16(*shape):
         ("mask", "key_padding_mask"),
         ("causal_short_keys", "causal"),
         ("strided", "contiguous"),
+        ("bias_strided", "row-padded"),
+        ("k_alignment", "16-byte"),
     ],
 )
 def test_kernel_checks_refuse_what_the_kernel_does_not_take(case, match):
@@ -129,6 +131,10 @@ def test_kernel_checks_refuse_what_the_kernel_does_not_take(case, match):
         k, v, bias, mask, causal = _bf16(b, 8, h * 64), _bf16(b, 8, h * 64), None, None, True
     elif case == "strided":
         q = _bf16(b, h * 64, lq).transpose(1, 2)
+    elif case == "bias_strided":
+        bias = _bf16(h, lk, lq).transpose(1, 2)
+    elif case == "k_alignment":  # TMA reads q, k and v from 16-byte boundaries
+        k = _bf16(b * lk * h * 64 + 1)[1:].view(b, lk, h * 64)
     with pytest.raises(ValueError, match=match):
         tfa._check(q, k, v, bias, mask, causal, h)
     if case == "dtype":  # the same call with bf16 q passes the checks

@@ -30,6 +30,23 @@ from ifseg_torch.ops import layer_norm as ln
         (5, 3, False, False, None),
         (1537, 1537, True, "grid", torch.bfloat16),  # evaluation decoder self: causal + mask
         (203, 203, True, "grid", torch.float32),     # the same combination, ragged
+        # the edges of the 128-row query tile and the 128-key stage; a bias whose
+        # rows are 16-byte aligned (Lk 64, 128) goes by TMA, the others by threads
+        (1, 1, True, False, torch.bfloat16),
+        (1, 257, False, True, torch.bfloat16),
+        (63, 64, True, True, torch.bfloat16),
+        (64, 63, False, True, torch.float32),
+        (65, 129, True, True, torch.bfloat16),       # causal with Lk > Lq
+        (127, 128, False, True, None),
+        (128, 127, False, False, torch.bfloat16),
+        (128, 128, True, False, torch.float32),
+        (129, 65, False, True, torch.float32),
+        (129, 257, True, "tile", torch.bfloat16),    # a whole key tile padded, with causal
+        (257, 257, True, "tile", "padded"),          # ... and the bias in row-padded storage
+        (257, 1, False, False, torch.bfloat16),
+        (1025, 1025, True, False, "padded"),         # the served decoder self-attention
+        (130, 131, True, True, "offset"),            # a bias that starts 2 bytes off a 16-byte boundary
+        (96, 128, False, False, "offset"),           # ... whose rows are 16-byte multiples apart
     ],
 )
 def test_kernel_matches_plain(lq, lk, causal, with_mask, bias_dtype):
@@ -45,14 +62,23 @@ def test_kernel_matches_plain(lq, lk, causal, with_mask, bias_dtype):
     q = rnd(b, lq, e, scale=0.3).bfloat16()
     k = rnd(b, lk, e, scale=0.3).bfloat16()
     v = rnd(b, lk, e).bfloat16()
-    bias = None if bias_dtype is None else rnd(h, lq, lk).to(bias_dtype)
+    if bias_dtype == "padded":
+        bias = fa.row_padded(rnd(h, lq, lk).bfloat16())
+        assert bias.stride(1) % 8 == 0 and bias.stride(1) > lk
+    elif bias_dtype == "offset":  # a layer of a dense pack: no TMA from there, threads stage it
+        bias = rnd(h * lq * lk + 1).bfloat16()[1:].view(h, lq, lk)
+        assert bias.data_ptr() % 16 == 2
+    else:
+        bias = None if bias_dtype is None else rnd(h, lq, lk).to(bias_dtype)
     mask = None
     if with_mask == "grid":  # padded grid cells behind a BOS slot that stays valid
         mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
         mask[:, 1:] = (torch.arange(lk - 1, device="cuda") % 48) >= 43
     elif with_mask:
         mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
-        mask[-1, lk - 9:] = True
+        mask[-1, max(lk - 9, 1):] = True
+        if with_mask == "tile":
+            mask[:, 128:256] = True
     before = fa.LAUNCHES
     got = fa.flash_attention_bias_packed_infer(q, k, v, bias, mask, causal, h)
     torch.cuda.synchronize()
@@ -60,7 +86,7 @@ def test_kernel_matches_plain(lq, lk, causal, with_mask, bias_dtype):
     want = fa.attention_bias_reference(
         q.float(), k.float(), v.float(), None if bias is None else bias.float(), mask, causal, h
     )
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape and torch.isfinite(got).all()
     assert (got.float() - want).abs().max().item() <= 2e-2
 
 
@@ -77,6 +103,15 @@ def _rel(got, want):
         (16, 1025, 1056, False, True, torch.bfloat16),   # decoder cross
         (3, 77, 130, True, True, torch.float32),         # ragged, fp32 bias
         (2, 70, 70, False, False, None),                 # no bias: no dbias
+        # the edges of the forward kernel's tiles (more than one key: with one,
+        # every gradient but dv is exactly 0)
+        (1, 1, 257, False, True, torch.bfloat16),
+        (2, 63, 64, True, True, torch.bfloat16),
+        (2, 65, 129, True, True, torch.bfloat16),
+        (2, 128, 127, False, False, torch.bfloat16),
+        (2, 129, 65, False, True, torch.float32),
+        (2, 129, 257, True, "tile", torch.bfloat16),
+        (2, 257, 257, True, "tile", "padded"),           # bias rows in padded storage
     ],
 )
 def test_stats_forward_and_backward_kernels_match_plain(b, lq, lk, causal, with_mask, bias_dtype):
@@ -92,11 +127,17 @@ def test_stats_forward_and_backward_kernels_match_plain(b, lq, lk, causal, with_
     q = rnd(b, lq, e, scale=0.3).bfloat16().requires_grad_(True)
     k = rnd(b, lk, e, scale=0.3).bfloat16().requires_grad_(True)
     v = rnd(b, lk, e).bfloat16().requires_grad_(True)
-    bias = None if bias_dtype is None else rnd(h, lq, lk).to(bias_dtype).requires_grad_(True)
+    if bias_dtype == "padded":  # the forward reads the view, the backward a dense copy
+        bias = fa.row_padded(rnd(h, lq, lk).bfloat16()).requires_grad_(True)
+        assert not bias.is_contiguous()
+    else:
+        bias = None if bias_dtype is None else rnd(h, lq, lk).to(bias_dtype).requires_grad_(True)
     mask = None
     if with_mask:
         mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
-        mask[-1, lk - 9:] = True
+        mask[-1, max(lk - 9, 1):] = True
+        if with_mask == "tile":
+            mask[:, 128:256] = True
     g = rnd(b, lq, e).bfloat16()
 
     before = fa.launch_counts()
