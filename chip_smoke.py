@@ -6,18 +6,21 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every kernel with nvcc (one process per source, all at once),
-     with the ``-Xptxas -v`` summary;
+     with the ``-Xptxas -v`` summary, and the HGMMA count and shared memory
+     of the three wgmma attention libraries;
   3. each kernel against its plain PyTorch version, with its time, the plain
      version's, one PyTorch library call's (timed only here, never used by
      the port) and the bound: the attention forward without stats at the
      serving shapes (batch 32) and at the three sites of an evaluation group
      of 8 at the (512, 768) bucket (decoder self-attention causal WITH a key
      mask), then the forward with stats, the di pre-pass, the dq + dbias
-     kernel and the dk + dv kernel at the training shapes (batch 16), plus a
-     small ragged case with an fp32 bias, one without a bias, and the edges
-     of the forward kernel's tiles (Lq and Lk of 1, 63 to 65, 127 to 129 and
-     257, causal with Lk > Lq, a padded key tile, row-padded bias storage),
-     checked but not timed; the host time of a launch's tensor-map encodes; the
+     kernel and the dk + dv kernel at the training shapes (batch 16; the
+     backward kernels also without dbias and without a bias), plus a small
+     ragged case with an fp32 bias, one without a bias, and the edges of the
+     kernels' tiles (Lq and Lk of 1, 63 to 65, 127 to 129 and 257, causal
+     with Lk > Lq, a padded key tile, row-padded bias storage), checked but
+     not timed, the backward kernels on dense and on row-padded biases at
+     every case; the host time of a launch's tensor-map encodes; the
      LayerNorm kernel at every (rows, width, dtype) that a served batch-32
      forward, an evaluation group of 8 at the (512, 768) bucket and a
      monitoring forward at batch 16 give it (the fp32 position LayerNorms
@@ -25,14 +28,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      autograd Function's forward + backward beside ``F.layer_norm``'s;
   4. the serving path at full OFA-Base 512px width, random weights from seed
      0: ``SegServer`` on the card answers batches of 1, 8 and 32; the launch
-     counts of the kernels are set to 0 just before and read just after;
+     counts of the kernels (and the forward's bias routes) are set to 0 just
+     before and read just after;
   5. the card's bf16 logits against the port's fp32 forward on the CPU, on
      the same weights and a batch-2 input;
   6. the training path at full width: ``Trainer`` on the card takes image-
      free steps at batch 16 on artificial grids (15 classes, ``src_len``
      32), first without and then with the monitoring forward; launch counts
-     set to 0 before and read after; loss, gnorm, counters, moved and frozen
-     parameters checked;
+     set to 0 before and read after, every forward launch's bias fetched by
+     TMA and no bias copied by the backward; loss, gnorm, counters, moved and
+     frozen parameters checked;
   7. one loss + backward of the image-free loss at batch 2 on the card
      (bf16, kernels) against the CPU (fp32, plain versions), same weights,
      dropout off: loss, global gradient norm, and the cosine between the two
@@ -41,9 +46,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      label propagation top-3 x 25 iterations): ``Evaluator.eval_dataset`` on
      the card over fabricated uint8 samples in two groups, one of 8 rows of
      different pixel shapes inside the (512, 768) bucket and one at
-     (512, 512); launch counts set to 0 before and read after; areas, loss
-     and grouping checked; ms per group with and without label propagation,
-     peak memory of groups of 4, 32 and 64;
+     (512, 512); launch counts set to 0 before and read after, every bias
+     fetched by TMA; areas, loss and grouping checked; ms per group with and
+     without label propagation, peak memory of groups of 4, 32 and 64;
   9. the padded forward against the exact-shape forward on the card, and the
      card's evaluation output against the port's fp32 CPU ``Evaluator`` on
      the same weights and one group of two rows;
@@ -178,21 +183,24 @@ def phase_build():
     for res in results.values():
         log(f"[2] {res.name}: {res.path.name}, nvcc {res.seconds:.1f} s")
         shown = set()
-        for line in res.log.splitlines():  # registers, spills and stack of every kernel
+        for line in res.log.splitlines():  # registers, spills, stack, warnings of every kernel
             text = line.strip()
-            if ("registers" in line or "spill" in line or "error" in line.lower()) \
-                    and text not in shown:  # a template's instantiations repeat their lines
-                shown.add(text)
+            if ("registers" in line or "spill" in line or "error" in line.lower()
+                    or "warning" in line.lower()) and text not in shown:
+                shown.add(text)  # a template's instantiations repeat their lines
                 log(f"[2]   {text}")
-    # the forward's products must run on the warpgroup tensor-core path
-    hgmma = sass_counts(results[fa.KERNEL].path, "HGMMA")
-    log(f"[2] {fa.KERNEL}: HGMMA operations per instantiation (cuobjdump -sass): "
-        f"{sorted(hgmma.values())} over {len(hgmma)} kernels")
-    if len(hgmma) != 4 or min(hgmma.values()) < 1:
-        fail(f"the forward kernel's SASS shows no HGMMA in some instantiation: {hgmma}")
-    log(f"[2] {fa.KERNEL}: one CTA of 384 threads an SM; dynamic shared memory "
-        f"{fa.forward_smem_bytes(False)} bytes with a bf16 bias, "
-        f"{fa.forward_smem_bytes(True)} with an fp32 bias (of 232,448)")
+    # the attention kernels' products must run on the warpgroup tensor-core
+    # path: (library, kernel name, instantiations)
+    for lib, kernel, n in ((fa.KERNEL, "attn_bias_fwd_kernel", 4),
+                           (fa.KERNEL_BWD_DQ, "attn_bias_bwd_dq_kernel", 4),
+                           (fa.KERNEL_BWD_DKV, "attn_bias_bwd_dkv_kernel", 2)):
+        hgmma = {k: c for k, c in sass_counts(results[lib].path, "HGMMA").items() if kernel in k}
+        log(f"[2] {lib}: HGMMA operations per instantiation (cuobjdump -sass): "
+            f"{sorted(hgmma.values())} over {len(hgmma)} kernels; one CTA of 384 threads an SM, "
+            f"dynamic shared memory {fa.smem_bytes(lib, False)} bytes with a bf16 bias, "
+            f"{fa.smem_bytes(lib, True)} with an fp32 bias (of 232,448)")
+        if len(hgmma) != n or min(hgmma.values()) < 1:
+            fail(f"{lib}: the SASS shows no HGMMA in some instantiation: {hgmma}")
 
 
 def sass_counts(library: Path, opcode: str):
@@ -364,13 +372,13 @@ def phase_kernels():
 
     h = 12
     rows = []
-    # the served biases are precomputed into row-padded storage (the decoder's
-    # 1,025 keys a row become a pitch of 1,032); the others are built dense
+    # every bias of the main paths comes in row-padded storage (the decoder's
+    # 1,025 or 1,537 keys a row become a pitch of 1,032 or 1,544)
     cases = [(name, 32, lq, lk, causal, masked, torch.bfloat16, True, n, 0)
              for name, lq, lk, causal, masked, n in SITES]
     # a small ragged shape with an fp32 bias, checked but not timed
     cases.append(("ragged check", 3, 77, 130, True, True, torch.float32, False, 0, 0))
-    cases += [(name, EVAL_ROWS, lq, lk, causal, "eval", torch.bfloat16, False, 0, n)
+    cases += [(name, EVAL_ROWS, lq, lk, causal, "eval", torch.bfloat16, True, 0, n)
               for name, lq, lk, causal, n in EVAL_SITES]
     cases += [(*case, 0, 0) for case in EDGE_CASES]
     for i, (name, b, lq, lk, causal, masked, bias_dtype, padded, per_fwd,
@@ -656,10 +664,13 @@ def phase_serve(card: str):
     dt = (time.perf_counter() - t1) / steps
     forwards += 1 + steps
     launches = fa.LAUNCHES
+    routes = fa.bias_route_counts()
     log(f"[4] kernel launches {launches} over {forwards} forwards "
-        f"(expected {per_forward} x {forwards} = {per_forward * forwards})")
+        f"(expected {per_forward} x {forwards} = {per_forward * forwards}); bias routes {routes}")
     if launches != per_forward * forwards:
         fail("the serving path did not launch the attention kernel at every site")
+    if routes["fwd_bias_threads"] or routes["fwd_bias_tma"] != launches:
+        fail(f"the serving path staged a bias by threads: {routes}")
     ln_launches = ln.LAUNCHES
     log(f"[4] layer_norm kernel launches {ln_launches} (expected {ln_per_forward} x {forwards} "
         f"= {ln_per_forward * forwards})")
@@ -669,7 +680,8 @@ def phase_serve(card: str):
     log(f"[4] steady state, batch 32: {dt * 1e3:.1f} ms/forward, {32 / dt:.2f} img/s, "
         f"max_memory_allocated {peak_gb:.2f} GiB, on {card}")
     serve = dict(img_per_s=32 / dt, ms_per_forward=dt * 1e3, max_memory_gib=peak_gb,
-                 launches=launches, ln_launches=ln_launches, forwards=forwards)
+                 launches=launches, ln_launches=ln_launches, forwards=forwards,
+                 bias_routes=routes)
     return server, weights, serve
 
 
@@ -744,15 +756,16 @@ def phase_train_kernels():
              for name, lq, lk, causal, masked, n in SITES]
     cases.append(("ragged check", 3, 77, 130, True, True, torch.float32, 0))
     cases.append(("no-bias check", 2, 70, 70, False, False, None, 0))
-    # the forward's tile edges, with dense bias rows (the backward kernels take
-    # no others) and more than one key (with one, every gradient but dv is 0)
+    # the kernels' tile edges, with more than one key (with one, every
+    # gradient but dv is 0)
     cases += [(name, b, lq, lk, causal, masked, bias_dtype, 0)
               for name, b, lq, lk, causal, masked, bias_dtype, _ in EDGE_CASES if lk > 1]
     for i, (name, b, lq, lk, causal, masked, bias_dtype, per_step) in enumerate(cases):
-        q, k, v, bias, mask = site_inputs(b, h, lq, lk, causal, masked,
-                                          bias_dtype or torch.bfloat16, seed=10 + i)
-        if bias_dtype is None:
-            bias = None
+        q, k, v, dense, mask = site_inputs(b, h, lq, lk, causal, masked,
+                                           bias_dtype or torch.bfloat16, seed=10 + i)
+        # the bias as the training path hands it over: rows 16-byte aligned,
+        # row-padded where Lk does not make them so
+        bias = None if bias_dtype is None else fa.row_padded(dense)
         g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(50 + i),
                         device="cuda").bfloat16()
         f32 = lambda x: None if x is None else x.float()
@@ -778,6 +791,22 @@ def phase_train_kernels():
         }
         if bias is not None:
             errs["dbias"] = rel_err(dbias, want_dbias)
+            # the backward on the other layout of the same bias, through the
+            # route the autograd Function takes: the dense bias (row-padded
+            # there by a copy where its rows are not 16-byte aligned) or, where
+            # the path's bias is dense, a copy in row-padded storage
+            other = pitched(dense) if bias is dense else dense
+            copies = fa.BWD_BIAS_COPIES
+            o_dq, o_dk, o_dv, o_dbias = fa._launch_backward(q, k, v, other, mask, causal, g, out,
+                                                            lse, h)
+            torch.cuda.synchronize()
+            if fa.BWD_BIAS_COPIES - copies != int(not fa.tma_rows(other)):
+                fail(f"the backward copied a bias {fa.BWD_BIAS_COPIES - copies} times at {name}")
+            layout = "pitched" if other is not dense else "dense"
+            for n, got, want in (("dq", o_dq, want_dq), ("dk", o_dk, want_dk),
+                                 ("dv", o_dv, want_dv), ("dbias", o_dbias, want_dbias)):
+                errs[f"{n} {layout}"] = rel_err(got, want)
+            del o_dq, o_dk, o_dv, o_dbias
         # the public entry and its autograd backward, on leaves, against the same
         # plain versions: saved tensors, g, need_dbias and the gradient slots
         leaves = [None if x is None else x.detach().clone().requires_grad_(True)
@@ -795,7 +824,8 @@ def phase_train_kernels():
         del want_out, want_lse, want_dq, want_dbias, want_dk, want_dv, want_di, ref_args
         torch.cuda.empty_cache()
         log(f"[3t] {name}: B={b} Lq={lq} Lk={lk} causal={causal} mask={masked} "
-            f"bias={None if bias is None else str(bias.dtype).split('.')[-1]}: "
+            f"bias={None if bias is None else str(bias.dtype).split('.')[-1]} "
+            f"pitch={None if bias is None else bias.stride(1)}: "
             f"out abs {errs['out']:.3e}, lse abs {errs['lse']:.3e}, "
             + ", ".join(f"{n} rel {errs[n][0]:.3e}" for n in errs if n not in ("out", "lse")))
         if not errs["out"] <= ATTN_TOL:
@@ -813,11 +843,12 @@ def phase_train_kernels():
         base = dict(site=name, B=b, Lq=lq, Lk=lk, causal=causal, per_step=per_step)
         rows["stats"].append(dict(base, max_abs_err=max(errs["out"], errs["lse"])))
         rows["di"].append(dict(base, max_abs_err=errs["di"][1], max_rel_err=errs["di"][0]))
-        kq = [errs[n] for n in ("dq", "dbias") if n in errs]
+        kq = [e for n, e in errs.items() if n.startswith(("dq", "dbias"))]
+        kkv = [e for n, e in errs.items() if n.startswith(("dk", "dv"))]
         rows["dq"].append(dict(base, max_abs_err=max(e[1] for e in kq),
                                max_rel_err=max(e[0] for e in kq)))
-        rows["dkv"].append(dict(base, max_abs_err=max(errs["dk"][1], errs["dv"][1]),
-                                max_rel_err=max(errs["dk"][0], errs["dv"][0])))
+        rows["dkv"].append(dict(base, max_abs_err=max(e[1] for e in kkv),
+                                max_rel_err=max(e[0] for e in kkv)))
         if per_step:
             bb = bias.element_size()
             timed = {
@@ -859,9 +890,28 @@ def phase_train_kernels():
                     f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
                     f"({row['bound_by']}; {row['gflop']:.1f} GFLOP, {row['mb']:.1f} MB) "
                     f"share_of_bound={row['share_of_bound']:.3f}")
-        del q, k, v, bias, mask, g, out, lse, di, dq, dk, dv, dbias, args
+            # what the dbias sum and the bias cost the backward kernels
+            rows["dq"][-1]["no_dbias_ms"] = cuda_ms(
+                lambda: fa._launch_dq(*args, g, lse, di, h, need_dbias=False), 10)
+            no_bias = (q, k, v, None, mask, causal, g, lse, di, h)
+            rows["dq"][-1]["no_bias_ms"] = cuda_ms(lambda: fa._launch_dq(*no_bias), 10)
+            rows["dkv"][-1]["no_bias_ms"] = cuda_ms(lambda: fa._launch_dkv(*no_bias), 10)
+            log(f"[3t]   dq without dbias {rows['dq'][-1]['no_dbias_ms']:.4f} ms, without a bias "
+                f"{rows['dq'][-1]['no_bias_ms']:.4f}; dkv without a bias "
+                f"{rows['dkv'][-1]['no_bias_ms']:.4f}")
+        del q, k, v, bias, dense, mask, g, out, lse, di, dq, dk, dv, dbias, args
         torch.cuda.empty_cache()
     return rows
+
+
+def pitched(bias):
+    """``bias`` (H, Lq, Lk) copied into storage whose rows are 8 to 15
+    elements longer than Lk, a multiple of 8, as the [..., :Lk] view."""
+    lk = bias.shape[-1]
+    store = torch.zeros(*bias.shape[:-1], -(-lk // 8) * 8 + 8, dtype=bias.dtype,
+                        device=bias.device)
+    store[..., :lk] = bias
+    return store[..., :lk]
 
 
 # ---------------------------------------------------------------- phases 6, 7
@@ -943,6 +993,7 @@ def phase_train(card: str):
     trainer.cfg.criterion.monitor_real_batch = True
     mon_logs, mon_times = run(monitor_steps, real=True)
     counts = fa.launch_counts()
+    routes = fa.bias_route_counts()
     steps = warm_steps + timed_steps + monitor_steps
     for i, lg in enumerate(logs + mon_logs):
         log(f"[6] step {i}: loss {lg['loss']:.4f} gnorm {lg['gnorm']:.4f} lr {lg['lr']:.3e} "
@@ -958,6 +1009,10 @@ def phase_train(card: str):
         f"expected {want}")
     if counts != want:
         fail("the training path did not launch every attention kernel at every site")
+    log(f"[6] bias routes: {routes} (every forward launch by TMA, no bias copied by the backward)")
+    if routes != dict(fwd_bias_tma=counts["stats"] + counts["infer"], fwd_bias_threads=0,
+                      bwd_bias_copies=0):
+        fail(f"the training path staged a bias by threads or copied one: {routes}")
     # LayerNorm: the kernel where no gradient is needed (the monitoring
     # forward, biases built in the graph), F.layer_norm in the training forward
     ln_per_monitor = ln_launches_per_forward(trainer.model, position_lns=True)
@@ -996,7 +1051,7 @@ def phase_train(card: str):
     del trainer, start
     torch.cuda.empty_cache()
     return dict(s_per_step=s_step, s_per_step_monitor=s_mon, max_memory_gib=peak_gb,
-                launches=counts, ln_launches=ln.LAUNCHES, steps=steps,
+                launches=counts, bias_routes=routes, ln_launches=ln.LAUNCHES, steps=steps,
                 monitor_steps=monitor_steps, final_loss=mon_logs[-1]["loss"])
 
 
@@ -1146,11 +1201,13 @@ def phase_eval(card: str, weights):
     t0 = time.perf_counter()
     logs = evaluator.eval_dataset(ListDataset(samples), batch_size=8, stats_out=stats)
     dt = time.perf_counter() - t0
-    counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+    counts, ln_launches, routes = fa.launch_counts(), ln.LAUNCHES, fa.bias_route_counts()
     groups = len(logs)
     log(f"[8] eval_dataset: {len(samples)} samples in groups {stats['group_sizes']} "
         f"({dt:.2f} s, first run); attention launches {counts}, layer_norm launches {ln_launches} "
-        f"(expected {per_group} and {ln_per_group} a group)")
+        f"(expected {per_group} and {ln_per_group} a group); bias routes {routes}")
+    if routes != dict(fwd_bias_tma=counts["infer"], fwd_bias_threads=0, bwd_bias_copies=0):
+        fail(f"the evaluation path staged a bias by threads: {routes}")
     if stats["group_sizes"] != [len(wide), len(square)]:
         fail(f"groups {stats['group_sizes']}, expected {[len(wide), len(square)]}")
     if sum(stats["buckets"].values()) != len(samples) or len(stats["buckets"]) != 2:
@@ -1181,7 +1238,7 @@ def phase_eval(card: str, weights):
         return (time.perf_counter() - t1) / iters
 
     result = dict(groups=stats["group_sizes"], launches=counts["infer"], ln_launches=ln_launches,
-                  first_run_s=dt)
+                  bias_routes=routes, first_run_s=dt)
     for name, group in (("(512, 768)", wide), ("(512, 512)", square)):
         with_lp = group_seconds(group)
         cfg.criterion.resnet_iters = 0

@@ -37,6 +37,9 @@ typedef __nv_bfloat16 bf16;
 constexpr int SWIZZLE_ROW_BYTES = 128;   // one swizzled row: 64 bf16 or 32 fp32
 constexpr int SWIZZLE_ATOM_BYTES = 1024;  // 8 rows: the period of the pattern
 
+constexpr float NEG_INF = -1e9f;  // the JAX package's NEG_INF: a masked logit
+constexpr float LOG2E = 1.4426950408889634f;
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -46,6 +49,30 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t swizzle128(uint32_t row128, uint32_t col_byte) {
   return (((col_byte >> 4) ^ (row128 & 7u)) << 4) + (col_byte & 15u);
 }
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {  // 2^x; 0 for -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float2 to_float2(float2 x) { return x; }
+__device__ __forceinline__ float2 to_float2(__nv_bfloat162 x) { return __bfloat1622float2(x); }
+
+// two neighbouring elements of a bias row, as one load
+template <typename BiasT>
+struct Pair;
+template <>
+struct Pair<float> { typedef float2 type; };
+template <>
+struct Pair<bf16> { typedef __nv_bfloat162 type; };
 
 // ------------------------------------------------------------------ mbarrier
 
@@ -101,6 +128,45 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One box of shared memory (laid out as tma_load_3d writes it) added, fp32,
+// into a 3-D tensor through its map: the additions are done in L2.  The
+// issuing thread tracks it in its bulk group (bulk_commit, bulk_wait*);
+// elements of the box outside the tensor are dropped.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's shared-memory writes -> visible to the TMA unit
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads') of `threads` threads
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_descriptor(const CUtensorMap* map) {

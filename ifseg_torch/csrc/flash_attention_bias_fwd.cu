@@ -121,8 +121,6 @@ constexpr int NTHREADS = 3 * WG_THREADS;
 // 3 x 168 registers a thread at launch; 120 + 2 x 192 after setmaxnreg
 constexpr int PRODUCER_REGS = 120;
 constexpr int CONSUMER_REGS = 192;
-constexpr float NEG_INF = -1e9f;  // the JAX package's NEG_INF
-constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int ROW_BYTES = D * 2;          // one head row of bf16
 constexpr int Q_BYTES = BM * ROW_BYTES;   // 16 KiB
@@ -158,27 +156,6 @@ struct Smem {
 __device__ __forceinline__ uint32_t bias_offset(int r, int sub, int col_byte) {
   return sub * BIAS_SUB_BYTES + r * SWIZZLE_ROW_BYTES + swizzle128(r, col_byte);
 }
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {  // 2^x; 0 for -inf
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float2 to_float2(float2 x) { return x; }
-__device__ __forceinline__ float2 to_float2(__nv_bfloat162 x) { return __bfloat1622float2(x); }
-
-template <typename BiasT>
-struct Pair;
-template <>
-struct Pair<float> { typedef float2 type; };
-template <>
-struct Pair<bf16> { typedef __nv_bfloat162 type; };
 
 // Bytes [M + 4i, M + 4i + 4) of the 32 bytes w[0..7].
 template <int M>

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from ifseg_torch.config import ModelConfig
-from ifseg_torch.ops.flash_attention import row_padded
+from ifseg_torch.ops.flash_attention import empty_row_padded, row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .attention import Dropout, Linear
 from .encoder import LayerDrop, _ids, compute_dtype, stack_tables
@@ -191,7 +191,7 @@ class Decoder(nn.Module):
 
         self_bias0, cross_bias = self._abs_biases(
             encoder_out["position_embeddings"], h, w, valid_mats)
-        cross_bias = cross_bias.to(cd)
+        cross_bias = row_padded(cross_bias.to(cd))
         seg_bucket = make_image_bucket_position(sb, (2 * sb - 1) * (2 * sb - 1) + 3)
         ident_interp = valid_mats is None and (sb, sb) == (h, w)
         seg_all = gather_grid_bias_all_layers(
@@ -206,7 +206,11 @@ class Decoder(nn.Module):
             seg_all = torch.stack(
                 [interp_seg_bias_with_bos(b, (sb, sb), (h, w)) for b in seg_all]
             )
-        pack = self_bias0[None].to(cd) + seg_all.to(cd)
+        # summed in row-padded storage (1 + hw keys is odd; rows a multiple of
+        # 16 bytes apart), in the graph: the kernels fetch the bias by TMA in
+        # both passes, and the cast of seg_all is the copy into that storage
+        pack = empty_row_padded(seg_all.shape, cd, seg_all.device)
+        pack.copy_(seg_all).add_(self_bias0.to(cd))
 
         enc = encoder_out["encoder_out"]
         enc_pad = encoder_out["encoder_padding_mask"]

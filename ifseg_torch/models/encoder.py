@@ -16,11 +16,10 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ifseg_torch.config import ModelConfig
-from ifseg_torch.ops.flash_attention import row_padded
+from ifseg_torch.ops.flash_attention import empty_row_padded, row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .attention import Dropout, Linear
 from .layers import EncoderLayer, LayerNorm
@@ -246,7 +245,11 @@ class Encoder(nn.Module):
         evaluation), else the gather over the ``rel_bias_grid_hw`` grid,
         interpolated when the runtime grid differs.  Each component is cast
         before the adds; the casts' backward returns the table gradients to
-        fp32."""
+        fp32.  The pack is summed in the graph into row-padded storage (rows
+        a multiple of 8 keys apart), so the kernels fetch every layer's bias
+        by TMA whatever L is: the abs bias into every layer, then the two
+        relative blocks added where they belong (the same sums as padding
+        each block to (L, L) with zeros, without those temporaries)."""
         cfg = self.cfg
         cd = compute_dtype(cfg)
         hw = image_hw[0] * image_hw[1]
@@ -266,11 +269,10 @@ class Encoder(nn.Module):
                 img_all = torch.stack(
                     [interp_grid_bias(b, rel_bias_grid_hw, image_hw) for b in img_all]
                 )
-        pack = (
-            bias0[None].to(cd)
-            + F.pad(tok_all.to(cd), (hw, 0, hw, 0))
-            + F.pad(img_all.to(cd), (0, src_len, 0, src_len))
-        )
+        pack = empty_row_padded((tok_all.shape[0], *bias0.shape), cd, bias0.device)
+        pack.copy_(bias0.to(cd))
+        pack[..., hw:, hw:].add_(tok_all.to(cd))
+        pack[..., :hw, :hw].add_(img_all.to(cd))
         for layer, bias in zip(self.layers, pack.unbind(0)):
             x = self.layerdrop(layer(x, padding_mask, bias), x)
         return self.layer_norm(x, cd)

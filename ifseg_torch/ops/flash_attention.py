@@ -13,12 +13,16 @@ as ``row_padded`` makes it), an optional key-padding mask (B, Lk)
 (True = pad) and causal masking with the offset lk - lq.  Output (B, Lq, H·D)
 in q's dtype; lse, the row logsumexp of the masked logits, (B, H, Lq) fp32.
 
-On CUDA tensors these launch the hand-written Hopper kernels (or raise):
-``csrc/flash_attention_bias_fwd.cu`` for the forward (wgmma and TMA; a bias
-whose rows are 16-byte aligned is fetched by TMA, any other is staged by
-threads, more slowly), with or without the lse output, and for the gradient ``csrc/flash_attention_bias_bwd_dq.cu`` (the di
-pre-pass, then dq and dbias) and ``csrc/flash_attention_bias_bwd_dkv.cu`` (dk
-and dv), which rebuild the probabilities from the saved lse.  On CPU tensors
+On CUDA tensors these launch the hand-written Hopper kernels (or raise), all
+on wgmma and TMA: ``csrc/flash_attention_bias_fwd.cu`` for the forward, with
+or without the lse output (a bias whose rows are 16-byte aligned is fetched by
+TMA, any other is staged by threads, more slowly), and for the gradient
+``csrc/flash_attention_bias_bwd_dq.cu`` (the di pre-pass, then dq and dbias)
+and ``csrc/flash_attention_bias_bwd_dkv.cu`` (dk and dv), which rebuild the
+probabilities from the saved lse and take the bias by TMA only: the backward
+row-pads a bias whose rows are not 16-byte aligned (a copy, counted in
+``BWD_BIAS_COPIES``; the models build their packs row-padded, so none is
+made on their paths).  On CPU tensors
 they run the plain versions below — ``attention_bias_reference``,
 ``attention_bias_stats_reference`` and the explicit
 ``attention_bias_backward_reference`` (not autograd of the forward) — which
@@ -38,7 +42,9 @@ KERNEL_BWD_DQ = "flash_attention_bias_bwd_dq"
 KERNEL_BWD_DKV = "flash_attention_bias_bwd_dkv"
 KERNELS = (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV)  # one source file each
 HEAD_DIM = 64  # the kernels' head dim (OFA-Base and every larger SegOFA)
-TILE = 64  # the backward kernels' query and key tile; the dbias workspace is padded to it
+# the dq + dbias kernel's query rows per CTA and keys per stage: its fp32
+# dbias workspace is padded to them
+DQ_TILE_Q, DQ_TILE_K = 128, 64
 
 # kernel launches since the counts were last set to 0 (chip_smoke.py reads
 # them): the forward without stats, the forward with stats, the di pre-pass,
@@ -48,16 +54,31 @@ LAUNCHES_STATS = 0
 LAUNCHES_BWD_DI = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
+# forward launches (with or without stats) by the route their bias took: TMA
+# (rows 16-byte aligned) or the producer's threads; and the bias copies the
+# backward made to row-pad a bias whose rows TMA cannot take
+LAUNCHES_BIAS_TMA = 0
+LAUNCHES_BIAS_THREADS = 0
+BWD_BIAS_COPIES = 0
 
 
 def reset_launches():
     global LAUNCHES, LAUNCHES_STATS, LAUNCHES_BWD_DI, LAUNCHES_BWD_DQ, LAUNCHES_BWD_DKV
+    global LAUNCHES_BIAS_TMA, LAUNCHES_BIAS_THREADS, BWD_BIAS_COPIES
     LAUNCHES = LAUNCHES_STATS = LAUNCHES_BWD_DI = LAUNCHES_BWD_DQ = LAUNCHES_BWD_DKV = 0
+    LAUNCHES_BIAS_TMA = LAUNCHES_BIAS_THREADS = BWD_BIAS_COPIES = 0
 
 
 def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last ``reset_launches``, by kernel."""
     return dict(infer=LAUNCHES, stats=LAUNCHES_STATS, bwd_di=LAUNCHES_BWD_DI,
                 bwd_dq=LAUNCHES_BWD_DQ, bwd_dkv=LAUNCHES_BWD_DKV)
+
+
+def bias_route_counts() -> Dict[str, int]:
+    """Forward launches by bias route, and the backward's bias copies."""
+    return dict(fwd_bias_tma=LAUNCHES_BIAS_TMA, fwd_bias_threads=LAUNCHES_BIAS_THREADS,
+                bwd_bias_copies=BWD_BIAS_COPIES)
 
 
 # ------------------------------------------------------------ plain versions
@@ -169,7 +190,8 @@ def _check(q, k, v, bias, key_padding_mask, causal, num_heads):
         raise ValueError("empty sequence")
     if causal and lk < lq:
         raise ValueError("causal with Lk < Lq leaves fully masked rows; not supported")
-    if -(-lq // TILE) > 65535 or -(-lk // TILE) > 65535 or num_heads > 65535:
+    # the grids' y and z: tiles of 128 query rows or keys (a bound of 64 keeps a margin), heads
+    if -(-lq // 64) > 65535 or -(-lk // 64) > 65535 or num_heads > 65535:
         raise ValueError("grid too large")
     tensors = [("q", q), ("k", k), ("v", v)]
     for name, x in tensors:
@@ -204,18 +226,31 @@ def _is_row_padded(bias) -> bool:
     return bias.stride(2) == 1 and pitch >= lk and bias.stride(0) == lq * pitch
 
 
+def tma_rows(bias) -> bool:
+    """Whether TMA can fetch the bias: (H, Lq, Lk) dense or row-padded, its
+    rows and its start on 16-byte boundaries."""
+    return ((bias.is_contiguous() or _is_row_padded(bias))
+            and (bias.stride(1) * bias.element_size()) % 16 == 0 and bias.data_ptr() % 16 == 0)
+
+
+def empty_row_padded(shape, dtype, device) -> torch.Tensor:
+    """An uninitialised tensor of ``shape`` (..., Lk) whose rows are a
+    multiple of 8 elements apart: the [..., :Lk] view of wider storage."""
+    lk = shape[-1]
+    return torch.empty(*shape[:-1], -(-lk // 8) * 8, dtype=dtype, device=device)[..., :lk]
+
+
 def row_padded(bias: torch.Tensor) -> torch.Tensor:
-    """``bias`` (..., Lk) copied into zeroed storage whose rows are a multiple
-    of 8 elements apart, returned as the [..., :Lk] view: rows of bf16 (or
-    fp32) then start at multiples of 16 bytes whatever Lk is, which is what
-    lets the forward kernel fetch the bias by TMA.  Same values, same shape."""
-    lk = bias.shape[-1]
-    pitch = -(-lk // 8) * 8
-    if pitch == lk:
-        return bias.contiguous()
-    out = torch.zeros(*bias.shape[:-1], pitch, dtype=bias.dtype, device=bias.device)
-    out[..., :lk] = bias
-    return out[..., :lk]
+    """``bias`` (..., Lk) in storage whose rows are a multiple of 8 elements
+    apart, as the [..., :Lk] view of it: rows of bf16 (or fp32) then start at
+    multiples of 16 bytes whatever Lk is, which is what lets the kernels fetch
+    the bias by TMA.  Same values, same shape; the padding is left
+    unwritten (nothing reads it).  A copy in the graph: autograd carries a
+    gradient back through it.  A (H, Lq, Lk) bias that TMA can already take
+    is returned as it is."""
+    if bias.dim() == 3 and tma_rows(bias):
+        return bias
+    return empty_row_padded(bias.shape, bias.dtype, bias.device).copy_(bias)
 
 
 def _check_backward(q, g, out, lse, num_heads):
@@ -247,8 +282,10 @@ _ARGTYPES = {
     "flash_attention_bias_fwd_encode_us": [_P] * 4 + [_I] * 7,
     "flash_attention_bias_fwd_smem_bytes": [_I],
     "flash_attention_bwd_di": [_P] * 3 + [_I] * 3 + [_P],
-    "flash_attention_bias_bwd_dq": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
-    "flash_attention_bias_bwd_dkv": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    "flash_attention_bias_bwd_dq": [_P] * 4 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P],
+    "flash_attention_bias_bwd_dkv": [_P] * 4 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P],
+    "flash_attention_bias_bwd_dq_smem_bytes": [_I],
+    "flash_attention_bias_bwd_dkv_smem_bytes": [_I],
 }
 
 
@@ -265,20 +302,25 @@ def _call(kernel: str, entry: str, device, *args):
 
 
 def _bias_args(bias, lk):
-    """(pointer, is fp32, row pitch in elements) of the bias for the forward's C entries."""
+    """(pointer, is fp32, row pitch in elements) of the bias for the C entries."""
     if bias is None:
         return None, 0, lk
     return bias.data_ptr(), int(bias.dtype == torch.float32), bias.stride(1)
 
 
 def _launch(q, k, v, bias, key_padding_mask, causal, num_heads, with_stats=False):
-    global LAUNCHES, LAUNCHES_STATS
+    global LAUNCHES, LAUNCHES_STATS, LAUNCHES_BIAS_TMA, LAUNCHES_BIAS_THREADS
     _check(q, k, v, bias, key_padding_mask, causal, num_heads)
     b, lq, _ = q.shape
     out = torch.empty_like(q)
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias, k.shape[1]),
             _ptr(key_padding_mask), out.data_ptr())
     dims = (b, num_heads, lq, k.shape[1], int(bool(causal)))
+    if bias is not None:  # the kernel's own rule (encode_maps) for fetching the bias by TMA
+        if tma_rows(bias):
+            LAUNCHES_BIAS_TMA += 1
+        else:
+            LAUNCHES_BIAS_THREADS += 1
     if not with_stats:
         _call(KERNEL, "flash_attention_bias_fwd", q.device, *head, *dims)
         LAUNCHES += 1
@@ -303,10 +345,12 @@ def tensor_map_encode_us(q, k, v, bias, num_heads, iters=200) -> float:
     return us
 
 
-def forward_smem_bytes(bias_fp32: bool) -> int:
-    """Dynamic shared memory one CTA of the forward kernel takes, in bytes."""
-    fn = build.load(KERNEL).flash_attention_bias_fwd_smem_bytes
-    fn.argtypes = _ARGTYPES["flash_attention_bias_fwd_smem_bytes"]
+def smem_bytes(kernel: str, bias_fp32: bool) -> int:
+    """Dynamic shared memory one CTA of ``kernel`` (one of ``KERNELS``)
+    takes, in bytes, with an fp32 or a bf16 bias."""
+    entry = f"{kernel}_smem_bytes"
+    fn = getattr(build.load(kernel), entry)
+    fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
     return fn(int(bias_fp32))
 
@@ -322,29 +366,31 @@ def _launch_di(g, out, num_heads):
 
 
 def _backward_args(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads):
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-            int(bias is not None and bias.dtype == torch.float32), _ptr(key_padding_mask),
-            g.data_ptr(), lse.data_ptr(), di.data_ptr())
+    if bias is not None and not tma_rows(bias):
+        raise ValueError("the backward kernels take a bias whose rows are 16-byte aligned "
+                         "(row_padded makes them so)")
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias, k.shape[1]),
+            _ptr(key_padding_mask), g.data_ptr(), lse.data_ptr(), di.data_ptr())
     return head, (q.shape[0], num_heads, q.shape[1], k.shape[1], int(bool(causal)))
 
 
 def _launch_dq(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads, need_dbias=True):
     """(dq, dbias or None) by the dq + dbias kernel; the caller has checked
-    the operands."""
+    the operands.  dbias is dense (H, Lq, Lk) in the bias dtype."""
     global LAUNCHES_BWD_DQ
     lq, lk = q.shape[1], k.shape[1]
     head, dims = _backward_args(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads)
     dq = torch.empty_like(q)
     ws = None
-    if bias is not None and need_dbias:  # fp32 sum over the batch, by atomics
-        ws = torch.zeros(num_heads, -(-lq // TILE) * TILE, -(-lk // TILE) * TILE,
-                         dtype=torch.float32, device=q.device)
+    if bias is not None and need_dbias:  # fp32 sum over the batch, padded to the tiles
+        ws = torch.zeros(num_heads, -(-lq // DQ_TILE_Q) * DQ_TILE_Q,
+                         -(-lk // DQ_TILE_K) * DQ_TILE_K, dtype=torch.float32, device=q.device)
     _call(KERNEL_BWD_DQ, "flash_attention_bias_bwd_dq", q.device,
           *head, dq.data_ptr(), _ptr(ws), *dims)
     LAUNCHES_BWD_DQ += 1
     if ws is None:
         return dq, None
-    return dq, torch.empty_like(bias).copy_(ws[:, :lq, :lk])  # rounded once to the bias dtype
+    return dq, ws[:, :lq, :lk].to(bias.dtype).contiguous()  # rounded once to the bias dtype
 
 
 def _launch_dkv(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads):
@@ -361,10 +407,13 @@ def _launch_dkv(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads):
 def _launch_backward(q, k, v, bias, key_padding_mask, causal, g, out, lse, num_heads,
                      need_dbias=True):
     """(dq, dk, dv, dbias or None) by the backward kernels."""
+    global BWD_BIAS_COPIES
     _check(q, k, v, bias, key_padding_mask, causal, num_heads)
     _check_backward(q, g, out, lse, num_heads)
     if bias is not None:
-        bias = bias.contiguous()  # the backward kernels take dense rows
+        taken = row_padded(bias)  # the kernels fetch the bias by TMA only
+        BWD_BIAS_COPIES += int(taken is not bias)
+        bias = taken
     di = _launch_di(g, out, num_heads)
     args = (q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads)
     dq, dbias = _launch_dq(*args, need_dbias=need_dbias)

@@ -127,7 +127,7 @@ def test_stats_forward_and_backward_kernels_match_plain(b, lq, lk, causal, with_
     q = rnd(b, lq, e, scale=0.3).bfloat16().requires_grad_(True)
     k = rnd(b, lk, e, scale=0.3).bfloat16().requires_grad_(True)
     v = rnd(b, lk, e).bfloat16().requires_grad_(True)
-    if bias_dtype == "padded":  # the forward reads the view, the backward a dense copy
+    if bias_dtype == "padded":  # both passes read the view by TMA
         bias = fa.row_padded(rnd(h, lq, lk).bfloat16()).requires_grad_(True)
         assert not bias.is_contiguous()
     else:
@@ -163,6 +163,103 @@ def test_stats_forward_and_backward_kernels_match_plain(b, lq, lk, causal, with_
             continue
         assert leaf.grad.dtype == leaf.dtype and torch.isfinite(leaf.grad).all(), name
         assert _rel(leaf.grad, ref) <= 2e-2, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "lq,lk,causal,with_mask,bias_kind,need_dbias",
+    [
+        # the edges of the dq kernel's 128-row CTAs and 64-key stages and of
+        # the dk + dv kernel's 128-key CTAs and 64-row stages
+        (1, 257, False, True, "bf16", True),
+        (63, 64, True, True, "bf16", True),
+        (64, 63, False, True, "fp32", True),
+        (65, 129, True, True, "padded", True),
+        (127, 128, True, False, "fp32", True),
+        (128, 127, False, True, "bf16", True),     # dense, rows not aligned: row-padded by a copy
+        (129, 65, False, True, "padded", True),
+        (129, 257, True, "tile", "bf16", True),
+        (257, 257, True, "tile", "padded", True),
+        (257, 129, False, True, "fp32", True),
+        (192, 320, True, "tile", "padded-fp32", True),
+        (1025, 1025, True, False, "padded", True),  # the training decoder self-attention
+        (130, 131, True, True, "bf16", False),      # a bias without a gradient: no workspace
+        (257, 257, False, "tile", "padded", False),
+        (129, 257, True, True, None, True),         # no bias
+        (64, 64, False, False, None, True),
+    ],
+)
+def test_backward_kernels_match_plain_at_tile_edges(lq, lk, causal, with_mask, bias_kind,
+                                                    need_dbias):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, h = 2, 4
+    e = h * fa.HEAD_DIM
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    q, k = rnd(b, lq, e, scale=0.3).bfloat16(), rnd(b, lk, e, scale=0.3).bfloat16()
+    v, g = rnd(b, lk, e).bfloat16(), rnd(b, lq, e).bfloat16()
+    bias = None
+    if bias_kind is not None:
+        dtype = torch.float32 if "fp32" in bias_kind else torch.bfloat16
+        if bias_kind.startswith("padded"):  # storage rows 8 to 15 elements longer than Lk
+            bias = rnd(h, lq, (lk // 8 + 2) * 8).to(dtype)[..., :lk]
+            assert not bias.is_contiguous() and fa.tma_rows(bias)
+        else:
+            bias = rnd(h, lq, lk).to(dtype)
+    mask = None
+    if with_mask:
+        mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
+        mask[-1, max(lk - 9, 1):] = True
+        if with_mask == "tile":
+            mask[:, 128:256] = True
+    out, lse = fa._launch(q, k, v, bias, mask, causal, h, with_stats=True)
+    before, copies = fa.launch_counts(), fa.BWD_BIAS_COPIES
+    dq, dk, dv, dbias = fa._launch_backward(q, k, v, bias, mask, causal, g, out, lse, h,
+                                            need_dbias=need_dbias)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == dict(
+        infer=0, stats=0, bwd_di=1, bwd_dq=1, bwd_dkv=1)
+    assert fa.BWD_BIAS_COPIES - copies == int(bias is not None and not fa.tma_rows(bias))
+
+    f32 = lambda x: None if x is None else x.float()
+    want = fa.attention_bias_backward_reference(
+        f32(q), f32(k), f32(v), f32(bias), mask, causal, f32(g), f32(out), lse, h)
+    for name, got, ref, like in zip(("dq", "dk", "dv"), (dq, dk, dv), want, (q, k, v)):
+        assert got.dtype == torch.bfloat16 and got.shape == like.shape, name
+        assert torch.isfinite(got).all() and _rel(got, ref) <= 2e-2, name
+    if bias is None or not need_dbias:
+        assert dbias is None
+    else:
+        assert dbias.dtype == bias.dtype and tuple(dbias.shape) == (h, lq, lk)
+        assert torch.isfinite(dbias).all() and _rel(dbias, want[3]) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_backward_copies_only_a_bias_tma_cannot_take():
+    """A bias in row-padded storage, or dense with 16-byte rows, goes to the
+    kernels as it is; a dense bias of 1,025 keys is row-padded by one copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, h, lq = 2, 4, 70
+    for lk, make, copies in ((1025, fa.row_padded, 0), (1056, lambda x: x, 0),
+                             (1025, lambda x: x, 1)):
+        q = torch.randn(b, lq, h * 64, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(b, lk, h * 64, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        bias = make(torch.randn(h, lq, lk, generator=gen, device="cuda").bfloat16())
+        out, lse = fa._launch(q, k, v, bias, None, True, h, with_stats=True)
+        before = fa.BWD_BIAS_COPIES
+        fa._launch_backward(q, k, v, bias, None, True, torch.ones_like(q), out, lse, h)
+        torch.cuda.synchronize()
+        assert fa.BWD_BIAS_COPIES - before == copies, lk
+    with pytest.raises(ValueError, match="16-byte"):  # below the wrapper nothing copies
+        fa._launch_dq(q, k, v, bias, None, True, torch.ones_like(q), lse, lse, h)
 
 
 @pytest.mark.gpu
