@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every kernel with nvcc (one process per source, all at once),
-     with the ``-Xptxas -v`` summary, and the HGMMA count and shared memory
-     of the three wgmma attention libraries;
+     with each instantiation's registers, spill and stack from the
+     ``-Xptxas -v`` summary, and the HGMMA count and shared memory of the
+     three wgmma attention libraries at both head dims;
   3. each kernel against its plain PyTorch version, with its time, the plain
      version's, one PyTorch library call's (timed only here, never used by
      the port) and the bound: the attention forward without stats at the
@@ -52,7 +53,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   9. the padded forward against the exact-shape forward on the card, and the
      card's evaluation output against the port's fp32 CPU ``Evaluator`` on
      the same weights and one group of two rows;
- 10. one JSON line listing every kernel, the nvidia-smi line, and the last
+ 10. SegOFA-Huge (24 + 12 layers, width 1,280, 16 heads: head dim 80, FFN
+     5,120, ResNet-152 stem) at full width and depth, weights from seed 0
+     built on the card, after its kernels were held against their plain
+     versions in phase 3 (``[3 huge]``: K1, K1-stats, di, K2, K3 at head dim
+     80 and K4 at width 5,120, at its serving, evaluation and training
+     shapes): ``SegServer`` at batch 8; ``Trainer`` image-free steps at batch
+     16; ``Evaluator`` on the trainer's model, one group of 8 uint8 rows at
+     the (512, 768) bucket, the trainer's parameters still fp32 after it;
+     launch counts set to 0 before each path and read after; then, at a
+     reduced depth (2 + 2 layers) and full width, the card's logits and
+     gradients against the CPU's;
+ 11. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -103,6 +115,18 @@ SRC_LEN = 32
 EVAL_CLASSES = 150
 TRAIN_BATCH = 16
 TRAIN_CLASSES = 15
+HUGE_SERVE_BATCH = 8
+# the reference recipe's batch (run_scripts/IFSeg/common.sh); it fits without
+# activation checkpointing (64 GiB at its peak)
+HUGE_TRAIN_BATCH = 16
+HUGE_CHECK_LAYERS = 2  # encoder and decoder layers of the CPU comparisons at Huge's width
+
+# The two configurations the run drives: their attention heads and head dim,
+# widths and depths (ifseg_torch/config.py)
+BASE = dict(name="OFA-Base", arch="segofa_base", heads=12, head_dim=64, width=768, ffn=3072,
+            enc_layers=6, dec_layers=6)
+HUGE = dict(name="SegOFA-Huge", arch="segofa_huge", heads=16, head_dim=80, width=1280, ffn=5120,
+            enc_layers=24, dec_layers=12)
 
 
 def fail(msg: str):
@@ -180,27 +204,90 @@ def phase_build():
     t0 = time.perf_counter()
     results = build.build([*fa.KERNELS, ln.KERNEL])
     log(f"[2] built {sorted(results)} in {time.perf_counter() - t0:.1f} s")
+    summary = {}
     for res in results.values():
         log(f"[2] {res.name}: {res.path.name}, nvcc {res.seconds:.1f} s")
         shown = set()
-        for line in res.log.splitlines():  # registers, spills, stack, warnings of every kernel
+        for line in res.log.splitlines():  # warnings, once each
             text = line.strip()
-            if ("registers" in line or "spill" in line or "error" in line.lower()
-                    or "warning" in line.lower()) and text not in shown:
-                shown.add(text)  # a template's instantiations repeat their lines
+            if ("error" in text.lower() or "warning" in text.lower()) and text not in shown:
+                shown.add(text)
                 log(f"[2]   {text}")
+        summary[res.name] = ptxas_summary(res.log)
+        for row in summary[res.name]:  # every instantiation's registers, spill, stack
+            log(f"[2]   {row['name']}: {row.get('registers')} registers, spill stores "
+                f"{row.get('spill_stores')} / loads {row.get('spill_loads')} bytes, stack "
+                f"{row.get('stack')} bytes, {row['c7519']} C7519 notes (warpgroup.arrive "
+                f"injected)")
     # the attention kernels' products must run on the warpgroup tensor-core
-    # path: (library, kernel name, instantiations)
-    for lib, kernel, n in ((fa.KERNEL, "attn_bias_fwd_kernel", 4),
-                           (fa.KERNEL_BWD_DQ, "attn_bias_bwd_dq_kernel", 4),
-                           (fa.KERNEL_BWD_DKV, "attn_bias_bwd_dkv_kernel", 2)):
+    # path: (library, kernel name, instantiations: bias dtype x variant x head dim)
+    for lib, kernel, n in ((fa.KERNEL, "attn_bias_fwd_kernel", 8),
+                           (fa.KERNEL_BWD_DQ, "attn_bias_bwd_dq_kernel", 8),
+                           (fa.KERNEL_BWD_DKV, "attn_bias_bwd_dkv_kernel", 4)):
         hgmma = {k: c for k, c in sass_counts(results[lib].path, "HGMMA").items() if kernel in k}
+        smem = ", ".join(f"D={d}: {fa.smem_bytes(lib, False, d)} bytes with a bf16 bias, "
+                         f"{fa.smem_bytes(lib, True, d)} with an fp32 bias" for d in fa.HEAD_DIMS)
         log(f"[2] {lib}: HGMMA operations per instantiation (cuobjdump -sass): "
             f"{sorted(hgmma.values())} over {len(hgmma)} kernels; one CTA of 384 threads an SM, "
-            f"dynamic shared memory {fa.smem_bytes(lib, False)} bytes with a bf16 bias, "
-            f"{fa.smem_bytes(lib, True)} with an fp32 bias (of 232,448)")
+            f"dynamic shared memory {smem} (of 232,448)")
         if len(hgmma) != n or min(hgmma.values()) < 1:
             fail(f"{lib}: the SASS shows no HGMMA in some instantiation: {hgmma}")
+    return summary
+
+
+def _template_args(s: str):
+    """The template arguments at the start of ``s``, an Itanium-mangled
+    argument list after its ``I``: bf16, fp32, bools and ints."""
+    out, i = [], 0
+    while i < len(s) and s[i] != "E":
+        if s.startswith("13__nv_bfloat16", i):
+            out.append("bf16")
+            i += len("13__nv_bfloat16")
+        elif s[i] == "f":
+            out.append("fp32")
+            i += 1
+        elif s.startswith("Lb", i) or s.startswith("Li", i):
+            j = s.index("E", i)
+            out.append({"Lb1": "true", "Lb0": "false"}.get(s[i:j], s[i + 2:j]))
+            i = j + 1
+        elif s[i] == "S":  # a substitution: the one class type these kernels name
+            out.append("bf16")
+            i = s.index("_", i) + 1
+        else:
+            break
+    return out
+
+
+def ptxas_summary(log_text: str):
+    """One dict per kernel instantiation of an ``nvcc -Xptxas -v`` log: its
+    name with template arguments, registers, spill stores and loads, stack."""
+    import re
+
+    def short(mangled):
+        k = re.search(r"\d+([a-z_]+_kernel)I(.*)", mangled)
+        return mangled if k is None else f"{k.group(1)}<{', '.join(_template_args(k.group(2)))}>"
+
+    rows, notes = [], {}
+    for line in log_text.splitlines():
+        m = re.search(r"\(C7519\).* in function '([^']+)'", line)
+        if m:  # ptxas serialised wgmma around registers it could not prove untouched
+            notes[short(m.group(1))] = notes.get(short(m.group(1)), 0) + 1
+            continue
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            rows.append(dict(name=short(m.group(1))))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and rows:
+            rows[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    for row in rows:
+        row["c7519"] = notes.get(row["name"], 0)
+    return rows
 
 
 def sass_counts(library: Path, opcode: str):
@@ -230,13 +317,18 @@ def sass_counts(library: Path, opcode: str):
 
 # ---------------------------------------------------------------- phase 3
 
-# The three attention sites of the served forward at OFA-Base 512px,
-# src_len 32: (name, Lq, Lk, causal, key-padding mask, sites per forward).
-SITES = [
-    ("encoder self", 1024 + SRC_LEN, 1024 + SRC_LEN, False, True, 6),
-    ("decoder self", 1 + 1024, 1 + 1024, True, False, 6),
-    ("decoder cross", 1 + 1024, 1024 + SRC_LEN, False, True, 6),
-]
+def attn_sites(spec):
+    """The three attention sites of the served forward of ``spec`` at 512px,
+    src_len 32: (name, Lq, Lk, causal, key-padding mask, sites per forward)."""
+    enc, dec = spec["enc_layers"], spec["dec_layers"]
+    return [
+        ("encoder self", 1024 + SRC_LEN, 1024 + SRC_LEN, False, True, enc),
+        ("decoder self", 1 + 1024, 1 + 1024, True, False, dec),
+        ("decoder cross", 1 + 1024, 1024 + SRC_LEN, False, True, dec),
+    ]
+
+
+SITES = attn_sites(BASE)
 
 
 # The three attention sites of an evaluation group at the (512, 768) bucket:
@@ -245,11 +337,18 @@ SITES = [
 # with a key mask; (name, Lq, Lk, causal, sites per group forward).
 EVAL_GRID = (32, 48, 32, 43)  # padded (Hp, Wp), valid (hp, wp)
 EVAL_ROWS = 8
-EVAL_SITES = [
-    ("eval encoder self", 32 * 48 + SRC_LEN, 32 * 48 + SRC_LEN, False, 6),
-    ("eval decoder self", 1 + 32 * 48, 1 + 32 * 48, True, 6),
-    ("eval decoder cross", 1 + 32 * 48, 32 * 48 + SRC_LEN, False, 6),
-]
+
+
+def eval_sites(spec):
+    enc, dec = spec["enc_layers"], spec["dec_layers"]
+    return [
+        ("eval encoder self", 32 * 48 + SRC_LEN, 32 * 48 + SRC_LEN, False, enc),
+        ("eval decoder self", 1 + 32 * 48, 1 + 32 * 48, True, dec),
+        ("eval decoder cross", 1 + 32 * 48, 32 * 48 + SRC_LEN, False, dec),
+    ]
+
+
+EVAL_SITES = eval_sites(BASE)
 
 
 def eval_key_mask(b, lk):
@@ -322,11 +421,9 @@ EDGE_CASES = [
 ]
 
 
-def site_inputs(b, h, lq, lk, causal, masked, bias_dtype, seed):
-    from ifseg_torch.ops.flash_attention import HEAD_DIM
-
+def site_inputs(b, h, lq, lk, causal, masked, bias_dtype, seed, head_dim=64):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    e = h * HEAD_DIM
+    e = h * head_dim
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * scale
@@ -367,24 +464,28 @@ def sdpa_ms(q, k, v, bias, mask, causal, h, iters):
     return ms
 
 
-def phase_kernels():
+def phase_kernels(spec=BASE, batch=32, tag="[3]"):
+    """K1 of ``spec``'s head dim against its plain version at the served
+    sites (``batch``), the sites of an evaluation group of 8, a ragged case
+    and the tile edges; timed at the first two."""
     from ifseg_torch.ops import flash_attention as fa
 
-    h = 12
+    h, d = spec["heads"], spec["head_dim"]
+    prefix = "" if spec is BASE else "huge "
     rows = []
     # every bias of the main paths comes in row-padded storage (the decoder's
     # 1,025 or 1,537 keys a row become a pitch of 1,032 or 1,544)
-    cases = [(name, 32, lq, lk, causal, masked, torch.bfloat16, True, n, 0)
-             for name, lq, lk, causal, masked, n in SITES]
+    cases = [(prefix + name, batch, lq, lk, causal, masked, torch.bfloat16, True, n, 0)
+             for name, lq, lk, causal, masked, n in attn_sites(spec)]
     # a small ragged shape with an fp32 bias, checked but not timed
-    cases.append(("ragged check", 3, 77, 130, True, True, torch.float32, False, 0, 0))
-    cases += [(name, EVAL_ROWS, lq, lk, causal, "eval", torch.bfloat16, True, 0, n)
-              for name, lq, lk, causal, n in EVAL_SITES]
-    cases += [(*case, 0, 0) for case in EDGE_CASES]
+    cases.append((prefix + "ragged check", 3, 77, 130, True, True, torch.float32, False, 0, 0))
+    cases += [(prefix + name, EVAL_ROWS, lq, lk, causal, "eval", torch.bfloat16, True, 0, n)
+              for name, lq, lk, causal, n in eval_sites(spec)]
+    cases += [(prefix + name, *case, 0, 0) for name, *case in EDGE_CASES]
     for i, (name, b, lq, lk, causal, masked, bias_dtype, padded, per_fwd,
             per_group) in enumerate(cases):
         q, k, v, bias, mask = site_inputs(b, h, lq, lk, causal, masked,
-                                          bias_dtype or torch.bfloat16, seed=i)
+                                          bias_dtype or torch.bfloat16, seed=i, head_dim=d)
         bias = None if bias_dtype is None else fa.row_padded(bias) if padded else bias
         out = fa.flash_attention_bias_packed_infer(q, k, v, bias, mask, causal, h)
         torch.cuda.synchronize()
@@ -393,15 +494,15 @@ def phase_kernels():
         err = (out.float() - want).abs().max().item()
         finite = bool(torch.isfinite(out).all())
         del want, out
-        log(f"[3] {name}: B={b} Lq={lq} Lk={lk} causal={causal} mask={masked} "
+        log(f"{tag} {name}: B={b} H={h} D={d} Lq={lq} Lk={lk} causal={causal} mask={masked} "
             f"bias={None if bias is None else str(bias_dtype).split('.')[-1]} "
             f"pitch={None if bias is None else bias.stride(1)}: max_abs_err={err:.3e}")
         if not finite or not err <= ATTN_TOL:
             fail(f"kernel disagrees with its plain version at {name}: {err} > {ATTN_TOL}")
-        row = dict(site=name, B=b, Lq=lq, Lk=lk, causal=causal, per_forward=per_fwd,
+        row = dict(site=name, B=b, H=h, D=d, Lq=lq, Lk=lk, causal=causal, per_forward=per_fwd,
                    per_eval_group=per_group, max_abs_err=err)
         if per_fwd or per_group:
-            flops, nbytes = attention_work(b, h, lq, lk, fa.HEAD_DIM, causal,
+            flops, nbytes = attention_work(b, h, lq, lk, d, causal,
                                            bias.element_size(), bool(masked))
             row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
             row["gflop"], row["mb"] = flops / 1e9, nbytes / 1e6
@@ -412,12 +513,12 @@ def phase_kernels():
             try:
                 row["library_ms"] = sdpa_ms(q, k, v, bias, mask, causal, h, 10)
             except RuntimeError as exc:  # the yardstick only; the port never calls it
-                log(f"[3]   scaled_dot_product_attention failed: {exc}")
+                log(f"{tag}   scaled_dot_product_attention failed: {exc}")
                 row["library_ms"] = None
             row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
             # what the host pays per launch to encode the call's TMA tensor maps
             row["encode_host_us"] = fa.tensor_map_encode_us(q, k, v, bias, h)
-            log(f"[3]   kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            log(f"{tag}   kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
                 f"({row['bound_by']}; {row['gflop']:.1f} GFLOP, {row['mb']:.1f} MB) "
                 f"share_of_bound={row['share_of_bound']:.3f} "
@@ -452,29 +553,31 @@ def within_bf16_step(got, want) -> bool:
     return bool((diff <= want.float().abs() * 2.0 ** -7 * LN_BF16_ULPS + LN_FP32_TOL).all())
 
 
-def ln_sites(batch: int, cells: int, position_lns: bool):
-    """The LayerNorm sites of one no-gradient forward of OFA-Base over a grid
+def ln_sites(batch: int, cells: int, position_lns: bool, spec=BASE):
+    """The LayerNorm sites of one no-gradient forward of ``spec`` over a grid
     of ``cells`` image tokens, src_len 32: (name, rows, width, input dtype,
     output dtype, sites per forward).  The two embedding LayerNorms, then per
-    layer three (encoder) or five (decoder) of width 768 and the
-    ffn_layernorm of width 3,072, then the final one; where the biases are
-    built in the forward (evaluation, monitoring), the three fp32 position
-    LayerNorms, once per forward whatever the batch."""
+    layer three (encoder) or five (decoder) of the model's width (768 for
+    OFA-Base, 1,280 for Huge) and the ffn_layernorm of the FFN's (3,072;
+    5,120), then the final one; where the biases are built in the forward
+    (evaluation, monitoring), the three fp32 position LayerNorms, once per
+    forward whatever the batch."""
     bf16, fp32 = torch.bfloat16, torch.float32
     enc, dec = cells + SRC_LEN, 1 + cells
+    w, f, n_enc, n_dec = spec["width"], spec["ffn"], spec["enc_layers"], spec["dec_layers"]
     sites = [
-        ("patch embedding", batch * cells, 768, bf16, bf16, 1),
-        ("text embedding", batch * SRC_LEN, 768, bf16, bf16, 1),
-        ("encoder layers + final", batch * enc, 768, bf16, bf16, 6 * 3 + 1),
-        ("encoder ffn", batch * enc, 3072, bf16, bf16, 6),
-        ("decoder embedding + layers + final", batch * dec, 768, bf16, bf16, 1 + 6 * 5 + 1),
-        ("decoder ffn", batch * dec, 3072, bf16, bf16, 6),
+        ("patch embedding", batch * cells, w, bf16, bf16, 1),
+        ("text embedding", batch * SRC_LEN, w, bf16, bf16, 1),
+        ("encoder layers + final", batch * enc, w, bf16, bf16, n_enc * 3 + 1),
+        ("encoder ffn", batch * enc, f, bf16, bf16, n_enc),
+        ("decoder embedding + layers + final", batch * dec, w, bf16, bf16, 1 + n_dec * 5 + 1),
+        ("decoder ffn", batch * dec, f, bf16, bf16, n_dec),
     ]
     if position_lns:
         sites += [
-            ("text positions", SRC_LEN, 768, fp32, fp32, 1),
-            ("image positions", cells, 768, fp32, fp32, 1),
-            ("seg positions", dec, 768, fp32, fp32, 1),
+            ("text positions", SRC_LEN, w, fp32, fp32, 1),
+            ("image positions", cells, w, fp32, fp32, 1),
+            ("seg positions", dec, w, fp32, fp32, 1),
         ]
     return sites
 
@@ -488,26 +591,42 @@ LN_PATHS = {
     "per_eval_group": ("eval", ln_sites(EVAL_ROWS, EVAL_GRID[0] * EVAL_GRID[1], True)),
     "per_monitor_forward": ("monitor", ln_sites(TRAIN_BATCH, 1024, True)),
 }
+# SegOFA-Huge's two: a served batch of HUGE_SERVE_BATCH and an evaluation
+# group of EVAL_ROWS at the (512, 768) bucket
+HUGE_LN_PATHS = {
+    "per_forward": ("huge served", ln_sites(HUGE_SERVE_BATCH, 1024, False, HUGE)),
+    "per_eval_group": ("huge eval", ln_sites(EVAL_ROWS, EVAL_GRID[0] * EVAL_GRID[1], True, HUGE)),
+}
 
 
-def ln_sites_per_pass(per_key: str) -> int:
-    return sum(n for *_, n in LN_PATHS[per_key][1])
+def ln_sites_per_pass(per_key: str, paths=LN_PATHS) -> int:
+    return sum(n for *_, n in paths[per_key][1])
 
 
-def phase_layer_norm():
+def phase_layer_norm(paths=LN_PATHS, tag="[3n]"):
+    """K4 against its plain version at every site of ``paths``, timed, and at
+    a few widths and row counts of its own, checked; for OFA-Base also its
+    autograd Function at a training site."""
     import torch.nn.functional as F
     from ifseg_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = [(f"{path} {name}", n, d, in_dt, out_dt, per_key, per)
-             for per_key, (path, sites) in LN_PATHS.items()
+             for per_key, (path, sites) in paths.items()
              for name, n, d, in_dt, out_dt, per in sites]
-    cases += [
-        ("ragged row count", 1001, 768, bf16, bf16, None, 0),
-        ("narrow width", 77, 32, fp32, bf16, None, 0),
-        ("widest", 333, 4096, bf16, fp32, None, 0),
-    ]
+    if paths is LN_PATHS:
+        cases += [
+            ("ragged row count", 1001, 768, bf16, bf16, None, 0),
+            ("narrow width", 77, 32, fp32, bf16, None, 0),
+            ("widest of a warp a row", 333, 4096, bf16, fp32, None, 0),
+        ]
+    else:  # the CTA-per-row kernel beyond Huge's 5,120, up to its widest
+        cases += [
+            ("just above a warp a row", 33, 4104, bf16, fp32, None, 0),
+            ("width 8,192", 129, 8192, fp32, fp32, None, 0),
+            ("widest", 31, ln.MAX_WIDTH, bf16, bf16, None, 0),
+        ]
     rows = []
     for name, n, d, in_dt, out_dt, per_key, per in cases:
         x = (torch.randn(n, d, generator=gen, device="cuda") * 3 + 1).to(in_dt)
@@ -524,11 +643,11 @@ def phase_layer_norm():
             held = f"limit {LN_BF16_ULPS} bf16 step (2^-7 relative) + {LN_FP32_TOL}"
         else:
             ok, held = err <= LN_FP32_TOL, f"limit {LN_FP32_TOL}"
-        log(f"[3n] {name}: {n} x {d} {str(in_dt).split('.')[-1]} -> {str(out_dt).split('.')[-1]}: "
-            f"max_abs_err={err:.3e}, {held}")
+        log(f"{tag} {name}: {n} x {d} {str(in_dt).split('.')[-1]} -> {str(out_dt).split('.')[-1]}"
+            f" ({'a CTA' if d > ln.WARP_MAX_WIDTH else 'a warp'} a row): max_abs_err={err:.3e}, {held}")
         if not ok:
             fail(f"layer_norm kernel disagrees with its plain version at {name}: {err}, {held}")
-        row = dict(site=name, rows=n, width=d, max_abs_err=err, **{k: 0 for k in LN_PATHS})
+        row = dict(site=name, rows=n, width=d, max_abs_err=err, **{k: 0 for k in paths})
         if per_key:
             row[per_key] = per
             # x read once and y written once (scale and bias are 6 to 25 KB)
@@ -548,25 +667,29 @@ def phase_layer_norm():
             row["three_pass_ms"] = cuda_ms_queued(
                 lambda: F.layer_norm(x.float(), (d,), scale, bias, 1e-5).to(out_dt), 20)
             row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
-            log(f"[3n]   kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            log(f"{tag}   kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"library_ms={row['library_ms']:.4f} three_pass_ms={row['three_pass_ms']:.4f} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; {row['mb']:.1f} MB) "
                 f"share_of_bound={row['share_of_bound']:.3f}")
         rows.append(row)
         del x, got, want
-    for per_key, (path, _) in LN_PATHS.items():
+    for per_key, (path, _) in paths.items():
         timed = [r for r in rows if r[per_key]]
-        log(f"[3n] {path} forward, {sum(r[per_key] for r in timed)} sites: kernel "
+        log(f"{tag} {path} forward, {sum(r[per_key] for r in timed)} sites: kernel "
             f"{sum(r['kernel_ms'] * r[per_key] for r in timed):.3f} ms, cast + fp32 F.layer_norm + "
             f"cast {sum(r['three_pass_ms'] * r[per_key] for r in timed):.3f} ms, bound "
             f"{sum(r['bound_ms'] * r[per_key] for r in timed):.3f} ms")
-    try:  # a width the kernel does not take raises; nothing falls back
-        ln.fused_layer_norm(torch.zeros(4, 100, device="cuda"), torch.ones(100, device="cuda"),
-                            torch.zeros(100, device="cuda"))
-    except ValueError as exc:
-        log(f"[3n] width 100 on a CUDA tensor raises: {exc}")
-    else:
-        fail("layer_norm on a CUDA tensor of width 100 did not raise")
+    # a width the kernel does not take raises; nothing falls back
+    for d in ((100,) if paths is LN_PATHS else (ln.MAX_WIDTH + 8,)):
+        try:
+            ln.fused_layer_norm(torch.zeros(4, d, device="cuda"), torch.ones(d, device="cuda"),
+                                torch.zeros(d, device="cuda"))
+        except ValueError as exc:
+            log(f"{tag} width {d} on a CUDA tensor raises: {exc}")
+        else:
+            fail(f"layer_norm on a CUDA tensor of width {d} did not raise")
+    if paths is not LN_PATHS:
+        return rows, None
 
     # the autograd Function (kernel forward, plain backward) beside the route
     # the module takes when a gradient flows, at one training site (16 x 1,056 rows)
@@ -745,24 +868,27 @@ def rel_err(got, want):
     return diff / max(want.float().abs().max().item(), 1e-30), diff
 
 
-def phase_train_kernels():
-    """Forward with stats, di, dq + dbias and dk + dv against their plain
-    versions at the training shapes; rows keyed by kernel."""
+def phase_train_kernels(spec=BASE, batch=TRAIN_BATCH, tag="[3t]"):
+    """Forward with stats, di, dq + dbias and dk + dv of ``spec``'s head dim
+    against their plain versions at the training shapes (``batch``), a
+    ragged case, one without a bias and the tile edges; rows keyed by
+    kernel."""
     from ifseg_torch.ops import flash_attention as fa
 
-    h = 12
+    h, d = spec["heads"], spec["head_dim"]
+    prefix = "" if spec is BASE else "huge "
     rows = {"stats": [], "di": [], "dq": [], "dkv": []}
-    cases = [(name, TRAIN_BATCH, lq, lk, causal, masked, torch.bfloat16, n)
-             for name, lq, lk, causal, masked, n in SITES]
-    cases.append(("ragged check", 3, 77, 130, True, True, torch.float32, 0))
-    cases.append(("no-bias check", 2, 70, 70, False, False, None, 0))
+    cases = [(prefix + name, batch, lq, lk, causal, masked, torch.bfloat16, n)
+             for name, lq, lk, causal, masked, n in attn_sites(spec)]
+    cases.append((prefix + "ragged check", 3, 77, 130, True, True, torch.float32, 0))
+    cases.append((prefix + "no-bias check", 2, 70, 70, False, False, None, 0))
     # the kernels' tile edges, with more than one key (with one, every
     # gradient but dv is 0)
-    cases += [(name, b, lq, lk, causal, masked, bias_dtype, 0)
+    cases += [(prefix + name, b, lq, lk, causal, masked, bias_dtype, 0)
               for name, b, lq, lk, causal, masked, bias_dtype, _ in EDGE_CASES if lk > 1]
     for i, (name, b, lq, lk, causal, masked, bias_dtype, per_step) in enumerate(cases):
         q, k, v, dense, mask = site_inputs(b, h, lq, lk, causal, masked,
-                                           bias_dtype or torch.bfloat16, seed=10 + i)
+                                           bias_dtype or torch.bfloat16, seed=10 + i, head_dim=d)
         # the bias as the training path hands it over: rows 16-byte aligned,
         # row-padded where Lk does not make them so
         bias = None if bias_dtype is None else fa.row_padded(dense)
@@ -823,7 +949,7 @@ def phase_train_kernels():
         del leaves, pub_out, pub_lse, wants
         del want_out, want_lse, want_dq, want_dbias, want_dk, want_dv, want_di, ref_args
         torch.cuda.empty_cache()
-        log(f"[3t] {name}: B={b} Lq={lq} Lk={lk} causal={causal} mask={masked} "
+        log(f"{tag} {name}: B={b} H={h} D={d} Lq={lq} Lk={lk} causal={causal} mask={masked} "
             f"bias={None if bias is None else str(bias.dtype).split('.')[-1]} "
             f"pitch={None if bias is None else bias.stride(1)}: "
             f"out abs {errs['out']:.3e}, lse abs {errs['lse']:.3e}, "
@@ -840,7 +966,7 @@ def phase_train_kernels():
         for x in (out, lse, di, dq, dk, dv) + (() if dbias is None else (dbias,)):
             if not bool(torch.isfinite(x).all()):
                 fail(f"non-finite kernel output at {name}")
-        base = dict(site=name, B=b, Lq=lq, Lk=lk, causal=causal, per_step=per_step)
+        base = dict(site=name, B=b, H=h, D=d, Lq=lq, Lk=lk, causal=causal, per_step=per_step)
         rows["stats"].append(dict(base, max_abs_err=max(errs["out"], errs["lse"])))
         rows["di"].append(dict(base, max_abs_err=errs["di"][1], max_rel_err=errs["di"][0]))
         kq = [e for n, e in errs.items() if n.startswith(("dq", "dbias"))]
@@ -864,29 +990,30 @@ def phase_train_kernels():
             try:
                 lib_fwd, lib_bwd = sdpa_train_ms(q, k, v, bias, mask, causal, h, 5)
             except RuntimeError as exc:  # the yardstick only; the port never calls it
-                log(f"[3t]   scaled_dot_product_attention with a bias gradient failed: {exc}")
+                log(f"{tag}   scaled_dot_product_attention with a bias gradient failed: {exc}")
                 lib_fwd = lib_bwd = None
             # di in one library call (timed here, used nowhere in the port); its
             # result is bf16 where the kernel's is fp32
             gh, oh = g.view(b, lq, h, -1), out.view(b, lq, h, -1)
-            lib_di = cuda_ms(lambda: torch.einsum("blhd,blhd->bhl", gh, oh), 10)
+            lib_di = cuda_ms_queued(lambda: torch.einsum("blhd,blhd->bhl", gh, oh), 10)
             torch.cuda.empty_cache()
             for kind, (kernel_fn, plain_fn) in timed.items():
                 row = rows[kind][-1]
                 if kind == "di":  # bytes only: do and out read, di written
                     flops, nbytes = 2 * q.numel(), 2 * 2 * q.numel() + 4 * di.numel()
                 else:
-                    flops, nbytes = attention_work(b, h, lq, lk, fa.HEAD_DIM, causal, bb, masked,
-                                                   kind)
+                    flops, nbytes = attention_work(b, h, lq, lk, d, causal, bb, masked, kind)
                 row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
                 row["gflop"], row["mb"] = flops / 1e9, nbytes / 1e6
-                row["kernel_ms"] = cuda_ms(kernel_fn, 10)
+                # di takes less card time than its launch costs the host: queued
+                row["kernel_ms"] = (cuda_ms_queued(kernel_fn, 50) if kind == "di"
+                                    else cuda_ms(kernel_fn, 10))
                 row["plain_ms"] = cuda_ms(plain_fn, 2, warmup=1)
                 torch.cuda.empty_cache()
                 # the library's one backward does the work of dq + dbias and dk + dv together
                 row["library_ms"] = dict(stats=lib_fwd, dq=lib_bwd, dkv=lib_bwd, di=lib_di)[kind]
                 row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
-                log(f"[3t]   {kind}: kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                log(f"{tag}   {kind}: kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                     f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
                     f"({row['bound_by']}; {row['gflop']:.1f} GFLOP, {row['mb']:.1f} MB) "
                     f"share_of_bound={row['share_of_bound']:.3f}")
@@ -896,7 +1023,7 @@ def phase_train_kernels():
             no_bias = (q, k, v, None, mask, causal, g, lse, di, h)
             rows["dq"][-1]["no_bias_ms"] = cuda_ms(lambda: fa._launch_dq(*no_bias), 10)
             rows["dkv"][-1]["no_bias_ms"] = cuda_ms(lambda: fa._launch_dkv(*no_bias), 10)
-            log(f"[3t]   dq without dbias {rows['dq'][-1]['no_dbias_ms']:.4f} ms, without a bias "
+            log(f"{tag}   dq without dbias {rows['dq'][-1]['no_dbias_ms']:.4f} ms, without a bias "
                 f"{rows['dq'][-1]['no_bias_ms']:.4f}; dkv without a bias "
                 f"{rows['dkv'][-1]['no_bias_ms']:.4f}")
         del q, k, v, bias, dense, mask, g, out, lse, di, dq, dk, dv, dbias, args
@@ -916,17 +1043,19 @@ def pitched(bias):
 
 # ---------------------------------------------------------------- phases 6, 7
 
-def train_config(dtype: str, monitor: bool, dropout: bool = True):
+def train_config(dtype: str, monitor: bool, dropout: bool = True, arch: str = "segofa_base",
+                 **model_overrides):
     """The reference image-free configuration (run_scripts/IFSeg/common.sh +
-    coco_unseen.sh): OFA-Base 512px, 15 seg classes, dropout and drop-path
-    0.1, clip-norm 1, Adam (0.9, 0.999) eps 1e-8, wd 0.1, cosine LR 5e-5."""
+    coco_unseen.sh): OFA-Base (or ``arch``) 512px, 15 seg classes, dropout
+    and drop-path 0.1, clip-norm 1, Adam (0.9, 0.999) eps 1e-8, wd 0.1,
+    cosine LR 5e-5."""
     from ifseg_torch.config import Config, model_config_for_arch
 
     rates = {} if dropout else dict(dropout=0.0, encoder_drop_path_rate=0.0,
                                     decoder_drop_path_rate=0.0)
     cfg = Config(model=model_config_for_arch(
-        "segofa_base", patch_image_size=512, orig_patch_image_size=512,
-        num_seg_tokens=TRAIN_CLASSES, dtype=dtype, **rates))
+        arch, patch_image_size=512, orig_patch_image_size=512,
+        num_seg_tokens=TRAIN_CLASSES, dtype=dtype, **rates, **model_overrides))
     cfg.optimization.seed = SEED
     cfg.criterion.monitor_real_batch = monitor
     return cfg
@@ -955,6 +1084,21 @@ def train_batch(rng, batch: int, real: bool):
     return out
 
 
+def take_steps(trainer, rng, steps: int, batch: int, real: bool):
+    """(logs, seconds) of ``steps`` training steps, each ended by a synchronize."""
+    logs, times = [], []
+    for _ in range(steps):
+        data = train_batch(rng, batch, real)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = trainer.train_step(data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        logs.append({k: float(v) for k, v in out.items()
+                     if not isinstance(v, torch.Tensor) or v.dim() == 0})
+    return logs, times
+
+
 def phase_train(card: str):
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
@@ -974,17 +1118,7 @@ def phase_train(card: str):
     start = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
 
     def run(steps, real):
-        logs, times = [], []
-        for _ in range(steps):
-            batch = train_batch(rng, TRAIN_BATCH, real)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            out = trainer.train_step(batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t1)
-            logs.append({k: float(v) for k, v in out.items()
-                         if not isinstance(v, torch.Tensor) or v.dim() == 0})
-        return logs, times
+        return take_steps(trainer, rng, steps, TRAIN_BATCH, real)
 
     fa.reset_launches()
     ln.reset_launches()
@@ -1068,7 +1202,8 @@ GRAD_TENSORS = (
 )
 
 
-def phase_train_gradients():
+def phase_train_gradients(arch="segofa_base", grad_tensors=GRAD_TENSORS, tag="[7]",
+                          **model_overrides):
     """Image-free loss + backward at batch 2: the card (bf16, kernels) against
     the CPU (fp32, plain versions), same weights and batch, dropout off."""
     from ifseg_torch.train.trainer import Trainer
@@ -1077,7 +1212,8 @@ def phase_train_gradients():
     batch = train_batch(np.random.default_rng(400), 2, real=False)
 
     def loss_and_grads(dtype, device, weights):
-        tr = Trainer(train_config(dtype, monitor=False, dropout=False), tokens, lengths,
+        tr = Trainer(train_config(dtype, monitor=False, dropout=False, arch=arch,
+                                  **model_overrides), tokens, lengths,
                      total_num_updates=100, device=device).init_state(weights)
         tr.model.train()
         loss = tr._loss_fn(tr.prepare_batch(batch))
@@ -1097,14 +1233,17 @@ def phase_train_gradients():
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     gn_card, gn_cpu = norm(card_grads), norm(cpu_grads)
     gn_rel = abs(gn_card - gn_cpu) / gn_cpu
-    log(f"[7] image-free loss + backward, batch 2: card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s; "
+    depth = (f", {model_overrides['encoder_layers']} + {model_overrides['decoder_layers']} layers "
+             "(reduced depth), full width" if model_overrides else "")
+    log(f"{tag} {arch} image-free loss + backward, batch 2{depth}: card {t1 - t0:.1f} s, "
+        f"CPU {t2 - t1:.1f} s; "
         f"loss {card_loss:.5f} vs {cpu_loss:.5f} (rel {loss_rel:.3e}), "
         f"gnorm {gn_card:.5f} vs {gn_cpu:.5f} (rel {gn_rel:.3e})")
     cosines = {}
-    for name in GRAD_TENSORS:
+    for name in grad_tensors:
         a, b = card_grads[name].flatten().double(), cpu_grads[name].flatten().double()
         cosines[name] = float(a @ b / (a.norm() * b.norm()))
-        log(f"[7]   cosine {cosines[name]:.5f}  |g| card {float(a.norm()):.3e} "
+        log(f"{tag}   cosine {cosines[name]:.5f}  |g| card {float(a.norm()):.3e} "
             f"cpu {float(b.norm()):.3e}  {name}")
     if not loss_rel <= TRAIN_LOSS_REL_TOL:
         fail(f"card loss differs from the CPU loss: {loss_rel} > {TRAIN_LOSS_REL_TOL}")
@@ -1119,12 +1258,12 @@ def phase_train_gradients():
 
 # ---------------------------------------------------------------- phases 8, 9
 
-def eval_config(dtype: str):
-    """OFA-Base, 150 classes, the evaluation settings of
+def eval_config(dtype: str, model_cfg=None):
+    """OFA-Base, 150 classes (or ``model_cfg``), the evaluation settings of
     run_scripts/IFSeg/common.sh: label propagation top-3, 25 iterations."""
     from ifseg_torch.config import Config
 
-    cfg = Config(model=base_config(dtype))
+    cfg = Config(model=base_config(dtype) if model_cfg is None else model_cfg)
     cfg.criterion.resnet_topk = 3
     cfg.criterion.resnet_iters = 25
     return cfg
@@ -1142,7 +1281,7 @@ EVAL_SHAPES_SQUARE = [((512, 512), (512, 512)), ((512, 512), (500, 500)),
                       ((512, 512), (480, 480)), ((512, 512), (375, 500))]
 
 
-def eval_samples(shapes, seed: int):
+def eval_samples(shapes, seed: int, classes: int = EVAL_CLASSES):
     """Fabricated uint8 ``EvalSample``s; a tenth of the target is 'unknown'."""
     from ifseg_torch.data.segmentation_dataset import EvalSample
 
@@ -1151,8 +1290,8 @@ def eval_samples(shapes, seed: int):
     src[SRC_LEN - 5:] = 1  # PAD
     samples = []
     for i, ((h, w), (H, W)) in enumerate(shapes):
-        seg = rng.integers(0, EVAL_CLASSES, size=(H, W)).astype(np.int32)
-        seg[rng.random((H, W)) < 0.1] = EVAL_CLASSES
+        seg = rng.integers(0, classes, size=(H, W)).astype(np.int32)
+        seg[rng.random((H, W)) < 0.1] = classes
         samples.append(EvalSample(
             patch_image=rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8), src_tokens=src,
             bos_token=np.zeros((1,), np.int32), ori_semantic_seg=seg, ori_shape=(H, W, 3), id=i))
@@ -1182,7 +1321,9 @@ def phase_eval(card: str, weights):
     cfg = eval_config("bfloat16")
     model = SegOFA(cfg.model)
     model.load_state_dict(weights, strict=True)
-    evaluator = Evaluator(cfg, model)  # the card, by default
+    # the model on the card in fp32, as a trainer holds it; the evaluator runs
+    # a bf16 copy of what serving casts and shares the rest
+    evaluator = Evaluator(cfg, model.to("cuda"))  # the card, by default
     log(f"[8] Evaluator, OFA-Base, {EVAL_CLASSES} classes, label propagation top-"
         f"{cfg.criterion.resnet_topk} x {cfg.criterion.resnet_iters}; memory budget "
         f"{evaluator.mem_budget / 2**30:.1f} GiB, at most "
@@ -1251,6 +1392,8 @@ def phase_eval(card: str, weights):
                             img_per_s=len(group) / with_lp, ms_per_group_no_lp=without * 1e3,
                             img_per_s_no_lp=len(group) / without)
 
+    result["refresh"] = refresh_timing(evaluator, "[8]", card)
+
     # peak memory of a group, above what is held between groups: the terms
     # of Evaluator._max_group_rows
     from ifseg_torch.eval import evaluator as ev
@@ -1282,6 +1425,26 @@ def phase_eval(card: str, weights):
                             row_act_buffers=per_row / (ltok * m.encoder_embed_dim * 4),
                             fixed_bias_buffers=fixed / (m.encoder_attention_heads * ltok ** 2 * 4))
     return evaluator, wide, result
+
+
+def refresh_timing(evaluator, tag, card, iters=3):
+    """Host ms of ``Evaluator.refresh_weights`` (the cast copy of the given
+    model's weights that ``eval_dataset`` takes first), ending in a
+    synchronize, and what it copies."""
+    evaluator.refresh_weights()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        evaluator.refresh_weights()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    own = evaluator._pairs
+    n = sum(t.numel() for t, _ in own)
+    nbytes = sum(t.numel() * (t.element_size() + s.element_size()) for t, s in own)
+    log(f"{tag} Evaluator.refresh_weights: {ms:.3f} ms for {len(own)} tensors of its own, "
+        f"{n / 1e6:.1f}M values, {nbytes / 1e6:.1f} MB read and written; the given model's "
+        f"parameters keep their dtype, on {card}")
+    return dict(ms=ms, tensors=len(own), values=n, mb=nbytes / 1e6)
 
 
 def phase_eval_reference(evaluator, wide, weights):
@@ -1344,6 +1507,250 @@ def phase_eval_reference(evaluator, wide, weights):
                 nll_rel_err=nll_rel, pixel_share_differs=shares)
 
 
+# ---------------------------------------------------------------- phase 10: SegOFA-Huge
+
+GRAD_TENSORS_HUGE = tuple(n.replace("decoder.layers.5", f"decoder.layers.{HUGE_CHECK_LAYERS - 1}")
+                          for n in GRAD_TENSORS)
+
+
+def huge_config(dtype: str, classes: int = EVAL_CLASSES, **overrides):
+    from ifseg_torch.config import model_config_for_arch
+
+    return model_config_for_arch("segofa_huge", patch_image_size=512, orig_patch_image_size=512,
+                                 num_seg_tokens=classes, dtype=dtype, **overrides)
+
+
+def build_on_card(cfg):
+    """SegOFA of ``cfg`` made on the card with random weights from SEED drawn
+    by a CUDA generator: no pass of the CPU over its parameters."""
+    from ifseg_torch.models.segofa import SegOFA
+
+    with torch.device("cuda"):
+        model = SegOFA(cfg)
+    return model.to("cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
+
+
+def check_huge_launches(path: str, counts, want):
+    """Every attention launch of a Huge path at head dim 80, by TMA, no copy."""
+    from ifseg_torch.ops import flash_attention as fa
+
+    by_dim, routes = dict(fa.LAUNCHES_BY_HEAD_DIM), fa.bias_route_counts()
+    log(f"[10] {path}: attention launches {counts} (expected {want}), by head dim {by_dim}, "
+        f"bias routes {routes}")
+    if counts != want:
+        fail(f"the Huge {path} path did not launch every attention kernel at every site")
+    if by_dim != {64: 0, 80: sum(counts.values())}:
+        fail(f"the Huge {path} path launched an instantiation other than head dim 80: {by_dim}")
+    if routes != dict(fwd_bias_tma=counts["infer"] + counts["stats"], fwd_bias_threads=0,
+                      bwd_bias_copies=0):
+        fail(f"the Huge {path} path staged a bias by threads or copied one: {routes}")
+    return by_dim
+
+
+def check_huge_ln(path: str, model, position_lns: bool, per_key: str, passes: int):
+    """K4 at every LayerNorm of ``passes`` no-gradient forwards, the CTA-per-row
+    kernel at every ffn_layernorm (5,120 wide)."""
+    from ifseg_torch.ops import layer_norm as ln
+
+    per_pass = ln_launches_per_forward(model, position_lns)
+    if per_pass != ln_sites_per_pass(per_key, HUGE_LN_PATHS):
+        fail(f"{per_pass} LayerNorm sites in a Huge {path} forward, "
+             f"{ln_sites_per_pass(per_key, HUGE_LN_PATHS)} held against the plain version")
+    wide = (HUGE["enc_layers"] + HUGE["dec_layers"]) * passes
+    log(f"[10] {path}: layer_norm launches {ln.LAUNCHES} (expected {per_pass} x {passes}), "
+        f"{ln.LAUNCHES_WIDE} of them a CTA a row at width {HUGE['ffn']} (expected {wide})")
+    if ln.LAUNCHES != per_pass * passes or ln.LAUNCHES_WIDE != wide:
+        fail(f"the Huge {path} path did not launch the layer_norm kernel at every LayerNorm")
+    return dict(launches=ln.LAUNCHES, wide=ln.LAUNCHES_WIDE)
+
+
+def phase_huge_serve(card: str):
+    from ifseg_torch.eval.serving import SegServer
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+
+    cfg = huge_config("bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_on_card(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    server = SegServer(model, src_len=SRC_LEN)
+    torch.cuda.synchronize()
+    log(f"[10] SegOFA-Huge 512px, {HUGE['enc_layers']} + {HUGE['dec_layers']} layers, width "
+        f"{HUGE['width']}, {HUGE['heads']} heads of {HUGE['head_dim']}, FFN {HUGE['ffn']}, "
+        f"{n_params / 1e6:.1f}M params, seed {SEED} on the card: build + SegServer set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    per_forward = sum(n for *_, n in attn_sites(HUGE))
+    fa.reset_launches()
+    ln.reset_launches()
+    b = HUGE_SERVE_BATCH
+    inputs = [x.to(server.device) for x in requests(b, seed=700)]
+    t1 = time.perf_counter()
+    logits = server(*inputs)
+    torch.cuda.synchronize()
+    log(f"[10] serving, batch {b}: logits {tuple(logits.shape)} in "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms (first forward)")
+    if tuple(logits.shape) != (b, 1 + 1024, cfg.num_seg_tokens) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"Huge served logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    steps = 3
+    server(*inputs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        server(*inputs)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t1) / steps
+    forwards = 2 + steps
+    counts = fa.launch_counts()
+    zero = dict(infer=0, stats=0, bwd_di=0, bwd_dq=0, bwd_dkv=0)
+    check_huge_launches("serving", counts, dict(zero, infer=per_forward * forwards))
+    ln_counts = check_huge_ln("serving", model, False, "per_forward", forwards)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[10] serving, steady state, batch {b}: {dt * 1e3:.1f} ms/forward, {b / dt:.2f} img/s, "
+        f"max_memory_allocated {peak_gb:.2f} GiB, on {card}")
+    del server, model, logits, inputs
+    torch.cuda.empty_cache()
+    return dict(batch=b, img_per_s=b / dt, ms_per_forward=dt * 1e3, max_memory_gib=peak_gb,
+                launches=counts["infer"], forwards=forwards, ln_launches=ln_counts["launches"],
+                ln_wide_launches=ln_counts["wide"], params_m=n_params / 1e6)
+
+
+def phase_huge_logits():
+    """Served logits at Huge's width and a reduced depth: the card (bf16,
+    kernels) against the port's fp32 forward on the CPU, same weights."""
+    from ifseg_torch.eval.serving import SegServer
+    from ifseg_torch.models.segofa import SegOFA
+
+    depth = dict(encoder_layers=HUGE_CHECK_LAYERS, decoder_layers=HUGE_CHECK_LAYERS)
+    model = build_on_card(huge_config("bfloat16", **depth))
+    weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    server = SegServer(model, src_len=SRC_LEN)
+    src, img, bos = requests(2, seed=300)
+    card = server(src, img, bos).float().cpu()
+    ref_model = SegOFA(huge_config("float32", **depth))
+    ref_model.load_state_dict(weights, strict=True)
+    t0 = time.perf_counter()
+    ref = SegServer(ref_model, src_len=SRC_LEN, device="cpu")(src, img, bos)
+    rel = ((card - ref).norm() / ref.norm()).item()
+    agree = (card.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"[10] card bf16 vs CPU fp32 served logits, SegOFA-Huge at {HUGE_CHECK_LAYERS} + "
+        f"{HUGE_CHECK_LAYERS} layers (reduced depth), full width, batch 2 "
+        f"({time.perf_counter() - t0:.1f} s on the CPU): relative logit error {rel:.3e} "
+        f"(limit {LOGIT_REL_TOL}), per-cell argmax agreement {agree:.4f}")
+    if not rel <= LOGIT_REL_TOL:
+        fail(f"Huge card logits differ from the CPU forward: {rel} > {LOGIT_REL_TOL}")
+    del server, model
+    torch.cuda.empty_cache()
+    return dict(rel_err=rel, argmax_agreement=agree, layers=HUGE_CHECK_LAYERS)
+
+
+def phase_huge_train(card: str):
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.train.trainer import Trainer
+
+    tokens, lengths = class_table(SEED)
+    rng = np.random.default_rng(SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(train_config("bfloat16", monitor=False, arch=HUGE["arch"]), tokens, lengths,
+                      total_num_updates=100).init_state()  # the card, by default
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in trainer.optimizer.params)
+    log(f"[10] Trainer, SegOFA-Huge 512px, batch {HUGE_TRAIN_BATCH}, {TRAIN_CLASSES} classes, "
+        f"{n_train / 1e6:.1f}M trainable params, seed {SEED}, no activation checkpointing: "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    start = {n: p.detach().clone() for n, p in trainer.model.named_parameters() if trainer.mask[n]}
+    fa.reset_launches()
+    ln.reset_launches()
+    warm, timed = 2, 3
+    logs, times = take_steps(trainer, rng, warm + timed, HUGE_TRAIN_BATCH, real=False)
+    steps = warm + timed
+    for i, lg in enumerate(logs):
+        log(f"[10] training step {i}: loss {lg['loss']:.4f} gnorm {lg['gnorm']:.4f} "
+            f"n_nonfinite {lg['n_nonfinite']:.0f}")
+        if not (np.isfinite(lg["loss"]) and np.isfinite(lg["gnorm"])) or lg["n_nonfinite"] != 0:
+            fail(f"Huge training step {i}: non-finite loss or gradient norm")
+    per_pass = sum(n for *_, n in attn_sites(HUGE))
+    counts = fa.launch_counts()
+    want = dict(infer=0, stats=per_pass * steps, bwd_di=per_pass * steps,
+                bwd_dq=per_pass * steps, bwd_dkv=per_pass * steps)
+    check_huge_launches("training", counts, want)
+    if ln.LAUNCHES:
+        fail(f"the Huge training forward launched the layer_norm kernel {ln.LAUNCHES} times")
+    moved = sum(int(not torch.equal(p, start[n])) for n, p in trainer.model.named_parameters()
+                if n in start)
+    if moved < 0.95 * len(start):
+        fail(f"only {moved} of {len(start)} trainable Huge tensors moved")
+    s_step = float(np.mean(times[warm:]))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[10] training, steady state, batch {HUGE_TRAIN_BATCH}: {s_step:.4f} s/step "
+        f"(steps: {', '.join(f'{t:.3f}' for t in times)}), {moved}/{len(start)} trainable "
+        f"tensors moved, max_memory_allocated {peak_gb:.2f} GiB, on {card}")
+    del start
+    return trainer, dict(batch=HUGE_TRAIN_BATCH, s_per_step=s_step, max_memory_gib=peak_gb,
+                         launches=counts, steps=steps, final_loss=logs[-1]["loss"])
+
+
+def phase_huge_eval(card: str, trainer):
+    """An Evaluator built on the trainer's model: one group of 8 uint8 rows at
+    the (512, 768) bucket (the trainer's 15 classes), its launches, its time,
+    the refresh of its serving copy, and the trainer's parameters after it."""
+    from ifseg_torch.eval.evaluator import Evaluator
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+
+    before = {n: (p.dtype, p.device, p.data_ptr()) for n, p in trainer.model.named_parameters()}
+    cfg = eval_config("bfloat16", trainer.cfg.model)
+    torch.cuda.empty_cache()  # the training steps' cached blocks: the group budget reads free memory
+    t0 = time.perf_counter()
+    evaluator = Evaluator(cfg, trainer.model)
+    torch.cuda.synchronize()
+    log(f"[10] Evaluator on the trainer's SegOFA-Huge, {TRAIN_CLASSES} classes: set-up "
+        f"{time.perf_counter() - t0:.2f} s, at most {evaluator._max_group_rows(512, 768)} rows a "
+        f"group at the (512, 768) bucket")
+    wide = eval_samples(EVAL_SHAPES_WIDE, 800, classes=TRAIN_CLASSES)
+    fa.reset_launches()
+    ln.reset_launches()
+    stats = {}
+    logs = evaluator.eval_dataset(ListDataset(wide), batch_size=8, stats_out=stats)
+    counts = fa.launch_counts()
+    zero = dict(infer=0, stats=0, bwd_di=0, bwd_dq=0, bwd_dkv=0)
+    check_huge_launches("evaluation", counts, dict(zero, infer=sum(n for *_, n in eval_sites(HUGE))))
+    ln_counts = check_huge_ln("evaluation", evaluator.model, True, "per_eval_group", 1)
+    if stats["group_sizes"] != [len(wide)]:
+        fail(f"Huge evaluation groups {stats['group_sizes']}")
+    out = logs[0]
+    n_valid = sum(int((s.ori_semantic_seg != TRAIN_CLASSES).sum()) for s in wide)
+    ai, al, au = (out[f"area_{k}"] for k in ("intersect", "label", "union"))
+    if not np.isfinite(out["nll_loss"]) or out["nll_cnt"] != n_valid or al.sum() != n_valid \
+            or not (ai <= au).all():
+        fail(f"Huge evaluation: nll_loss {out['nll_loss']}, nll_cnt {out['nll_cnt']}, label sum "
+             f"{al.sum()} vs {n_valid} valid pixels")
+    after = {n: (p.dtype, p.device, p.data_ptr()) for n, p in trainer.model.named_parameters()}
+    if after != before or any(dt != torch.float32 for dt, _, _ in after.values()):
+        fail("the Evaluator changed the dtype, device or storage of the trainer's parameters")
+    evaluator._run_group(wide)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    iters = 2
+    for _ in range(iters):
+        evaluator._run_group(wide)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t1) / iters
+    log(f"[10] evaluation, group of {len(wide)} at the (512, 768) bucket: nll_loss "
+        f"{out['nll_loss']:.4f}, {n_valid} valid pixels; {dt * 1e3:.1f} ms a group, "
+        f"{len(wide) / dt:.2f} img/s, on {card}; the trainer's {len(after)} parameters are "
+        f"fp32 and in place after it")
+    refresh = refresh_timing(evaluator, "[10]", card)
+    del evaluator
+    return dict(rows=len(wide), ms_per_group=dt * 1e3, img_per_s=len(wide) / dt,
+                launches=counts["infer"], ln_launches=ln_counts["launches"],
+                ln_wide_launches=ln_counts["wide"], refresh=refresh,
+                nll_loss=float(out["nll_loss"]))
+
+
 # ---------------------------------------------------------------- main
 
 def pass_totals(rows, per_key):
@@ -1375,10 +1782,15 @@ def main():
     card = phase_card()
     sys.path.insert(0, str(REPO))
 
-    phase_build()
+    ptxas = phase_build()
     sites = phase_kernels()
     ln_rows, ln_train = phase_layer_norm()
     train_rows = phase_train_kernels()
+    # the head-dim-80 instantiations and the CTA-per-row K4 at Huge's shapes
+    huge_sites = phase_kernels(HUGE, HUGE_SERVE_BATCH, "[3 huge]")
+    huge_ln_rows, _ = phase_layer_norm(HUGE_LN_PATHS, "[3n huge]")
+    huge_train_rows = phase_train_kernels(HUGE, HUGE_TRAIN_BATCH, "[3t huge]")
+    torch.cuda.empty_cache()
     server, weights, serve = phase_serve(card)
     cpu = phase_cpu_reference(server, weights)
     del server
@@ -1389,6 +1801,15 @@ def main():
     torch.cuda.empty_cache()
     train = phase_train(card)
     grads = phase_train_gradients()
+
+    huge = dict(serve=phase_huge_serve(card), logits=phase_huge_logits())
+    trainer, huge["train"] = phase_huge_train(card)
+    huge["evaluation"] = phase_huge_eval(card, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    huge["gradients"] = phase_train_gradients(
+        HUGE["arch"], GRAD_TENSORS_HUGE, "[10]", encoder_layers=HUGE_CHECK_LAYERS,
+        decoder_layers=HUGE_CHECK_LAYERS)
 
     fwd_src = "ifseg_torch/csrc/flash_attention_bias_fwd.cu"
     dq_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dq.cu"
@@ -1401,7 +1822,10 @@ def main():
     k1_paths = dict(serving=serve["launches"], evaluation=evaluation["launches"],
                     monitoring=counts["infer"])
     ln_paths = dict(serving=serve["ln_launches"], evaluation=evaluation["ln_launches"],
-                    monitoring=train["ln_launches"])
+                    monitoring=train["ln_launches"],
+                    huge_serving=huge["serve"]["ln_launches"] - huge["serve"]["ln_wide_launches"],
+                    huge_evaluation=(huge["evaluation"]["ln_launches"]
+                                     - huge["evaluation"]["ln_wide_launches"]))
     kernels = [
         kernel_entry("flash_attention_bias_fwd", fwd_src, f"{jax_fa}:134", sum(k1_paths.values()),
                      sites, "one batch-32 forward: 6 calls at each of the three site shapes",
@@ -1427,11 +1851,49 @@ def main():
         f"monitoring forward, batch {TRAIN_BATCH}": pass_totals(ln_rows, "per_monitor_forward"),
     }
     kernels[-1]["training_site"] = ln_train
+
+    # the head-dim-80 instantiations and the CTA-per-row K4, from SegOFA-Huge's paths
+    enc, dec = HUGE["enc_layers"], HUGE["dec_layers"]
+    huge_fwd_unit = (f"one SegOFA-Huge batch-{HUGE_SERVE_BATCH} served forward: {enc}, {dec} and "
+                     f"{dec} calls at the three site shapes")
+    huge_step_unit = (f"one SegOFA-Huge batch-{HUGE_TRAIN_BATCH} training step: {enc}, {dec} and "
+                      f"{dec} calls at the three site shapes")
+    hc = huge["train"]["launches"]
+    k1_80_paths = dict(huge_serving=huge["serve"]["launches"],
+                       huge_evaluation=huge["evaluation"]["launches"])
+    wide_paths = dict(huge_serving=huge["serve"]["ln_wide_launches"],
+                      huge_evaluation=huge["evaluation"]["ln_wide_launches"])
+    huge_kernels = [
+        kernel_entry("flash_attention_bias_fwd, head dim 80", fwd_src, f"{jax_fa}:134",
+                     sum(k1_80_paths.values()), huge_sites, huge_fwd_unit, "per_forward"),
+        kernel_entry("flash_attention_bias_fwd_stats, head dim 80", fwd_src, f"{jax_fa}:134",
+                     hc["stats"], huge_train_rows["stats"], huge_step_unit, "per_step"),
+        kernel_entry("flash_attention_bwd_di, head dim 80", dq_src, f"{jax_fa}:484",
+                     hc["bwd_di"], huge_train_rows["di"], huge_step_unit, "per_step"),
+        kernel_entry("flash_attention_bias_bwd_dq, head dim 80", dq_src, f"{jax_fa}:373",
+                     hc["bwd_dq"], huge_train_rows["dq"], huge_step_unit, "per_step"),
+        kernel_entry("flash_attention_bias_bwd_dkv, head dim 80", dkv_src, f"{jax_fa}:420",
+                     hc["bwd_dkv"], huge_train_rows["dkv"], huge_step_unit, "per_step"),
+        kernel_entry("layer_norm, a CTA a row (widths above 4,096)", "ifseg_torch/csrc/layer_norm.cu",
+                     "ifseg_tpu/ops/layer_norm.py:43", sum(wide_paths.values()),
+                     [r for r in huge_ln_rows if r["width"] > 4096],
+                     f"one SegOFA-Huge batch-{HUGE_SERVE_BATCH} served forward: its {enc + dec} "
+                     f"ffn_layernorm sites of width {HUGE['ffn']}", "per_forward"),
+    ]
+    huge_kernels[0]["launches_by_path"] = k1_80_paths
+    huge_kernels[0]["per_pass"] = {
+        "SegOFA-Huge evaluation group of 8": pass_totals(huge_sites, "per_eval_group")}
+    huge_kernels[-1]["launches_by_path"] = wide_paths
+    huge_kernels[-1]["per_pass"] = {
+        "SegOFA-Huge evaluation group of 8": pass_totals(
+            [r for r in huge_ln_rows if r["width"] > 4096], "per_eval_group")}
+    kernels += huge_kernels
     for entry in kernels:
         if entry["launches"] < 1 or any(n < 1 for n in entry.get("launches_by_path", {}).values()):
             fail(f"kernel {entry['name']} was never launched by a main path")
     log(json.dumps({"serve": serve, "cpu_reference": cpu, "evaluation": evaluation,
-                    "train": train, "train_gradients": grads, "card_line": card}))
+                    "train": train, "train_gradients": grads, "huge": huge, "ptxas": ptxas,
+                    "card_line": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,12 +2,14 @@
 // (sm_90a only): mbarriers, TMA tile loads through a tensor map, the 128-byte
 // shared-memory swizzle, wgmma shared-memory descriptors, the wgmma fences and
 // the m64nNk16 bf16 products with fp32 accumulation, and setmaxnreg.  The
-// forward kernel uses them; the backward kernels are meant to take them too.
+// three attention kernels use them, at head dim 64 and 80 (HeadTile).
 //
 // Conventions.  A tile whose rows are 128 bytes (64 bf16 of one head) lies in
 // shared memory as TMA writes it under CU_TENSOR_MAP_SWIZZLE_128B: row r at
 // byte r*128, its 16-byte chunk c at chunk position c ^ (r % 8).  Such a tile
-// must start at a multiple of 1024 bytes.  wgmma reads it through a
+// must start at a multiple of 1024 bytes.  (A head of 80 bf16 is 160 bytes,
+// which no swizzle span holds: HeadTile below lays it out as five blocks of
+// 16 columns under the 32-byte swizzle.)  wgmma reads it through a
 // descriptor with the same swizzle:
 //   * as a K-major operand (the contraction runs along the 128-byte row: Q
 //     and K in S = Q·Kᵀ), 16 contraction elements further is +32 bytes;
@@ -191,8 +193,18 @@ __device__ __forceinline__ uint64_t desc_advance(uint64_t desc, int bytes) {
   return desc + (uint64_t)(bytes >> 4);
 }
 
-constexpr int KSTEP_KMAJOR_BYTES = 32;     // 16 bf16 along a row
-constexpr int KSTEP_MNMAJOR_BYTES = 2048;  // 16 rows of 128 bytes
+// Descriptor of a tile of 32-byte rows (16 bf16) under the 32-byte swizzle at
+// `p` (a multiple of 256 bytes): 8 rows are 256 bytes apart (stride offset),
+// and `lbo` bytes separate two such blocks of 16 columns along N when the tile
+// is an MN-major B operand wider than 16 (the leading offset; a K-major
+// operand reads one block a k-step and ignores it); swizzle mode 3.
+__device__ __forceinline__ uint64_t smem_desc_sw32(const void* p, int lbo) {
+  uint64_t desc = (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4);
+  desc |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  desc |= (uint64_t)(256 >> 4) << 32;
+  desc |= (uint64_t)3 << 62;
+  return desc;
+}
 
 // before the first wgmma that reads registers or shared memory written by
 // ordinary arithmetic of this warpgroup
@@ -288,7 +300,84 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_bt(float (&d)[32], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 80, fp32) = or += A (64 x 16, registers) · B (16 x 80, shared,
+// MN-major: five blocks of 16 columns, `lbo` bytes apart in the descriptor)
+__device__ __forceinline__ void wgmma_m64n80k16_rs_bt(float (&d)[40], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24), WG_F8(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 #undef WG_F8
+
+// ------------------------------------------------------------- head tiles
+
+// How a tile of `rows` rows of one head (D bf16 a row, D = 64 or 80) lies in
+// shared memory, and how TMA and wgmma reach it.
+//   * D = 64: one block under the 128-byte swizzle, a row 128 bytes (one TMA
+//     box of 64 columns).  This is the layout every kernel had before D = 80.
+//   * D = 80: five blocks of 16 columns, each `rows` x 32 bytes under the
+//     32-byte swizzle (five TMA boxes of 16 columns, each starting at a
+//     multiple of 32 bytes of the head, so none reads the next head's
+//     columns).  A K-major operand takes one block a k-step; an MN-major B
+//     operand spans the five blocks through the descriptor's leading offset,
+//     so O += P·V and its kin are one m64n80k16 a k-step.
+template <int D>
+struct HeadTile {
+  static_assert(D == 64 || D == 80, "head dim 64 or 80");
+  static constexpr int BOX_COLS = D == 64 ? 64 : 16;    // columns of one TMA box
+  static constexpr int BOXES = D / BOX_COLS;            // 1 or 5
+  static constexpr int BOX_ROW_BYTES = BOX_COLS * 2;    // 128 or 32
+  static constexpr int KSTEP_MN = 16 * BOX_ROW_BYTES;   // 16 rows: 2048 or 512 bytes
+
+  // byte offset of row r's first box in a tile (row r of every box is at the
+  // same offset in it)
+  __host__ __device__ static constexpr int row_offset(int r) { return r * BOX_ROW_BYTES; }
+  // bytes from the start of a tile of `rows` rows to k-step kk (16 columns)
+  __host__ __device__ static constexpr int kstep_k(int kk, int rows) {
+    return (kk * 32) % BOX_ROW_BYTES + (kk * 32) / BOX_ROW_BYTES * rows * BOX_ROW_BYTES;
+  }
+  // descriptor of a K-major operand starting at p (a row of a tile)
+  static __device__ uint64_t desc_k(const void* p) {
+    if constexpr (D == 64) return smem_desc_sw128(p);
+    else return smem_desc_sw32(p, 16);
+  }
+  // descriptor of an MN-major B operand at p, in a tile of `rows` rows
+  static __device__ uint64_t desc_mn(const void* p, int rows) {
+    if constexpr (D == 64) return smem_desc_sw128(p);
+    else return smem_desc_sw32(p, rows * BOX_ROW_BYTES);
+  }
+};
+
+// One tile of `rows` rows of head h, from row `row` of batch row b of a map
+// made by encode_head_map, into dst; completion counted on bar.
+template <int D>
+__device__ __forceinline__ void tma_load_head(unsigned char* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int h, int row, int b, int rows) {
+  typedef HeadTile<D> HT;
+#pragma unroll
+  for (int c = 0; c < HT::BOXES; ++c)
+    tma_load_3d(dst + c * rows * HT::BOX_ROW_BYTES, map, bar, h * D + c * HT::BOX_COLS, row, b);
+}
+
+// d += A (registers) · B (MN-major head tile), N = D
+template <int D>
+__device__ __forceinline__ void wgmma_rs_bt(float (&d)[D / 2], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int accumulate) {
+  if constexpr (D == 64) wgmma_m64n64k16_rs_bt(d, a, desc_b, accumulate);
+  else wgmma_m64n80k16_rs_bt(d, a, desc_b, accumulate);
+}
 
 // ---------------------------------------------------- registers between roles
 
@@ -335,11 +424,13 @@ inline TensorMapEncodeTiledFn tensor_map_encoder() {
 // bytes apart (multiples of 16; the base 16-byte aligned).  A box is box[0] x
 // box[1] (x 1) elements with box[0] spanning 128 bytes, written to shared
 // memory under the 128-byte swizzle (the pattern is anchored at multiples of
-// 1024 bytes of the shared address).  A box must start at a multiple of 16
-// bytes of the array; what it holds past the array's edges is filled with
-// zeros.  Returns 0 or cuTensorMapEncodeTiled's error.
+// 1024 bytes of the shared address), or 32 bytes under the 32-byte swizzle.
+// A box must start at a multiple of 16 bytes of the array; what it holds past
+// the array's edges is filled with zeros.  Returns 0 or
+// cuTensorMapEncodeTiled's error.
 inline int encode_map(CUtensorMap* map, const void* base, bool fp32, int rank,
-                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const TensorMapEncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return -1;
   cuuint64_t d[3], st[2];
@@ -352,8 +443,21 @@ inline int encode_map(CUtensorMap* map, const void* base, bool fp32, int rank,
   return static_cast<int>(encode(
       map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
       const_cast<void*>(base), d, st, bx, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// Map over a packed operand (B, L, H·D) bf16 seen as (H·D, L, B), in boxes of
+// one head's HeadTile<D> block x `rows` rows: a box past L is zero-filled and
+// never reads the next batch row.
+template <int D>
+inline int encode_head_map(CUtensorMap* map, const void* base, int B, int H, int L, int rows) {
+  typedef HeadTile<D> HT;
+  const uint64_t row = (uint64_t)H * D * 2;
+  const uint64_t dims[3] = {(uint64_t)H * D, (uint64_t)L, (uint64_t)B};
+  const uint64_t strides[2] = {row, (uint64_t)L * row};
+  const uint32_t box[3] = {(uint32_t)HT::BOX_COLS, (uint32_t)rows, 1};
+  return encode_map(map, base, false, 3, dims, strides, box,
+                    D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 }  // namespace wg

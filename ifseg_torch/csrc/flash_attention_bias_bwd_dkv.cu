@@ -8,9 +8,11 @@
 //     dp = do·vᵀ,   ds = p ∘ (dp − di)
 //     dv = pᵀ·do,   dk = dsᵀ·q      (summed over all query rows)
 //
-// in the packed layout: q/do (B, Lq, H·64), k/v/dk/dv (B, Lk, H·64) bf16;
-// bias (H, Lq, Lk) bf16 or fp32, its rows `bias_pitch` elements apart (a
-// multiple of 16 bytes); lse/di (B, H, Lq) fp32.
+// in the packed layout: q/do (B, Lq, H·D), k/v/dk/dv (B, Lk, H·D) bf16, the
+// head dim D 64 or 80 (one instantiation each; the head tiles as in
+// attn_wgmma.cuh's HeadTile); bias (H, Lq, Lk) bf16 or fp32, its rows
+// `bias_pitch` elements apart (a multiple of 16 bytes); lse/di (B, H, Lq)
+// fp32.
 //
 // What bounds it on this card (NVIDIA H100 SXM, 700 W).  Four 64-deep
 // products over every visible (q, k) pair, 52-110 GFLOP at the training
@@ -38,8 +40,9 @@
 //     products: Pᵀ and dSᵀ, rounded to bf16 in registers, give dV += Pᵀ·dO
 //     and dK += dSᵀ·Q by m64n64k16 with dO and Q as MN-major B operands.  No
 //     transpose goes through shared memory; the four accumulators take 128
-//     registers and the two A operands 32 a buffer, within the consumers'
-//     232, with no spill (the kernel it replaces, on mma.sync, took 255
+//     registers (144 at D = 80, whose dV and dK products are m64n80k16) and
+//     the two A operands 32 a buffer, within the consumers' 232, with no
+//     spill at D = 64 (the kernel it replaces, on mma.sync, took 255
 //     registers and spilled).
 //   * the bias is read transposed out of the tile TMA wrote: a warp's 32
 //     loads of one instruction hit 4 rows (query rows 2t + e) x 8 keys (16
@@ -65,7 +68,6 @@ namespace {
 
 using namespace wg;
 
-constexpr int D = 64;      // head dim (the model's; the wrapper checks): one 128-byte row
 constexpr int BN = 128;    // keys per CTA, 64 per consumer warpgroup
 constexpr int BM = 64;     // query rows per stage
 constexpr int STAGES = 3;  // of the Q + dO + bias ring
@@ -75,14 +77,13 @@ constexpr int NTHREADS = 3 * WG_THREADS;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 
-constexpr int ROW_BYTES = D * 2;          // one head row of bf16
-constexpr int KV_BYTES = BN * ROW_BYTES;  // 16 KiB, each of K and V
-constexpr int QS_BYTES = BM * ROW_BYTES;  // 8 KiB a stage, each of Q and dO
 constexpr int BIAS_SUB_BYTES = BM * SWIZZLE_ROW_BYTES;  // 64 rows x 128 bytes
 static_assert(BM <= WG_THREADS, "the producer writes one row's lse and di a thread");
 
-template <typename BiasT>
+template <typename BiasT, int D>
 struct Smem {
+  static constexpr int KV_BYTES = BN * D * 2;  // each of K and V: 16 or 20 KiB
+  static constexpr int QS_BYTES = BM * D * 2;  // a stage, each of Q and dO: 8 or 10 KiB
   static constexpr int COLS_PER_SUB = SWIZZLE_ROW_BYTES / (int)sizeof(BiasT);  // 64 or 32
   static constexpr int SUBS = BN / COLS_PER_SUB;                              // 2 or 4
   static constexpr int BIAS_BYTES = SUBS * BIAS_SUB_BYTES;  // a stage: 16 or 32 KiB
@@ -96,6 +97,7 @@ struct Smem {
   static constexpr int N_BARRIERS = 1 + 3 * STAGES;
   // + 1024: the tiles start at the first multiple of 1024 bytes
   static constexpr int TOTAL = BARRIERS + N_BARRIERS * 8 + SWIZZLE_ATOM_BYTES;
+  static_assert(TOTAL <= 232448, "one CTA's shared memory");
 };
 
 template <typename BiasT, int COLS_PER_SUB>
@@ -106,7 +108,7 @@ __device__ __forceinline__ float bias_at(const unsigned char* bias_stage, int r,
       swizzle128(r, col_byte)));
 }
 
-template <typename BiasT>
+template <typename BiasT, int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 attn_bias_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_do,
@@ -117,7 +119,9 @@ attn_bias_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                          const float* __restrict__ di, bf16* __restrict__ dk,
                          bf16* __restrict__ dv, int H, int Lq, int Lk, int causal,
                          int has_bias) {
-  typedef Smem<BiasT> L;
+  typedef Smem<BiasT, D> L;
+  typedef HeadTile<D> HT;
+  constexpr int KV_BYTES = L::KV_BYTES, QS_BYTES = L::QS_BYTES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((SWIZZLE_ATOM_BYTES - (smem_u32(smem_raw) & 1023u)) & 1023u);
   unsigned char* k_s = smem + L::K;
@@ -165,8 +169,8 @@ attn_bias_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       tma_prefetch_descriptor(&map_v);
       if (has_bias) tma_prefetch_descriptor(&map_bias);
       mbar_arrive_expect_tx(full_kv, 2 * KV_BYTES);
-      tma_load_3d(k_s, &map_k, full_kv, h * D, n0, b);
-      tma_load_3d(v_s, &map_v, full_kv, h * D, n0, b);
+      tma_load_head<D>(k_s, &map_k, full_kv, h, n0, b, BN);
+      tma_load_head<D>(v_s, &map_v, full_kv, h, n0, b, BN);
     }
     const float* lse_bh = lse + ((size_t)b * H + h) * Lq;
     const float* di_bh = di + ((size_t)b * H + h) * Lq;
@@ -178,8 +182,8 @@ attn_bias_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(empty + s, ((i / STAGES) & 1) ^ 1);  // passes at once on the first round
       if (tid == 0) {
         mbar_arrive_expect_tx(full + s, stage_bytes);
-        tma_load_3d(q_s + s * QS_BYTES, &map_q, full + s, h * D, m0, b);
-        tma_load_3d(do_s + s * QS_BYTES, &map_do, full + s, h * D, m0, b);
+        tma_load_head<D>(q_s + s * QS_BYTES, &map_q, full + s, h, m0, b, BM);
+        tma_load_head<D>(do_s + s * QS_BYTES, &map_do, full + s, h, m0, b, BM);
         if (has_bias) {
 #pragma unroll
           for (int sub = 0; sub < L::SUBS; ++sub)
@@ -212,7 +216,7 @@ attn_bias_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       km[i] = key >= Lk ? -INFINITY : (mask != nullptr && mask[(size_t)b * Lk + key]) ? NEG_INF : 0.f;
     }
 
-    float dk_acc[D / 2], dv_acc[D / 2];  // 64 keys x 64
+    float dk_acc[D / 2], dv_acc[D / 2];  // 64 keys x D
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     float sacc[BM / 2];   // Sᵀ of the current tile, then Pᵀ
@@ -220,33 +224,33 @@ attn_bias_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
     // Pᵀ and dSᵀ of the last two tiles, bf16: the A operands of the dV and dK products
     uint32_t pa0[BM / 16][4], pa1[BM / 16][4], da0[BM / 16][4], da1[BM / 16][4];
 
-    const uint64_t desc_k = smem_desc_sw128(k_s + c * (BN / 2) * ROW_BYTES);
-    const uint64_t desc_v = smem_desc_sw128(v_s + c * (BN / 2) * ROW_BYTES);
+    const uint64_t desc_k = HT::desc_k(k_s + HT::row_offset(c * (BN / 2)));
+    const uint64_t desc_v = HT::desc_k(v_s + HT::row_offset(c * (BN / 2)));
     // Sᵀ = k·qᵀ (on the bias) and dPᵀ = v·doᵀ of stage s, one commit group
     auto issue_sdp = [&](int s) {
-      const uint64_t desc_q = smem_desc_sw128(q_s + s * QS_BYTES);
-      const uint64_t desc_do = smem_desc_sw128(do_s + s * QS_BYTES);
+      const uint64_t desc_q = HT::desc_k(q_s + s * QS_BYTES);
+      const uint64_t desc_do = HT::desc_k(do_s + s * QS_BYTES);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n64k16_ss(sacc, desc_advance(desc_k, kk * KSTEP_KMAJOR_BYTES),
-                           desc_advance(desc_q, kk * KSTEP_KMAJOR_BYTES), has_bias || kk > 0);
+        wgmma_m64n64k16_ss(sacc, desc_advance(desc_k, HT::kstep_k(kk, BN)),
+                           desc_advance(desc_q, HT::kstep_k(kk, BM)), has_bias || kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n64k16_ss(dpacc, desc_advance(desc_v, kk * KSTEP_KMAJOR_BYTES),
-                           desc_advance(desc_do, kk * KSTEP_KMAJOR_BYTES), kk > 0);
+        wgmma_m64n64k16_ss(dpacc, desc_advance(desc_v, HT::kstep_k(kk, BN)),
+                           desc_advance(desc_do, HT::kstep_k(kk, BM)), kk > 0);
       wgmma_commit();
     };
     // dV += Pᵀ·do and dK += dSᵀ·q of stage s, one commit group
     auto issue_dkv = [&](int s, const uint32_t(&pa)[BM / 16][4],
                          const uint32_t(&da)[BM / 16][4]) {
-      const uint64_t desc_q = smem_desc_sw128(q_s + s * QS_BYTES);
-      const uint64_t desc_do = smem_desc_sw128(do_s + s * QS_BYTES);
+      const uint64_t desc_q = HT::desc_mn(q_s + s * QS_BYTES, BM);
+      const uint64_t desc_do = HT::desc_mn(do_s + s * QS_BYTES, BM);
 #pragma unroll
       for (int kk = 0; kk < BM / 16; ++kk)
-        wgmma_m64n64k16_rs_bt(dv_acc, pa[kk], desc_advance(desc_do, kk * KSTEP_MNMAJOR_BYTES), 1);
+        wgmma_rs_bt<D>(dv_acc, pa[kk], desc_advance(desc_do, kk * HT::KSTEP_MN), 1);
 #pragma unroll
       for (int kk = 0; kk < BM / 16; ++kk)
-        wgmma_m64n64k16_rs_bt(dk_acc, da[kk], desc_advance(desc_q, kk * KSTEP_MNMAJOR_BYTES), 1);
+        wgmma_rs_bt<D>(dk_acc, da[kk], desc_advance(desc_q, kk * HT::KSTEP_MN), 1);
       wgmma_commit();
     };
     // sacc = the bias tile of stage s, transposed: element [4nt + e] is key
@@ -385,51 +389,45 @@ attn_bias_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// The tensor maps of one call: q and do (H·64, Lq, B) in boxes of one head
-// row x BM rows, k and v (H·64, Lk, B) in boxes of BN rows (zero-filled past
-// L, never reading the next batch row); the bias (Lk, Lq, H), its rows
+// The tensor maps of one call: q and do (H·D, Lq, B) in boxes of one head's
+// HeadTile<D> block x BM rows, k and v (H·D, Lk, B) in boxes of BN rows
+// (zero-filled past L, never reading the next batch row); the bias (Lk, Lq, H), its rows
 // bias_pitch elements apart, in boxes of 128 bytes x BM rows.
 struct Maps {
   CUtensorMap q, dout, k, v, bias;
 };
 
-template <typename BiasT>
+template <typename BiasT, int D>
 int encode_maps(Maps* m, const void* q, const void* k, const void* v, const void* dout,
                 const void* bias, int bias_pitch, int B, int H, int Lq, int Lk) {
-  const uint64_t row = (uint64_t)H * ROW_BYTES;
-  const uint32_t box_q[3] = {D, BM, 1}, box_kv[3] = {D, BN, 1};
-  const uint64_t dims_q[3] = {(uint64_t)H * D, (uint64_t)Lq, (uint64_t)B};
-  const uint64_t dims_kv[3] = {(uint64_t)H * D, (uint64_t)Lk, (uint64_t)B};
-  const uint64_t strides_q[2] = {row, (uint64_t)Lq * row};
-  const uint64_t strides_kv[2] = {row, (uint64_t)Lk * row};
-  int rc = encode_map(&m->q, q, false, 3, dims_q, strides_q, box_q);
-  if (rc == 0) rc = encode_map(&m->dout, dout, false, 3, dims_q, strides_q, box_q);
-  if (rc == 0) rc = encode_map(&m->k, k, false, 3, dims_kv, strides_kv, box_kv);
-  if (rc == 0) rc = encode_map(&m->v, v, false, 3, dims_kv, strides_kv, box_kv);
+  int rc = encode_head_map<D>(&m->q, q, B, H, Lq, BM);
+  if (rc == 0) rc = encode_head_map<D>(&m->dout, dout, B, H, Lq, BM);
+  if (rc == 0) rc = encode_head_map<D>(&m->k, k, B, H, Lk, BN);
+  if (rc == 0) rc = encode_head_map<D>(&m->v, v, B, H, Lk, BN);
   if (rc == 0 && bias != nullptr) {
     const uint64_t bias_row = (uint64_t)bias_pitch * sizeof(BiasT);
     const uint64_t dims[3] = {(uint64_t)Lk, (uint64_t)Lq, (uint64_t)H};
     const uint64_t strides[2] = {bias_row, (uint64_t)Lq * bias_row};
-    const uint32_t box[3] = {(uint32_t)Smem<BiasT>::COLS_PER_SUB, BM, 1};
+    const uint32_t box[3] = {(uint32_t)Smem<BiasT, D>::COLS_PER_SUB, BM, 1};
     rc = encode_map(&m->bias, bias, sizeof(BiasT) == 4, 3, dims, strides, box);
   }
   return rc;
 }
 
-template <typename BiasT>
+template <typename BiasT, int D>
 int launch(const void* q, const void* k, const void* v, const void* bias, int bias_pitch,
            const uint8_t* mask, const void* dout, const float* lse, const float* di, bf16* dk,
            bf16* dv, int B, int H, int Lq, int Lk, int causal, cudaStream_t st) {
   Maps m;
   memset(&m, 0, sizeof(m));
-  const int rc = encode_maps<BiasT>(&m, q, k, v, dout, bias, bias_pitch, B, H, Lq, Lk);
+  const int rc = encode_maps<BiasT, D>(&m, q, k, v, dout, bias, bias_pitch, B, H, Lq, Lk);
   if (rc != 0) return 100000 + rc;  // a tensor map was refused (CUresult rc)
-  const cudaError_t e = cudaFuncSetAttribute(attn_bias_bwd_dkv_kernel<BiasT>,
+  const cudaError_t e = cudaFuncSetAttribute(attn_bias_bwd_dkv_kernel<BiasT, D>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             Smem<BiasT>::TOTAL);
+                                             Smem<BiasT, D>::TOTAL);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B, (Lk + BN - 1) / BN, H);
-  attn_bias_bwd_dkv_kernel<BiasT><<<grid, NTHREADS, Smem<BiasT>::TOTAL, st>>>(
+  attn_bias_bwd_dkv_kernel<BiasT, D><<<grid, NTHREADS, Smem<BiasT, D>::TOTAL, st>>>(
       m.q, m.dout, m.k, m.v, m.bias, mask, lse, di, dk, dv, H, Lq, Lk, causal, bias != nullptr);
   return static_cast<int>(cudaGetLastError());
 }
@@ -437,14 +435,15 @@ int launch(const void* q, const void* k, const void* v, const void* bias, int bi
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched), or 100000 +
-// the CUresult when a tensor map could not be encoded.  bias may be null (no
-// bias); its rows are bias_pitch >= Lk elements apart, a multiple of 16 bytes,
-// and it starts on a 16-byte boundary.  mask may be null (no key padding).
+// the CUresult when a tensor map could not be encoded.  D, the head dim, is 64
+// or 80.  bias may be null (no bias); its rows are bias_pitch >= Lk elements
+// apart, a multiple of 16 bytes, and it starts on a 16-byte boundary.  mask
+// may be null (no key padding).
 extern "C" int flash_attention_bias_bwd_dkv(const void* q, const void* k, const void* v,
                                             const void* bias, int bias_fp32, int bias_pitch,
                                             const void* mask, const void* dout, const void* lse,
                                             const void* di, void* dk, void* dv, int B, int H,
-                                            int Lq, int Lk, int causal, void* stream) {
+                                            int D, int Lq, int Lk, int causal, void* stream) {
   const uint8_t* mp = static_cast<const uint8_t*>(mask);
   const float* lp = static_cast<const float*>(lse);
   const float* dp = static_cast<const float*>(di);
@@ -454,14 +453,16 @@ extern "C" int flash_attention_bias_bwd_dkv(const void* q, const void* k, const 
   if (bias != nullptr && ((uintptr_t)bias % 16 != 0 ||
                           ((size_t)bias_pitch * (bias_fp32 ? 4 : 2)) % 16 != 0 || bias_pitch < Lk))
     return static_cast<int>(cudaErrorInvalidValue);  // TMA cannot fetch these rows
-  if (bias_fp32)
-    return launch<float>(q, k, v, bias, bias_pitch, mp, dout, lp, dp, dkp, dvp, B, H, Lq, Lk,
-                         causal, st);
-  return launch<bf16>(q, k, v, bias, bias_pitch, mp, dout, lp, dp, dkp, dvp, B, H, Lq, Lk, causal,
-                      st);
+#define ATTN_BWD_DKV(T, HD) \
+  launch<T, HD>(q, k, v, bias, bias_pitch, mp, dout, lp, dp, dkp, dvp, B, H, Lq, Lk, causal, st)
+  if (D == 64) return bias_fp32 ? ATTN_BWD_DKV(float, 64) : ATTN_BWD_DKV(bf16, 64);
+  if (D == 80) return bias_fp32 ? ATTN_BWD_DKV(float, 80) : ATTN_BWD_DKV(bf16, 80);
+#undef ATTN_BWD_DKV
+  return static_cast<int>(cudaErrorInvalidValue);  // no instantiation for this head dim
 }
 
-// Dynamic shared memory one CTA of the dk + dv kernel takes, in bytes.
-extern "C" int flash_attention_bias_bwd_dkv_smem_bytes(int bias_fp32) {
-  return bias_fp32 ? Smem<float>::TOTAL : Smem<bf16>::TOTAL;
+// Dynamic shared memory one CTA of the dk + dv kernel takes at head dim D, in bytes.
+extern "C" int flash_attention_bias_bwd_dkv_smem_bytes(int bias_fp32, int D) {
+  if (D == 80) return bias_fp32 ? Smem<float, 80>::TOTAL : Smem<bf16, 80>::TOTAL;
+  return bias_fp32 ? Smem<float, 64>::TOTAL : Smem<bf16, 64>::TOTAL;
 }

@@ -9,12 +9,14 @@
 //     dp = do·vᵀ,   ds = p ∘ (dp − di),   di = rowsum(do ∘ out)
 //     dq = ds·k,    dbias[h] = Σ_b ds
 //
-// in the packed layout: q/do/dq (B, Lq, H·64), k/v (B, Lk, H·64) bf16; bias
-// (H, Lq, Lk) bf16 or fp32, its rows `bias_pitch` elements apart (a multiple
-// of 16 bytes: the wrapper row-pads a bias that is not); lse/di (B, H, Lq)
-// fp32.  The probabilities and ds never reach device memory.  This file also
-// holds the small pre-pass that computes di from do and the saved output (the
-// JAX package computes it outside its kernels too).
+// in the packed layout: q/do/dq (B, Lq, H·D), k/v (B, Lk, H·D) bf16, the head
+// dim D 64 or 80 (one instantiation each; the head tiles as in
+// attn_wgmma.cuh's HeadTile); bias (H, Lq, Lk) bf16 or fp32, its rows
+// `bias_pitch` elements apart (a multiple of 16 bytes: the wrapper row-pads a
+// bias that is not); lse/di (B, H, Lq) fp32.  The probabilities and ds never
+// reach device memory.  This file also holds the pre-pass that computes di
+// from do and the saved output (the JAX package computes it outside its
+// kernels too), a pass over memory of its own design (attn_bwd_di_kernel).
 //
 // What bounds it on this card (NVIDIA H100 SXM, 700 W).  At the training
 // shapes (B=16, H=12, D=64, Lq/Lk about 1025-1056) one call does three
@@ -41,10 +43,10 @@
 //   * S = bias + Q·Kᵀ and dP = dO·Vᵀ are wgmma m64n64k16 from shared memory,
 //     S accumulating on the bias tile that the consumer loads into the
 //     accumulator; dS = P∘(dP − di) stays in registers; dq += dS·K is
-//     m64n64k16 with dS rounded to bf16 as the register A operand and K as
-//     the MN-major ("transposed") B operand.  A consumer issues tile j's S and
-//     dP with tile j-1's dq product and computes tile j's dS under that
-//     product (two register buffers for the A operand).
+//     m64n64k16 (m64n80k16 at D = 80) with dS rounded to bf16 as the register
+//     A operand and K as the MN-major ("transposed") B operand.  A consumer
+//     issues tile j's S and dP with tile j-1's dq product and computes tile
+//     j's dS under that product (two register buffers for the A operand).
 //   * 64 keys a stage, not the forward's 128: S, dP, dq and two A buffers are
 //     128 of the consumer's 232 registers; at 128 keys S and dP alone would
 //     be 128, and the consumers would spill.
@@ -96,7 +98,6 @@ namespace {
 
 using namespace wg;
 
-constexpr int D = 64;      // head dim (the model's; the wrapper checks): one 128-byte row
 constexpr int BM = 128;    // query rows per CTA, 64 per consumer warpgroup
 constexpr int BN = 64;     // keys per stage
 constexpr int WG_THREADS = 128;
@@ -105,9 +106,6 @@ constexpr int NTHREADS = 3 * WG_THREADS;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 
-constexpr int ROW_BYTES = D * 2;          // one head row of bf16
-constexpr int Q_BYTES = BM * ROW_BYTES;   // 16 KiB, and as much for dO
-constexpr int KV_BYTES = BN * ROW_BYTES;  // 8 KiB a stage, each of K and V
 constexpr int BIAS_SUB_BYTES = BM * SWIZZLE_ROW_BYTES;  // 128 rows x 128 bytes
 // a consumer's ds tile, 64 rows x BN keys in fp32, staged for the dbias sum in
 // boxes of 128 bytes (32 keys) x 64 rows, as TMA reads them
@@ -116,8 +114,10 @@ constexpr int DS_SUB_BYTES = (BM / 2) * SWIZZLE_ROW_BYTES;  // 8 KiB
 constexpr int DS_BYTES = (BN / DS_COLS_PER_SUB) * DS_SUB_BYTES;  // 16 KiB
 static_assert(BN <= WG_THREADS && BN % 32 == 0, "the producer writes one key-mask entry a thread");
 
-template <typename BiasT>
+template <typename BiasT, int D>
 struct Smem {
+  static constexpr int Q_BYTES = BM * D * 2;   // 16 or 20 KiB, and as much for dO
+  static constexpr int KV_BYTES = BN * D * 2;  // a stage, each of K and V: 8 or 10 KiB
   static constexpr int STAGES = sizeof(BiasT) == 4 ? 2 : 3;  // of the K + V + bias ring
   static constexpr int COLS_PER_SUB = SWIZZLE_ROW_BYTES / (int)sizeof(BiasT);  // 64 or 32
   static constexpr int SUBS = BN / COLS_PER_SUB;                              // 1 or 2
@@ -135,6 +135,7 @@ struct Smem {
   // + 1024: the tiles start at the first multiple of 1024 bytes
   static constexpr int TOTAL = BARRIERS + N_BARRIERS * 8 + SWIZZLE_ATOM_BYTES;
   static_assert(BARRIERS % 8 == 0, "mbarriers are 8-byte aligned");
+  static_assert(TOTAL <= 232448, "one CTA's shared memory");
 };
 
 // byte offset, in a stage's bias tile, of the element at tile row r whose
@@ -164,7 +165,7 @@ __device__ __forceinline__ void stage_ds(unsigned char* ds_stage, const float (&
   }
 }
 
-template <typename BiasT, bool DBIAS>
+template <typename BiasT, bool DBIAS, int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 attn_bias_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_do,
@@ -175,8 +176,10 @@ attn_bias_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                         const uint8_t* __restrict__ mask, const float* __restrict__ lse,
                         const float* __restrict__ di, bf16* __restrict__ dq, int H, int Lq,
                         int Lk, int causal, int has_bias) {
-  typedef Smem<BiasT> L;
+  typedef Smem<BiasT, D> L;
+  typedef HeadTile<D> HT;
   constexpr int STAGES = L::STAGES;
+  constexpr int KV_BYTES = L::KV_BYTES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((SWIZZLE_ATOM_BYTES - (smem_u32(smem_raw) & 1023u)) & 1023u);
   unsigned char* q_s = smem + L::Q;
@@ -226,9 +229,9 @@ attn_bias_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       tma_prefetch_descriptor(&map_v);
       if (has_bias) tma_prefetch_descriptor(&map_bias);
       if (DBIAS) tma_prefetch_descriptor(&map_ws);
-      mbar_arrive_expect_tx(full_q, 2 * Q_BYTES);
-      tma_load_3d(q_s, &map_q, full_q, h * D, m0, b);
-      tma_load_3d(do_s, &map_do, full_q, h * D, m0, b);
+      mbar_arrive_expect_tx(full_q, 2 * L::Q_BYTES);
+      tma_load_head<D>(q_s, &map_q, full_q, h, m0, b, BM);
+      tma_load_head<D>(do_s, &map_do, full_q, h, m0, b, BM);
     }
     const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * Lk;
     const uint32_t stage_bytes = 2 * KV_BYTES + (has_bias ? L::BIAS_BYTES : 0);
@@ -239,8 +242,8 @@ attn_bias_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(empty + s, parity ^ 1);  // passes at once on the first round
       if (tid == 0) {
         mbar_arrive_expect_tx(full + s, stage_bytes);
-        tma_load_3d(k_s + s * KV_BYTES, &map_k, full + s, h * D, n0, b);
-        tma_load_3d(v_s + s * KV_BYTES, &map_v, full + s, h * D, n0, b);
+        tma_load_head<D>(k_s + s * KV_BYTES, &map_k, full + s, h, n0, b, BN);
+        tma_load_head<D>(v_s + s * KV_BYTES, &map_v, full + s, h, n0, b, BN);
         if (has_bias) {
 #pragma unroll
           for (int sub = 0; sub < L::SUBS; ++sub)
@@ -278,36 +281,36 @@ attn_bias_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       di_r[i] = row < Lq ? di[idx] : 0.f;
     }
 
-    float acc[D / 2];        // dq: 64 rows x 64
+    float acc[D / 2];        // dq: 64 rows x D
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float sacc[BN / 2];      // S of the current tile, then ds
     float dpacc[BN / 2];     // dP of the current tile
     uint32_t pa0[BN / 16][4], pa1[BN / 16][4];  // ds of the last two tiles, bf16: A of ds·K
 
-    const uint64_t desc_q = smem_desc_sw128(q_s + c * (BM / 2) * ROW_BYTES);
-    const uint64_t desc_do = smem_desc_sw128(do_s + c * (BM / 2) * ROW_BYTES);
+    const uint64_t desc_q = HT::desc_k(q_s + HT::row_offset(c * (BM / 2)));
+    const uint64_t desc_do = HT::desc_k(do_s + HT::row_offset(c * (BM / 2)));
     // S = q·kᵀ (on the bias) and dP = do·vᵀ of tile j, one commit group
     auto issue_sdp = [&](int j) {
       const int s = j % STAGES;
-      const uint64_t desc_k = smem_desc_sw128(k_s + s * KV_BYTES);
-      const uint64_t desc_v = smem_desc_sw128(v_s + s * KV_BYTES);
+      const uint64_t desc_k = HT::desc_k(k_s + s * KV_BYTES);
+      const uint64_t desc_v = HT::desc_k(v_s + s * KV_BYTES);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n64k16_ss(sacc, desc_advance(desc_q, kk * KSTEP_KMAJOR_BYTES),
-                           desc_advance(desc_k, kk * KSTEP_KMAJOR_BYTES), has_bias || kk > 0);
+        wgmma_m64n64k16_ss(sacc, desc_advance(desc_q, HT::kstep_k(kk, BM)),
+                           desc_advance(desc_k, HT::kstep_k(kk, BN)), has_bias || kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n64k16_ss(dpacc, desc_advance(desc_do, kk * KSTEP_KMAJOR_BYTES),
-                           desc_advance(desc_v, kk * KSTEP_KMAJOR_BYTES), kk > 0);
+        wgmma_m64n64k16_ss(dpacc, desc_advance(desc_do, HT::kstep_k(kk, BM)),
+                           desc_advance(desc_v, HT::kstep_k(kk, BN)), kk > 0);
       wgmma_commit();
     };
     // dq += ds·k of tile j: pa (ds of n-tiles 2kk, 2kk+1) is the A operand
     auto issue_dq = [&](int j, const uint32_t(&pa)[BN / 16][4]) {
-      const uint64_t desc_k = smem_desc_sw128(k_s + (j % STAGES) * KV_BYTES);
+      const uint64_t desc_k = HT::desc_mn(k_s + (j % STAGES) * KV_BYTES, BN);
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_m64n64k16_rs_bt(acc, pa[kk], desc_advance(desc_k, kk * KSTEP_MNMAJOR_BYTES), 1);
+        wgmma_rs_bt<D>(acc, pa[kk], desc_advance(desc_k, kk * HT::KSTEP_MN), 1);
       wgmma_commit();
     };
     // sacc = the bias tile of stage j: the product then accumulates on it
@@ -453,52 +456,142 @@ attn_bias_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// di[b, h, i] = Σ_d do[b, i, h·64 + d] · out[b, i, h·64 + d], in fp32: one
-// warp per (b, i, h), one bf16 pair per lane.
-__global__ void attn_bwd_di_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
-                                   float* __restrict__ di, int H, int Lq) {
-  const int h = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t row = blockIdx.x;  // b * Lq + i
-  const size_t o = row * H * D + h * D + 2 * lane;
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + o));
-  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + o));
-  float sum = a.x * c.x + a.y * c.y;
+// ------------------------------------------------------------ di pre-pass
+//
+// di[b, h, i] = Σ_d do[b, i, h·D + d] · out[b, i, h·D + d], in fp32.  A pass
+// over memory: 2·B·Lq·H·D bf16 read, B·H·Lq fp32 written, two flops a byte
+// read at most, so device memory bounds it (52 MB, 0.016 ms at 3.35 TB/s at
+// an OFA-Base training site).
+//
+// Design.  A CTA of DI_THREADS threads takes DI_ROWS consecutive rows of the
+// flattened (B·Lq) row axis: one contiguous span of the packed operands.  The
+// span is cut into 16-byte chunks, D/8 a (row, head), and a warp takes
+// 32 / (D/8) whole (row, head) pairs at a time, neighbouring lanes on
+// neighbouring chunks (D = 64: 4 pairs a warp, every lane busy; D = 80: 3
+// pairs, 30 lanes), so every load instruction reads a dense, sector-aligned
+// run.  Each lane starts DI_UNROLL such steps (2·DI_UNROLL 16-byte loads,
+// marked streaming: read once, they should not displace what L2 holds)
+// before it uses the first; its 8-element partial dot product is summed over
+// the lanes of its pair by shuffles, and the pair's lead lane writes the sum
+// into a (heads x rows) tile in shared memory.  The tile is then stored with
+// neighbouring threads on neighbouring rows of one head: runs of DI_ROWS
+// contiguous floats of di, split only where the span crosses into the next
+// batch row.  No limit on the number of heads but the tile's shared memory
+// (H·DI_ROWS·4 bytes).
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; ifseg_torch/tools/time_di.py, B =
+// 16, share of the bound at the three OFA-Base training sites, then at
+// Huge's, each variant an edited copy of this file timed in turns with it):
+// this shape 0.75-0.76 and 0.76-0.77; without the streaming hint 0.71 and
+// 0.73; 8 steps in flight 0.68-0.70 and 0.75-0.76, 12 steps 0.68-0.71 and
+// 0.73-0.75 (more registers, fewer warps); 64 rows a CTA 0.68-0.70 and
+// 0.76-0.77; 16 rows and 128 threads 0.74-0.76 and 0.77-0.78; 128 rows and
+// 512 threads 0.68-0.70 and 0.67-0.68.  The pre-pass this one replaced (a
+// warp per (row, head), one 4-byte load a lane and operand, H lone 4-byte
+// stores a row) 0.47-0.50 at the OFA-Base sites.
+constexpr int DI_THREADS = 256;
+constexpr int DI_WARPS = DI_THREADS / 32;
+constexpr int DI_ROWS = 32;
+constexpr int DI_UNROLL = 4;
+
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& c) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&c);
+  float s = 0.f;
 #pragma unroll
-  for (int sft = 16; sft > 0; sft >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, sft);
-  if (lane == 0) {
-    const size_t bi = row / Lq, i = row % Lq;
-    di[(bi * H + h) * Lq + i] = sum;
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), v = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, v.x, s);
+    s = fmaf(u.y, v.y, s);
+  }
+  return s;
+}
+
+// the sum of `v` over the CPH lanes of this lane's pair, at the pair's lead
+// lane (the first of the CPH); every lane of the warp takes part
+template <int CPH>
+__device__ __forceinline__ float pair_sum(float v, int lane) {
+  if constexpr (CPH == 8) {  // aligned groups of eight lanes
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v;
+  } else {  // groups of ten lanes: neighbours first, then the lead gathers the pairs
+    static_assert(CPH == 10, "8 or 10 chunks a head");
+    v += __shfl_down_sync(0xffffffffu, v, 1);
+    const int lead = lane - lane % 10;
+    float s = v;
+#pragma unroll
+    for (int k = 2; k < 10; k += 2) s += __shfl_sync(0xffffffffu, v, min(lead + k, 31));
+    return s;
   }
 }
 
-// The tensor maps of one call: q and do (H·64, Lq, B) in boxes of one head
-// row x BM rows, k and v (H·64, Lk, B) in boxes of BN rows, so a box past L
-// is zero-filled and never reads the next batch row; the bias (Lk, Lq, H),
+template <int D>
+__global__ void __launch_bounds__(DI_THREADS)
+attn_bwd_di_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
+                   float* __restrict__ di, int H, int Lq, long long n_rows) {
+  constexpr int CPH = D / 8;     // 16-byte chunks a (row, head)
+  constexpr int PPW = 32 / CPH;  // pairs a warp step
+  constexpr int PPS = DI_WARPS * PPW;  // pairs a CTA step
+  extern __shared__ float tile[];  // [H][DI_ROWS]
+  const long long row0 = (long long)blockIdx.x * DI_ROWS;
+  const int rows = (int)min((long long)DI_ROWS, n_rows - row0);
+  const int pairs = rows * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = lane / CPH, chunk = lane % CPH;  // slot == PPW: an idle lane (D = 80)
+  const uint4* dp = reinterpret_cast<const uint4*>(dout + row0 * H * D) + chunk;
+  const uint4* op = reinterpret_cast<const uint4*>(out + row0 * H * D) + chunk;
+  for (int p0 = warp * PPW + slot; p0 - slot < pairs; p0 += DI_UNROLL * PPS) {
+    uint4 a[DI_UNROLL], c[DI_UNROLL];
+#pragma unroll
+    for (int u = 0; u < DI_UNROLL; ++u) {
+      const int p = p0 + u * PPS;
+      a[u] = c[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (slot < PPW && p < pairs) {
+        a[u] = __ldcs(dp + (size_t)p * CPH);
+        c[u] = __ldcs(op + (size_t)p * CPH);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < DI_UNROLL; ++u) {
+      const int p = p0 + u * PPS;
+      const float s = pair_sum<CPH>(dot8(a[u], c[u]), lane);
+      if (slot < PPW && chunk == 0 && p < pairs) tile[(p % H) * DI_ROWS + p / H] = s;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < H * DI_ROWS; e += DI_THREADS) {
+    const int h = e / DI_ROWS, r = e % DI_ROWS;
+    if (r < rows) {
+      const long long g = row0 + r;
+      const long long bi = g / Lq, i = g % Lq;
+      di[(bi * H + h) * Lq + i] = tile[e];
+    }
+  }
+}
+
+// The tensor maps of one call: q and do (H·D, Lq, B) in boxes of one head's
+// HeadTile<D> block x BM rows, k and v (H·D, Lk, B) in boxes of BN rows, so a
+// box past L is zero-filled and never reads the next batch row; the bias (Lk, Lq, H),
 // its rows bias_pitch elements apart, in boxes of 128 bytes x BM rows; the
 // fp32 dbias workspace (LkP, LqP, H) in boxes of 128 bytes x 64 rows.
 struct Maps {
   CUtensorMap q, dout, k, v, bias, ws;
 };
 
-template <typename BiasT>
+template <typename BiasT, int D>
 int encode_maps(Maps* m, const void* q, const void* k, const void* v, const void* dout,
                 const void* bias, int bias_pitch, const void* ws, int B, int H, int Lq, int Lk) {
-  const uint64_t row = (uint64_t)H * ROW_BYTES;
-  const uint32_t box_q[3] = {D, BM, 1}, box_kv[3] = {D, BN, 1};
-  const uint64_t dims_q[3] = {(uint64_t)H * D, (uint64_t)Lq, (uint64_t)B};
-  const uint64_t dims_kv[3] = {(uint64_t)H * D, (uint64_t)Lk, (uint64_t)B};
-  const uint64_t strides_q[2] = {row, (uint64_t)Lq * row};
-  const uint64_t strides_kv[2] = {row, (uint64_t)Lk * row};
-  int rc = encode_map(&m->q, q, false, 3, dims_q, strides_q, box_q);
-  if (rc == 0) rc = encode_map(&m->dout, dout, false, 3, dims_q, strides_q, box_q);
-  if (rc == 0) rc = encode_map(&m->k, k, false, 3, dims_kv, strides_kv, box_kv);
-  if (rc == 0) rc = encode_map(&m->v, v, false, 3, dims_kv, strides_kv, box_kv);
+  int rc = encode_head_map<D>(&m->q, q, B, H, Lq, BM);
+  if (rc == 0) rc = encode_head_map<D>(&m->dout, dout, B, H, Lq, BM);
+  if (rc == 0) rc = encode_head_map<D>(&m->k, k, B, H, Lk, BN);
+  if (rc == 0) rc = encode_head_map<D>(&m->v, v, B, H, Lk, BN);
   if (rc == 0 && bias != nullptr) {
     const uint64_t bias_row = (uint64_t)bias_pitch * sizeof(BiasT);
     const uint64_t dims[3] = {(uint64_t)Lk, (uint64_t)Lq, (uint64_t)H};
     const uint64_t strides[2] = {bias_row, (uint64_t)Lq * bias_row};
-    const uint32_t box[3] = {(uint32_t)Smem<BiasT>::COLS_PER_SUB, BM, 1};
+    const uint32_t box[3] = {(uint32_t)Smem<BiasT, D>::COLS_PER_SUB, BM, 1};
     rc = encode_map(&m->bias, bias, sizeof(BiasT) == 4, 3, dims, strides, box);
   }
   if (rc == 0 && ws != nullptr) {
@@ -511,20 +604,20 @@ int encode_maps(Maps* m, const void* q, const void* k, const void* v, const void
   return rc;
 }
 
-template <typename BiasT, bool DBIAS>
+template <typename BiasT, bool DBIAS, int D>
 int launch(const void* q, const void* k, const void* v, const void* bias, int bias_pitch,
            const uint8_t* mask, const void* dout, const float* lse, const float* di, bf16* dq,
            float* ws, int B, int H, int Lq, int Lk, int causal, cudaStream_t st) {
   Maps m;
   memset(&m, 0, sizeof(m));
-  const int rc = encode_maps<BiasT>(&m, q, k, v, dout, bias, bias_pitch, ws, B, H, Lq, Lk);
+  const int rc = encode_maps<BiasT, D>(&m, q, k, v, dout, bias, bias_pitch, ws, B, H, Lq, Lk);
   if (rc != 0) return 100000 + rc;  // a tensor map was refused (CUresult rc)
-  const cudaError_t e = cudaFuncSetAttribute(attn_bias_bwd_dq_kernel<BiasT, DBIAS>,
+  const cudaError_t e = cudaFuncSetAttribute(attn_bias_bwd_dq_kernel<BiasT, DBIAS, D>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             Smem<BiasT>::TOTAL);
+                                             Smem<BiasT, D>::TOTAL);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B, (Lq + BM - 1) / BM, H);
-  attn_bias_bwd_dq_kernel<BiasT, DBIAS><<<grid, NTHREADS, Smem<BiasT>::TOTAL, st>>>(
+  attn_bias_bwd_dq_kernel<BiasT, DBIAS, D><<<grid, NTHREADS, Smem<BiasT, D>::TOTAL, st>>>(
       m.q, m.dout, m.k, m.v, m.bias, m.ws, mask, lse, di, dq, H, Lq, Lk, causal,
       bias != nullptr);
   return static_cast<int>(cudaGetLastError());
@@ -535,14 +628,15 @@ int launch(const void* q, const void* k, const void* v, const void* bias, int bi
 // dq (and, when dbias_ws is not null, Σ_b ds added into the zeroed fp32
 // workspace (H, ceil128(Lq), ceil64(Lk))).  Launches on `stream`; returns
 // cudaGetLastError() (0 = launched), or 100000 + the CUresult when a tensor
-// map could not be encoded.  bias may be null (no bias); its rows are
+// map could not be encoded.  D, the head dim, is 64 or 80.  bias may be null (no bias); its rows are
 // bias_pitch >= Lk elements apart, a multiple of 16 bytes, and it starts on a
 // 16-byte boundary.  mask may be null (no key padding).
 extern "C" int flash_attention_bias_bwd_dq(const void* q, const void* k, const void* v,
                                            const void* bias, int bias_fp32, int bias_pitch,
                                            const void* mask, const void* dout, const void* lse,
                                            const void* di, void* dq, void* dbias_ws, int B,
-                                           int H, int Lq, int Lk, int causal, void* stream) {
+                                           int H, int D, int Lq, int Lk, int causal,
+                                           void* stream) {
   const uint8_t* mp = static_cast<const uint8_t*>(mask);
   const float* lp = static_cast<const float*>(lse);
   const float* dp = static_cast<const float*>(di);
@@ -553,24 +647,45 @@ extern "C" int flash_attention_bias_bwd_dq(const void* q, const void* k, const v
   if (bias != nullptr && ((uintptr_t)bias % 16 != 0 ||
                           ((size_t)bias_pitch * (bias_fp32 ? 4 : 2)) % 16 != 0 || bias_pitch < Lk))
     return static_cast<int>(cudaErrorInvalidValue);  // TMA cannot fetch these rows
-#define ATTN_BWD_DQ(T, DB) \
-  launch<T, DB>(q, k, v, bias, bias_pitch, mp, dout, lp, dp, dqp, ws, B, H, Lq, Lk, causal, st)
-  if (ws != nullptr) return bias_fp32 ? ATTN_BWD_DQ(float, true) : ATTN_BWD_DQ(bf16, true);
-  return bias_fp32 ? ATTN_BWD_DQ(float, false) : ATTN_BWD_DQ(bf16, false);
+#define ATTN_BWD_DQ(T, DB, HD) \
+  launch<T, DB, HD>(q, k, v, bias, bias_pitch, mp, dout, lp, dp, dqp, ws, B, H, Lq, Lk, causal, st)
+#define ATTN_BWD_DQ_D(HD)                                                                     \
+  if (D == HD) {                                                                              \
+    if (ws != nullptr)                                                                        \
+      return bias_fp32 ? ATTN_BWD_DQ(float, true, HD) : ATTN_BWD_DQ(bf16, true, HD);          \
+    return bias_fp32 ? ATTN_BWD_DQ(float, false, HD) : ATTN_BWD_DQ(bf16, false, HD);          \
+  }
+  ATTN_BWD_DQ_D(64)
+  ATTN_BWD_DQ_D(80)
+#undef ATTN_BWD_DQ_D
 #undef ATTN_BWD_DQ
+  return static_cast<int>(cudaErrorInvalidValue);  // no instantiation for this head dim
 }
 
-// Dynamic shared memory one CTA of the dq kernel takes, in bytes.
-extern "C" int flash_attention_bias_bwd_dq_smem_bytes(int bias_fp32) {
-  return bias_fp32 ? Smem<float>::TOTAL : Smem<bf16>::TOTAL;
+// Dynamic shared memory one CTA of the dq kernel takes at head dim D, in bytes.
+extern "C" int flash_attention_bias_bwd_dq_smem_bytes(int bias_fp32, int D) {
+  if (D == 80) return bias_fp32 ? Smem<float, 80>::TOTAL : Smem<bf16, 80>::TOTAL;
+  return bias_fp32 ? Smem<float, 64>::TOTAL : Smem<bf16, 64>::TOTAL;
 }
 
-// di (B, H, Lq) fp32 from do and out (B, Lq, H·64) bf16.
+// The most heads the di pre-pass takes: its (heads x rows) tile fills at most
+// the 48 KiB of static shared memory.
+constexpr int DI_MAX_HEADS = 48 * 1024 / (DI_ROWS * 4);
+
+// di (B, H, Lq) fp32 from do and out (B, Lq, H·D) bf16, D 64 or 80, both
+// 16-byte aligned.
 extern "C" int flash_attention_bwd_di(const void* dout, const void* out, void* di, int B, int H,
-                                      int Lq, void* stream) {
-  if (H < 1 || H > 32) return static_cast<int>(cudaErrorInvalidValue);
-  attn_bwd_di_kernel<<<(unsigned)(B * Lq), H * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(dout), static_cast<const bf16*>(out), static_cast<float*>(di), H,
-      Lq);
+                                      int D, int Lq, void* stream) {
+  if (H < 1 || H > DI_MAX_HEADS || B < 1 || Lq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_rows = (long long)B * Lq;
+  const unsigned grid = (unsigned)((n_rows + DI_ROWS - 1) / DI_ROWS);
+  const size_t smem = (size_t)H * DI_ROWS * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* dp = static_cast<const bf16*>(dout);
+  const bf16* op = static_cast<const bf16*>(out);
+  float* dip = static_cast<float*>(di);
+  if (D == 64) attn_bwd_di_kernel<64><<<grid, DI_THREADS, smem, st>>>(dp, op, dip, H, Lq, n_rows);
+  else if (D == 80) attn_bwd_di_kernel<80><<<grid, DI_THREADS, smem, st>>>(dp, op, dip, H, Lq, n_rows);
+  else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

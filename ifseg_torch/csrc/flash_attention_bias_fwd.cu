@@ -12,8 +12,10 @@
 // instantiation also writes the row logsumexp lse = m + log(sum) as
 // (B, H, Lq) fp32, which the backward kernels rebuild the probabilities from;
 // the inference instantiation is compiled without that store.  Operands use
-// the packed projection layout: q (B, Lq, H·64), k/v (B, Lk, H·64) and out
-// (B, Lq, H·64) in bf16, so no head transpose is ever materialised.  bias is
+// the packed projection layout: q (B, Lq, H·D), k/v (B, Lk, H·D) and out
+// (B, Lq, H·D) in bf16, so no head transpose is ever materialised; the head
+// dim D is 64 (OFA-Base and every SegOFA up to Large) or 80 (SegOFA-Huge),
+// one instantiation each.  bias is
 // (H, Lq, Lk) in bf16 or fp32, shared across the batch, its rows `pitch` >= Lk
 // elements apart; the key-padding mask is (B, Lk) bytes (non-zero = pad) and
 // adds -1e9 to the logits of padded keys, as the TPU kernel does.
@@ -46,16 +48,21 @@
 //     rows (Lq = 1025 leaves one), the second consumer exits at once, so the
 //     tile costs half a tile.
 //   * Q once, and K and V per 128-key stage, arrive by TMA (3-D maps over the
-//     packed operands, (H·64, L, B), so a box past L is zero-filled and never
-//     reads the next batch row) under the 128-byte swizzle.  Two rings of two
-//     stages, each stage with its own mbarriers: K + bias + key-mask row
-//     (full_k, full_b, full_aux / empty_kb) and V (full_v / empty_v), because
-//     a tile's K and bias are done with one product earlier than its V.
+//     packed operands, (H·D, L, B), so a box past L is zero-filled and never
+//     reads the next batch row): at D = 64 one box a tile under the 128-byte
+//     swizzle, at D = 80 five boxes of 16 columns under the 32-byte swizzle
+//     (HeadTile in attn_wgmma.cuh).  Two rings, each stage with its own
+//     mbarriers: K + bias + key-mask row (full_k, full_b, full_aux /
+//     empty_kb) and V (full_v / empty_v), because a tile's K and bias are
+//     done with one product earlier than its V.  Two stages each; at D = 80
+//     with an fp32 bias the V ring keeps one, or the CTA would exceed the
+//     232,448 bytes of shared memory (no model path hands K1 an fp32 bias).
 //   * S = bias + Q·Kᵀ is wgmma m64n128k16 from shared memory, accumulating on
 //     the bias tile that the consumer has loaded into the accumulator (one
 //     addition a logit less than adding it afterwards); O += P·V is wgmma
-//     m64n64k16 with P as the register A operand, re-packed from the S
-//     accumulators, and V as the MN-major ("transposed") B operand.  A
+//     m64n64k16 (m64n80k16 at D = 80) with P as the register A operand,
+//     re-packed from the S accumulators, and V as the MN-major
+//     ("transposed") B operand.  A
 //     consumer issues tile j's S together with tile j-1's P·V and runs tile
 //     j's softmax under that P·V; only the rescaling of O and the rounding
 //     of P wait for it.  The two consumers run free of each other.
@@ -112,19 +119,15 @@ namespace {
 
 using namespace wg;
 
-constexpr int D = 64;    // head dim (the model's; the wrapper checks): one 128-byte row
 constexpr int BM = 128;  // query rows per CTA, 64 per consumer warpgroup
 constexpr int BN = 128;  // keys per stage
-constexpr int STAGES = 2;  // of the K + bias ring and of the V ring
+constexpr int STAGES = 2;  // of the K + bias ring
 constexpr int WG_THREADS = 128;
 constexpr int NTHREADS = 3 * WG_THREADS;
 // 3 x 168 registers a thread at launch; 120 + 2 x 192 after setmaxnreg
 constexpr int PRODUCER_REGS = 120;
 constexpr int CONSUMER_REGS = 192;
 
-constexpr int ROW_BYTES = D * 2;          // one head row of bf16
-constexpr int Q_BYTES = BM * ROW_BYTES;   // 16 KiB
-constexpr int KV_BYTES = BN * ROW_BYTES;  // 16 KiB a stage, each of K and V
 constexpr int STAGE_BATCH = 4;  // 16-byte loads a producer thread has in flight, in pairs
 static_assert(BN == WG_THREADS, "the producer writes one key-mask entry a thread");
 
@@ -134,21 +137,26 @@ static_assert(BN == WG_THREADS, "the producer writes one key-mask entry a thread
 // warp reads together fall into eight swizzle phases: no bank conflicts.
 constexpr int BIAS_SUB_BYTES = BM * SWIZZLE_ROW_BYTES;  // 16 KiB
 
-template <typename BiasT>
+template <typename BiasT, int D>
 struct Smem {
+  static constexpr int Q_BYTES = BM * D * 2;   // 16 or 20 KiB
+  static constexpr int KV_BYTES = BN * D * 2;  // a stage, each of K and V: 16 or 20 KiB
+  // of the V ring: one where a second would not fit (fp32 bias, D = 80)
+  static constexpr int V_STAGES = (sizeof(BiasT) == 4 && D > 64) ? 1 : STAGES;
   static constexpr int COLS_PER_SUB = SWIZZLE_ROW_BYTES / (int)sizeof(BiasT);  // 64 or 32
   static constexpr int SUBS = BN / COLS_PER_SUB;
   static constexpr int BIAS_BYTES = SUBS * BIAS_SUB_BYTES;  // a stage: 32 or 64 KiB
   static constexpr int Q = 0;
   static constexpr int K = Q + Q_BYTES;
   static constexpr int V = K + STAGES * KV_BYTES;
-  static constexpr int BIAS = V + STAGES * KV_BYTES;
+  static constexpr int BIAS = V + V_STAGES * KV_BYTES;
   static constexpr int KEYMASK = BIAS + STAGES * BIAS_BYTES;
   static constexpr int FLAGS = KEYMASK + STAGES * BN * (int)sizeof(float);
   static constexpr int BARRIERS = FLAGS + STAGES * 4 * (int)sizeof(uint32_t);
-  static constexpr int N_BARRIERS = 1 + 6 * STAGES;
+  static constexpr int N_BARRIERS = 1 + 4 * STAGES + 2 * V_STAGES;
   // + 1024: the tiles start at the first multiple of 1024 bytes
   static constexpr int TOTAL = BARRIERS + N_BARRIERS * 8 + SWIZZLE_ATOM_BYTES;
+  static_assert(TOTAL <= 232448, "one CTA's shared memory");
 };
 
 // byte offset, in a stage's bias tile, of the element at tile row r whose
@@ -219,7 +227,7 @@ __device__ __forceinline__ void stage_bias_rows(unsigned char* bias_stage,
   }
 }
 
-template <typename BiasT, bool STATS>
+template <typename BiasT, bool STATS, int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
@@ -228,7 +236,9 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      const BiasT* __restrict__ bias, const uint8_t* __restrict__ mask,
                      bf16* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
                      int causal, int bias_pitch, int bias_by_tma) {
-  typedef Smem<BiasT> L;
+  typedef Smem<BiasT, D> L;
+  typedef HeadTile<D> HT;
+  constexpr int V_STAGES = L::V_STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((SWIZZLE_ATOM_BYTES - (smem_u32(smem_raw) & 1023u)) & 1023u);
   unsigned char* q_s = smem + L::Q;
@@ -242,7 +252,7 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* full_b = full_k + STAGES;      // the bias boxes have landed
   uint64_t* full_aux = full_b + STAGES;    // key-mask row written, bias staged by threads
   uint64_t* full_v = full_aux + STAGES;    // V has landed
-  uint64_t* empty_kb = full_v + STAGES;    // every consumer warp is done with K, bias, key mask
+  uint64_t* empty_kb = full_v + V_STAGES;  // every consumer warp is done with K, bias, key mask
   uint64_t* empty_v = empty_kb + STAGES;   // ... with V
 
   const int b = blockIdx.x;  // fastest-varying: bias tile reuse across the batch
@@ -264,8 +274,10 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_init(full_k + s, 1);
       mbar_init(full_b + s, 1);
       mbar_init(full_aux + s, WG_THREADS);
-      mbar_init(full_v + s, 1);
       mbar_init(empty_kb + s, 4 * n_consumers);
+    }
+    for (int s = 0; s < V_STAGES; ++s) {
+      mbar_init(full_v + s, 1);
       mbar_init(empty_v + s, 4 * n_consumers);
     }
     mbar_init_fence();
@@ -280,8 +292,8 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       tma_prefetch_descriptor(&map_k);
       tma_prefetch_descriptor(&map_v);
       if (bias_by_tma) tma_prefetch_descriptor(&map_bias);
-      mbar_arrive_expect_tx(full_q, Q_BYTES);
-      tma_load_3d(q_s, &map_q, full_q, h * D, m0, b);
+      mbar_arrive_expect_tx(full_q, L::Q_BYTES);
+      tma_load_head<D>(q_s, &map_q, full_q, h, m0, b, BM);
     }
     const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * Lk;
     const bool bias_by_threads = bias != nullptr && !bias_by_tma;
@@ -292,8 +304,8 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       unsigned char* bias_stage = bias_s + s * L::BIAS_BYTES;
       mbar_wait(empty_kb + s, parity ^ 1);  // passes at once on the first round
       if (tid == 0) {
-        mbar_arrive_expect_tx(full_k + s, KV_BYTES);
-        tma_load_3d(k_s + s * KV_BYTES, &map_k, full_k + s, h * D, n0, b);
+        mbar_arrive_expect_tx(full_k + s, L::KV_BYTES);
+        tma_load_head<D>(k_s + s * L::KV_BYTES, &map_k, full_k + s, h, n0, b, BN);
         if (bias_by_tma) {
           mbar_arrive_expect_tx(full_b + s, L::BIAS_BYTES);
 #pragma unroll
@@ -324,10 +336,11 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                                  (min(BM, Lq - m0) - k + 7) / 8, end, lane);
       }
       mbar_arrive(full_aux + s);
-      mbar_wait(empty_v + s, parity ^ 1);
+      const int sv = j % V_STAGES;
+      mbar_wait(empty_v + sv, ((j / V_STAGES) & 1) ^ 1);
       if (tid == 0) {
-        mbar_arrive_expect_tx(full_v + s, KV_BYTES);
-        tma_load_3d(v_s + s * KV_BYTES, &map_v, full_v + s, h * D, n0, b);
+        mbar_arrive_expect_tx(full_v + sv, L::KV_BYTES);
+        tma_load_head<D>(v_s + sv * L::KV_BYTES, &map_v, full_v + sv, h, n0, b, BN);
       }
     }
   } else {
@@ -350,22 +363,22 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     float alpha[2];
 
     // S = q·kᵀ of tile j: this warpgroup's 64 rows x 128 keys (asynchronous)
-    const uint64_t desc_q = smem_desc_sw128(q_s + c * (BM / 2) * ROW_BYTES);
+    const uint64_t desc_q = HT::desc_k(q_s + HT::row_offset(c * (BM / 2)));
     auto issue_qk = [&](int j) {
-      const uint64_t desc_k = smem_desc_sw128(k_s + (j % STAGES) * KV_BYTES);
+      const uint64_t desc_k = HT::desc_k(k_s + (j % STAGES) * L::KV_BYTES);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n128k16_ss(sacc, desc_advance(desc_q, kk * KSTEP_KMAJOR_BYTES),
-                            desc_advance(desc_k, kk * KSTEP_KMAJOR_BYTES),
+        wgmma_m64n128k16_ss(sacc, desc_advance(desc_q, HT::kstep_k(kk, BM)),
+                            desc_advance(desc_k, HT::kstep_k(kk, BN)),
                             bias != nullptr || kk > 0);
       wgmma_commit();
     };
     // O += P·V of tile j: pa (the S accumulators of n-tiles 2kk, 2kk+1) is the A operand
     auto issue_pv = [&](int j) {
-      const uint64_t desc_v = smem_desc_sw128(v_s + (j % STAGES) * KV_BYTES);
+      const uint64_t desc_v = HT::desc_mn(v_s + (j % V_STAGES) * L::KV_BYTES, BN);
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_m64n64k16_rs_bt(o, pa[kk], desc_advance(desc_v, kk * KSTEP_MNMAJOR_BYTES), 1);
+        wgmma_rs_bt<D>(o, pa[kk], desc_advance(desc_v, kk * HT::KSTEP_MN), 1);
       wgmma_commit();
     };
     // sacc = the bias tile of stage j: the product then accumulates on it,
@@ -479,7 +492,7 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     };
     auto release_v = [&](int j) {
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty_v + j % STAGES);
+      if (lane == 0) mbar_arrive(empty_v + j % V_STAGES);
     };
 
     // Tile j's S is computed while tile j-1's P·V runs, and tile j's softmax
@@ -496,7 +509,7 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     rescale_and_pack();
     for (int j = 1; j < n_tiles; ++j) {
       mbar_wait(full_k + j % STAGES, (j / STAGES) & 1);
-      mbar_wait(full_v + (j - 1) % STAGES, ((j - 1) / STAGES) & 1);
+      mbar_wait(full_v + (j - 1) % V_STAGES, ((j - 1) / V_STAGES) & 1);
       load_bias(j);
       fence_operands();
       issue_qk(j);
@@ -509,7 +522,7 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       release_v(j - 1);
       rescale_and_pack();
     }
-    mbar_wait(full_v + (n_tiles - 1) % STAGES, ((n_tiles - 1) / STAGES) & 1);
+    mbar_wait(full_v + (n_tiles - 1) % V_STAGES, ((n_tiles - 1) / V_STAGES) & 1);
     fence_operands();
     issue_pv(n_tiles - 1);
     wgmma_wait<0>();
@@ -545,9 +558,9 @@ attn_bias_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// The tensor maps of one call.  q, k, v are seen as (H·64, L, B) with boxes of
-// one head row x BM or BN rows, so a box past L is zero-filled and never
-// reads the next batch row.  The bias (H, Lq, Lk), its rows `bias_pitch`
+// The tensor maps of one call.  q, k, v are seen as (H·D, L, B) with boxes of
+// one head's HeadTile<D> block x BM or BN rows, so a box past L is
+// zero-filled and never reads the next batch row.  The bias (H, Lq, Lk), its rows `bias_pitch`
 // elements apart, goes by TMA where its rows are 16-byte aligned, in boxes of
 // 128 bytes x BM rows; else the map stays unset and threads stage it.
 struct Maps {
@@ -555,43 +568,37 @@ struct Maps {
   int bias_by_tma;
 };
 
-template <typename BiasT>
+template <typename BiasT, int D>
 int encode_maps(Maps* m, const void* q, const void* k, const void* v, const void* bias,
                 int bias_pitch, int B, int H, int Lq, int Lk) {
-  const uint64_t row = (uint64_t)H * ROW_BYTES;
-  const uint32_t box_q[3] = {D, BM, 1}, box_kv[3] = {D, BN, 1};
-  const uint64_t dims_q[3] = {(uint64_t)H * D, (uint64_t)Lq, (uint64_t)B};
-  const uint64_t dims_kv[3] = {(uint64_t)H * D, (uint64_t)Lk, (uint64_t)B};
-  const uint64_t strides_q[2] = {row, (uint64_t)Lq * row};
-  const uint64_t strides_kv[2] = {row, (uint64_t)Lk * row};
-  int rc = encode_map(&m->q, q, false, 3, dims_q, strides_q, box_q);
-  if (rc == 0) rc = encode_map(&m->k, k, false, 3, dims_kv, strides_kv, box_kv);
-  if (rc == 0) rc = encode_map(&m->v, v, false, 3, dims_kv, strides_kv, box_kv);
+  int rc = encode_head_map<D>(&m->q, q, B, H, Lq, BM);
+  if (rc == 0) rc = encode_head_map<D>(&m->k, k, B, H, Lk, BN);
+  if (rc == 0) rc = encode_head_map<D>(&m->v, v, B, H, Lk, BN);
   const uint64_t bias_row = (uint64_t)bias_pitch * sizeof(BiasT);
   m->bias_by_tma = bias != nullptr && bias_row % 16 == 0 && (uintptr_t)bias % 16 == 0;
   if (rc == 0 && m->bias_by_tma) {
     const uint64_t dims[3] = {(uint64_t)Lk, (uint64_t)Lq, (uint64_t)H};
     const uint64_t strides[2] = {bias_row, (uint64_t)Lq * bias_row};
-    const uint32_t box[3] = {(uint32_t)Smem<BiasT>::COLS_PER_SUB, BM, 1};
+    const uint32_t box[3] = {(uint32_t)Smem<BiasT, D>::COLS_PER_SUB, BM, 1};
     rc = encode_map(&m->bias, bias, sizeof(BiasT) == 4, 3, dims, strides, box);
   }
   return rc;
 }
 
-template <typename BiasT, bool STATS>
+template <typename BiasT, bool STATS, int D>
 int launch(const void* q, const void* k, const void* v, const void* bias, int bias_pitch,
            const uint8_t* mask, bf16* out, float* lse, int B, int H, int Lq, int Lk, int causal,
            cudaStream_t st) {
   Maps m;
   memset(&m, 0, sizeof(m));
-  const int rc = encode_maps<BiasT>(&m, q, k, v, bias, bias_pitch, B, H, Lq, Lk);
+  const int rc = encode_maps<BiasT, D>(&m, q, k, v, bias, bias_pitch, B, H, Lq, Lk);
   if (rc != 0) return 100000 + rc;  // a tensor map was refused (CUresult rc)
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_bias_fwd_kernel<BiasT, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Smem<BiasT>::TOTAL);
+      attn_bias_fwd_kernel<BiasT, STATS, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<BiasT, D>::TOTAL);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B, (Lq + BM - 1) / BM, H);
-  attn_bias_fwd_kernel<BiasT, STATS><<<grid, NTHREADS, Smem<BiasT>::TOTAL, st>>>(
+  attn_bias_fwd_kernel<BiasT, STATS, D><<<grid, NTHREADS, Smem<BiasT, D>::TOTAL, st>>>(
       m.q, m.k, m.v, m.bias, static_cast<const BiasT*>(bias), mask, out, lse, H, Lq, Lk, causal,
       bias_pitch, m.bias_by_tma);
   return static_cast<int>(cudaGetLastError());
@@ -599,43 +606,49 @@ int launch(const void* q, const void* k, const void* v, const void* bias, int bi
 
 template <bool STATS>
 int dispatch(const void* q, const void* k, const void* v, const void* bias, int bias_fp32,
-             int bias_pitch, const void* mask, void* out, void* lse, int B, int H, int Lq, int Lk,
-             int causal, void* stream) {
+             int bias_pitch, const void* mask, void* out, void* lse, int B, int H, int D, int Lq,
+             int Lk, int causal, void* stream) {
   const uint8_t* mp = static_cast<const uint8_t*>(mask);
   bf16* op = static_cast<bf16*>(out);
   float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bias_fp32)
-    return launch<float, STATS>(q, k, v, bias, bias_pitch, mp, op, lp, B, H, Lq, Lk, causal, st);
-  return launch<bf16, STATS>(q, k, v, bias, bias_pitch, mp, op, lp, B, H, Lq, Lk, causal, st);
+#define ATTN_FWD(T, HD) \
+  launch<T, STATS, HD>(q, k, v, bias, bias_pitch, mp, op, lp, B, H, Lq, Lk, causal, st)
+  if (D == 64) return bias_fp32 ? ATTN_FWD(float, 64) : ATTN_FWD(bf16, 64);
+  if (D == 80) return bias_fp32 ? ATTN_FWD(float, 80) : ATTN_FWD(bf16, 80);
+#undef ATTN_FWD
+  return static_cast<int>(cudaErrorInvalidValue);  // no instantiation for this head dim
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched), or 100000 +
-// the CUresult when a tensor map could not be encoded.
+// the CUresult when a tensor map could not be encoded.  D, the head dim, is
+// 64 or 80 (cudaErrorInvalidValue otherwise).
 // bias may be null (no bias), its rows are bias_pitch >= Lk elements apart;
 // mask may be null (no key padding).
 extern "C" int flash_attention_bias_fwd(const void* q, const void* k, const void* v,
                                         const void* bias, int bias_fp32, int bias_pitch,
-                                        const void* mask, void* out, int B, int H, int Lq,
+                                        const void* mask, void* out, int B, int H, int D, int Lq,
                                         int Lk, int causal, void* stream) {
-  return dispatch<false>(q, k, v, bias, bias_fp32, bias_pitch, mask, out, nullptr, B, H, Lq, Lk,
-                         causal, stream);
+  return dispatch<false>(q, k, v, bias, bias_fp32, bias_pitch, mask, out, nullptr, B, H, D, Lq,
+                         Lk, causal, stream);
 }
 
 // The same forward, also writing the row logsumexp lse (B, H, Lq) fp32.
 extern "C" int flash_attention_bias_fwd_stats(const void* q, const void* k, const void* v,
                                               const void* bias, int bias_fp32, int bias_pitch,
                                               const void* mask, void* out, void* lse, int B,
-                                              int H, int Lq, int Lk, int causal, void* stream) {
-  return dispatch<true>(q, k, v, bias, bias_fp32, bias_pitch, mask, out, lse, B, H, Lq, Lk,
+                                              int H, int D, int Lq, int Lk, int causal,
+                                              void* stream) {
+  return dispatch<true>(q, k, v, bias, bias_fp32, bias_pitch, mask, out, lse, B, H, D, Lq, Lk,
                         causal, stream);
 }
 
-// Dynamic shared memory one CTA of the kernel takes, in bytes.
-extern "C" int flash_attention_bias_fwd_smem_bytes(int bias_fp32) {
-  return bias_fp32 ? Smem<float>::TOTAL : Smem<bf16>::TOTAL;
+// Dynamic shared memory one CTA of the kernel takes at head dim D, in bytes.
+extern "C" int flash_attention_bias_fwd_smem_bytes(int bias_fp32, int D) {
+  if (D == 80) return bias_fp32 ? Smem<float, 80>::TOTAL : Smem<bf16, 80>::TOTAL;
+  return bias_fp32 ? Smem<float, 64>::TOTAL : Smem<bf16, 64>::TOTAL;
 }
 
 // Host time of one call's tensor-map encodes in microseconds, the mean of
@@ -643,13 +656,15 @@ extern "C" int flash_attention_bias_fwd_smem_bytes(int bias_fp32) {
 // nothing.
 extern "C" double flash_attention_bias_fwd_encode_us(const void* q, const void* k, const void* v,
                                                      const void* bias, int bias_fp32,
-                                                     int bias_pitch, int B, int H, int Lq,
+                                                     int bias_pitch, int B, int H, int D, int Lq,
                                                      int Lk, int iters) {
   Maps m;
   const auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < iters; ++i) {
-    const int rc = bias_fp32 ? encode_maps<float>(&m, q, k, v, bias, bias_pitch, B, H, Lq, Lk)
-                             : encode_maps<bf16>(&m, q, k, v, bias, bias_pitch, B, H, Lq, Lk);
+#define ENCODE(T, HD) encode_maps<T, HD>(&m, q, k, v, bias, bias_pitch, B, H, Lq, Lk)
+    const int rc = D == 80 ? (bias_fp32 ? ENCODE(float, 80) : ENCODE(bf16, 80))
+                           : (bias_fp32 ? ENCODE(float, 64) : ENCODE(bf16, 64));
+#undef ENCODE
     if (rc != 0) return -1.0;
   }
   const std::chrono::duration<double, std::micro> dt = std::chrono::steady_clock::now() - t0;

@@ -13,7 +13,8 @@
 // What bounds it on this card.  Two flops per byte at most: the kernel is
 // bound by device memory (H100 SXM: 3.35 TB/s).  The least work is x read
 // once and y written once, 104 MB at the model's largest site of width 768
-// (33,792 rows, bf16 in and out) and 415 MB at width 3,072.
+// (33,792 rows, bf16 in and out), 415 MB at width 3,072, and 173 MB at one
+// ffn_layernorm site of SegOFA-Huge served at batch 8 (8,448 rows x 5,120).
 //
 // Design.
 //   * One warp owns one row and keeps all of it in registers: each lane
@@ -30,6 +31,14 @@
 //     to 4,096 is supported and the tail groups are predicated off.
 //   * The TPU kernel's row block (sized for VMEM) has no counterpart: four
 //     warps of a block are four independent rows.
+//   * Rows wider than 4,096 (SegOFA-Huge's ffn_layernorm is 5,120) no longer
+//     fit one warp's registers.  There one CTA of WIDE_THREADS threads owns a
+//     row: thread t holds groups t, t + 256, ... (CPT of them, a template
+//     parameter: 3, 4, 6 or 8, up to MAX_WIDE_WIDTH = 16,384), loaded and
+//     stored with the same 16-byte accesses; the two sums go through warp
+//     shuffles, then through shared memory across the eight warps, which
+//     every thread reads in the same order, so all hold the same mu and r.
+//     The same fast variance and one rounding of y.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,7 +47,10 @@
 namespace {
 
 constexpr int WARPS = 4;  // rows per block
-constexpr int MAX_WIDTH = 4096;
+constexpr int MAX_WIDTH = 4096;  // of the warp-per-row kernel
+constexpr int WIDE_THREADS = 256;  // a row of the CTA-per-row kernel
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+constexpr int MAX_WIDE_WIDTH = 16384;  // 8 groups of 8 a thread
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -131,6 +143,79 @@ layer_norm_kernel(const TIn* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// One CTA per row (rows wider than MAX_WIDTH): CPT groups of 8 a thread.
+template <typename TIn, typename TOut, int CPT>
+__global__ void __launch_bounds__(WIDE_THREADS)
+layer_norm_wide_kernel(const TIn* __restrict__ x, const float* __restrict__ scale,
+                       const float* __restrict__ bias, TOut* __restrict__ y, int d, float eps) {
+  __shared__ float partial[2][WIDE_WARPS];
+  const int tid = threadIdx.x;
+  const int groups = d >> 3;
+  const TIn* xr = x + (long long)blockIdx.x * d;
+  TOut* yr = y + (long long)blockIdx.x * d;
+
+  float v[CPT][8];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int g = tid + WIDE_THREADS * c;
+    if (g < groups) {
+      load8(xr + 8 * g, v[c]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[c][i] = 0.f;
+    }
+  }
+
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s += v[c][i];
+      ss += v[c][i] * v[c][i];
+    }
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  if ((tid & 31) == 0) {
+    partial[0][tid >> 5] = s;
+    partial[1][tid >> 5] = ss;
+  }
+  __syncthreads();
+  s = ss = 0.f;
+#pragma unroll
+  for (int w = 0; w < WIDE_WARPS; ++w) {
+    s += partial[0][w];
+    ss += partial[1][w];
+  }
+  const float inv_d = 1.f / (float)d;
+  const float mu = s * inv_d;
+  const float var = ss * inv_d - mu * mu;
+  const float r = rsqrtf(var + eps);
+
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int g = tid + WIDE_THREADS * c;
+    if (g < groups) {
+      float w[8], b[8], out[8];
+      load8(scale + 8 * g, w);
+      load8(bias + 8 * g, b);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) out[i] = (v[c][i] - mu) * r * w[i] + b[i];
+      store8(yr + 8 * g, out);
+    }
+  }
+}
+
+template <typename TIn, typename TOut, int CPT>
+cudaError_t launch_wide(const void* x, const void* scale, const void* bias, void* y,
+                        long long n, int d, float eps, cudaStream_t stream) {
+  layer_norm_wide_kernel<TIn, TOut, CPT><<<(unsigned)n, WIDE_THREADS, 0, stream>>>(
+      static_cast<const TIn*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<TOut*>(y), d, eps);
+  return cudaGetLastError();
+}
+
 template <typename TIn, typename TOut, int CPL>
 cudaError_t launch(const void* x, const void* scale, const void* bias, void* y,
                    long long n, int d, float eps, cudaStream_t stream) {
@@ -144,11 +229,18 @@ cudaError_t launch(const void* x, const void* scale, const void* bias, void* y,
 template <typename TIn, typename TOut>
 cudaError_t dispatch(const void* x, const void* scale, const void* bias, void* y,
                      long long n, int d, float eps, cudaStream_t stream) {
-  const int per_lane = (d / 8 + 31) / 32;  // 8-element groups a lane must hold
+  if (d <= MAX_WIDTH) {
+    const int per_lane = (d / 8 + 31) / 32;  // 8-element groups a lane must hold
 #define LN_CASE(C) \
   if (per_lane <= C) return launch<TIn, TOut, C>(x, scale, bias, y, n, d, eps, stream);
-  LN_CASE(1) LN_CASE(2) LN_CASE(3) LN_CASE(4) LN_CASE(6) LN_CASE(8) LN_CASE(12) LN_CASE(16)
+    LN_CASE(1) LN_CASE(2) LN_CASE(3) LN_CASE(4) LN_CASE(6) LN_CASE(8) LN_CASE(12) LN_CASE(16)
 #undef LN_CASE
+  }
+  const int per_thread = (d / 8 + WIDE_THREADS - 1) / WIDE_THREADS;  // above 4,096: 3 or more
+#define LN_WIDE_CASE(C) \
+  if (per_thread <= C) return launch_wide<TIn, TOut, C>(x, scale, bias, y, n, d, eps, stream);
+  LN_WIDE_CASE(3) LN_WIDE_CASE(4) LN_WIDE_CASE(6) LN_WIDE_CASE(8)
+#undef LN_WIDE_CASE
   return cudaErrorInvalidValue;
 }
 
@@ -156,12 +248,14 @@ cudaError_t dispatch(const void* x, const void* scale, const void* bias, void* y
 
 // y = LayerNorm(x) over rows of width d; x and y bf16 (flag 0) or fp32 (flag
 // 1), scale and bias fp32.  Every pointer 16-byte aligned, d a multiple of 8
-// up to 4,096, rows dense.  Returns the cudaError of the launch (0 = ok).
+// up to 16,384 (a warp a row up to 4,096, a CTA a row above), rows dense.
+// Returns the cudaError of the launch (0 = ok).
 extern "C" int layer_norm_fwd(const void* x, const void* scale, const void* bias, void* y,
                               long long n, int d, float eps, int in_fp32, int out_fp32,
                               void* stream) {
-  if (n < 1 || d < 8 || d % 8 != 0 || d > MAX_WIDTH) return (int)cudaErrorInvalidValue;
-  if ((n + WARPS - 1) / WARPS > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if (n < 1 || d < 8 || d % 8 != 0 || d > MAX_WIDE_WIDTH) return (int)cudaErrorInvalidValue;
+  if ((d <= MAX_WIDTH ? (n + WARPS - 1) / WARPS : n) > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (in_fp32) {

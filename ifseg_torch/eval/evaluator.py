@@ -18,9 +18,13 @@ interpolation matrices, streamed in chunks of ``ROW_CHUNK`` target rows.
     miou = ...  # from the summed area_intersect / area_union of the logs
 
 Results stay on the device until the final read-back: one synchronisation per
-dataset, not per group.
+dataset, not per group.  The evaluator changes nothing of the model it is
+given: it runs a serving copy (``serving_copy``) whose cast weights it
+refreshes from that model at every ``eval_dataset``, so one evaluator built on
+a trainer's model evaluates the weights as they stand.
 """
 
+import copy
 import queue
 import threading
 from typing import Dict, List, Optional, Union
@@ -58,6 +62,36 @@ FREE_MEMORY_SHARE = 0.5
 
 def _bucket(n: int) -> int:
     return max(-(-n // BUCKET) * BUCKET, BUCKET)
+
+
+def serving_copy(model: SegOFA, device: torch.device, dtype: torch.dtype):
+    """(copy, pairs): a module tree of its own for a no-gradient forward of
+    ``model`` on ``device``, in eval mode, with the ``serving_linears`` in
+    ``dtype`` and the stem's folded convolutions cached in ``dtype``, as
+    ``cast_for_serving`` leaves a model.  Every parameter and buffer that
+    already lies on ``device`` in the dtype the copy needs is shared with
+    ``model``, not copied; the others get tensors of their own, and ``pairs``
+    lists them as (own tensor, ``model``'s tensor) for
+    ``Evaluator.refresh_weights``.  Nothing of ``model`` changes: not a
+    tensor, not its training flag."""
+    cast = {id(p) for m in model.serving_linears() for p in m.parameters()}
+    memo, pairs = {}, []
+    for t in [*model.parameters(), *model.buffers()]:
+        want = dtype if id(t) in cast else t.dtype
+        if t.device == device and t.dtype == want:
+            memo[id(t)] = t
+            continue
+        own = t.detach().to(device=device, dtype=want, copy=True)
+        if isinstance(t, torch.nn.Parameter):
+            own = torch.nn.Parameter(own, requires_grad=False)
+        memo[id(t)] = own
+        pairs.append((own, t))
+    for m in model.modules():  # dropout generators stay shared (unused in eval mode)
+        if getattr(m, "generator", None) is not None:
+            memo[id(m.generator)] = m.generator
+    shadow = copy.deepcopy(model, memo).eval()
+    shadow.encoder.embed_images.fold(dtype)
+    return shadow, pairs
 
 
 def masked_label_propagation(probs, resnet_feats, key_valid, topk: int, iters: int):
@@ -105,9 +139,15 @@ def _upsampled_areas_dyn(grid, target, valid, num_classes: int, uh, uw, chunks: 
 
 
 class Evaluator:
-    """Holds the model on its device, in eval mode, with the weights its
-    forward multiplies with cast to the compute dtype once (as ``SegServer``:
-    the model is moved and cast in place).
+    """Evaluates ``model`` on its device, in eval mode, with the weights its
+    forward multiplies with in the compute dtype, WITHOUT changing ``model``:
+    the forward runs on ``self.model``, a serving copy (``serving_copy``)
+    that shares what needs no cast or move and holds its own cast weights,
+    refreshed from ``model`` at the start of every ``eval_dataset``
+    (``refresh_weights``).  An evaluator built once on a trainer's model thus
+    evaluates the weights as they stand, and the trainer's fp32 parameters
+    stay fp32, as the JAX evaluator takes ``params`` per call.  (``SegServer``
+    is the other way round: it owns its model and casts it in place.)
 
     ``device=None`` means ``"cuda"`` and raises when no card is present; the
     CPU is used only when the caller passes ``device="cpu"``.  ``mem_budget``
@@ -122,10 +162,14 @@ class Evaluator:
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Evaluator: no CUDA device (pass device='cpu' to run on the CPU)")
-        self.model = model
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda" means the current card; its tensors say "cuda:<index>",
+            # and serving_copy shares what already lies there
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.model = None
+        self._dtype = compute_dtype(cfg.model)
         if model is not None:
-            self.model = model.to(self.device).eval()
-            self.model.cast_for_serving(compute_dtype(cfg.model))
+            self.model, self._pairs = serving_copy(model, self.device, self._dtype)
         if mem_budget is None and self.device.type == "cuda":
             mem_budget = FREE_MEMORY_SHARE * torch.cuda.mem_get_info(self.device)[0]
         self.mem_budget = mem_budget
@@ -277,6 +321,17 @@ class Evaluator:
         _, args = self._pack_group(samples)
         return self._forward_group(*args)
 
+    @torch.no_grad()
+    def refresh_weights(self) -> None:
+        """Take the given model's current weights into the serving copy: its
+        own tensors copied (cast, moved) from the model's, the stem folded
+        again."""
+        if self.model is None:
+            return
+        for own, src in self._pairs:
+            own.copy_(src)
+        self.model.encoder.embed_images.fold(self._dtype)
+
     @staticmethod
     def _read_back(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         return {k: v.cpu().numpy() for k, v in out.items()}
@@ -294,7 +349,11 @@ class Evaluator:
         group.
 
         ``stats_out`` receives ``group_sizes`` (rows per executed group, in
-        launch order) and ``buckets`` (group key -> sample count)."""
+        launch order) and ``buckets`` (group key -> sample count).
+
+        The given model's current weights are taken first
+        (``refresh_weights``)."""
+        self.refresh_weights()
         q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
         stop = threading.Event()
         producer_error = []

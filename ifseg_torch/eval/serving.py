@@ -35,8 +35,11 @@ class SegServer:
     compute dtype once.
 
     ``device=None`` means ``"cuda"`` and raises when no card is present; the
-    CPU is used only when the caller passes ``device="cpu"``.  The model is
-    moved and cast in place."""
+    CPU is used only when the caller passes ``device="cpu"``.  The server owns
+    its model: it is moved and cast in place (``SegOFA.cast_for_serving``),
+    so a model handed to a server serves and does nothing else.  (The
+    ``Evaluator`` is the other way round: it leaves its model alone and runs
+    a cast copy of it.)"""
 
     def __init__(self, model: SegOFA, src_len: int,
                  device: Optional[Union[str, torch.device]] = None,

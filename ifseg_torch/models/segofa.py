@@ -62,14 +62,15 @@ class SegOFA(nn.Module):
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "SegOFA":
-        """Random weights from ``generator`` (a CPU generator), in a fixed
-        module order: lecun-normal linears and convs with zero biases,
+        """Random weights from ``generator``, drawn on its device (a CPU
+        generator, or a CUDA one to build a large model on the card), in a
+        fixed module order: lecun-normal linears and convs with zero biases,
         normal(0, dim^-0.5) embeddings, normal(0, 0.1) relative-position
         tables; LayerNorms, FrozenBNs and head gains keep their identity
         values.  Returns self."""
 
         def normal_(t: torch.Tensor, std: float):
-            t.copy_(torch.randn(t.shape, generator=generator) * std)
+            t.copy_(torch.randn(t.shape, generator=generator, device=generator.device) * std)
 
         for name, mod in self.named_modules():
             if isinstance(mod, Linear):
@@ -82,17 +83,22 @@ class SegOFA(nn.Module):
                 normal_(mod.weight, 0.1 if rel_table else mod.embedding_dim ** -0.5)
         return self
 
-    @torch.no_grad()
-    def cast_for_serving(self, dtype: torch.dtype):
-        """Cast, once, the weights the per-request forward multiplies with:
-        the transformer layers' linears and ``image_proj`` to ``dtype``, and
-        the ResNet's BN-folded convolutions (cached in ``dtype``).  Position
-        linears, embeddings, LayerNorms and the seg head stay fp32, as the
-        JAX package computes them."""
+    def serving_linears(self):
+        """The modules whose weights ``cast_for_serving`` casts: the
+        transformer layers' linears and ``image_proj``."""
         mods = [self.encoder.image_proj]
         for layers in (self.encoder.layers, self.decoder.layers):
             mods += [m for m in layers.modules() if isinstance(m, Linear)]
-        for m in mods:
+        return mods
+
+    @torch.no_grad()
+    def cast_for_serving(self, dtype: torch.dtype):
+        """Cast, once and in place, the weights the per-request forward
+        multiplies with: the ``serving_linears`` to ``dtype``, and the
+        ResNet's BN-folded convolutions (cached in ``dtype``).  Position
+        linears, embeddings, LayerNorms and the seg head stay fp32, as the
+        JAX package computes them."""
+        for m in self.serving_linears():
             m.to(dtype)
         self.encoder.embed_images.fold(dtype)
         return self

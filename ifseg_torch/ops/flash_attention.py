@@ -7,7 +7,8 @@ The port of the JAX package's packed entry points, with their names:
                                         and bias (training);
 ``flash_attention_bias_packed``         output only, differentiable.
 
-q (B, Lq, H·D), k/v (B, Lk, H·D) — the raw projection outputs — a bias
+q (B, Lq, H·D), k/v (B, Lk, H·D) — the raw projection outputs, D 64 or 80
+on a card (``HEAD_DIMS``), any on the CPU — a bias
 (H, Lq, Lk) shared across the batch (dense, or a view of row-padded storage
 as ``row_padded`` makes it), an optional key-padding mask (B, Lk)
 (True = pad) and causal masking with the offset lk - lq.  Output (B, Lq, H·D)
@@ -41,7 +42,14 @@ KERNEL = "flash_attention_bias_fwd"
 KERNEL_BWD_DQ = "flash_attention_bias_bwd_dq"
 KERNEL_BWD_DKV = "flash_attention_bias_bwd_dkv"
 KERNELS = (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV)  # one source file each
-HEAD_DIM = 64  # the kernels' head dim (OFA-Base and every larger SegOFA)
+# the head dims the kernels are instantiated for: 64 (SegOFA tiny to Large,
+# OFA-Base among them) and 80 (SegOFA-Huge, 1280 wide with 16 heads); on a
+# CUDA tensor any other raises
+HEAD_DIMS = (64, 80)
+HEAD_DIM = 64  # OFA-Base's
+# the most heads the di pre-pass takes (csrc's DI_MAX_HEADS: its heads x 32
+# rows fp32 tile within 48 KiB of shared memory)
+DI_MAX_HEADS = 384
 # the dq + dbias kernel's query rows per CTA and keys per stage: its fp32
 # dbias workspace is padded to them
 DQ_TILE_Q, DQ_TILE_K = 128, 64
@@ -60,6 +68,8 @@ LAUNCHES_BWD_DKV = 0
 LAUNCHES_BIAS_TMA = 0
 LAUNCHES_BIAS_THREADS = 0
 BWD_BIAS_COPIES = 0
+# launches of all five kernels by the head dim of their instantiation
+LAUNCHES_BY_HEAD_DIM = {d: 0 for d in HEAD_DIMS}
 
 
 def reset_launches():
@@ -67,6 +77,8 @@ def reset_launches():
     global LAUNCHES_BIAS_TMA, LAUNCHES_BIAS_THREADS, BWD_BIAS_COPIES
     LAUNCHES = LAUNCHES_STATS = LAUNCHES_BWD_DI = LAUNCHES_BWD_DQ = LAUNCHES_BWD_DKV = 0
     LAUNCHES_BIAS_TMA = LAUNCHES_BIAS_THREADS = BWD_BIAS_COPIES = 0
+    for d in LAUNCHES_BY_HEAD_DIM:
+        LAUNCHES_BY_HEAD_DIM[d] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -182,8 +194,8 @@ def _check(q, k, v, bias, key_padding_mask, causal, num_heads):
         raise ValueError("q, k, v must be packed (B, L, H*D)")
     b, lq, e = q.shape
     lk = k.shape[1]
-    if e != num_heads * HEAD_DIM:
-        raise ValueError(f"kernel supports head dim {HEAD_DIM}; got {e}/{num_heads}")
+    if num_heads < 1 or e % num_heads or e // num_heads not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head dims {HEAD_DIMS}; got {e}/{num_heads}")
     if tuple(k.shape) != (b, lk, e) or tuple(v.shape) != (b, lk, e):
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not match q {tuple(q.shape)}")
     if lq < 1 or lk < 1:
@@ -260,15 +272,16 @@ def _check_backward(q, g, out, lse, num_heads):
             raise ValueError(f"{name} must be bfloat16 {tuple(q.shape)}, got {x.dtype} {tuple(x.shape)}")
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, num_heads, lq):
         raise ValueError(f"lse must be float32 {(b, num_heads, lq)}")
-    if num_heads > 32:
-        raise ValueError("the di pre-pass takes at most 32 heads")
+    if num_heads > DI_MAX_HEADS:
+        raise ValueError(f"the di pre-pass takes at most {DI_MAX_HEADS} heads")
     for name, x in (("g", g), ("out", out), ("lse", lse)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if g.data_ptr() % 16:
-        raise ValueError("g must be 16-byte aligned")
+    for name, x in (("g", g), ("out", out)):  # the di pre-pass reads them in 16-byte chunks
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _ptr(x):
@@ -277,15 +290,15 @@ def _ptr(x):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "flash_attention_bias_fwd": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_I] * 5 + [_P],
-    "flash_attention_bias_fwd_stats": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 5 + [_P],
-    "flash_attention_bias_fwd_encode_us": [_P] * 4 + [_I] * 7,
-    "flash_attention_bias_fwd_smem_bytes": [_I],
-    "flash_attention_bwd_di": [_P] * 3 + [_I] * 3 + [_P],
-    "flash_attention_bias_bwd_dq": [_P] * 4 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P],
-    "flash_attention_bias_bwd_dkv": [_P] * 4 + [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P],
-    "flash_attention_bias_bwd_dq_smem_bytes": [_I],
-    "flash_attention_bias_bwd_dkv_smem_bytes": [_I],
+    "flash_attention_bias_fwd": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_I] * 6 + [_P],
+    "flash_attention_bias_fwd_stats": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 6 + [_P],
+    "flash_attention_bias_fwd_encode_us": [_P] * 4 + [_I] * 8,
+    "flash_attention_bias_fwd_smem_bytes": [_I, _I],
+    "flash_attention_bwd_di": [_P] * 3 + [_I] * 4 + [_P],
+    "flash_attention_bias_bwd_dq": [_P] * 4 + [_I] * 2 + [_P] * 6 + [_I] * 6 + [_P],
+    "flash_attention_bias_bwd_dkv": [_P] * 4 + [_I] * 2 + [_P] * 6 + [_I] * 6 + [_P],
+    "flash_attention_bias_bwd_dq_smem_bytes": [_I, _I],
+    "flash_attention_bias_bwd_dkv_smem_bytes": [_I, _I],
 }
 
 
@@ -315,7 +328,7 @@ def _launch(q, k, v, bias, key_padding_mask, causal, num_heads, with_stats=False
     out = torch.empty_like(q)
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias, k.shape[1]),
             _ptr(key_padding_mask), out.data_ptr())
-    dims = (b, num_heads, lq, k.shape[1], int(bool(causal)))
+    dims = (b, num_heads, q.shape[2] // num_heads, lq, k.shape[1], int(bool(causal)))
     if bias is not None:  # the kernel's own rule (encode_maps) for fetching the bias by TMA
         if tma_rows(bias):
             LAUNCHES_BIAS_TMA += 1
@@ -324,10 +337,12 @@ def _launch(q, k, v, bias, key_padding_mask, causal, num_heads, with_stats=False
     if not with_stats:
         _call(KERNEL, "flash_attention_bias_fwd", q.device, *head, *dims)
         LAUNCHES += 1
+        LAUNCHES_BY_HEAD_DIM[dims[2]] += 1
         return out
     lse = torch.empty(b, num_heads, lq, dtype=torch.float32, device=q.device)
     _call(KERNEL, "flash_attention_bias_fwd_stats", q.device, *head, lse.data_ptr(), *dims)
     LAUNCHES_STATS += 1
+    LAUNCHES_BY_HEAD_DIM[dims[2]] += 1
     return out, lse
 
 
@@ -339,20 +354,20 @@ def tensor_map_encode_us(q, k, v, bias, num_heads, iters=200) -> float:
     fn.argtypes = _ARGTYPES["flash_attention_bias_fwd_encode_us"]
     fn.restype = ctypes.c_double
     us = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias, k.shape[1]),
-            q.shape[0], num_heads, q.shape[1], k.shape[1], iters)
+            q.shape[0], num_heads, q.shape[2] // num_heads, q.shape[1], k.shape[1], iters)
     if us < 0:
         raise RuntimeError("cuTensorMapEncodeTiled refused a tensor map")
     return us
 
 
-def smem_bytes(kernel: str, bias_fp32: bool) -> int:
+def smem_bytes(kernel: str, bias_fp32: bool, head_dim: int = HEAD_DIM) -> int:
     """Dynamic shared memory one CTA of ``kernel`` (one of ``KERNELS``)
-    takes, in bytes, with an fp32 or a bf16 bias."""
+    takes, in bytes, with an fp32 or a bf16 bias, at ``head_dim``."""
     entry = f"{kernel}_smem_bytes"
     fn = getattr(build.load(kernel), entry)
     fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
-    return fn(int(bias_fp32))
+    return fn(int(bias_fp32), head_dim)
 
 
 def _launch_di(g, out, num_heads):
@@ -360,8 +375,9 @@ def _launch_di(g, out, num_heads):
     b, lq, _ = g.shape
     di = torch.empty(b, num_heads, lq, dtype=torch.float32, device=g.device)
     _call(KERNEL_BWD_DQ, "flash_attention_bwd_di", g.device,
-          g.data_ptr(), out.data_ptr(), di.data_ptr(), b, num_heads, lq)
+          g.data_ptr(), out.data_ptr(), di.data_ptr(), b, num_heads, g.shape[2] // num_heads, lq)
     LAUNCHES_BWD_DI += 1
+    LAUNCHES_BY_HEAD_DIM[g.shape[2] // num_heads] += 1
     return di
 
 
@@ -371,7 +387,8 @@ def _backward_args(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_head
                          "(row_padded makes them so)")
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias, k.shape[1]),
             _ptr(key_padding_mask), g.data_ptr(), lse.data_ptr(), di.data_ptr())
-    return head, (q.shape[0], num_heads, q.shape[1], k.shape[1], int(bool(causal)))
+    return head, (q.shape[0], num_heads, q.shape[2] // num_heads, q.shape[1], k.shape[1],
+                  int(bool(causal)))
 
 
 def _launch_dq(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads, need_dbias=True):
@@ -388,6 +405,7 @@ def _launch_dq(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads, n
     _call(KERNEL_BWD_DQ, "flash_attention_bias_bwd_dq", q.device,
           *head, dq.data_ptr(), _ptr(ws), *dims)
     LAUNCHES_BWD_DQ += 1
+    LAUNCHES_BY_HEAD_DIM[dims[2]] += 1
     if ws is None:
         return dq, None
     return dq, ws[:, :lq, :lk].to(bias.dtype).contiguous()  # rounded once to the bias dtype
@@ -401,6 +419,7 @@ def _launch_dkv(q, k, v, bias, key_padding_mask, causal, g, lse, di, num_heads):
     _call(KERNEL_BWD_DKV, "flash_attention_bias_bwd_dkv", q.device,
           *head, dk.data_ptr(), dv.data_ptr(), *dims)
     LAUNCHES_BWD_DKV += 1
+    LAUNCHES_BY_HEAD_DIM[dims[2]] += 1
     return dk, dv
 
 

@@ -10,8 +10,10 @@ The port of the JAX package's ``ops/layer_norm.py``, with its names:
 x is bf16 or fp32 of any leading shape, scale and bias are fp32 (D,), the
 output is bf16 or fp32.  On a CUDA tensor the forward launches the
 hand-written Hopper kernel ``csrc/layer_norm.cu`` (or raises: widths are the
-multiples of 8 up to 4,096); on a CPU tensor it runs the plain version, which
-is also what the kernel is held against on the card.  The backward is plain
+multiples of 8 up to 16,384, a warp a row up to 4,096 and a CTA a row above,
+where SegOFA-Huge's 5,120-wide ``ffn_layernorm`` falls); on a CPU tensor it
+runs the plain version, which is also what the kernel is held against on the
+card.  The backward is plain
 math from the saved input (the row statistics are recomputed), as in the JAX
 package, which has no backward kernel either.
 
@@ -30,16 +32,22 @@ import torch
 from ifseg_torch.ops import build
 
 KERNEL = "layer_norm"  # csrc/layer_norm.cu
-MAX_WIDTH = 4096  # the kernel keeps a row in one warp's registers
+# the kernel keeps a row in registers: one warp's up to 4,096, one CTA's
+# (256 threads) above, up to this
+MAX_WIDTH = 16384
+WARP_MAX_WIDTH = 4096  # the widest row of the warp-per-row kernel
 _DTYPES = (torch.bfloat16, torch.float32)
 
-# kernel launches since the count was last set to 0 (chip_smoke.py reads it)
+# kernel launches since the counts were last set to 0 (chip_smoke.py reads
+# them): all of them, and those of the CTA-per-row kernel (rows wider than
+# WARP_MAX_WIDTH) among them
 LAUNCHES = 0
+LAUNCHES_WIDE = 0
 
 
 def reset_launches():
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, LAUNCHES_WIDE
+    LAUNCHES = LAUNCHES_WIDE = 0
 
 
 # ------------------------------------------------------------ plain version
@@ -116,7 +124,7 @@ def _entry():
 
 
 def _launch(x, scale, bias, eps, out_dtype):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_WIDE
     x = x.contiguous()
     scale, bias = scale.detach().contiguous(), bias.detach().contiguous()
     _check(x, scale, bias, out_dtype)
@@ -134,6 +142,7 @@ def _launch(x, scale, bias, eps, out_dtype):
     if rc != 0:
         raise RuntimeError(f"layer_norm_fwd launch failed: cudaError {rc}")
     LAUNCHES += 1
+    LAUNCHES_WIDE += int(d > WARP_MAX_WIDTH)
     return y
 
 

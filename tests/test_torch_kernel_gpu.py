@@ -1,4 +1,6 @@
-"""The Hopper kernels against their plain versions, on the card.
+"""The Hopper kernels against their plain versions, on the card, the
+attention kernels at both head dims they are built for (64: OFA-Base; 80:
+SegOFA-Huge), the LayerNorm kernel up to its widest rows.
 
 Marked ``gpu``: they need an NVIDIA card and ``nvcc`` and skip without them
 (decided inside the test).  Run them on a card with
@@ -49,12 +51,13 @@ from ifseg_torch.ops import layer_norm as ln
         (96, 128, False, False, "offset"),           # ... whose rows are 16-byte multiples apart
     ],
 )
-def test_kernel_matches_plain(lq, lk, causal, with_mask, bias_dtype):
+@pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
+def test_kernel_matches_plain(lq, lk, causal, with_mask, bias_dtype, head_dim):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
     b, h = 3, 4
-    e = h * fa.HEAD_DIM
+    e = h * head_dim
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * scale
@@ -114,12 +117,14 @@ def _rel(got, want):
         (2, 257, 257, True, "tile", "padded"),           # bias rows in padded storage
     ],
 )
-def test_stats_forward_and_backward_kernels_match_plain(b, lq, lk, causal, with_mask, bias_dtype):
+@pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
+def test_stats_forward_and_backward_kernels_match_plain(b, lq, lk, causal, with_mask, bias_dtype,
+                                                        head_dim):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    h = 12 if b == 16 else 4
-    e = h * fa.HEAD_DIM
+    h = (12 if head_dim == 64 else 16) if b == 16 else 4  # OFA-Base's or Huge's heads
+    e = h * head_dim
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
@@ -189,13 +194,14 @@ def test_stats_forward_and_backward_kernels_match_plain(b, lq, lk, causal, with_
         (64, 64, False, False, None, True),
     ],
 )
+@pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
 def test_backward_kernels_match_plain_at_tile_edges(lq, lk, causal, with_mask, bias_kind,
-                                                    need_dbias):
+                                                    need_dbias, head_dim):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(6)
     b, h = 2, 4
-    e = h * fa.HEAD_DIM
+    e = h * head_dim
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
@@ -263,6 +269,44 @@ def test_backward_copies_only_a_bias_tma_cannot_take():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,h,head_dim", [
+    (16, 1056, 12, 64),  # the three OFA-Base training sites: encoder self,
+    (16, 1025, 12, 64),  # decoder self and cross (their query rows)
+    (3, 77, 16, 80),     # Huge's heads, ragged rows
+    (2, 1056, 16, 80),
+    (1, 5, 384, 64),     # the most heads the pre-pass takes
+])
+def test_di_prepass_matches_plain(b, lq, h, head_dim):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    g = torch.randn(b, lq, h * head_dim, generator=gen, device="cuda").bfloat16()
+    out = torch.randn(b, lq, h * head_dim, generator=gen, device="cuda").bfloat16()
+    before = fa.LAUNCHES_BWD_DI
+    di = fa._launch_di(g, out, h)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_BWD_DI == before + 1
+    want = fa.attention_di_reference(g, out, h)  # fp32 sums of the same bf16 products
+    assert di.dtype == torch.float32 and di.shape == want.shape == (b, h, lq)
+    assert _rel(di, want) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_head_dim_and_heads_the_kernels_do_not_take_raise_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.zeros(2, 70, 4 * 72, dtype=torch.bfloat16, device="cuda")
+    before = fa.launch_counts()
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_bias_packed_infer(x, x, x, None, None, False, 4)
+    g = torch.zeros(1, 3, 385 * 64, dtype=torch.bfloat16, device="cuda")
+    lse = torch.zeros(1, 385, 3, device="cuda")
+    with pytest.raises(ValueError, match="heads"):
+        fa._check_backward(g, g, g, lse, 385)
+    assert fa.launch_counts() == before
+
+
+@pytest.mark.gpu
 def test_bias_without_grad_skips_the_dbias_workspace():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -295,8 +339,23 @@ def _within_bf16_step(got, want):
         (1001, 768, torch.bfloat16, torch.float32),      # ragged row count
         (77, 32, torch.float32, torch.bfloat16),         # the tiny test width
         (5, 8, torch.bfloat16, torch.bfloat16),          # narrowest
-        (333, 4096, torch.bfloat16, torch.bfloat16),     # widest
+        (333, 4096, torch.bfloat16, torch.bfloat16),     # widest of the warp-per-row kernel
         (64, 1000, torch.float32, torch.float32),        # tail groups predicated off
+        # the CTA-per-row kernel: Huge's ffn_layernorm (8,448 rows: a served
+        # batch of 8), wider rows up to the maximum, both dtypes in and out
+        (8448, 5120, torch.bfloat16, torch.bfloat16),
+        (77, 5120, torch.float32, torch.bfloat16),
+        (75, 5120, torch.bfloat16, torch.float32),
+        (73, 5120, torch.float32, torch.float32),
+        (33, 4104, torch.bfloat16, torch.float32),       # just above 4,096, tail groups off
+        (129, 8192, torch.float32, torch.float32),
+        (65, 8192, torch.bfloat16, torch.float32),
+        (63, 8192, torch.bfloat16, torch.bfloat16),
+        (61, 8192, torch.float32, torch.bfloat16),
+        (31, 16384, torch.bfloat16, torch.bfloat16),     # the widest
+        (17, 16384, torch.float32, torch.float32),
+        (19, 16384, torch.bfloat16, torch.float32),
+        (21, 16384, torch.float32, torch.bfloat16),
     ],
 )
 def test_layer_norm_kernel_matches_plain(rows, width, in_dtype, out_dtype):
@@ -336,9 +395,10 @@ def test_layer_norm_on_cuda_raises_on_unsupported_width():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     before = ln.LAUNCHES
-    with pytest.raises(ValueError, match="width"):
-        ln.fused_layer_norm(torch.zeros(4, 100, device="cuda"), torch.ones(100, device="cuda"),
-                            torch.zeros(100, device="cuda"))
+    for d in (100, ln.MAX_WIDTH + 8):
+        with pytest.raises(ValueError, match="width"):
+            ln.fused_layer_norm(torch.zeros(4, d, device="cuda"), torch.ones(d, device="cuda"),
+                                torch.zeros(d, device="cuda"))
     assert ln.LAUNCHES == before
 
 

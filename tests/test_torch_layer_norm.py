@@ -106,7 +106,7 @@ def test_backward_of_bf16_input_is_bf16():
     np.testing.assert_allclose(bt.grad.numpy(), 6.0)
 
 
-@pytest.mark.parametrize("width", [100, 4, 4104])
+@pytest.mark.parametrize("width", [100, 4, 16392])  # not a multiple of 8, too narrow, too wide
 def test_check_refuses_unsupported_width(width):
     x = torch.zeros(3, width)
     with pytest.raises(ValueError, match="width"):
@@ -131,7 +131,7 @@ def test_check_refuses_other_operands(case):
 
 
 def test_check_accepts_every_multiple_of_8():
-    for width in (8, 32, 768, 3072, 4096):
+    for width in (8, 32, 768, 3072, 4096, 4104, 5120, 16384):
         tln._check(torch.zeros(2, width), torch.ones(width), torch.zeros(width), torch.bfloat16)
 
 
