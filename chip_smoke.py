@@ -5,8 +5,9 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build every kernel with nvcc (one process per source, all at once),
-     with each instantiation's registers, spill and stack from the
+  2. build every kernel with nvcc and the PNG decoder's host C++ source with
+     c++ (one process per source, all at once), with each kernel
+     instantiation's registers, spill and stack from the
      ``-Xptxas -v`` summary, and the HGMMA count and shared memory of the
      three wgmma attention libraries at both head dims;
   3. each kernel against its plain PyTorch version, with its time, the plain
@@ -21,11 +22,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      kernels' tiles (Lq and Lk of 1, 63 to 65, 127 to 129 and 257, causal
      with Lk > Lq, a padded key tile, row-padded bias storage), checked but
      not timed, the backward kernels on dense and on row-padded biases at
-     every case; the host time of a launch's tensor-map encodes; the
+     every case, the forward also at phase 11's validate sites (215 text
+     tokens); the host time of a launch's tensor-map encodes; the
      LayerNorm kernel at every (rows, width, dtype) that a served batch-32
-     forward, an evaluation group of 8 at the (512, 768) bucket and a
-     monitoring forward at batch 16 give it (the fp32 position LayerNorms
-     included), a ragged row count, a narrow and the widest width, and its
+     forward, an evaluation group of 8 at the (512, 768) bucket (with 32
+     and with 215 text tokens) and a monitoring forward at batch 16 give it
+     (the fp32 position LayerNorms included), a ragged row count, a narrow and the widest width, and its
      autograd Function's forward + backward beside ``F.layer_norm``'s;
   4. the serving path at full OFA-Base 512px width, random weights from seed
      0: ``SegServer`` on the card answers batches of 1, 8 and 32; the launch
@@ -64,7 +66,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      launch counts set to 0 before each path and read after; then, at a
      reduced depth (2 + 2 layers) and full width, the card's logits and
      gradients against the CPU's;
- 11. one JSON line listing every kernel, the nvidia-smi line, and the last
+ 11. validation from TSV rows to mIoU: a TSV of 24 rows written by the
+     script's own PNG writer (colour types 0, 2, 3, 6, palette labels at 1,
+     2 and 4 bits, all five row filters; original shapes that take every
+     branch of the keep-ratio resize), an ofa_base.pt-shaped checkpoint
+     fabricated on the card; the decoded and resized rows against SHA-256
+     digests of what PIL and cv2 give; the loaded weights against the file
+     and the seed-0 init; ``ifseg_torch.cli.validate.main`` with the ADE
+     flags of run_scripts/IFSeg/ade.sh and common.sh (150 classes, label
+     propagation top-3 x 25, groups of 8) on the card, launch counts set to 0
+     before and read after; host ms a row (image, label), each group's host
+     packing, forward wall time and the card's busy time in it (a profiler
+     trace), peak memory, img/s; the per-group logs of that run, on the
+     group cheapest for the CPU, against the fp32 CPU ``Evaluator``;
+ 12. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -112,6 +127,7 @@ EVAL_PIXEL_SHARE_TOL = 5e-2
 EVAL_NLL_REL_TOL = 2e-2
 SEED = 0
 SRC_LEN = 32
+VALID_SRC_LEN = 215  # phase 11: bos + the ADE prompt and 150 class names + 'unknown' + eos
 EVAL_CLASSES = 150
 TRAIN_BATCH = 16
 TRAIN_CLASSES = 15
@@ -171,6 +187,26 @@ def cuda_ms_queued(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_busy_ms(fn) -> float:
+    """Device time of one ``fn()`` in ms: the summed durations of the kernels
+    and copies a ``torch.profiler`` trace of it records (one stream, so they
+    do not overlap); the host's gaps between them are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            t = getattr(ev, "self_device_time_total", None)
+            us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+    if us <= 0.0:
+        fail("the profiler recorded no device time")
+    return us / 1e3
+
+
 # ---------------------------------------------------------------- phase 1
 
 def phase_card() -> str:
@@ -197,16 +233,19 @@ def phase_card() -> str:
 # ---------------------------------------------------------------- phase 2
 
 def phase_build():
+    from ifseg_torch.data import png
     from ifseg_torch.ops import build
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
 
+    # the CUDA sources and the host C++ source of the PNG decoder, all at once
     t0 = time.perf_counter()
-    results = build.build([*fa.KERNELS, ln.KERNEL])
+    results = build.build([*fa.KERNELS, ln.KERNEL, png.SOURCE])
     log(f"[2] built {sorted(results)} in {time.perf_counter() - t0:.1f} s")
     summary = {}
     for res in results.values():
-        log(f"[2] {res.name}: {res.path.name}, nvcc {res.seconds:.1f} s")
+        compiler = "c++" if res.name == png.SOURCE else "nvcc"
+        log(f"[2] {res.name}: {res.path.name}, {compiler} {res.seconds:.1f} s")
         shown = set()
         for line in res.log.splitlines():  # warnings, once each
             text = line.strip()
@@ -351,6 +390,16 @@ def eval_sites(spec):
 EVAL_SITES = eval_sites(BASE)
 
 
+def validate_sites(spec):
+    """The two sites of a phase 11 group of 8 at the (512, 768) bucket whose
+    key length the 215-token ADE prompt changes."""
+    enc, dec = spec["enc_layers"], spec["dec_layers"]
+    return [
+        ("validate encoder self", 32 * 48 + VALID_SRC_LEN, 32 * 48 + VALID_SRC_LEN, False, enc),
+        ("validate decoder cross", 1 + 32 * 48, 32 * 48 + VALID_SRC_LEN, False, dec),
+    ]
+
+
 def eval_key_mask(b, lk):
     """Key-padding mask of an evaluation site: the padded grid cells, behind
     the BOS slot in decoder self-attention (Lk odd), before the prompt in the
@@ -475,15 +524,27 @@ def phase_kernels(spec=BASE, batch=32, tag="[3]"):
     rows = []
     # every bias of the main paths comes in row-padded storage (the decoder's
     # 1,025 or 1,537 keys a row become a pitch of 1,032 or 1,544)
-    cases = [(prefix + name, batch, lq, lk, causal, masked, torch.bfloat16, True, n, 0)
+    cases = [(prefix + name, batch, lq, lk, causal, masked, torch.bfloat16, True, n, 0, 0)
              for name, lq, lk, causal, masked, n in attn_sites(spec)]
     # a small ragged shape with an fp32 bias, checked but not timed
-    cases.append((prefix + "ragged check", 3, 77, 130, True, True, torch.float32, False, 0, 0))
-    cases += [(prefix + name, EVAL_ROWS, lq, lk, causal, "eval", torch.bfloat16, True, 0, n)
+    cases.append((prefix + "ragged check", 3, 77, 130, True, True, torch.float32, False, 0, 0, 0))
+    # the evaluation group's sites; a validate group of phase 11 shares its
+    # decoder self-attention and has 215 text tokens in the other two
+    cases += [(prefix + name, EVAL_ROWS, lq, lk, causal, "eval", torch.bfloat16, True, 0, n,
+               n if spec is BASE and causal else 0)
               for name, lq, lk, causal, n in eval_sites(spec)]
-    cases += [(prefix + name, *case, 0, 0) for name, *case in EDGE_CASES]
+    if spec is BASE:
+        cases += [(name, EVAL_ROWS, lq, lk, causal, "eval", torch.bfloat16, True, 0, 0, n)
+                  for name, lq, lk, causal, n in validate_sites(spec)]
+        # the (512, 512) bucket's group of 4 with 215 text tokens, checked
+        cells = 32 * 32
+        cases += [(name, 4, lq, lk, causal, True, torch.bfloat16, True, 0, 0, 0) for name, lq, lk, causal in (
+            ("validate (512, 512) encoder self", cells + VALID_SRC_LEN, cells + VALID_SRC_LEN, False),
+            ("validate (512, 512) decoder self", 1 + cells, 1 + cells, True),
+            ("validate (512, 512) decoder cross", 1 + cells, cells + VALID_SRC_LEN, False))]
+    cases += [(prefix + name, *case, 0, 0, 0) for name, *case in EDGE_CASES]
     for i, (name, b, lq, lk, causal, masked, bias_dtype, padded, per_fwd,
-            per_group) in enumerate(cases):
+            per_group, per_valid) in enumerate(cases):
         q, k, v, bias, mask = site_inputs(b, h, lq, lk, causal, masked,
                                           bias_dtype or torch.bfloat16, seed=i, head_dim=d)
         bias = None if bias_dtype is None else fa.row_padded(bias) if padded else bias
@@ -500,8 +561,8 @@ def phase_kernels(spec=BASE, batch=32, tag="[3]"):
         if not finite or not err <= ATTN_TOL:
             fail(f"kernel disagrees with its plain version at {name}: {err} > {ATTN_TOL}")
         row = dict(site=name, B=b, H=h, D=d, Lq=lq, Lk=lk, causal=causal, per_forward=per_fwd,
-                   per_eval_group=per_group, max_abs_err=err)
-        if per_fwd or per_group:
+                   per_eval_group=per_group, per_validate_group=per_valid, max_abs_err=err)
+        if per_fwd or per_group or per_valid:
             flops, nbytes = attention_work(b, h, lq, lk, d, causal,
                                            bias.element_size(), bool(masked))
             row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
@@ -553,9 +614,9 @@ def within_bf16_step(got, want) -> bool:
     return bool((diff <= want.float().abs() * 2.0 ** -7 * LN_BF16_ULPS + LN_FP32_TOL).all())
 
 
-def ln_sites(batch: int, cells: int, position_lns: bool, spec=BASE):
+def ln_sites(batch: int, cells: int, position_lns: bool, spec=BASE, src_len: int = SRC_LEN):
     """The LayerNorm sites of one no-gradient forward of ``spec`` over a grid
-    of ``cells`` image tokens, src_len 32: (name, rows, width, input dtype,
+    of ``cells`` image tokens and ``src_len`` text tokens: (name, rows, width, input dtype,
     output dtype, sites per forward).  The two embedding LayerNorms, then per
     layer three (encoder) or five (decoder) of the model's width (768 for
     OFA-Base, 1,280 for Huge) and the ffn_layernorm of the FFN's (3,072;
@@ -563,11 +624,11 @@ def ln_sites(batch: int, cells: int, position_lns: bool, spec=BASE):
     (evaluation, monitoring), the three fp32 position LayerNorms, once per
     forward whatever the batch."""
     bf16, fp32 = torch.bfloat16, torch.float32
-    enc, dec = cells + SRC_LEN, 1 + cells
+    enc, dec = cells + src_len, 1 + cells
     w, f, n_enc, n_dec = spec["width"], spec["ffn"], spec["enc_layers"], spec["dec_layers"]
     sites = [
         ("patch embedding", batch * cells, w, bf16, bf16, 1),
-        ("text embedding", batch * SRC_LEN, w, bf16, bf16, 1),
+        ("text embedding", batch * src_len, w, bf16, bf16, 1),
         ("encoder layers + final", batch * enc, w, bf16, bf16, n_enc * 3 + 1),
         ("encoder ffn", batch * enc, f, bf16, bf16, n_enc),
         ("decoder embedding + layers + final", batch * dec, w, bf16, bf16, 1 + n_dec * 5 + 1),
@@ -575,21 +636,25 @@ def ln_sites(batch: int, cells: int, position_lns: bool, spec=BASE):
     ]
     if position_lns:
         sites += [
-            ("text positions", SRC_LEN, w, fp32, fp32, 1),
+            ("text positions", src_len, w, fp32, fp32, 1),
             ("image positions", cells, w, fp32, fp32, 1),
             ("seg positions", dec, w, fp32, fp32, 1),
         ]
     return sites
 
 
-# The three main paths that launch the LayerNorm kernel: the served batch-32
-# forward at 512px (biases precomputed), an evaluation group of EVAL_ROWS rows
-# on the padded grid of the (512, 768) bucket, and the trainer's monitoring
-# forward at batch TRAIN_BATCH; keyed by the count's name in a site's row.
+# The main paths that launch the LayerNorm kernel: the served batch-32 forward
+# at 512px (biases precomputed), an evaluation group of EVAL_ROWS rows on the
+# padded grid of the (512, 768) bucket, the trainer's monitoring forward at
+# batch TRAIN_BATCH, and a validate group (phase 11) at that bucket; keyed by
+# the count's name in a site's row.
 LN_PATHS = {
     "per_forward": ("served", ln_sites(32, 1024, False)),
     "per_eval_group": ("eval", ln_sites(EVAL_ROWS, EVAL_GRID[0] * EVAL_GRID[1], True)),
     "per_monitor_forward": ("monitor", ln_sites(TRAIN_BATCH, 1024, True)),
+    # phase 11's group of 8 at the same bucket, with the 215-token ADE prompt
+    "per_validate_group": ("validate", ln_sites(EVAL_ROWS, EVAL_GRID[0] * EVAL_GRID[1], True,
+                                                src_len=VALID_SRC_LEN)),
 }
 # SegOFA-Huge's two: a served batch of HUGE_SERVE_BATCH and an evaluation
 # group of EVAL_ROWS at the (512, 768) bucket
@@ -1751,6 +1816,364 @@ def phase_huge_eval(card: str, trainer):
                 nll_loss=float(out["nll_loss"]))
 
 
+# ---------------------------------------------------------------- phase 11: validate
+
+# The TSV of phase 11: VALID_ROWS rows of (base64 image PNG, base64 label PNG,
+# id), pixels from a numpy generator seeded with SEED.  The original shapes
+# cover every branch of the keep-ratio resize into the (2048, 512) box: two
+# up-scales, a down-scale, an exact 2x (cv2's area average), the equal size (a
+# copy), a portrait and a square.  Images cycle through PNG colour types 2, 0,
+# 3 and 6 (RGB, gray, palette, RGBA), labels through gray and palette files
+# at 1, 2 and 4 bits; every PNG cycles its rows through the five filter types.
+VALID_ROWS = 24
+VALID_SHAPES = [(480, 640), (375, 500), (600, 800), (1024, 1366), (512, 683), (640, 480),
+                (500, 500)]
+IMAGE_COLOURS = (2, 0, 3, 6)
+LABEL_FORMATS = ((0, 8), (3, 1), (0, 8), (3, 2), (0, 8), (3, 4))  # (colour type, bit depth)
+# SHA-256 (first 16 hex digits) of every row's decoded, resized patch_image and
+# of its shifted ori_semantic_seg as the JAX package's pipeline gives them (PIL
+# and cv2), for seed SEED; tests/test_torch_dataset.py computes them again
+# with the JAX package and holds these
+VALID_DIGESTS = [
+    ("0e43e4c608eae006", "4e81700b65a91492"),  # row 0
+    ("6115bddee3b02e3a", "ad59739114b775eb"),  # row 1
+    ("95f198f5b1d0df02", "7a15fa9c908eb783"),  # row 2
+    ("bc03d2a7b8d28391", "2e1faede0b1fde41"),  # row 3
+    ("ba1d70d673af1172", "ae847bec9457185f"),  # row 4
+    ("62035b9ca8767a3d", "cf35064805a401ed"),  # row 5
+    ("7b41aec9af4d17f8", "c1b524d6befda6b0"),  # row 6
+    ("e2673db4f536365e", "a12e8bf83bcf80b6"),  # row 7
+    ("1247b9b6c452e6e4", "6ff60c3c6a16970e"),  # row 8
+    ("8bf0d20b364103a6", "344ea3acf334f64a"),  # row 9
+    ("78f274e41c2d8b2c", "b0572f4e9b34f31f"),  # row 10
+    ("d42042f5c503efb6", "66c8b19cc196dde0"),  # row 11
+    ("0d67f91bbced5fe9", "0f376b4063273e3c"),  # row 12
+    ("5fbd0d3156776d8a", "c24406b52df19893"),  # row 13
+    ("94144d4425eb2483", "61a1eb211b11f922"),  # row 14
+    ("36dc7693453c23bf", "19a40aaa95dbd9d6"),  # row 15
+    ("5cdc4ab3c5433958", "6b303e4e560b5e8d"),  # row 16
+    ("613573240a2c8f65", "a16ce1f24ff9f5d3"),  # row 17
+    ("4e3c7421b304b3c1", "fcee5430f518d486"),  # row 18
+    ("126cec7b248aaad2", "cc689b6dd6648104"),  # row 19
+    ("c1e9d2ad0413920e", "ef6b956af1adddc7"),  # row 20
+    ("b3430344c6fadd2c", "3e20256c1dc15c9d"),  # row 21
+    ("b0d93a42c9058f3b", "41451b98ef89f250"),  # row 22
+    ("f8b09ce0bd82768e", "4dc0321e02f611f5"),  # row 23
+]
+
+
+def png_bytes(arr, colour: int, depth: int = 8, filters=(0, 1, 2, 3, 4)) -> bytes:
+    """A PNG file of ``arr`` (uint8 samples; (h, w) for colour types 0 and 3)
+    written with zlib and struct alone: row y filtered with filter type
+    ``filters[y % len(filters)]``, samples below 8 bits packed high bits
+    first; a palette file gets a gray ramp of 2**depth entries."""
+    import struct
+    import zlib
+
+    h, w = arr.shape[:2]
+    channels = {0: 1, 2: 3, 3: 1, 6: 4}[colour]
+    samples = np.ascontiguousarray(arr, np.uint8).reshape(h, w * channels)
+    if depth < 8:
+        per_byte = 8 // depth
+        packed = np.pad(samples, ((0, 0), (0, (-w) % per_byte))).reshape(h, -1, per_byte)
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint16)
+        samples = (packed.astype(np.uint16) << shifts).sum(-1).astype(np.uint8)
+    bpp = max(channels * depth // 8, 1)
+    raw = samples.astype(np.int16)
+    zeros = np.zeros((h, bpp), np.int16)
+    up = np.vstack([np.zeros_like(raw[:1]), raw[:-1]])
+    left = np.hstack([zeros, raw[:, :-bpp]])
+    corner = np.hstack([zeros, up[:, :-bpp]])
+    p = left + up - corner
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - corner)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, corner))
+    kinds = np.asarray(filters)[np.arange(h) % len(filters)]
+    pred = np.stack([np.zeros_like(raw), left, up, (left + up) >> 1, paeth])[kinds, np.arange(h)]
+    body = np.empty((h, raw.shape[1] + 1), np.uint8)
+    body[:, 0] = kinds
+    body[:, 1:] = ((raw - pred) & 0xFF).astype(np.uint8)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0))
+    if colour == 3:
+        ramp = np.linspace(0, 255, 1 << depth).astype(np.uint8)
+        out += chunk(b"PLTE", np.repeat(ramp, 3).tobytes())
+    return out + chunk(b"IDAT", zlib.compress(body.tobytes(), 6)) + chunk(b"IEND", b"")
+
+
+def valid_rows(seed: int = SEED, rows: int = VALID_ROWS, classes: int = EVAL_CLASSES):
+    """(image PNG, label PNG, id) of every TSV row.  Images are blocks of 32
+    pixels plus noise, labels blocks of 64 pixels of values 0..classes (0 is
+    'ignore' before the label shift), fewer where the bit depth is lower."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(rows):
+        h, w = VALID_SHAPES[i % len(VALID_SHAPES)]
+        colour = IMAGE_COLOURS[i % len(IMAGE_COLOURS)]
+        c = {0: 1, 2: 3, 3: 1, 6: 4}[colour]
+        base = rng.integers(0, 232, size=(h // 32 + 1, w // 32 + 1, c))
+        img = np.repeat(np.repeat(base, 32, 0), 32, 1)[:h, :w] + rng.integers(0, 24, size=(h, w, c))
+        img = img.astype(np.uint8)[..., 0] if c == 1 else img.astype(np.uint8)
+        lc, ld = LABEL_FORMATS[i % len(LABEL_FORMATS)]
+        lab = rng.integers(0, min(classes + 1, 1 << ld), size=(h // 64 + 1, w // 64 + 1))
+        lab = np.repeat(np.repeat(lab, 64, 0), 64, 1)[:h, :w].astype(np.uint8)
+        out.append((png_bytes(img, colour), png_bytes(lab, lc, ld), i))
+    return out
+
+
+def write_valid_tsv(path, seed: int = SEED) -> str:
+    import base64
+
+    with open(path, "w") as fp:
+        for image, label, i in valid_rows(seed):
+            fp.write(f"{base64.urlsafe_b64encode(image).decode()}\t"
+                     f"{base64.urlsafe_b64encode(label).decode()}\t{i}\n")
+    return str(path)
+
+
+def row_digest(arr) -> str:
+    import hashlib
+
+    arr = np.ascontiguousarray(arr)
+    return hashlib.sha256(f"{arr.dtype}{arr.shape}".encode() + arr.tobytes()).hexdigest()[:16]
+
+
+def ade_argv(tsv: str, ckpt: str, dtype: str = "bfloat16"):
+    """The flags of run_scripts/IFSeg/ade.sh and common.sh that evaluation
+    reads (common.sh runs with PARITY=1, so the erf gelu), with
+    --batch-size-valid=8 and the compute dtype."""
+    import re
+
+    text = (REPO / "run_scripts" / "IFSeg" / "ade.sh").read_text()
+    cats = re.search(r"export category_list='([^']*)'", text).group(1)
+    n = re.search(r"export num_seg_tokens=(\d+)", text).group(1)
+    return [tsv, "--selected-cols=0,1,2", f"--bpe-dir={REPO / 'assets' / 'BPE'}",
+            f"--restore-file={ckpt}", "--arch=segofa_base", f"--num-seg-tokens={n}",
+            f"--category-list={cats}",
+            "--prompt-prefix=what is the segmentation map of the image? object:",
+            "--patch-image-size=512", "--orig-patch-image-size=512", "--activation-fn=gelu",
+            "--decoder-input-type=encoder_output", "--full-context-alignment=false",
+            "--tie-seg-projection=true", "--resnet-topk=3", "--resnet-iters=25",
+            "--batch-size-valid=8", f"--dtype={dtype}"]
+
+
+def check_loaded_weights(model, ckpt: str, model_cfg):
+    """Every tensor of ``model`` equals the file's where the file has one of
+    its shape, the seed-0 fresh init where not, and the token embedding's
+    appended row equals the seed-0 normal draw of the surgery."""
+    from ifseg_torch.checkpoint.convert import _SEG_ONLY_KEYS, load_torch_checkpoint
+    from ifseg_torch.models.segofa import SegOFA
+
+    file_sd = load_torch_checkpoint(ckpt)
+    fresh = SegOFA(model_cfg).init(torch.Generator().manual_seed(0)).state_dict()
+    vocab, dim = model_cfg.vocab_size, model_cfg.encoder_embed_dim
+    row = torch.from_numpy(np.random.default_rng(0).normal(0.0, dim ** -0.5, (1, dim))
+                           .astype(np.float32))
+    loaded, backfilled = [], []
+    for k, v in model.state_dict().items():
+        f = file_sd.get(k)
+        if k in ("encoder.embed_tokens.weight", "decoder.embed_tokens.weight"):
+            ok = (f.shape[0] == vocab - 1 and torch.equal(v[:-1], f) and torch.equal(v[-1:], row))
+            loaded.append(k)
+        elif f is not None and f.shape == v.shape:
+            ok = torch.equal(v, f.to(v.dtype))
+            loaded.append(k)
+        else:
+            ok = torch.equal(v, fresh[k])
+            backfilled.append(k)
+        if not ok:
+            fail(f"loaded weight {k} is neither the file's nor the fresh init's")
+    want = sorted(k for k in fresh if any(seg in k for seg in _SEG_ONLY_KEYS))
+    if sorted(backfilled) != want:
+        fail(f"backfilled {sorted(backfilled)}, expected the seg-only tensors {want}")
+    return dict(loaded=len(loaded), backfilled=len(backfilled), file_tensors=len(file_sd))
+
+
+def phase_validate(card: str):
+    """``ifseg_torch.cli.validate.main`` on the card over a TSV of
+    VALID_ROWS rows, OFA-Base at full width and depth, the ADE flags (150
+    classes, label propagation top-3 x 25), an ofa_base.pt-shaped checkpoint
+    fabricated from seed SEED + 1."""
+    import base64
+    import tempfile
+
+    from ifseg_torch.checkpoint.convert import fabricate_ofa_base_checkpoint, load_model
+    from ifseg_torch.cli import validate as cli_validate
+    from ifseg_torch.config import from_flags
+    from ifseg_torch.data.png import decode_png
+    from ifseg_torch.eval.evaluator import Evaluator, group_key
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.tasks.segmentation import SegmentationTask
+
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tsv, ckpt = f"{tmp}/validation.tsv", f"{tmp}/ofa_base.pt"
+        t0 = time.perf_counter()
+        write_valid_tsv(tsv)
+        result["tsv_write_s"] = time.perf_counter() - t0
+        cfg = from_flags(ade_argv(tsv, ckpt))
+        t0 = time.perf_counter()
+        fabricate_ofa_base_checkpoint(ckpt, cfg.model, seed=SEED + 1)  # built on the card
+        result["fabricate_s"] = time.perf_counter() - t0
+        log(f"[11] TSV of {VALID_ROWS} rows ({Path(tsv).stat().st_size / 2**20:.1f} MiB, "
+            f"{result['tsv_write_s']:.1f} s), ofa_base-shaped checkpoint "
+            f"({Path(ckpt).stat().st_size / 2**20:.0f} MiB, {result['fabricate_s']:.1f} s), on {card}")
+
+        # the task: dictionary, BPE, the prompt
+        t0 = time.perf_counter()
+        task = SegmentationTask.setup_task(cfg)
+        ds = task.load_dataset("valid")
+        result["task_setup_s"] = time.perf_counter() - t0
+        if len(ds.src_item) != VALID_SRC_LEN or len(ds) != VALID_ROWS:
+            fail(f"prompt of {len(ds.src_item)} tokens, {len(ds)} rows; expected "
+                 f"{VALID_SRC_LEN}, {VALID_ROWS}")
+        log(f"[11] BPE + dictionary + prompt set-up: {result['task_setup_s']:.3f} s on the host; "
+            f"prompt {len(ds.src_item)} tokens; dictionary {len(task.dict)} symbols; beside {card}")
+
+        # the host path of every row, timed by part, and its digests
+        image_ms, label_ms, samples = [], [], []
+        for i in range(len(ds)):
+            image_b64, seg_b64, _ = ds.dataset[i]
+            t0 = time.perf_counter()
+            img = decode_png(base64.urlsafe_b64decode(image_b64))
+            img = np.repeat(img[:, :, None], 3, axis=2) if img.ndim < 3 else img[:, :, :3]
+            ds.eval_resize(np.ascontiguousarray(img[:, :, ::-1]))
+            t1 = time.perf_counter()
+            decode_png(base64.urlsafe_b64decode(seg_b64)).astype(np.int32)
+            t2 = time.perf_counter()
+            image_ms.append((t1 - t0) * 1e3)
+            label_ms.append((t2 - t1) * 1e3)
+            s = ds.get_eval_sample(i)
+            samples.append(s)
+            got = (row_digest(s.patch_image), row_digest(s.ori_semantic_seg))
+            if got != VALID_DIGESTS[i]:
+                fail(f"row {i}: digests {got} of the decoded row, PIL/cv2 give {VALID_DIGESTS[i]}")
+        result["host_ms_per_row"] = dict(image=float(np.mean(image_ms)), label=float(np.mean(label_ms)),
+                                         image_max=max(image_ms), label_max=max(label_ms))
+        log(f"[11] host, one thread: base64 + PNG decode + resize {np.mean(image_ms):.2f} ms a row "
+            f"for the image (max {max(image_ms):.2f}), base64 + PNG decode "
+            f"{np.mean(label_ms):.2f} ms for the label (max {max(label_ms):.2f}); all "
+            f"{VALID_ROWS} rows equal the PIL/cv2 digests; beside {card}")
+
+        # the weights: read, surgery, strict load, and where each tensor came from
+        t0 = time.perf_counter()
+        model = load_model(ckpt, cfg.model)
+        result["load_s"] = time.perf_counter() - t0
+        result["weights"] = check_loaded_weights(model, ckpt, cfg.model)
+        log(f"[11] checkpoint read + vocab surgery + strict load: {result['load_s']:.2f} s; "
+            f"{result['weights']['loaded']} tensors from the file, {result['weights']['backfilled']} "
+            f"seg-only tensors backfilled with the seed-0 init, appended vocab row = the seed-0 draw; "
+            f"host time beside {card}")
+
+        # validate, end to end, on the card
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        ln.reset_launches()
+        t0 = time.perf_counter()
+        main_logs = []
+        vals = cli_validate.main(from_flags(ade_argv(tsv, ckpt)), logs_out=main_logs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts, ln_launches, routes = fa.launch_counts(), ln.LAUNCHES, fa.bias_route_counts()
+        peak = torch.cuda.max_memory_allocated()
+        keys = {}
+        for s in samples:
+            keys.setdefault(group_key(s), []).append(s)
+        groups = [m[j:j + 8] for m in keys.values() for j in range(0, len(m), 8)]
+        k1_per, ln_per = sum(n for *_, n in EVAL_SITES), ln_sites_per_pass("per_validate_group")
+        log(f"[11] validate.main: {json.dumps(vals)}")
+        log(f"[11] validate.main: {dt:.2f} s, {VALID_ROWS / dt:.2f} img/s of the whole main "
+            f"({VALID_ROWS / max(vals['sec'], 1e-9):.2f} img/s of its evaluation loop, "
+            f"{vals['sec']} s); attention launches {counts}, layer_norm launches {ln_launches} "
+            f"(expected {k1_per} and {ln_per} a group, {len(groups)} groups of "
+            f"{[len(g) for g in groups]}); bias routes {routes}; peak device memory "
+            f"{peak / 2**30:.2f} GiB, on {card}")
+        if counts != dict(infer=k1_per * len(groups), stats=0, bwd_di=0, bwd_dq=0, bwd_dkv=0):
+            fail("validate did not launch the attention kernel at every site of every group")
+        if ln_launches != ln_per * len(groups):
+            fail("validate did not launch the layer_norm kernel at every LayerNorm")
+        if routes != dict(fwd_bias_tma=counts["infer"], fwd_bias_threads=0, bwd_bias_copies=0):
+            fail(f"validate staged a bias by threads: {routes}")
+        want_keys = {"loss", "nll_loss", "aAcc", "mIoU", "mAcc", "aAcc_resnet_postprocess",
+                     "mIoU_resnet_postprocess", "mAcc_resnet_postprocess", "num_images", "sec"}
+        if set(vals) != want_keys or vals["num_images"] != VALID_ROWS:
+            fail(f"validate returned {sorted(vals)}, expected {sorted(want_keys)}")
+        if not (np.isfinite(vals["loss"]) and all(0.0 <= vals[k] <= 1.0 for k in want_keys
+                                                  if k[1:4] in ("Acc", "IoU"))):
+            fail(f"validate values out of range: {vals}")
+        result.update(vals=vals, main_s=dt, img_per_s=VALID_ROWS / dt,
+                      loop_img_per_s=VALID_ROWS / max(vals["sec"], 1e-9),
+                      launches=counts["infer"], ln_launches=ln_launches, bias_routes=routes,
+                      peak_gib=peak / 2**30, group_sizes=[len(g) for g in groups])
+
+        # each group alone: the host's packing timed apart; the forward's wall
+        # time (CUDA events around the host's launches and the card's work);
+        # the card's busy time (the kernels and copies of a profiler trace)
+        evaluator = Evaluator(cfg, model)
+        per_group = []
+        for g in groups:
+            t0 = time.perf_counter()
+            _, args = evaluator._pack_group(g)
+            pack_ms = (time.perf_counter() - t0) * 1e3
+            wall = cuda_ms(lambda: evaluator._forward_group(*args), iters=2, warmup=1)
+            busy = device_busy_ms(lambda: evaluator._forward_group(*args))
+            key = group_key(g[0])
+            per_group.append(dict(rows=len(g), bucket=key[:4], grid=key[4:6], pack_ms=pack_ms,
+                                  wall_ms=wall, device_ms=busy))
+            log(f"[11]   group of {len(g)}, image bucket {key[:2]}, target bucket {key[2:4]}, "
+                f"grid {key[4:6]}: host packing {pack_ms:.1f} ms; forward {wall:.1f} ms of wall "
+                f"time (host launches + card), the card busy {busy:.1f} ms of it "
+                f"({busy / len(g):.2f} ms a row), on {card}")
+        result["groups"] = per_group
+        device_ms_row = sum(p["device_ms"] for p in per_group) / VALID_ROWS
+        wall_ms_row = sum(p["pack_ms"] + p["wall_ms"] for p in per_group) / VALID_ROWS
+        host_ms_row = result["host_ms_per_row"]["image"] + result["host_ms_per_row"]["label"]
+        result["pace"] = dict(host_ms_per_row=host_ms_row, device_ms_per_row=device_ms_row,
+                              consumer_wall_ms_per_row=wall_ms_row,
+                              set_by="host" if host_ms_row > device_ms_row else "device")
+        log(f"[11] pace: one producer thread decodes a row in {host_ms_row:.2f} ms; the consumer "
+            f"packs and runs one in {wall_ms_row:.2f} ms of wall time, of which the card is busy "
+            f"{device_ms_row:.2f} ms: the {result['pace']['set_by']} sets it, on {card}")
+
+        # the counted run's own logs against the fp32 CPU evaluator, on the
+        # group cheapest for the CPU; label areas are exact on both sides, so
+        # they pick that group out of main's logs
+        group = min(groups, key=lambda g: len(g) * (group_key(g[0])[0] * group_key(g[0])[1]
+                                                   + group_key(g[0])[2] * group_key(g[0])[3]))
+        del evaluator
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        reference = Evaluator(from_flags(ade_argv(tsv, ckpt, "float32")), model, device="cpu")
+        cpu_out = reference._read_back(reference._run_group(group))
+        found = [lg for lg in main_logs if np.array_equal(lg["area_label"], cpu_out["area_label"])]
+        if len(found) != 1:
+            fail(f"{len(found)} of validate.main's {len(main_logs)} group logs count the label "
+                 f"areas of rows {[s.id for s in group]}; expected one")
+        card_out = found[0]
+        n_px = float(cpu_out["area_label"].sum())
+        shares = {k: float(np.abs(card_out[k] - cpu_out[k]).sum() / 2 / n_px)
+                  for k in ("area_pred_label", "area_pred_label_resnet_postprocess")}
+        nll_rel = (abs(float(card_out["nll_loss"]) - float(cpu_out["nll_loss"]))
+                   / float(cpu_out["nll_loss"]))
+        log(f"[11] validate.main's own group of the TSV's rows {[s.id for s in group]} on the card "
+            f"(bf16) vs the CPU fp32 Evaluator ({time.perf_counter() - t0:.1f} s on the CPU): "
+            f"nll_loss {float(card_out['nll_loss']):.5f} vs {float(cpu_out['nll_loss']):.5f} (rel "
+            f"{nll_rel:.3e}, limit {EVAL_NLL_REL_TOL}); share of pixels predicted otherwise "
+            f"{shares['area_pred_label']:.4f}, after label propagation "
+            f"{shares['area_pred_label_resnet_postprocess']:.4f} (limit {EVAL_PIXEL_SHARE_TOL})")
+        if not nll_rel <= EVAL_NLL_REL_TOL:
+            fail(f"card nll_loss differs from the CPU's: {nll_rel} > {EVAL_NLL_REL_TOL}")
+        if not max(shares.values()) <= EVAL_PIXEL_SHARE_TOL:
+            fail(f"card predictions differ from the CPU's on {shares} of the pixels")
+        result.update(nll_rel_err=nll_rel, pixel_share_differs=shares)
+    return result
+
+
 # ---------------------------------------------------------------- main
 
 def pass_totals(rows, per_key):
@@ -1810,6 +2233,8 @@ def main():
     huge["gradients"] = phase_train_gradients(
         HUGE["arch"], GRAD_TENSORS_HUGE, "[10]", encoder_layers=HUGE_CHECK_LAYERS,
         decoder_layers=HUGE_CHECK_LAYERS)
+    torch.cuda.empty_cache()
+    validate = phase_validate(card)
 
     fwd_src = "ifseg_torch/csrc/flash_attention_bias_fwd.cu"
     dq_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dq.cu"
@@ -1820,9 +2245,9 @@ def main():
     # the forward without stats runs on three main paths; each was driven with
     # the counts set to 0 just before and read just after
     k1_paths = dict(serving=serve["launches"], evaluation=evaluation["launches"],
-                    monitoring=counts["infer"])
+                    monitoring=counts["infer"], validate=validate["launches"])
     ln_paths = dict(serving=serve["ln_launches"], evaluation=evaluation["ln_launches"],
-                    monitoring=train["ln_launches"],
+                    monitoring=train["ln_launches"], validate=validate["ln_launches"],
                     huge_serving=huge["serve"]["ln_launches"] - huge["serve"]["ln_wide_launches"],
                     huge_evaluation=(huge["evaluation"]["ln_launches"]
                                      - huge["evaluation"]["ln_wide_launches"]))
@@ -1844,10 +2269,13 @@ def main():
                      "shapes", "per_forward"),
     ]
     kernels[0]["launches_by_path"] = k1_paths
-    kernels[0]["per_pass"] = {"evaluation group of 8": pass_totals(sites, "per_eval_group")}
+    kernels[0]["per_pass"] = {"evaluation group of 8": pass_totals(sites, "per_eval_group"),
+                              "validate group of 8, 215 text tokens":
+                                  pass_totals(sites, "per_validate_group")}
     kernels[-1]["launches_by_path"] = ln_paths
     kernels[-1]["per_pass"] = {
         "evaluation group of 8": pass_totals(ln_rows, "per_eval_group"),
+        "validate group of 8, 215 text tokens": pass_totals(ln_rows, "per_validate_group"),
         f"monitoring forward, batch {TRAIN_BATCH}": pass_totals(ln_rows, "per_monitor_forward"),
     }
     kernels[-1]["training_site"] = ln_train
@@ -1892,8 +2320,8 @@ def main():
         if entry["launches"] < 1 or any(n < 1 for n in entry.get("launches_by_path", {}).values()):
             fail(f"kernel {entry['name']} was never launched by a main path")
     log(json.dumps({"serve": serve, "cpu_reference": cpu, "evaluation": evaluation,
-                    "train": train, "train_gradients": grads, "huge": huge, "ptxas": ptxas,
-                    "card_line": card}))
+                    "train": train, "train_gradients": grads, "huge": huge, "validate": validate,
+                    "ptxas": ptxas, "card_line": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

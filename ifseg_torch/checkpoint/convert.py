@@ -18,16 +18,23 @@ layout (the inverse of that package's torch -> flax converter):
 ``adam_state_from_jax`` carries the Adam moments of a JAX optimizer state
 over in the same layout, so both trainers can start from the same moments.
 
-``load_torch_checkpoint`` reads a fairseq ``.pt`` file.  A pretrained
-``ofa_base.pt`` still needs the vocab surgery and the backfill of the
-seg-specific tensors before it loads strictly; those come with the
-checkpoint-loading work.
+``load_torch_checkpoint`` reads a fairseq ``.pt`` file, and ``load_model``
+loads one into a fresh ``SegOFA`` (the counterpart of the JAX package's
+``cli/infer.py:load_params`` for ``.pt`` files): ``convert_torch_state_dict``
+applies the vocab surgery of a pretrained ``ofa_base.pt`` (``_vocab_surgery``)
+and keeps the fresh initialisation wherever the file has no tensor or one of
+another shape, as the JAX package's ``_reconcile`` does (the seg-specific
+tensors, absent from ``ofa_base.pt``).  ``fabricate_ofa_base_checkpoint``
+writes a file of ``ofa_base.pt``'s shapes with random weights.
 """
 
-from typing import Any, Dict
+import logging
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -174,3 +181,121 @@ def adam_state_from_jax(opt_state: Any, params: Dict[str, Any]) -> Dict[str, Any
         "mu": state_dict_from_jax(_fill_masked(adam.mu, params)),
         "nu": state_dict_from_jax(_fill_masked(adam.nu, params)),
     }
+
+
+# ------------------------------------------------- a pretrained .pt file
+
+_EMBED_KEYS = ("encoder.embed_tokens.weight", "decoder.embed_tokens.weight")
+
+
+def _vocab_surgery(sd: Dict[str, torch.Tensor], target_vocab: int):
+    """segofa.py:247-290: bring the token embedding to ``target_vocab`` rows.
+    One row too many (a trailing <mask>) is cut; rows that are missing (the
+    IFSeg case: one, for the extra seg/unknown symbol) are appended as
+    N(0, d^-0.5) draws of ``np.random.default_rng(0)``, the numbers the JAX
+    package appends."""
+    key = "encoder.embed_tokens.weight"
+    if key not in sd:
+        return sd
+    loaded, d = sd[key].shape
+    if loaded == target_vocab + 1:
+        for k in (*_EMBED_KEYS, "encoder.output_projection.weight",
+                  "decoder.output_projection.weight"):
+            if k in sd:
+                sd[k] = sd[k][:-1]
+    elif loaded < target_vocab:
+        n_add = target_vocab - loaded
+        new_rows = torch.from_numpy(np.random.default_rng(0).normal(
+            0.0, d ** -0.5, size=(n_add, d)).astype(np.float32)).to(sd[key].dtype)
+        logger.info("vocab surgery: appending %d embedding rows", n_add)
+        for k in _EMBED_KEYS:
+            if k in sd:
+                sd[k] = torch.cat([sd[k], new_rows], dim=0)
+    return sd
+
+
+def convert_torch_state_dict(sd: Dict[str, torch.Tensor], target_vocab: int,
+                             reference_sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A checkpoint's state dict (reference names) made loadable into the
+    model whose fresh ``state_dict()`` is ``reference_sd``: the vocab
+    surgery, the encoder's token embedding for the shared one, a tensor of
+    the file where its shape matches and the fresh one where the file has
+    none or another shape (encoder_module.py:966-985).  The result loads
+    with ``load_state_dict(strict=True)``; keys the model has no place for
+    are logged."""
+    sd = _vocab_surgery(dict(sd), target_vocab)
+    if "encoder.embed_tokens.weight" in sd:  # tied: the encoder's copy wins
+        sd["decoder.embed_tokens.weight"] = sd["encoder.embed_tokens.weight"]
+    out = {}
+    for k, ref in reference_sd.items():
+        loaded = sd.get(k)
+        if loaded is None:
+            logger.info("missing from checkpoint, keeping fresh init: %s", k)
+            out[k] = ref
+        elif tuple(loaded.shape) != tuple(ref.shape):
+            logger.warning("shape mismatch %s: ckpt %s vs model %s, keeping fresh init",
+                           k, tuple(loaded.shape), tuple(ref.shape))
+            out[k] = ref
+        else:
+            out[k] = loaded.to(ref.dtype)
+    unused = sorted(k for k in sd if k not in reference_sd)
+    if unused:
+        logger.warning("checkpoint conversion skipped %d tensor(s) with no place in the "
+                       "model: %s%s", len(unused), ", ".join(unused[:8]),
+                       " ..." if len(unused) > 8 else "")
+    return out
+
+
+def load_model(path: str, model_cfg):
+    """A ``SegOFA(model_cfg)`` with the weights of the fairseq ``.pt`` file
+    ``path`` (its envelope or a bare state dict; a port state dict saved
+    with ``torch.save`` is one): a fresh model from ``torch.Generator`` seed
+    0 on the CPU, loaded strictly with ``convert_torch_state_dict``.  The
+    counterpart of the JAX package's ``load_params`` for ``.pt`` files;
+    checkpoint directories come with the checkpoint manager."""
+    from ifseg_torch.models.segofa import SegOFA
+
+    if not str(path).endswith(".pt"):
+        raise NotImplementedError(
+            f"{path}: only fairseq .pt files load; checkpoint directories come with the "
+            "checkpoint manager (ROADMAP.md A.4)")
+    model = SegOFA(model_cfg).init(torch.Generator().manual_seed(0))
+    sd = load_torch_checkpoint(path)
+    model.load_state_dict(
+        convert_torch_state_dict(sd, model_cfg.vocab_size, model.state_dict()), strict=True)
+    return model
+
+
+# the tensors a pretrained ofa_base.pt does not have (IFSeg adds them)
+_SEG_ONLY_KEYS = (
+    "seg_embed_tokens", "seg_projection", "embed_seg_positions",
+    "seg_pos_ln", "seg_rel_pos_table_list",
+)
+
+
+def fabricate_ofa_base_checkpoint(path: str, model_cfg, seed: int = 0,
+                                  device: Optional[Union[str, torch.device]] = None) -> str:
+    """Write a fairseq-envelope ``.pt`` with the SHAPES of a pretrained
+    ``ofa_base.pt`` relative to ``model_cfg``: the port's fresh init from
+    ``seed``, the token embedding one row short of the target vocab (the row
+    the surgery appends) and no seg-specific tensors, so ``load_model`` runs
+    its whole path, surgery and backfill included, without real weights.
+    The model is built on ``device`` (``"cuda"`` unless ``"cpu"`` is asked
+    for; a CUDA generator builds a large model in a fraction of the CPU's
+    time) and saved from the CPU."""
+    from ifseg_torch.models.segofa import SegOFA
+
+    device = torch.device("cuda" if device is None else device)
+    with torch.device(device):
+        model = SegOFA(model_cfg)
+    model.init(torch.Generator(device=device).manual_seed(seed))
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()
+          if not any(seg in k for seg in _SEG_ONLY_KEYS)}
+    emb = sd[_EMBED_KEYS[0]][:-1].clone()  # one storage for the tied pair
+    for k in _EMBED_KEYS:
+        sd[k] = emb
+    torch.save({"args": None, "cfg": {}, "model": sd, "extra_state": {},
+                "optimizer_history": []}, path)
+    logger.warning("fabricated an ofa_base-shaped checkpoint at %s (%d tensors): random "
+                   "weights, for loader runs only", path, len(sd))
+    return path

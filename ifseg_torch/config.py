@@ -1,13 +1,30 @@
-"""Configuration of the port: the model, and what the training step reads.
+"""Configuration of the port, and the reference-style flags that fill it.
 
 Copies of the fields of the JAX package's ``ModelConfig``,
-``CriterionConfig``, ``OptimizationConfig``, ``CommonConfig`` and
-``TaskConfig`` that the served forward and the training step read, with the
-same names and defaults, so one set of keyword arguments builds both.
+``CriterionConfig``, ``OptimizationConfig``, ``CommonConfig``, ``TaskConfig``
+and ``CheckpointConfig`` that the served forward, the training step and
+validation read, with the same names and defaults, so one set of keyword
+arguments builds both.  ``from_flags`` parses the ``--flag-name=value``
+strings of ``run_scripts/IFSeg/*.sh`` into a ``Config`` as the JAX
+package's does; a flag that names no field of the port's config is ignored,
+as there, so a section gains a field only with the code that reads it.
 """
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import List, Optional, Tuple
+
+
+def _str2bool(x) -> bool:
+    if isinstance(x, bool):
+        return x
+    x = str(x).lower()
+    if x == "true":
+        return True
+    if x == "false":
+        return False
+    raise ValueError(f"Unable to recognize string bool input: {x}")
 
 
 @dataclass
@@ -122,9 +139,25 @@ def model_config_for_arch(arch: str, **kwargs) -> ModelConfig:
 
 @dataclass
 class TaskConfig:
-    """The segmentation task's field that the training step reads."""
+    """Segmentation task (tasks/mm_tasks/segmentation.py:37-98 + OFAConfig)."""
 
+    data: str = ""  # comma-separated TSV paths; valid is last
+    selected_cols: str = "0,1,2"
+    bpe: str = "gpt2"  # 'gpt2' (OFA) or 'bert' (OFA-CN); ofa_task.py:169
+    bpe_dir: str = "assets/BPE"
+    code_dict_size: int = 8192
+    num_bins: int = 1000
+    patch_image_size: int = 512
+    orig_patch_image_size: int = 512
     imagenet_default_mean_and_std: bool = False
+    num_seg_tokens: int = 150
+    category_list: str = ""
+    prompt_prefix: str = "what is the segmentation map of the image? object:"
+    epoch_row_count: int = -1
+
+    @property
+    def categories(self) -> List[str]:
+        return [x.strip() for x in self.category_list.split(",") if x.strip()]
 
 
 @dataclass
@@ -158,7 +191,13 @@ class OptimizationConfig:
     adam_eps: float = 1e-8
     clip_norm: float = 1.0
     update_freq: int = 1
+    batch_size_valid: int = 1  # rows of one evaluation group at most
     seed: int = 7
+
+
+@dataclass
+class CheckpointConfig:
+    restore_file: str = ""
 
 
 @dataclass
@@ -173,4 +212,102 @@ class Config:
     task: TaskConfig = field(default_factory=TaskConfig)
     criterion: CriterionConfig = field(default_factory=CriterionConfig)
     optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     common: CommonConfig = field(default_factory=CommonConfig)
+
+    def replace(self, **kwargs) -> "Config":
+        return dataclasses.replace(self, **kwargs)
+
+
+# flag name -> (section, field), built on first use
+_FLAG_SECTIONS = None
+
+
+def _flag_index():
+    global _FLAG_SECTIONS
+    if _FLAG_SECTIONS is None:
+        idx = {}
+        for section in dataclasses.fields(Config):
+            sub = section.default_factory()
+            for f in dataclasses.fields(sub):
+                idx.setdefault(f.name, (section.name, f))
+        _FLAG_SECTIONS = idx
+    return _FLAG_SECTIONS
+
+
+def load_config_file(path: str) -> List[str]:
+    """A JSON config file holding {"flag-name": value, ...} expanded into the
+    same flag strings ``from_flags`` parses."""
+    with open(path) as fp:
+        blob = json.load(fp)
+    argv = []
+    for k, v in blob.items():
+        if k == "data":
+            argv.append(str(v))
+        else:
+            argv.append(f"--{k}={v}")
+    return argv
+
+
+def from_flags(argv: List[str], arch: Optional[str] = None) -> Config:
+    """Build a Config from reference-style ``--flag-name=value`` strings.
+
+    A positional (non ``--``) argument is the data path, as in the reference
+    CLI; ``--config=file.json`` expands a JSON flag file in place; a flag
+    that names no field is ignored.  ``num_seg_tokens``, ``patch_image_size``
+    and ``orig_patch_image_size`` are kept equal in the model and the task
+    sections, whichever section the flag filled.
+    """
+    expanded = []
+    for tok in argv:
+        if tok.startswith("--config="):
+            expanded.extend(load_config_file(tok.split("=", 1)[1]))
+        else:
+            expanded.append(tok)
+    cfg = Config()
+    if arch:
+        cfg = cfg.replace(model=model_config_for_arch(arch))
+    overrides = {}
+    for tok in expanded:
+        if not tok.startswith("--"):
+            overrides.setdefault("task", {})["data"] = tok
+            continue
+        body = tok[2:]
+        if "=" in body:
+            name, value = body.split("=", 1)
+        else:
+            name, value = body, "true"
+        name = name.replace("-", "_")
+        if name == "arch":
+            cfg = cfg.replace(model=model_config_for_arch(value))
+            continue
+        idx = _flag_index()
+        if name not in idx:
+            continue
+        section_name, f = idx[name]
+        ftype = f.type
+        if ftype in ("bool", bool):
+            v = _str2bool(value)
+        elif ftype in ("int", int):
+            v = int(value)
+        elif ftype in ("float", float):
+            v = float(value)
+        elif "Tuple" in str(ftype):
+            v = tuple(json.loads(value.replace("(", "[").replace(")", "]")))
+        else:
+            v = value
+        overrides.setdefault(section_name, {})[f.name] = v
+
+    for section_name, values in overrides.items():
+        sub = getattr(cfg, section_name)
+        cfg = cfg.replace(**{section_name: dataclasses.replace(sub, **values)})
+
+    # the leaves the reference keeps in both the model and the task section
+    for leaf in ("num_seg_tokens", "patch_image_size", "orig_patch_image_size"):
+        src = overrides.get("model", {}).get(leaf, overrides.get("task", {}).get(leaf))
+        if src is not None:
+            cfg = cfg.replace(
+                model=dataclasses.replace(cfg.model, **{leaf: src}),
+                task=dataclasses.replace(cfg.task, **{leaf: src}),
+            )
+    return cfg

@@ -64,6 +64,18 @@ def _bucket(n: int) -> int:
     return max(-(-n // BUCKET) * BUCKET, BUCKET)
 
 
+def group_key(sample: EvalSample) -> tuple:
+    """The key under which ``Evaluator.eval_dataset`` groups rows: the shape
+    buckets of image and target plus the ceil-16 patch extents (the
+    group-shared positions and biases; ``_pack_group`` asserts the contract)
+    and the prompt length.  Under a keep-ratio resize the short edge is
+    pinned, so the ceil extents cluster almost as tightly as the buckets:
+    exact pixel shapes, nearly all unique, still batch."""
+    (h, w), (ho, wo) = sample.patch_image.shape[:2], sample.ori_semantic_seg.shape[:2]
+    return (_bucket(h), _bucket(w), _bucket(ho), _bucket(wo), -(-h // 16), -(-w // 16),
+            sample.src_tokens.shape[0])
+
+
 def serving_copy(model: SegOFA, device: torch.device, dtype: torch.dtype):
     """(copy, pairs): a module tree of its own for a no-gradient forward of
     ``model`` on ``device``, in eval mode, with the ``serving_linears`` in
@@ -404,20 +416,7 @@ class Evaluator:
                         raise RuntimeError(
                             "eval sample preprocessing failed") from producer_error[0]
                     break
-                # group key: the shape bucket plus the ceil-16 patch extents
-                # (the group-shared positions and biases; _pack_group asserts
-                # the contract).  Under a keep-ratio resize the short edge is
-                # pinned, so the ceil extents cluster almost as tightly as the
-                # buckets: exact pixel shapes, nearly all unique, still batch
-                skey = (
-                    _bucket(sample.patch_image.shape[0]),
-                    _bucket(sample.patch_image.shape[1]),
-                    _bucket(sample.ori_semantic_seg.shape[0]),
-                    _bucket(sample.ori_semantic_seg.shape[1]),
-                    -(-sample.patch_image.shape[0] // 16),
-                    -(-sample.patch_image.shape[1] // 16),
-                    sample.src_tokens.shape[0],
-                )
+                skey = group_key(sample)
                 bucket_counts[skey] = bucket_counts.get(skey, 0) + 1
                 groups.setdefault(skey, []).append(sample)
                 if len(groups[skey]) >= max(batch_size, 1):

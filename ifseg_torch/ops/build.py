@@ -1,11 +1,15 @@
-"""Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
+"""Build the package's native code and load it with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
-``_build/lib<name>-<hash>.so`` for ``sm_90a``; the hash is taken over the
-source and the shared ``csrc/*.cuh`` headers, so an edited kernel is never
-served from a stale library.  The build
-happens at first use (or when ``build`` is called up front); ``build`` starts
-one ``nvcc`` per source, all at once.
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host code)
+has a plain C interface and compiles on its own into
+``_build/lib<name>-<hash>.so``: a ``.cu`` with ``nvcc`` for ``sm_90a``, a
+``.cpp`` with the system's C++ compiler (``$CXX``, else ``c++``).  The hash
+is taken over the source, the shared ``csrc/*.cuh`` headers of the CUDA
+sources and the flags, so an edited source is never served from a stale
+library.  The build happens at first use (or when ``build`` is called up
+front); ``build`` starts one compiler per source, all at once, and each
+writes a file of its own that ``os.replace`` puts in place, so processes
+that build at the same time never see a torn library.
 """
 
 import ctypes
@@ -13,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -26,6 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 
 @dataclass
@@ -33,10 +39,11 @@ class BuildResult:
     name: str
     path: Path
     seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc's output with the -Xptxas -v summary, kept beside the library
+    log: str  # the compiler's output (nvcc's with the -Xptxas -v summary), kept beside the library
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()  # one build of a library per process, whatever the thread
 
 
 def _nvcc() -> str:
@@ -49,15 +56,40 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler found (set CXX or put c++ on PATH)")
+
+
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu`` if there is one, else ``csrc/<name>.cpp``."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cpp"
+
+
+def _command(name: str, out: Path):
+    src = _source(name)
+    if src.suffix == ".cpp":
+        return [_cxx(), *HOST_FLAGS, "-o", str(out), str(src)]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
-    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
-    content = b"".join(src.read_bytes() for src in sources)
-    digest = hashlib.sha1(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    src = _source(name)
+    if src.suffix == ".cpp":
+        sources, flags = [src], HOST_FLAGS
+    else:
+        sources, flags = [src, *sorted(CSRC_DIR.glob("*.cuh"))], NVCC_FLAGS
+    content = b"".join(s.read_bytes() for s in sources)
+    digest = hashlib.sha1(content + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, BuildResult]:
-    """Compile every named kernel that is not built yet, in parallel."""
+    """Compile every named source that is not built yet, in parallel."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     results: Dict[str, BuildResult] = {}
     procs = {}
@@ -69,7 +101,7 @@ def build(names: Sequence[str]) -> Dict[str, BuildResult]:
             results[name] = BuildResult(name, path, 0.0, log.read_text() if log.exists() else "")
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = _command(name, tmp)
         procs[name] = (path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -82,12 +114,13 @@ def build(names: Sequence[str]) -> Dict[str, BuildResult]:
         os.replace(tmp, path)
         results[name] = BuildResult(name, path, time.perf_counter() - t0, log)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
     return results
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
-    if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build([name])[name].path))
-    return _LIBS[name]
+    """The loaded library of source ``name``, built on first use."""
+    with _LOAD_LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(build([name])[name].path))
+        return _LIBS[name]

@@ -1,9 +1,12 @@
 """The PyTorch port stands alone: it imports no JAX, no flax and nothing of
-the JAX package ``ifseg_tpu``.
+the JAX package ``ifseg_tpu``, and none of the host libraries that
+package's data pipeline uses (PIL, cv2, regex), which the tests may use.
 
-Two checks: a fresh interpreter imports ``ifseg_torch`` and every submodule
-and reports what ended up in ``sys.modules``; an AST scan of the package and
-of ``chip_smoke.py`` finds no import statement naming those packages.
+Three checks: a fresh interpreter imports ``ifseg_torch`` and every
+submodule and reports what ended up in ``sys.modules``; an AST scan of the
+package and of ``chip_smoke.py`` finds no import statement naming those
+packages; importing the PNG decoder starts no compiler (its host C++ source
+is built at the first decode).
 """
 
 import ast
@@ -15,7 +18,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ifseg_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ifseg_tpu", "PIL", "cv2", "regex")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
@@ -50,7 +53,12 @@ def test_importing_every_module_loads_no_jax():
                  "ifseg_torch.train.ema", "ifseg_torch.data.artificial",
                  "ifseg_torch.tools.profile_training", "ifseg_torch.ops.layer_norm",
                  "ifseg_torch.eval.evaluator", "ifseg_torch.data.segmentation_dataset",
-                 "ifseg_torch.tools.profile_eval"):
+                 "ifseg_torch.tools.profile_eval", "ifseg_torch.cli.validate",
+                 "ifseg_torch.data.png", "ifseg_torch.data.transforms",
+                 "ifseg_torch.data.file_dataset", "ifseg_torch.tasks.segmentation",
+                 "ifseg_torch.utils.metrics",
+                 "ifseg_torch.tokenization.gpt2_bpe", "ifseg_torch.tokenization.bert_bpe",
+                 "ifseg_torch.tokenization.dictionary", "ifseg_torch.checkpoint.convert"):
         assert name in report["modules"], name
 
 
@@ -63,7 +71,10 @@ def test_the_scan_covers_the_evaluation_slice():
     scanned = {str(p.relative_to(REPO)) for p in _sources()}
     for path in ("ifseg_torch/ops/layer_norm.py", "ifseg_torch/eval/evaluator.py",
                  "ifseg_torch/data/segmentation_dataset.py",
-                 "ifseg_torch/tools/profile_eval.py", "chip_smoke.py"):
+                 "ifseg_torch/tools/profile_eval.py", "chip_smoke.py",
+                 "ifseg_torch/cli/validate.py", "ifseg_torch/data/png.py",
+                 "ifseg_torch/data/transforms.py", "ifseg_torch/tokenization/gpt2_bpe.py",
+                 "ifseg_torch/utils/metrics.py", "ifseg_torch/tasks/segmentation.py"):
         assert path in scanned, path
 
 
@@ -81,3 +92,43 @@ def test_no_forbidden_import_statement(path):
             found.append(str(node.args[0].value))
     bad = [m for m in found if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+BUILD_SCRIPT = r"""
+import json, pathlib, subprocess, sys, tempfile
+calls = []
+popen_init = subprocess.Popen.__init__
+def spy(self, args, *a, **k):
+    calls.append([str(x) for x in args])
+    return popen_init(self, args, *a, **k)
+subprocess.Popen.__init__ = spy
+import ifseg_torch.data.png as png
+import ifseg_torch.cli.validate
+at_import = len(calls)
+from ifseg_torch.ops import build
+build.BUILD_DIR = pathlib.Path(tempfile.mkdtemp())  # nothing built there yet
+from chip_smoke import png_bytes
+import numpy as np
+arr = np.arange(12, dtype=np.uint8).reshape(3, 4)
+ok = bool((png.decode_png(png_bytes(arr, 0)) == arr).all())
+png.decode_png(png_bytes(arr, 0))
+built = sorted(p.name for p in build.BUILD_DIR.iterdir())
+print(json.dumps({"at_import": at_import, "calls": calls, "ok": ok, "built": built}))
+"""
+
+
+def test_importing_the_png_decoder_starts_no_compiler():
+    import json
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", BUILD_SCRIPT], cwd=str(REPO), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["at_import"] == 0, report
+    # the first decode built png_unfilter.cpp with the host compiler, once
+    assert report["ok"] and len(report["calls"]) == 1, report
+    assert report["calls"][0][-1].endswith("csrc/png_unfilter.cpp"), report
+    assert any(name.startswith("libpng_unfilter-") and name.endswith(".so")
+               for name in report["built"]), report
