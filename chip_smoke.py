@@ -79,7 +79,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      packing, forward wall time and the card's busy time in it (a profiler
      trace), peak memory, img/s; the per-group logs of that run, on the
      group cheapest for the CPU, against the fp32 CPU ``Evaluator``;
- 12. one JSON line listing every kernel, the nvidia-smi line, and the last
+ 12. the training CLI: ``ifseg_torch.cli.train.main`` on the card with the
+     flags of run_scripts/IFSeg/common.sh + ade.sh (OFA-Base, 150 classes,
+     batch 16, the monitoring forward, the erf gelu, cosine LR, the freeze and
+     drop-path flags, 8 row threads), phase 11's fabricated ofa_base.pt, phase
+     11's TSV to validate and, twice over (48 rows: 3 steps an epoch), to
+     train: 2 epochs with launch counts set to 0 before and read after, the
+     manifest and the checkpoints on disk checked; one step traced by the
+     profiler; one thread's ms a training row (decode and each augmentation);
+     a run to epoch 3 without the reset flags (6 updates restored) stopped by
+     --max-update=7 (a mid-epoch checkpoint with the cursor, no epoch save),
+     and one resumed from that cursor, every restored state held to the files
+     bit for bit; the image-free fast path (no training row decoded); the
+     first epoch on one thread (--num-workers=0); s/step, data_wait, save and
+     resume ms, checkpoint bytes, validation img/s and mIoU, peak memory;
+ 13. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -88,6 +102,7 @@ It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1991,13 +2006,13 @@ def check_loaded_weights(model, ckpt: str, model_cfg):
     return dict(loaded=len(loaded), backfilled=len(backfilled), file_tensors=len(file_sd))
 
 
-def phase_validate(card: str):
+def phase_validate(card: str, tmp: str):
     """``ifseg_torch.cli.validate.main`` on the card over a TSV of
     VALID_ROWS rows, OFA-Base at full width and depth, the ADE flags (150
     classes, label propagation top-3 x 25), an ofa_base.pt-shaped checkpoint
-    fabricated from seed SEED + 1."""
+    fabricated from seed SEED + 1; both written into ``tmp``, where phase 12
+    reads them."""
     import base64
-    import tempfile
 
     from ifseg_torch.checkpoint.convert import fabricate_ofa_base_checkpoint, load_model
     from ifseg_torch.cli import validate as cli_validate
@@ -2009,168 +2024,497 @@ def phase_validate(card: str):
     from ifseg_torch.tasks.segmentation import SegmentationTask
 
     result = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        tsv, ckpt = f"{tmp}/validation.tsv", f"{tmp}/ofa_base.pt"
-        t0 = time.perf_counter()
-        write_valid_tsv(tsv)
-        result["tsv_write_s"] = time.perf_counter() - t0
-        cfg = from_flags(ade_argv(tsv, ckpt))
-        t0 = time.perf_counter()
-        fabricate_ofa_base_checkpoint(ckpt, cfg.model, seed=SEED + 1)  # built on the card
-        result["fabricate_s"] = time.perf_counter() - t0
-        log(f"[11] TSV of {VALID_ROWS} rows ({Path(tsv).stat().st_size / 2**20:.1f} MiB, "
-            f"{result['tsv_write_s']:.1f} s), ofa_base-shaped checkpoint "
-            f"({Path(ckpt).stat().st_size / 2**20:.0f} MiB, {result['fabricate_s']:.1f} s), on {card}")
+    tsv, ckpt = f"{tmp}/validation.tsv", f"{tmp}/ofa_base.pt"
+    result.update(tsv=tsv, ckpt=ckpt)
+    t0 = time.perf_counter()
+    write_valid_tsv(tsv)
+    result["tsv_write_s"] = time.perf_counter() - t0
+    cfg = from_flags(ade_argv(tsv, ckpt))
+    t0 = time.perf_counter()
+    fabricate_ofa_base_checkpoint(ckpt, cfg.model, seed=SEED + 1)  # built on the card
+    result["fabricate_s"] = time.perf_counter() - t0
+    log(f"[11] TSV of {VALID_ROWS} rows ({Path(tsv).stat().st_size / 2**20:.1f} MiB, "
+        f"{result['tsv_write_s']:.1f} s), ofa_base-shaped checkpoint "
+        f"({Path(ckpt).stat().st_size / 2**20:.0f} MiB, {result['fabricate_s']:.1f} s), on {card}")
 
-        # the task: dictionary, BPE, the prompt
+    # the task: dictionary, BPE, the prompt
+    t0 = time.perf_counter()
+    task = SegmentationTask.setup_task(cfg)
+    ds = task.load_dataset("valid")
+    result["task_setup_s"] = time.perf_counter() - t0
+    if len(ds.src_item) != VALID_SRC_LEN or len(ds) != VALID_ROWS:
+        fail(f"prompt of {len(ds.src_item)} tokens, {len(ds)} rows; expected "
+             f"{VALID_SRC_LEN}, {VALID_ROWS}")
+    log(f"[11] BPE + dictionary + prompt set-up: {result['task_setup_s']:.3f} s on the host; "
+        f"prompt {len(ds.src_item)} tokens; dictionary {len(task.dict)} symbols; beside {card}")
+
+    # the host path of every row, timed by part, and its digests
+    image_ms, label_ms, samples = [], [], []
+    for i in range(len(ds)):
+        image_b64, seg_b64, _ = ds.dataset[i]
         t0 = time.perf_counter()
-        task = SegmentationTask.setup_task(cfg)
-        ds = task.load_dataset("valid")
-        result["task_setup_s"] = time.perf_counter() - t0
-        if len(ds.src_item) != VALID_SRC_LEN or len(ds) != VALID_ROWS:
-            fail(f"prompt of {len(ds.src_item)} tokens, {len(ds)} rows; expected "
-                 f"{VALID_SRC_LEN}, {VALID_ROWS}")
-        log(f"[11] BPE + dictionary + prompt set-up: {result['task_setup_s']:.3f} s on the host; "
-            f"prompt {len(ds.src_item)} tokens; dictionary {len(task.dict)} symbols; beside {card}")
+        img = decode_png(base64.urlsafe_b64decode(image_b64))
+        img = np.repeat(img[:, :, None], 3, axis=2) if img.ndim < 3 else img[:, :, :3]
+        ds.eval_resize(np.ascontiguousarray(img[:, :, ::-1]))
+        t1 = time.perf_counter()
+        decode_png(base64.urlsafe_b64decode(seg_b64)).astype(np.int32)
+        t2 = time.perf_counter()
+        image_ms.append((t1 - t0) * 1e3)
+        label_ms.append((t2 - t1) * 1e3)
+        s = ds.get_eval_sample(i)
+        samples.append(s)
+        got = (row_digest(s.patch_image), row_digest(s.ori_semantic_seg))
+        if got != VALID_DIGESTS[i]:
+            fail(f"row {i}: digests {got} of the decoded row, PIL/cv2 give {VALID_DIGESTS[i]}")
+    result["host_ms_per_row"] = dict(image=float(np.mean(image_ms)), label=float(np.mean(label_ms)),
+                                     image_max=max(image_ms), label_max=max(label_ms))
+    log(f"[11] host, one thread: base64 + PNG decode + resize {np.mean(image_ms):.2f} ms a row "
+        f"for the image (max {max(image_ms):.2f}), base64 + PNG decode "
+        f"{np.mean(label_ms):.2f} ms for the label (max {max(label_ms):.2f}); all "
+        f"{VALID_ROWS} rows equal the PIL/cv2 digests; beside {card}")
 
-        # the host path of every row, timed by part, and its digests
-        image_ms, label_ms, samples = [], [], []
-        for i in range(len(ds)):
-            image_b64, seg_b64, _ = ds.dataset[i]
-            t0 = time.perf_counter()
-            img = decode_png(base64.urlsafe_b64decode(image_b64))
-            img = np.repeat(img[:, :, None], 3, axis=2) if img.ndim < 3 else img[:, :, :3]
-            ds.eval_resize(np.ascontiguousarray(img[:, :, ::-1]))
-            t1 = time.perf_counter()
-            decode_png(base64.urlsafe_b64decode(seg_b64)).astype(np.int32)
-            t2 = time.perf_counter()
-            image_ms.append((t1 - t0) * 1e3)
-            label_ms.append((t2 - t1) * 1e3)
-            s = ds.get_eval_sample(i)
-            samples.append(s)
-            got = (row_digest(s.patch_image), row_digest(s.ori_semantic_seg))
-            if got != VALID_DIGESTS[i]:
-                fail(f"row {i}: digests {got} of the decoded row, PIL/cv2 give {VALID_DIGESTS[i]}")
-        result["host_ms_per_row"] = dict(image=float(np.mean(image_ms)), label=float(np.mean(label_ms)),
-                                         image_max=max(image_ms), label_max=max(label_ms))
-        log(f"[11] host, one thread: base64 + PNG decode + resize {np.mean(image_ms):.2f} ms a row "
-            f"for the image (max {max(image_ms):.2f}), base64 + PNG decode "
-            f"{np.mean(label_ms):.2f} ms for the label (max {max(label_ms):.2f}); all "
-            f"{VALID_ROWS} rows equal the PIL/cv2 digests; beside {card}")
+    # the weights: read, surgery, strict load, and where each tensor came from
+    t0 = time.perf_counter()
+    model = load_model(ckpt, cfg.model)
+    result["load_s"] = time.perf_counter() - t0
+    result["weights"] = check_loaded_weights(model, ckpt, cfg.model)
+    log(f"[11] checkpoint read + vocab surgery + strict load: {result['load_s']:.2f} s; "
+        f"{result['weights']['loaded']} tensors from the file, {result['weights']['backfilled']} "
+        f"seg-only tensors backfilled with the seed-0 init, appended vocab row = the seed-0 draw; "
+        f"host time beside {card}")
 
-        # the weights: read, surgery, strict load, and where each tensor came from
+    # validate, end to end, on the card
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    ln.reset_launches()
+    t0 = time.perf_counter()
+    main_logs = []
+    vals = cli_validate.main(from_flags(ade_argv(tsv, ckpt)), logs_out=main_logs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, ln_launches, routes = fa.launch_counts(), ln.LAUNCHES, fa.bias_route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    keys = {}
+    for s in samples:
+        keys.setdefault(group_key(s), []).append(s)
+    groups = [m[j:j + 8] for m in keys.values() for j in range(0, len(m), 8)]
+    k1_per, ln_per = sum(n for *_, n in EVAL_SITES), ln_sites_per_pass("per_validate_group")
+    log(f"[11] validate.main: {json.dumps(vals)}")
+    log(f"[11] validate.main: {dt:.2f} s, {VALID_ROWS / dt:.2f} img/s of the whole main "
+        f"({VALID_ROWS / max(vals['sec'], 1e-9):.2f} img/s of its evaluation loop, "
+        f"{vals['sec']} s); attention launches {counts}, layer_norm launches {ln_launches} "
+        f"(expected {k1_per} and {ln_per} a group, {len(groups)} groups of "
+        f"{[len(g) for g in groups]}); bias routes {routes}; peak device memory "
+        f"{peak / 2**30:.2f} GiB, on {card}")
+    if counts != dict(infer=k1_per * len(groups), stats=0, bwd_di=0, bwd_dq=0, bwd_dkv=0):
+        fail("validate did not launch the attention kernel at every site of every group")
+    if ln_launches != ln_per * len(groups):
+        fail("validate did not launch the layer_norm kernel at every LayerNorm")
+    if routes != dict(fwd_bias_tma=counts["infer"], fwd_bias_threads=0, bwd_bias_copies=0):
+        fail(f"validate staged a bias by threads: {routes}")
+    want_keys = {"loss", "nll_loss", "aAcc", "mIoU", "mAcc", "aAcc_resnet_postprocess",
+                 "mIoU_resnet_postprocess", "mAcc_resnet_postprocess", "num_images", "sec"}
+    if set(vals) != want_keys or vals["num_images"] != VALID_ROWS:
+        fail(f"validate returned {sorted(vals)}, expected {sorted(want_keys)}")
+    if not (np.isfinite(vals["loss"]) and all(0.0 <= vals[k] <= 1.0 for k in want_keys
+                                              if k[1:4] in ("Acc", "IoU"))):
+        fail(f"validate values out of range: {vals}")
+    result.update(vals=vals, main_s=dt, img_per_s=VALID_ROWS / dt,
+                  loop_img_per_s=VALID_ROWS / max(vals["sec"], 1e-9),
+                  launches=counts["infer"], ln_launches=ln_launches, bias_routes=routes,
+                  peak_gib=peak / 2**30, group_sizes=[len(g) for g in groups])
+
+    # each group alone: the host's packing timed apart; the forward's wall
+    # time (CUDA events around the host's launches and the card's work);
+    # the card's busy time (the kernels and copies of a profiler trace)
+    evaluator = Evaluator(cfg, model)
+    per_group = []
+    for g in groups:
         t0 = time.perf_counter()
-        model = load_model(ckpt, cfg.model)
-        result["load_s"] = time.perf_counter() - t0
-        result["weights"] = check_loaded_weights(model, ckpt, cfg.model)
-        log(f"[11] checkpoint read + vocab surgery + strict load: {result['load_s']:.2f} s; "
-            f"{result['weights']['loaded']} tensors from the file, {result['weights']['backfilled']} "
-            f"seg-only tensors backfilled with the seed-0 init, appended vocab row = the seed-0 draw; "
-            f"host time beside {card}")
+        _, args = evaluator._pack_group(g)
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        wall = cuda_ms(lambda: evaluator._forward_group(*args), iters=2, warmup=1)
+        busy = device_busy_ms(lambda: evaluator._forward_group(*args))
+        key = group_key(g[0])
+        per_group.append(dict(rows=len(g), bucket=key[:4], grid=key[4:6], pack_ms=pack_ms,
+                              wall_ms=wall, device_ms=busy))
+        log(f"[11]   group of {len(g)}, image bucket {key[:2]}, target bucket {key[2:4]}, "
+            f"grid {key[4:6]}: host packing {pack_ms:.1f} ms; forward {wall:.1f} ms of wall "
+            f"time (host launches + card), the card busy {busy:.1f} ms of it "
+            f"({busy / len(g):.2f} ms a row), on {card}")
+    result["groups"] = per_group
+    device_ms_row = sum(p["device_ms"] for p in per_group) / VALID_ROWS
+    wall_ms_row = sum(p["pack_ms"] + p["wall_ms"] for p in per_group) / VALID_ROWS
+    host_ms_row = result["host_ms_per_row"]["image"] + result["host_ms_per_row"]["label"]
+    result["pace"] = dict(host_ms_per_row=host_ms_row, device_ms_per_row=device_ms_row,
+                          consumer_wall_ms_per_row=wall_ms_row,
+                          set_by="host" if host_ms_row > device_ms_row else "device")
+    log(f"[11] pace: one producer thread decodes a row in {host_ms_row:.2f} ms; the consumer "
+        f"packs and runs one in {wall_ms_row:.2f} ms of wall time, of which the card is busy "
+        f"{device_ms_row:.2f} ms: the {result['pace']['set_by']} sets it, on {card}")
 
-        # validate, end to end, on the card
+    # the counted run's own logs against the fp32 CPU evaluator, on the
+    # group cheapest for the CPU; label areas are exact on both sides, so
+    # they pick that group out of main's logs
+    group = min(groups, key=lambda g: len(g) * (group_key(g[0])[0] * group_key(g[0])[1]
+                                               + group_key(g[0])[2] * group_key(g[0])[3]))
+    del evaluator
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reference = Evaluator(from_flags(ade_argv(tsv, ckpt, "float32")), model, device="cpu")
+    cpu_out = reference._read_back(reference._run_group(group))
+    found = [lg for lg in main_logs if np.array_equal(lg["area_label"], cpu_out["area_label"])]
+    if len(found) != 1:
+        fail(f"{len(found)} of validate.main's {len(main_logs)} group logs count the label "
+             f"areas of rows {[s.id for s in group]}; expected one")
+    card_out = found[0]
+    n_px = float(cpu_out["area_label"].sum())
+    shares = {k: float(np.abs(card_out[k] - cpu_out[k]).sum() / 2 / n_px)
+              for k in ("area_pred_label", "area_pred_label_resnet_postprocess")}
+    nll_rel = (abs(float(card_out["nll_loss"]) - float(cpu_out["nll_loss"]))
+               / float(cpu_out["nll_loss"]))
+    log(f"[11] validate.main's own group of the TSV's rows {[s.id for s in group]} on the card "
+        f"(bf16) vs the CPU fp32 Evaluator ({time.perf_counter() - t0:.1f} s on the CPU): "
+        f"nll_loss {float(card_out['nll_loss']):.5f} vs {float(cpu_out['nll_loss']):.5f} (rel "
+        f"{nll_rel:.3e}, limit {EVAL_NLL_REL_TOL}); share of pixels predicted otherwise "
+        f"{shares['area_pred_label']:.4f}, after label propagation "
+        f"{shares['area_pred_label_resnet_postprocess']:.4f} (limit {EVAL_PIXEL_SHARE_TOL})")
+    if not nll_rel <= EVAL_NLL_REL_TOL:
+        fail(f"card nll_loss differs from the CPU's: {nll_rel} > {EVAL_NLL_REL_TOL}")
+    if not max(shares.values()) <= EVAL_PIXEL_SHARE_TOL:
+        fail(f"card predictions differ from the CPU's on {shares} of the pixels")
+    result.update(nll_rel_err=nll_rel, pixel_share_differs=shares)
+    return result
+
+
+# ---------------------------------------------------------------- phase 12: the training CLI
+
+CLI_ROWS = 48  # --epoch-row-count: 3 steps of TRAIN_BATCH rows an epoch
+CLI_WORKERS = 8  # --num-workers of the counted run: one thread a core of the card's host
+HOST_ROWS = 16  # training rows timed on one thread, decode and augmentations apart
+
+
+def common_sh_argv(data: str, save_dir: str, restore_file: str):
+    """The flags run_scripts/IFSeg/common.sh passes to the training CLI, with
+    its defaults (PARITY=1: the erf gelu) and ade.sh's classes."""
+    import re
+    import shlex
+
+    common = (REPO / "run_scripts" / "IFSeg" / "common.sh").read_text()
+    ade = (REPO / "run_scripts" / "IFSeg" / "ade.sh").read_text()
+    env = dict(re.findall(r"^(\w+)=\$\{\w+:-([^}]*)\}", common, re.M))
+    env.update(activation_fn="gelu", data=data, save_path=save_dir, restore_file=restore_file,
+               bpe_dir=str(REPO / "assets" / "BPE"),
+               num_seg_tokens=re.search(r"export num_seg_tokens=(\d+)", ade).group(1),
+               category_list=re.search(r"export category_list='([^']*)'", ade).group(1))
+    call = common[common.index("python -m ifseg_tpu.cli.train"):]
+    call = call[:call.index('"$@"')].replace("\\\n", " ")
+    call = re.sub(r"\$\{?(\w+)\}?", lambda m: env[m.group(1)], call)
+    return shlex.split(call)[3:]
+
+
+RESET_FLAGS = ("--reset-optimizer", "--reset-dataloader", "--reset-meters")
+
+
+def host_train_rows(ds, rows: int, seed: int):
+    """One thread's ms a training row: the base64 + PNG decode, and each
+    augmentation of the chain (the row's own generator, as the iterator of
+    epoch 1 draws it), over the first ``rows`` rows of ``ds``."""
+    parts = dict(decode=[], resize=[], crop=[], flip=[], distort=[])
+    for i in range(rows):
+        rng = np.random.default_rng((seed, 1, i))
+        t = [time.perf_counter()]
+        img, seg, _ = ds._decode_row(i)
+        t.append(time.perf_counter())
+        img, seg = ds.resize(img, seg, rng)
+        t.append(time.perf_counter())
+        img, seg = ds.crop(img, seg, rng)
+        t.append(time.perf_counter())
+        img, seg = ds.flip(img, seg, rng)
+        t.append(time.perf_counter())
+        ds.distort(img, rng)
+        t.append(time.perf_counter())
+        for k, a, b in zip(parts, t, t[1:]):
+            parts[k].append((b - a) * 1e3)
+    out = {k: float(np.mean(v)) for k, v in parts.items()}
+    out["augment"] = sum(out[k] for k in ("resize", "crop", "flip", "distort"))
+    out["row"] = out["decode"] + out["augment"]
+    return out
+
+
+def phase_train_cli(card: str, tmp: str, valid_tsv: str, ckpt_file: str, valid_groups: int):
+    """``ifseg_torch.cli.train.main`` on the card with the flags of
+    run_scripts/IFSeg/common.sh + ade.sh: OFA-Base at full width and depth,
+    150 classes, batch 16, the monitoring forward, phase 11's fabricated
+    ofa_base.pt; phase 11's TSV to validate and, twice over (48 rows, 3 steps
+    an epoch), to train.  The counted run takes 2 epochs; then a run to
+    epoch 3 that stops at update 7 and one that resumes from its cursor, the
+    image-free fast path, and the counted run's first epoch on one thread."""
+    import gc
+
+    from ifseg_torch.checkpoint.manager import CheckpointManager
+    from ifseg_torch.cli import train as cli_train
+    from ifseg_torch.config import from_flags
+    from ifseg_torch.data.segmentation_dataset import SegmentationDataset
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.tasks.segmentation import SegmentationTask
+    from ifseg_torch.train.trainer import Trainer
+
+    result = {}
+    train_tsv = f"{tmp}/train.tsv"
+    with open(valid_tsv) as src, open(train_tsv, "w") as dst:
+        rows = src.readlines()
+        dst.writelines((rows * -(-CLI_ROWS // len(rows)))[:CLI_ROWS])
+
+    def flags(save_dir, *extra, resets=True):
+        argv = common_sh_argv(f"{train_tsv},{valid_tsv}", save_dir, ckpt_file)
+        argv = [a for a in argv if resets or a not in RESET_FLAGS]
+        return from_flags(argv + [f"--epoch-row-count={CLI_ROWS}", "--batch-size-valid=8",
+                                  *extra])
+
+    # instruments: the trainer and batch of the last step (for the profiler);
+    # every restore held against the files it read; rows decoded, by split
+    last, restored, decoded = {}, [], {}
+    step, restore, decode_row = (Trainer.train_step, cli_train.restore_training_state,
+                                 SegmentationDataset._decode_row)
+
+    def recording_step(self, batch):
+        last.update(trainer=self, batch=batch)
+        return step(self, batch)
+
+    def checked_restore(cfg, trainer, ckpt):
+        name = ckpt.latest()
+        t0 = time.perf_counter()
+        out = restore(cfg, trainer, ckpt)
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if name is not None:
+            saved, now = ckpt.load(name), trainer.state_dict()
+            same = all(torch.equal(now["model"][k], v) for k, v in saved["model"].items())
+            if "optimizer" in saved and not cfg.checkpoint.reset_optimizer:
+                same &= now["step"] == saved["step"] == saved["optimizer"]["count"]
+                same &= all(torch.equal(now["optimizer"][m][k], v)
+                            for m in ("mu", "nu") for k, v in saved["optimizer"][m].items())
+                same &= torch.equal(now["generator"], saved["generator"])
+            restored.append(dict(name=name, equal=bool(same), epoch=out[0], cursor=out[1],
+                                 restore_s=restore_s))
+        return out
+
+    def counting_decode(self, index):
+        decoded[self.split] = decoded.get(self.split, 0) + 1
+        return decode_row(self, index)
+
+    Trainer.train_step, cli_train.restore_training_state = recording_step, checked_restore
+    SegmentationDataset._decode_row = counting_decode
+    try:
+        # ---- the counted run: 2 epochs, the recipe's flags, 8 row threads
+        save = f"{tmp}/ckpt"
+        gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
         ln.reset_launches()
         t0 = time.perf_counter()
-        main_logs = []
-        vals = cli_validate.main(from_flags(ade_argv(tsv, ckpt)), logs_out=main_logs)
+        run = cli_train.main(flags(save, "--max-epoch=2", f"--num-workers={CLI_WORKERS}"))
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        main_s = time.perf_counter() - t0
         counts, ln_launches, routes = fa.launch_counts(), ln.LAUNCHES, fa.bias_route_counts()
         peak = torch.cuda.max_memory_allocated()
-        keys = {}
-        for s in samples:
-            keys.setdefault(group_key(s), []).append(s)
-        groups = [m[j:j + 8] for m in keys.values() for j in range(0, len(m), 8)]
-        k1_per, ln_per = sum(n for *_, n in EVAL_SITES), ln_sites_per_pass("per_validate_group")
-        log(f"[11] validate.main: {json.dumps(vals)}")
-        log(f"[11] validate.main: {dt:.2f} s, {VALID_ROWS / dt:.2f} img/s of the whole main "
-            f"({VALID_ROWS / max(vals['sec'], 1e-9):.2f} img/s of its evaluation loop, "
-            f"{vals['sec']} s); attention launches {counts}, layer_norm launches {ln_launches} "
-            f"(expected {k1_per} and {ln_per} a group, {len(groups)} groups of "
-            f"{[len(g) for g in groups]}); bias routes {routes}; peak device memory "
-            f"{peak / 2**30:.2f} GiB, on {card}")
-        if counts != dict(infer=k1_per * len(groups), stats=0, bwd_di=0, bwd_dq=0, bwd_dkv=0):
-            fail("validate did not launch the attention kernel at every site of every group")
-        if ln_launches != ln_per * len(groups):
-            fail("validate did not launch the layer_norm kernel at every LayerNorm")
-        if routes != dict(fwd_bias_tma=counts["infer"], fwd_bias_threads=0, bwd_bias_copies=0):
-            fail(f"validate staged a bias by threads: {routes}")
-        want_keys = {"loss", "nll_loss", "aAcc", "mIoU", "mAcc", "aAcc_resnet_postprocess",
-                     "mIoU_resnet_postprocess", "mAcc_resnet_postprocess", "num_images", "sec"}
-        if set(vals) != want_keys or vals["num_images"] != VALID_ROWS:
-            fail(f"validate returned {sorted(vals)}, expected {sorted(want_keys)}")
-        if not (np.isfinite(vals["loss"]) and all(0.0 <= vals[k] <= 1.0 for k in want_keys
-                                                  if k[1:4] in ("Acc", "IoU"))):
-            fail(f"validate values out of range: {vals}")
-        result.update(vals=vals, main_s=dt, img_per_s=VALID_ROWS / dt,
-                      loop_img_per_s=VALID_ROWS / max(vals["sec"], 1e-9),
-                      launches=counts["infer"], ln_launches=ln_launches, bias_routes=routes,
-                      peak_gib=peak / 2**30, group_sizes=[len(g) for g in groups])
-
-        # each group alone: the host's packing timed apart; the forward's wall
-        # time (CUDA events around the host's launches and the card's work);
-        # the card's busy time (the kernels and copies of a profiler trace)
-        evaluator = Evaluator(cfg, model)
-        per_group = []
-        for g in groups:
-            t0 = time.perf_counter()
-            _, args = evaluator._pack_group(g)
-            pack_ms = (time.perf_counter() - t0) * 1e3
-            wall = cuda_ms(lambda: evaluator._forward_group(*args), iters=2, warmup=1)
-            busy = device_busy_ms(lambda: evaluator._forward_group(*args))
-            key = group_key(g[0])
-            per_group.append(dict(rows=len(g), bucket=key[:4], grid=key[4:6], pack_ms=pack_ms,
-                                  wall_ms=wall, device_ms=busy))
-            log(f"[11]   group of {len(g)}, image bucket {key[:2]}, target bucket {key[2:4]}, "
-                f"grid {key[4:6]}: host packing {pack_ms:.1f} ms; forward {wall:.1f} ms of wall "
-                f"time (host launches + card), the card busy {busy:.1f} ms of it "
-                f"({busy / len(g):.2f} ms a row), on {card}")
-        result["groups"] = per_group
-        device_ms_row = sum(p["device_ms"] for p in per_group) / VALID_ROWS
-        wall_ms_row = sum(p["pack_ms"] + p["wall_ms"] for p in per_group) / VALID_ROWS
-        host_ms_row = result["host_ms_per_row"]["image"] + result["host_ms_per_row"]["label"]
-        result["pace"] = dict(host_ms_per_row=host_ms_row, device_ms_per_row=device_ms_row,
-                              consumer_wall_ms_per_row=wall_ms_row,
-                              set_by="host" if host_ms_row > device_ms_row else "device")
-        log(f"[11] pace: one producer thread decodes a row in {host_ms_row:.2f} ms; the consumer "
-            f"packs and runs one in {wall_ms_row:.2f} ms of wall time, of which the card is busy "
-            f"{device_ms_row:.2f} ms: the {result['pace']['set_by']} sets it, on {card}")
-
-        # the counted run's own logs against the fp32 CPU evaluator, on the
-        # group cheapest for the CPU; label areas are exact on both sides, so
-        # they pick that group out of main's logs
-        group = min(groups, key=lambda g: len(g) * (group_key(g[0])[0] * group_key(g[0])[1]
-                                                   + group_key(g[0])[2] * group_key(g[0])[3]))
-        del evaluator
+        steps = run["num_updates"]
+        busy = device_busy_ms(lambda: last["trainer"].train_step(last["batch"]))
+        last.clear()
+        gc.collect()
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        reference = Evaluator(from_flags(ade_argv(tsv, ckpt, "float32")), model, device="cpu")
-        cpu_out = reference._read_back(reference._run_group(group))
-        found = [lg for lg in main_logs if np.array_equal(lg["area_label"], cpu_out["area_label"])]
-        if len(found) != 1:
-            fail(f"{len(found)} of validate.main's {len(main_logs)} group logs count the label "
-                 f"areas of rows {[s.id for s in group]}; expected one")
-        card_out = found[0]
-        n_px = float(cpu_out["area_label"].sum())
-        shares = {k: float(np.abs(card_out[k] - cpu_out[k]).sum() / 2 / n_px)
-                  for k in ("area_pred_label", "area_pred_label_resnet_postprocess")}
-        nll_rel = (abs(float(card_out["nll_loss"]) - float(cpu_out["nll_loss"]))
-                   / float(cpu_out["nll_loss"]))
-        log(f"[11] validate.main's own group of the TSV's rows {[s.id for s in group]} on the card "
-            f"(bf16) vs the CPU fp32 Evaluator ({time.perf_counter() - t0:.1f} s on the CPU): "
-            f"nll_loss {float(card_out['nll_loss']):.5f} vs {float(cpu_out['nll_loss']):.5f} (rel "
-            f"{nll_rel:.3e}, limit {EVAL_NLL_REL_TOL}); share of pixels predicted otherwise "
-            f"{shares['area_pred_label']:.4f}, after label propagation "
-            f"{shares['area_pred_label_resnet_postprocess']:.4f} (limit {EVAL_PIXEL_SHARE_TOL})")
-        if not nll_rel <= EVAL_NLL_REL_TOL:
-            fail(f"card nll_loss differs from the CPU's: {nll_rel} > {EVAL_NLL_REL_TOL}")
-        if not max(shares.values()) <= EVAL_PIXEL_SHARE_TOL:
-            fail(f"card predictions differ from the CPU's on {shares} of the pixels")
-        result.update(nll_rel_err=nll_rel, pixel_share_differs=shares)
+
+        per_step = sum(n for *_, n in SITES)
+        mon_ln = ln_sites_per_pass("per_monitor_forward")
+        k1_group, ln_group = sum(n for *_, n in EVAL_SITES), ln_sites_per_pass("per_validate_group")
+        validations = sum(e["valid"] is not None for e in run["epochs"])
+        want = dict(infer=per_step * steps + k1_group * valid_groups * validations,
+                    stats=per_step * steps, bwd_di=per_step * steps, bwd_dq=per_step * steps,
+                    bwd_dkv=per_step * steps)
+        ln_want = mon_ln * steps + ln_group * valid_groups * validations
+        log(f"[12] cli.train.main, 2 epochs of {CLI_ROWS} rows at batch {TRAIN_BATCH} "
+            f"({steps} updates, {validations} validations of {VALID_ROWS} rows): attention "
+            f"launches {counts} (expected {want}), layer_norm launches {ln_launches} (expected "
+            f"{ln_want}), bias routes {routes}, on {card}")
+        if steps != 6 or validations != 2 or counts != want or ln_launches != ln_want:
+            fail("the training CLI did not launch every kernel at every site of every step "
+                 "and validation group")
+        if routes != dict(fwd_bias_tma=counts["stats"] + counts["infer"], fwd_bias_threads=0,
+                          bwd_bias_copies=0):
+            fail(f"the training CLI staged a bias by threads or copied one: {routes}")
+        result.update(launches=counts, ln_launches=ln_launches, bias_routes=routes)
+
+        def check_finite(r, tag):
+            for e in r["epochs"]:
+                # the one epoch that trains nothing: a resume whose cursor sits at
+                # the end of its first epoch (cli/train.train_epoch)
+                if (e["epoch"] == r["start_epoch"] and "train" not in e
+                        and r["resumed_iterations"] >= CLI_ROWS // TRAIN_BATCH):
+                    losses = []
+                elif "loss" not in e.get("train", {}):
+                    fail(f"{tag}: epoch {e['epoch']} recorded no training loss")
+                else:
+                    losses = [e["train"]["loss"]]
+                if e["valid"] is not None:
+                    losses += [e["valid"]["loss"], e["valid"]["mIoU"]]
+                if not all(np.isfinite(x) for x in losses):
+                    fail(f"{tag}: epoch {e['epoch']}: a non-finite loss or metric: {losses}")
+
+        check_finite(run, "the counted run")
+        mgr = CheckpointManager(flags(save).checkpoint)
+        m = mgr.manifest
+        best = max(run["epochs"], key=lambda e: e["valid"]["mIoU"])["epoch"]
+        want_dirs = sorted({"checkpoint_2", f"checkpoint_{best}"})
+        dirs = sorted(d.name for d in Path(save).iterdir() if d.is_dir() and not d.is_symlink())
+        links = {k: Path(save, k).resolve().name for k in ("checkpoint_last", "checkpoint_best")}
+        log(f"[12] manifest {json.dumps(m)}; directories {dirs}; links {links}")
+        if (m["last"] != "checkpoint_2" or m["best"] != f"checkpoint_{best}" or dirs != want_dirs
+                or links != {"checkpoint_last": "checkpoint_2",
+                             "checkpoint_best": f"checkpoint_{best}"}):
+            fail(f"the manifest or the checkpoints on disk are not the expected "
+                 f"{want_dirs} (last checkpoint_2, best checkpoint_{best})")
+        ckpt_bytes = sum(f.stat().st_size for f in Path(save, "checkpoint_2").iterdir())
+        step_s = [t for e in run["epochs"] for t in e["step_s"]]
+        iter_s = [t for e in run["epochs"] for t in e["iter_s"]]
+        waits = [w for e in run["epochs"] for w in e["data_wait_s"]]
+        firsts = [e["data_wait_s"][0] for e in run["epochs"]]
+        rest = [w for e in run["epochs"] for w in e["data_wait_s"][1:]]
+        vals = [e["valid"] for e in run["epochs"]]
+        result["counted"] = dict(
+            main_s=main_s, loop_s_per_step_after_first=float(np.mean(iter_s[1:])), iter_s=iter_s,
+            step_s=step_s,
+            data_wait_ms_mean=1e3 * float(np.mean(waits)),
+            data_wait_ms_first_of_epoch=[1e3 * w for w in firsts],
+            data_wait_ms_rest=1e3 * float(np.mean(rest)) if rest else None,
+            device_busy_ms_one_step=busy, peak_gib=peak / 2**30,
+            valid_img_per_s=[VALID_ROWS / max(v["sec"], 1e-9) for v in vals],
+            valid=vals, train=[e["train"] for e in run["epochs"]], saves=run["saves"],
+            checkpoint_bytes=ckpt_bytes, manifest=m)
+        log(f"[12] loop: {np.mean(iter_s[1:]):.4f} s/step after the first step (wall of each "
+            f"iteration, the next batch's fetch and the step: {', '.join(f'{t:.3f}' for t in iter_s)}"
+            f"; the steps alone {', '.join(f'{t:.3f}' for t in step_s)}); data_wait "
+            f"{1e3 * np.mean(waits):.1f} ms a "
+            f"batch (first of each epoch {', '.join(f'{1e3 * w:.0f}' for w in firsts)} ms, the rest "
+            f"{result['counted']['data_wait_ms_rest']:.1f} ms) with {CLI_WORKERS} row threads; the "
+            f"card busy {busy:.1f} ms in one monitored step (profiler); peak device memory "
+            f"{peak / 2**30:.2f} GiB; main {main_s:.1f} s, on {card}")
+        for e in run["epochs"]:
+            log(f"[12] epoch {e['epoch']}: train {json.dumps(e['train'])}; valid "
+                f"{json.dumps(e['valid'])} ({VALID_ROWS / max(e['valid']['sec'], 1e-9):.2f} img/s)")
+        log(f"[12] saves {[(s['name'], round(1e3 * s['s'], 1)) for s in run['saves']]} ms; "
+            f"checkpoint_2 {ckpt_bytes / 2**30:.3f} GiB on disk, on {card}")
+
+        # ---- host ms a training row, one thread
+        task = SegmentationTask.setup_task(flags(save))
+        train_ds = task.load_dataset("train")
+        result["host_ms_per_row"] = host_train_rows(train_ds, min(HOST_ROWS, len(train_ds)),
+                                                    flags(save).optimization.seed)
+        h = result["host_ms_per_row"]
+        log(f"[12] host, one thread, ms a training row over {HOST_ROWS} rows: decode "
+            f"{h['decode']:.2f}, resize {h['resize']:.2f}, crop {h['crop']:.2f}, flip "
+            f"{h['flip']:.2f}, colour jitter {h['distort']:.2f}: {h['row']:.2f} a row, "
+            f"{h['row'] * TRAIN_BATCH / 1e3:.2f} s a batch of {TRAIN_BATCH}; beside {card}")
+
+        # ---- the producer alone (the iterator with no step to wait on): its
+        # time a batch bounds the loop of a long epoch, where the 2-batch
+        # buffer no longer hides it as it does in 3-step epochs
+        seed, batch = flags(save).optimization.seed, flags(save).optimization.batch_size
+        producer = {}
+        for workers in (CLI_WORKERS, CLI_WORKERS // 2):
+            task.cfg.num_workers = workers
+            t0, n = time.perf_counter(), 0
+            for epoch in (1, 2):
+                itr = task.get_batch_iterator("train", batch, seed, epoch)
+                n += sum(1 for _ in itr.next_epoch_itr())
+                itr.close()
+            producer[workers] = 1e3 * (time.perf_counter() - t0) / n
+        result["producer_ms_per_batch"] = producer
+        log(f"[12] the batch producer alone, ms a batch of {batch} over 2 epochs: "
+            + ", ".join(f"{v:.1f} on {k} row threads" for k, v in producer.items())
+            + f" ({h['row'] * batch:.1f} on one, from the rows above); beside {card}")
+
+        # ---- resume: to epoch 3 (6 updates restored), stopped at update 7;
+        # then on from the cursor
+        restored.clear()
+        third = cli_train.main(flags(save, "--max-epoch=3", "--max-update=7",
+                                     f"--num-workers={CLI_WORKERS}", resets=False))
+        check_finite(third, "the run stopped at update 7")
+        mgr = CheckpointManager(flags(save).checkpoint)
+        extra = mgr.load_extra("checkpoint_3_7")
+        log(f"[12] resume to epoch 3: started at epoch {third['start_epoch']} with "
+            f"{third['restored_updates']} updates restored in "
+            f"{1e3 * restored[0]['restore_s']:.0f} ms (restored state equal to the files: "
+            f"{restored}); stopped: {third['stop']}; manifest "
+            f"last {mgr.manifest['last']}, cursor {extra.get('iterator')}")
+        if (third["start_epoch"], third["restored_updates"], third["num_updates"]) != (3, 6, 7):
+            fail(f"the resume started at epoch {third['start_epoch']} with "
+                 f"{third['restored_updates']} updates, ended at {third['num_updates']}")
+        if (mgr.manifest["last"] != "checkpoint_3_7" or Path(save, "checkpoint_3").exists()
+                or extra.get("iterator") != {"epoch": 3, "iterations_in_epoch": 1,
+                                             "seed": flags(save).optimization.seed}):
+            fail("the stop at update 7 did not save the mid-epoch cursor (and only it)")
+        cursor_restore = list(restored)
+        restored.clear()
+        fourth = cli_train.main(flags(save, "--max-epoch=3", f"--num-workers={CLI_WORKERS}",
+                                      resets=False))
+        check_finite(fourth, "the run resumed from the cursor")
+        mgr = CheckpointManager(flags(save).checkpoint)
+        log(f"[12] resume from the cursor: epoch {fourth['start_epoch']}, "
+            f"{fourth['resumed_iterations']} of 3 batches done, {fourth['restored_updates']} "
+            f"updates restored in {1e3 * restored[0]['restore_s']:.0f} ms ({restored}); "
+            f"{fourth['num_updates']} updates at the end; manifest last {mgr.manifest['last']}")
+        if ((fourth["start_epoch"], fourth["resumed_iterations"], fourth["restored_updates"],
+             fourth["num_updates"]) != (3, 1, 7, 9) or mgr.manifest["last"] != "checkpoint_3"
+                or len(fourth["epochs"][0]["step_s"]) != 2):
+            fail("the resume from the cursor did not go on inside epoch 3")
+        restores = cursor_restore + restored
+        if [r["name"] for r in restores] != ["checkpoint_2", "checkpoint_3_7"] or not all(
+                r["equal"] for r in restores):
+            fail(f"a restored state differs from the checkpoint it was read from: {restores}")
+        result["resume"] = dict(to_epoch_3=dict(stop=third["stop"], saves=third["saves"]),
+                                from_cursor=dict(saves=fourth["saves"]),
+                                restores=[dict(name=r["name"], equal=r["equal"],
+                                               restore_s=r["restore_s"]) for r in restores])
+
+        # ---- the image-free fast path: no row decoded for training
+        decoded.clear()
+        fast = cli_train.main(flags(f"{tmp}/fast", "--max-epoch=1", "--monitor-real-batch=false",
+                                    "--validate-interval=2", "--no-save",
+                                    f"--num-workers={CLI_WORKERS}"))
+        check_finite(fast, "the fast path")
+        fast_steps = fast["epochs"][0]["step_s"]
+        log(f"[12] fast path (--monitor-real-batch=false): rows decoded {decoded}; "
+            f"{np.mean(fast['epochs'][0]['iter_s'][1:]):.4f} s/step after the first (loop wall; "
+            f"the steps alone {', '.join(f'{t:.3f}' for t in fast_steps)}), data_wait "
+            f"{1e3 * np.mean(fast['epochs'][0]['data_wait_s']):.1f} ms a batch, on {card}")
+        if decoded.get("train", 0) != 0 or fast["num_updates"] != 3:
+            fail(f"the fast path decoded training rows: {decoded}")
+
+        # ---- the counted run's first epoch on one thread (--num-workers=0)
+        serial = cli_train.main(flags(f"{tmp}/serial", "--max-epoch=1", "--validate-interval=2",
+                                      "--no-save", "--num-workers=0"))
+        check_finite(serial, "the run on one thread")
+        serial_steps = serial["epochs"][0]["step_s"]
+        log(f"[12] --num-workers=0: {np.mean(serial['epochs'][0]['iter_s'][1:]):.4f} s/step "
+            f"after the first (loop wall; the steps alone "
+            f"{', '.join(f'{t:.3f}' for t in serial_steps)}), data_wait "
+            f"{1e3 * np.mean(serial['epochs'][0]['data_wait_s']):.1f} ms a batch (against "
+            f"{1e3 * np.mean(run['epochs'][0]['data_wait_s']):.1f} with {CLI_WORKERS} threads in "
+            f"the counted run's first epoch), on {card}")
+        result["fast_path"] = dict(step_s=fast_steps, iter_s=fast["epochs"][0]["iter_s"],
+                                   data_wait_s=fast["epochs"][0]["data_wait_s"],
+                                   decoded=dict(decoded))
+        result["one_thread"] = dict(step_s=serial_steps, iter_s=serial["epochs"][0]["iter_s"],
+                                    data_wait_s=serial["epochs"][0]["data_wait_s"])
+    finally:
+        Trainer.train_step, cli_train.restore_training_state = step, restore
+        SegmentationDataset._decode_row = decode_row
     return result
 
 
@@ -2234,20 +2578,26 @@ def main():
         HUGE["arch"], GRAD_TENSORS_HUGE, "[10]", encoder_layers=HUGE_CHECK_LAYERS,
         decoder_layers=HUGE_CHECK_LAYERS)
     torch.cuda.empty_cache()
-    validate = phase_validate(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        validate = phase_validate(card, tmp)
+        torch.cuda.empty_cache()
+        train_cli = phase_train_cli(card, tmp, validate["tsv"], validate["ckpt"],
+                                    len(validate["group_sizes"]))
 
     fwd_src = "ifseg_torch/csrc/flash_attention_bias_fwd.cu"
     dq_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dq.cu"
     dkv_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dkv.cu"
     jax_fa = "ifseg_tpu/ops/flash_attention.py"
     step_unit = "one batch-16 training step: 6 calls at each of the three site shapes"
-    counts = train["launches"]
-    # the forward without stats runs on three main paths; each was driven with
+    counts, cli_counts = train["launches"], train_cli["launches"]
+    # the forward without stats runs on five main paths; each was driven with
     # the counts set to 0 just before and read just after
     k1_paths = dict(serving=serve["launches"], evaluation=evaluation["launches"],
-                    monitoring=counts["infer"], validate=validate["launches"])
+                    monitoring=counts["infer"], validate=validate["launches"],
+                    train_cli=cli_counts["infer"])
     ln_paths = dict(serving=serve["ln_launches"], evaluation=evaluation["ln_launches"],
                     monitoring=train["ln_launches"], validate=validate["ln_launches"],
+                    train_cli=train_cli["ln_launches"],
                     huge_serving=huge["serve"]["ln_launches"] - huge["serve"]["ln_wide_launches"],
                     huge_evaluation=(huge["evaluation"]["ln_launches"]
                                      - huge["evaluation"]["ln_wide_launches"]))
@@ -2255,20 +2605,26 @@ def main():
         kernel_entry("flash_attention_bias_fwd", fwd_src, f"{jax_fa}:134", sum(k1_paths.values()),
                      sites, "one batch-32 forward: 6 calls at each of the three site shapes",
                      "per_forward"),
-        kernel_entry("flash_attention_bias_fwd_stats", fwd_src, f"{jax_fa}:134", counts["stats"],
-                     train_rows["stats"], step_unit, "per_step"),
-        kernel_entry("flash_attention_bwd_di", dq_src, f"{jax_fa}:484", counts["bwd_di"],
-                     train_rows["di"], step_unit, "per_step"),
-        kernel_entry("flash_attention_bias_bwd_dq", dq_src, f"{jax_fa}:373", counts["bwd_dq"],
-                     train_rows["dq"], step_unit, "per_step"),
-        kernel_entry("flash_attention_bias_bwd_dkv", dkv_src, f"{jax_fa}:420", counts["bwd_dkv"],
-                     train_rows["dkv"], step_unit, "per_step"),
+        kernel_entry("flash_attention_bias_fwd_stats", fwd_src, f"{jax_fa}:134",
+                     counts["stats"] + cli_counts["stats"], train_rows["stats"], step_unit,
+                     "per_step"),
+        kernel_entry("flash_attention_bwd_di", dq_src, f"{jax_fa}:484",
+                     counts["bwd_di"] + cli_counts["bwd_di"], train_rows["di"], step_unit,
+                     "per_step"),
+        kernel_entry("flash_attention_bias_bwd_dq", dq_src, f"{jax_fa}:373",
+                     counts["bwd_dq"] + cli_counts["bwd_dq"], train_rows["dq"], step_unit,
+                     "per_step"),
+        kernel_entry("flash_attention_bias_bwd_dkv", dkv_src, f"{jax_fa}:420",
+                     counts["bwd_dkv"] + cli_counts["bwd_dkv"], train_rows["dkv"], step_unit,
+                     "per_step"),
         kernel_entry("layer_norm", "ifseg_torch/csrc/layer_norm.cu",
                      "ifseg_tpu/ops/layer_norm.py:43", sum(ln_paths.values()), ln_rows,
                      "one batch-32 forward: its 65 LayerNorm sites at their six (rows, width) "
                      "shapes", "per_forward"),
     ]
     kernels[0]["launches_by_path"] = k1_paths
+    for entry, key in zip(kernels[1:5], ("stats", "bwd_di", "bwd_dq", "bwd_dkv")):
+        entry["launches_by_path"] = dict(training=counts[key], train_cli=cli_counts[key])
     kernels[0]["per_pass"] = {"evaluation group of 8": pass_totals(sites, "per_eval_group"),
                               "validate group of 8, 215 text tokens":
                                   pass_totals(sites, "per_validate_group")}
@@ -2321,7 +2677,7 @@ def main():
             fail(f"kernel {entry['name']} was never launched by a main path")
     log(json.dumps({"serve": serve, "cpu_reference": cpu, "evaluation": evaluation,
                     "train": train, "train_gradients": grads, "huge": huge, "validate": validate,
-                    "ptxas": ptxas, "card_line": card}))
+                    "train_cli": train_cli, "ptxas": ptxas, "card_line": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,8 +19,9 @@ layout (the inverse of that package's torch -> flax converter):
 over in the same layout, so both trainers can start from the same moments.
 
 ``load_torch_checkpoint`` reads a fairseq ``.pt`` file, and ``load_model``
-loads one into a fresh ``SegOFA`` (the counterpart of the JAX package's
-``cli/infer.py:load_params`` for ``.pt`` files): ``convert_torch_state_dict``
+loads one, or a checkpoint directory of ``checkpoint/manager.py``, into a
+fresh ``SegOFA`` (the counterpart of the JAX package's
+``cli/infer.py:load_params``): ``convert_torch_state_dict``
 applies the vocab surgery of a pretrained ``ofa_base.pt`` (``_vocab_surgery``)
 and keeps the fresh initialisation wherever the file has no tensor or one of
 another shape, as the JAX package's ``_reconcile`` does (the seg-specific
@@ -29,6 +30,7 @@ writes a file of ``ofa_base.pt``'s shapes with random weights.
 """
 
 import logging
+import os
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -246,20 +248,33 @@ def convert_torch_state_dict(sd: Dict[str, torch.Tensor], target_vocab: int,
     return out
 
 
-def load_model(path: str, model_cfg):
-    """A ``SegOFA(model_cfg)`` with the weights of the fairseq ``.pt`` file
-    ``path`` (its envelope or a bare state dict; a port state dict saved
-    with ``torch.save`` is one): a fresh model from ``torch.Generator`` seed
-    0 on the CPU, loaded strictly with ``convert_torch_state_dict``.  The
-    counterpart of the JAX package's ``load_params`` for ``.pt`` files;
-    checkpoint directories come with the checkpoint manager."""
+def load_model(path: str, model_cfg, ema: bool = False):
+    """A ``SegOFA(model_cfg)`` with the weights of ``path``, on the CPU: a
+    fairseq ``.pt`` file (its envelope or a bare state dict; a port state
+    dict saved with ``torch.save`` is one), loaded into a fresh model from
+    ``torch.Generator`` seed 0 with ``convert_torch_state_dict``; or a
+    checkpoint directory of ``checkpoint/manager.py`` (``checkpoint_best``
+    and ``checkpoint_last`` are links to one), whose ``model.pt`` loads
+    strictly, its parameters replaced by ``ema.pt``'s when ``ema`` is set
+    and the checkpoint has an EMA copy.  The counterpart of the JAX
+    package's ``cli/infer.py:load_params``, which reads orbax directories
+    instead."""
     from ifseg_torch.models.segofa import SegOFA
 
-    if not str(path).endswith(".pt"):
-        raise NotImplementedError(
-            f"{path}: only fairseq .pt files load; checkpoint directories come with the "
-            "checkpoint manager (ROADMAP.md A.4)")
     model = SegOFA(model_cfg).init(torch.Generator().manual_seed(0))
+    if os.path.isdir(path):
+        model.load_state_dict(
+            torch.load(os.path.join(path, "model.pt"), map_location="cpu", weights_only=True),
+            strict=True)
+        ema_path = os.path.join(path, "ema.pt")
+        if ema and os.path.exists(ema_path):
+            shadow = torch.load(ema_path, map_location="cpu", weights_only=True)
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(shadow[name])
+        return model
+    if not str(path).endswith(".pt"):
+        raise ValueError(f"{path}: neither a .pt file nor a checkpoint directory")
     sd = load_torch_checkpoint(path)
     model.load_state_dict(
         convert_torch_state_dict(sd, model_cfg.vocab_size, model.state_dict()), strict=True)

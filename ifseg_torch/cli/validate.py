@@ -11,7 +11,9 @@ on the card unless ``--device=cpu`` is given:
 The port of the JAX package's ``cli/validate.py``: the same flags, the same
 steps (task, dataset, weights, ``Evaluator.eval_dataset``, the task's metric
 reduction) and the same ``vals``.  The weights come from a fairseq ``.pt``
-file (``checkpoint/convert.py:load_model``).
+file or a checkpoint directory of ``cli.train`` such as
+``<save_dir>/checkpoint_best`` (``checkpoint/convert.py:load_model``; under
+``--uses-ema`` its EMA weights).
 """
 
 import logging
@@ -45,7 +47,7 @@ def main(cfg: Config, device: Optional[Union[str, torch.device]] = None,
         raise RuntimeError("validate: no CUDA device (pass device='cpu' to run on the CPU)")
     task = SegmentationTask.setup_task(cfg)
     ds = task.load_dataset("valid")
-    model = load_model(cfg.checkpoint.restore_file, cfg.model)
+    model = load_model(cfg.checkpoint.restore_file, cfg.model, ema=cfg.task.uses_ema)
     evaluator = Evaluator(cfg, model, device=device)
 
     metrics_lib.reset_meters("validate")

@@ -85,6 +85,10 @@ class ModelConfig:
     freeze_resnet: bool = False
     freeze_encoder_transformer: bool = False
     freeze_encoder_transformer_layers: int = 0
+    # LayerDrop pruning at load (comma-separated checkpoint layers to keep):
+    # parsed, and cli/train raises when set (ROADMAP.md A.4)
+    encoder_layers_to_keep: str = ""
+    decoder_layers_to_keep: str = ""
 
     dtype: str = "bfloat16"  # compute dtype; params are always fp32
 
@@ -153,7 +157,15 @@ class TaskConfig:
     num_seg_tokens: int = 150
     category_list: str = ""
     prompt_prefix: str = "what is the segmentation map of the image? object:"
+    artificial_image_type: str = "rand_k-1-33"
     epoch_row_count: int = -1
+    # validate (and so choose the best checkpoint) with the EMA weights
+    uses_ema: bool = False
+    # >0: threads that build the rows of a training batch (data/iterators.py)
+    num_workers: int = 0
+    # False: the image-free fast path; the training rows are read but never
+    # decoded (cli/train sets it when no step reads the real images)
+    decode_real_images: bool = True
 
     @property
     def categories(self) -> List[str]:
@@ -191,19 +203,57 @@ class OptimizationConfig:
     adam_eps: float = 1e-8
     clip_norm: float = 1.0
     update_freq: int = 1
+    max_epoch: int = 20
+    # stop once this many optimizer updates have run (0 = unlimited)
+    max_update: int = 0
+    # stop once the training wall time exceeds this many hours (0 = unlimited)
+    stop_time_hours: float = 0.0
+    batch_size: int = 4
     batch_size_valid: int = 1  # rows of one evaluation group at most
     seed: int = 7
 
 
 @dataclass
 class CheckpointConfig:
+    save_dir: str = "checkpoints"
     restore_file: str = ""
+    # start a fresh run (fresh optimizer, meters and dataloader) from these
+    # weights; exclusive with the reset flags
+    finetune_from_model: str = ""
+    reset_optimizer: bool = False
+    reset_dataloader: bool = False
+    reset_meters: bool = False
+    save_interval: int = 1
+    # mid-epoch checkpoints every N updates (0 = off), with the iterator's
+    # cursor, so a resume goes on inside the epoch
+    save_interval_updates: int = 0
+    validate_interval: int = 1
+    keep_last_epochs: int = 1
+    keep_best_checkpoints: int = 1
+    # rotation of the --save-interval-updates checkpoints (-1 = keep all)
+    keep_interval_updates: int = -1
+    best_checkpoint_metric: str = "mIoU"
+    maximize_best_checkpoint_metric: bool = True
+    # end training after this many validations in a row without a better
+    # best metric (0 = off)
+    patience: int = 0
+    no_save: bool = False
+    # an absent --restore-file is fabricated with ofa_base.pt's shapes and
+    # random weights, and loaded through the whole .pt loader
+    dry_weights: bool = False
 
 
 @dataclass
 class CommonConfig:
+    log_interval: int = 10
+    log_format: str = "simple"  # simple | json
+    # parsed; a non-empty value raises (utils/progress.py, ROADMAP.md A.10)
+    tensorboard_logdir: Optional[str] = None
+    wandb_project: Optional[str] = None
     ema_decay: float = 0.0  # 0 disables EMA
     ema_fp32: bool = False
+    # abort after this many updates in a row skipped for a non-finite gradient
+    max_consecutive_nonfinite: int = 10
 
 
 @dataclass

@@ -1,9 +1,11 @@
-"""The evaluation resize of the data pipeline, in numpy, equal to cv2's.
+"""The data pipeline's image transforms, in numpy, equal to cv2's.
 
-The JAX package's ``data/transforms.py`` resizes with
-``cv2.resize(..., INTER_LINEAR)`` (mmcv's image ops are cv2-backed).  The
-port depends on no image library, so ``resize_image`` reproduces what cv2
-computes for uint8 images, bit for bit:
+The JAX package's ``data/transforms.py`` resizes with ``cv2.resize`` and
+converts colours with ``cv2.cvtColor`` (mmcv's image ops are cv2-backed).
+The port depends on no image library, so this module reproduces what cv2
+computes for uint8 images, bit for bit.
+
+``resize_image`` with ``INTER_LINEAR`` semantics:
 
   - an output of the input's size is a copy;
   - an exact 2x down-scale on both sides is cv2's area average:
@@ -16,12 +18,39 @@ computes for uint8 images, bit for bit:
     clamped but whose weights are not, in the arithmetic of cv2's vector code,
     ``(((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16) + 2) >> 2``.
 
-``tests/test_torch_transforms.py`` holds it equal to the JAX package's
-``KeepRatioResize`` (cv2) over sizes from 1 to 1,500 on each side.  The
-training augmentations of that module come with the training pipeline.
+``resize_image(..., nearest=True)``, ``INTER_NEAREST``: output x reads source
+``min(floor(x * (1 / (out / in))), in - 1)`` in float64, for labels of any
+integer dtype (``ops/resize.py``'s nearest rule, which the artificial grids
+use, is another one).
+
+``bgr_to_hsv_u8`` and ``hsv_to_bgr_u8``, ``COLOR_BGR2HSV`` and
+``COLOR_HSV2BGR`` on 8-bit images (hue 0..179):
+
+  - to HSV in integers: ``v = max``, ``diff = max - min``,
+    ``s = (diff * sdiv[v] + 2^11) >> 12``, hue from the sector of the maximum
+    times ``hdiv[diff]``, rounded the same way, plus 180 when negative;
+    ``sdiv[i] = round(255 * 2^12 / i)`` and ``hdiv[i] = round(180 * 2^12 /
+    (6 i))``, rounded half to even;
+  - back in float32: ``h * (6 / 180)``, ``s * (1 / 255)``, ``v * (1 / 255)``,
+    the sector ``floor(h)`` and its fraction f, the four values ``v``,
+    ``v (1 - s)``, ``v (1 - s f)``, ``v (1 - s (1 - f))`` with ``1 - s f``
+    and ``1 - s (1 - f)`` each one fused multiply-add (cv2 built for AVX2
+    with FMA), each channel times 255, truncated in the blocks of 32 pixels
+    that cv2's vector code takes from the start of each row and rounded half
+    to even in the rest of the row.
+
+The training augmentations of mmseg v0.28 (the reference's
+data/mm_data/segmentation_dataset.py:157-173) are the JAX package's:
+``ResizeRatioRange``, ``RandomCrop`` with its ``cat_max_ratio`` retries,
+``RandomFlip`` and ``PhotoMetricDistortion``, each drawing from the given
+``numpy.random.Generator`` call for call in the JAX order, so a row's
+augmentation is the JAX package's to the byte.  ``KeepRatioResize`` is the
+evaluation resize.  ``tests/test_torch_transforms.py`` and
+``tests/test_torch_train_transforms.py`` hold all of it against the JAX
+package's cv2 transforms.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -90,13 +119,24 @@ def _bilinear_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return out.astype(np.uint8).reshape((out_h, out_w) + img.shape[2:])
 
 
-def resize_image(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_LINEAR)``
-    for a uint8 image (h, w) or (h, w, c)."""
-    if img.dtype != np.uint8:
-        raise TypeError(f"resize_image takes uint8 images, not {img.dtype}")
+def _nearest_source(n_in: int, n_out: int) -> np.ndarray:
+    """cv2's INTER_NEAREST source index of each output position along one
+    axis: min(floor(x * (1 / (out / in))), in - 1), in float64."""
+    ifx = 1.0 / (float(n_out) / n_in)
+    return np.minimum(np.floor(np.arange(n_out, dtype=np.float64) * ifx).astype(np.int64),
+                      n_in - 1)
+
+
+def resize_image(img: np.ndarray, out_hw: Tuple[int, int], nearest: bool = False) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=...)`` for an image
+    (h, w) or (h, w, c): ``INTER_LINEAR`` for uint8, or ``INTER_NEAREST``
+    (``nearest``) for any dtype."""
     h, w = img.shape[:2]
     out_h, out_w = out_hw
+    if nearest:
+        return img[_nearest_source(h, out_h)[:, None], _nearest_source(w, out_w)[None, :]]
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize_image takes uint8 images, not {img.dtype}")
     if (h, w) == (out_h, out_w):
         return img.copy()
     if (h, w) == (2 * out_h, 2 * out_w):
@@ -104,6 +144,35 @@ def resize_image(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
         return ((s[0::2, 0::2] + s[0::2, 1::2] + s[1::2, 0::2] + s[1::2, 1::2] + 2) >> 2
                 ).astype(np.uint8)
     return _bilinear_u8(img, out_h, out_w)
+
+
+class ResizeRatioRange:
+    """mmseg Resize with ratio_range + min_size, keep_ratio=True.
+
+    Samples ratio ~ U(lo, hi); scale = (img_scale[0]*r, img_scale[1]*r); with
+    min_size the scale is replaced by an aspect-exact (new_h, new_w) whose
+    short side is max(min(scale), min_size) (mmseg Resize._resize_img).  The
+    image is resized bilinearly, the segmentation map by nearest."""
+
+    def __init__(self, img_scale: Tuple[int, int], ratio_range=(0.5, 2.0),
+                 min_size: Optional[int] = None):
+        self.img_scale = img_scale
+        self.ratio_range = ratio_range
+        self.min_size = min_size
+
+    def __call__(self, img, seg, rng: np.random.Generator):
+        lo, hi = self.ratio_range
+        ratio = rng.uniform(lo, hi)
+        scale = (int(self.img_scale[0] * ratio), int(self.img_scale[1] * ratio))
+        h, w = img.shape[:2]
+        if self.min_size is not None:
+            new_short = max(min(scale), self.min_size)
+            if h > w:
+                scale = (new_short * h / w, new_short)
+            else:
+                scale = (new_short, new_short * w / h)
+        out_hw = imrescale_size(h, w, scale)
+        return resize_image(img, out_hw), resize_image(seg, out_hw, nearest=True)
 
 
 class KeepRatioResize:
@@ -118,3 +187,138 @@ class KeepRatioResize:
     def __call__(self, img):
         h, w = img.shape[:2]
         return resize_image(img, imrescale_size(h, w, self.img_scale))
+
+
+class RandomCrop:
+    """mmseg RandomCrop with cat_max_ratio retry (10 attempts, ignore 255)."""
+
+    def __init__(self, crop_size: Tuple[int, int], cat_max_ratio=0.75, ignore_index=255):
+        self.crop_size = crop_size
+        self.cat_max_ratio = cat_max_ratio
+        self.ignore_index = ignore_index
+
+    def _bbox(self, shape, rng):
+        margin_h = max(shape[0] - self.crop_size[0], 0)
+        margin_w = max(shape[1] - self.crop_size[1], 0)
+        oh = rng.integers(0, margin_h + 1)
+        ow = rng.integers(0, margin_w + 1)
+        return oh, oh + self.crop_size[0], ow, ow + self.crop_size[1]
+
+    def __call__(self, img, seg, rng: np.random.Generator):
+        bbox = self._bbox(img.shape, rng)
+        if self.cat_max_ratio < 1.0:
+            for _ in range(10):
+                y1, y2, x1, x2 = bbox
+                labels, cnt = np.unique(seg[y1:y2, x1:x2], return_counts=True)
+                cnt = cnt[labels != self.ignore_index]
+                if len(cnt) > 1 and np.max(cnt) / np.sum(cnt) < self.cat_max_ratio:
+                    break
+                bbox = self._bbox(img.shape, rng)
+        y1, y2, x1, x2 = bbox
+        return img[y1:y2, x1:x2], seg[y1:y2, x1:x2]
+
+
+class RandomFlip:
+    def __init__(self, prob=0.5):
+        self.prob = prob
+
+    def __call__(self, img, seg, rng: np.random.Generator):
+        if rng.uniform() < self.prob:
+            img = np.ascontiguousarray(img[:, ::-1])
+            seg = np.ascontiguousarray(seg[:, ::-1])
+        return img, seg
+
+
+_HSV_SHIFT = 12
+_SDIV = np.rint((255 << _HSV_SHIFT) / np.maximum(np.arange(256), 1.0)).astype(np.int32)
+_HDIV180 = np.rint((180 << _HSV_SHIFT) / (6.0 * np.maximum(np.arange(256), 1.0))).astype(np.int32)
+_SDIV[0] = _HDIV180[0] = 0
+# cv2 converts HSV to BGR a row at a time: blocks of this many pixels in its
+# vector code (32 uint8 lanes of AVX2, the build the JAX package's tests run),
+# whose products it truncates, then the row's last w % 32 pixels one by one,
+# rounded half to even
+_CV2_HSV_BLOCK = 32
+# (b, g, r) of each hue sector, as indices into (v, v(1-s), v(1-sf), v(1-s(1-f)))
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def bgr_to_hsv_u8(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2HSV)`` of a uint8 (..., 3) image."""
+    bgr = img.astype(np.int32)
+    b, g, r = bgr[..., 0], bgr[..., 1], bgr[..., 2]
+    v = bgr.max(axis=-1)
+    diff = v - bgr.min(axis=-1)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV180[diff] + half) >> _HSV_SHIFT
+    h += np.where(h < 0, 180, 0)
+    return np.stack([h, s, v], axis=-1).astype(np.uint8)
+
+
+def hsv_to_bgr_u8(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)`` of a uint8 (h, w, 3) image
+    with hue in 0..179."""
+    f32 = np.float32
+    x = hsv.astype(f32)
+    h = x[..., 0] * (f32(6.0) / f32(180.0))
+    s = x[..., 1] * (f32(1.0) / f32(255.0))
+    v = x[..., 2] * (f32(1.0) / f32(255.0))
+    sector = np.floor(h)
+    h = h - sector
+    one = f32(1.0)
+
+    def one_minus_s_times(t):
+        """1 - s t rounded once, a fused multiply-add: the fp64 product of
+        two fp32 values is exact"""
+        return (1.0 - s.astype(np.float64) * t).astype(f32)
+
+    tab = np.stack([v, v * (one - s), v * one_minus_s_times(h),
+                    v * one_minus_s_times(one - h)], axis=-1)
+    pick = _SECTORS[sector.astype(np.int64) % 6]  # (h, w, 3)
+    bgr = np.take_along_axis(tab, pick, axis=-1) * f32(255.0)
+    w = hsv.shape[1]
+    vector = np.arange(w) < w // _CV2_HSV_BLOCK * _CV2_HSV_BLOCK
+    bgr = np.where(vector[:, None], np.trunc(bgr), np.rint(bgr))
+    return np.clip(bgr, 0, 255).astype(np.uint8)
+
+
+class PhotoMetricDistortion:
+    """mmseg PhotoMetricDistortion on BGR uint8: random brightness, random
+    contrast (before or after), saturation and hue jitter in HSV."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18):
+        self.brightness_delta = brightness_delta
+        self.contrast_lower, self.contrast_upper = contrast_range
+        self.saturation_lower, self.saturation_upper = saturation_range
+        self.hue_delta = hue_delta
+
+    @staticmethod
+    def _convert(img, alpha=1.0, beta=0.0):
+        img = img.astype(np.float32) * alpha + beta
+        return np.clip(img, 0, 255).astype(np.uint8)
+
+    def __call__(self, img, rng: np.random.Generator):
+        if rng.integers(2):
+            img = self._convert(
+                img, beta=rng.uniform(-self.brightness_delta, self.brightness_delta))
+        mode = rng.integers(2)
+        if mode == 1 and rng.integers(2):
+            img = self._convert(img, alpha=rng.uniform(self.contrast_lower, self.contrast_upper))
+        # saturation
+        if rng.integers(2):
+            hsv = bgr_to_hsv_u8(img)
+            hsv[:, :, 1] = self._convert(
+                hsv[:, :, 1], alpha=rng.uniform(self.saturation_lower, self.saturation_upper))
+            img = hsv_to_bgr_u8(hsv)
+        # hue
+        if rng.integers(2):
+            hsv = bgr_to_hsv_u8(img)
+            hsv[:, :, 0] = (
+                hsv[:, :, 0].astype(int) + rng.integers(-self.hue_delta, self.hue_delta + 1)
+            ) % 180
+            img = hsv_to_bgr_u8(hsv)
+        if mode == 0 and rng.integers(2):
+            img = self._convert(img, alpha=rng.uniform(self.contrast_lower, self.contrast_upper))
+        return img

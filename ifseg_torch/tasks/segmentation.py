@@ -6,10 +6,10 @@ A copy of the JAX package's ``tasks/segmentation.py`` (tasks/mm_tasks/segmentati
     symbols (segmentation.py:109-136) and the GPT-2 BPE (ofa_task.py:167-185)
   - ``load_dataset`` reads the TSV (train = paths[(epoch-1) % (len-1)],
     valid = last; segmentation.py:139-155) with the epoch row cap
+  - ``get_batch_iterator`` replicates the custom sequential sampler
+    (ofa_task.py:120-165): contiguous batches, no shuffling
   - ``reduce_metrics`` aggregates per-class areas into mIoU/aAcc/mAcc meters
     (segmentation.py:231-264, seg_criterion.py:415-572)
-
-``get_batch_iterator`` comes with the training pipeline (``cli/train``).
 """
 
 import logging
@@ -20,6 +20,7 @@ import numpy as np
 
 from ifseg_torch.config import Config, TaskConfig
 from ifseg_torch.data.file_dataset import FileDataset
+from ifseg_torch.data.iterators import EpochBatchIterator
 from ifseg_torch.data.segmentation_dataset import SegmentationDataset
 from ifseg_torch.tokenization.bert_bpe import BertBPE
 from ifseg_torch.tokenization.dictionary import Dictionary, build_seg_dictionary
@@ -76,10 +77,25 @@ class SegmentationTask:
         self.datasets[split] = ds
         return ds
 
-    def get_batch_iterator(self, split: str, batch_size: int, seed: int = 1, epoch: int = 1):
-        raise NotImplementedError(
-            "the batch iterator (data/iterators.py) comes with cli/train (ROADMAP.md A.5); "
-            "evaluation reads rows through Evaluator.eval_dataset")
+    def get_batch_iterator(self, split: str, batch_size: int, seed: int = 1,
+                           epoch: int = 1) -> EpochBatchIterator:
+        """Training batches (``SegBatch``es, the task's ``num_workers``
+        threads building their rows).  Only the train split has one: the
+        evaluation rows go through ``Evaluator.eval_dataset``."""
+        if split != "train":
+            raise ValueError(f"get_batch_iterator: only the train split has batches, not {split!r} "
+                             "(evaluation rows go through Evaluator.eval_dataset)")
+        ds = self.datasets[split]
+        return EpochBatchIterator(
+            num_rows=len(ds),
+            batch_size=batch_size,
+            make_example=ds.get_train_example,
+            collate=ds.collate_train,
+            seed=seed,
+            epoch=epoch,
+            num_workers=self.cfg.num_workers,
+            row_offset=ds.dataset.start_pos,
+        )
 
     # ---------------------------------------------------------------- metrics
 

@@ -15,12 +15,14 @@ pre-tokenizer: that one applies the regular expression
 with the ``regex`` package, which the standard library's ``re`` cannot (it
 has no ``\p{L}``, and ``[^\W\d_]`` also takes the ``No`` and ``Nl``
 characters).  ``pretokenize`` is a scanner that tries the same alternatives
-in the same order at each position, with the letter and number classes from
-``unicodedata`` and ``regex``'s whitespace class.  Where the two Unicode
-databases differ (code points that this Python's database leaves
-unassigned), ``tests/test_torch_tokenization.py`` names them.
+in the same order at each position, with ``regex``'s whitespace class and
+its letter and number classes: ``unicodedata``'s categories, and for the
+code points this Python's database leaves unassigned (``regex`` carries a
+newer Unicode) the table ``_NEWER_LN``.  ``tests/test_torch_tokenization.py``
+holds the classes equal to ``regex``'s on every code point.
 """
 
+import bisect
 import json
 import os
 import unicodedata
@@ -30,14 +32,46 @@ from typing import List
 _CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
 
 
+# (first, last, class) of the code points that ``regex`` classes as \p{L}
+# or \p{N} and Python 3.12's ``unicodedata`` (Unicode 15.0) leaves
+# unassigned (category Cn): 9,568 letters and 93 numbers of later Unicode
+# versions.  Made with ``regex`` 2026.7.19 by walking every code point c
+# with category(c) == "Cn" and merging the runs of equal
+# ``"L" if regex.match(r"\p{L}", c) else "N" if regex.match(r"\p{N}", c)``.
+_NEWER_LN = (
+    (0x0088F, 0x0088F, "L"), (0x00C5C, 0x00C5C, "L"), (0x00CDC, 0x00CDC, "L"),
+    (0x01C89, 0x01C8A, "L"), (0x0A7CB, 0x0A7CF, "L"), (0x0A7D2, 0x0A7D2, "L"),
+    (0x0A7D4, 0x0A7D4, "L"), (0x0A7DA, 0x0A7DC, "L"), (0x0A7F1, 0x0A7F1, "L"),
+    (0x105C0, 0x105F3, "L"), (0x10940, 0x10959, "L"), (0x10D40, 0x10D49, "N"),
+    (0x10D4A, 0x10D65, "L"), (0x10D6F, 0x10D85, "L"), (0x10EC2, 0x10EC7, "L"),
+    (0x11380, 0x11389, "L"), (0x1138B, 0x1138B, "L"), (0x1138E, 0x1138E, "L"),
+    (0x11390, 0x113B5, "L"), (0x113B7, 0x113B7, "L"), (0x113D1, 0x113D1, "L"),
+    (0x113D3, 0x113D3, "L"), (0x116D0, 0x116E3, "N"), (0x11BC0, 0x11BE0, "L"),
+    (0x11BF0, 0x11BF9, "N"), (0x11DB0, 0x11DDB, "L"), (0x11DE0, 0x11DE9, "N"),
+    (0x13460, 0x143FA, "L"), (0x16100, 0x1611D, "L"), (0x16130, 0x16139, "N"),
+    (0x16D40, 0x16D6C, "L"), (0x16D70, 0x16D79, "N"), (0x16EA0, 0x16EB8, "L"),
+    (0x16EBB, 0x16ED3, "L"), (0x16FF2, 0x16FF3, "L"), (0x16FF4, 0x16FF6, "N"),
+    (0x187F8, 0x187FF, "L"), (0x18CFF, 0x18CFF, "L"), (0x18D09, 0x18D1E, "L"),
+    (0x18D80, 0x18DF2, "L"), (0x1CCF0, 0x1CCF9, "N"), (0x1E5D0, 0x1E5ED, "L"),
+    (0x1E5F0, 0x1E5F0, "L"), (0x1E5F1, 0x1E5FA, "N"), (0x1E6C0, 0x1E6DE, "L"),
+    (0x1E6E0, 0x1E6E2, "L"), (0x1E6E4, 0x1E6E5, "L"), (0x1E6E7, 0x1E6ED, "L"),
+    (0x1E6F0, 0x1E6F4, "L"), (0x1E6FE, 0x1E6FF, "L"), (0x2B73A, 0x2B73F, "L"),
+    (0x2CEA2, 0x2CEAD, "L"), (0x2EBF0, 0x2EE5D, "L"), (0x323B0, 0x33479, "L"),
+)
+_NEWER_FIRST = [first for first, _, _ in _NEWER_LN]
+
+
 def _kind(c: str) -> str:
     r"""'S' whitespace, 'L' letter, 'N' number, 'O' anything else.  Whitespace
     is ``str.isspace`` without U+001C..U+001F, which ``regex``'s ``\s`` does
     not take."""
     if c.isspace() and not "\x1c" <= c <= "\x1f":
         return "S"
-    cat = unicodedata.category(c)[0]
-    return cat if cat in "LN" else "O"
+    cat = unicodedata.category(c)
+    if cat == "Cn":
+        i = bisect.bisect_right(_NEWER_FIRST, ord(c)) - 1
+        return _NEWER_LN[i][2] if i >= 0 and ord(c) <= _NEWER_LN[i][1] else "O"
+    return cat[0] if cat[0] in "LN" else "O"
 
 
 def pretokenize(text: str) -> List[str]:

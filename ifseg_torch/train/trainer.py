@@ -21,17 +21,22 @@ device, eagerly:
 
 Dropout, DropPath and LayerDrop draw from one ``torch.Generator`` on the
 trainer's device, so a run repeats bit-for-bit from its seed (up to the
-dbias atomics of the attention backward on a card).  Meshes, shardings and
-activation checkpointing of layers are not ported.
+dbias atomics of the attention backward on a card).  ``state_dict`` /
+``load_state_dict`` carry the whole training state (fp32 parameters, the
+EMA copy, Adam's count and moments by parameter name, the step, the
+generator's state), so a run that saves and restores goes on bit for bit
+like one that never stopped.  Meshes, shardings and activation
+checkpointing of layers are not ported.
 """
 
+import copy
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ifseg_torch.config import Config
-from ifseg_torch.data.segmentation_dataset import eval_mean_std
+from ifseg_torch.data.segmentation_dataset import SegBatch, eval_mean_std
 from ifseg_torch.models.attention import set_generator
 from ifseg_torch.models.encoder import compute_dtype
 from ifseg_torch.models.segofa import SegOFA
@@ -71,6 +76,7 @@ class Trainer:
         self.model: Optional[SegOFA] = None
         self.optimizer: Optional[optim_lib.FairseqAdam] = None
         self.ema: Optional[Dict[str, torch.Tensor]] = None
+        self._ema_model: Optional[SegOFA] = None
         self.step = 0
 
     # ----------------------------------------------------------------- setup
@@ -94,22 +100,93 @@ class Trainer:
         )
         for name, p in self.model.named_parameters():
             p.requires_grad_(self.mask[name])
-        if cfg.model.freeze_entire_resnet or cfg.model.freeze_resnet:
-            # frozen stem: fold the batch norms into the convolutions once
-            self.model.encoder.embed_images.fold(compute_dtype(cfg.model))
+        self._fold_frozen_stem()
         self.ema = (
             ema_init(self.model, cfg.common.ema_fp32) if cfg.common.ema_decay > 0 else None
         )
+        self._ema_model = None
         self.step = 0
         return self
+
+    def _fold_frozen_stem(self) -> None:
+        """A frozen stem: fold the batch norms into the convolutions, once
+        per change of its weights."""
+        if self.cfg.model.freeze_entire_resnet or self.cfg.model.freeze_resnet:
+            self.model.encoder.embed_images.fold(compute_dtype(self.cfg.model))
+
+    def _trainable_names(self):
+        return [n for n, _ in self.model.named_parameters() if self.mask[n]]
 
     def load_optimizer_state(self, state: Dict) -> None:
         """Adam count and moments from ``state`` (``{"count", "mu", "nu"}`` by
         parameter name, e.g. ``adam_state_from_jax``); the step counter follows
         the count."""
-        names = [n for n, _ in self.model.named_parameters() if self.mask[n]]
-        self.optimizer.load_state(names, state)
+        self.optimizer.load_state(self._trainable_names(), state)
         self.step = self.optimizer.count
+
+    # ----------------------------------------------------------------- state
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The whole training state as CPU copies: ``model`` (the model's
+        state dict: fp32 parameters and buffers), ``ema`` (the EMA copy by
+        parameter name, or None), ``optimizer`` (Adam's ``count`` and its
+        ``mu`` and ``nu`` by parameter name), ``step`` and ``generator`` (the
+        dropout generator's state)."""
+        host = lambda t: t.detach().to("cpu", copy=True)
+        names = self._trainable_names()
+        opt = self.optimizer
+        return {
+            "model": {k: host(v) for k, v in self.model.state_dict().items()},
+            "ema": None if self.ema is None else {k: host(v) for k, v in self.ema.items()},
+            "optimizer": {"count": opt.count,
+                          "mu": {n: host(m) for n, m in zip(names, opt.mu)},
+                          "nu": {n: host(v) for n, v in zip(names, opt.nu)}},
+            "step": self.step,
+            "generator": self.generator.get_state(),
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Take the parts of a ``state_dict()`` that ``state`` holds (all, or
+        e.g. only ``model`` and ``ema``), in place: the optimizer keeps its
+        parameter tensors."""
+        if "model" in state:
+            self.model.load_state_dict(state["model"], strict=True)
+            self._fold_frozen_stem()
+        if state.get("ema") is not None and self.ema is not None:
+            for k, v in self.ema.items():
+                v.copy_(state["ema"][k])
+        if "optimizer" in state:
+            self.load_optimizer_state(state["optimizer"])
+        if "step" in state:
+            self.step = int(state["step"])
+        if "generator" in state:
+            self.generator.set_state(state["generator"])
+
+    def eval_model(self) -> SegOFA:
+        """The model whose weights validation reads: under ``--uses-ema``
+        (with an EMA copy) a module of its own, built at the first call and
+        holding the EMA weights as they stood then; else the training model
+        itself.  ``sync_eval_weights`` brings the EMA module up to date."""
+        if not (self.cfg.task.uses_ema and self.ema is not None):
+            return self.model
+        if self._ema_model is None:
+            self._ema_model = copy.deepcopy(self.model, {id(self.generator): self.generator})
+            self._ema_model.requires_grad_(False)
+            self.sync_eval_weights()
+        return self._ema_model
+
+    @torch.no_grad()
+    def sync_eval_weights(self) -> None:
+        """Copy the current EMA weights, in place, into the module that
+        ``eval_model`` returned, so that an ``Evaluator`` built on that module
+        evaluates them at its next ``refresh_weights``.  Without an EMA
+        module (no ``--uses-ema``), validation reads the training model and
+        there is nothing to copy."""
+        if self._ema_model is None:
+            return
+        for name, p in self._ema_model.named_parameters():
+            p.copy_(self.ema[name])
 
     # ----------------------------------------------------------------- batch
 
@@ -128,10 +205,15 @@ class Trainer:
         return t.long()
 
     def prepare_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """A batch, a dict of numpy arrays or tensors (``patch_images``,
-        ``src_tokens``, ``bos_tokens``, ``target``, ``downsampled_target``,
-        ``aux_grid_ids``, ``aux_target``; what a step does not read may be
-        missing or None) -> tensors on the trainer's device."""
+        """A batch, a ``SegBatch`` or a dict of numpy arrays or tensors
+        (``patch_images``, ``src_tokens``, ``bos_tokens``, ``target``,
+        ``downsampled_target``, ``aux_grid_ids``, ``aux_target``; what a step
+        does not read may be missing or None) -> tensors on the trainer's
+        device."""
+        if isinstance(batch, SegBatch):
+            batch = {k: getattr(batch, k) for k in (
+                "patch_images", "src_tokens", "bos_tokens", "target", "downsampled_target",
+                "aux_grid_ids", "aux_target")}
         out = {}
         for k, v in batch.items():
             if v is None:

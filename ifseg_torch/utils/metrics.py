@@ -233,6 +233,15 @@ _aggregators: "OrderedDict[str, MetersDict]" = OrderedDict()
 _active: Dict[str, MetersDict] = {}
 
 
+def reset() -> None:
+    """Drop every aggregator and its meters (fairseq's metrics.reset): a
+    training run starts from an empty registry, whatever ran before it in
+    the process."""
+    _aggregators.clear()
+    _active.clear()
+    _default()
+
+
 def _default():
     if "default" not in _aggregators:
         _aggregators["default"] = MetersDict()

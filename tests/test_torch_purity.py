@@ -58,7 +58,9 @@ def test_importing_every_module_loads_no_jax():
                  "ifseg_torch.data.file_dataset", "ifseg_torch.tasks.segmentation",
                  "ifseg_torch.utils.metrics",
                  "ifseg_torch.tokenization.gpt2_bpe", "ifseg_torch.tokenization.bert_bpe",
-                 "ifseg_torch.tokenization.dictionary", "ifseg_torch.checkpoint.convert"):
+                 "ifseg_torch.tokenization.dictionary", "ifseg_torch.checkpoint.convert",
+                 "ifseg_torch.cli.train", "ifseg_torch.checkpoint.manager",
+                 "ifseg_torch.data.iterators", "ifseg_torch.utils.progress"):
         assert name in report["modules"], name
 
 
@@ -74,7 +76,10 @@ def test_the_scan_covers_the_evaluation_slice():
                  "ifseg_torch/tools/profile_eval.py", "chip_smoke.py",
                  "ifseg_torch/cli/validate.py", "ifseg_torch/data/png.py",
                  "ifseg_torch/data/transforms.py", "ifseg_torch/tokenization/gpt2_bpe.py",
-                 "ifseg_torch/utils/metrics.py", "ifseg_torch/tasks/segmentation.py"):
+                 "ifseg_torch/utils/metrics.py", "ifseg_torch/tasks/segmentation.py",
+                 "ifseg_torch/cli/train.py", "ifseg_torch/checkpoint/manager.py",
+                 "ifseg_torch/data/iterators.py", "ifseg_torch/utils/progress.py",
+                 "ifseg_torch/train/trainer.py"):
         assert path in scanned, path
 
 

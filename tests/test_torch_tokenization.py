@@ -64,11 +64,18 @@ def test_category_prompt_equals_jax(bpe_dir, bpes, name, length):
     assert got.class_tokens.shape[0] == n + 1
 
 
-def test_training_split_is_not_served(bpe_dir, bpes):
+def test_training_split_equals_jax(bpe_dir, bpes):
+    """The training split's prompt and class table are the JAX package's,
+    and it carries the training transforms, not the evaluation resize."""
     cats, n = _script("coco_unseen")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        TorchDataset("train", None, bpes[1], tdict.build_seg_dictionary(bpe_dir, num_seg_tokens=n),
-                     TorchTaskConfig(num_seg_tokens=n, category_list=cats))
+    kw = dict(num_seg_tokens=n, category_list=cats, bpe_dir=bpe_dir)
+    got = TorchDataset("train", None, bpes[1], tdict.build_seg_dictionary(bpe_dir, num_seg_tokens=n),
+                       TorchTaskConfig(**kw))
+    want = JaxDataset("train", None, bpes[0], jdict.build_seg_dictionary(bpe_dir, num_seg_tokens=n),
+                      JaxTaskConfig(**kw))
+    np.testing.assert_array_equal(got.src_item, want.src_item)
+    np.testing.assert_array_equal(got.class_tokens, want.class_tokens)
+    assert not hasattr(got, "eval_resize") and got.crop.crop_size == want.crop.crop_size
 
 
 ALPHABETS = [
@@ -100,14 +107,11 @@ def test_whitespace_class_equals_regex_everywhere():
         assert (tgpt2._kind(c) == "S") == bool(space.match(c)), hex(cp)
 
 
-def test_letter_and_number_classes_differ_only_where_python_has_no_character():
-    """``regex`` carries a newer Unicode database than this Python's
-    ``unicodedata`` (Unicode 15.0 for Python 3.12): every code point whose
-    letter or number class differs between the two is one that Python's
-    database leaves unassigned (category Cn), a character added by a later
-    Unicode version.  The pre-tokenizer reads Python's database, so text
-    holding such characters splits otherwise than the JAX package's;
-    ``ROADMAP.md`` lists this."""
+def test_letter_and_number_classes_equal_regex_on_every_code_point():
+    """The pre-tokenizer's letter and number classes are ``regex``'s on all
+    0x110000 code points, including those this Python's ``unicodedata``
+    leaves unassigned and ``regex``'s newer Unicode assigns (the port's
+    table ``_NEWER_LN``)."""
     letter, number = regex.compile(r"\p{L}"), regex.compile(r"\p{N}")
     differ = []
     for cp in range(0x110000):
@@ -115,14 +119,17 @@ def test_letter_and_number_classes_differ_only_where_python_has_no_character():
         k = tgpt2._kind(c)
         if (k == "L") != bool(letter.match(c)) or (k == "N") != bool(number.match(c)):
             differ.append(cp)
-    assert differ, "the two databases agree: drop this test and the ROADMAP entry"
-    assert all(unicodedata.category(chr(cp)) == "Cn" for cp in differ)
+    assert differ == []
+    assert any(unicodedata.category(chr(first)) == "Cn" for first, _, _ in tgpt2._NEWER_LN)
 
 
 @pytest.mark.parametrize("text", [
     "what is the segmentation map of the image? object:",
     " chest of drawers", " café résumé naïve", " 中文 字符 ", "x  y\t\tz\n", " 1234 5.6e7",
     " don't we'll they've I'm", " emoji 🙂 and ½",
+    # letters and numbers of a Unicode newer than Python 3.12's: Egyptian
+    # hieroglyphs of U+13460.., Kirat Rai digits U+16D70.., U+0C5C, U+A7CB
+    " \U00013460\U00013461x 12\U00016D70\U00016D71 \u0c5c\ua7cb!",
 ])
 def test_gpt2_bpe_equals_jax(bpes, text):
     jbpe, tbpe = bpes
