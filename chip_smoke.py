@@ -5,10 +5,10 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build every kernel with nvcc and the PNG decoder's host C++ source with
-     c++ (one process per source, all at once), with each kernel
-     instantiation's registers, spill and stack from the
-     ``-Xptxas -v`` summary, and the HGMMA count and shared memory of the
+  2. build every kernel with nvcc and the host C++ sources of the PNG
+     decoder and the dense CRF with c++ (one process per source, all at
+     once), with each kernel instantiation's registers, spill and stack from
+     the ``-Xptxas -v`` summary, and the HGMMA count and shared memory of the
      three wgmma attention libraries at both head dims;
   3. each kernel against its plain PyTorch version, with its time, the plain
      version's, one PyTorch library call's (timed only here, never used by
@@ -23,12 +23,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      with Lk > Lq, a padded key tile, row-padded bias storage), checked but
      not timed, the backward kernels on dense and on row-padded biases at
      every case, the forward also at phase 11's validate sites (215 text
-     tokens); the host time of a launch's tensor-map encodes; the
-     LayerNorm kernel at every (rows, width, dtype) that a served batch-32
-     forward, an evaluation group of 8 at the (512, 768) bucket (with 32
-     and with 215 text tokens) and a monitoring forward at batch 16 give it
-     (the fp32 position LayerNorms included), a ragged row count, a narrow and the widest width, and its
-     autograd Function's forward + backward beside ``F.layer_norm``'s;
+     tokens) and at phase 13's (the daemon's batch of 8 at 512 x 512 with
+     215 tokens; cli.infer's batch-1 forwards over 32 x 43 cells with 215
+     and 17 tokens), checked; the host time of a launch's tensor-map
+     encodes; the LayerNorm kernel at every (rows, width, dtype) that a
+     served batch-32 forward, an evaluation group of 8 at the (512, 768)
+     bucket (with 32 and with 215 text tokens) and a monitoring forward at
+     batch 16 give it (the fp32 position LayerNorms included), timed, and
+     that phase 13's two paths give it, checked, a ragged row count, a
+     narrow and the widest width, and its autograd Function's forward +
+     backward beside ``F.layer_norm``'s;
   4. the serving path at full OFA-Base 512px width, random weights from seed
      0: ``SegServer`` on the card answers batches of 1, 8 and 32; the launch
      counts of the kernels (and the forward's bias routes) are set to 0 just
@@ -93,7 +97,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      bit for bit; the image-free fast path (no training row decoded); the
      first epoch on one thread (--num-workers=0); s/step, data_wait, save and
      resume ms, checkpoint bytes, validation img/s and mIoU, peak memory;
- 13. one JSON line listing every kernel, the nvidia-smi line, and the last
+ 13. the serving surface at OFA-Base full width and depth, phase 11's
+     fabricated checkpoint: ``ifseg_torch.cli.serve`` (150 ADE classes,
+     batches of 8, a 5 ms window) over HTTP on localhost, 64 PNG requests of
+     480 x 640 to 1,024 x 1,366 from 1 and from 8 clients, every answer (mask
+     PNG or JSON areas) held to ``forward_served`` on the padded batch that
+     held its image, a JPEG body refused with 400; requests/s, latency p50 and
+     p99, mean batch size, host ms a request against card ms a batch, K1 and
+     K4 launches a batch; int8 ``SegServer`` beside bf16 at batches 8 and 32
+     (report, resident bytes, ms/forward, argmax agreement, logit error);
+     ``ifseg_torch.cli.infer`` on a 512 x 683 PNG (150 classes) and a 1,024 x
+     1,366 one (cat, dog), each with the device and the host CRF (10
+     iterations), under PyTorch's default TF32 settings: stage ms, the device
+     CRF's set-up and ms an iteration, peak memory, K1 and K4 launches, the
+     outputs decoded, the card's device CRF against the CPU's on a crop, the
+     card's probabilities before label propagation and before the CRF
+     against the port's fp32 ``cli.infer`` on the CPU (first image); launch
+     counts set to 0 before each path and read after;
+ 14. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -249,17 +270,18 @@ def phase_card() -> str:
 
 def phase_build():
     from ifseg_torch.data import png
-    from ifseg_torch.ops import build
+    from ifseg_torch.ops import build, crf
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
 
-    # the CUDA sources and the host C++ source of the PNG decoder, all at once
+    # the CUDA sources and the host C++ sources of the PNG decoder and the
+    # dense CRF, all at once
     t0 = time.perf_counter()
-    results = build.build([*fa.KERNELS, ln.KERNEL, png.SOURCE])
+    results = build.build([*fa.KERNELS, ln.KERNEL, png.SOURCE, crf.SOURCE])
     log(f"[2] built {sorted(results)} in {time.perf_counter() - t0:.1f} s")
     summary = {}
     for res in results.values():
-        compiler = "c++" if res.name == png.SOURCE else "nvcc"
+        compiler = "c++" if res.name in (png.SOURCE, crf.SOURCE) else "nvcc"
         log(f"[2] {res.name}: {res.path.name}, {compiler} {res.seconds:.1f} s")
         shown = set()
         for line in res.log.splitlines():  # warnings, once each
@@ -499,6 +521,8 @@ def site_inputs(b, h, lq, lk, causal, masked, bias_dtype, seed, head_dim=64):
     mask = None
     if masked == "eval":
         mask = eval_key_mask(b, lk)
+    elif masked == "clear":
+        mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
     elif masked:  # the text rows of the last sample end in padding, as in serving
         mask = torch.zeros(b, lk, dtype=torch.bool, device="cuda")
         mask[-1, max(lk - 7, 1):] = True
@@ -557,6 +581,11 @@ def phase_kernels(spec=BASE, batch=32, tag="[3]"):
             ("validate (512, 512) encoder self", cells + VALID_SRC_LEN, cells + VALID_SRC_LEN, False),
             ("validate (512, 512) decoder self", 1 + cells, 1 + cells, True),
             ("validate (512, 512) decoder cross", 1 + cells, cells + VALID_SRC_LEN, False))]
+        # phase 13's two paths, checked: the daemon's batches and cli.infer's
+        # batch-1 forwards, no key padded (an all-False mask where the model
+        # passes one)
+        cases += [(name, b, lq, lk, causal, "clear" if masked else False, torch.bfloat16, True,
+                   0, 0, 0) for name, b, lq, lk, causal, masked in surface_sites()]
     cases += [(prefix + name, *case, 0, 0, 0) for name, *case in EDGE_CASES]
     for i, (name, b, lq, lk, causal, masked, bias_dtype, padded, per_fwd,
             per_group, per_valid) in enumerate(cases):
@@ -696,6 +725,9 @@ def phase_layer_norm(paths=LN_PATHS, tag="[3n]"):
              for per_key, (path, sites) in paths.items()
              for name, n, d, in_dt, out_dt, per in sites]
     if paths is LN_PATHS:
+        # phase 13's two paths, checked: the daemon's batches, cli.infer's forwards
+        cases += [(f"{path} {name}", n, d, in_dt, out_dt, None, 0)
+                  for path, sites in surface_ln_paths() for name, n, d, in_dt, out_dt, _ in sites]
         cases += [
             ("ragged row count", 1001, 768, bf16, bf16, None, 0),
             ("narrow width", 77, 32, fp32, bf16, None, 0),
@@ -1962,7 +1994,7 @@ def ade_argv(tsv: str, ckpt: str, dtype: str = "bfloat16"):
     import re
 
     text = (REPO / "run_scripts" / "IFSeg" / "ade.sh").read_text()
-    cats = re.search(r"export category_list='([^']*)'", text).group(1)
+    cats = ade_category_list()
     n = re.search(r"export num_seg_tokens=(\d+)", text).group(1)
     return [tsv, "--selected-cols=0,1,2", f"--bpe-dir={REPO / 'assets' / 'BPE'}",
             f"--restore-file={ckpt}", "--arch=segofa_base", f"--num-seg-tokens={n}",
@@ -2518,6 +2550,514 @@ def phase_train_cli(card: str, tmp: str, valid_tsv: str, ckpt_file: str, valid_g
     return result
 
 
+# ---------------------------------------------------------------- phase 13: the serving surface
+
+# the originals of the daemon's requests: the range of phase 11's rows,
+# 480 x 640 to 1,024 x 1,366, landscape and portrait
+DAEMON_SHAPES = [(480, 640), (640, 480), (600, 800), (512, 683), (768, 1024), (1024, 768),
+                 (900, 1200), (1024, 1366)]
+DAEMON_IMAGES = 16  # distinct PNG files, each sent DAEMON_REQUESTS / DAEMON_IMAGES times a run
+DAEMON_REQUESTS = 64
+DAEMON_CLIENTS = 8
+DAEMON_MAX_BATCH = 8
+INT8_BATCHES = (8, 32)
+# int8 against bf16 on the same weights: random weights leave a cell's logits
+# nearly tied (the card's bf16 forward agrees with fp32 on 0.98 of the cells,
+# phase 5), so int8's rounding of every large weight flips some of them; the
+# JAX package's own test holds int8 serving to 0.9 of the cells and a mean
+# logit error under a tenth of the logits' spread on random tiny weights
+# (tests/test_quantization.py), and so does this
+INT8_AGREEMENT = 0.9
+INT8_LOGIT_ERR = 0.1
+# cli.infer: (original (h, w), categories) of its two images
+INFER_CASES = [((512, 683), "ade"), ((1024, 1366), "cat, dog")]
+INFER_GRID = (32, 43)  # both keep-ratio resize to 512 x 683: ceil(512 / 16) x ceil(683 / 16) cells
+CRF_ITERS = 10
+CRF_CROP = (96, 128)  # the crop of the first image on which the card's device CRF meets the CPU's
+# the device CRF on the card against the same function on the CPU: the splat's
+# index_add_ sums by atomics in another order, and the fp32 differences of the
+# last bits pass through 10 softmax iterations; probabilities within 1e-4
+CRF_CARD_CPU_TOL = 1e-4
+
+
+def ade_category_list() -> str:
+    import re
+
+    text = (REPO / "run_scripts" / "IFSeg" / "ade.sh").read_text()
+    return re.search(r"export category_list='([^']*)'", text).group(1)
+
+
+def prompt_len(cats: str) -> int:
+    """Tokens of the source that the CLIs build for the categories ``cats``."""
+    from ifseg_torch.config import Config
+    from ifseg_torch.data.segmentation_dataset import prompt_tokens
+
+    names = [c.strip() for c in cats.split(",") if c.strip()]
+    return prompt_tokens(str(REPO / "assets" / "BPE"), names, Config().task.prompt_prefix).shape[1]
+
+
+def infer_prompts():
+    """(categories, prompt tokens) of each of cli.infer's cases."""
+    cats = [ade_category_list() if c == "ade" else c for _, c in INFER_CASES]
+    return [(c, prompt_len(c)) for c in cats]
+
+
+def surface_sites():
+    """The attention sites of phase 13's paths: the daemon's batch of
+    DAEMON_MAX_BATCH at 512 x 512 with the 215-token ADE prompt, and
+    cli.infer's batch-1 forward over the INFER_GRID cells with each case's
+    prompt; (name, B, Lq, Lk, causal, key mask passed)."""
+    cells, t = 32 * 32, VALID_SRC_LEN
+    sites = [("daemon encoder self", DAEMON_MAX_BATCH, cells + t, cells + t, False, True),
+             ("daemon decoder self", DAEMON_MAX_BATCH, 1 + cells, 1 + cells, True, False),
+             ("daemon decoder cross", DAEMON_MAX_BATCH, 1 + cells, cells + t, False, True)]
+    cells = INFER_GRID[0] * INFER_GRID[1]
+    sites.append(("infer decoder self", 1, 1 + cells, 1 + cells, True, False))
+    for _, t in infer_prompts():
+        sites += [(f"infer encoder self, {t} tokens", 1, cells + t, cells + t, False, True),
+                  (f"infer decoder cross, {t} tokens", 1, 1 + cells, cells + t, False, True)]
+    return sites
+
+
+def surface_ln_paths():
+    """The LayerNorm sites of phase 13's paths, as ``surface_sites``: the
+    daemon's served forward (biases precomputed) and cli.infer's full forward
+    (the position LayerNorms in it), (path, sites)."""
+    cells = INFER_GRID[0] * INFER_GRID[1]
+    return [("daemon", ln_sites(DAEMON_MAX_BATCH, 32 * 32, False, src_len=VALID_SRC_LEN))] + [
+        (f"infer, {t} tokens", ln_sites(1, cells, True, src_len=t)) for _, t in infer_prompts()]
+
+
+def smooth_image(h: int, w: int, seed: int):
+    """(h, w, 3) uint8: flat blocks of 32 pixels plus noise of 0..3, a
+    photograph's flat regions and grain (noise as wide as phase 11's rows
+    splits the bilateral lattice of the host CRF into one vertex a pixel)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 252, size=(h // 32 + 1, w // 32 + 1, 3))
+    img = np.repeat(np.repeat(base, 32, 0), 32, 1)[:h, :w] + rng.integers(0, 4, size=(h, w, 3))
+    return img.astype(np.uint8)
+
+
+def http_post(url: str, body: bytes):
+    """(status, content type, body, seconds) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, ctype, out = r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        status, ctype, out = e.code, e.headers.get("Content-Type"), e.read()
+    return status, ctype, out, time.perf_counter() - t0
+
+
+def resident_bytes(model, modules=None):
+    """Bytes of the distinct tensors ``model`` (or only ``modules`` of it)
+    holds on its device: parameters, buffers and the ResNet's folded
+    convolutions."""
+    seen, total = set(), 0
+    for m in (modules if modules is not None else model.modules()):
+        tensors = list(m.parameters(recurse=False)) + list(m.buffers(recurse=False))
+        tensors += list(getattr(m, "folded", None) or ())
+        for t in tensors:
+            if t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                total += t.numel() * t.element_size()
+    return total
+
+
+def drive_daemon(base: str, bodies, clients: int):
+    """DAEMON_REQUESTS requests from ``clients`` threads (every other one asks
+    for JSON): (answers [(request, status, type, body)], wall s, latencies)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        fmt = "json" if i % 2 else "png"
+        status, ctype, out, dt = http_post(f"{base}/segment?format={fmt}", bodies[i % len(bodies)])
+        return (i, status, ctype, out), dt
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        done = list(pool.map(one, range(DAEMON_REQUESTS)))
+    wall = time.perf_counter() - t0
+    return [a for a, _ in done], wall, [dt for _, dt in done]
+
+
+def phase_daemon(card: str, ckpt: str):
+    """``cli.serve`` on the card at OFA-Base full width and depth, 150 ADE
+    classes (a 215-token prompt), phase 11's fabricated checkpoint, batches of
+    DAEMON_MAX_BATCH, over HTTP from 1 and DAEMON_CLIENTS clients."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from ifseg_torch.cli import serve as cli_serve
+    from ifseg_torch.data.png import decode_png, decode_png_rgb
+    from ifseg_torch.data.transforms import pil_resize
+    from ifseg_torch.eval.serving import forward_served
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+
+    cats = ade_category_list()
+    t0 = time.perf_counter()
+    args, svc = cli_serve.build_service(
+        [f"--checkpoint={ckpt}", f"--category-list={cats}", "--arch=segofa_base",
+         "--patch-image-size=512", f"--max-batch={DAEMON_MAX_BATCH}", "--batch-timeout-ms=5",
+         f"--bpe-dir={REPO / 'assets' / 'BPE'}"])
+    svc.warmup()
+    setup_s = time.perf_counter() - t0
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), cli_serve._make_handler(svc))
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    result = dict(setup_s=setup_s, prompt_tokens=int(svc.src.shape[1]))
+    try:
+        bodies = [png_bytes(smooth_image(*DAEMON_SHAPES[i % len(DAEMON_SHAPES)], SEED + i), 2)
+                  for i in range(DAEMON_IMAGES)]
+        log(f"[13] cli.serve: OFA-Base 512px, {len(svc.categories)} ADE classes, a "
+            f"{result['prompt_tokens']}-token prompt, batches of {DAEMON_MAX_BATCH}, "
+            f"--batch-timeout-ms=5; set-up + warm-up {setup_s:.1f} s; {DAEMON_IMAGES} PNG "
+            f"originals of {DAEMON_SHAPES[0]} to {DAEMON_SHAPES[-1]} "
+            f"({sum(map(len, bodies)) / DAEMON_IMAGES / 2**20:.2f} MiB each on average), on {card}")
+
+        with open(REPO / "assets" / "cat_dog.jpeg", "rb") as fp:
+            status, _, out, _ = http_post(f"{base}/segment", fp.read())
+        if status != 400:
+            fail(f"a JPEG body got {status}, not 400: {out[:200]!r}")
+
+        batches = []
+        plain_forward = svc.forward
+
+        def recording(images):
+            out = plain_forward(images)
+            batches.append((images.copy(), out.copy()))
+            return out
+
+        svc.forward = recording
+        fa.reset_launches()
+        ln.reset_launches()
+        before = dict(svc.stats)
+        runs = {}
+        for clients in (1, DAEMON_CLIENTS):
+            answers, wall, lat = drive_daemon(base, bodies, clients)
+            done = dict(svc.stats)
+            n_batches = done["batches"] - before["batches"]
+            runs[clients] = dict(
+                answers=answers, requests_per_s=DAEMON_REQUESTS / wall, wall_s=wall,
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3),
+                batches=n_batches, mean_batch=(done["requests"] - before["requests"]) / n_batches)
+            before = done
+        counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+        svc.forward = plain_forward
+        n_batches = sum(r["batches"] for r in runs.values())
+        ln_per = ln_launches_per_forward(svc.server.model, position_lns=False)
+        k1_per = sum(n for *_, n in SITES)
+        log(f"[13] attention launches {counts['infer']}, layer_norm launches {ln_launches} over "
+            f"{n_batches} batches ({counts['infer'] / n_batches:.1f} and "
+            f"{ln_launches / n_batches:.1f} a batch; expected {k1_per} and {ln_per})")
+        if counts["infer"] != k1_per * n_batches or ln_launches != ln_per * n_batches:
+            fail("the daemon's batches did not launch K1 and K4 at every site")
+        result["launches"], result["ln_launches"] = counts["infer"], ln_launches
+
+        # every recorded batch again through forward_served, and every answer
+        # against its row of the batch that held its image
+        hw = svc.grid * svc.grid
+        server = svc.server
+        grid_of = {}
+        with torch.inference_mode():
+            for imgs, out in batches:
+                logits = forward_served(server.model, server.pre, svc.src,
+                                        torch.from_numpy(imgs).to(server.device), svc._bos)
+                again = logits[:, :hw].float().argmax(-1).cpu().numpy()
+                if not np.array_equal(again, out):
+                    fail("a batch's answer differs from forward_served on the same padded batch")
+                for row, img in zip(out, imgs):
+                    grid_of.setdefault(img.tobytes(), set()).add(row.tobytes())
+        host = dict(decode_ms=[], resize_ms=[], preprocess_ms=[])
+        nets = []
+        for body in bodies:
+            t1 = time.perf_counter()
+            rgb = decode_png_rgb(body)
+            t2 = time.perf_counter()
+            pil_resize(rgb, (svc.size, svc.size))
+            t3 = time.perf_counter()
+            nets.append(svc._preprocess(body))
+            t4 = time.perf_counter()
+            host["decode_ms"].append((t2 - t1) * 1e3)
+            host["resize_ms"].append((t3 - t2) * 1e3)
+            host["preprocess_ms"].append((t4 - t3) * 1e3)
+        names = svc.categories
+        for clients, run in runs.items():
+            for i, status, ctype, out in run["answers"]:
+                net, (h0, w0) = nets[i % len(nets)]
+                # the class ids of every batch row that held this request's image
+                rows = [np.frombuffer(r, np.int64).reshape(svc.grid, svc.grid)
+                        for r in grid_of.get(net.tobytes(), ())]
+                if status != 200 or not rows:
+                    fail(f"request {i} ({clients} clients): status {status}, no batch held its "
+                         f"image: {out[:200]!r}")
+                if i % 2:
+                    areas = json.loads(out)["areas"]
+                    ok = sum(areas.values()) == hw and any(
+                        areas == {names[c]: int((g == c).sum()) for c in np.unique(g)}
+                        for g in rows)
+                else:
+                    mask = decode_png(out)
+                    ok = ctype == "image/png" and mask.shape == (h0, w0) and any(
+                        np.array_equal(mask, pil_resize(g.astype(np.uint8), (h0, w0), nearest=True))
+                        for g in rows)
+                if not ok:
+                    fail(f"request {i} ({clients} clients): the answer is not the class ids of "
+                         f"a batch that held its image")
+        result["images_answered_two_ways"] = sum(len(r) > 1 for r in grid_of.values())
+
+        imgs = torch.zeros(DAEMON_MAX_BATCH, svc.size, svc.size, 3, device=server.device)
+        card_ms = cuda_ms(lambda: server(svc.src, imgs, svc._bos), iters=10)
+        host_ms = float(np.mean(host["preprocess_ms"]))
+        for clients, run in runs.items():
+            log(f"[13] {clients} client(s), {DAEMON_REQUESTS} requests: "
+                f"{run['requests_per_s']:.2f} requests/s, latency p50 {run['p50_ms']:.1f} ms, "
+                f"p99 {run['p99_ms']:.1f} ms, {run['batches']} batches, mean batch size {run['mean_batch']:.2f}, on {card}")
+        log(f"[13] per request: host {host_ms:.2f} ms (PNG decode "
+            f"{np.mean(host['decode_ms']):.2f} + PIL bilinear resize "
+            f"{np.mean(host['resize_ms']):.2f}, one thread) against the card's {card_ms:.2f} ms "
+            f"for a batch of {DAEMON_MAX_BATCH} ({card_ms / DAEMON_MAX_BATCH:.2f} a request at "
+            f"full batches; {card_ms / runs[DAEMON_CLIENTS]['mean_batch']:.2f} at the concurrent "
+            f"run's mean batch); every answer equals forward_served on its padded batch; "
+            f"JPEG -> 400; on {card}")
+        for run in runs.values():
+            del run["answers"]
+        result.update(runs={str(c): r for c, r in runs.items()}, host_ms_per_request=host_ms,
+                      host_decode_ms=float(np.mean(host["decode_ms"])),
+                      host_resize_ms=float(np.mean(host["resize_ms"])),
+                      card_ms_per_batch=card_ms, stats=dict(svc.stats))
+        return result, svc
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server_thread.join(30)
+
+
+def phase_int8(card: str, ckpt: str, svc):
+    """``SegServer(quantize="int8")`` on the weights of the daemon's bf16
+    server, beside it, at INT8_BATCHES, with the daemon's prompt."""
+    from ifseg_torch.checkpoint.convert import load_model
+    from ifseg_torch.eval.serving import SegServer
+    from ifseg_torch.ops.quantization import Int8Linear
+
+    bf16 = svc.server
+    t0 = time.perf_counter()
+    q8 = SegServer(load_model(ckpt, svc.cfg.model), src_len=svc.src.shape[1], quantize="int8")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    report = q8.quant_report
+    if (report["quantized"], report["kept"]) != (208, 636):
+        fail(f"int8 report {report}, the JAX package's is 208 quantized, 636 kept")
+    weights = {name: dict(all=resident_bytes(s.model), linears=resident_bytes(
+        s.model, s.model.serving_linears() + [m for m in s.model.modules()
+                                              if isinstance(m, Int8Linear)]))
+               for name, s in (("bf16", bf16), ("int8", q8))}
+    result = dict(report=report, setup_s=setup_s, resident_bytes=weights, batches={})
+    log(f"[13] int8 SegServer: {report['quantized']} tensors quantized, {report['kept']} kept "
+        f"({report['bytes_fp32'] / 1e6:.1f} MB fp32 -> {report['bytes_quant'] / 1e6:.1f} MB); "
+        f"set-up {setup_s:.1f} s; resident weights {weights['int8']['all'] / 2**20:.1f} MiB "
+        f"(the served linears {weights['int8']['linears'] / 2**20:.1f}) against bf16's "
+        f"{weights['bf16']['all'] / 2**20:.1f} ({weights['bf16']['linears'] / 2**20:.1f}), "
+        f"on {card}")
+    for b in INT8_BATCHES:
+        _, img, _ = requests(b, seed=400 + b)
+        img = img.to(bf16.device)
+        src = svc.src[:1].expand(b, -1).contiguous()
+        bos = torch.zeros(b, 1, dtype=torch.long, device=bf16.device)
+        want, got = bf16(src, img, bos).float(), q8(src, img, bos).float()
+        agree = (want.argmax(-1) == got.argmax(-1)).float().mean().item()
+        rel = ((got - want).norm() / want.norm()).item()
+        err_spread = ((got - want).abs().mean() / want.std()).item()
+        ms = {name: cuda_ms(lambda s=s: s(src, img, bos), iters=5) for name, s in
+              (("bf16", bf16), ("int8", q8))}
+        log(f"[13] int8 batch {b}: {ms['int8']:.2f} ms/forward against bf16's {ms['bf16']:.2f}; "
+            f"argmax agreement {agree:.4f}, logit error {rel:.3e} relative, mean |Δ| "
+            f"{err_spread:.4f} of the spread, on {card}")
+        if not agree >= INT8_AGREEMENT or not err_spread < INT8_LOGIT_ERR:
+            fail(f"int8 serving at batch {b}: agreement {agree} < {INT8_AGREEMENT} or logit "
+                 f"error {err_spread} >= {INT8_LOGIT_ERR} of the spread")
+        result["batches"][str(b)] = dict(ms_int8=ms["int8"], ms_bf16=ms["bf16"], agreement=agree,
+                                         rel_err=rel, err_over_spread=err_spread)
+    del q8
+    return result
+
+
+def phase_infer(card: str, tmp: str, ckpt: str):
+    """``cli.infer`` on the card over two PNGs, each with the device CRF and
+    with the host one, CRF_ITERS iterations, under PyTorch's default TF32
+    settings (what a user runs), launch counts set to 0 before the four runs
+    and read after; then the first image's probabilities before label
+    propagation and before the CRF against the port's fp32 ``cli.infer`` on
+    the CPU."""
+    from ifseg_torch.cli import infer as cli_infer
+    from ifseg_torch.data.png import decode_png_rgb
+    from ifseg_torch.models.segofa import SegOFA
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.ops.crf_device import dense_crf_device
+
+    with torch.device("meta"):
+        ln_per = ln_launches_per_forward(SegOFA(base_config("bfloat16")), position_lns=True)
+    k1_per = sum(n for *_, n in SITES)
+    hooked = dict(dense_crf_device=cli_infer.dense_crf_device,
+                  masked_label_propagation=cli_infer.masked_label_propagation,
+                  model_config_for_arch=cli_infer.model_config_for_arch)
+    seen = {}  # the latest run's inputs of label propagation and of the device CRF
+
+    def crf_hook(image, probs, **kw):
+        seen["crf_in"] = (image, probs)
+        return hooked["dense_crf_device"](image, probs, **kw)
+
+    def lp_hook(probs, *args):
+        seen["cells"] = probs
+        return hooked["masked_label_propagation"](probs, *args)
+
+    cli_infer.dense_crf_device, cli_infer.masked_label_propagation = crf_hook, lp_hook
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    # PyTorch's defaults, where phase 1 turned TF32 off everywhere
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    runs, result = [], dict(cases=[], tf32=dict(matmul=False, cudnn=True))
+    fa.reset_launches()
+    ln.reset_launches()
+    try:
+        for n, ((h, w), cats) in enumerate(INFER_CASES):
+            cats = ade_category_list() if cats == "ade" else cats
+            image = f"{tmp}/infer_{h}x{w}.png"
+            Path(image).write_bytes(png_bytes(smooth_image(h, w, SEED + 100 + n), 2))
+            case = dict(image=(h, w), classes=len(cats.split(",")), runs={})
+            argv = [f"--image={image}", f"--checkpoint={ckpt}", f"--category-list={cats}",
+                    "--arch=segofa_base", f"--bpe-dir={REPO / 'assets' / 'BPE'}",
+                    f"--crf-iters={CRF_ITERS}"]
+            for backend in ("device", "cpp"):
+                out = f"{tmp}/infer_{h}x{w}_{backend}.png"
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                got = cli_infer.main(argv + [f"--output={out}", f"--crf-backend={backend}"])
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                for path in (got["output"], got["mask"]):
+                    if decode_png_rgb(Path(path).read_bytes()).shape != (h, w, 3):
+                        fail(f"cli.infer wrote {path} of another size than {(h, w)}")
+                if sum(got["areas"].values()) != h * w:
+                    fail(f"cli.infer's areas {got['areas']} do not cover {h} x {w}")
+                runs.append(got)
+                if n == 0 and backend == "device":
+                    card_pre = dict(cells=seen["cells"].float().cpu(),
+                                    pixels=seen["crf_in"][1].cpu(), argv=argv)
+                case["runs"][backend] = dict(ms=got["ms"], wall_s=wall, peak_gib=peak,
+                                             areas=got["areas"])
+                log(f"[13] cli.infer {h} x {w}, {case['classes']} classes, --crf-backend="
+                    f"{backend}: " + ", ".join(f"{k} {v:.1f}" for k, v in got["ms"].items())
+                    + f" ms; {wall:.1f} s of wall time with the checkpoint's load; peak device "
+                    f"memory {peak:.2f} GiB; on {card}")
+            masks = [decode_png_rgb(Path(case_run).read_bytes()) for case_run in
+                     (f"{tmp}/infer_{h}x{w}_device_mask.png", f"{tmp}/infer_{h}x{w}_cpp_mask.png")]
+            case["backends_agree"] = float((masks[0] == masks[1]).all(-1).mean())
+
+            # the device CRF alone on the run's own inputs: set-up and iterations
+            img_dev, probs_dev = seen["crf_in"]
+            times = {}
+            for iters in (0, CRF_ITERS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dense_crf_device(img_dev, probs_dev, n_iter=iters)
+                torch.cuda.synchronize()
+                times[iters] = (time.perf_counter() - t0) * 1e3
+            case["crf_device_ms"] = dict(setup=times[0], total=times[CRF_ITERS],
+                                         per_iteration=(times[CRF_ITERS] - times[0]) / CRF_ITERS)
+            log(f"[13] device CRF on the card, {h} x {w} x {case['classes']}: lattice + norms "
+                f"{times[0]:.1f} ms, {CRF_ITERS} iterations {times[CRF_ITERS]:.1f} ms in all "
+                f"({case['crf_device_ms']['per_iteration']:.2f} ms an iteration); host CRF "
+                f"{case['runs']['cpp']['ms']['crf']:.1f} ms; the two backends' labels agree on "
+                f"{case['backends_agree']:.4f} of the pixels; on {card}")
+            if n == 0:
+                ch, cw = CRF_CROP
+                crop_img = img_dev[:ch, :cw].contiguous()
+                crop_probs = probs_dev[:ch, :cw].contiguous()
+                on_card = dense_crf_device(crop_img, crop_probs, n_iter=CRF_ITERS).cpu()
+                on_cpu = dense_crf_device(crop_img.cpu(), crop_probs.cpu(), n_iter=CRF_ITERS)
+                err = (on_card - on_cpu).abs().max().item()
+                agree = (on_card.argmax(-1) == on_cpu.argmax(-1)).float().mean().item()
+                log(f"[13] device CRF, card against CPU on a {ch} x {cw} x {case['classes']} "
+                    f"crop: max |Δ| {err:.3e} (tolerance {CRF_CARD_CPU_TOL}), labels agree on "
+                    f"{agree:.4f}")
+                if not err <= CRF_CARD_CPU_TOL:
+                    fail(f"the device CRF on the card differs from the CPU's by {err}")
+                case["crop_card_vs_cpu"] = dict(max_abs_err=err, label_agreement=agree)
+            result["cases"].append(case)
+        counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+        result["cpu_reference"] = infer_cpu_reference(cli_infer, hooked, seen, card_pre, tmp)
+    finally:
+        for name, fn in hooked.items():
+            setattr(cli_infer, name, fn)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    log(f"[13] cli.infer: attention launches {counts['infer']}, layer_norm launches "
+        f"{ln_launches} over {len(runs)} full forwards (expected {k1_per} and {ln_per} each)")
+    if counts["infer"] != k1_per * len(runs) or ln_launches != ln_per * len(runs):
+        fail("cli.infer's forwards did not launch K1 and K4 at every site")
+    result.update(launches=counts["infer"], ln_launches=ln_launches)
+    return result
+
+
+def infer_cpu_reference(cli_infer, hooked, seen, card_pre, tmp: str):
+    """The first image through the port's ``cli.infer`` on the CPU in fp32,
+    against the card's bf16 run: the forward's cells before label propagation
+    (their log-probabilities, centred over the classes, are the logits up to
+    a constant a cell) within LOGIT_REL_TOL relative, as phase 5 holds the
+    served logits; the share of cells and of pixels before the CRF whose
+    argmax differs within EVAL_PIXEL_SHARE_TOL, as phase 9 holds the
+    evaluation path's pixels (random weights leave cells nearly tied)."""
+    to_fp32 = hooked["model_config_for_arch"]
+
+    def pre_crf(image, probs, **kw):  # the CRF itself is held on the crop
+        seen["crf_in"] = (image, probs)
+        return probs
+
+    cli_infer.model_config_for_arch = lambda *a, **kw: to_fp32(*a, **{**kw, "dtype": "float32"})
+    cli_infer.dense_crf_device = pre_crf
+    t0 = time.perf_counter()
+    cli_infer.main(card_pre["argv"] + [f"--output={tmp}/infer_cpu.png", "--crf-backend=device",
+                                       "--device=cpu"])
+    wall = time.perf_counter() - t0
+
+    def centred_log(p):
+        lp = p.double().clamp_min(1e-30).log()
+        return lp - lp.mean(-1, keepdim=True)
+
+    want, got = centred_log(seen["cells"]), centred_log(card_pre["cells"])
+    rel = ((got - want).norm() / want.norm()).item()
+    cells = (seen["cells"].argmax(-1) != card_pre["cells"].argmax(-1)).double().mean().item()
+    pixels = (seen["crf_in"][1].argmax(-1) != card_pre["pixels"].argmax(-1)).double().mean().item()
+    log(f"[13] cli.infer on the card (bf16) against the CPU (fp32), first image: the forward's "
+        f"centred log-probabilities {rel:.3e} relative (tolerance {LOGIT_REL_TOL}), argmax "
+        f"differs on {cells:.4f} of the cells and on {pixels:.4f} of the pixels before the CRF "
+        f"(tolerance {EVAL_PIXEL_SHARE_TOL}); the CPU run took {wall:.1f} s")
+    if not rel <= LOGIT_REL_TOL or not cells <= EVAL_PIXEL_SHARE_TOL \
+            or not pixels <= EVAL_PIXEL_SHARE_TOL:
+        fail(f"cli.infer on the card differs from the fp32 CPU run: {rel}, {cells}, {pixels}")
+    return dict(centred_log_prob_rel_err=rel, cell_argmax_differs=cells,
+                pixel_argmax_differs=pixels, cpu_wall_s=wall)
+
+
+def phase_serving_surface(card: str, tmp: str, ckpt: str):
+    daemon, svc = phase_daemon(card, ckpt)
+    try:
+        int8 = phase_int8(card, ckpt, svc)
+    finally:
+        svc.close()
+    del svc
+    torch.cuda.empty_cache()
+    return dict(daemon=daemon, int8=int8, infer=phase_infer(card, tmp, ckpt))
+
+
 # ---------------------------------------------------------------- main
 
 def pass_totals(rows, per_key):
@@ -2583,6 +3123,8 @@ def main():
         torch.cuda.empty_cache()
         train_cli = phase_train_cli(card, tmp, validate["tsv"], validate["ckpt"],
                                     len(validate["group_sizes"]))
+        torch.cuda.empty_cache()
+        surface = phase_serving_surface(card, tmp, validate["ckpt"])
 
     fwd_src = "ifseg_torch/csrc/flash_attention_bias_fwd.cu"
     dq_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dq.cu"
@@ -2590,14 +3132,17 @@ def main():
     jax_fa = "ifseg_tpu/ops/flash_attention.py"
     step_unit = "one batch-16 training step: 6 calls at each of the three site shapes"
     counts, cli_counts = train["launches"], train_cli["launches"]
-    # the forward without stats runs on five main paths; each was driven with
+    # the forward without stats runs on seven main paths; each was driven with
     # the counts set to 0 just before and read just after
     k1_paths = dict(serving=serve["launches"], evaluation=evaluation["launches"],
                     monitoring=counts["infer"], validate=validate["launches"],
-                    train_cli=cli_counts["infer"])
+                    train_cli=cli_counts["infer"], serve_daemon=surface["daemon"]["launches"],
+                    infer=surface["infer"]["launches"])
     ln_paths = dict(serving=serve["ln_launches"], evaluation=evaluation["ln_launches"],
                     monitoring=train["ln_launches"], validate=validate["ln_launches"],
                     train_cli=train_cli["ln_launches"],
+                    serve_daemon=surface["daemon"]["ln_launches"],
+                    infer=surface["infer"]["ln_launches"],
                     huge_serving=huge["serve"]["ln_launches"] - huge["serve"]["ln_wide_launches"],
                     huge_evaluation=(huge["evaluation"]["ln_launches"]
                                      - huge["evaluation"]["ln_wide_launches"]))
@@ -2677,7 +3222,8 @@ def main():
             fail(f"kernel {entry['name']} was never launched by a main path")
     log(json.dumps({"serve": serve, "cpu_reference": cpu, "evaluation": evaluation,
                     "train": train, "train_gradients": grads, "huge": huge, "validate": validate,
-                    "train_cli": train_cli, "ptxas": ptxas, "card_line": card}))
+                    "train_cli": train_cli, "serving_surface": surface, "ptxas": ptxas,
+                    "card_line": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

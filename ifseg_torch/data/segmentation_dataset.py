@@ -42,6 +42,8 @@ from ifseg_torch.data.transforms import (
     ResizeRatioRange,
 )
 from ifseg_torch.ops.resize import resize_nearest_np
+from ifseg_torch.tokenization.dictionary import build_seg_dictionary
+from ifseg_torch.tokenization.gpt2_bpe import GPT2BPE
 
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
@@ -76,6 +78,19 @@ def build_class_token_table(bpe, dictionary, categories: List[str]):
         table[i, : len(t)] = t
         lengths[i] = len(t)
     return table, lengths
+
+
+def prompt_tokens(bpe_dir: str, categories: List[str], prompt_prefix: str) -> np.ndarray:
+    """(1, L) int64 source: [bos, the prompt, each class name, 'unknown', eos]."""
+    dictionary = build_seg_dictionary(bpe_dir, num_seg_tokens=len(categories))
+    bpe = GPT2BPE.from_dir(bpe_dir)
+    parts = [np.asarray([dictionary.bos()], np.int64),
+             encode_text(bpe, dictionary, f" {prompt_prefix.lstrip()}")]
+    tokens_tbl, lengths_tbl = build_class_token_table(bpe, dictionary, categories + ["unknown"])
+    for i in range(len(categories) + 1):
+        parts.append(tokens_tbl[i, : lengths_tbl[i]].astype(np.int64))
+    parts.append(np.asarray([dictionary.eos()], np.int64))
+    return np.concatenate(parts)[None]
 
 
 @dataclass

@@ -39,6 +39,24 @@ use, is another one).
     that cv2's vector code takes from the start of each row and rounded half
     to even in the rest of the row.
 
+``pil_resize`` is PIL's ``Image.resize``, which the serving daemon's request
+resize and mask answer use (the JAX package's ``cli/serve.py``), bit for bit
+on uint8 images:
+
+  - ``BILINEAR`` is PIL's convolution resampler, not cv2's rule: along each
+    axis whose size changes (the horizontal pass first, into uint8), output
+    x takes the source pixels within ``support = max(in / out, 1)`` of its
+    centre ``(x + 0.5) * in / out`` (bounds rounded by ``int(c -/+ support
+    + 0.5)`` and clipped), weighted by the triangle ``1 - |t|`` at ``t = (i -
+    centre + 0.5) / max(in / out, 1)`` in float64, normalised, then made
+    22-bit fixed point (``int(0.5 + k * 2^22)``); a pixel is ``(2^21 + sum)
+    >> 22`` clipped to 0..255;
+  - ``NEAREST`` is PIL's affine scale: the source position of output x is
+    ``in / out * 0.5`` plus ``in / out`` added x times in float64, truncated
+    to an int.
+
+``normalize_image`` is the JAX package's ToTensor + Normalize, NHWC fp32.
+
 The training augmentations of mmseg v0.28 (the reference's
 data/mm_data/segmentation_dataset.py:157-173) are the JAX package's:
 ``ResizeRatioRange``, ``RandomCrop`` with its ``cat_max_ratio`` retries,
@@ -144,6 +162,76 @@ def resize_image(img: np.ndarray, out_hw: Tuple[int, int], nearest: bool = False
         return ((s[0::2, 0::2] + s[0::2, 1::2] + s[1::2, 0::2] + s[1::2, 1::2] + 2) >> 2
                 ).astype(np.uint8)
     return _bilinear_u8(img, out_h, out_w)
+
+
+PIL_PRECISION_BITS = 22  # PIL's Resample.c: 32 - 8 - 2
+
+
+def _pil_bilinear_coeffs(n_in: int, n_out: int):
+    """PIL's ``precompute_coeffs`` for the bilinear filter, then its 8-bit
+    fixed point: (first source index (n_out,), int32 weights (n_out, ksize),
+    zero past each output's taps)."""
+    scale = float(n_in) / n_out
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), n_in) - xmin
+    taps = np.arange(ksize)
+    t = np.abs(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    k = np.where((taps[None, :] < xmax[:, None]) & (t < 1.0), 1.0 - t, 0.0)
+    ww = k.sum(axis=1, keepdims=True)
+    k = np.divide(k, ww, out=k, where=ww != 0.0)
+    return xmin, (0.5 + k * (1 << PIL_PRECISION_BITS)).astype(np.int32)
+
+
+def _pil_bilinear_axis(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    n_in = img.shape[axis]
+    xmin, k = _pil_bilinear_coeffs(n_in, n_out)
+    shape = [1] * img.ndim
+    shape[axis] = n_out
+    acc = np.full(img.shape[:axis] + (n_out,) + img.shape[axis + 1:],
+                  1 << (PIL_PRECISION_BITS - 1), np.int32)
+    for tap in range(k.shape[1]):
+        src = np.take(img, np.minimum(xmin + tap, n_in - 1), axis=axis).astype(np.int32)
+        src *= k[:, tap].reshape(shape)
+        acc += src
+    acc >>= PIL_PRECISION_BITS  # clip8: a negative sum is 0, 2^30 and up 255
+    return np.clip(acc, 0, 255).astype(np.uint8)
+
+
+def _pil_nearest_source(n_in: int, n_out: int) -> np.ndarray:
+    """PIL's affine-scale source index of each output position along one
+    axis: in / out * 0.5, plus in / out added once a position, truncated."""
+    a = float(n_in) / n_out
+    return np.cumsum(np.concatenate([[a * 0.5], np.full(n_out - 1, a)])).astype(np.int64)
+
+
+def pil_resize(img: np.ndarray, out_hw: Tuple[int, int], nearest: bool = False) -> np.ndarray:
+    """``np.asarray(Image.fromarray(img).resize((out_w, out_h), ...))`` for a
+    uint8 image (h, w) or (h, w, 3): ``BILINEAR``, or ``NEAREST``
+    (``nearest``)."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"pil_resize takes uint8 images, not {img.dtype}")
+    h, w = img.shape[:2]
+    out_h, out_w = out_hw
+    if nearest:
+        return img[_pil_nearest_source(h, out_h)[:, None], _pil_nearest_source(w, out_w)[None, :]]
+    out = img
+    if out_w != w:
+        out = _pil_bilinear_axis(out, out_w, axis=1)
+    if out_h != h:
+        out = _pil_bilinear_axis(out, out_h, axis=0)
+    return out.copy() if out is img else out
+
+
+def normalize_image(img_rgb_uint8: np.ndarray, mean, std) -> np.ndarray:
+    """ToTensor + Normalize (segmentation_dataset.py:155-156), NHWC fp32."""
+    x = img_rgb_uint8.astype(np.float32) / 255.0
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    return (x - mean) / std
 
 
 class ResizeRatioRange:

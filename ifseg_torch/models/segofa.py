@@ -97,8 +97,11 @@ class SegOFA(nn.Module):
         multiplies with: the ``serving_linears`` to ``dtype``, and the
         ResNet's BN-folded convolutions (cached in ``dtype``).  Position
         linears, embeddings, LayerNorms and the seg head stay fp32, as the
-        JAX package computes them."""
+        JAX package computes them.  A linear already quantized for int8
+        serving (``ops.quantization.Int8Linear``) keeps its codes and fp32
+        scales."""
         for m in self.serving_linears():
-            m.to(dtype)
+            if isinstance(m, Linear):
+                m.to(dtype)
         self.encoder.embed_images.fold(dtype)
         return self

@@ -4,12 +4,13 @@ Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host code)
 has a plain C interface and compiles on its own into
 ``_build/lib<name>-<hash>.so``: a ``.cu`` with ``nvcc`` for ``sm_90a``, a
 ``.cpp`` with the system's C++ compiler (``$CXX``, else ``c++``).  The hash
-is taken over the source, the shared ``csrc/*.cuh`` headers of the CUDA
-sources and the flags, so an edited source is never served from a stale
-library.  The build happens at first use (or when ``build`` is called up
-front); ``build`` starts one compiler per source, all at once, and each
-writes a file of its own that ``os.replace`` puts in place, so processes
-that build at the same time never see a torn library.
+is taken over the source, the shared headers it may include (``csrc/*.cuh``
+for a CUDA source, ``csrc/*.h`` for a host one) and the flags, so an edited
+source or header is never served from a stale library.  The build happens
+at first use (or when ``build`` is called up front); ``build`` starts one
+compiler per source, all at once, and each writes a file of its own that
+``os.replace`` puts in place, so processes that build at the same time
+never see a torn library.
 """
 
 import ctypes
@@ -80,7 +81,7 @@ def _command(name: str, out: Path):
 def library_path(name: str) -> Path:
     src = _source(name)
     if src.suffix == ".cpp":
-        sources, flags = [src], HOST_FLAGS
+        sources, flags = [src, *sorted(CSRC_DIR.glob("*.h"))], HOST_FLAGS
     else:
         sources, flags = [src, *sorted(CSRC_DIR.glob("*.cuh"))], NVCC_FLAGS
     content = b"".join(s.read_bytes() for s in sources)

@@ -60,7 +60,10 @@ def test_importing_every_module_loads_no_jax():
                  "ifseg_torch.tokenization.gpt2_bpe", "ifseg_torch.tokenization.bert_bpe",
                  "ifseg_torch.tokenization.dictionary", "ifseg_torch.checkpoint.convert",
                  "ifseg_torch.cli.train", "ifseg_torch.checkpoint.manager",
-                 "ifseg_torch.data.iterators", "ifseg_torch.utils.progress"):
+                 "ifseg_torch.data.iterators", "ifseg_torch.utils.progress",
+                 "ifseg_torch.ops.crf", "ifseg_torch.ops.crf_device",
+                 "ifseg_torch.ops.quantization", "ifseg_torch.cli.serve",
+                 "ifseg_torch.cli.infer"):
         assert name in report["modules"], name
 
 
@@ -79,7 +82,9 @@ def test_the_scan_covers_the_evaluation_slice():
                  "ifseg_torch/utils/metrics.py", "ifseg_torch/tasks/segmentation.py",
                  "ifseg_torch/cli/train.py", "ifseg_torch/checkpoint/manager.py",
                  "ifseg_torch/data/iterators.py", "ifseg_torch/utils/progress.py",
-                 "ifseg_torch/train/trainer.py"):
+                 "ifseg_torch/train/trainer.py", "ifseg_torch/ops/crf.py",
+                 "ifseg_torch/ops/crf_device.py", "ifseg_torch/ops/quantization.py",
+                 "ifseg_torch/cli/serve.py", "ifseg_torch/cli/infer.py"):
         assert path in scanned, path
 
 

@@ -43,9 +43,3 @@ def test_server_without_device_needs_cuda(monkeypatch):
     tmodel = torch_tiny()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchSegServer(tmodel, src_len=10)
-
-
-def test_server_refuses_int8():
-    tmodel = torch_tiny()
-    with pytest.raises(NotImplementedError):
-        TorchSegServer(tmodel, src_len=10, device="cpu", quantize="int8")
