@@ -6,10 +6,11 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every kernel with nvcc and the host C++ sources of the PNG
-     decoder and the dense CRF with c++ (one process per source, all at
-     once), with each kernel instantiation's registers, spill and stack from
-     the ``-Xptxas -v`` summary, and the HGMMA count and shared memory of the
-     three wgmma attention libraries at both head dims;
+     decoder, the JPEG decoder and encoder and the dense CRF with c++ (one
+     process per source, all at once), with each kernel instantiation's
+     registers, spill and stack from the ``-Xptxas -v`` summary, and the
+     HGMMA count and shared memory of the three wgmma attention libraries at
+     both head dims;
   3. each kernel against its plain PyTorch version, with its time, the plain
      version's, one PyTorch library call's (timed only here, never used by
      the port) and the bound: the attention forward without stats at the
@@ -25,12 +26,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      every case, the forward also at phase 11's validate sites (215 text
      tokens) and at phase 13's (the daemon's batch of 8 at 512 x 512 with
      215 tokens; cli.infer's batch-1 forwards over 32 x 43 cells with 215
-     and 17 tokens), checked; the host time of a launch's tensor-map
-     encodes; the LayerNorm kernel at every (rows, width, dtype) that a
-     served batch-32 forward, an evaluation group of 8 at the (512, 768)
-     bucket (with 32 and with 215 text tokens) and a monitoring forward at
-     batch 16 give it (the fp32 position LayerNorms included), timed, and
-     that phase 13's two paths give it, checked, a ragged row count, a
+     and 17 tokens, and over phase 14's 32 x 83 with 17), checked; the
+     host time of a launch's tensor-map encodes; the LayerNorm kernel at
+     every (rows, width, dtype) that a served batch-32 forward, an
+     evaluation group of 8 at the (512, 768) bucket (with 32 and with 215
+     text tokens) and a monitoring forward at batch 16 give it (the fp32
+     position LayerNorms included), timed, and that phase 13's two paths and
+     phase 14's cli.infer give it, checked, a ragged row count, a
      narrow and the widest width, and its autograd Function's forward +
      backward beside ``F.layer_norm``'s;
   4. the serving path at full OFA-Base 512px width, random weights from seed
@@ -102,7 +104,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      batches of 8, a 5 ms window) over HTTP on localhost, 64 PNG requests of
      480 x 640 to 1,024 x 1,366 from 1 and from 8 clients, every answer (mask
      PNG or JSON areas) held to ``forward_served`` on the padded batch that
-     held its image, a JPEG body refused with 400; requests/s, latency p50 and
+     held its image, a GIF body refused with 400; requests/s, latency p50 and
      p99, mean batch size, host ms a request against card ms a batch, K1 and
      K4 launches a batch; int8 ``SegServer`` beside bf16 at batches 8 and 32
      (report, resident bytes, ms/forward, argmax agreement, logit error);
@@ -114,7 +116,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      card's probabilities before label propagation and before the CRF
      against the port's fp32 ``cli.infer`` on the CPU (first image); launch
      counts set to 0 before each path and read after;
- 14. one JSON line listing every kernel, the nvidia-smi line, and the last
+ 14. the files of the JAX CLIs, OFA-Base at full width and depth, phase 11's
+     fabricated checkpoint: (a) the port's JPEG encoder writes 16 originals
+     of 480 x 640 to 1,024 x 1,366 (RGB at 4:2:0, 4:2:2 and 4:4:4, gray;
+     qualities 75 and 95) and its decoder reads them back, each file and its
+     pixels held to the SHA-256 digests of PIL's bytes and PIL's pixels, and
+     assets/cat_dog.jpeg (progressive) too; host ms a file for encode and
+     decode at each size beside PNG's decode of the same pixels; (b)
+     ``python -m ifseg_torch.cli.convert_dataset --mode=ade`` over them and
+     label PNGs made from the seed, every row held to pinned digests, then
+     ``cli.validate.main`` on the card with the ADE flags over the TSV it
+     wrote (launch counts set to 0 before and read after), its cheapest
+     group against the fp32 CPU ``Evaluator``; (c) phase 13's daemon with
+     half of its requests JPEG files and half PNG files of the same pixels,
+     from 1 and from 8 clients, each JPEG answer equal to its PNG twin's and
+     to a row of the batch that held it; (d) ``cli.infer`` on
+     assets/cat_dog.jpeg with ``--output=*.jpg``, its overlay's bytes held to
+     ``encode_jpeg`` of the overlay, stage ms;
+ 15. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -269,19 +288,20 @@ def phase_card() -> str:
 # ---------------------------------------------------------------- phase 2
 
 def phase_build():
-    from ifseg_torch.data import png
+    from ifseg_torch.data import jpeg, png
     from ifseg_torch.ops import build, crf
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
 
-    # the CUDA sources and the host C++ sources of the PNG decoder and the
-    # dense CRF, all at once
+    # the CUDA sources and the host C++ sources of the PNG decoder, the JPEG
+    # codec and the dense CRF, all at once
+    host_sources = (png.SOURCE, jpeg.DECODER, jpeg.ENCODER, crf.SOURCE)
     t0 = time.perf_counter()
-    results = build.build([*fa.KERNELS, ln.KERNEL, png.SOURCE, crf.SOURCE])
+    results = build.build([*fa.KERNELS, ln.KERNEL, *host_sources])
     log(f"[2] built {sorted(results)} in {time.perf_counter() - t0:.1f} s")
     summary = {}
     for res in results.values():
-        compiler = "c++" if res.name in (png.SOURCE, crf.SOURCE) else "nvcc"
+        compiler = "c++" if res.name in host_sources else "nvcc"
         log(f"[2] {res.name}: {res.path.name}, {compiler} {res.seconds:.1f} s")
         shown = set()
         for line in res.log.splitlines():  # warnings, once each
@@ -2038,6 +2058,48 @@ def check_loaded_weights(model, ckpt: str, model_cfg):
     return dict(loaded=len(loaded), backfilled=len(backfilled), file_tensors=len(file_sd))
 
 
+def cheapest_group_against_cpu(tag: str, groups, main_logs, tsv: str, ckpt: str, model=None):
+    """A counted validate run's own logs against the fp32 CPU evaluator, on
+    the group cheapest for the CPU (label areas are exact on both sides, so
+    they pick that group out of main's logs): nll_loss within
+    EVAL_NLL_REL_TOL relative, the share of pixels predicted otherwise
+    within EVAL_PIXEL_SHARE_TOL; ``model`` is loaded from ``ckpt`` if not
+    given."""
+    from ifseg_torch.checkpoint.convert import load_model
+    from ifseg_torch.config import from_flags
+    from ifseg_torch.eval.evaluator import Evaluator, group_key
+
+    group = min(groups, key=lambda g: len(g) * (group_key(g[0])[0] * group_key(g[0])[1]
+                                               + group_key(g[0])[2] * group_key(g[0])[3]))
+    t0 = time.perf_counter()
+    cfg = from_flags(ade_argv(tsv, ckpt, "float32"))
+    if model is None:
+        model = load_model(ckpt, cfg.model)
+    reference = Evaluator(cfg, model, device="cpu")
+    cpu_out = reference._read_back(reference._run_group(group))
+    found = [lg for lg in main_logs if np.array_equal(lg["area_label"], cpu_out["area_label"])]
+    if len(found) != 1:
+        fail(f"{len(found)} of validate.main's {len(main_logs)} group logs count the label "
+             f"areas of rows {[s.id for s in group]}; expected one")
+    card_out = found[0]
+    n_px = float(cpu_out["area_label"].sum())
+    shares = {k: float(np.abs(card_out[k] - cpu_out[k]).sum() / 2 / n_px)
+              for k in ("area_pred_label", "area_pred_label_resnet_postprocess")}
+    nll_rel = (abs(float(card_out["nll_loss"]) - float(cpu_out["nll_loss"]))
+               / float(cpu_out["nll_loss"]))
+    log(f"{tag} validate.main's own group of the TSV's rows {[s.id for s in group]} on the card "
+        f"(bf16) vs the CPU fp32 Evaluator ({time.perf_counter() - t0:.1f} s on the CPU): "
+        f"nll_loss {float(card_out['nll_loss']):.5f} vs {float(cpu_out['nll_loss']):.5f} (rel "
+        f"{nll_rel:.3e}, limit {EVAL_NLL_REL_TOL}); share of pixels predicted otherwise "
+        f"{shares['area_pred_label']:.4f}, after label propagation "
+        f"{shares['area_pred_label_resnet_postprocess']:.4f} (limit {EVAL_PIXEL_SHARE_TOL})")
+    if not nll_rel <= EVAL_NLL_REL_TOL:
+        fail(f"card nll_loss differs from the CPU's: {nll_rel} > {EVAL_NLL_REL_TOL}")
+    if not max(shares.values()) <= EVAL_PIXEL_SHARE_TOL:
+        fail(f"card predictions differ from the CPU's on {shares} of the pixels")
+    return dict(nll_rel_err=nll_rel, pixel_share_differs=shares)
+
+
 def phase_validate(card: str, tmp: str):
     """``ifseg_torch.cli.validate.main`` on the card over a TSV of
     VALID_ROWS rows, OFA-Base at full width and depth, the ADE flags (150
@@ -2187,37 +2249,9 @@ def phase_validate(card: str, tmp: str):
         f"packs and runs one in {wall_ms_row:.2f} ms of wall time, of which the card is busy "
         f"{device_ms_row:.2f} ms: the {result['pace']['set_by']} sets it, on {card}")
 
-    # the counted run's own logs against the fp32 CPU evaluator, on the
-    # group cheapest for the CPU; label areas are exact on both sides, so
-    # they pick that group out of main's logs
-    group = min(groups, key=lambda g: len(g) * (group_key(g[0])[0] * group_key(g[0])[1]
-                                               + group_key(g[0])[2] * group_key(g[0])[3]))
     del evaluator
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    reference = Evaluator(from_flags(ade_argv(tsv, ckpt, "float32")), model, device="cpu")
-    cpu_out = reference._read_back(reference._run_group(group))
-    found = [lg for lg in main_logs if np.array_equal(lg["area_label"], cpu_out["area_label"])]
-    if len(found) != 1:
-        fail(f"{len(found)} of validate.main's {len(main_logs)} group logs count the label "
-             f"areas of rows {[s.id for s in group]}; expected one")
-    card_out = found[0]
-    n_px = float(cpu_out["area_label"].sum())
-    shares = {k: float(np.abs(card_out[k] - cpu_out[k]).sum() / 2 / n_px)
-              for k in ("area_pred_label", "area_pred_label_resnet_postprocess")}
-    nll_rel = (abs(float(card_out["nll_loss"]) - float(cpu_out["nll_loss"]))
-               / float(cpu_out["nll_loss"]))
-    log(f"[11] validate.main's own group of the TSV's rows {[s.id for s in group]} on the card "
-        f"(bf16) vs the CPU fp32 Evaluator ({time.perf_counter() - t0:.1f} s on the CPU): "
-        f"nll_loss {float(card_out['nll_loss']):.5f} vs {float(cpu_out['nll_loss']):.5f} (rel "
-        f"{nll_rel:.3e}, limit {EVAL_NLL_REL_TOL}); share of pixels predicted otherwise "
-        f"{shares['area_pred_label']:.4f}, after label propagation "
-        f"{shares['area_pred_label_resnet_postprocess']:.4f} (limit {EVAL_PIXEL_SHARE_TOL})")
-    if not nll_rel <= EVAL_NLL_REL_TOL:
-        fail(f"card nll_loss differs from the CPU's: {nll_rel} > {EVAL_NLL_REL_TOL}")
-    if not max(shares.values()) <= EVAL_PIXEL_SHARE_TOL:
-        fail(f"card predictions differ from the CPU's on {shares} of the pixels")
-    result.update(nll_rel_err=nll_rel, pixel_share_differs=shares)
+    result.update(cheapest_group_against_cpu("[11]", groups, main_logs, tsv, ckpt, model))
     return result
 
 
@@ -2616,6 +2650,11 @@ def surface_sites():
     for _, t in infer_prompts():
         sites += [(f"infer encoder self, {t} tokens", 1, cells + t, cells + t, False, True),
                   (f"infer decoder cross, {t} tokens", 1, 1 + cells, cells + t, False, True)]
+    # phase 14's cli.infer over assets/cat_dog.jpeg
+    cells, t = CAT_DOG_GRID[0] * CAT_DOG_GRID[1], prompt_len(CAT_DOG_CATEGORIES)
+    sites += [("infer cat_dog decoder self", 1, 1 + cells, 1 + cells, True, False),
+              (f"infer cat_dog encoder self, {t} tokens", 1, cells + t, cells + t, False, True),
+              (f"infer cat_dog decoder cross, {t} tokens", 1, 1 + cells, cells + t, False, True)]
     return sites
 
 
@@ -2624,8 +2663,11 @@ def surface_ln_paths():
     daemon's served forward (biases precomputed) and cli.infer's full forward
     (the position LayerNorms in it), (path, sites)."""
     cells = INFER_GRID[0] * INFER_GRID[1]
+    cat_dog = ("infer cat_dog", ln_sites(1, CAT_DOG_GRID[0] * CAT_DOG_GRID[1], True,
+                                         src_len=prompt_len(CAT_DOG_CATEGORIES)))
     return [("daemon", ln_sites(DAEMON_MAX_BATCH, 32 * 32, False, src_len=VALID_SRC_LEN))] + [
-        (f"infer, {t} tokens", ln_sites(1, cells, True, src_len=t)) for _, t in infer_prompts()]
+        (f"infer, {t} tokens", ln_sites(1, cells, True, src_len=t)) for _, t in infer_prompts()
+    ] + [cat_dog]
 
 
 def smooth_image(h: int, w: int, seed: int):
@@ -2668,13 +2710,15 @@ def resident_bytes(model, modules=None):
     return total
 
 
-def drive_daemon(base: str, bodies, clients: int):
-    """DAEMON_REQUESTS requests from ``clients`` threads (every other one asks
-    for JSON): (answers [(request, status, type, body)], wall s, latencies)."""
+def drive_daemon(base: str, bodies, clients: int, json_every: int = 2):
+    """DAEMON_REQUESTS requests from ``clients`` threads, request i sending
+    ``bodies[i % len(bodies)]``; the second half of every ``json_every``
+    requests asks for JSON: (answers [(request, status, type, body)], wall
+    s, latencies)."""
     from concurrent.futures import ThreadPoolExecutor
 
     def one(i):
-        fmt = "json" if i % 2 else "png"
+        fmt = "json" if i % json_every >= json_every // 2 else "png"
         status, ctype, out, dt = http_post(f"{base}/segment?format={fmt}", bodies[i % len(bodies)])
         return (i, status, ctype, out), dt
 
@@ -2685,6 +2729,69 @@ def drive_daemon(base: str, bodies, clients: int):
     return [a for a, _ in done], wall, [dt for _, dt in done]
 
 
+# a GIF file's first bytes: a format the daemon does not take
+GIF_BODY = b"GIF89a\x01\x00\x01\x00\x80\x00\x00\x00\x00\x00\xff\xff\xff!\xf9\x04\x01;"
+
+
+def recording_forward(svc, batches):
+    """Wrap ``svc.forward`` so that every batch's (images, class ids) is
+    appended to ``batches``; returns the plain forward to put back."""
+    plain = svc.forward
+
+    def recording(images):
+        out = plain(images)
+        batches.append((images.copy(), out.copy()))
+        return out
+
+    svc.forward = recording
+    return plain
+
+
+def batch_rows(svc, batches):
+    """Every recorded batch again through ``forward_served`` (it must answer
+    the same), then {a row's net input bytes: the class-id rows it got}."""
+    from ifseg_torch.eval.serving import forward_served
+
+    hw, server, grid_of = svc.grid * svc.grid, svc.server, {}
+    with torch.inference_mode():
+        for imgs, out in batches:
+            logits = forward_served(server.model, server.pre, svc.src,
+                                    torch.from_numpy(imgs).to(server.device), svc._bos)
+            again = logits[:, :hw].float().argmax(-1).cpu().numpy()
+            if not np.array_equal(again, out):
+                fail("a batch's answer differs from forward_served on the same padded batch")
+            for row, img in zip(out, imgs):
+                grid_of.setdefault(img.tobytes(), set()).add(row.tobytes())
+    return grid_of
+
+
+def check_answer(svc, grid_of, net_orig, what: str, status, ctype, out, as_json: bool):
+    """An answer must be the class ids (a mask PNG at the input's size, or
+    JSON areas) of a batch row that held the request's net input; returns
+    the decoded mask or the areas."""
+    from ifseg_torch.data.png import decode_png
+    from ifseg_torch.data.transforms import pil_resize
+
+    net, (h0, w0) = net_orig
+    rows = [np.frombuffer(r, np.int64).reshape(svc.grid, svc.grid)
+            for r in grid_of.get(net.tobytes(), ())]
+    if status != 200 or not rows:
+        fail(f"{what}: status {status}, no batch held its image: {out[:200]!r}")
+    names = svc.categories
+    if as_json:
+        got = json.loads(out)["areas"]
+        ok = sum(got.values()) == svc.grid * svc.grid and any(
+            got == {names[c]: int((g == c).sum()) for c in np.unique(g)} for g in rows)
+    else:
+        got = decode_png(out)
+        ok = ctype == "image/png" and got.shape == (h0, w0) and any(
+            np.array_equal(got, pil_resize(g.astype(np.uint8), (h0, w0), nearest=True))
+            for g in rows)
+    if not ok:
+        fail(f"{what}: the answer is not the class ids of a batch that held its image")
+    return got
+
+
 def phase_daemon(card: str, ckpt: str):
     """``cli.serve`` on the card at OFA-Base full width and depth, 150 ADE
     classes (a 215-token prompt), phase 11's fabricated checkpoint, batches of
@@ -2693,9 +2800,8 @@ def phase_daemon(card: str, ckpt: str):
     from http.server import ThreadingHTTPServer
 
     from ifseg_torch.cli import serve as cli_serve
-    from ifseg_torch.data.png import decode_png, decode_png_rgb
+    from ifseg_torch.data.png import decode_png_rgb
     from ifseg_torch.data.transforms import pil_resize
-    from ifseg_torch.eval.serving import forward_served
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
 
@@ -2721,20 +2827,12 @@ def phase_daemon(card: str, ckpt: str):
             f"originals of {DAEMON_SHAPES[0]} to {DAEMON_SHAPES[-1]} "
             f"({sum(map(len, bodies)) / DAEMON_IMAGES / 2**20:.2f} MiB each on average), on {card}")
 
-        with open(REPO / "assets" / "cat_dog.jpeg", "rb") as fp:
-            status, _, out, _ = http_post(f"{base}/segment", fp.read())
+        status, _, out, _ = http_post(f"{base}/segment", GIF_BODY)
         if status != 400:
-            fail(f"a JPEG body got {status}, not 400: {out[:200]!r}")
+            fail(f"a GIF body got {status}, not 400: {out[:200]!r}")
 
         batches = []
-        plain_forward = svc.forward
-
-        def recording(images):
-            out = plain_forward(images)
-            batches.append((images.copy(), out.copy()))
-            return out
-
-        svc.forward = recording
+        plain_forward = recording_forward(svc, batches)
         fa.reset_launches()
         ln.reset_launches()
         before = dict(svc.stats)
@@ -2765,16 +2863,7 @@ def phase_daemon(card: str, ckpt: str):
         # against its row of the batch that held its image
         hw = svc.grid * svc.grid
         server = svc.server
-        grid_of = {}
-        with torch.inference_mode():
-            for imgs, out in batches:
-                logits = forward_served(server.model, server.pre, svc.src,
-                                        torch.from_numpy(imgs).to(server.device), svc._bos)
-                again = logits[:, :hw].float().argmax(-1).cpu().numpy()
-                if not np.array_equal(again, out):
-                    fail("a batch's answer differs from forward_served on the same padded batch")
-                for row, img in zip(out, imgs):
-                    grid_of.setdefault(img.tobytes(), set()).add(row.tobytes())
+        grid_of = batch_rows(svc, batches)
         host = dict(decode_ms=[], resize_ms=[], preprocess_ms=[])
         nets = []
         for body in bodies:
@@ -2788,29 +2877,10 @@ def phase_daemon(card: str, ckpt: str):
             host["decode_ms"].append((t2 - t1) * 1e3)
             host["resize_ms"].append((t3 - t2) * 1e3)
             host["preprocess_ms"].append((t4 - t3) * 1e3)
-        names = svc.categories
         for clients, run in runs.items():
             for i, status, ctype, out in run["answers"]:
-                net, (h0, w0) = nets[i % len(nets)]
-                # the class ids of every batch row that held this request's image
-                rows = [np.frombuffer(r, np.int64).reshape(svc.grid, svc.grid)
-                        for r in grid_of.get(net.tobytes(), ())]
-                if status != 200 or not rows:
-                    fail(f"request {i} ({clients} clients): status {status}, no batch held its "
-                         f"image: {out[:200]!r}")
-                if i % 2:
-                    areas = json.loads(out)["areas"]
-                    ok = sum(areas.values()) == hw and any(
-                        areas == {names[c]: int((g == c).sum()) for c in np.unique(g)}
-                        for g in rows)
-                else:
-                    mask = decode_png(out)
-                    ok = ctype == "image/png" and mask.shape == (h0, w0) and any(
-                        np.array_equal(mask, pil_resize(g.astype(np.uint8), (h0, w0), nearest=True))
-                        for g in rows)
-                if not ok:
-                    fail(f"request {i} ({clients} clients): the answer is not the class ids of "
-                         f"a batch that held its image")
+                check_answer(svc, grid_of, nets[i % len(nets)], f"request {i} ({clients} clients)",
+                             status, ctype, out, as_json=bool(i % 2))
         result["images_answered_two_ways"] = sum(len(r) > 1 for r in grid_of.values())
 
         imgs = torch.zeros(DAEMON_MAX_BATCH, svc.size, svc.size, 3, device=server.device)
@@ -2826,7 +2896,7 @@ def phase_daemon(card: str, ckpt: str):
             f"for a batch of {DAEMON_MAX_BATCH} ({card_ms / DAEMON_MAX_BATCH:.2f} a request at "
             f"full batches; {card_ms / runs[DAEMON_CLIENTS]['mean_batch']:.2f} at the concurrent "
             f"run's mean batch); every answer equals forward_served on its padded batch; "
-            f"JPEG -> 400; on {card}")
+            f"GIF -> 400; on {card}")
         for run in runs.values():
             del run["answers"]
         result.update(runs={str(c): r for c, r in runs.items()}, host_ms_per_request=host_ms,
@@ -3047,15 +3117,384 @@ def infer_cpu_reference(cli_infer, hooked, seen, card_pre, tmp: str):
                 pixel_argmax_differs=pixels, cpu_wall_s=wall)
 
 
-def phase_serving_surface(card: str, tmp: str, ckpt: str):
+def phase_serving_surface(card: str, tmp: str, ckpt: str, jpeg_files):
+    """Phase 13 and phase 14's JPEG paths through the same daemon and CLI."""
     daemon, svc = phase_daemon(card, ckpt)
     try:
+        daemon_jpeg = phase_daemon_jpeg(card, svc, jpeg_files)
         int8 = phase_int8(card, ckpt, svc)
     finally:
         svc.close()
     del svc
     torch.cuda.empty_cache()
-    return dict(daemon=daemon, int8=int8, infer=phase_infer(card, tmp, ckpt))
+    infer = phase_infer(card, tmp, ckpt)
+    return dict(daemon=daemon, int8=int8, infer=infer, daemon_jpeg=daemon_jpeg,
+                infer_jpeg=phase_infer_jpeg(card, tmp, ckpt))
+
+
+# ---------------------------------------------------------------- phase 14: the files of the JAX CLIs
+
+# phase 14's JPEG originals, written by the port's encoder from smooth_image:
+# (h, w, seed, quality, PIL's subsampling, mode); 480 x 640 to 1,024 x 1,366,
+# all resized by validation into the (512, 768) bucket of phase 11's groups
+JPEG_CASES = [
+    (480, 640, 1400, 75, 2, "RGB"), (480, 640, 1401, 95, 0, "RGB"),
+    (600, 800, 1402, 75, 1, "RGB"), (600, 800, 1403, 95, 2, "RGB"),
+    (512, 683, 1404, 75, 0, "RGB"), (512, 683, 1405, 95, 1, "RGB"),
+    (768, 1024, 1406, 75, 2, "RGB"), (768, 1024, 1407, 95, 0, "L"),
+    (900, 1200, 1408, 75, 1, "RGB"), (900, 1200, 1409, 95, 2, "RGB"),
+    (1024, 1366, 1410, 75, 0, "RGB"), (1024, 1366, 1411, 95, 1, "RGB"),
+    (1024, 1366, 1412, 75, 2, "L"), (480, 640, 1413, 95, 1, "RGB"),
+    (768, 1024, 1414, 95, 2, "RGB"), (600, 800, 1415, 75, 0, "RGB"),
+]
+# SHA-256 (first 16 hex digits) of each case's file as PIL writes it, and
+# row_digest of the pixels PIL decodes from it; tests/test_torch_jpeg.py
+# computes them again with PIL
+JPEG_DIGESTS = [
+    ("4aa5d8a7ba3f9868", "e26049951b179c73"), ("00912db9cdef1d16", "5c123cdd071d2b12"),
+    ("98b666dd5baa7c06", "7a91b94164d16454"), ("e309fea2f2f3a427", "02220cf39125eb5a"),
+    ("a45df708ac6b79ee", "a1a291b0242ab876"), ("0646bb3158f6e41c", "3fb9895b4921eb32"),
+    ("2ac42ae7b1b0fe8a", "19b1ce1b147f1772"), ("fb7447a70b650193", "39d296458214fb0c"),
+    ("1593364115deaecc", "bd7d6034a390c362"), ("c2f055e8065529f3", "1affd7f21de3648b"),
+    ("566b6dac8a11724f", "b8bf56824b61e3f1"), ("555e854d3bcd193c", "3360f7abf8569b66"),
+    ("7a9a925c2824b62f", "b57bee21f3f6917e"), ("a5fcbe5ca3dc5de8", "6dde157eff5cf125"),
+    ("de73c0fa7174dd7a", "af03906f578ce765"), ("cb76ec086505b259", "8f08e336a51bc1ae"),
+]
+# the same of assets/cat_dog.jpeg (progressive, 4:4:4, 1,440 x 560)
+CAT_DOG_DIGESTS = ("9a792137450c59fa", "e0dcaafcda795976")
+# row_digest of each converted row's label (the ADE map applied to
+# jpeg_label), as the JAX package's convert_dataset writes it and PIL reads
+# it back; tests/test_torch_convert_dataset.py computes them again
+JPEG_LABEL_DIGESTS = [
+    "0c2fc7e21c56f597", "ad561a6db3518c8e", "47301d289042944c", "4a13d76ba839ad1d",
+    "a8dd9fe2925d3836", "280b625ef61f57e7", "32bb755ad29477cd", "0936be7ff4397779",
+    "51a07b5576e08a02", "cff15aad84890e54", "1702382ade074d29", "db95be2148d576d5",
+    "40b17749600a0184", "532365c4d30f9b3c", "bb97b93f0510b9d9", "b9cd2283c228fa9f",
+]
+CONVERT_WORKERS = 4
+CAT_DOG_CATEGORIES = "cat, dog"
+CAT_DOG_GRID = (32, 83)  # the keep-ratio resize of 560 x 1,440 is 512 x 1,317
+
+
+def jpeg_original(spec) -> np.ndarray:
+    """The pixels of a JPEG_CASES entry: (h, w, 3) or, for "L", (h, w) uint8."""
+    h, w, seed, _, _, mode = spec
+    img = smooth_image(h, w, seed)
+    return np.ascontiguousarray(img[:, :, 0]) if mode == "L" else img
+
+
+def jpeg_label(spec) -> np.ndarray:
+    """A raw ADE annotation for a JPEG_CASES entry: blocks of 64 pixels of
+    values 0..150 (150 maps to 'ignore'), (h, w) uint8."""
+    h, w, seed = spec[:3]
+    rng = np.random.default_rng(seed + 50)
+    lab = rng.integers(0, 151, size=(h // 64 + 1, w // 64 + 1))
+    return np.repeat(np.repeat(lab, 64, 0), 64, 1)[:h, :w].astype(np.uint8)
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """The median of ``reps`` host times of ``fn()``, in ms."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def jpeg_files():
+    """The port's JPEG encoder writes JPEG_CASES and its decoder reads them
+    back, each file held to the digest of PIL's bytes and its pixels to the
+    digest of PIL's; assets/cat_dog.jpeg's pixels too.  Returns [(spec,
+    JPEG bytes, decoded pixels)]."""
+    import hashlib
+
+    from ifseg_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    files = []
+    for spec, (file_sha, pixels_sha) in zip(JPEG_CASES, JPEG_DIGESTS):
+        data = encode_jpeg(jpeg_original(spec), spec[3], spec[4])
+        if hashlib.sha256(data).hexdigest()[:16] != file_sha:
+            fail(f"encode_jpeg of {spec} is not the file PIL writes ({file_sha})")
+        pixels = decode_jpeg(data)
+        if row_digest(pixels) != pixels_sha:
+            fail(f"decode_jpeg of {spec} is not the pixels PIL decodes ({pixels_sha})")
+        files.append((spec, data, pixels))
+    cat_dog = (REPO / "assets" / "cat_dog.jpeg").read_bytes()
+    got = (hashlib.sha256(cat_dog).hexdigest()[:16], row_digest(decode_jpeg(cat_dog)))
+    if got != CAT_DOG_DIGESTS:
+        fail(f"assets/cat_dog.jpeg: digests {got}, PIL's are {CAT_DOG_DIGESTS}")
+    return files
+
+
+def phase_codecs(card: str):
+    """(a): ``jpeg_files``, then host ms a file for encode and decode at each
+    size, beside the PNG decode of the same pixels, one thread.  Returns the
+    timings and the files."""
+    from ifseg_torch.data import jpeg, png
+
+    t0 = time.perf_counter()
+    jpeg.load()
+    build_s = time.perf_counter() - t0
+    files = jpeg_files()
+    by_size = {}
+    for spec, data, pixels in files:
+        h, w, _, q, sub, _ = spec
+        arr = jpeg_original(spec)
+        as_png = png.encode_png(pixels)
+        by_size.setdefault(f"{h}x{w}", []).append(dict(
+            encode_ms=host_ms(lambda: jpeg.encode_jpeg(arr, q, sub)),
+            decode_ms=host_ms(lambda: jpeg.decode_jpeg(data)),
+            png_decode_ms=host_ms(lambda: png.decode_png_rgb(as_png)),
+            jpeg_bytes=len(data), png_bytes=len(as_png)))
+    sizes = {}
+    for size, rows in by_size.items():
+        sizes[size] = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+        sizes[size]["files"] = len(rows)
+        log(f"[14a] {size}, {len(rows)} files: JPEG encode {sizes[size]['encode_ms']:.2f} ms, "
+            f"decode {sizes[size]['decode_ms']:.2f} ms a file ({sizes[size]['jpeg_bytes'] / 1e3:.0f} "
+            f"kB) against PNG decode {sizes[size]['png_decode_ms']:.2f} ms of the same pixels "
+            f"({sizes[size]['png_bytes'] / 1e3:.0f} kB); host, one thread, beside {card}")
+    cat_dog = (REPO / "assets" / "cat_dog.jpeg").read_bytes()
+    cat_ms = host_ms(lambda: jpeg.decode_jpeg(cat_dog))
+    log(f"[14a] {len(files)} JPEG files (4:2:0, 4:2:2, 4:4:4, gray; qualities 75, 95) equal "
+        f"PIL's bytes and PIL's pixels; assets/cat_dog.jpeg (progressive) decodes to PIL's "
+        f"pixels in {cat_ms:.2f} ms; codecs loaded in {build_s:.2f} s; beside {card}")
+    return dict(sizes=sizes, cat_dog_decode_ms=cat_ms), files
+
+
+def phase_convert_validate(card: str, tmp: str, ckpt: str, files):
+    """(b): ``python -m ifseg_torch.cli.convert_dataset --mode=ade`` over
+    phase 14's JPEG originals and label PNGs made from the seed, each row
+    held to the pinned digests; then ``cli.validate.main`` on the card with
+    the ADE flags over the TSV it wrote, launch counts set to 0 before and
+    read after, and its cheapest group against the fp32 CPU Evaluator."""
+    import base64
+
+    from ifseg_torch.cli import convert_dataset
+    from ifseg_torch.cli import validate as cli_validate
+    from ifseg_torch.config import from_flags
+    from ifseg_torch.data.png import decode_png, encode_png
+    from ifseg_torch.eval.evaluator import group_key
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.tasks.segmentation import SegmentationTask
+
+    root = Path(tmp) / "ade_jpeg"
+    images, labels, tsv = root / "images", root / "annotations", str(root / "validation.tsv")
+    images.mkdir(parents=True)
+    labels.mkdir()
+    for i, (spec, data, _) in enumerate(files):
+        (images / f"ade_{i:03d}.jpg").write_bytes(data)
+        (labels / f"ade_{i:03d}.png").write_bytes(encode_png(jpeg_label(spec)))
+    # one thread's cost of a row, then the CLI as a user runs it
+    mapping = convert_dataset.MAPS["ade"]()
+    row_ms = [host_ms(lambda i=i: convert_dataset.convert_row(
+        (i + 1, str(labels / f"ade_{i:03d}.png"), str(images), [".jpg"], mapping)), reps=1)
+        for i in range(len(files))]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ifseg_torch.cli.convert_dataset", "--mode=ade",
+                           f"--images={images}", f"--annotations={labels}", f"--output={tsv}",
+                           f"--workers={CONVERT_WORKERS}"], cwd=str(REPO), capture_output=True,
+                          text=True, timeout=300)
+    convert_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli.convert_dataset failed: {proc.stderr[-2000:]}")
+    lines = Path(tsv).read_text().splitlines()
+    if len(lines) != len(files):
+        fail(f"cli.convert_dataset wrote {len(lines)} rows, not {len(files)}")
+    for i, line in enumerate(lines):
+        image_b64, label_b64, stem, line_id = line.split("\t")
+        got = (row_digest(decode_png(base64.urlsafe_b64decode(image_b64))),
+               row_digest(decode_png(base64.urlsafe_b64decode(label_b64))))
+        want = (JPEG_DIGESTS[i][1], JPEG_LABEL_DIGESTS[i])
+        if (stem, line_id) != (f"ade_{i:03d}", str(i + 1)) or got != want:
+            fail(f"converted row {i} ({stem}, {line_id}): digests {got}, pinned {want}")
+    result = dict(rows=len(lines), convert_s=convert_s, rows_per_s=len(lines) / convert_s,
+                  row_ms_one_thread=float(np.mean(row_ms)), tsv_mib=Path(tsv).stat().st_size / 2**20)
+    log(f"[14b] cli.convert_dataset --mode=ade: {len(lines)} rows from JPEG originals in "
+        f"{convert_s:.2f} s with {CONVERT_WORKERS} workers ({result['rows_per_s']:.2f} rows/s, the "
+        f"interpreter's start included; one thread {result['row_ms_one_thread']:.1f} ms a row: JPEG "
+        f"decode, two PNG encodes, base64); {result['tsv_mib']:.1f} MiB; every row's image and "
+        f"label equal the pinned digests of what the JAX package's CLI writes; host, beside {card}")
+
+    cfg = from_flags(ade_argv(tsv, ckpt))
+    ds = SegmentationTask.setup_task(cfg).load_dataset("valid")
+    samples = [ds.get_eval_sample(i) for i in range(len(ds))]
+    keys = {}
+    for smp in samples:
+        keys.setdefault(group_key(smp), []).append(smp)
+    groups = [m[j:j + 8] for m in keys.values() for j in range(0, len(m), 8)]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    ln.reset_launches()
+    t0 = time.perf_counter()
+    main_logs = []
+    vals = cli_validate.main(from_flags(ade_argv(tsv, ckpt)), logs_out=main_logs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+    k1_per, ln_per = sum(n for *_, n in EVAL_SITES), ln_sites_per_pass("per_validate_group")
+    log(f"[14b] validate.main over the converted TSV: {json.dumps(vals)}")
+    log(f"[14b] validate.main: {dt:.2f} s, {len(lines) / dt:.2f} img/s of the whole main; attention "
+        f"launches {counts['infer']}, layer_norm launches {ln_launches} (expected {k1_per} and "
+        f"{ln_per} a group, {len(groups)} groups of {[len(g) for g in groups]}), on {card}")
+    if counts != dict(infer=k1_per * len(groups), stats=0, bwd_di=0, bwd_dq=0, bwd_dkv=0) \
+            or ln_launches != ln_per * len(groups):
+        fail("validate over the converted TSV did not launch K1 and K4 at every site")
+    if vals["num_images"] != len(lines) or not np.isfinite(vals["loss"]):
+        fail(f"validate over the converted TSV returned {vals}")
+    result.update(vals=vals, main_s=dt, img_per_s=len(lines) / dt, launches=counts["infer"],
+                  ln_launches=ln_launches)
+    result.update(cheapest_group_against_cpu("[14b]", groups, main_logs, tsv, ckpt))
+    return result
+
+
+def phase_daemon_jpeg(card: str, svc, files):
+    """(c): the daemon of phase 13 answers JPEG bodies: half of each run's
+    DAEMON_REQUESTS are phase 14's JPEG files, half PNG files of the pixels
+    the port decodes from them (every other request asks for JSON), from 1
+    and from DAEMON_CLIENTS clients; a JPEG body's net input equals its PNG
+    twin's bit for bit, every answer is the class ids of a batch row that
+    held its image, and each JPEG answer equals its PNG twin's."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from ifseg_torch.cli import serve as cli_serve
+    from ifseg_torch.data.image import decode_image_rgb
+    from ifseg_torch.data.png import encode_png
+    from ifseg_torch.data.transforms import pil_resize
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+
+    bodies, host = [], dict(jpeg_decode_ms=[], png_decode_ms=[], resize_ms=[], jpeg_preprocess_ms=[])
+    for _, data, pixels in files:
+        twin = encode_png(pixels)
+        bodies += [data, twin]
+        host["jpeg_decode_ms"].append(host_ms(lambda: decode_image_rgb(data), reps=1))
+        host["png_decode_ms"].append(host_ms(lambda: decode_image_rgb(twin), reps=1))
+        rgb = decode_image_rgb(data)
+        host["resize_ms"].append(host_ms(lambda: pil_resize(rgb, (svc.size, svc.size)), reps=1))
+        host["jpeg_preprocess_ms"].append(host_ms(lambda: svc._preprocess(data), reps=1))
+    nets = [svc._preprocess(b) for b in bodies]
+    for k in range(0, len(nets), 2):
+        if nets[k][1] != nets[k + 1][1] or not np.array_equal(nets[k][0], nets[k + 1][0]):
+            fail(f"JPEG file {k // 2}: the daemon's net input differs from its PNG twin's")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), cli_serve._make_handler(svc))
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    batches, runs = [], {}
+    plain_forward = recording_forward(svc, batches)
+    try:
+        fa.reset_launches()
+        ln.reset_launches()
+        before = dict(svc.stats)
+        for clients in (1, DAEMON_CLIENTS):
+            answers, wall, lat = drive_daemon(base, bodies, clients, json_every=4)
+            done = dict(svc.stats)
+            n_batches = done["batches"] - before["batches"]
+            runs[clients] = dict(answers=answers, requests_per_s=DAEMON_REQUESTS / wall, wall_s=wall,
+                                 p50_ms=float(np.percentile(lat, 50) * 1e3),
+                                 p99_ms=float(np.percentile(lat, 99) * 1e3), batches=n_batches,
+                                 mean_batch=(done["requests"] - before["requests"]) / n_batches)
+            before = done
+        counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+    finally:
+        svc.forward = plain_forward
+        httpd.shutdown()
+        httpd.server_close()
+        server_thread.join(30)
+    n_batches = sum(r["batches"] for r in runs.values())
+    k1_per = sum(n for *_, n in SITES)
+    ln_per = ln_launches_per_forward(svc.server.model, position_lns=False)
+    if counts["infer"] != k1_per * n_batches or ln_launches != ln_per * n_batches:
+        fail("the daemon's batches of JPEG and PNG bodies did not launch K1 and K4 at every site")
+    grid_of = batch_rows(svc, batches)
+    same = 0
+    for clients, run in runs.items():
+        got = {}
+        for i, status, ctype, out in run["answers"]:
+            got[i] = check_answer(svc, grid_of, nets[i % len(nets)], f"[14c] request {i} "
+                                  f"({clients} clients)", status, ctype, out,
+                                  as_json=i % 4 in (2, 3))
+        for i in got:  # a JPEG request and its PNG twin's, the same format asked
+            if i % 2 == 0:
+                a, b = got[i], got[i + 1]
+                if not (a == b if isinstance(a, dict) else np.array_equal(a, b)):
+                    fail(f"[14c] request {i} ({clients} clients): the JPEG body's answer differs "
+                         f"from its PNG twin's")
+                same += 1
+    result = dict(launches=counts["infer"], ln_launches=ln_launches, pairs_equal=same,
+                  host_ms={k: float(np.mean(v)) for k, v in host.items()},
+                  images_answered_two_ways=sum(len(r) > 1 for r in grid_of.values()))
+    for clients, run in runs.items():
+        del run["answers"]
+        log(f"[14c] {clients} client(s), {DAEMON_REQUESTS} requests, half JPEG: "
+            f"{run['requests_per_s']:.2f} requests/s, latency p50 {run['p50_ms']:.1f} ms, p99 "
+            f"{run['p99_ms']:.1f} ms, {run['batches']} batches, mean batch size "
+            f"{run['mean_batch']:.2f}, on {card}")
+    hm = result["host_ms"]
+    log(f"[14c] per request, one thread: JPEG decode {hm['jpeg_decode_ms']:.2f} ms against the PNG "
+        f"twin's {hm['png_decode_ms']:.2f}, PIL bilinear resize {hm['resize_ms']:.2f}, a JPEG "
+        f"request's preprocess {hm['jpeg_preprocess_ms']:.2f}; K1 {counts['infer']} and K4 "
+        f"{ln_launches} launches over {n_batches} batches ({k1_per} and {ln_per} a batch); "
+        f"{same} JPEG answers equal their PNG twins'; beside {card}")
+    result["runs"] = {str(c): r for c, r in runs.items()}
+    return result
+
+
+def phase_infer_jpeg(card: str, tmp: str, ckpt: str):
+    """(d): ``cli.infer`` on assets/cat_dog.jpeg with --output=*.jpg on the
+    card (the device CRF, CRF_ITERS iterations, PyTorch's default TF32
+    settings), launch counts set to 0 before and read after; the overlay's
+    bytes against ``encode_jpeg`` of the overlay made again from the mask it
+    wrote and the decoded image."""
+    from ifseg_torch.cli import infer as cli_infer
+    from ifseg_torch.data.jpeg import decode_jpeg, encode_jpeg
+    from ifseg_torch.data.png import decode_png_rgb
+    from ifseg_torch.models.segofa import SegOFA
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+
+    with torch.device("meta"):
+        ln_per = ln_launches_per_forward(SegOFA(base_config("bfloat16")), position_lns=True)
+    k1_per = sum(n for *_, n in SITES)
+    image = REPO / "assets" / "cat_dog.jpeg"
+    out = f"{tmp}/cat_dog_overlay.jpg"
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        fa.reset_launches()
+        ln.reset_launches()
+        t0 = time.perf_counter()
+        got = cli_infer.main([f"--image={image}", f"--checkpoint={ckpt}",
+                              f"--category-list={CAT_DOG_CATEGORIES}", "--arch=segofa_base",
+                              f"--bpe-dir={REPO / 'assets' / 'BPE'}", f"--crf-iters={CRF_ITERS}",
+                              f"--output={out}"])
+        wall = time.perf_counter() - t0
+        counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if counts["infer"] != k1_per or ln_launches != ln_per:
+        fail(f"cli.infer on cat_dog.jpeg launched K1 {counts['infer']} and K4 {ln_launches} "
+             f"times, not {k1_per} and {ln_per}")
+    written = Path(out).read_bytes()
+    rgb = decode_jpeg(image.read_bytes())
+    colours = decode_png_rgb(Path(got["mask"]).read_bytes())
+    overlay = (0.5 * colours + (1 - 0.5) * rgb).astype(np.uint8)  # the CLI's --alpha=0.5
+    if written != encode_jpeg(overlay) or decode_jpeg(written).shape != rgb.shape:
+        fail("cli.infer's JPEG overlay is not encode_jpeg of its overlay")
+    if sum(got["areas"].values()) != rgb.shape[0] * rgb.shape[1]:
+        fail(f"cli.infer's areas {got['areas']} do not cover {rgb.shape[:2]}")
+    log(f"[14d] cli.infer assets/cat_dog.jpeg (560 x 1,440, progressive) -> .jpg, "
+        f"{CAT_DOG_CATEGORIES!r}, {CAT_DOG_GRID[0]} x {CAT_DOG_GRID[1]} cells, device CRF: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in got["ms"].items())
+        + f" ms; {wall:.1f} s with the checkpoint's load; the overlay ({len(written) / 1e3:.0f} kB) "
+        f"is encode_jpeg of the overlay; K1 {counts['infer']}, K4 {ln_launches} launches; on {card}")
+    return dict(ms=got["ms"], wall_s=wall, areas=got["areas"], launches=counts["infer"],
+                ln_launches=ln_launches, overlay_bytes=len(written))
 
 
 # ---------------------------------------------------------------- main
@@ -3124,7 +3563,10 @@ def main():
         train_cli = phase_train_cli(card, tmp, validate["tsv"], validate["ckpt"],
                                     len(validate["group_sizes"]))
         torch.cuda.empty_cache()
-        surface = phase_serving_surface(card, tmp, validate["ckpt"])
+        codecs, jpeg_files = phase_codecs(card)
+        surface = phase_serving_surface(card, tmp, validate["ckpt"], jpeg_files)
+        torch.cuda.empty_cache()
+        converted = phase_convert_validate(card, tmp, validate["ckpt"], jpeg_files)
 
     fwd_src = "ifseg_torch/csrc/flash_attention_bias_fwd.cu"
     dq_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dq.cu"
@@ -3132,17 +3574,23 @@ def main():
     jax_fa = "ifseg_tpu/ops/flash_attention.py"
     step_unit = "one batch-16 training step: 6 calls at each of the three site shapes"
     counts, cli_counts = train["launches"], train_cli["launches"]
-    # the forward without stats runs on seven main paths; each was driven with
+    # the forward without stats runs on ten main paths; each was driven with
     # the counts set to 0 just before and read just after
     k1_paths = dict(serving=serve["launches"], evaluation=evaluation["launches"],
                     monitoring=counts["infer"], validate=validate["launches"],
                     train_cli=cli_counts["infer"], serve_daemon=surface["daemon"]["launches"],
-                    infer=surface["infer"]["launches"])
+                    infer=surface["infer"]["launches"],
+                    serve_daemon_jpeg=surface["daemon_jpeg"]["launches"],
+                    infer_jpeg=surface["infer_jpeg"]["launches"],
+                    validate_converted=converted["launches"])
     ln_paths = dict(serving=serve["ln_launches"], evaluation=evaluation["ln_launches"],
                     monitoring=train["ln_launches"], validate=validate["ln_launches"],
                     train_cli=train_cli["ln_launches"],
                     serve_daemon=surface["daemon"]["ln_launches"],
                     infer=surface["infer"]["ln_launches"],
+                    serve_daemon_jpeg=surface["daemon_jpeg"]["ln_launches"],
+                    infer_jpeg=surface["infer_jpeg"]["ln_launches"],
+                    validate_converted=converted["ln_launches"],
                     huge_serving=huge["serve"]["ln_launches"] - huge["serve"]["ln_wide_launches"],
                     huge_evaluation=(huge["evaluation"]["ln_launches"]
                                      - huge["evaluation"]["ln_wide_launches"]))
@@ -3222,7 +3670,8 @@ def main():
             fail(f"kernel {entry['name']} was never launched by a main path")
     log(json.dumps({"serve": serve, "cpu_reference": cpu, "evaluation": evaluation,
                     "train": train, "train_gradients": grads, "huge": huge, "validate": validate,
-                    "train_cli": train_cli, "serving_surface": surface, "ptxas": ptxas,
+                    "train_cli": train_cli, "serving_surface": surface, "codecs": codecs,
+                    "converted": converted, "ptxas": ptxas,
                     "card_line": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -8,7 +8,7 @@ to the original resolution, an optional dense CRF, the argmax, and a
 colour-map overlay written to disk.  On the card unless ``--device=cpu`` is
 given:
 
-  python -m ifseg_torch.cli.infer --image=photo.png \\
+  python -m ifseg_torch.cli.infer --image=photo.jpg \\
       --checkpoint=checkpoints/checkpoint_best \\
       --category-list='cat, dog' --arch=segofa_base \\
       --output=overlay.png [--crf-iters=10] [--crf-backend=device|cpp] \\
@@ -17,8 +17,11 @@ given:
 ``--crf-backend=device`` (the default; ``jax`` in the JAX package) runs the
 mean field on the model's device (``ops/crf_device.py``), ``cpp`` on the host
 (``ops/crf.py``).  The checkpoint is a ``.pt`` file or a checkpoint
-directory of ``cli.train`` (``checkpoint/convert.py:load_model``); the image
-and both outputs are PNG files.
+directory of ``cli.train`` (``checkpoint/convert.py:load_model``).  The image
+is a PNG or JPEG file (``data/image.py``); the overlay is written as PNG or,
+for ``--output`` named ``*.jpg`` or ``*.jpeg``, as the JPEG that PIL's
+``save`` writes (``data/jpeg.py:encode_jpeg``); the mask
+beside it is always a PNG file.
 """
 
 import argparse
@@ -33,7 +36,9 @@ import torch
 
 from ifseg_torch.checkpoint.convert import load_model
 from ifseg_torch.config import Config, model_config_for_arch
-from ifseg_torch.data.png import decode_png_rgb, encode_png
+from ifseg_torch.data.image import decode_image_rgb
+from ifseg_torch.data.jpeg import encode_jpeg
+from ifseg_torch.data.png import encode_png
 from ifseg_torch.data.segmentation_dataset import prompt_tokens
 from ifseg_torch.data.transforms import KeepRatioResize, normalize_image
 from ifseg_torch.eval.evaluator import masked_label_propagation
@@ -42,6 +47,9 @@ from ifseg_torch.ops.crf_device import dense_crf_device
 from ifseg_torch.ops.resize import bilinear_matrix
 
 logger = logging.getLogger(__name__)
+
+# the overlay's writer by the extension of --output, as PIL picks its format
+WRITERS = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg}
 
 
 def _colormap(n):
@@ -84,8 +92,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     device = torch.device(args.device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("infer: no CUDA device (pass --device=cpu to run on the CPU)")
-    if not args.output.lower().endswith(".png"):
-        raise ValueError(f"--output={args.output}: the outputs are PNG files (name it *.png)")
+    ext = os.path.splitext(args.output)[1].lower()
+    if ext not in WRITERS:
+        raise ValueError(f"--output={args.output}: {ext or 'no extension'} is not a format this "
+                         f"CLI writes (name it *.png or *.jpg)")
     categories = [c.strip() for c in args.category_list.split(",") if c.strip()]
     num_seg = len(categories)
     cfg = Config()
@@ -106,7 +116,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         clock[0] = now
 
     with open(args.image, "rb") as fp:
-        rgb = decode_png_rgb(fp.read())
+        rgb = decode_image_rgb(fp.read())
     bgr = rgb[:, :, ::-1].copy()
     H, W = rgb.shape[:2]
     lap("decode")
@@ -149,7 +159,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     cmap = _colormap(max(num_seg, 8))
     overlay = (args.alpha * cmap[seg % len(cmap)] + (1 - args.alpha) * rgb).astype(np.uint8)
     with open(args.output, "wb") as fp:
-        fp.write(encode_png(overlay))
+        fp.write(WRITERS[ext](overlay))
     seg_path = os.path.splitext(args.output)[0] + "_mask.png"
     with open(seg_path, "wb") as fp:
         fp.write(encode_png(cmap[seg % len(cmap)]))

@@ -10,7 +10,7 @@ the card unless ``--device=cpu`` is given:
       --category-list='cat, dog' --port=8321 [--max-batch=8] \\
       [--batch-timeout-ms=5] [--quantize=int8] [--device=cpu]
 
-  POST /segment            body = a PNG file (any other format: 400)
+  POST /segment            body = a PNG or JPEG file (any other format: 400)
                            ?format=png (default; the class-id mask at the
                            model grid, resized to the input's size) | json
                            (areas)
@@ -18,9 +18,9 @@ the card unless ``--device=cpu`` is given:
   GET  /stats              request and batch counters
 
 The request's pixels are decoded and resized as the JAX package's PIL calls
-do (``data/png.py:decode_png_rgb``, ``data/transforms.py:pil_resize``), so
-the network's input is the JAX daemon's bit for bit.  Where that daemon
-takes any format PIL reads, this one takes PNG files only.
+do (``data/image.py:decode_image_rgb``, ``data/transforms.py:pil_resize``),
+so the network's input is the JAX daemon's bit for bit.  Where that daemon
+takes any format PIL reads, this one takes PNG and JPEG files.
 """
 
 import argparse
@@ -38,7 +38,8 @@ import torch
 
 from ifseg_torch.checkpoint.convert import load_model
 from ifseg_torch.config import Config, model_config_for_arch
-from ifseg_torch.data.png import decode_png_rgb, encode_png
+from ifseg_torch.data.image import decode_image_rgb
+from ifseg_torch.data.png import encode_png
 from ifseg_torch.data.segmentation_dataset import prompt_tokens
 from ifseg_torch.data.transforms import pil_resize
 from ifseg_torch.eval.serving import SegServer
@@ -91,7 +92,7 @@ class SegService:
     def _preprocess(self, data: bytes):
         # the network consumes RGB (training normalizes RGB after the
         # BGR-ordered augmentations flip back)
-        rgb = decode_png_rgb(data)
+        rgb = decode_image_rgb(data)
         h0, w0 = rgb.shape[:2]
         rgb = pil_resize(rgb, (self.size, self.size)).astype(np.float32) / 255.0
         return (rgb - 0.5) / 0.5, (h0, w0)
@@ -190,7 +191,7 @@ def _make_handler(svc: SegService):
             except RuntimeError as e:  # worker or device failure
                 self._send(500, json.dumps({"error": str(e)[:200]}).encode())
                 return
-            except Exception as e:  # not a PNG file, a broken one, ...
+            except Exception as e:  # neither PNG nor JPEG, a broken file, ...
                 self._send(400, json.dumps({"error": str(e)[:200]}).encode())
                 return
             if "format=json" in self.path:

@@ -157,7 +157,11 @@ def test_training_packs_have_16_byte_rows(monkeypatch, fca):
     """The image-free training forward hands every attention call a bias
     whose rows start at multiples of 16 bytes, at a grid and src_len where
     the encoder length (16 + 10) and the decoder length (1 + 16) are not
-    multiples of 8; the tables still get their gradient through the padding."""
+    multiples of 8; the tables still get their gradient through the padding.
+    Dropout and drop-path draw from torch's global generator, seeded here: at
+    batch 2 a drop-path draw that drops one layer for both rows (about 1 in
+    200 states the tests before it leave) leaves that layer's table with no
+    gradient, by design."""
     seen = []
 
     def spy(q, k, v, bias, *rest):
@@ -169,10 +173,13 @@ def test_training_packs_have_16_byte_rows(monkeypatch, fca):
     tokens, lengths = class_table(5)
     batch = train_batch(seed=4)
     t = lambda x: torch.from_numpy(np.asarray(x)).long()
-    _, extra = model(aux_grid_ids=t(batch["aux_grid_ids"]), aux_src_tokens=t(batch["src_tokens"]),
-                     bos_tokens=t(batch["bos_tokens"]), class_tokens=t(tokens),
-                     class_lengths=t(lengths), full_context_alignment=fca)
-    extra["aux_output"].float().square().mean().backward()
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        _, extra = model(aux_grid_ids=t(batch["aux_grid_ids"]),
+                         aux_src_tokens=t(batch["src_tokens"]), bos_tokens=t(batch["bos_tokens"]),
+                         class_tokens=t(tokens), class_lengths=t(lengths),
+                         full_context_alignment=fca)
+        extra["aux_output"].float().square().mean().backward()
     shapes = {tuple(bias.shape[1:]) for bias in seen}
     assert shapes == {(26, 26), (17, 17), (17, 26)}  # encoder self, decoder self, cross
     for bias in seen:

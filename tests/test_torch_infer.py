@@ -12,6 +12,11 @@ against the JAX ``jax``, ``cpp`` against ``cpp``):
     host bilinear upsample, fp32 in another order);
   - the CRF's output, to 1e-4 (``tests/test_torch_crf.py``'s tolerances);
   - the overlay and ``_mask.png`` files, decoded by PIL: equal.
+
+Then ``assets/cat_dog.jpeg`` (a progressive JPEG) through both CLIs with
+``--output=*.jpg`` and no CRF: the overlay files are the same bytes (the
+port's ``encode_jpeg`` against PIL's ``save``) and the masks the same pixels.
+Outputs of other formats raise.
 """
 
 import io
@@ -22,6 +27,7 @@ import pytest
 import torch
 from PIL import Image
 
+import chip_smoke
 import ifseg_torch.cli.infer as tinfer
 import ifseg_tpu.cli.infer as jinfer
 import ifseg_tpu.config as jconfig
@@ -137,9 +143,29 @@ def test_without_a_card_infer_needs_device_cpu(image, checkpoint, bpe_dir, tmp_p
         tinfer.main(_argv(image, checkpoint, bpe_dir, str(tmp_path / "o.png")))
 
 
+def test_jpeg_in_and_out_match_jax(checkpoint, bpe_dir, tmp_path, monkeypatch):
+    monkeypatch.setenv("IFSEG_JIT_CACHE", "")
+    monkeypatch.setattr(jconfig, "model_config_for_arch",
+                        _tiny(jconfig.model_config_for_arch, dtype="float32", **JAX_ONLY))
+    monkeypatch.setattr(tinfer, "model_config_for_arch",
+                        _tiny(torch_model_config, dtype="float32"))
+    image = str(chip_smoke.REPO / "assets" / "cat_dog.jpeg")
+    jout, tout = str(tmp_path / "jax.jpg"), str(tmp_path / "torch.jpg")
+    jinfer.main(_argv(image, checkpoint, bpe_dir, jout)[:-1] + ["--crf-iters=0"])
+    result = tinfer.main(_argv(image, checkpoint, bpe_dir, tout)[:-1]
+                         + ["--crf-iters=0", "--device=cpu"])
+    with open(tout, "rb") as a, open(jout, "rb") as b:
+        got, want = a.read(), b.read()
+    assert got[:3] == b"\xff\xd8\xff" and got == want
+    np.testing.assert_array_equal(_pixels(result["mask"]), _pixels(str(tmp_path / "jax_mask.png")))
+    assert sum(result["areas"].values()) == 560 * 1440
+
+
 def test_outputs_are_png_files(image, checkpoint, bpe_dir, tmp_path):
-    with pytest.raises(ValueError, match="PNG"):
-        tinfer.main(_argv(image, checkpoint, bpe_dir, str(tmp_path / "o.jpg")) + ["--device=cpu"])
+    """Or JPEG files: other formats raise, naming the extension."""
+    for name in ("o.bmp", "o.gif", "o"):
+        with pytest.raises(ValueError, match="name it \\*.png or \\*.jpg"):
+            tinfer.main(_argv(image, checkpoint, bpe_dir, str(tmp_path / name)) + ["--device=cpu"])
 
 
 def test_colormap_is_the_jax_one():

@@ -418,3 +418,15 @@ def test_layer_norm_function_gradients_on_the_card():
         (x, scale, bias), dy)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and _rel(a, b) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_phase_14_codec_digests():
+    """chip_smoke.py phase 14's JPEG files, written and read by the port's
+    codecs on the card's machine, against the digests of PIL's bytes and
+    pixels pinned in the script."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    assert len(chip_smoke.jpeg_files()) == len(chip_smoke.JPEG_CASES)

@@ -2,8 +2,8 @@
 what the JAX package's data pipeline decodes with: bit for bit, dtype and
 shape included, for files PIL writes in every mode a segmentation TSV holds,
 for files whose rows use every PNG filter type (``chip_smoke.py``'s writer),
-and for the rows of ``tests/utils.py:make_seg_tsv``.  Interlaced and 16-bit
-files, and broken ones, raise.
+for Adam7-interlaced and 16-bit files written by hand, and for the rows of
+``tests/utils.py:make_seg_tsv``.  Broken files raise.
 """
 
 import base64
@@ -101,24 +101,99 @@ def test_make_seg_tsv_rows(tmp_path):
             _same(base64.urlsafe_b64decode(b64))
 
 
-def _with_header(data: bytes, **fields) -> bytes:
-    """``data`` with IHDR fields replaced (and its CRC fixed)."""
-    w, h, depth, colour, comp, filt, interlace = struct.unpack(">IIBBBBB", data[16:29])
-    vals = {**dict(depth=depth, colour=colour, interlace=interlace), **fields}
-    body = struct.pack(">IIBBBBB", w, h, vals["depth"], vals["colour"], comp, filt,
-                       vals["interlace"])
-    return data[:16] + body + struct.pack(">I", zlib.crc32(b"IHDR" + body)) + data[33:]
+# Adam7: (x0, y0, dx, dy) of the seven passes (PNG specification section 8.2)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
-def test_interlaced_and_16_bit_files_raise():
+def _filtered(samples: np.ndarray, depth: int, bpp: int, seed: int) -> bytes:
+    """The rows of (h, w, c) samples packed at ``depth`` bits (16-bit ones
+    big-endian), each with a filter type drawn from ``seed``."""
+    h = samples.shape[0]
+    if depth == 16:
+        rows = samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    elif depth == 8:
+        rows = samples.reshape(h, -1).astype(np.uint8)
+    else:
+        flat = samples.reshape(h, -1)
+        per = 8 // depth
+        flat = np.pad(flat, ((0, 0), (0, (-flat.shape[1]) % per))).reshape(h, -1, per)
+        shifts = np.arange(8 - depth, -1, -depth)
+        rows = (flat.astype(np.int64) << shifts).sum(-1).astype(np.uint8)
+    kinds = np.random.default_rng(seed).integers(0, 5, size=h)
+    raw = rows.astype(np.int32)
+    out, prev = [], np.zeros(raw.shape[1], np.int32)
+    for kind, row in zip(kinds, raw):
+        left = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])[: len(row)]
+        corner = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])[: len(row)]
+        p = left + prev - corner
+        pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - corner)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, corner))
+        pred = (np.zeros_like(row), left, prev, (left + prev) >> 1, paeth)[kind]
+        out.append(bytes([kind]) + ((row - pred) & 0xFF).astype(np.uint8).tobytes())
+        prev = row
+    return b"".join(out)
+
+
+def _png_by_hand(samples: np.ndarray, colour: int, depth: int, interlace: int, seed: int = 0,
+                 extra: bytes = b"") -> bytes:
+    """A PNG file of (h, w, c) samples, Adam7-interlaced if ``interlace``,
+    with ``extra`` chunks (PLTE, tRNS) before the image data."""
+    h, w, c = samples.shape
+    bpp = max(c * depth // 8, 1)
+    if interlace:
+        body = b"".join(_filtered(samples[y0::dy, x0::dx], depth, bpp, seed + i)
+                        for i, (x0, y0, dx, dy) in enumerate(ADAM7)
+                        if samples[y0::dy, x0::dx].size)
+    else:
+        body = _filtered(samples, depth, bpp, seed)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    head = chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, interlace))
+    return (b"\x89PNG\r\n\x1a\n" + head + extra + chunk(b"IDAT", zlib.compress(body))
+            + chunk(b"IEND", b""))
+
+
+def _palette_chunk(entries: int, seed: int) -> bytes:
+    body = np.random.default_rng(seed).integers(0, 256, 3 * entries).astype(np.uint8).tobytes()
+    return struct.pack(">I", len(body)) + b"PLTE" + body + struct.pack(">I", zlib.crc32(b"PLTE" + body))
+
+
+@pytest.mark.parametrize("size", [(1, 1), (2, 3), (5, 7), (8, 8), (9, 17), (13, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("colour,depth", [(0, 1), (0, 2), (0, 4), (0, 8), (2, 8), (3, 1), (3, 2),
+                                          (3, 4), (3, 8), (4, 8), (6, 8)])
+def test_interlaced_files(size, colour, depth):
+    """Adam7 files (PIL reads them, it does not write them), every colour
+    type and bit depth, sizes that leave passes empty."""
+    rng = np.random.default_rng(colour * 100 + depth * 10 + size[0])
+    samples = rng.integers(0, 1 << depth, size=size + (CHANNELS[colour],))
+    extra = _palette_chunk(1 << depth, depth) if colour == 3 else b""
+    _same(_png_by_hand(samples, colour, depth, 1, seed=size[1], extra=extra))
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+@pytest.mark.parametrize("colour", [0, 2, 4, 6], ids=["gray", "rgb", "gray_alpha", "rgba"])
+@pytest.mark.parametrize("size", [(1, 1), (6, 9), (17, 12)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_16_bit_files(size, colour, interlace):
+    """16-bit files: gray as PIL's "I;16" (uint16), the other colour types as
+    PIL's 8-bit modes of the samples' high bytes (gray + alpha as "RGBA")."""
+    rng = np.random.default_rng(colour * 10 + interlace)
+    samples = rng.integers(0, 1 << 16, size=size + (CHANNELS[colour],))
+    data = _png_by_hand(samples, colour, 16, interlace, seed=colour)
+    _same(data)
+    if colour == 0:
+        assert decode_png(data).dtype == np.uint16
+
+
+def test_16_bit_files_pil_writes():
     img = Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000)
     data = _save(img)
-    assert data[24] == 16
-    with pytest.raises(ValueError, match="16-bit"):
-        decode_png(data)
-    plain = _save(Image.fromarray(np.zeros((8, 8), np.uint8)))
-    with pytest.raises(ValueError, match="interlaced"):
-        decode_png(_with_header(plain, interlace=1))
+    assert data[24] == 16 and img.mode == "I;16"
+    _same(data)
 
 
 def test_broken_files_raise():

@@ -147,7 +147,8 @@ def test_encode_png_round_trip(size, channels):
 
 
 def test_encode_png_refuses_other_images():
-    for arr in (np.zeros((2, 2, 4), np.uint8), np.zeros((2, 2), np.int32)):
+    for arr in (np.zeros((2, 2, 5), np.uint8), np.zeros((2, 2), np.int32),
+                np.zeros((2, 2, 3), np.uint16), np.zeros((2, 2, 1), np.uint8)):
         with pytest.raises(ValueError):
             encode_png(arr)
 

@@ -63,7 +63,9 @@ def test_importing_every_module_loads_no_jax():
                  "ifseg_torch.data.iterators", "ifseg_torch.utils.progress",
                  "ifseg_torch.ops.crf", "ifseg_torch.ops.crf_device",
                  "ifseg_torch.ops.quantization", "ifseg_torch.cli.serve",
-                 "ifseg_torch.cli.infer"):
+                 "ifseg_torch.cli.infer", "ifseg_torch.data.jpeg", "ifseg_torch.data.image",
+                 "ifseg_torch.cli.convert_dataset", "ifseg_torch.cli.score",
+                 "ifseg_torch.utils.scoring", "ifseg_torch.benchmark.dummy_seg"):
         assert name in report["modules"], name
 
 
@@ -84,7 +86,10 @@ def test_the_scan_covers_the_evaluation_slice():
                  "ifseg_torch/data/iterators.py", "ifseg_torch/utils/progress.py",
                  "ifseg_torch/train/trainer.py", "ifseg_torch/ops/crf.py",
                  "ifseg_torch/ops/crf_device.py", "ifseg_torch/ops/quantization.py",
-                 "ifseg_torch/cli/serve.py", "ifseg_torch/cli/infer.py"):
+                 "ifseg_torch/cli/serve.py", "ifseg_torch/cli/infer.py",
+                 "ifseg_torch/data/jpeg.py", "ifseg_torch/data/image.py",
+                 "ifseg_torch/cli/convert_dataset.py", "ifseg_torch/cli/score.py",
+                 "ifseg_torch/utils/scoring.py", "ifseg_torch/benchmark/dummy_seg.py"):
         assert path in scanned, path
 
 
@@ -126,6 +131,27 @@ built = sorted(p.name for p in build.BUILD_DIR.iterdir())
 print(json.dumps({"at_import": at_import, "calls": calls, "ok": ok, "built": built}))
 """
 
+JPEG_BUILD_SCRIPT = r"""
+import json, pathlib, subprocess, tempfile
+calls = []
+popen_init = subprocess.Popen.__init__
+def spy(self, args, *a, **k):
+    calls.append([str(x) for x in args])
+    return popen_init(self, args, *a, **k)
+subprocess.Popen.__init__ = spy
+import ifseg_torch.data.jpeg as jpeg
+import ifseg_torch.data.image
+import ifseg_torch.cli.convert_dataset
+at_import = len(calls)
+from ifseg_torch.ops import build
+build.BUILD_DIR = pathlib.Path(tempfile.mkdtemp())  # nothing built there yet
+import numpy as np
+arr = np.full((9, 14, 3), 90, np.uint8)
+ok = bool((jpeg.decode_jpeg(jpeg.encode_jpeg(arr, 95, 0)).astype(int) - 90).__abs__().max() <= 2)
+built = sorted(p.name for p in build.BUILD_DIR.iterdir())
+print(json.dumps({"at_import": at_import, "calls": calls, "ok": ok, "built": built}))
+"""
+
 
 def test_importing_the_png_decoder_starts_no_compiler():
     import json
@@ -142,3 +168,21 @@ def test_importing_the_png_decoder_starts_no_compiler():
     assert report["calls"][0][-1].endswith("csrc/png_unfilter.cpp"), report
     assert any(name.startswith("libpng_unfilter-") and name.endswith(".so")
                for name in report["built"]), report
+
+
+def test_importing_the_jpeg_codec_starts_no_compiler():
+    """Importing the JPEG codec and its users starts no compiler; the first
+    encode and the first decode build their own host C++ source, once each."""
+    import json
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", JPEG_BUILD_SCRIPT], cwd=str(REPO), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["at_import"] == 0, report
+    assert report["ok"] and len(report["calls"]) == 2, report
+    assert [c[-1].rsplit("/", 1)[-1] for c in report["calls"]] == ["jpeg_encode.cpp",
+                                                                 "jpeg_decode.cpp"], report
+    assert sum(n.endswith(".so") for n in report["built"]) == 2, report

@@ -10,10 +10,12 @@ package's, and the ``cli.serve`` daemon end to end over HTTP.
     summation order differs.  Quantized linears stay int8 on the device.
   - the daemon, started on port 0: its network input equals the JAX daemon's
     ``_preprocess`` bit for bit (PIL's decode and bilinear resize) for every
-    PNG colour type; a PNG answer is the argmax of the served forward on the
-    request's zero-padded batch, resized to the input's size as PIL's nearest
-    resize does; JSON areas sum to grid²; concurrent requests are batched; a
-    JPEG or broken body gets 400, a failing worker 500.
+    PNG colour type and for JPEG files (gray, RGB at 4:2:0, 4:2:2 and
+    4:4:4, progressive, ``assets/cat_dog.jpeg``); a PNG answer is the argmax
+    of the served forward on the request's zero-padded batch, resized to the
+    input's size as PIL's nearest resize does, for a JPEG body as for a PNG
+    one; JSON areas sum to grid²; concurrent requests are batched; a GIF or
+    broken body gets 400, a failing worker 500.
 """
 
 import io
@@ -145,6 +147,55 @@ def test_net_input_equals_jax_preprocess(daemon, mode, shape):
     np.testing.assert_array_equal(got, want)
 
 
+def _jpeg(h=30, w=41, seed=0, mode="RGB", **kw):
+    rgb = np.random.default_rng(seed).integers(0, 256, size=(h // 3 + 1, w // 3 + 1, 3),
+                                               dtype=np.uint8)
+    rgb = np.repeat(np.repeat(rgb, 3, 0), 3, 1)[:h, :w]
+    buf = io.BytesIO()
+    Image.fromarray(rgb[:, :, 0] if mode == "L" else rgb).save(buf, format="JPEG", **kw)
+    return buf.getvalue()
+
+
+JPEG_BODIES = {"rgb_420": dict(), "rgb_422": dict(subsampling=1),
+               "rgb_444_progressive": dict(subsampling=0, progressive=True),
+               "gray": dict(mode="L"), "rgb_restarts": dict(restart_marker_blocks=3, quality=95)}
+
+
+@pytest.mark.parametrize("kind", [*JPEG_BODIES, "cat_dog"])
+def test_jpeg_net_input_equals_jax_preprocess(daemon, kind):
+    _, svc = daemon
+    if kind == "cat_dog":
+        data = (chip_smoke.REPO / "assets" / "cat_dog.jpeg").read_bytes()
+    else:
+        data = _jpeg(seed=len(kind), **JPEG_BODIES[kind])
+    got, orig = svc._preprocess(data)
+    want, want_orig = jserve.SegService._preprocess(types.SimpleNamespace(size=SIZE), data)
+    assert orig == want_orig
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_jpeg_answer_is_the_png_answer_of_its_pixels(daemon):
+    """A JPEG body gets the mask a PNG body of the pixels PIL decodes from it
+    gets: the argmax of the served forward, resized to the input's size."""
+    base, svc = daemon
+    data = _jpeg(seed=7)
+    status, ctype, body = _post(base + "/segment", data)
+    assert status == 200 and ctype == "image/png"
+    buf = io.BytesIO()
+    Image.open(io.BytesIO(data)).save(buf, format="PNG")
+    status, _, from_png = _post(base + "/segment", buf.getvalue())
+    assert status == 200
+    mask = np.asarray(Image.open(io.BytesIO(body)))
+    grid = _direct(svc, data)
+    want = np.asarray(Image.fromarray(grid.astype(np.uint8), mode="L").resize((41, 30),
+                                                                              Image.NEAREST))
+    np.testing.assert_array_equal(mask, want)
+    np.testing.assert_array_equal(mask, np.asarray(Image.open(io.BytesIO(from_png))))
+    status, _, out = _post(base + "/segment?format=json", data)
+    assert status == 200 and sum(json.loads(out)["areas"].values()) == svc.grid ** 2
+
+
 def test_healthz_and_png_answer(daemon):
     base, svc = daemon
     with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
@@ -194,9 +245,9 @@ def test_concurrent_requests_are_batched(daemon):
 
 def test_bad_bodies_get_400(daemon):
     base, _ = daemon
-    with open(chip_smoke.REPO / "assets" / "cat_dog.jpeg", "rb") as fp:
-        jpeg = fp.read()
-    for body in (jpeg, b"not an image", _png()[:60]):
+    gif = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(gif, format="GIF")
+    for body in (gif.getvalue(), b"not an image", _png()[:60], _jpeg()[:200]):
         status, _, out = _post(base + "/segment", body)
         assert status == 400, out
     assert _post(base + "/nowhere", b"")[0] == 404
