@@ -133,7 +133,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      to a row of the batch that held it; (d) ``cli.infer`` on
      assets/cat_dog.jpeg with ``--output=*.jpg``, its overlay's bytes held to
      ``encode_jpeg`` of the overlay, stage ms;
- 15. one JSON line listing every kernel, the nvidia-smi line, and the last
+ 15. the rest of the training stack: (a) OFA-Base ``Trainer`` steps at batch
+     16 with dropout and drop-path 0.1, from the same seed, weights and
+     batches, with the layers not checkpointed, under save-attn and under
+     full: s/step, peak memory, the attention kernels' launches a step (the
+     forward with stats twice under full), the first step's loss bit-equal,
+     its gradient norm within 1e-3, the dropout generator's state equal; (b)
+     SegOFA-Huge at batch 32 under ``--remat-policy=auto``, which the JAX
+     package's bytes model resolves to save-attn on the card: the estimate,
+     the card's memory and the decision, s/step and peak memory, and the
+     estimate at batch 16 beside phase 10's measured peak; (c) one update of
+     every optimizer (adam, adafactor, lamb, sgd, nag, adagrad, adadelta,
+     adamax, composite) on OFA-Base's trainable parameters, the card's fp32
+     update against the CPU's within 1e-5, ms a step; (d)
+     ``cli.train.main`` with the recipe's flags and reduce_lr_on_plateau,
+     composite groups (decoder Adam, the rest LAMB) and save-attn
+     checkpointing: 2 epochs of 2 steps with launch counts, the lr scale
+     against the plateau controller, a resume to epoch 3 with every restored
+     part (optimizer groups, lr scale, plateau, generator) held to the files
+     bit for bit, and a 1-step run on the same restore file with three of
+     each side's six layers kept (``--encoder/decoder-layers-to-keep``);
+ 16. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -1000,24 +1020,33 @@ def rel_err(got, want):
     return diff / max(want.float().abs().max().item(), 1e-30), diff
 
 
-def phase_train_kernels(spec=BASE, batch=TRAIN_BATCH, tag="[3t]"):
+def phase_train_kernels(spec=BASE, batch=TRAIN_BATCH, tag="[3t]", checks_only=False):
     """Forward with stats, di, dq + dbias and dk + dv of ``spec``'s head dim
-    against their plain versions at the training shapes (``batch``), a
-    ragged case, one without a bias and the tile edges; rows keyed by
-    kernel."""
+    against their plain versions at the training shapes (``batch``), timed,
+    a ragged case, one without a bias and the tile edges; rows keyed by
+    kernel.  ``checks_only``: the training shapes alone, checked, not timed."""
     from ifseg_torch.ops import flash_attention as fa
 
     h, d = spec["heads"], spec["head_dim"]
     prefix = "" if spec is BASE else "huge "
     rows = {"stats": [], "di": [], "dq": [], "dkv": []}
-    cases = [(prefix + name, batch, lq, lk, causal, masked, torch.bfloat16, n)
+    cases = [(prefix + name, batch, lq, lk, causal, masked, torch.bfloat16,
+              0 if checks_only else n)
              for name, lq, lk, causal, masked, n in attn_sites(spec)]
+    if checks_only:
+        return _train_kernel_cases(cases, rows, fa, h, d, tag)
     cases.append((prefix + "ragged check", 3, 77, 130, True, True, torch.float32, 0))
     cases.append((prefix + "no-bias check", 2, 70, 70, False, False, None, 0))
     # the kernels' tile edges, with more than one key (with one, every
     # gradient but dv is 0)
     cases += [(prefix + name, b, lq, lk, causal, masked, bias_dtype, 0)
               for name, b, lq, lk, causal, masked, bias_dtype, _ in EDGE_CASES if lk > 1]
+    return _train_kernel_cases(cases, rows, fa, h, d, tag)
+
+
+def _train_kernel_cases(cases, rows, fa, h, d, tag):
+    """The checks of ``phase_train_kernels`` over ``cases``; a case with
+    launches a step (its last field) is timed too."""
     for i, (name, b, lq, lk, causal, masked, bias_dtype, per_step) in enumerate(cases):
         q, k, v, dense, mask = site_inputs(b, h, lq, lk, causal, masked,
                                            bias_dtype or torch.bfloat16, seed=10 + i, head_dim=d)
@@ -1176,11 +1205,12 @@ def pitched(bias):
 # ---------------------------------------------------------------- phases 6, 7
 
 def train_config(dtype: str, monitor: bool, dropout: bool = True, arch: str = "segofa_base",
-                 **model_overrides):
+                 batch: int = TRAIN_BATCH, **model_overrides):
     """The reference image-free configuration (run_scripts/IFSeg/common.sh +
     coco_unseen.sh): OFA-Base (or ``arch``) 512px, 15 seg classes, dropout
     and drop-path 0.1, clip-norm 1, Adam (0.9, 0.999) eps 1e-8, wd 0.1,
-    cosine LR 5e-5."""
+    cosine LR 5e-5; ``batch`` rows a step, which the Trainer's "auto"
+    checkpointing decision reads."""
     from ifseg_torch.config import Config, model_config_for_arch
 
     rates = {} if dropout else dict(dropout=0.0, encoder_drop_path_rate=0.0,
@@ -1189,6 +1219,7 @@ def train_config(dtype: str, monitor: bool, dropout: bool = True, arch: str = "s
         arch, patch_image_size=512, orig_patch_image_size=512,
         num_seg_tokens=TRAIN_CLASSES, dtype=dtype, **rates, **model_overrides))
     cfg.optimization.seed = SEED
+    cfg.optimization.batch_size = batch
     cfg.criterion.monitor_real_batch = monitor
     return cfg
 
@@ -1790,6 +1821,8 @@ def phase_huge_train(card: str):
                       total_num_updates=100).init_state()  # the card, by default
     torch.cuda.synchronize()
     n_train = sum(p.numel() for p in trainer.optimizer.params)
+    if trainer.cfg.model.checkpoint_activations:
+        fail(f"auto checkpoints SegOFA-Huge's layers at batch {HUGE_TRAIN_BATCH}")
     log(f"[10] Trainer, SegOFA-Huge 512px, batch {HUGE_TRAIN_BATCH}, {TRAIN_CLASSES} classes, "
         f"{n_train / 1e6:.1f}M trainable params, seed {SEED}, no activation checkpointing: "
         f"set-up {time.perf_counter() - t0:.1f} s")
@@ -3497,6 +3530,324 @@ def phase_infer_jpeg(card: str, tmp: str, ckpt: str):
                 ln_launches=ln_launches, overlay_bytes=len(written))
 
 
+# ---------------------------------------------------------------- phase 15: the rest of the training stack
+
+REMAT_WARM, REMAT_TIMED = 2, 5  # OFA-Base steps under each checkpointing policy
+HUGE_REMAT_BATCH = 32  # above the recipe's 16: "auto" takes save-attn on an 80 GB card
+HUGE_REMAT_WARM, HUGE_REMAT_TIMED = 2, 3
+OPT_REL_TOL = 1e-5  # an optimizer's fp32 update on the card against the same on the CPU
+STACK_ROWS = 32  # phase 15's CLI epochs: 2 steps of TRAIN_BATCH
+# the flags phase 15 adds to the recipe's (the groups need --optimizer=composite,
+# in the JAX CLI as here)
+STACK_FLAGS = ("--lr-scheduler=reduce_lr_on_plateau", "--lr-patience=0",
+               "--optimizer=composite", "--composite-groups=decoder/.*=adam@5e-5",
+               "--composite-base=lamb", "--checkpoint-activations=true",
+               "--remat-policy=save-attn")
+PRUNE_FLAGS = ("--encoder-layers=3", "--decoder-layers=3", "--encoder-layers-to-keep=0,2,4",
+               "--decoder-layers-to-keep=0,2,4")
+
+
+def remat_run(card: str, policy, tokens, lengths):
+    """OFA-Base batch-16 image-free steps (dropout and drop-path 0.1) with the
+    layers checkpointed under ``policy`` (None: not checkpointed), from the
+    same seed, weights and batches whatever the policy."""
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.train.trainer import Trainer
+
+    cfg = train_config("bfloat16", monitor=False, checkpoint_activations=policy is not None,
+                       remat_policy=policy or "full")
+    trainer = Trainer(cfg, tokens, lengths, total_num_updates=100).init_state()
+    rng = np.random.default_rng(SEED + 15)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    first, _ = take_steps(trainer, rng, 1, TRAIN_BATCH, real=False)
+    generator = trainer.generator.get_state()
+    logs, times = take_steps(trainer, rng, REMAT_WARM + REMAT_TIMED - 1, TRAIN_BATCH, real=False)
+    steps = REMAT_WARM + REMAT_TIMED
+    counts = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s_step = float(np.mean(times[REMAT_WARM - 1:]))
+    per_step = {k: v / steps for k, v in counts.items()}
+    name = policy or "off"
+    log(f"[15a] OFA-Base batch {TRAIN_BATCH}, checkpointing {name}: {s_step:.4f} s/step "
+        f"(steps {', '.join(f'{t:.3f}' for t in times)}), max_memory_allocated {peak:.2f} GiB, "
+        f"launches a step {per_step}; first step loss {first[0]['loss']!r} gnorm "
+        f"{first[0]['gnorm']!r}, on {card}")
+    for lg in first + logs:
+        if not (np.isfinite(lg["loss"]) and np.isfinite(lg["gnorm"])) or lg["n_nonfinite"]:
+            fail(f"checkpointing {name}: a non-finite step")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(policy=name, s_per_step=s_step, step_s=times, max_memory_gib=peak,
+                launches=counts, launches_per_step=per_step, steps=steps,
+                first_loss=first[0]["loss"], first_gnorm=first[0]["gnorm"],
+                generator=generator)
+
+
+def phase_remat(card: str, huge_peak_16: float):
+    """(a) OFA-Base under off, save-attn and full; (b) SegOFA-Huge at batch 32
+    under "auto"; the bytes model's estimates beside the peaks measured."""
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.train.trainer import Trainer, estimate_train_hbm_bytes, REMAT_AUTO_SHARE
+
+    tokens, lengths = class_table(SEED)
+    per_pass = sum(n for *_, n in SITES)
+    runs = {r["policy"]: r for r in (remat_run(card, p, tokens, lengths)
+                                     for p in (None, "save-attn", "full"))}
+    for name, r in runs.items():
+        want = dict(infer=0, stats=per_pass * (2 if name == "full" else 1), bwd_di=per_pass,
+                    bwd_dq=per_pass, bwd_dkv=per_pass)
+        if r["launches_per_step"] != want:
+            fail(f"checkpointing {name}: launches a step {r['launches_per_step']}, expected {want}")
+    off = runs["off"]
+    off_generator = off["generator"]
+    for name in ("save-attn", "full"):
+        r = runs[name]
+        if r["first_loss"] != off["first_loss"]:
+            fail(f"checkpointing {name}: first loss {r['first_loss']!r} != {off['first_loss']!r}")
+        if abs(r["first_gnorm"] - off["first_gnorm"]) > 1e-3 * abs(off["first_gnorm"]):
+            fail(f"checkpointing {name}: first gnorm {r['first_gnorm']} against {off['first_gnorm']}")
+        if not torch.equal(r["generator"], off["generator"]):
+            fail(f"checkpointing {name}: the dropout generator's state differs after a step")
+    log(f"[15a] first step: loss bit-equal across off, save-attn, full ({off['first_loss']!r}); "
+        f"gnorm {[runs[n]['first_gnorm'] for n in runs]}; generator states equal")
+
+    # (b) Huge at batch 32: "auto" resolved on the card by the JAX package's bytes model
+    cfg = train_config("bfloat16", monitor=False, arch=HUGE["arch"], batch=HUGE_REMAT_BATCH)
+    hbm = float(torch.cuda.mem_get_info()[1])
+    est32 = estimate_train_hbm_bytes(cfg.model, HUGE_REMAT_BATCH, ema=cfg.task.uses_ema)
+    est16 = estimate_train_hbm_bytes(cfg.model, HUGE_TRAIN_BATCH, ema=cfg.task.uses_ema)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tokens, lengths, total_num_updates=100)
+    decision = (cfg.model.checkpoint_activations, cfg.model.remat_policy)
+    log(f"[15b] SegOFA-Huge batch {HUGE_REMAT_BATCH}, --remat-policy=auto: estimate "
+        f"{est32 / 1e9:.1f} GB against {REMAT_AUTO_SHARE} x {hbm / 1e9:.1f} GB (the card's "
+        f"total) -> checkpoint_activations={decision[0]}, policy {decision[1]}")
+    if decision != (True, "save-attn"):
+        fail(f"auto resolved SegOFA-Huge at batch {HUGE_REMAT_BATCH} to {decision}")
+    trainer.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 16)
+    fa.reset_launches()
+    logs, times = take_steps(trainer, rng, HUGE_REMAT_WARM + HUGE_REMAT_TIMED, HUGE_REMAT_BATCH,
+                             real=False)
+    counts = fa.launch_counts()
+    steps = HUGE_REMAT_WARM + HUGE_REMAT_TIMED
+    huge_pass = sum(n for *_, n in attn_sites(HUGE))
+    want = dict(infer=0, stats=huge_pass * steps, bwd_di=huge_pass * steps,
+                bwd_dq=huge_pass * steps, bwd_dkv=huge_pass * steps)
+    for lg in logs:
+        if not (np.isfinite(lg["loss"]) and np.isfinite(lg["gnorm"])) or lg["n_nonfinite"]:
+            fail("SegOFA-Huge at batch 32: a non-finite step")
+    if counts != want:
+        fail(f"SegOFA-Huge at batch 32: launches {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    s_step = float(np.mean(times[HUGE_REMAT_WARM:]))
+    log(f"[15b] {s_step:.4f} s/step (steps {', '.join(f'{t:.3f}' for t in times)}), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB of {hbm / 2**30:.2f}, launches {counts}, "
+        f"set-up {setup_s:.1f} s, on {card}")
+    log(f"[15b] bytes model against the peaks measured: batch {HUGE_TRAIN_BATCH} without "
+        f"checkpointing {est16 / 1e9:.1f} GB estimated, {huge_peak_16 * 2**30 / 1e9:.1f} GB "
+        f"measured (phase 10); batch {HUGE_REMAT_BATCH} {est32 / 1e9:.1f} GB estimated without "
+        f"checkpointing, {peak / 1e9:.1f} GB measured with save-attn")
+    del trainer
+    torch.cuda.empty_cache()
+    for r in runs.values():
+        r["generator_equal"] = bool(torch.equal(r.pop("generator"), off_generator))
+    return dict(ofa_base=runs, huge=dict(
+        batch=HUGE_REMAT_BATCH, hbm_bytes=hbm, estimate_bytes=est32, decision=list(decision),
+        s_per_step=s_step, step_s=times, max_memory_gib=peak / 2**30, launches=counts,
+        steps=steps, estimate_bytes_batch16=est16, measured_gib_batch16=huge_peak_16))
+
+
+def phase_optimizers(card: str):
+    """One update of every optimizer, and Adam through composite groups, on
+    OFA-Base's trainable parameters with a seeded gradient: the card's fp32
+    update against the same on the CPU, then ms a step by CUDA events."""
+    from ifseg_torch.config import OptimizationConfig
+    from ifseg_torch.models.segofa import SegOFA
+    from ifseg_torch.train import optim
+
+    cfg = train_config("float32", monitor=False)
+    model = SegOFA(cfg.model).init(torch.Generator().manual_seed(SEED))
+    mask = optim.freeze_mask(model, cfg.model)
+    paths = optim.jax_paths(model)
+    named = [(n, p.detach()) for n, p in model.named_parameters() if mask[n]]
+    names = [n for n, _ in named]
+    gen = torch.Generator().manual_seed(SEED + 3)
+    grads = [torch.randn(p.shape, generator=gen) * 1e-3 for _, p in named]
+    card_grads = [g.cuda() for g in grads]
+    n_params = sum(p.numel() for _, p in named)
+    out = {}
+    for name in optim.OPTIMIZERS:
+        if name == "fused_lamb":
+            continue  # lamb's other name
+        opt_cfg = OptimizationConfig(optimizer=name, lr=5e-5, momentum=0.9, weight_decay=0.1,
+                                     composite_base="adam",
+                                     composite_groups="decoder/.*=adam@2.5e-5")
+
+        def build(params):
+            schedule = optim.build_schedule("cosine", opt_cfg.lr, 100, opt_cfg)
+            if name == "composite":
+                return optim.composite(params, names, paths, optim.parse_composite_groups(
+                    opt_cfg.composite_groups), opt_cfg.composite_base, opt_cfg, 100)
+            return optim._single_optimizer(name, params, names, schedule, opt_cfg, paths)
+
+        cpu_opt = build([p.clone() for _, p in named])
+        card_opt = build([p.cuda() for _, p in named])
+        want = cpu_opt.update(grads)
+        got = card_opt.update(card_grads)
+        err = max(float((g.cpu() - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                  for g, w in zip(got, want))
+        del cpu_opt, want, got
+        ms = cuda_ms(lambda: card_opt.step(card_grads), 3, warmup=1)
+        out[name] = dict(rel_err=err, ms=ms)
+        log(f"[15c] {name}: one update on {n_params / 1e6:.1f}M trainable parameters, card "
+            f"against CPU max rel. error {err:.3e} (tolerance {OPT_REL_TOL}); {ms:.3f} ms a step "
+            f"(CUDA events), on {card}")
+        if not err <= OPT_REL_TOL:
+            fail(f"optimizer {name}: the card's update differs from the CPU's by {err}")
+        del card_opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_cli_stack(card: str, tmp: str, valid_tsv: str, ckpt_file: str):
+    """``cli.train`` on the card with the recipe's flags and the rest of the
+    training stack: 2 epochs of 2 steps, a resume to epoch 3 (every restored
+    state held to the files), then a pruned 1-step run from the same restore
+    file."""
+    from ifseg_torch.checkpoint.convert import load_torch_checkpoint
+    from ifseg_torch.checkpoint.manager import CheckpointManager
+    from ifseg_torch.cli import train as cli_train
+    from ifseg_torch.config import from_flags
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.train import optim
+
+    train_tsv = f"{tmp}/stack_train.tsv"
+    with open(valid_tsv) as src, open(train_tsv, "w") as dst:
+        rows = src.readlines()
+        dst.writelines((rows * -(-STACK_ROWS // len(rows)))[:STACK_ROWS])
+
+    def flags(save_dir, *extra, resets=True):
+        argv = common_sh_argv(f"{train_tsv},{valid_tsv}", save_dir, ckpt_file)
+        argv = [a for a in argv if resets or a not in RESET_FLAGS]
+        return from_flags(argv + [f"--epoch-row-count={STACK_ROWS}", "--batch-size-valid=8",
+                                  f"--num-workers={CLI_WORKERS}", *STACK_FLAGS, *extra])
+
+    restored, loaded = [], {}
+    restore, pretrained = cli_train.restore_training_state, cli_train.maybe_restore_pretrained
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return isinstance(b, dict) and a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if torch.is_tensor(a):
+            return torch.is_tensor(b) and torch.equal(a, b)
+        return a == b
+
+    def checked_restore(cfg, trainer, ckpt):
+        name = ckpt.latest()
+        out = restore(cfg, trainer, ckpt)
+        if name is not None:
+            saved, now = ckpt.load(name), trainer.state_dict()
+            restored.append(dict(name=name, **{k: same(now[k], saved[k]) for k in saved}))
+        return out
+
+    def recording_pretrained(cfg, device):
+        loaded["sd"] = pretrained(cfg, device)
+        return loaded["sd"]
+
+    cli_train.restore_training_state = checked_restore
+    cli_train.maybe_restore_pretrained = recording_pretrained
+    result = {}
+    try:
+        save = f"{tmp}/stack"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        ln.reset_launches()
+        cfg = flags(save, "--max-epoch=2")
+        t0 = time.perf_counter()
+        run = cli_train.main(cfg)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+        steps = run["num_updates"]
+        per_step = sum(n for *_, n in SITES)
+        validations = sum(e["valid"] is not None for e in run["epochs"])
+        want = dict(stats=per_step * steps, bwd_di=per_step * steps, bwd_dq=per_step * steps,
+                    bwd_dkv=per_step * steps)
+        log(f"[15d] cli.train.main, recipe + {' '.join(STACK_FLAGS)}: {steps} updates, "
+            f"{validations} validations; attention launches {counts} (save-attn: expected "
+            f"{want} and the monitoring and validation forwards), layer_norm launches "
+            f"{ln_launches}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, main "
+            f"{main_s:.1f} s, on {card}")
+        if (steps != 4 or validations != 2 or {k: counts[k] for k in want} != want
+                or counts["infer"] < per_step * steps or ln_launches < 1):
+            fail("the training CLI with the stack's flags did not launch every kernel as expected")
+        if not (cfg.model.checkpoint_activations and cfg.model.remat_policy == "save-attn"
+                and cfg.optimization.optimizer == "composite"):
+            fail(f"the stack's flags were not taken: {cfg.model}, {cfg.optimization}")
+        plateau = optim.ReduceLROnPlateau(shrink=cfg.optimization.lr_shrink,
+                                          patience=cfg.optimization.lr_patience, maximize=True)
+        want_scales = [plateau.step(float(e["valid"]["mIoU"])) for e in run["epochs"]]
+        scales = [e.get("lr_scale") for e in run["epochs"]]
+        log(f"[15d] mIoU {[e['valid']['mIoU'] for e in run['epochs']]}, lr scale after each "
+            f"validation {scales} (the controller's {want_scales})")
+        if scales != want_scales:
+            fail("the plateau scale does not follow the controller")
+        result.update(launches=counts, ln_launches=ln_launches, main_s=main_s,
+                      step_s=[t for e in run["epochs"] for t in e["step_s"]],
+                      lr_scales=scales, valid=[e["valid"] for e in run["epochs"]])
+
+        restored.clear()
+        fa.reset_launches()
+        ln.reset_launches()
+        resumed = cli_train.main(flags(save, "--max-epoch=3", resets=False))
+        result["resume_launches"], result["resume_ln_launches"] = fa.launch_counts(), ln.LAUNCHES
+        log(f"[15d] resume to epoch 3: started at epoch {resumed['start_epoch']} with "
+            f"{resumed['restored_updates']} updates; restored parts equal to the files: "
+            f"{restored}; lr scale {resumed['epochs'][-1].get('lr_scale')}")
+        parts = ("model", "ema", "optimizer", "step", "generator", "plateau")
+        if ((resumed["start_epoch"], resumed["restored_updates"], resumed["num_updates"])
+                != (3, 4, 6) or len(restored) != 1
+                or not all(restored[0].get(p, p == "ema") for p in parts)):
+            fail(f"the resume did not restore every part bit for bit: {restored}")
+        saved = CheckpointManager(flags(save).checkpoint).load("checkpoint_3")
+        result["resume"] = dict(restored=restored, optimizer_groups=sorted(
+            saved["optimizer"]["groups"]), lr_scale=saved["optimizer"]["lr_scale"],
+            plateau=saved["plateau"])
+
+        # a 1-step run on the same restore file, three of each side's six layers kept
+        fa.reset_launches()
+        ln.reset_launches()
+        pruned_cfg = flags(f"{tmp}/stack_pruned", *PRUNE_FLAGS, "--max-epoch=1", "--max-update=1")
+        pruned = cli_train.main(pruned_cfg)
+        result["pruned_launches"], result["pruned_ln_launches"] = fa.launch_counts(), ln.LAUNCHES
+        file = load_torch_checkpoint(ckpt_file)
+        kept = all(torch.equal(loaded["sd"][f"{side}.layers.{j}.fc1.weight"],
+                               file[f"{side}.layers.{i}.fc1.weight"])
+                   for side in ("encoder", "decoder") for j, i in enumerate((0, 2, 4)))
+        n_layers = {side: len({k.split(".")[2] for k in loaded["sd"]
+                               if k.startswith(f"{side}.layers.")}) for side in ("encoder", "decoder")}
+        log(f"[15d] {' '.join(PRUNE_FLAGS)}: layers loaded {n_layers}, kept layers equal to the "
+            f"file's 0, 2, 4: {kept}; {pruned['num_updates']} update, stop {pruned['stop']!r}, "
+            f"launches {result['pruned_launches']}, on {card}")
+        if not kept or n_layers != {"encoder": 3, "decoder": 3} or pruned["num_updates"] != 1:
+            fail("the pruned run did not load layers 0, 2, 4 of the restore file or did not step")
+        result["pruned"] = dict(layers=n_layers, kept_equal=kept, stop=pruned["stop"])
+    finally:
+        cli_train.restore_training_state = restore
+        cli_train.maybe_restore_pretrained = pretrained
+    return result
+
+
 # ---------------------------------------------------------------- main
 
 def pass_totals(rows, per_key):
@@ -3536,6 +3887,9 @@ def main():
     huge_sites = phase_kernels(HUGE, HUGE_SERVE_BATCH, "[3 huge]")
     huge_ln_rows, _ = phase_layer_norm(HUGE_LN_PATHS, "[3n huge]")
     huge_train_rows = phase_train_kernels(HUGE, HUGE_TRAIN_BATCH, "[3t huge]")
+    # phase 15's SegOFA-Huge step at batch 32: its sites checked, not timed
+    phase_train_kernels(HUGE, HUGE_REMAT_BATCH, f"[3t huge b{HUGE_REMAT_BATCH}]",
+                        checks_only=True)
     torch.cuda.empty_cache()
     server, weights, serve = phase_serve(card)
     cpu = phase_cpu_reference(server, weights)
@@ -3567,6 +3921,10 @@ def main():
         surface = phase_serving_surface(card, tmp, validate["ckpt"], jpeg_files)
         torch.cuda.empty_cache()
         converted = phase_convert_validate(card, tmp, validate["ckpt"], jpeg_files)
+        torch.cuda.empty_cache()
+        stack = dict(remat=phase_remat(card, huge["train"]["max_memory_gib"]))
+        stack["optimizers"] = phase_optimizers(card)
+        stack["train_cli"] = phase_train_cli_stack(card, tmp, validate["tsv"], validate["ckpt"])
 
     fwd_src = "ifseg_torch/csrc/flash_attention_bias_fwd.cu"
     dq_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dq.cu"
@@ -3574,6 +3932,16 @@ def main():
     jax_fa = "ifseg_tpu/ops/flash_attention.py"
     step_unit = "one batch-16 training step: 6 calls at each of the three site shapes"
     counts, cli_counts = train["launches"], train_cli["launches"]
+    # phase 15's training paths, each driven with the counts set to 0 before
+    # and read after: OFA-Base under each checkpointing policy (full runs the
+    # forward with stats again in the backward), the CLI with the stack's
+    # flags, its resume and its pruned run
+    remat, stack_cli = stack["remat"], stack["train_cli"]
+    stack_paths = {f"remat_{name.replace('-', '_')}": r["launches"]
+                   for name, r in remat["ofa_base"].items()}
+    stack_paths.update(train_cli_stack=stack_cli["launches"],
+                       train_cli_stack_resume=stack_cli["resume_launches"],
+                       train_cli_stack_pruned=stack_cli["pruned_launches"])
     # the forward without stats runs on ten main paths; each was driven with
     # the counts set to 0 just before and read just after
     k1_paths = dict(serving=serve["launches"], evaluation=evaluation["launches"],
@@ -3582,7 +3950,8 @@ def main():
                     infer=surface["infer"]["launches"],
                     serve_daemon_jpeg=surface["daemon_jpeg"]["launches"],
                     infer_jpeg=surface["infer_jpeg"]["launches"],
-                    validate_converted=converted["launches"])
+                    validate_converted=converted["launches"],
+                    **{k: v["infer"] for k, v in stack_paths.items() if k.startswith("train_cli")})
     ln_paths = dict(serving=serve["ln_launches"], evaluation=evaluation["ln_launches"],
                     monitoring=train["ln_launches"], validate=validate["ln_launches"],
                     train_cli=train_cli["ln_launches"],
@@ -3591,6 +3960,9 @@ def main():
                     serve_daemon_jpeg=surface["daemon_jpeg"]["ln_launches"],
                     infer_jpeg=surface["infer_jpeg"]["ln_launches"],
                     validate_converted=converted["ln_launches"],
+                    train_cli_stack=stack_cli["ln_launches"],
+                    train_cli_stack_resume=stack_cli["resume_ln_launches"],
+                    train_cli_stack_pruned=stack_cli["pruned_ln_launches"],
                     huge_serving=huge["serve"]["ln_launches"] - huge["serve"]["ln_wide_launches"],
                     huge_evaluation=(huge["evaluation"]["ln_launches"]
                                      - huge["evaluation"]["ln_wide_launches"]))
@@ -3599,17 +3971,21 @@ def main():
                      sites, "one batch-32 forward: 6 calls at each of the three site shapes",
                      "per_forward"),
         kernel_entry("flash_attention_bias_fwd_stats", fwd_src, f"{jax_fa}:134",
-                     counts["stats"] + cli_counts["stats"], train_rows["stats"], step_unit,
-                     "per_step"),
+                     counts["stats"] + cli_counts["stats"]
+                     + sum(v["stats"] for v in stack_paths.values()), train_rows["stats"],
+                     step_unit, "per_step"),
         kernel_entry("flash_attention_bwd_di", dq_src, f"{jax_fa}:484",
-                     counts["bwd_di"] + cli_counts["bwd_di"], train_rows["di"], step_unit,
-                     "per_step"),
+                     counts["bwd_di"] + cli_counts["bwd_di"]
+                     + sum(v["bwd_di"] for v in stack_paths.values()), train_rows["di"],
+                     step_unit, "per_step"),
         kernel_entry("flash_attention_bias_bwd_dq", dq_src, f"{jax_fa}:373",
-                     counts["bwd_dq"] + cli_counts["bwd_dq"], train_rows["dq"], step_unit,
-                     "per_step"),
+                     counts["bwd_dq"] + cli_counts["bwd_dq"]
+                     + sum(v["bwd_dq"] for v in stack_paths.values()), train_rows["dq"],
+                     step_unit, "per_step"),
         kernel_entry("flash_attention_bias_bwd_dkv", dkv_src, f"{jax_fa}:420",
-                     counts["bwd_dkv"] + cli_counts["bwd_dkv"], train_rows["dkv"], step_unit,
-                     "per_step"),
+                     counts["bwd_dkv"] + cli_counts["bwd_dkv"]
+                     + sum(v["bwd_dkv"] for v in stack_paths.values()), train_rows["dkv"],
+                     step_unit, "per_step"),
         kernel_entry("layer_norm", "ifseg_torch/csrc/layer_norm.cu",
                      "ifseg_tpu/ops/layer_norm.py:43", sum(ln_paths.values()), ln_rows,
                      "one batch-32 forward: its 65 LayerNorm sites at their six (rows, width) "
@@ -3617,7 +3993,8 @@ def main():
     ]
     kernels[0]["launches_by_path"] = k1_paths
     for entry, key in zip(kernels[1:5], ("stats", "bwd_di", "bwd_dq", "bwd_dkv")):
-        entry["launches_by_path"] = dict(training=counts[key], train_cli=cli_counts[key])
+        entry["launches_by_path"] = dict(training=counts[key], train_cli=cli_counts[key],
+                                         **{k: v[key] for k, v in stack_paths.items()})
     kernels[0]["per_pass"] = {"evaluation group of 8": pass_totals(sites, "per_eval_group"),
                               "validate group of 8, 215 text tokens":
                                   pass_totals(sites, "per_validate_group")}
@@ -3635,7 +4012,7 @@ def main():
                      f"{dec} calls at the three site shapes")
     huge_step_unit = (f"one SegOFA-Huge batch-{HUGE_TRAIN_BATCH} training step: {enc}, {dec} and "
                       f"{dec} calls at the three site shapes")
-    hc = huge["train"]["launches"]
+    hc, hr = huge["train"]["launches"], remat["huge"]["launches"]
     k1_80_paths = dict(huge_serving=huge["serve"]["launches"],
                        huge_evaluation=huge["evaluation"]["launches"])
     wide_paths = dict(huge_serving=huge["serve"]["ln_wide_launches"],
@@ -3644,13 +4021,17 @@ def main():
         kernel_entry("flash_attention_bias_fwd, head dim 80", fwd_src, f"{jax_fa}:134",
                      sum(k1_80_paths.values()), huge_sites, huge_fwd_unit, "per_forward"),
         kernel_entry("flash_attention_bias_fwd_stats, head dim 80", fwd_src, f"{jax_fa}:134",
-                     hc["stats"], huge_train_rows["stats"], huge_step_unit, "per_step"),
+                     hc["stats"] + hr["stats"], huge_train_rows["stats"], huge_step_unit,
+                     "per_step"),
         kernel_entry("flash_attention_bwd_di, head dim 80", dq_src, f"{jax_fa}:484",
-                     hc["bwd_di"], huge_train_rows["di"], huge_step_unit, "per_step"),
+                     hc["bwd_di"] + hr["bwd_di"], huge_train_rows["di"], huge_step_unit,
+                     "per_step"),
         kernel_entry("flash_attention_bias_bwd_dq, head dim 80", dq_src, f"{jax_fa}:373",
-                     hc["bwd_dq"], huge_train_rows["dq"], huge_step_unit, "per_step"),
+                     hc["bwd_dq"] + hr["bwd_dq"], huge_train_rows["dq"], huge_step_unit,
+                     "per_step"),
         kernel_entry("flash_attention_bias_bwd_dkv, head dim 80", dkv_src, f"{jax_fa}:420",
-                     hc["bwd_dkv"], huge_train_rows["dkv"], huge_step_unit, "per_step"),
+                     hc["bwd_dkv"] + hr["bwd_dkv"], huge_train_rows["dkv"], huge_step_unit,
+                     "per_step"),
         kernel_entry("layer_norm, a CTA a row (widths above 4,096)", "ifseg_torch/csrc/layer_norm.cu",
                      "ifseg_tpu/ops/layer_norm.py:43", sum(wide_paths.values()),
                      [r for r in huge_ln_rows if r["width"] > 4096],
@@ -3658,6 +4039,8 @@ def main():
                      f"ffn_layernorm sites of width {HUGE['ffn']}", "per_forward"),
     ]
     huge_kernels[0]["launches_by_path"] = k1_80_paths
+    for entry, key in zip(huge_kernels[1:5], ("stats", "bwd_di", "bwd_dq", "bwd_dkv")):
+        entry["launches_by_path"] = dict(huge_training=hc[key], huge_remat_auto=hr[key])
     huge_kernels[0]["per_pass"] = {
         "SegOFA-Huge evaluation group of 8": pass_totals(huge_sites, "per_eval_group")}
     huge_kernels[-1]["launches_by_path"] = wide_paths
@@ -3671,7 +4054,7 @@ def main():
     log(json.dumps({"serve": serve, "cpu_reference": cpu, "evaluation": evaluation,
                     "train": train, "train_gradients": grads, "huge": huge, "validate": validate,
                     "train_cli": train_cli, "serving_surface": surface, "codecs": codecs,
-                    "converted": converted, "ptxas": ptxas,
+                    "converted": converted, "training_stack": stack, "ptxas": ptxas,
                     "card_line": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -27,10 +27,14 @@ and keeps the fresh initialisation wherever the file has no tensor or one of
 another shape, as the JAX package's ``_reconcile`` does (the seg-specific
 tensors, absent from ``ofa_base.pt``).  ``fabricate_ofa_base_checkpoint``
 writes a file of ``ofa_base.pt``'s shapes with random weights.
+``prune_layers`` keeps some layers of a deeper checkpoint (LayerDrop
+pruning, ``--encoder/decoder-layers-to-keep``), before ``load_model``
+reconciles it with the model.
 """
 
 import logging
 import os
+import re
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -248,7 +252,49 @@ def convert_torch_state_dict(sd: Dict[str, torch.Tensor], target_vocab: int,
     return out
 
 
-def load_model(path: str, model_cfg, ema: bool = False):
+def prune_layers(sd: Dict[str, torch.Tensor], encoder_layers_to_keep: Optional[str] = None,
+                 decoder_layers_to_keep: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """LayerDrop pruning (ref utils/checkpoint_utils.py:692-784) of a state
+    dict of the reference names: on each side given, keep the listed layer
+    indices ("0,2,4") of the checkpoint, renumbered as the JAX package's
+    ``prune_layers`` renumbers them (the sorted list's first position of the
+    index), and the per-layer relative tables as its stacked tables are
+    indexed by that list; everything else passes.  An index past the
+    checkpoint's layers raises."""
+    out = dict(sd)
+    for side, keep in (("encoder", encoder_layers_to_keep), ("decoder", decoder_layers_to_keep)):
+        if not keep:
+            continue
+        keep_idx = sorted(int(x) for x in keep.split(","))
+        layer = re.compile(rf"^{side}\.layers\.(\d+)\.(.*)$")
+        table = re.compile(rf"^{side}\.(\w+_rel_pos_table_list)\.(\d+)\.(.*)$")
+        n_layers = len({m.group(1) for k in sd for m in [layer.match(k)] if m})
+        bad = [i for i in keep_idx if not 0 <= i < n_layers]
+        if bad:
+            raise ValueError(f"layers-to-keep indices {bad} out of range for a "
+                             f"{n_layers}-layer checkpoint")
+        tables = {}
+        for k in list(out):
+            m = layer.match(k)
+            if m:
+                del out[k]
+                if int(m.group(1)) in keep_idx:
+                    out[f"{side}.layers.{keep_idx.index(int(m.group(1)))}.{m.group(2)}"] = sd[k]
+                continue
+            m = table.match(k)
+            if m:
+                del out[k]
+                tables.setdefault((m.group(1), m.group(3)), {})[int(m.group(2))] = sd[k]
+        for (name, leaf), by_layer in tables.items():
+            if len(by_layer) != n_layers:
+                raise ValueError(f"{side}.{name} has {len(by_layer)} tables for {n_layers} layers")
+            for j, i in enumerate(keep_idx):
+                out[f"{side}.{name}.{j}.{leaf}"] = by_layer[i]
+    return out
+
+
+def load_model(path: str, model_cfg, ema: bool = False, encoder_layers_to_keep: str = "",
+               decoder_layers_to_keep: str = ""):
     """A ``SegOFA(model_cfg)`` with the weights of ``path``, on the CPU: a
     fairseq ``.pt`` file (its envelope or a bare state dict; a port state
     dict saved with ``torch.save`` is one), loaded into a fresh model from
@@ -256,26 +302,30 @@ def load_model(path: str, model_cfg, ema: bool = False):
     checkpoint directory of ``checkpoint/manager.py`` (``checkpoint_best``
     and ``checkpoint_last`` are links to one), whose ``model.pt`` loads
     strictly, its parameters replaced by ``ema.pt``'s when ``ema`` is set
-    and the checkpoint has an EMA copy.  The counterpart of the JAX
-    package's ``cli/infer.py:load_params``, which reads orbax directories
-    instead."""
+    and the checkpoint has an EMA copy.  The layers-to-keep lists prune the
+    checkpoint first (``prune_layers``), so a shallower ``model_cfg`` takes
+    the kept layers.  The counterpart of the JAX package's
+    ``cli/infer.py:load_params``, which reads orbax directories instead."""
     from ifseg_torch.models.segofa import SegOFA
 
+    prune = lambda sd: prune_layers(sd, encoder_layers_to_keep, decoder_layers_to_keep)
     model = SegOFA(model_cfg).init(torch.Generator().manual_seed(0))
     if os.path.isdir(path):
-        model.load_state_dict(
-            torch.load(os.path.join(path, "model.pt"), map_location="cpu", weights_only=True),
+        model.load_state_dict(prune(
+            torch.load(os.path.join(path, "model.pt"), map_location="cpu", weights_only=True)),
             strict=True)
         ema_path = os.path.join(path, "ema.pt")
         if ema and os.path.exists(ema_path):
-            shadow = torch.load(ema_path, map_location="cpu", weights_only=True)
+            shadow = prune(torch.load(ema_path, map_location="cpu", weights_only=True))
             with torch.no_grad():
                 for name, p in model.named_parameters():
                     p.copy_(shadow[name])
         return model
     if not str(path).endswith(".pt"):
         raise ValueError(f"{path}: neither a .pt file nor a checkpoint directory")
-    sd = load_torch_checkpoint(path)
+    # pruned before the reconcile, so the kept layers land on a shallower
+    # model rather than being back-filled with fresh values
+    sd = prune(load_torch_checkpoint(path))
     model.load_state_dict(
         convert_torch_state_dict(sd, model_cfg.vocab_size, model.state_dict()), strict=True)
     return model

@@ -9,7 +9,8 @@ The torch counterpart of the JAX package's orbax-backed
   - state: whatever dict of tensors and numbers it is given, one
     ``torch.save`` file per top-level key (``Trainer.state_dict()``:
     ``model.pt``, ``ema.pt``, ``optimizer.pt``, ``step.pt``,
-    ``generator.pt``), plus ``<name>.extra.json`` beside the directory (the
+    ``generator.pt`` and, under reduce_lr_on_plateau, ``plateau.pt``), plus
+    ``<name>.extra.json`` beside the directory (the
     epoch, the iterator's cursor, the meters);
   - layout: ``<save_dir>/checkpoint_{epoch}/`` and
     ``checkpoint_{epoch}_{updates}/``, and ``manifest.json`` with the JAX

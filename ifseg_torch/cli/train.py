@@ -16,15 +16,18 @@ accounting, ``--save-interval-updates`` with the iterator's cursor,
 ``--max-consecutive-nonfinite`` skipped updates), validate at native
 resolution through the ``Evaluator`` (the trainer's weights, or its EMA
 copy under ``--uses-ema``), save with best-metric rotation, and stop early
-under ``--patience``.  The cosine schedule spans ``max_epoch`` times the
-updates of an epoch.
+under ``--patience``.  The schedule spans ``max_epoch`` times the updates
+of an epoch; under ``--lr-scheduler=reduce_lr_on_plateau`` the trainer's
+plateau controller steps on each validation's best-checkpoint metric and
+sets the lr scale.  ``--encoder/decoder-layers-to-keep`` prune the
+pretrained checkpoint before it is loaded.
 
 One deliberate difference (ROADMAP.md C.3): a stop on ``--max-update`` or
 ``--stop-time-hours`` inside an epoch saves a mid-epoch checkpoint with the
 cursor, not the JAX package's epoch-complete one, so a resume goes on inside
-that epoch.  Not ported: meshes and barriers, the heartbeat and cross-host
-sanitizers (ROADMAP.md A.9), profiling spans (A.10), the other schedules and
-``reduce_lr_on_plateau`` (A.5), and ``prune_layers`` (A.4).
+that epoch; and a resume restores the plateau controller, which the JAX
+CLI builds anew.  Not ported: meshes and barriers, the heartbeat and
+cross-host sanitizers (ROADMAP.md A.9), profiling spans (A.10).
 """
 
 import logging
@@ -113,6 +116,10 @@ def main(cfg: Config, device: Optional[Union[str, torch.device]] = None) -> Dict
         if epoch % max(cfg.checkpoint.validate_interval, 1) == 0 or hard_stop:
             record["valid"] = validate(cfg, task, trainer, epoch, evaluator)
             metric = record["valid"].get(cfg.checkpoint.best_checkpoint_metric)
+        if trainer.plateau is not None and metric is not None:
+            record["lr_scale"] = trainer.plateau.step(float(metric))
+            trainer.set_lr_scale(record["lr_scale"])
+            logger.info("plateau lr scale: %s", record["lr_scale"])
         if completed and (epoch % cfg.checkpoint.save_interval == 0 or hard_stop):
             _save(ckpt, run["saves"], epoch, trainer,
                   extra={"epoch": epoch, "metrics": metrics_lib.state_dict()}, val_metric=metric)
@@ -147,11 +154,9 @@ def maybe_restore_pretrained(cfg: Config, device) -> Optional[Dict[str, torch.Te
     the reset flags, ref utils/checkpoint_utils.py:205-229), else
     ``--restore-file``; a ``.pt`` file through the vocab surgery, or a
     checkpoint directory of the port.  Under ``--dry-weights`` an absent
-    file is first fabricated with ``ofa_base.pt``'s shapes (on ``device``)."""
+    file is first fabricated with ``ofa_base.pt``'s shapes (on ``device``).
+    ``--encoder/decoder-layers-to-keep`` prune the file's layers first."""
     ck = cfg.checkpoint
-    if cfg.model.encoder_layers_to_keep or cfg.model.decoder_layers_to_keep:
-        raise NotImplementedError(
-            "--encoder/decoder-layers-to-keep (prune_layers) is not ported (ROADMAP.md A.4)")
     if ck.finetune_from_model:
         if ck.reset_optimizer or ck.reset_dataloader or ck.reset_meters:
             raise ValueError("--finetune-from-model can not be set together with "
@@ -166,7 +171,12 @@ def maybe_restore_pretrained(cfg: Config, device) -> Optional[Dict[str, torch.Te
             logger.warning("restore file %s not found; training from scratch", path)
         return None
     logger.info("loading pretrained weights from %s", path)
-    return load_model(path, cfg.model).state_dict()
+    ek, dk = cfg.model.encoder_layers_to_keep, cfg.model.decoder_layers_to_keep
+    if ek or dk:
+        logger.info("pruning checkpoint layers (encoder keep=%s, decoder keep=%s)",
+                    ek or "all", dk or "all")
+    return load_model(path, cfg.model, encoder_layers_to_keep=ek,
+                      decoder_layers_to_keep=dk).state_dict()
 
 
 def restore_training_state(cfg: Config, trainer: Trainer,

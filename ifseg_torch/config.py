@@ -85,12 +85,24 @@ class ModelConfig:
     freeze_resnet: bool = False
     freeze_encoder_transformer: bool = False
     freeze_encoder_transformer_layers: int = 0
-    # LayerDrop pruning at load (comma-separated checkpoint layers to keep):
-    # parsed, and cli/train raises when set (ROADMAP.md A.4)
+    # LayerDrop pruning at load: the checkpoint's layers to keep, comma
+    # separated, renumbered in order (checkpoint/convert.py prune_layers)
     encoder_layers_to_keep: str = ""
     decoder_layers_to_keep: str = ""
 
     dtype: str = "bfloat16"  # compute dtype; params are always fp32
+
+    # activation checkpointing of the encoder and decoder layers: the
+    # backward recomputes each layer's forward from its input.  The policy:
+    # 'full' recomputes everything, the attention kernels included;
+    # 'save-attn' keeps each attention's output and row logsumexp, so the
+    # backward never runs the forward kernel again; 'save-attn-ffn' also keeps
+    # the FFN activation.  'auto' (the default) lets the Trainer decide from
+    # the JAX package's bytes model (train/trainer.py resolve_remat_policy):
+    # off where the whole activation set fits the device with margin,
+    # save-attn otherwise; a model built outside a Trainer takes save-attn
+    checkpoint_activations: bool = True
+    remat_policy: str = "auto"
 
     @property
     def seg_bucket_size(self) -> int:
@@ -194,8 +206,28 @@ class CriterionConfig:
 @dataclass
 class OptimizationConfig:
     lr: float = 5e-5
-    optimizer: str = "adam"  # only adam is ported
-    lr_scheduler: str = "cosine"  # only cosine is ported
+    # adam | adafactor | lamb | fused_lamb | sgd | nag | adagrad | adadelta |
+    # adamax | composite (train/optim.py)
+    optimizer: str = "adam"
+    # composite: "regex=opt@lr,regex=opt@lr" over the JAX parameter paths;
+    # parameters no group matches take composite_base
+    composite_groups: str = ""
+    composite_base: str = "adam"
+    momentum: float = 0.0  # sgd / nag
+    # cosine | inverse_sqrt | polynomial_decay | fixed | pass_through |
+    # manual | triangular | tri_stage | reduce_lr_on_plateau
+    lr_scheduler: str = "cosine"
+    # reduce_lr_on_plateau: shrink factor, validations without improvement;
+    # triangular: the per-cycle shrink
+    lr_shrink: float = 0.1
+    lr_patience: int = 0
+    # manual: "epoch:lr,epoch:lr", each lr from that epoch on
+    manual_lr_schedule: str = ""
+    # triangular: the peak (0 -> 10 * lr) and the half period in updates
+    max_lr: float = 0.0
+    lr_period_updates: int = 1000
+    # tri_stage: the hold after the warm-up, in updates
+    hold_updates: int = 0
     warmup_ratio: float = 0.0
     warmup_updates: int = 0
     weight_decay: float = 0.1
@@ -211,6 +243,11 @@ class OptimizationConfig:
     batch_size: int = 4
     batch_size_valid: int = 1  # rows of one evaluation group at most
     seed: int = 7
+    # parsed as the JAX package parses them; bf16 training uses no loss
+    # scaler (train/optim.py DynamicLossScaler is kept for fp16 experiments)
+    fp16: bool = False
+    fp16_scale_window: int = 512
+    min_loss_scale: float = 1e-4
 
 
 @dataclass

@@ -19,12 +19,23 @@
 //   colour             YCbCr -> RGB with the tables of jdcolor.c; the colour
 //                      space chosen as jdapimin.c default_decompress_parms does
 //
+// A cut file decodes as PIL decodes it with ImageFile.LOAD_TRUNCATED_IMAGES
+// (which the JAX package sets): PIL appends an EOI marker where the data ends,
+// and libjpeg-turbo, as at any marker inside entropy-coded data, reads zero
+// bits past it; once an MCU has read one, the scan's later MCUs are left as
+// they were (jdhuff.c, jdphuff.c: insufficient_data), the scans not reached
+// are absent, and a component no scan reached is mid-gray. A file cut before
+// the end of its first scan header raises, as PIL's Image.open does; one cut
+// inside a later marker segment gives PIL's all-zero image where libjpeg
+// buffers the whole image (progressive or multi-scan), since no output pass
+// ever starts, and the decoded image otherwise.
+//
 // A progressive file whose scans leave one of the first nine AC coefficients
 // unrefined would be block-smoothed by libjpeg-turbo (jdcoefct.c); it is
 // refused, as are arithmetic coding, lossless and hierarchical files,
-// precisions other than 8 bits, DNL, 4-component (CMYK/YCCK) files and a file
-// that ends before its last scan does. Built with the host C++ compiler at
-// first use (`ifseg_torch/ops/build.py`) and called through ctypes.
+// precisions other than 8 bits, DNL and 4-component (CMYK/YCCK) files. Built
+// with the host C++ compiler at first use (`ifseg_torch/ops/build.py`) and
+// called through ctypes.
 
 #include <algorithm>
 #include <cstdint>
@@ -95,23 +106,39 @@ struct Component {
     std::vector<uint8_t> plane; // IDCT output: (hib * 8) x (wib * 8)
 };
 
+// the natural position of zig-zag index k; a run past the block (bad data,
+// or zero bits read past a cut) lands on 63, as libjpeg's natural-order
+// table extended by 16 entries makes it
+inline int natural(int k) { return kNaturalOrder[k < 64 ? k : 63]; }
+
 class BitReader {
    public:
     BitReader(const uint8_t* d, size_t n, size_t pos) : d_(d), n_(n), pos_(pos) {}
 
     size_t pos() const { return pos_; }
 
+    // whether an MCU has read a bit past the data (a marker or the end of a
+    // cut file): libjpeg leaves the segment's later MCUs untouched then
+    bool insufficient() const { return insufficient_; }
+
     // Drop the buffered bits and step over the restart marker RSTn that must
-    // come next (after any bytes left in the segment).
+    // come next (after any bytes left in the segment). Where the data has
+    // ended (PIL's EOI), libjpeg keeps the marker unread and its flag as it
+    // was (jdmarker.c read_restart_marker, jdhuff.c process_restart).
     void restart(int n) {
         buf_ = 0;
         bits_ = 0;
         fake_ = 0;
-        marker_ = false;
         const size_t at = next_marker(d_, n_, pos_);
-        if (at + 1 >= n_) throw Error("truncated JPEG: image file is truncated");
+        if (at + 1 >= n_) {
+            marker_ = true;
+            pos_ = n_;
+            return;
+        }
         if (d_[at + 1] != 0xD0 + n)
             throw Error("broken JPEG: restart marker RST" + std::to_string(n) + " missing");
+        marker_ = false;
+        insufficient_ = false;
         pos_ = at + 2;
     }
 
@@ -162,13 +189,15 @@ class BitReader {
     }
 
    private:
+    // libjpeg supplies zero bits once a marker, or the end of the data
+    // (where PIL appends EOI), ends the entropy-coded data; a trailing 0xFF
+    // is a fill byte before that EOI
     void ensure(int k) {
         while (bits_ < k) {
             uint8_t c = 0;
-            if (marker_) {
-                c = 0;  // libjpeg supplies zeros once a marker ends the data
-            } else if (pos_ >= n_) {
-                fake_ += 8;  // past the end of the file: only harmless if never read
+            if (marker_ || pos_ >= n_) {
+                fake_ += 8;
+                pos_ = std::min(pos_, n_);
             } else if (d_[pos_] == 0xFF) {
                 size_t p = pos_ + 1;
                 while (p < n_ && d_[p] == 0xFF) ++p;
@@ -179,6 +208,7 @@ class BitReader {
                     c = 0xFF;
                     pos_ = p + 1;
                 } else {
+                    fake_ += 8;
                     marker_ = true;  // pos_ stays on the marker
                     pos_ = p - 1;
                 }
@@ -192,14 +222,17 @@ class BitReader {
 
     void consume(int k) {
         bits_ -= k;
-        if (bits_ < fake_) throw Error("truncated JPEG: image file is truncated");
+        if (bits_ < fake_) {  // a supplied zero bit was read
+            insufficient_ = true;
+            fake_ = bits_;
+        }
     }
 
     const uint8_t* d_;
     size_t n_, pos_;
     uint64_t buf_ = 0;
     int bits_ = 0, fake_ = 0;
-    bool marker_ = false;
+    bool marker_ = false, insufficient_ = false;
 };
 
 // The IDCT's output range limit (jdmaster.c prepare_range_limit_table): the
@@ -340,13 +373,18 @@ class Decoder {
         ac_[1].build(kAcChromaBits, kAcChromaValues, 162);
     }
 
-    // parse up to the first scan: width, height, output channels
+    // parse up to the first scan: width, height, output channels. PIL's
+    // Image.open reads as far as the end of the first scan header and raises
+    // on a file cut before it
     void header(int64_t* info) {
         size_t pos = start();
         while (true) {
             const size_t at = BitReader::next_marker(d_, n_, pos);
             if (at + 1 >= n_) throw Error("truncated JPEG: image file is truncated (no scan)");
-            if (d_[at + 1] == 0xDA && sof_seen_) break;
+            if (d_[at + 1] == 0xDA && sof_seen_) {
+                if (cut_off(at)) throw Error("truncated JPEG: the first scan header is cut off");
+                break;
+            }
             pos = segment(at, false);
         }
         info[0] = height_;
@@ -358,8 +396,14 @@ class Decoder {
         size_t pos = start();
         while (true) {
             const size_t at = BitReader::next_marker(d_, n_, pos);
-            if (at + 1 >= n_) throw Error("truncated JPEG: image file is truncated (no EOI marker)");
-            if (d_[at + 1] == 0xD9) break;
+            if (at + 1 >= n_ || d_[at + 1] == 0xD9) break;  // EOI, or PIL's after a cut
+            if (scans_ && cut_off(at)) {  // libjpeg waits for the rest of the segment
+                if (buffered_) {
+                    std::memset(out, 0, static_cast<size_t>(width_) * height_ * channels());
+                    return;
+                }
+                break;
+            }
             pos = segment(at, true);
         }
         if (!scans_) throw Error("broken JPEG: no scan before EOI");
@@ -387,6 +431,13 @@ class Decoder {
         if (saw_jfif_) return true;
         if (saw_adobe_) return adobe_transform_ != 0;
         return !(comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B');
+    }
+
+    // whether the marker segment at `at` (one with a length) ends past the data
+    bool cut_off(size_t at) const {
+        const int code = d_[at + 1];
+        if ((code >= 0xD0 && code <= 0xD7) || code == 0x01) return false;
+        return at + 4 > n_ || at + 2 + static_cast<size_t>((d_[at + 2] << 8) | d_[at + 3]) > n_;
     }
 
     int u16(size_t p) const {
@@ -562,6 +613,10 @@ class Decoder {
             if (!progressive_ || ss > 0)
                 if (!ac_[c->ta].defined) throw Error("broken JPEG: a scan's AC table is undefined");
         }
+        // jdinput.c initial_setup: libjpeg buffers the whole image, and outputs
+        // it only at EOI, when the first scan leaves a component out or the
+        // file is progressive
+        if (!scans_) buffered_ = progressive_ || ns < static_cast<int>(comps_.size());
         BitReader br(d_, n_, data);
         eobrun_ = 0;
         const bool single = ns == 1;
@@ -580,6 +635,7 @@ class Decoder {
                     }
                     --to_go;
                 }
+                if (br.insufficient()) continue;  // the MCU is left as it was
                 if (single) {
                     block(br, *sc[0], x, y, ss, se, ah, al);
                 } else {
@@ -606,8 +662,7 @@ class Decoder {
                 const int r = rs >> 4, sz = rs & 15;
                 if (sz) {
                     k += r;
-                    if (k > 63) throw Error("broken JPEG: a coefficient run past the block");
-                    blk[kNaturalOrder[k]] = static_cast<int16_t>(br.receive_extend(sz));
+                    blk[natural(k)] = static_cast<int16_t>(br.receive_extend(sz));
                 } else {
                     if (r != 15) break;
                     k += 15;
@@ -636,8 +691,7 @@ class Decoder {
                 const int r = rs >> 4, sz = rs & 15;
                 if (sz) {
                     k += r;
-                    if (k > 63) throw Error("broken JPEG: a coefficient run past the block");
-                    blk[kNaturalOrder[k]] = static_cast<int16_t>(br.receive_extend(sz) * (1 << al));
+                    blk[natural(k)] = static_cast<int16_t>(br.receive_extend(sz) * (1 << al));
                 } else if (r == 15) {
                     k += 15;
                 } else {
@@ -674,8 +728,7 @@ class Decoder {
                     ++k;
                 } while (k <= se);
                 if (s) {
-                    if (k > 63) throw Error("broken JPEG: a coefficient run past the block");
-                    blk[kNaturalOrder[k]] = static_cast<int16_t>(s);
+                    blk[natural(k)] = static_cast<int16_t>(s);
                 }
             }
         }
@@ -709,7 +762,7 @@ class Decoder {
 
     void output(uint8_t* out) {
         for (Component& c : comps_) {
-            if (!c.latched) throw Error("broken JPEG: a component no scan coded");
+            if (!c.latched) std::memset(c.quant, 0, sizeof(c.quant));  // jddctmgr.c: all zero, mid-gray
             const int stride = c.wib * 8;
             c.plane.assign(static_cast<size_t>(c.hib) * 8 * stride, 0);
             for (int by = 0; by < c.hib; ++by)
@@ -828,6 +881,7 @@ class Decoder {
     int adobe_transform_ = 0;
     int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
     int restart_interval_ = 0, eobrun_ = 0, scans_ = 0;
+    bool buffered_ = false;
 };
 
 void copy_error(const char* what, char* err, int64_t cap) {

@@ -2,8 +2,10 @@
 C++ loop.
 
 ``decode_png(data)`` returns what ``np.asarray(PIL.Image.open(BytesIO(data)))``
-returns, bit for bit, for every PNG file, interlaced (Adam7) or not, so the
-port's data pipeline depends on no image library:
+returns, bit for bit, for every PNG file, interlaced (Adam7) or not, a cut
+one as PIL reads it under the JAX package's ``LOAD_TRUNCATED_IMAGES``
+(``_chunks``; the rows not inflated whole are 0), so the port's data
+pipeline depends on no image library:
 
   colour type 0, gray        -> (h, w) uint8 (PIL's mode "L"); at bit depth 1,
                                 mode "1": (h, w) bool; at depths 2 and 4 the
@@ -73,24 +75,48 @@ def load():
 
 
 def _chunks(data: bytes):
-    """(type, body) of every chunk up to IEND, CRCs checked."""
+    """(type, body) of the chunks that PIL reads for the pixels, with the JAX
+    package's ``ImageFile.LOAD_TRUNCATED_IMAGES = True``: the chunks before
+    the image data (a cut one raises; the CRCs of the critical ones are
+    checked, PIL skips the ancillary ones' under that flag), then the run of
+    IDAT chunks, which PIL reads without their CRCs and which a cut file may
+    end anywhere.  What follows holds no pixels; it is walked as PIL's
+    ``load_end`` walks it, reading no CRC, up to IEND: there, and where the
+    run of IDATs ends, a header cut after its length field raises unless that
+    length is 0 (PIL reads a chunk of a type it cannot name), a whole header
+    whose body is cut raises, and a header cut inside its length field ends
+    the file quietly."""
     pos = 8
-    while pos < len(data):
-        if pos + 8 > len(data):
-            raise ValueError("truncated PNG: a chunk header is cut off")
-        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+    stage = 0  # 0 before the image data, 1 in its run of IDATs, 2 after it
+    while True:
+        head = data[pos:pos + 8]
+        if len(head) < 8:
+            if stage and (len(head) < 4 or struct.unpack(">I", head[:4])[0] == 0):
+                return
+            raise ValueError("truncated PNG: a chunk header is cut off" if head
+                             else "truncated PNG: no image data")
+        length, ctype = struct.unpack(">I4s", head)
         end = pos + 12 + length
-        if end > len(data):
-            raise ValueError(f"truncated PNG: chunk {ctype!r} is cut off")
-        body = data[pos + 8:end - 4]
-        (crc,) = struct.unpack(">I", data[end - 4:end])
-        if zlib.crc32(ctype + body) != crc:
-            raise ValueError(f"broken PNG: CRC mismatch in chunk {ctype!r}")
-        yield ctype, body
-        if ctype == b"IEND":
+        if ctype == b"IDAT" and stage < 2:
+            stage = 1
+            yield ctype, data[pos + 8:min(end - 4, len(data))]
+        elif ctype == b"IEND" and stage:
             return
+        elif stage:
+            stage = 2
+            if end - 4 > len(data):
+                raise ValueError(f"truncated PNG: chunk {ctype!r} is cut off")
+        else:
+            if end > len(data):
+                raise ValueError(f"truncated PNG: chunk {ctype!r} is cut off")
+            body = data[pos + 8:end - 4]
+            (crc,) = struct.unpack(">I", data[end - 4:end])
+            if not ctype[0] & 0x20 and zlib.crc32(ctype + body) != crc:
+                raise ValueError(f"broken PNG: CRC mismatch in chunk {ctype!r}")
+            if ctype == b"IEND":
+                return
+            yield ctype, body
         pos = end
-    raise ValueError("truncated PNG: no IEND chunk")
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -254,10 +280,16 @@ def _decode(data: bytes):
     sizes = [(-(-(h - y0) // dy), -(-(w - x0) // dx)) for x0, y0, dx, dy in passes]
     strides = [(pw * channels * depth + 7) // 8 for _, pw in sizes]
     need = sum(ph * (s + 1) for (ph, pw), s in zip(sizes, strides) if ph and pw)
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < need:
-        raise ValueError(f"truncated PNG: {len(raw)} bytes of image data, {need} needed")
-    src = np.frombuffer(raw, np.uint8, count=need)
+    # a cut file inflates to fewer bytes: the rows it lacks stay 0, as in PIL's
+    # image under LOAD_TRUNCATED_IMAGES
+    raw = zlib.decompressobj().decompress(b"".join(idat), need)
+    kept, at = 0, 0  # the bytes of the rows inflated whole
+    for (ph, pw), stride in zip(sizes, strides):
+        if ph and pw:
+            kept = at + min(ph, (len(raw) - at) // (stride + 1)) * (stride + 1) if len(raw) > at else kept
+            at += ph * (stride + 1)
+    src = np.zeros(need, np.uint8)
+    src[:kept] = np.frombuffer(raw, np.uint8, count=kept)
     dtype = np.uint16 if depth == 16 else np.uint8
     samples = np.empty((h, w, channels), dtype) if interlace else None
     at = 0

@@ -3,9 +3,11 @@
 A copy of the JAX package's ``data/segmentation_dataset.py`` (reference
 data/mm_data/segmentation_dataset.py):
 
-  - each row is a base64 image PNG, a base64 label PNG and an id; the PNGs
-    are decoded by ``data/png.py`` (what PIL gives: palette files as raw
-    indices, no ``.convert``); a 2-D image is replicated to three channels,
+  - each row is a base64 image, a base64 label image and an id; both are
+    decoded by ``data/image.py``, PNG or JPEG by their signature (what PIL
+    gives: palette files as raw indices, no ``.convert``, a cut file as PIL
+    reads it under the JAX package's ``LOAD_TRUNCATED_IMAGES``); a 2-D image
+    is replicated to three channels,
     an alpha channel dropped, and the image kept BGR through the transforms
     (ref :213-218);
   - the label shift: 0 -> 255 -> -1 -> unknown = num_seg (ref :230-234);
@@ -33,7 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from ifseg_torch.data.artificial import artificial_grid
-from ifseg_torch.data.png import decode_png
+from ifseg_torch.data.image import decode_image
 from ifseg_torch.data.transforms import (
     KeepRatioResize,
     PhotoMetricDistortion,
@@ -180,13 +182,14 @@ class SegmentationDataset:
 
     def _decode_row(self, index: int):
         image_b64, seg_b64, uniq_id = self.dataset[index]
-        image_arr = decode_png(base64.urlsafe_b64decode(image_b64))
+        # PNG or JPEG by signature, the pixels PIL's np.asarray gives (no convert)
+        image_arr = decode_image(base64.urlsafe_b64decode(image_b64))[0]
         if image_arr.ndim < 3:
             image_arr = np.repeat(image_arr[:, :, None], 3, axis=2)
         elif image_arr.shape[2] == 4:
             image_arr = image_arr[:, :, :3]
         image_arr = image_arr[:, :, ::-1].copy()  # to BGR (ref :218)
-        seg = decode_png(base64.urlsafe_b64decode(seg_b64))
+        seg = decode_image(base64.urlsafe_b64decode(seg_b64))[0]
         # label shift (ref :230-234)
         seg = seg.astype(np.int32)
         seg[seg == 0] = 255

@@ -30,7 +30,7 @@ from ifseg_torch.ops.flash_attention import empty_row_padded, row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .attention import Dropout, Linear
 from .encoder import LayerDrop, _ids, compute_dtype, stack_tables
-from .layers import DecoderLayer, LayerNorm
+from .layers import DecoderLayer, LayerNorm, run_layer
 from .position import (
     gather_grid_bias_all_layers,
     gather_rel_bias_all_layers,
@@ -215,8 +215,8 @@ class Decoder(nn.Module):
         enc = encoder_out["encoder_out"]
         enc_pad = encoder_out["encoder_padding_mask"]
         for layer, self_bias in zip(self.layers, pack.unbind(0)):
-            y = layer(x, enc, enc_pad, self_bias, cross_bias, self_padding_mask,
-                      not full_context_alignment)
+            y = run_layer(layer, cfg, x, enc, enc_pad, self_bias, cross_bias, self_padding_mask,
+                          not full_context_alignment)
             x = self.layerdrop(y, x)
         x = self.layer_norm(x, cd)
         return self.output_layer(x)

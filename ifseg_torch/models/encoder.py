@@ -22,7 +22,7 @@ from ifseg_torch.config import ModelConfig
 from ifseg_torch.ops.flash_attention import empty_row_padded, row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .attention import Dropout, Linear
-from .layers import EncoderLayer, LayerNorm
+from .layers import EncoderLayer, LayerNorm, run_layer
 from .position import (
     gather_grid_bias_all_layers,
     gather_rel_bias_all_layers,
@@ -274,7 +274,7 @@ class Encoder(nn.Module):
         pack[..., hw:, hw:].add_(tok_all.to(cd))
         pack[..., :hw, :hw].add_(img_all.to(cd))
         for layer, bias in zip(self.layers, pack.unbind(0)):
-            x = self.layerdrop(layer(x, padding_mask, bias), x)
+            x = self.layerdrop(run_layer(layer, cfg, x, padding_mask, bias), x)
         return self.layer_norm(x, cd)
 
     def _encode_tokens(self, src_tokens, image_embed, image_pad, image_hw, rel_bias_grid_hw,

@@ -10,17 +10,98 @@ attention, after the FFN and on the FFN activation) and DropPath follow
 (``attention.set_generator``); in eval mode they are the identity.  Adapters
 and MoE are option paths that are not ported.
 
+``run_layer`` runs a layer under activation checkpointing where the model
+config asks for it (``checkpoint_activations``, ``remat_policy``) and a
+gradient flows: ``torch.utils.checkpoint`` without re-entry, so the forward
+and its recompute both take the gradient route of LayerNorm and attention.
+The recompute replays the layer's dropout and DropPath masks from the
+generator state its forward began with, then puts back the state the
+forward left, so a checkpointed step equals an unchecked one bit for bit
+and draws nothing extra.  ``save-attn`` keeps each attention's (out, lse)
+(the dispatched op ``ops.flash_attention.ATTN_FWD_STATS_OP``) and
+``save-attn-ffn`` also the FFN activation; ``full`` recomputes everything.
+
 Parameter names are the reference torch names (``self_attn.q_proj``,
 ``fc1``, ``ffn_layernorm``, ``final_layer_norm``, ...), so a layer loads a
 reference state dict as it is.
 """
 
+from contextlib import contextmanager, nullcontext
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from ifseg_torch.ops.flash_attention import ATTN_FWD_STATS_OP
 from ifseg_torch.ops.layer_norm import fused_layer_norm
 from .attention import Dropout, Linear, MultiheadAttention
+
+REMAT_POLICIES = ("full", "save-attn", "save-attn-ffn")
+# the ops whose outputs a policy saves; the FFN activation is the output of
+# the activation function (gelu or relu)
+_SAVED_OPS = {
+    "full": frozenset(),
+    "save-attn": frozenset({ATTN_FWD_STATS_OP}),
+    "save-attn-ffn": frozenset({ATTN_FWD_STATS_OP, torch.ops.aten.gelu.default,
+                                torch.ops.aten.relu.default}),
+}
+
+
+def _context_fn(generator, policy: str):
+    """checkpoint's context pair: the forward records ``generator``'s state;
+    the recompute replays from it and restores the state it found.  Under a
+    saving policy both also run the selective-checkpoint modes."""
+    saved = _SAVED_OPS[policy]
+
+    def decide(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    def context_fn():
+        fwd, rec = (create_selective_checkpoint_contexts(decide) if saved
+                    else (nullcontext(), nullcontext()))
+        start = {}
+
+        @contextmanager
+        def forward():
+            start["state"] = None if generator is None else generator.get_state()
+            with fwd:
+                yield
+
+        @contextmanager
+        def recompute():
+            found = None if generator is None else generator.get_state()
+            if generator is not None:
+                generator.set_state(start["state"])
+            try:
+                with rec:
+                    yield
+            finally:
+                if generator is not None:
+                    generator.set_state(found)
+
+        return forward(), recompute()
+
+    return context_fn
+
+
+def run_layer(layer: nn.Module, cfg, *args):
+    """``layer(*args)``, checkpointed under ``cfg.checkpoint_activations``
+    when a gradient flows (see the module docstring).  An unresolved "auto"
+    takes save-attn, as the JAX package does."""
+    if not (cfg.checkpoint_activations and torch.is_grad_enabled()):
+        return layer(*args)
+    policy = "save-attn" if cfg.remat_policy == "auto" else cfg.remat_policy
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: take auto, {', '.join(REMAT_POLICIES)}")
+    generator = next((m.generator for m in layer.modules()
+                      if getattr(m, "generator", None) is not None), None)
+    return checkpoint(layer, *args, use_reentrant=False,
+                      context_fn=_context_fn(generator, policy))
 
 
 class DropPath(nn.Module):

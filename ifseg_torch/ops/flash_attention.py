@@ -31,7 +31,7 @@ are also what the kernels are held against on the card.
 """
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -457,41 +457,51 @@ def flash_attention_bias_packed_infer(q, k, v, bias: Optional[torch.Tensor],
     return _launch(q, k, v, bias, key_padding_mask, causal, num_heads)
 
 
-class _PackedStats(torch.autograd.Function):
-    """Forward with stats; backward from the saved (out, lse) by the two
-    backward kernels (CUDA) or the plain explicit backward (CPU)."""
+@torch.library.custom_op("ifseg::attn_fwd_stats", mutates_args=())
+def _attn_fwd_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor], key_padding_mask: Optional[torch.Tensor],
+                    causal: bool, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward with stats as one dispatched op, so that a selective
+    activation-checkpoint policy can see it (``models/layers.py``): under
+    ``save-attn`` it saves (out, lse) and the recompute never launches the
+    kernel again.  CUDA: the kernel (or raise); CPU: the plain version."""
+    if _device_kind(q) == "cpu":
+        return attention_bias_stats_reference(q, k, v, bias, key_padding_mask, causal, num_heads)
+    return _launch(q, k, v, bias, key_padding_mask, causal, num_heads, with_stats=True)
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, key_padding_mask, causal, num_heads):
-        if _device_kind(q) == "cpu":
-            out, lse = attention_bias_stats_reference(
-                q, k, v, bias, key_padding_mask, causal, num_heads)
-        else:
-            out, lse = _launch(q, k, v, bias, key_padding_mask, causal, num_heads,
-                               with_stats=True)
-        ctx.save_for_backward(q, k, v, bias, key_padding_mask, out, lse)
-        ctx.causal, ctx.num_heads = causal, num_heads
-        ctx.mark_non_differentiable(lse)  # stats only: its cotangent is dropped
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, g, _g_lse):
-        q, k, v, bias, key_padding_mask, out, lse = ctx.saved_tensors
-        if _device_kind(q) == "cpu":
-            dq, dk, dv, dbias = attention_bias_backward_reference(
-                q, k, v, bias, key_padding_mask, ctx.causal, g, out, lse, ctx.num_heads)
-        else:
-            dq, dk, dv, dbias = _launch_backward(
-                q, k, v, bias, key_padding_mask, ctx.causal, g.contiguous(), out, lse,
-                ctx.num_heads, need_dbias=ctx.needs_input_grad[3])
-        return dq, dk, dv, dbias, None, None, None
+def _attn_fwd_stats_setup(ctx, inputs, output):
+    q, k, v, bias, key_padding_mask, causal, num_heads = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, bias, key_padding_mask, out, lse)
+    ctx.causal, ctx.num_heads = causal, num_heads
+    ctx.mark_non_differentiable(lse)  # stats only: its cotangent is dropped
+
+
+def _attn_fwd_stats_backward(ctx, g, _g_lse):
+    """From the saved (out, lse): the two backward kernels (CUDA) or the
+    plain explicit backward (CPU)."""
+    q, k, v, bias, key_padding_mask, out, lse = ctx.saved_tensors
+    if _device_kind(q) == "cpu":
+        dq, dk, dv, dbias = attention_bias_backward_reference(
+            q, k, v, bias, key_padding_mask, ctx.causal, g, out, lse, ctx.num_heads)
+    else:
+        dq, dk, dv, dbias = _launch_backward(
+            q, k, v, bias, key_padding_mask, ctx.causal, g.contiguous(), out, lse,
+            ctx.num_heads, need_dbias=ctx.needs_input_grad[3])
+    return dq, dk, dv, dbias, None, None, None
+
+
+torch.library.register_autograd("ifseg::attn_fwd_stats", _attn_fwd_stats_backward,
+                                setup_context=_attn_fwd_stats_setup)
+ATTN_FWD_STATS_OP = torch.ops.ifseg.attn_fwd_stats.default
 
 
 def flash_attention_bias_packed_stats(q, k, v, bias: Optional[torch.Tensor],
                                       key_padding_mask: Optional[torch.Tensor],
                                       causal: bool, num_heads: int):
     """(out, lse), differentiable in q, k, v and bias; lse carries no gradient."""
-    return _PackedStats.apply(q, k, v, bias, key_padding_mask, causal, num_heads)
+    return _attn_fwd_stats(q, k, v, bias, key_padding_mask, causal, num_heads)
 
 
 def flash_attention_bias_packed(q, k, v, bias: Optional[torch.Tensor],

@@ -23,10 +23,16 @@ Dropout, DropPath and LayerDrop draw from one ``torch.Generator`` on the
 trainer's device, so a run repeats bit-for-bit from its seed (up to the
 dbias atomics of the attention backward on a card).  ``state_dict`` /
 ``load_state_dict`` carry the whole training state (fp32 parameters, the
-EMA copy, Adam's count and moments by parameter name, the step, the
-generator's state), so a run that saves and restores goes on bit for bit
-like one that never stopped.  Meshes, shardings and activation
-checkpointing of layers are not ported.
+EMA copy, the optimizer's count and state by parameter name, its lr scale,
+the plateau controller, the step, the generator's state), so a run that
+saves and restores goes on bit for bit like one that never stopped.
+
+Activation checkpointing of the layers (``models/layers.py run_layer``)
+follows ``cfg.model.checkpoint_activations`` and ``remat_policy``; the
+default "auto" is resolved here, before the model is built, by the JAX
+package's bytes model and threshold (``estimate_train_hbm_bytes``,
+``resolve_remat_policy``), with the device's memory in place of the TPU's.
+Meshes and shardings are not ported.
 """
 
 import copy
@@ -51,6 +57,68 @@ from ifseg_torch.train.criterion import (
 from ifseg_torch.train.ema import ema_init, ema_step
 
 
+# approximate trainable-parameter counts of the ResNet stems, for the bytes
+# model below (the JAX package's numbers)
+_RESNET_PARAMS = {"resnet50": 24e6, "resnet101": 43e6, "resnet152": 58e6}
+# "auto" turns checkpointing off where the estimate stays under this share of
+# the device's memory (the JAX package's threshold)
+REMAT_AUTO_SHARE = 0.72
+# the memory the JAX package assumes where a device reports none (its CPU)
+DEFAULT_DEVICE_BYTES = 16e9
+
+
+def estimate_train_hbm_bytes(model_cfg, per_chip_microbatch: int, ema: bool = False) -> float:
+    """The JAX package's bytes model of one training step without
+    checkpointing: fp32 parameters, Adam's moments and gradients (4 copies,
+    5 with EMA), the two all-layer bf16 bias packs with their fp32 dbias,
+    and ~13 d-wide bf16 activations a layer and token.  Unchanged, so that
+    "auto" decides as the JAX package does; it was calibrated on TPU
+    memory, not on this port's."""
+    m = model_cfg
+    d, dd = m.encoder_embed_dim, m.decoder_embed_dim
+    nl_e, nl_d = m.encoder_layers, m.decoder_layers
+    hw = (m.patch_image_size // 16) ** 2
+    l_tok = hw + 96  # image grid + text/src tokens (+BOS, rounded up)
+    n_params = (60e3 * d + _RESNET_PARAMS.get(m.resnet_type, 43e6)
+                + nl_e * 12 * d * d + nl_d * 16 * dd * dd)
+    fixed = n_params * 4.0 * (4 + (1 if ema else 0))
+    heads = m.encoder_attention_heads
+    pack = 2 * (nl_e * heads * l_tok * l_tok * 2)
+    dbias = 2 * (nl_e * heads * l_tok * l_tok * 4)
+    acts = (nl_e * d + nl_d * dd) * l_tok * 13 * 2 * per_chip_microbatch
+    return fixed + pack + dbias + acts
+
+
+def device_memory_bytes(device) -> float:
+    """The device's memory: a card's total (``torch.cuda.mem_get_info``),
+    else the JAX package's default for a device that reports none."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return float(torch.cuda.mem_get_info(device)[1])
+    return DEFAULT_DEVICE_BYTES
+
+
+def resolve_remat_policy(cfg: Config, n_data_shards: int = 1,
+                         hbm_bytes: Optional[float] = None) -> None:
+    """Resolve ``cfg.model.remat_policy == "auto"`` in place, before the
+    model is built, as the JAX package does: "save-attn", and checkpointing
+    off where the image-free step's estimate fits under 72 % of
+    ``hbm_bytes``.  The supervised branch keeps it on (it back-propagates
+    through the stem, which the bytes model leaves out)."""
+    m = cfg.model
+    if m.remat_policy != "auto":
+        return
+    m.remat_policy = "save-attn"
+    if not m.checkpoint_activations or not cfg.criterion.unsupervised_segmentation:
+        return
+    ufreq = max(cfg.optimization.update_freq, 1)
+    per_chip = max(cfg.optimization.batch_size // max(n_data_shards, 1) // ufreq, 1)
+    if hbm_bytes is None:
+        hbm_bytes = DEFAULT_DEVICE_BYTES
+    if estimate_train_hbm_bytes(m, per_chip, ema=cfg.task.uses_ema) < REMAT_AUTO_SHARE * hbm_bytes:
+        m.checkpoint_activations = False
+
+
 class Trainer:
     """Owns the model, the optimizer, the EMA copy and the step counter.
 
@@ -65,6 +133,7 @@ class Trainer:
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device (pass device='cpu' to run on the CPU)")
+        resolve_remat_policy(cfg, hbm_bytes=device_memory_bytes(self.device))
         as_dev = lambda x, dt: None if x is None else torch.as_tensor(
             np.asarray(x), dtype=dt, device=self.device)
         self.class_tokens = as_dev(class_tokens, torch.long)
@@ -74,7 +143,8 @@ class Trainer:
             generator = torch.Generator(device=self.device).manual_seed(cfg.optimization.seed)
         self.generator = generator
         self.model: Optional[SegOFA] = None
-        self.optimizer: Optional[optim_lib.FairseqAdam] = None
+        self.optimizer: Optional[optim_lib.Optimizer] = None
+        self.plateau: Optional[optim_lib.ReduceLROnPlateau] = None
         self.ema: Optional[Dict[str, torch.Tensor]] = None
         self._ema_model: Optional[SegOFA] = None
         self.step = 0
@@ -100,6 +170,11 @@ class Trainer:
         )
         for name, p in self.model.named_parameters():
             p.requires_grad_(self.mask[name])
+        opt = cfg.optimization
+        self.plateau = (optim_lib.ReduceLROnPlateau(
+            shrink=opt.lr_shrink, patience=opt.lr_patience,
+            maximize=cfg.checkpoint.maximize_best_checkpoint_metric)
+            if opt.lr_scheduler == "reduce_lr_on_plateau" else None)
         self._fold_frozen_stem()
         self.ema = (
             ema_init(self.model, cfg.common.ema_fp32) if cfg.common.ema_decay > 0 else None
@@ -114,36 +189,38 @@ class Trainer:
         if self.cfg.model.freeze_entire_resnet or self.cfg.model.freeze_resnet:
             self.model.encoder.embed_images.fold(compute_dtype(self.cfg.model))
 
-    def _trainable_names(self):
-        return [n for n, _ in self.model.named_parameters() if self.mask[n]]
-
     def load_optimizer_state(self, state: Dict) -> None:
-        """Adam count and moments from ``state`` (``{"count", "mu", "nu"}`` by
-        parameter name, e.g. ``adam_state_from_jax``); the step counter follows
-        the count."""
-        self.optimizer.load_state(self._trainable_names(), state)
+        """The optimizer's state from ``state`` (what its ``state_dict``
+        gives; for Adam ``{"count", "mu", "nu"}`` by parameter name, e.g.
+        ``adam_state_from_jax``); the step counter follows the count."""
+        self.optimizer.load_state_dict(state)
         self.step = self.optimizer.count
+
+    def set_lr_scale(self, scale: float) -> None:
+        """Apply a plateau decision: every later update is scaled by ``scale``."""
+        optim_lib.set_lr_scale(self.optimizer, scale)
 
     # ----------------------------------------------------------------- state
 
     def state_dict(self) -> Dict[str, Any]:
         """The whole training state as CPU copies: ``model`` (the model's
         state dict: fp32 parameters and buffers), ``ema`` (the EMA copy by
-        parameter name, or None), ``optimizer`` (Adam's ``count`` and its
-        ``mu`` and ``nu`` by parameter name), ``step`` and ``generator`` (the
-        dropout generator's state)."""
+        parameter name, or None), ``optimizer`` (its ``state_dict``: the
+        count, its state by parameter name, e.g. Adam's ``mu`` and ``nu``,
+        and the lr scale), ``step``, ``generator`` (the dropout generator's
+        state) and, under ``reduce_lr_on_plateau``, ``plateau`` (the
+        controller's best, bad count and scale)."""
         host = lambda t: t.detach().to("cpu", copy=True)
-        names = self._trainable_names()
-        opt = self.optimizer
-        return {
+        state = {
             "model": {k: host(v) for k, v in self.model.state_dict().items()},
             "ema": None if self.ema is None else {k: host(v) for k, v in self.ema.items()},
-            "optimizer": {"count": opt.count,
-                          "mu": {n: host(m) for n, m in zip(names, opt.mu)},
-                          "nu": {n: host(v) for n, v in zip(names, opt.nu)}},
+            "optimizer": self.optimizer.state_dict(),
             "step": self.step,
             "generator": self.generator.get_state(),
         }
+        if self.plateau is not None:
+            state["plateau"] = self.plateau.state_dict()
+        return state
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -162,6 +239,8 @@ class Trainer:
             self.step = int(state["step"])
         if "generator" in state:
             self.generator.set_state(state["generator"])
+        if state.get("plateau") is not None and self.plateau is not None:
+            self.plateau.load_state_dict(state["plateau"])
 
     def eval_model(self) -> SegOFA:
         """The model whose weights validation reads: under ``--uses-ema``

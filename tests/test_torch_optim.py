@@ -97,10 +97,16 @@ def test_freeze_mask_matches_jax_through_the_converter(case):
 
 
 def test_build_optimizer_refuses_what_is_not_ported():
+    """Every schedule and optimizer of the JAX package is ported; a name
+    neither package knows raises ValueError in both."""
     from ifseg_torch.config import OptimizationConfig
 
-    _, _, tmodel = make_pair(seed=0)
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        to.build_optimizer(tmodel, tmodel.cfg, OptimizationConfig(lr_scheduler="inverse_sqrt"), 10)
-    with pytest.raises(NotImplementedError, match="optimizer"):
-        to.build_optimizer(tmodel, tmodel.cfg, OptimizationConfig(optimizer="lamb"), 10)
+    _, params, tmodel = make_pair(seed=0)
+    with pytest.raises(ValueError, match="scheduler"):
+        to.build_optimizer(tmodel, tmodel.cfg, OptimizationConfig(lr_scheduler="noam"), 10)
+    with pytest.raises(ValueError, match="scheduler"):
+        jo.build_schedule("noam", 1e-3, 10)
+    with pytest.raises(ValueError, match="optimizer"):
+        to.build_optimizer(tmodel, tmodel.cfg, OptimizationConfig(optimizer="rmsprop"), 10)
+    with pytest.raises(ValueError, match="optimizer"):
+        jo._single_optimizer("rmsprop", jo.fixed_schedule(1e-3), OptimizationConfig())

@@ -202,8 +202,10 @@ def test_broken_files_raise():
         decode_png(b"GIF89a" + good[6:])
     with pytest.raises(ValueError, match="CRC"):
         decode_png(good[:30] + bytes([good[30] ^ 1]) + good[31:])
+    # cut before the image data (inside IHDR): PIL refuses it too, even under
+    # LOAD_TRUNCATED_IMAGES; a file cut later decodes (tests/test_torch_truncated.py)
     with pytest.raises(ValueError, match="truncated"):
-        decode_png(good[:-20])
+        decode_png(good[:30])
     # a filter byte of 7 in row 0
     arr = np.zeros((2, 3), np.uint8)
     data = chip_smoke.png_bytes(arr, 0)

@@ -29,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from PIL import Image
+from PIL import Image, ImageFile
 
 import chip_smoke
 import ifseg_tpu.cli.serve as jserve
@@ -243,13 +243,23 @@ def test_concurrent_requests_are_batched(daemon):
     assert svc.stats["batched_requests"] > before["batched_requests"]
 
 
-def test_bad_bodies_get_400(daemon):
+def test_bad_bodies_get_400(daemon, monkeypatch):
     base, _ = daemon
     gif = io.BytesIO()
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(gif, format="GIF")
-    for body in (gif.getvalue(), b"not an image", _png()[:60], _jpeg()[:200]):
+    for body in (gif.getvalue(), b"not an image", _jpeg()[:200]):
         status, _, out = _post(base + "/segment", body)
         assert status == 400, out
+    # a PNG cut inside its image data is what the JAX daemon decodes under
+    # LOAD_TRUNCATED_IMAGES: the rows it lacks black, here all of them, so it
+    # answers a segmentation, the one of the black image
+    monkeypatch.setattr(ImageFile, "LOAD_TRUNCATED_IMAGES", True)  # as the JAX package sets it
+    cut = _png()[:60]
+    assert np.array_equal(np.asarray(Image.open(io.BytesIO(cut))), np.zeros((30, 40, 3), np.uint8))
+    status, _, out = _post(base + "/segment", cut)
+    black = io.BytesIO()
+    Image.fromarray(np.zeros((30, 40, 3), np.uint8)).save(black, format="PNG")
+    assert status == 200 and out == _post(base + "/segment", black.getvalue())[2]
     assert _post(base + "/nowhere", b"")[0] == 404
 
 
