@@ -153,7 +153,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      part (optimizer groups, lr scale, plateau, generator) held to the files
      bit for bit, and a 1-step run on the same restore file with three of
      each side's six layers kept (``--encoder/decoder-layers-to-keep``);
- 16. one JSON line listing every kernel, the nvidia-smi line, and the last
+ 16. the model's option paths and generation, OFA-Base at full width and
+     depth, random weights from the seed: (a) prefix tuning (encoder and
+     decoder prompts, P 100) at batch 16 with the layers not checkpointed:
+     s/step and peak memory beside phase 15a's unprompted row, 1,843,200
+     trainable parameters, only the prompt tables moving, the four attention
+     kernels 18 times a step with every bias by TMA and no backward copy;
+     once more with the prompts' projection; the card against the CPU at
+     batch 2 (phase 7's checks, the prompt tables' gradient cosines); (b)
+     one step each with adapters, BitFit and gelu_poly (trainable tensors,
+     which moved, s/step), then ``cli.train.main`` for 2 steps with --bitfit
+     and with --encoder-prompt; (c) the prompt-tuned model: the
+     ``Evaluator`` launches K1 at P + L keys in both self-attentions, and
+     ``SegServer`` answers as the same weights without the prompt encoders
+     (the JAX package's served path applies no prefix); (d) generation,
+     batch 2 x beam 5, 150 classes: the KV-cached generator over 1,022
+     tokens and the uncached one (``decode_ar``, K1 and K4 counted) over
+     32, ms a generated token; ``decode_ar``'s logits against ``ar_step``'s
+     at each of 1,024 positions; the cached generator on the card against
+     the CPU (fp32 both) over 64 tokens; an ensemble of two weight sets (and
+     of one twice, equal to the model alone); a trie-constrained run.  Phase 3
+     also checks K1 at ``decode_ar``'s sites and phase 3t times the four
+     kernels at the prefix-tuned self-attentions (P + L keys);
+ 17. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -211,6 +233,16 @@ HUGE_SERVE_BATCH = 8
 # activation checkpointing (64 GiB at its peak)
 HUGE_TRAIN_BATCH = 16
 HUGE_CHECK_LAYERS = 2  # encoder and decoder layers of the CPU comparisons at Huge's width
+# phase 16: prefix tuning's P (the config's default length) on both sides,
+# the generator's batch and beam, its lengths: the cached generator at the
+# longest the token relative bias covers (1,022 tokens; the JAX package's seg
+# pin of 1,024 fails on a shape mismatch there), the uncached one at 32, and
+# the card-against-CPU comparison (fp32 both) at 64
+PROMPT_LEN = 100
+GEN_BATCH, GEN_BEAM = 2, 5
+GEN_MAX_LEN, GEN_RECOMPUTE_LEN, GEN_COMPARE_LEN = 1022, 32, 64
+AR_LOGIT_REL_TOL = 5e-2  # decode_ar (bf16, kernels) against ar_step (fp32), ||Δ|| / ||ref||
+GEN_SCORE_REL_TOL = 1e-3  # the cached generator's scores, card fp32 against CPU fp32
 
 # The two configurations the run drives: their attention heads and head dim,
 # widths and depths (ifseg_torch/config.py)
@@ -477,6 +509,20 @@ def validate_sites(spec):
     ]
 
 
+def decode_ar_sites():
+    """K1's sites in ``Decoder.decode_ar`` over t generated tokens (phase
+    16d's batch 2 x beam 5): causal self-attention at Lq = Lk = t and
+    cross-attention at Lq = t over the encoder's 1,024 + 32 keys, its text
+    rows padded; t = 34 is the uncached generator's (32 tokens, BOS, EOS),
+    the others the tile edges it would reach at other lengths.
+    (name, B, Lq, Lk, causal, key mask)."""
+    b = GEN_BATCH * GEN_BEAM
+    t_gen = GEN_RECOMPUTE_LEN + 2
+    return ([(f"decode_ar self t={t}", b, t, t, True, False) for t in (1, 2, 17, t_gen, 64)]
+            + [(f"decode_ar cross t={t}", b, t, 1024 + SRC_LEN, False, True)
+               for t in (1, 17, t_gen)])
+
+
 def eval_key_mask(b, lk):
     """Key-padding mask of an evaluation site: the padded grid cells, behind
     the BOS slot in decoder self-attention (Lk odd), before the prompt in the
@@ -626,6 +672,9 @@ def phase_kernels(spec=BASE, batch=32, tag="[3]"):
         # passes one)
         cases += [(name, b, lq, lk, causal, "clear" if masked else False, torch.bfloat16, True,
                    0, 0, 0) for name, b, lq, lk, causal, masked in surface_sites()]
+        # phase 16d's autoregressive decode, checked
+        cases += [(name, b, lq, lk, causal, masked, torch.bfloat16, True, 0, 0, 0)
+                  for name, b, lq, lk, causal, masked in decode_ar_sites()]
     cases += [(prefix + name, *case, 0, 0, 0) for name, *case in EDGE_CASES]
     for i, (name, b, lq, lk, causal, masked, bias_dtype, padded, per_fwd,
             per_group, per_valid) in enumerate(cases):
@@ -768,6 +817,15 @@ def phase_layer_norm(paths=LN_PATHS, tag="[3n]"):
         # phase 13's two paths, checked: the daemon's batches, cli.infer's forwards
         cases += [(f"{path} {name}", n, d, in_dt, out_dt, None, 0)
                   for path, sites in surface_ln_paths() for name, n, d, in_dt, out_dt, _ in sites]
+        # phase 16d's autoregressive decode, checked: the uncached generator's
+        # steps (batch 2 x beam 5 over 34 tokens) and the 1,024-token recompute
+        # of two best beams
+        cases += [(f"decode_ar {b}x{t} {name}", rows, d, in_dt, out_dt, None, 0)
+                  for b, t in ((GEN_BATCH * GEN_BEAM, GEN_RECOMPUTE_LEN + 2), (GEN_BATCH, 1024))
+                  for name, rows, d, in_dt, out_dt in (
+                      ("embedding + layers + final", b * t, BASE["width"], bf16, bf16),
+                      ("ffn", b * t, BASE["ffn"], bf16, bf16),
+                      ("text positions", t, BASE["width"], fp32, fp32))]
         cases += [
             ("ragged row count", 1001, 768, bf16, bf16, None, 0),
             ("narrow width", 77, 32, fp32, bf16, None, 0),
@@ -826,7 +884,7 @@ def phase_layer_norm(paths=LN_PATHS, tag="[3n]"):
         rows.append(row)
         del x, got, want
     for per_key, (path, _) in paths.items():
-        timed = [r for r in rows if r[per_key]]
+        timed = [r for r in rows if r.get(per_key)]
         log(f"{tag} {path} forward, {sum(r[per_key] for r in timed)} sites: kernel "
             f"{sum(r['kernel_ms'] * r[per_key] for r in timed):.3f} ms, cast + fp32 F.layer_norm + "
             f"cast {sum(r['three_pass_ms'] * r[per_key] for r in timed):.3f} ms, bound "
@@ -1030,24 +1088,32 @@ def phase_train_kernels(spec=BASE, batch=TRAIN_BATCH, tag="[3t]", checks_only=Fa
     h, d = spec["heads"], spec["head_dim"]
     prefix = "" if spec is BASE else "huge "
     rows = {"stats": [], "di": [], "dq": [], "dkv": []}
+    # (name, B, Lq, Lk, causal, key mask, bias dtype, calls a step, calls a
+    # prefix-tuned step): prefix tuning (phase 16a) prepends P keys to both
+    # self-attentions and leaves the cross-attention as it is
     cases = [(prefix + name, batch, lq, lk, causal, masked, torch.bfloat16,
-              0 if checks_only else n)
+              0 if checks_only else n, 0 if checks_only or spec is not BASE or "cross" not in name
+              else n)
              for name, lq, lk, causal, masked, n in attn_sites(spec)]
     if checks_only:
         return _train_kernel_cases(cases, rows, fa, h, d, tag)
-    cases.append((prefix + "ragged check", 3, 77, 130, True, True, torch.float32, 0))
-    cases.append((prefix + "no-bias check", 2, 70, 70, False, False, None, 0))
+    cases.append((prefix + "ragged check", 3, 77, 130, True, True, torch.float32, 0, 0))
+    cases.append((prefix + "no-bias check", 2, 70, 70, False, False, None, 0, 0))
     # the kernels' tile edges, with more than one key (with one, every
     # gradient but dv is 0)
-    cases += [(prefix + name, b, lq, lk, causal, masked, bias_dtype, 0)
+    cases += [(prefix + name, b, lq, lk, causal, masked, bias_dtype, 0, 0)
               for name, b, lq, lk, causal, masked, bias_dtype, _ in EDGE_CASES if lk > 1]
+    if spec is BASE:  # the two self-attentions of a prefix-tuned step, Lk = P + L
+        cases += [(f"prefix {name}", batch, lq, lk + PROMPT_LEN, causal, masked, torch.bfloat16,
+                   0, n) for name, lq, lk, causal, masked, n in attn_sites(spec)
+                  if "self" in name]
     return _train_kernel_cases(cases, rows, fa, h, d, tag)
 
 
 def _train_kernel_cases(cases, rows, fa, h, d, tag):
     """The checks of ``phase_train_kernels`` over ``cases``; a case with
-    launches a step (its last field) is timed too."""
-    for i, (name, b, lq, lk, causal, masked, bias_dtype, per_step) in enumerate(cases):
+    launches a step or a prefix-tuned step (its last two fields) is timed too."""
+    for i, (name, b, lq, lk, causal, masked, bias_dtype, per_step, per_prefix) in enumerate(cases):
         q, k, v, dense, mask = site_inputs(b, h, lq, lk, causal, masked,
                                            bias_dtype or torch.bfloat16, seed=10 + i, head_dim=d)
         # the bias as the training path hands it over: rows 16-byte aligned,
@@ -1127,7 +1193,8 @@ def _train_kernel_cases(cases, rows, fa, h, d, tag):
         for x in (out, lse, di, dq, dk, dv) + (() if dbias is None else (dbias,)):
             if not bool(torch.isfinite(x).all()):
                 fail(f"non-finite kernel output at {name}")
-        base = dict(site=name, B=b, H=h, D=d, Lq=lq, Lk=lk, causal=causal, per_step=per_step)
+        base = dict(site=name, B=b, H=h, D=d, Lq=lq, Lk=lk, causal=causal, per_step=per_step,
+                    per_prefix_step=per_prefix)
         rows["stats"].append(dict(base, max_abs_err=max(errs["out"], errs["lse"])))
         rows["di"].append(dict(base, max_abs_err=errs["di"][1], max_rel_err=errs["di"][0]))
         kq = [e for n, e in errs.items() if n.startswith(("dq", "dbias"))]
@@ -1136,7 +1203,7 @@ def _train_kernel_cases(cases, rows, fa, h, d, tag):
                                max_rel_err=max(e[0] for e in kq)))
         rows["dkv"].append(dict(base, max_abs_err=max(e[1] for e in kkv),
                                 max_rel_err=max(e[0] for e in kkv)))
-        if per_step:
+        if per_step or per_prefix:
             bb = bias.element_size()
             timed = {
                 "stats": (lambda: fa._launch(*args, h, with_stats=True),
@@ -1368,7 +1435,10 @@ GRAD_TENSORS = (
 def phase_train_gradients(arch="segofa_base", grad_tensors=GRAD_TENSORS, tag="[7]",
                           **model_overrides):
     """Image-free loss + backward at batch 2: the card (bf16, kernels) against
-    the CPU (fp32, plain versions), same weights and batch, dropout off."""
+    the CPU (fp32, plain versions), same weights and batch, dropout off (the
+    prompt encoders' fixed 0.2 included, where ``model_overrides`` asks for
+    them)."""
+    from ifseg_torch.models.layers import PromptEncoder
     from ifseg_torch.train.trainer import Trainer
 
     tokens, lengths = class_table(SEED)
@@ -1379,6 +1449,9 @@ def phase_train_gradients(arch="segofa_base", grad_tensors=GRAD_TENSORS, tag="[7
                                   **model_overrides), tokens, lengths,
                      total_num_updates=100, device=device).init_state(weights)
         tr.model.train()
+        for m in tr.model.modules():
+            if isinstance(m, PromptEncoder):
+                m.dropout.rate = 0.0
         loss = tr._loss_fn(tr.prepare_batch(batch))
         loss.backward()
         grads = {n: p.grad.detach().float().cpu() for n, p in tr.model.named_parameters()
@@ -1397,7 +1470,7 @@ def phase_train_gradients(arch="segofa_base", grad_tensors=GRAD_TENSORS, tag="[7
     gn_card, gn_cpu = norm(card_grads), norm(cpu_grads)
     gn_rel = abs(gn_card - gn_cpu) / gn_cpu
     depth = (f", {model_overrides['encoder_layers']} + {model_overrides['decoder_layers']} layers "
-             "(reduced depth), full width" if model_overrides else "")
+             "(reduced depth), full width" if "encoder_layers" in model_overrides else "")
     log(f"{tag} {arch} image-free loss + backward, batch 2{depth}: card {t1 - t0:.1f} s, "
         f"CPU {t2 - t1:.1f} s; "
         f"loss {card_loss:.5f} vs {cpu_loss:.5f} (rel {loss_rel:.3e}), "
@@ -3848,12 +3921,405 @@ def phase_train_cli_stack(card: str, tmp: str, valid_tsv: str, ckpt_file: str):
     return result
 
 
+# ---------------------------------------------------------------- phase 16: the option paths and generation
+
+def option_run(card: str, tag: str, tokens, lengths, steps: int, warm: int, **overrides):
+    """OFA-Base batch-16 image-free steps with the layers not checkpointed
+    (phase 15a's "off" row: dropout and drop-path 0.1, the same seed and
+    batches) under the model options ``overrides``: s/step, peak memory,
+    launches a step, bias routes, the trainable parameters and the tensors
+    that moved."""
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.train.trainer import Trainer
+
+    cfg = train_config("bfloat16", monitor=False, checkpoint_activations=False, **overrides)
+    trainer = Trainer(cfg, tokens, lengths, total_num_updates=100).init_state()
+    start = {n: t.detach().clone() for n, t in trainer.model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 15)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    logs, times = take_steps(trainer, rng, steps, TRAIN_BATCH, real=False)
+    counts, routes = fa.launch_counts(), fa.bias_route_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for lg in logs:
+        if not (np.isfinite(lg["loss"]) and np.isfinite(lg["gnorm"])) or lg["n_nonfinite"]:
+            fail(f"{tag}: a non-finite step")
+    moved = sorted(n for n, t in trainer.model.state_dict().items() if not torch.equal(t, start[n]))
+    trainable = sorted(n for n, m in trainer.mask.items() if m)
+    n_trainable = sum(trainer.model.get_parameter(n).numel() for n in trainable)
+    s_step = float(np.mean(times[warm:]))
+    per_step = {k: v / steps for k, v in counts.items()}
+    log(f"{tag} {', '.join(f'{k}={v}' for k, v in overrides.items())}: {n_trainable:,} trainable "
+        f"parameters in {len(trainable)} tensors, {len(moved)} tensors moved; {s_step:.4f} s/step "
+        f"(steps {', '.join(f'{t:.3f}' for t in times)}), max_memory_allocated {peak:.2f} GiB, "
+        f"launches a step {per_step}, bias routes {routes}; loss {logs[-1]['loss']:.4f}, on {card}")
+    per_pass = sum(n for *_, n in SITES)
+    if per_step != dict(infer=0, stats=per_pass, bwd_di=per_pass, bwd_dq=per_pass,
+                        bwd_dkv=per_pass):
+        fail(f"{tag}: launches a step {per_step}, expected {per_pass} of each backward kernel")
+    if routes != dict(fwd_bias_tma=counts["stats"], fwd_bias_threads=0, bwd_bias_copies=0):
+        fail(f"{tag}: a bias staged by threads or copied by the backward: {routes}")
+    if not set(moved) <= set(trainable) or not moved:
+        fail(f"{tag}: frozen tensors moved: {sorted(set(moved) - set(trainable))[:8]}")
+    del trainer, start
+    torch.cuda.empty_cache()
+    return dict(s_per_step=s_step, step_s=times, max_memory_gib=peak, launches=counts,
+                launches_per_step=per_step, bias_routes=routes, trainable=trainable,
+                n_trainable=n_trainable, moved=moved, steps=steps)
+
+
+PROMPT_TABLES = ("encoder.encoder_prompt_encoder.embedding.weight",
+                 "decoder.decoder_prompt_encoder.embedding.weight")
+
+
+def phase_prefix_train(card: str, off_row):
+    """(a) Prefix tuning of OFA-Base (--encoder-prompt --decoder-prompt, P
+    100): steps beside phase 15a's unprompted "off" row, only the prompt
+    encoders training and moving; once more with the prompts' projection;
+    the card against the CPU at batch 2."""
+    tokens, lengths = class_table(SEED)
+    steps = REMAT_WARM + REMAT_TIMED
+    plain = option_run(card, "[16a]", tokens, lengths, steps, REMAT_WARM,
+                       encoder_prompt=True, decoder_prompt=True)
+    want = 2 * PROMPT_LEN * BASE["enc_layers"] * 2 * BASE["width"]
+    log(f"[16a] prefix tuning, P {PROMPT_LEN} a side: {plain['n_trainable']:,} trainable "
+        f"parameters (expected {want:,}), moved {plain['moved']}; {plain['s_per_step']:.4f} "
+        f"s/step and {plain['max_memory_gib']:.2f} GiB against phase 15a's unprompted "
+        f"{off_row['s_per_step']:.4f} s/step and {off_row['max_memory_gib']:.2f} GiB")
+    if plain["n_trainable"] != want or plain["trainable"] != sorted(PROMPT_TABLES):
+        fail(f"prefix tuning trains {plain['trainable']} ({plain['n_trainable']:,} parameters)")
+    if plain["moved"] != sorted(PROMPT_TABLES):
+        fail(f"prefix tuning moved {plain['moved']}, not the two prompt tables alone")
+    proj = option_run(card, "[16a projection]", tokens, lengths, 2, 1, encoder_prompt=True,
+                      decoder_prompt=True, encoder_prompt_projection=True,
+                      decoder_prompt_projection=True)
+    if not all("_prompt_encoder." in n for n in proj["trainable"]) or proj["moved"] != proj[
+            "trainable"]:
+        fail(f"prefix tuning with the projection trains {proj['trainable']}, moved {proj['moved']}")
+    grads = phase_train_gradients(grad_tensors=PROMPT_TABLES, tag="[16a]", encoder_prompt=True,
+                                  decoder_prompt=True)
+    return dict(plain=plain, projection=proj, gradients=grads, unprompted_off=dict(
+        s_per_step=off_row["s_per_step"], max_memory_gib=off_row["max_memory_gib"]))
+
+
+def bitfit_names(names):
+    """The parameters BitFit trains: the biases of the *layer_norm LayerNorms
+    and of fc1 / fc2 (train/optim.py freeze_mask)."""
+    return sorted(n for n in names if n.endswith(".bias")
+                  and (n.split(".")[-2].endswith("layer_norm") or n.split(".")[-2] in ("fc1", "fc2")))
+
+
+def phase_options(card: str, tmp: str, valid_tsv: str, ckpt_file: str):
+    """(b) One step each (timed after one) with adapters, BitFit and
+    gelu_poly, then ``cli.train`` for 2 steps with --bitfit and with
+    --encoder-prompt: the flags reach the trainer."""
+    from ifseg_torch.cli import train as cli_train
+    from ifseg_torch.config import from_flags
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.train import trainer as trainer_lib
+
+    tokens, lengths = class_table(SEED)
+    runs = {}
+    for name, flags in (("adapter", dict(adapter=True)), ("bitfit", dict(bitfit=True)),
+                        ("gelu_poly", dict(activation_fn="gelu_poly"))):
+        r = runs[name] = option_run(card, f"[16b {name}]", tokens, lengths, 2, 1, **flags)
+        adapters = [n for n in r["trainable"] if ".adapter." in n]
+        if name == "adapter" and (len(adapters) != 4 * (BASE["enc_layers"] + BASE["dec_layers"])
+                                  or not set(adapters) <= set(r["moved"])):
+            fail(f"adapters: {len(adapters)} adapter tensors trainable, not all moved")
+        if name == "bitfit" and (r["trainable"] != bitfit_names(r["trainable"])
+                                 or len(r["trainable"]) != 4 * BASE["enc_layers"] + 1
+                                 + 5 * BASE["dec_layers"] + 1):
+            fail(f"BitFit trains {len(r['trainable'])} tensors, not the LayerNorm and FFN biases")
+
+    train_tsv = f"{tmp}/stack_train.tsv"
+    with open(valid_tsv) as src, open(train_tsv, "w") as dst:
+        rows = src.readlines()
+        dst.writelines((rows * -(-STACK_ROWS // len(rows)))[:STACK_ROWS])
+    seen = {}
+    init_state = trainer_lib.Trainer.init_state
+
+    def recording_init(self, params=None):
+        out = init_state(self, params)
+        seen["trainable"] = sorted(n for n, m in self.mask.items() if m)
+        seen["n"] = sum(p.numel() for p in self.optimizer.params)
+        return out
+
+    trainer_lib.Trainer.init_state = recording_init
+    cli = {}
+    try:
+        for flag in ("--bitfit", "--encoder-prompt"):
+            argv = common_sh_argv(f"{train_tsv},{valid_tsv}", f"{tmp}/opt{flag}", ckpt_file)
+            cfg = from_flags(argv + [f"--epoch-row-count={STACK_ROWS}", "--max-epoch=1",
+                                     "--validate-interval=2", "--no-save", flag])
+            fa.reset_launches()
+            ln.reset_launches()
+            t0 = time.perf_counter()
+            run = cli_train.main(cfg)
+            torch.cuda.synchronize()
+            counts = fa.launch_counts()
+            cli[flag] = dict(num_updates=run["num_updates"], main_s=time.perf_counter() - t0,
+                             trainable=seen["n"], launches=counts, ln_launches=ln.LAUNCHES)
+            log(f"[16b] cli.train.main, recipe + {flag}: {run['num_updates']} updates, "
+                f"{seen['n']:,} trainable parameters in {len(seen['trainable'])} tensors, "
+                f"attention launches {counts}, layer_norm launches {ln.LAUNCHES}, "
+                f"main {cli[flag]['main_s']:.1f} s, on {card}")
+            if flag == "--bitfit":
+                ok = cfg.model.bitfit and seen["trainable"] == bitfit_names(seen["trainable"])
+            else:
+                ok = (cfg.model.encoder_prompt
+                      and seen["trainable"] == ["encoder.encoder_prompt_encoder.embedding.weight"]
+                      and seen["n"] == PROMPT_LEN * BASE["enc_layers"] * 2 * BASE["width"])
+            per_pass = sum(n for *_, n in SITES)
+            if not ok or run["num_updates"] != 2 or counts["stats"] != 2 * per_pass:
+                fail(f"cli.train with {flag}: the flag did not reach the trainer "
+                     f"({len(seen['trainable'])} trainable tensors, {run['num_updates']} updates)")
+    finally:
+        trainer_lib.Trainer.init_state = init_state
+    return dict(runs=runs, cli=cli)
+
+
+def phase_prefix_eval_serve(card: str):
+    """(c) The prompt-tuned model: the ``Evaluator`` applies the prefixes (K1
+    at P + L keys); ``SegServer`` does not, and answers as the same weights
+    without the prompt encoders (the JAX package's served path,
+    ROADMAP.md C.4)."""
+    import ifseg_torch.models.attention as attention
+    from ifseg_torch.eval.evaluator import Evaluator
+    from ifseg_torch.eval.serving import SegServer
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+
+    cfg = base_config("bfloat16")
+    cfg.encoder_prompt = cfg.decoder_prompt = True
+    model = build_on_card(cfg)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    evaluator = Evaluator(eval_config("bfloat16", model.cfg), model)
+    keys = []
+    infer = attention.flash_attention_bias_packed_infer
+
+    def recording(q, k, *args):
+        keys.append((q.shape[1], k.shape[1]))
+        return infer(q, k, *args)
+
+    attention.flash_attention_bias_packed_infer = recording
+    try:
+        fa.reset_launches()
+        ln.reset_launches()
+        logs = evaluator.eval_dataset(ListDataset(eval_samples(EVAL_SHAPES_WIDE, 500)),
+                                      batch_size=8)
+        torch.cuda.synchronize()
+        eval_counts, eval_ln, routes = fa.launch_counts(), ln.LAUNCHES, fa.bias_route_counts()
+    finally:
+        attention.flash_attention_bias_packed_infer = infer
+    cells = EVAL_GRID[0] * EVAL_GRID[1]
+    want = {(cells + SRC_LEN, cells + SRC_LEN + PROMPT_LEN), (1 + cells, 1 + cells + PROMPT_LEN),
+            (1 + cells, cells + SRC_LEN)}
+    log(f"[16c] Evaluator on the prompt-tuned model, one group of 8: (Lq, Lk) of its K1 "
+        f"launches {sorted(set(keys))} (expected {sorted(want)}), attention launches "
+        f"{eval_counts}, layer_norm launches {eval_ln}, bias routes {routes}; "
+        f"area_intersect sum {float(np.sum(logs[0]['area_intersect']))}")
+    if set(keys) != want or eval_counts["infer"] != len(keys) or routes["fwd_bias_threads"]:
+        fail("the evaluator did not apply the prefixes at every self-attention")
+    del evaluator
+
+    server = SegServer(model, src_len=SRC_LEN)
+    inputs = [x.to("cuda") for x in requests(8, seed=950)]
+    fa.reset_launches()
+    ln.reset_launches()
+    got = server(*inputs)
+    torch.cuda.synchronize()
+    serve_counts, serve_ln = fa.launch_counts(), ln.LAUNCHES
+    del server, model
+    bare_cfg = base_config("bfloat16")
+    bare = build_on_card(bare_cfg)
+    bare.load_state_dict({k: v for k, v in weights.items() if "prompt_encoder" not in k},
+                         strict=True)
+    want_logits = SegServer(bare, src_len=SRC_LEN)(*inputs)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want_logits))
+    diff = (got - want_logits).abs().max().item()
+    log(f"[16c] SegServer on the prompt-tuned model: logits {'equal' if same else 'differ'} to "
+        f"the same weights without the prompt encoders (max |Δ| {diff:.3e}): the served path "
+        f"applies no prefix, as the JAX package's (ROADMAP.md C.4); launches {serve_counts}, "
+        f"layer_norm {serve_ln}")
+    if not same or serve_counts["infer"] != sum(n for *_, n in SITES):
+        fail("the served path of a prompt-tuned model does not answer as the JAX package's")
+    del bare, want_logits, got, weights
+    torch.cuda.empty_cache()
+    return dict(eval_keys=sorted(set(keys)), eval_launches=eval_counts, eval_ln_launches=eval_ln,
+                serve_launches=serve_counts, serve_ln_launches=serve_ln, serve_equal_bare=same)
+
+
+def first_divergence(card_tokens, cpu_tokens):
+    diff = (card_tokens != cpu_tokens).nonzero()
+    return None if len(diff) == 0 else int(diff[0, -1])
+
+
+def phase_generate(card: str):
+    """(d) Generation with OFA-Base (150 classes, random weights from SEED),
+    batch 2 x beam 5: the KV-cached generator at 1,022 tokens, the uncached
+    one (decode_ar) at 32, decode_ar's logits against ar_step's at every
+    position, the cached generator on the card against the CPU (fp32 both),
+    an ensemble and a trie-constrained run."""
+    from ifseg_torch.generate.trie import ConstraintTrie
+    from ifseg_torch.models.ar_cache import ar_step, init_ar_cache
+    from ifseg_torch.models.segofa import SegOFA, build_generator
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+
+    cfg = base_config("bfloat16")
+    model = build_on_card(cfg).eval()
+    num_seg = cfg.num_seg_tokens
+    src, img, _ = requests(GEN_BATCH, seed=900)
+    with torch.no_grad():
+        enc = model.encode_only(src.to("cuda"), img.to("cuda"))
+    result = {}
+
+    def timed_run(gen, tag, steps):
+        fa.reset_launches()
+        ln.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen(GEN_BATCH, gen.initial_cache)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(fa.launch_counts(), layer_norm=ln.LAUNCHES)
+        best = out.tokens[:, 0]
+        log(f"[16d] {tag}: {dt:.2f} s, {dt / steps * 1e3:.3f} ms a generated token (batch "
+            f"{GEN_BATCH} x beam {GEN_BEAM} a step), best scores {out.scores[:, 0].tolist()}, "
+            f"launches {counts}, on {card}")
+        if not bool(torch.isfinite(out.scores[:, 0]).all()):
+            fail(f"{tag}: no finished hypothesis")
+        return out, dict(s=dt, ms_per_token=dt / steps * 1e3, launches=counts,
+                         best_scores=out.scores[:, 0].tolist())
+
+    gen = build_generator(model, enc, beam=GEN_BEAM, max_len=GEN_MAX_LEN, min_len=GEN_MAX_LEN)
+    out, result["cached"] = timed_run(gen, f"KV-cached generator, {GEN_MAX_LEN} tokens",
+                                      GEN_MAX_LEN + 1)
+    best = out.tokens[:, 0]
+    eos_at = (best == num_seg).float().argmax(dim=1)
+    if (eos_at != GEN_MAX_LEN + 1).any() or (best[:, 1:GEN_MAX_LEN + 1] >= num_seg).any():
+        fail(f"the pinned generation did not give {GEN_MAX_LEN} classes then EOS")
+    del gen
+
+    gen = build_generator(model, enc, beam=GEN_BEAM, max_len=GEN_RECOMPUTE_LEN,
+                          min_len=GEN_RECOMPUTE_LEN, use_kv_cache=False)
+    _, result["recompute"] = timed_run(gen, f"uncached generator (decode_ar), "
+                                       f"{GEN_RECOMPUTE_LEN} tokens", GEN_RECOMPUTE_LEN + 1)
+    steps = GEN_RECOMPUTE_LEN + 1
+    rc = result["recompute"]["launches"]
+    if rc["infer"] != steps * 2 * BASE["dec_layers"] or rc["layer_norm"] != steps * (
+            3 + 6 * BASE["dec_layers"]):
+        fail(f"the uncached generator's decode_ar did not launch K1 and K4 at every site: {rc}")
+    del gen
+
+    # decode_ar (bf16, kernels) against ar_step (fp32) at every position of the
+    # best beams (BOS, the 1,022 classes, EOS: 1,024 positions)
+    n_pos = best.shape[1]
+    with torch.no_grad():
+        full = model.decoder.decode_ar(best, enc).float()
+        cache = init_ar_cache(model, enc, GEN_BATCH, n_pos)
+        steps_out = [ar_step(model, cache, best, t)[0] for t in range(n_pos)]
+    ref = torch.stack(steps_out, dim=1)
+    per_pos = ((full - ref).norm(dim=(0, 2)) / ref.norm(dim=(0, 2))).cpu()
+    log(f"[16d] decode_ar (bf16, K1 + K4) against ar_step (fp32) over {n_pos:,} positions of the "
+        f"best beams: ||Δ||/||ref|| max {per_pos.max().item():.3e} (at {int(per_pos.argmax())}), "
+        f"mean {per_pos.mean().item():.3e}")
+    result["decode_ar_vs_ar_step"] = dict(max=per_pos.max().item(), mean=per_pos.mean().item())
+    if not per_pos.max().item() <= AR_LOGIT_REL_TOL:
+        fail(f"decode_ar and ar_step disagree: {per_pos.max().item()} > {AR_LOGIT_REL_TOL}")
+    del full, cache, steps_out, ref
+
+    # the cached generator on the card against the same on the CPU, fp32 both
+    kw = dict(beam=GEN_BEAM, max_len=GEN_COMPARE_LEN, min_len=GEN_COMPARE_LEN)
+    card_out = build_generator(model, enc, **kw)
+    card_out = card_out(GEN_BATCH, card_out.initial_cache)
+    cpu_model = SegOFA(cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    cpu_enc = {k: v.cpu() if torch.is_tensor(v) else v for k, v in enc.items()}
+    t0 = time.perf_counter()
+    cpu_gen = build_generator(cpu_model.eval(), cpu_enc, **kw)
+    cpu_out = cpu_gen(GEN_BATCH, cpu_gen.initial_cache)
+    cpu_s = time.perf_counter() - t0
+    sc, sp = card_out.scores.cpu(), cpu_out.scores
+    rel = ((sc - sp).abs() / sp.abs()).max().item()
+    first = [first_divergence(card_out.tokens[b, 0].cpu(), cpu_out.tokens[b, 0])
+             for b in range(GEN_BATCH)]
+    log(f"[16d] KV-cached generator, {GEN_COMPARE_LEN} tokens, card against CPU (fp32 both, CPU "
+        f"{cpu_s:.1f} s): scores rel {rel:.3e}, first beams "
+        f"{'equal' if first == [None] * GEN_BATCH else f'differ from step {first}'}")
+    for b, step in enumerate(first):
+        if step is not None:  # the gap between the two tokens at the first step they differ
+            prefix = card_out.tokens[b:b + 1, 0].cpu()
+            c = init_ar_cache(cpu_model, {k: v[b:b + 1] if torch.is_tensor(v) and v.dim() and
+                                          v.shape[0] == GEN_BATCH else v
+                                          for k, v in cpu_enc.items()}, 1, GEN_COMPARE_LEN + 2)
+            for t in range(step):
+                lp = torch.log_softmax(ar_step(cpu_model, c, prefix, t)[0], dim=-1)
+            a, z = int(prefix[0, step]), int(cpu_out.tokens[b, 0, step])
+            log(f"[16d]   sentence {b}, step {step}: card chose {a}, CPU {z}; CPU log-probs "
+                f"{lp[0, a].item() if a < num_seg else None} against "
+                f"{lp[0, z].item() if z < num_seg else None}")
+    result["card_vs_cpu"] = dict(score_rel_err=rel, first_divergence=first, cpu_s=cpu_s)
+    if not rel <= GEN_SCORE_REL_TOL or first != [None] * GEN_BATCH:
+        fail(f"the cached generator on the card differs from the CPU's: scores {rel}, "
+             f"tokens from step {first}")
+    del cpu_model, cpu_gen, cpu_out, card_out
+
+    # an ensemble of two weight sets; and one of identical members equals the single model
+    other = build_on_card(cfg).eval()
+    with torch.no_grad():
+        noise = torch.Generator(device=enc["encoder_out"].device).manual_seed(1)
+        for p in other.parameters():
+            p.add_(torch.randn(p.shape, generator=noise, device=p.device) * 0.01)
+    kw = dict(beam=GEN_BEAM, max_len=GEN_RECOMPUTE_LEN, min_len=GEN_RECOMPUTE_LEN)
+    single = build_generator(model, enc, **kw)
+    single = single(GEN_BATCH, single.initial_cache)
+    twin = build_generator([model, model], enc, **kw)
+    twin = twin(GEN_BATCH, twin.initial_cache)
+    ens = build_generator([model, other], enc, **kw)
+    ens, result["ensemble"] = timed_run(ens, "ensemble of two weight sets (KV cache), "
+                                        f"{GEN_RECOMPUTE_LEN} tokens", GEN_RECOMPUTE_LEN + 1)
+    twin_ok = bool(torch.equal(twin.tokens, single.tokens)) and torch.allclose(
+        twin.scores, single.scores, atol=1e-5, rtol=1e-5)
+    log(f"[16d] an ensemble of one model twice {'equals' if twin_ok else 'differs from'} the "
+        f"model alone")
+    if not twin_ok:
+        fail("an ensemble of identical members differs from the single model")
+    del other, twin, single
+
+    # constrained by a trie of class sequences (inserted as [bos] + seq + [eos])
+    seqs = [[5, 6, 7], [5, 8], [9, 10, 11, 12, 13], [149, 0, 3]]
+    trie = ConstraintTrie(num_seg)
+    for q in seqs:
+        trie.insert([0] + q + [num_seg])
+    gen = build_generator(model, enc, beam=GEN_BEAM, max_len=8, min_len=1,
+                          constraint_trie=trie.pack("cuda"))
+    out, result["trie"] = timed_run(gen, "trie-constrained generator", 9)
+    bodies = []
+    for b in range(GEN_BATCH):
+        for k in range(GEN_BEAM):
+            if out.scores[b, k] > -1e6:
+                row = out.tokens[b, k].tolist()
+                bodies.append(row[1:row.index(num_seg)] if num_seg in row else row[1:])
+    log(f"[16d] trie-constrained hypotheses: {bodies}")
+    if not bodies or any(body not in seqs for body in bodies):
+        fail("a trie-constrained hypothesis left the trie")
+    del model, enc, gen
+    torch.cuda.empty_cache()
+    return result
+
+
 # ---------------------------------------------------------------- main
 
 def pass_totals(rows, per_key):
     """A kernel's times summed over the sites of one pass (``per_key`` calls
     each): its own, the plain version's, the bound and the library call's."""
-    timed = [r for r in rows if r[per_key]]
+    timed = [r for r in rows if r.get(per_key)]
     total = lambda key: sum(r[key] * r[per_key] for r in timed)
     t_ops = sum(r["gflop"] * 1e9 / r.get("peak_flops", PEAK_BF16_FLOPS) * 1e3 * r[per_key]
                 for r in timed)
@@ -3925,6 +4391,12 @@ def main():
         stack = dict(remat=phase_remat(card, huge["train"]["max_memory_gib"]))
         stack["optimizers"] = phase_optimizers(card)
         stack["train_cli"] = phase_train_cli_stack(card, tmp, validate["tsv"], validate["ckpt"])
+        torch.cuda.empty_cache()
+        options = dict(prefix=phase_prefix_train(card, stack["remat"]["ofa_base"]["off"]))
+        options["flags"] = phase_options(card, tmp, validate["tsv"], validate["ckpt"])
+    torch.cuda.empty_cache()
+    options["served"] = phase_prefix_eval_serve(card)
+    options["generate"] = phase_generate(card)
 
     fwd_src = "ifseg_torch/csrc/flash_attention_bias_fwd.cu"
     dq_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dq.cu"
@@ -3942,6 +4414,16 @@ def main():
     stack_paths.update(train_cli_stack=stack_cli["launches"],
                        train_cli_stack_resume=stack_cli["resume_launches"],
                        train_cli_stack_pruned=stack_cli["pruned_launches"])
+    # phase 16's training paths (prefix tuning, with the projection, adapters,
+    # BitFit, gelu_poly; cli.train with --bitfit and with --encoder-prompt),
+    # each driven with the counts set to 0 before and read after
+    flags16 = options["flags"]
+    stack_paths.update(prefix_training=options["prefix"]["plain"]["launches"],
+                       prefix_training_projection=options["prefix"]["projection"]["launches"],
+                       **{f"{k}_training": v["launches"] for k, v in flags16["runs"].items()},
+                       train_cli_bitfit=flags16["cli"]["--bitfit"]["launches"],
+                       train_cli_prompt=flags16["cli"]["--encoder-prompt"]["launches"])
+    served16, gen16 = options["served"], options["generate"]
     # the forward without stats runs on ten main paths; each was driven with
     # the counts set to 0 just before and read just after
     k1_paths = dict(serving=serve["launches"], evaluation=evaluation["launches"],
@@ -3951,7 +4433,10 @@ def main():
                     serve_daemon_jpeg=surface["daemon_jpeg"]["launches"],
                     infer_jpeg=surface["infer_jpeg"]["launches"],
                     validate_converted=converted["launches"],
-                    **{k: v["infer"] for k, v in stack_paths.items() if k.startswith("train_cli")})
+                    **{k: v["infer"] for k, v in stack_paths.items() if k.startswith("train_cli")},
+                    evaluation_prefix=served16["eval_launches"]["infer"],
+                    serving_prompted=served16["serve_launches"]["infer"],
+                    generate_recompute=gen16["recompute"]["launches"]["infer"])
     ln_paths = dict(serving=serve["ln_launches"], evaluation=evaluation["ln_launches"],
                     monitoring=train["ln_launches"], validate=validate["ln_launches"],
                     train_cli=train_cli["ln_launches"],
@@ -3963,6 +4448,11 @@ def main():
                     train_cli_stack=stack_cli["ln_launches"],
                     train_cli_stack_resume=stack_cli["resume_ln_launches"],
                     train_cli_stack_pruned=stack_cli["pruned_ln_launches"],
+                    train_cli_bitfit=flags16["cli"]["--bitfit"]["ln_launches"],
+                    train_cli_prompt=flags16["cli"]["--encoder-prompt"]["ln_launches"],
+                    evaluation_prefix=served16["eval_ln_launches"],
+                    serving_prompted=served16["serve_ln_launches"],
+                    generate_recompute=gen16["recompute"]["launches"]["layer_norm"],
                     huge_serving=huge["serve"]["ln_launches"] - huge["serve"]["ln_wide_launches"],
                     huge_evaluation=(huge["evaluation"]["ln_launches"]
                                      - huge["evaluation"]["ln_wide_launches"]))
@@ -3992,9 +4482,13 @@ def main():
                      "shapes", "per_forward"),
     ]
     kernels[0]["launches_by_path"] = k1_paths
-    for entry, key in zip(kernels[1:5], ("stats", "bwd_di", "bwd_dq", "bwd_dkv")):
+    for entry, key, rows_key in zip(kernels[1:5], ("stats", "bwd_di", "bwd_dq", "bwd_dkv"),
+                                    ("stats", "di", "dq", "dkv")):
         entry["launches_by_path"] = dict(training=counts[key], train_cli=cli_counts[key],
                                          **{k: v[key] for k, v in stack_paths.items()})
+        entry["per_pass"] = {f"prefix-tuned batch-{TRAIN_BATCH} step (P {PROMPT_LEN}): 6 calls "
+                             "at each self-attention's P + L keys and at the cross-attention":
+                                 pass_totals(train_rows[rows_key], "per_prefix_step")}
     kernels[0]["per_pass"] = {"evaluation group of 8": pass_totals(sites, "per_eval_group"),
                               "validate group of 8, 215 text tokens":
                                   pass_totals(sites, "per_validate_group")}
@@ -4054,7 +4548,8 @@ def main():
     log(json.dumps({"serve": serve, "cpu_reference": cpu, "evaluation": evaluation,
                     "train": train, "train_gradients": grads, "huge": huge, "validate": validate,
                     "train_cli": train_cli, "serving_surface": surface, "codecs": codecs,
-                    "converted": converted, "training_stack": stack, "ptxas": ptxas,
+                    "converted": converted, "training_stack": stack, "options": options,
+                    "ptxas": ptxas,
                     "card_line": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

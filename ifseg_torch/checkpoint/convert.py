@@ -14,6 +14,9 @@ layout (the inverse of that package's torch -> flax converter):
   Embed    embedding                 -> weight
   LayerNorm scale/bias               -> weight/bias
   stacked (layers, ...) rel tables   -> per-layer ``*_rel_pos_table_list.{i}``
+  prompt_encoder/{embedding,trans_0,trans_2}
+                                     -> ``<side>_prompt_encoder.{embedding,trans.0,trans.2}``
+  layers_{i}/adapter/{down,up}_proj  -> ``layers.{i}.adapter.{down,up}_proj``
 
 ``adam_state_from_jax`` carries the Adam moments of a JAX optimizer state
 over in the same layout, so both trainers can start from the same moments.
@@ -101,6 +104,12 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for name in ("seg_embed_tokens", "seg_projection"):
             if name in p:
                 sd[f"{side}.{name}.weight"] = np.asarray(p[name])
+        if "prompt_encoder" in p:
+            pe = p["prompt_encoder"]
+            put_embed(f"{side}.{side}_prompt_encoder.embedding", pe["embedding"])
+            for ours, theirs in (("trans_0", "trans.0"), ("trans_2", "trans.2")):
+                if ours in pe:
+                    put_linear(f"{side}.{side}_prompt_encoder.{theirs}", pe[ours])
 
         num_layers = sum(1 for k in p if k.startswith("layers_"))
         for i in range(num_layers):
@@ -123,6 +132,9 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 put_ln(f"{base}.ffn_layernorm", lp["ffn"]["ffn_layernorm"])
             if "w_resid" in lp:
                 sd[f"{base}.w_resid"] = np.asarray(lp["w_resid"])
+            if "adapter" in lp:
+                for proj in ("down_proj", "up_proj"):
+                    put_linear(f"{base}.adapter.{proj}", lp["adapter"][proj])
 
     stem = params["encoder"]["embed_images"]
     put_conv("encoder.embed_images.conv1", stem["conv1"])
@@ -220,6 +232,12 @@ def _vocab_surgery(sd: Dict[str, torch.Tensor], target_vocab: int):
     return sd
 
 
+# the tensors of the option paths (encoder_module.py:989-1027,
+# unify_transformer_layer.py:49-94) under the reference names
+_TUNED_KEY = re.compile(r"^(encoder\.encoder|decoder\.decoder)_prompt_encoder\.|"
+                        r"^(encoder|decoder)\.layers\.\d+\.adapter\.")
+
+
 def convert_torch_state_dict(sd: Dict[str, torch.Tensor], target_vocab: int,
                              reference_sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A checkpoint's state dict (reference names) made loadable into the
@@ -228,7 +246,11 @@ def convert_torch_state_dict(sd: Dict[str, torch.Tensor], target_vocab: int,
     the file where its shape matches and the fresh one where the file has
     none or another shape (encoder_module.py:966-985).  The result loads
     with ``load_state_dict(strict=True)``; keys the model has no place for
-    are logged."""
+    are logged, except a prompt encoder's or an adapter's
+    (``<side>_prompt_encoder.*``, ``layers.N.adapter.*``, the names of the
+    JAX package's converter), which raise: a checkpoint tuned with those
+    options loaded into a model without them would answer without the
+    tuning."""
     sd = _vocab_surgery(dict(sd), target_vocab)
     if "encoder.embed_tokens.weight" in sd:  # tied: the encoder's copy wins
         sd["decoder.embed_tokens.weight"] = sd["encoder.embed_tokens.weight"]
@@ -245,6 +267,13 @@ def convert_torch_state_dict(sd: Dict[str, torch.Tensor], target_vocab: int,
         else:
             out[k] = loaded.to(ref.dtype)
     unused = sorted(k for k in sd if k not in reference_sd)
+    tuned = [k for k in unused if _TUNED_KEY.match(k)]
+    if tuned:
+        raise ValueError(
+            f"the checkpoint holds {len(tuned)} prompt-encoder or adapter tensor(s) the model "
+            f"config has no place for ({', '.join(tuned[:4])}{' ...' if len(tuned) > 4 else ''}): "
+            "pass --encoder-prompt / --decoder-prompt / --adapter (with their lengths and "
+            "widths) as the checkpoint was trained")
     if unused:
         logger.warning("checkpoint conversion skipped %d tensor(s) with no place in the "
                        "model: %s%s", len(unused), ", ".join(unused[:8]),

@@ -1,13 +1,25 @@
 """Configuration of the port, and the reference-style flags that fill it.
 
-Copies of the fields of the JAX package's ``ModelConfig``,
-``CriterionConfig``, ``OptimizationConfig``, ``CommonConfig``, ``TaskConfig``
-and ``CheckpointConfig`` that the served forward, the training step and
-validation read, with the same names and defaults, so one set of keyword
-arguments builds both.  ``from_flags`` parses the ``--flag-name=value``
-strings of ``run_scripts/IFSeg/*.sh`` into a ``Config`` as the JAX
-package's does; a flag that names no field of the port's config is ignored,
-as there, so a section gains a field only with the code that reads it.
+Every field of every section of the JAX package's ``Config``, with the
+same name and default, so one set of keyword arguments builds both and a
+flag means the same thing in both.  Three kinds of field:
+
+- those the port reads, as the JAX package does;
+- those the JAX package parses and never reads (``decoder_type``,
+  ``share_*``, ``code_*``, ``*_normalize_before``, ``resnet_drop_path_rate``,
+  ``no_scale_embedding``, ``*entangle*``, ``max_src_length``,
+  ``max_tgt_length``, ``valid_batch_size``, ``upscale_lprobs``,
+  ``criterion_update_freq``, ``freeze_embedding_iter``, ``ignore_eos``,
+  ``sentence_avg``, ``fixed_validation_seed``, ``log_file``, ``profile``):
+  inert here too;
+- those the JAX package honours and the port does not yet (the whole
+  ``distributed`` section, ``check_grad_consistency``,
+  ``check_param_sync_interval``): a non-default value raises, naming the
+  ROADMAP.md item that brings them.
+
+``from_flags`` parses the ``--flag-name=value`` strings of
+``run_scripts/IFSeg/*.sh`` into a ``Config`` as the JAX package's does; a
+flag that names no field of either package is ignored, as there.
 """
 
 import dataclasses
@@ -42,7 +54,8 @@ class ModelConfig:
     decoder_attention_heads: int = 12
     resnet_type: str = "resnet101"
 
-    # "gelu_tanh" (default), "gelu"/"gelu_exact" (erf form) or "relu"
+    # "gelu_tanh" (default), "gelu"/"gelu_exact" (erf form), "gelu_poly"
+    # (ops/gelu.py) or "relu"
     activation_fn: str = "gelu_tanh"
     dropout: float = 0.1
     attention_dropout: float = 0.0
@@ -52,28 +65,54 @@ class ModelConfig:
     # LayerDrop: whole layers skipped iid during training
     encoder_layerdrop: float = 0.0
     decoder_layerdrop: float = 0.0
+    resnet_drop_path_rate: float = 0.0  # parsed, never read (as in JAX)
 
+    # OFA extras (all on in the IFSeg run scripts); the normalize-before,
+    # code, scale-embedding and entangle flags are parsed and never read, as
+    # in the JAX package (the layers are pre-LN)
+    encoder_normalize_before: bool = True
+    decoder_normalize_before: bool = True
     layernorm_embedding: bool = True
     patch_layernorm_embedding: bool = True
+    code_layernorm_embedding: bool = True
     add_type_embedding: bool = True
     scale_attn: bool = True
     scale_fc: bool = True
     scale_heads: bool = True
     scale_resids: bool = False
     attn_scale_factor: float = 2.0
+    no_scale_embedding: bool = True
+    entangle_position_embedding: bool = False
+    disable_entangle: bool = True
 
     token_bucket_size: int = 256
     image_bucket_size: int = 42
+    code_image_size: int = 128
     max_source_positions: int = 1024
     max_target_positions: int = 1024
 
     patch_image_size: int = 512
     orig_patch_image_size: int = 512
 
-    # adapters are not on the served path of this package; True raises
+    # adapters (models/layers.py Adapter, on the FFN output of every layer)
+    # and prefix tuning (PromptEncoder: P learned key/value rows a layer,
+    # prepended in self-attention); a prompt type other than "prefix" builds
+    # the prompt encoder and applies nothing, as in the JAX package
     adapter: bool = False
+    adapter_dim: int = 200
+    encoder_prompt: bool = False
+    encoder_prompt_type: str = "prefix"
+    encoder_prompt_length: int = 100
+    encoder_prompt_projection: bool = False
+    encoder_prompt_dim: int = 0  # 0 -> 2 * encoder_embed_dim
+    decoder_prompt: bool = False
+    decoder_prompt_type: str = "prefix"
+    decoder_prompt_length: int = 100
+    decoder_prompt_projection: bool = False
+    decoder_prompt_dim: int = 0
 
     num_seg_tokens: int = 150
+    decoder_type: str = "surrogate"  # parsed, never read (as in JAX)
     decoder_input_type: str = "encoder_output"  # encoder_input | encoder_output
     tie_seg_projection: bool = True
 
@@ -83,6 +122,9 @@ class ModelConfig:
     freeze_seg_embedding: bool = True
     freeze_entire_resnet: bool = True
     freeze_resnet: bool = False
+    # BitFit: only the LayerNorm and FFN biases train; overrides every other
+    # freeze rule (train/optim.py freeze_mask)
+    bitfit: bool = False
     freeze_encoder_transformer: bool = False
     freeze_encoder_transformer_layers: int = 0
     # LayerDrop pruning at load: the checkpoint's layers to keep, comma
@@ -90,7 +132,14 @@ class ModelConfig:
     encoder_layers_to_keep: str = ""
     decoder_layers_to_keep: str = ""
 
+    share_all_embeddings: bool = True  # one token embedding, always (as in JAX)
+    share_decoder_input_output_embed: bool = True
+
     dtype: str = "bfloat16"  # compute dtype; params are always fp32
+    # the fused attention kernels (ops/flash_attention.py); False takes the
+    # plain softmax attention of models/attention.py on any device, as the
+    # JAX flag takes its XLA path
+    use_flash_attention: bool = True
 
     # activation checkpointing of the encoder and decoder layers: the
     # backward recomputes each layer's forward from its input.  The policy:
@@ -161,6 +210,8 @@ class TaskConfig:
     selected_cols: str = "0,1,2"
     bpe: str = "gpt2"  # 'gpt2' (OFA) or 'bert' (OFA-CN); ofa_task.py:169
     bpe_dir: str = "assets/BPE"
+    max_src_length: int = 80  # parsed, never read (as in JAX)
+    max_tgt_length: int = 20  # parsed, never read (as in JAX)
     code_dict_size: int = 8192
     num_bins: int = 1000
     patch_image_size: int = 512
@@ -171,6 +222,7 @@ class TaskConfig:
     prompt_prefix: str = "what is the segmentation map of the image? object:"
     artificial_image_type: str = "rand_k-1-33"
     epoch_row_count: int = -1
+    valid_batch_size: int = 1  # parsed, never read (as in JAX)
     # validate (and so choose the best checkpoint) with the EMA weights
     uses_ema: bool = False
     # >0: threads that build the rows of a training batch (data/iterators.py)
@@ -189,7 +241,11 @@ class CriterionConfig:
     """Seg criterion (criterions/seg_criterion.py)."""
 
     label_smoothing: float = 0.0
+    upscale_lprobs: bool = True  # parsed, never read (as in JAX)
     unsupervised_segmentation: bool = True
+    # parsed, never read (as in JAX)
+    criterion_update_freq: int = 1
+    freeze_embedding_iter: int = -1
     full_context_alignment: bool = False
     init_seg_with_text: bool = True
     # the reference runs an inference-mode forward on the real batch every
@@ -201,6 +257,9 @@ class CriterionConfig:
     resnet_topk: int = 3
     resnet_prob_temperature: float = 1.0
     resnet_iters: int = 0
+    # parsed, never read (as in JAX)
+    ignore_eos: bool = True
+    sentence_avg: bool = False
 
 
 @dataclass
@@ -242,6 +301,7 @@ class OptimizationConfig:
     stop_time_hours: float = 0.0
     batch_size: int = 4
     batch_size_valid: int = 1  # rows of one evaluation group at most
+    fixed_validation_seed: Optional[int] = 7  # parsed, never read (as in JAX)
     seed: int = 7
     # parsed as the JAX package parses them; bf16 training uses no loss
     # scaler (train/optim.py DynamicLossScaler is kept for fp16 experiments)
@@ -280,17 +340,63 @@ class CheckpointConfig:
     dry_weights: bool = False
 
 
+def _refuse_unported(section, names, item: str) -> None:
+    """Raise where one of ``names`` of ``section`` is off its default: the
+    JAX package honours those fields and the port does not yet."""
+    for f in dataclasses.fields(section):
+        if f.name not in names:
+            continue
+        default = f.default if f.default is not dataclasses.MISSING else f.default_factory()
+        if getattr(section, f.name) != default:
+            raise NotImplementedError(
+                f"--{f.name.replace('_', '-')}={getattr(section, f.name)!r} is not ported "
+                f"(ROADMAP.md {item}); the port runs one process on one device")
+
+
+@dataclass
+class DistributedConfig:
+    """The JAX package's mesh and process layout (data, fsdp, tensor,
+    pipeline, context and expert parallelism, ZeRO-1, the processes).  Not
+    ported (ROADMAP.md A.9): every field must keep its default."""
+
+    data_parallel: int = -1
+    tensor_parallel: int = 1
+    fsdp: int = 1
+    pipeline_parallel: int = 1
+    pipeline_chunks: int = 0
+    context_parallel: int = 1
+    moe_experts: int = 0
+    moe_freq: int = 2
+    moe_assignment: str = "sinkhorn"
+    zero1: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: int = 1
+    process_id: int = 0
+
+    def __post_init__(self):
+        _refuse_unported(self, {f.name for f in dataclasses.fields(self)}, "A.9")
+
+
 @dataclass
 class CommonConfig:
     log_interval: int = 10
     log_format: str = "simple"  # simple | json
+    log_file: Optional[str] = None  # parsed, never read (as in JAX)
     # parsed; a non-empty value raises (utils/progress.py, ROADMAP.md A.10)
     tensorboard_logdir: Optional[str] = None
     wandb_project: Optional[str] = None
+    profile: bool = False  # parsed, never read (as in JAX)
     ema_decay: float = 0.0  # 0 disables EMA
     ema_fp32: bool = False
+    # the cross-process sanitizers of the JAX CLI (utils/reliability.py):
+    # not ported (ROADMAP.md A.9), so both must keep their defaults
+    check_grad_consistency: bool = True
+    check_param_sync_interval: int = 0
     # abort after this many updates in a row skipped for a non-finite gradient
     max_consecutive_nonfinite: int = 10
+
+    def __post_init__(self):
+        _refuse_unported(self, ("check_grad_consistency", "check_param_sync_interval"), "A.9")
 
 
 @dataclass
@@ -300,6 +406,7 @@ class Config:
     criterion: CriterionConfig = field(default_factory=CriterionConfig)
     optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    distributed: DistributedConfig = field(default_factory=DistributedConfig)
     common: CommonConfig = field(default_factory=CommonConfig)
 
     def replace(self, **kwargs) -> "Config":
@@ -341,7 +448,8 @@ def from_flags(argv: List[str], arch: Optional[str] = None) -> Config:
 
     A positional (non ``--``) argument is the data path, as in the reference
     CLI; ``--config=file.json`` expands a JSON flag file in place; a flag
-    that names no field is ignored.  ``num_seg_tokens``, ``patch_image_size``
+    that names no field is ignored, as in the JAX package; a flag the port
+    does not honour yet raises (see the module docstring).  ``num_seg_tokens``, ``patch_image_size``
     and ``orig_patch_image_size`` are kept equal in the model and the task
     sections, whichever section the flag filled.
     """

@@ -13,24 +13,34 @@ parameters get their gradients through the attention kernels' dbias: the
 self-bias pack (layers, H, L, L) in compute dtype, and one cross bias shared
 by all layers, which therefore receives one dbias from each of them.
 
-The decoder also holds the parameters of the autoregressive path
-(``embed_positions``, ``embed_image_positions``, ``pos_ln``,
-``token_rel_pos_table_list``, ``image_rel_pos_table_list``), which the
-surrogate forward does not read, so a full state dict loads strictly.
+``decode_ar`` is the autoregressive path (decoder_module.py:680-862): the
+full causal recompute over the tokens generated so far, with text positions
+(``embed_positions``, ``pos_ln``) and the per-layer token relative bias; the
+KV-cached step is ``models/ar_cache.py``.  The decoder also holds the
+reference's ``embed_image_positions`` and ``image_rel_pos_table_list``, which
+no path reads, so a full state dict loads strictly.
+
+With ``decoder_prompt`` (prefix tuning) ``decoder_prompt_encoder`` makes the
+per-layer key/value prefixes once a forward, prepended in self-attention by
+``forward`` and ``decode_ar`` (the causal offset keeps the whole prefix
+visible); ``decode_served`` applies none, as the JAX package's
+``decode_served`` calls its layers without them
+(``ifseg_tpu/models/decoder.py:464-467``; ROADMAP.md C.4).
 """
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ifseg_torch.config import ModelConfig
-from ifseg_torch.ops.flash_attention import empty_row_padded, row_padded
+from ifseg_torch.ops.flash_attention import row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
-from .attention import Dropout, Linear
+from .ar_cache import check_ar_length
+from .attention import Dropout, Linear, prefixed_pack
 from .encoder import LayerDrop, _ids, compute_dtype, stack_tables
-from .layers import DecoderLayer, LayerNorm, run_layer
+from .layers import DecoderLayer, LayerNorm, PromptEncoder, run_layer
 from .position import (
     gather_grid_bias_all_layers,
     gather_rel_bias_all_layers,
@@ -38,14 +48,13 @@ from .position import (
     interp_seg_bias_with_bos,
     interp_seg_bias_with_bos_mats,
     make_image_bucket_position,
+    make_token_bucket_position,
 )
 
 
 class Decoder(nn.Module):
     def __init__(self, cfg: ModelConfig, embed_tokens: nn.Embedding):
         super().__init__()
-        if cfg.adapter:
-            raise NotImplementedError("adapters are not ported")
         self.cfg = cfg
         d = cfg.decoder_embed_dim
         heads = cfg.decoder_attention_heads
@@ -82,14 +91,26 @@ class Decoder(nn.Module):
                 attn_scale_factor=cfg.attn_scale_factor, scale_attn=cfg.scale_attn,
                 scale_fc=cfg.scale_fc, scale_heads=cfg.scale_heads,
                 scale_resids=cfg.scale_resids, activation_fn=cfg.activation_fn,
+                use_adapter=cfg.adapter, adapter_dim=cfg.adapter_dim,
                 dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
                 activation_dropout=cfg.activation_dropout, drop_path_rate=float(rate),
+                use_flash=cfg.use_flash_attention,
             )
             for rate in np.linspace(0, cfg.decoder_drop_path_rate, nl)
         )
         self.layer_norm = LayerNorm(d)
         self.dropout_layer = Dropout(cfg.dropout)
         self.layerdrop = LayerDrop(cfg.decoder_layerdrop)
+        self.decoder_prompt_encoder = PromptEncoder(
+            cfg.decoder_prompt_length, d, nl, heads, cfg.decoder_prompt_projection,
+            cfg.decoder_prompt_dim) if cfg.decoder_prompt else None
+
+    def prompt_kv_all(self) -> Optional[torch.Tensor]:
+        """(layers, 2, H, P, dh) prefix key/values, or None without prefix
+        tuning (decoder_module.py:501-510)."""
+        if self.decoder_prompt_encoder is None or self.cfg.decoder_prompt_type != "prefix":
+            return None
+        return self.decoder_prompt_encoder()
 
     def _bias(self, q_pos, k_pos, q_linear, k_linear) -> torch.Tensor:
         cfg = self.cfg
@@ -208,16 +229,19 @@ class Decoder(nn.Module):
             )
         # summed in row-padded storage (1 + hw keys is odd; rows a multiple of
         # 16 bytes apart), in the graph: the kernels fetch the bias by TMA in
-        # both passes, and the cast of seg_all is the copy into that storage
-        pack = empty_row_padded(seg_all.shape, cd, seg_all.device)
-        pack.copy_(seg_all).add_(self_bias0.to(cd))
+        # both passes, and the cast of seg_all is the copy into that storage;
+        # under prefix tuning P zero columns go in front
+        prompts = self.prompt_kv_all()
+        p = 0 if prompts is None else prompts.shape[3]
+        pack, body = prefixed_pack(seg_all.shape, p, cd, seg_all.device)
+        body.copy_(seg_all).add_(self_bias0.to(cd))
 
         enc = encoder_out["encoder_out"]
         enc_pad = encoder_out["encoder_padding_mask"]
-        for layer, self_bias in zip(self.layers, pack.unbind(0)):
-            y = run_layer(layer, cfg, x, enc, enc_pad, self_bias, cross_bias, self_padding_mask,
-                          not full_context_alignment)
-            x = self.layerdrop(y, x)
+        for i, (layer, self_bias) in enumerate(zip(self.layers, pack.unbind(0))):
+            args = (x, enc, enc_pad, self_bias, cross_bias, self_padding_mask,
+                    not full_context_alignment) + (() if prompts is None else (prompts[i],))
+            x = self.layerdrop(run_layer(layer, cfg, *args), x)
         x = self.layer_norm(x, cd)
         return self.output_layer(x)
 
@@ -227,11 +251,66 @@ class Decoder(nn.Module):
         enc = encoder_out["encoder_out"]
         x = self._embed(bos_tokens, encoder_out)
         enc_pad = encoder_out["encoder_padding_mask"]
+        # no prefix here, as in the JAX package's decode_served (see the
+        # module docstring): ifseg_tpu/models/decoder.py:464-467
         for i, layer in enumerate(self.layers):
             x = layer(x, enc, enc_pad, pre["self_biases"][i], pre["cross_bias"],
                       None, not full_context_alignment)
         x = self.layer_norm(x, cd)
         return self.output_layer(x)
+
+    def decode_ar(self, prev_tokens, encoder_out, embed_mode: str = "seg"):
+        """Autoregressive decode, the full causal recompute
+        (decoder_module.py:680-862; the JAX package's ``decode_ar``):
+        prev_tokens (B, t) generated ids -> (B, t, num_seg) fp32 logits.
+        ``embed_mode="seg"`` embeds position 0 (BOS) by the token embedding
+        and later class ids by ``seg_embed_tokens`` rows (ids clipped to
+        [0, num_seg)); ``"vocab"`` embeds every id by the token embedding.
+        Text positions give the self bias (abs q·k plus each layer's token
+        relative bias) and the cross bias to the encoder's positions;
+        causal self-attention over the t tokens (and the decoder prefixes
+        under prefix tuning), cross-attention to ``encoder_out``.  The biases
+        are built row-padded in compute dtype, so on the card, under
+        ``no_grad`` and with ``encoder_out`` of B rows (``build_generator``
+        tiles it over the beam), every attention is K1 (Lq = Lk = t causal,
+        and t over the encoder's keys) and every LayerNorm K4; an
+        ``encoder_out`` of a divisor of B rows takes grouped cross-attention,
+        plain as in the JAX package."""
+        cfg = self.cfg
+        cd = compute_dtype(cfg)
+        t = prev_tokens.shape[1]
+        check_ar_length(t)
+        if embed_mode == "seg":
+            bos = self.embed_tokens(prev_tokens[:, :1])
+            rest = self.seg_embed_tokens(prev_tokens[:, 1:].clamp(0, cfg.num_seg_tokens - 1))
+            x = torch.cat([bos, rest], dim=1).to(cd)
+        elif embed_mode == "vocab":
+            x = self.embed_tokens(prev_tokens).to(cd)
+        else:
+            raise ValueError(f"embed_mode {embed_mode!r}: take seg or vocab")
+        if self.layernorm_embedding is not None:
+            x = self.layernorm_embedding(x, cd)
+        x = self.dropout_layer(x)
+
+        tgt_pos = self.pos_ln(self.embed_positions(torch.arange(t, device=x.device)))
+        self_bias0 = self._bias(tgt_pos, tgt_pos, self.self_pos_q_linear, self.self_pos_k_linear)
+        cross_bias = row_padded(self._bias(
+            tgt_pos, encoder_out["position_embeddings"], self.cross_pos_q_linear,
+            self.cross_pos_k_linear).to(cd))
+        token_bucket = make_token_bucket_position(cfg.token_bucket_size)[:t, :t]
+        tok_all = gather_rel_bias_all_layers(stack_tables(self.token_rel_pos_table_list),
+                                             token_bucket)
+        prompts = self.prompt_kv_all()
+        p = 0 if prompts is None else prompts.shape[3]
+        pack, body = prefixed_pack(tok_all.shape, p, cd, x.device)
+        body.copy_(self_bias0[None] + tok_all)
+
+        enc = encoder_out["encoder_out"]
+        enc_pad = encoder_out["encoder_padding_mask"]
+        for i, layer in enumerate(self.layers):
+            x = layer(x, enc, enc_pad, pack[i], cross_bias, None, True,
+                      None if prompts is None else prompts[i])
+        return self.output_layer(self.layer_norm(x, cd))
 
     def output_layer(self, features):
         """seg head: (B, L, D) -> (B, L, num_seg), fp32 (decoder_module.py:290-294)."""

@@ -10,6 +10,15 @@ H, L, L) pack in compute dtype) and runs the per-request part
 the attention kernels' dbias: ``encode`` is the real-image forward and
 ``encode_artificial`` the image-free one, whose image tokens are the
 per-class mean embeddings of the category words laid out on a grid.
+
+With ``encoder_prompt`` (prefix tuning) ``encoder_prompt_encoder`` makes the
+per-layer key/value prefixes once a forward, and every layer of the three
+in-graph forwards prepends its own; the pack is then allocated (layers, H,
+L, P + L) with the P prefix columns zero.  ``encode_served`` applies no
+prefix, as the JAX package's ``encode_served`` applies none
+(``ifseg_tpu/models/encoder.py:520-537`` against ``_run_layers`` :291-295):
+a prompt-tuned model served by ``SegServer`` answers without its prefixes
+while its evaluator and trainer apply them (ROADMAP.md C.4).
 """
 
 from typing import Dict, Optional, Tuple
@@ -19,10 +28,10 @@ import torch
 from torch import nn
 
 from ifseg_torch.config import ModelConfig
-from ifseg_torch.ops.flash_attention import empty_row_padded, row_padded
+from ifseg_torch.ops.flash_attention import row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
-from .attention import Dropout, Linear
-from .layers import EncoderLayer, LayerNorm, run_layer
+from .attention import Dropout, Linear, prefixed_pack
+from .layers import EncoderLayer, LayerNorm, PromptEncoder, run_layer
 from .position import (
     gather_grid_bias_all_layers,
     gather_rel_bias_all_layers,
@@ -85,8 +94,6 @@ def class_mean_embeddings(embed_table, class_tokens, class_lengths):
 class Encoder(nn.Module):
     def __init__(self, cfg: ModelConfig, embed_tokens: nn.Embedding):
         super().__init__()
-        if cfg.adapter:
-            raise NotImplementedError("adapters are not ported")
         self.cfg = cfg
         d = cfg.encoder_embed_dim
         heads = cfg.encoder_attention_heads
@@ -118,14 +125,26 @@ class Encoder(nn.Module):
                 attn_scale_factor=cfg.attn_scale_factor, scale_attn=cfg.scale_attn,
                 scale_fc=cfg.scale_fc, scale_heads=cfg.scale_heads,
                 scale_resids=cfg.scale_resids, activation_fn=cfg.activation_fn,
+                use_adapter=cfg.adapter, adapter_dim=cfg.adapter_dim,
                 dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
                 activation_dropout=cfg.activation_dropout, drop_path_rate=float(rate),
+                use_flash=cfg.use_flash_attention,
             )
             for rate in np.linspace(0, cfg.encoder_drop_path_rate, nl)
         )
         self.layer_norm = LayerNorm(d)
         self.dropout_layer = Dropout(cfg.dropout)
         self.layerdrop = LayerDrop(cfg.encoder_layerdrop)
+        self.encoder_prompt_encoder = PromptEncoder(
+            cfg.encoder_prompt_length, d, nl, heads, cfg.encoder_prompt_projection,
+            cfg.encoder_prompt_dim) if cfg.encoder_prompt else None
+
+    def prompt_kv_all(self) -> Optional[torch.Tensor]:
+        """(layers, 2, H, P, dh) prefix key/values, or None without prefix
+        tuning (encoder_module.py:510-521)."""
+        if self.encoder_prompt_encoder is None or self.cfg.encoder_prompt_type != "prefix":
+            return None
+        return self.encoder_prompt_encoder()
 
     def _abs_bias(self, pos_embed: torch.Tensor) -> torch.Tensor:
         """(H, L, L) fp32 q·kᵀ bias from post-LN position embeddings
@@ -214,6 +233,8 @@ class Encoder(nn.Module):
             [self._image_token_embed(image_embed_pre), self._text_embed(src_tokens)], dim=1
         )
         x = x * (1.0 - padding_mask[:, :, None].to(x.dtype))
+        # no prefix here, as in the JAX package's encode_served (see the
+        # module docstring): ifseg_tpu/models/encoder.py:535-536
         for i, layer in enumerate(self.layers):
             x = layer(x, padding_mask, pre["biases"][i])
         x = self.layer_norm(x, cd)
@@ -249,7 +270,11 @@ class Encoder(nn.Module):
         a multiple of 8 keys apart), so the kernels fetch every layer's bias
         by TMA whatever L is: the abs bias into every layer, then the two
         relative blocks added where they belong (the same sums as padding
-        each block to (L, L) with zeros, without those temporaries)."""
+        each block to (L, L) with zeros, without those temporaries).  Under
+        prefix tuning the pack is (layers, H, L, P + L), its first P columns
+        zero, and each layer prepends its prefix (``prompt_kv_all``, made
+        once here, outside the checkpointed layers, so its dropout draws once
+        a forward)."""
         cfg = self.cfg
         cd = compute_dtype(cfg)
         hw = image_hw[0] * image_hw[1]
@@ -269,12 +294,15 @@ class Encoder(nn.Module):
                 img_all = torch.stack(
                     [interp_grid_bias(b, rel_bias_grid_hw, image_hw) for b in img_all]
                 )
-        pack = empty_row_padded((tok_all.shape[0], *bias0.shape), cd, bias0.device)
-        pack.copy_(bias0.to(cd))
-        pack[..., hw:, hw:].add_(tok_all.to(cd))
-        pack[..., :hw, :hw].add_(img_all.to(cd))
-        for layer, bias in zip(self.layers, pack.unbind(0)):
-            x = self.layerdrop(run_layer(layer, cfg, x, padding_mask, bias), x)
+        prompts = self.prompt_kv_all()
+        p = 0 if prompts is None else prompts.shape[3]
+        pack, body = prefixed_pack((tok_all.shape[0], *bias0.shape), p, cd, bias0.device)
+        body.copy_(bias0.to(cd))
+        body[..., hw:, hw:].add_(tok_all.to(cd))
+        body[..., :hw, :hw].add_(img_all.to(cd))
+        for i, (layer, bias) in enumerate(zip(self.layers, pack.unbind(0))):
+            args = (x, padding_mask, bias) + (() if prompts is None else (prompts[i],))
+            x = self.layerdrop(run_layer(layer, cfg, *args), x)
         return self.layer_norm(x, cd)
 
     def _encode_tokens(self, src_tokens, image_embed, image_pad, image_hw, rel_bias_grid_hw,

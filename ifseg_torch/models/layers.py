@@ -7,8 +7,11 @@ optional ``w_resid`` residual scaling ("scale_resids").  LayerNorms compute
 their row statistics in fp32 and write the compute dtype.  Dropout (after
 attention, after the FFN and on the FFN activation) and DropPath follow
 ``module.training`` and draw from an explicit ``torch.Generator``
-(``attention.set_generator``); in eval mode they are the identity.  Adapters
-and MoE are option paths that are not ported.
+(``attention.set_generator``); in eval mode they are the identity.
+``Adapter`` (a bottleneck on the FFN output before the residual) and
+``PromptEncoder`` (the per-layer key/value prefixes of prefix tuning) are the
+option paths of unify_transformer_layer.py:49-94 and encoder_module.py:989-1027;
+MoE is not ported (ROADMAP.md A.9).
 
 ``run_layer`` runs a layer under activation checkpointing where the model
 config asks for it (``checkpoint_activations``, ``remat_policy``) and a
@@ -38,6 +41,7 @@ from torch.utils.checkpoint import (
 )
 
 from ifseg_torch.ops.flash_attention import ATTN_FWD_STATS_OP
+from ifseg_torch.ops.gelu import gelu_poly
 from ifseg_torch.ops.layer_norm import fused_layer_norm
 from .attention import Dropout, Linear, MultiheadAttention
 
@@ -148,12 +152,66 @@ class LayerNorm(nn.LayerNorm):
         return fused_layer_norm(x, self.weight, self.bias, self.eps, out_dtype)
 
 
-_ACTIVATIONS = {
+ACTIVATIONS = {
     "gelu": F.gelu,  # fairseq's gelu: the exact erf form
     "gelu_exact": F.gelu,
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_poly": gelu_poly,
     "relu": F.relu,
 }
+
+
+class Adapter(nn.Module):
+    """Bottleneck adapter (unify_transformer_layer.py:49-94): x +
+    up_proj(relu(down_proj(x))), on the FFN output before the residual add.
+    ``SegOFA.init`` draws both kernels from N(0, 0.02) with zero biases, the
+    BERT-style init of the JAX package."""
+
+    def __init__(self, embed_dim: int, down_size: int):
+        super().__init__()
+        self.down_proj = Linear(embed_dim, down_size)
+        self.up_proj = Linear(down_size, embed_dim)
+
+    def forward(self, x):
+        return x + self.up_proj(F.relu(self.down_proj(x)))
+
+
+class PromptEncoder(nn.Module):
+    """Prefix-tuning prompt generator (encoder_module.py:989-1027): a learned
+    table of per-layer key/value prefixes, (layers, 2, heads, P, head_dim)
+    fp32.  The reference expands the same ``arange(P)`` ids over the batch,
+    so the prefix is batch-independent: computed once a forward and broadcast
+    inside attention.  With ``projection`` the table is P rows of
+    ``embed_dim`` through ``trans`` (Linear, ReLU, Linear to layers·2·D, the
+    hidden width ``proj_dim`` or 2·D); without, P rows of layers·2·D.
+    Dropout 0.2 on the result (the reference's p=0.2 on past_key_values),
+    from the port's generator (``attention.set_generator``).  Parameter names
+    are the reference's: ``embedding.weight``, ``trans.{0,2}.{weight,bias}``."""
+
+    def __init__(self, length: int, embed_dim: int, num_layers: int, num_heads: int,
+                 projection: bool = False, proj_dim: int = 0, dropout: float = 0.2):
+        super().__init__()
+        self.length, self.num_layers, self.num_heads = length, num_layers, num_heads
+        self.head_dim = embed_dim // num_heads
+        out_dim = num_layers * 2 * embed_dim
+        if projection:
+            self.embedding = nn.Embedding(length, embed_dim)
+            hidden = proj_dim or 2 * embed_dim
+            self.trans = nn.Sequential(Linear(embed_dim, hidden), nn.ReLU(), Linear(hidden, out_dim))
+        else:
+            self.embedding = nn.Embedding(length, out_dim)
+            self.trans = None
+        self.dropout = Dropout(dropout)
+
+    def forward(self):
+        x = self.embedding.weight
+        if self.trans is not None:
+            x = self.trans(x)
+        x = self.dropout(x)
+        # (P, 2L·H·dh) -> (P, 2L, H, dh) -> (2L, H, P, dh) -> (L, 2, H, P, dh)
+        x = x.reshape(self.length, self.num_layers * 2, self.num_heads, self.head_dim)
+        return x.permute(1, 2, 0, 3).reshape(
+            self.num_layers, 2, self.num_heads, self.length, self.head_dim)
 
 
 class FeedForward(nn.Module):
@@ -164,23 +222,26 @@ class FeedForward(nn.Module):
 
     def __init__(self, embed_dim: int, ffn_dim: int, activation_fn: str = "gelu_tanh",
                  scale_fc: bool = True, dropout: float = 0.0, activation_dropout: float = 0.0,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, use_adapter: bool = False, adapter_dim: int = 200):
         super().__init__()
-        if activation_fn not in _ACTIVATIONS:
+        if activation_fn not in ACTIVATIONS:
             raise NotImplementedError(f"activation {activation_fn!r} is not ported")
-        self.act = _ACTIVATIONS[activation_fn]
+        self.act = ACTIVATIONS[activation_fn]
         self.dropout = Dropout(dropout)
         self.activation_dropout = Dropout(activation_dropout)
         self.drop_path = DropPath(drop_path_rate)
         self.fc1 = Linear(embed_dim, ffn_dim)
         self.fc2 = Linear(ffn_dim, embed_dim)
         self.ffn_layernorm = LayerNorm(ffn_dim) if scale_fc else None
+        self.adapter = Adapter(embed_dim, adapter_dim) if use_adapter else None
 
     def ffn(self, x):
+        """The FFN, then the adapter where there is one."""
         y = self.activation_dropout(self.act(self.fc1(x)))
         if self.ffn_layernorm is not None:
             y = self.ffn_layernorm(y, x.dtype)
-        return self.dropout(self.fc2(y))
+        y = self.dropout(self.fc2(y))
+        return y if self.adapter is None else self.adapter(y)
 
 
 class EncoderLayer(FeedForward):
@@ -188,25 +249,24 @@ class EncoderLayer(FeedForward):
                  attn_scale_factor: float = 2.0, scale_attn: bool = True,
                  scale_fc: bool = True, scale_heads: bool = True,
                  scale_resids: bool = False, activation_fn: str = "gelu_tanh",
-                 use_adapter: bool = False, dropout: float = 0.0,
+                 use_adapter: bool = False, adapter_dim: int = 200, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 drop_path_rate: float = 0.0):
-        if use_adapter:
-            raise NotImplementedError("adapters are not ported")
+                 drop_path_rate: float = 0.0, use_flash: bool = True):
         super().__init__(embed_dim, ffn_dim, activation_fn, scale_fc, dropout,
-                         activation_dropout, drop_path_rate)
+                         activation_dropout, drop_path_rate, use_adapter, adapter_dim)
         self.self_attn = MultiheadAttention(embed_dim, num_heads, attn_scale_factor, scale_heads,
-                                            attention_dropout)
+                                            attention_dropout, use_flash)
         self.self_attn_layer_norm = LayerNorm(embed_dim)
         self.attn_ln = LayerNorm(embed_dim) if scale_attn else None
         self.final_layer_norm = LayerNorm(embed_dim)
         self.w_resid = nn.Parameter(torch.ones(embed_dim)) if scale_resids else None
 
-    def forward(self, x, padding_mask=None, self_attn_bias=None):
+    def forward(self, x, padding_mask=None, self_attn_bias=None, prompt_kv=None):
         dt = x.dtype
         residual = x
         y = self.self_attn_layer_norm(x, dt)
-        y = self.self_attn(y, bias=self_attn_bias, key_padding_mask=padding_mask)
+        y = self.self_attn(y, bias=self_attn_bias, key_padding_mask=padding_mask,
+                           prompt_kv=prompt_kv)
         if self.attn_ln is not None:
             y = self.attn_ln(y, dt)
         x = residual + self.drop_path(self.dropout(y))
@@ -223,19 +283,17 @@ class DecoderLayer(FeedForward):
                  attn_scale_factor: float = 2.0, scale_attn: bool = True,
                  scale_fc: bool = True, scale_heads: bool = True,
                  scale_resids: bool = False, activation_fn: str = "gelu_tanh",
-                 use_adapter: bool = False, dropout: float = 0.0,
+                 use_adapter: bool = False, adapter_dim: int = 200, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 drop_path_rate: float = 0.0):
-        if use_adapter:
-            raise NotImplementedError("adapters are not ported")
+                 drop_path_rate: float = 0.0, use_flash: bool = True):
         super().__init__(embed_dim, ffn_dim, activation_fn, scale_fc, dropout,
-                         activation_dropout, drop_path_rate)
+                         activation_dropout, drop_path_rate, use_adapter, adapter_dim)
         self.self_attn = MultiheadAttention(embed_dim, num_heads, attn_scale_factor, scale_heads,
-                                            attention_dropout)
+                                            attention_dropout, use_flash)
         self.self_attn_layer_norm = LayerNorm(embed_dim)
         self.self_attn_ln = LayerNorm(embed_dim) if scale_attn else None
         self.encoder_attn = MultiheadAttention(embed_dim, num_heads, attn_scale_factor,
-                                               scale_heads, attention_dropout)
+                                               scale_heads, attention_dropout, use_flash)
         self.encoder_attn_layer_norm = LayerNorm(embed_dim)
         self.cross_attn_ln = LayerNorm(embed_dim) if scale_attn else None
         self.final_layer_norm = LayerNorm(embed_dim)
@@ -243,12 +301,12 @@ class DecoderLayer(FeedForward):
 
     def forward(self, x, encoder_out=None, encoder_padding_mask=None,
                 self_attn_bias=None, cross_attn_bias=None, self_padding_mask=None,
-                causal: bool = True):
+                causal: bool = True, prompt_kv=None):
         dt = x.dtype
         residual = x
         y = self.self_attn_layer_norm(x, dt)
         y = self.self_attn(y, bias=self_attn_bias, key_padding_mask=self_padding_mask,
-                           causal=causal)
+                           causal=causal, prompt_kv=prompt_kv)
         if self.self_attn_ln is not None:
             y = self.self_attn_ln(y, dt)
         x = residual + self.drop_path(self.dropout(y))

@@ -337,6 +337,16 @@ def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, str]]:
             if parts[-1] == "embed_tokens":
                 out[name] = ("embed_tokens/embedding", "same")
                 continue
+            if len(parts) > 1 and parts[1].endswith("_prompt_encoder"):
+                # <side>.<side>_prompt_encoder.{embedding,trans.0,trans.2}
+                # -> <side>/prompt_encoder/{embedding,trans_0,trans_2}
+                leaf = {"embedding": "embedding/embedding",
+                        "trans.0": "trans_0", "trans.2": "trans_2"}[".".join(parts[2:])]
+                if leaf != "embedding/embedding":
+                    leaf += "/kernel" if pname == "weight" else f"/{pname}"
+                out[name] = (f"{parts[0]}/prompt_encoder/{leaf}",
+                             "linear" if leaf.endswith("/kernel") else "same")
+                continue
             path = []
             i = 0
             while i < len(parts):
@@ -888,8 +898,17 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], clip_norm: float) -> torc
 
 def freeze_mask(model: nn.Module, model_cfg) -> Dict[str, bool]:
     """name -> trainable, over ``model.named_parameters()`` (the shared token
-    embedding appears once, under its encoder name).
+    embedding appears once, under its encoder name): the JAX package's rules
+    (``freeze_mask``), in its order of precedence, on the port's names.
 
+    - bitfit: only the biases of the LayerNorms named ``*layer_norm`` (each
+      layer's self_attn_, encoder_attn_ and final_layer_norm, and each
+      side's closing layer_norm) and of fc1 / fc2 train; it overrides every
+      other rule (reference train.py:101-107);
+    - prefix tuning (encoder_prompt or decoder_prompt): only the prompt
+      encoders train, and the adapters when they are on
+      (unify_transformer.py:378-390);
+    - adapter: the shared ``embed_tokens`` freezes (:366-371);
     - freeze_encoder_embedding / freeze_decoder_embedding: the shared
       ``embed_tokens``;
     - freeze_seg_embedding: ``seg_embed_tokens`` and an untied
@@ -899,13 +918,22 @@ def freeze_mask(model: nn.Module, model_cfg) -> Dict[str, bool]:
     - freeze_encoder_transformer(_layers): the encoder layers, all or the
       first n.
     The FrozenBN statistics are buffers and never train."""
+    prompt_tuning = model_cfg.encoder_prompt or model_cfg.decoder_prompt
 
     def trainable(name: str) -> bool:
         segments = name.split(".")
+        module = segments[-2] if len(segments) > 1 else ""
+        if model_cfg.bitfit:
+            return segments[-1] == "bias" and (
+                module.endswith("layer_norm") or module in ("fc1", "fc2"))
+        if prompt_tuning:
+            return (any(seg.endswith("_prompt_encoder") for seg in segments)
+                    or (model_cfg.adapter and "adapter" in segments))
         # exact segment match: as a substring, "embed_tokens" would also catch
         # decoder.seg_embed_tokens and freeze the seg head with it
         if "embed_tokens" in segments and (
-            model_cfg.freeze_encoder_embedding or model_cfg.freeze_decoder_embedding
+            model_cfg.adapter or model_cfg.freeze_encoder_embedding
+            or model_cfg.freeze_decoder_embedding
         ):
             return False
         if model_cfg.freeze_seg_embedding and (

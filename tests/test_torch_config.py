@@ -71,3 +71,14 @@ def test_shared_leaves_follow_either_section_and_unknown_flags_are_ignored(tmp_p
             cfg.model.encoder_embed_dim) == ("c.tsv", 8, 25, 1280)
     with pytest.raises(ValueError, match="bool"):
         tconf.from_flags(["--freeze-resnet=maybe"])
+
+
+def test_option_flags_reach_the_port_config_with_the_jax_values():
+    """The sibling of the case above: flags the port once dropped because its
+    config had no field for them now land in it, as in the JAX package."""
+    argv = ["--bitfit", "--encoder-prompt", "--encoder-prompt-length=50", "--no-such-flag=1"]
+    got, want = tconf.from_flags(argv), jconf.from_flags(argv)
+    assert (got.model.bitfit, got.model.encoder_prompt, got.model.encoder_prompt_length) == (
+        want.model.bitfit, want.model.encoder_prompt, want.model.encoder_prompt_length) == (
+        True, True, 50)
+    assert got.model.decoder_prompt is want.model.decoder_prompt is False

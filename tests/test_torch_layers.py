@@ -115,15 +115,48 @@ def test_decoder_layer(pair, causal):
 
 @pytest.mark.parametrize("what", ["adapter", "prompt_kv", "grouped_cross"])
 def test_paths_off_the_served_forward_raise(pair, what):
-    cfg, _, tmodel = pair
+    """The option paths off the served forward, which raised here before the
+    port had them, now run and give the flax layer's result: an adapter on
+    the FFN output, a prefix prepended in self-attention (with the bias
+    given (H, Lq, Lk)), and a query batch twice the key batch (grouped
+    cross-attention)."""
+    cfg, params, tmodel = pair
     from ifseg_torch.models.layers import EncoderLayer
 
-    mha = tmodel.encoder.layers[0].self_attn
-    x = torch.zeros(B, LQ, cfg.encoder_embed_dim)
-    with pytest.raises(NotImplementedError):
-        if what == "adapter":
-            EncoderLayer(32, 64, 4, use_adapter=True)
-        elif what == "prompt_kv":
-            mha(x, prompt_kv=torch.zeros(2, 4, 3, 8))
+    d, h = cfg.encoder_embed_dim, cfg.encoder_attention_heads
+    x = _rand(10, B, LQ, d)
+    if what == "adapter":
+        rng = np.random.default_rng(11)
+        node = dict(params["encoder"]["layers_0"])
+        node["adapter"] = {name: {"kernel": rng.normal(0, 0.1, shape).astype(np.float32),
+                                  "bias": rng.normal(0, 0.1, shape[1]).astype(np.float32)}
+                           for name, shape in (("down_proj", (d, 8)), ("up_proj", (8, d)))}
+        jmod = JaxEncoderLayer(d, cfg.encoder_ffn_embed_dim, h, use_adapter=True, adapter_dim=8,
+                               **_layer_kw(cfg))
+        bias = _rand(12, h, LQ, LQ)
+        want = jmod.apply({"params": node}, _j(x), None, _j(bias))
+        tmod = EncoderLayer(d, cfg.encoder_ffn_embed_dim, h, activation_fn=cfg.activation_fn,
+                            use_adapter=True, adapter_dim=8).eval()
+        state = dict(tmodel.encoder.layers[0].state_dict())
+        for name, leaf in node["adapter"].items():
+            state[f"adapter.{name}.weight"] = torch.from_numpy(leaf["kernel"].T.copy())
+            state[f"adapter.{name}.bias"] = torch.from_numpy(leaf["bias"])
+        tmod.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            got = tmod(_t(x), None, _t(bias))
+    else:
+        node = params["encoder"]["layers_0"]["self_attn"]
+        tmod = tmodel.encoder.layers[0].self_attn
+        jmod = JaxMHA(d, h, scale_factor=cfg.attn_scale_factor, scale_heads=cfg.scale_heads)
+        if what == "prompt_kv":
+            pkv, bias = _rand(13, 2, h, 3, d // h), _rand(14, h, LQ, LQ)
+            want = jmod.apply({"params": node}, _j(x), None, _j(bias), None, True,
+                              prompt_kv=_j(pkv))
+            with torch.no_grad():
+                got = tmod(_t(x), bias=_t(bias), causal=True, prompt_kv=_t(pkv))
         else:
-            mha(x, key=torch.zeros(1, LK, cfg.encoder_embed_dim))
+            key, mask = _rand(15, 1, LK, d), _mask(LK)[-1:]
+            want = jmod.apply({"params": node}, _j(x), _j(key), None, _j(mask))
+            with torch.no_grad():
+                got = tmod(_t(x), _t(key), key_padding_mask=_t(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)

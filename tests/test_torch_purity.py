@@ -65,7 +65,11 @@ def test_importing_every_module_loads_no_jax():
                  "ifseg_torch.ops.quantization", "ifseg_torch.cli.serve",
                  "ifseg_torch.cli.infer", "ifseg_torch.data.jpeg", "ifseg_torch.data.image",
                  "ifseg_torch.cli.convert_dataset", "ifseg_torch.cli.score",
-                 "ifseg_torch.utils.scoring", "ifseg_torch.benchmark.dummy_seg"):
+                 "ifseg_torch.utils.scoring", "ifseg_torch.benchmark.dummy_seg",
+                 "ifseg_torch.ops.gelu", "ifseg_torch.models.ar_cache",
+                 "ifseg_torch.ops.ngram_block", "ifseg_torch.generate",
+                 "ifseg_torch.generate.search", "ifseg_torch.generate.sequence_generator",
+                 "ifseg_torch.generate.trie", "ifseg_torch.generate.lexical"):
         assert name in report["modules"], name
 
 
@@ -89,7 +93,11 @@ def test_the_scan_covers_the_evaluation_slice():
                  "ifseg_torch/cli/serve.py", "ifseg_torch/cli/infer.py",
                  "ifseg_torch/data/jpeg.py", "ifseg_torch/data/image.py",
                  "ifseg_torch/cli/convert_dataset.py", "ifseg_torch/cli/score.py",
-                 "ifseg_torch/utils/scoring.py", "ifseg_torch/benchmark/dummy_seg.py"):
+                 "ifseg_torch/utils/scoring.py", "ifseg_torch/benchmark/dummy_seg.py",
+                 "ifseg_torch/ops/gelu.py", "ifseg_torch/models/ar_cache.py",
+                 "ifseg_torch/ops/ngram_block.py", "ifseg_torch/generate/__init__.py",
+                 "ifseg_torch/generate/search.py", "ifseg_torch/generate/sequence_generator.py",
+                 "ifseg_torch/generate/trie.py", "ifseg_torch/generate/lexical.py"):
         assert path in scanned, path
 
 
