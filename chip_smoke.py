@@ -175,7 +175,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      of one twice, equal to the model alone); a trie-constrained run.  Phase 3
      also checks K1 at ``decode_ar``'s sites and phase 3t times the four
      kernels at the prefix-tuned self-attentions (P + L keys);
- 17. one JSON line listing every kernel, the nvidia-smi line, and the last
+ 17. multi-process training and evaluation, OFA-Base at full width and
+     depth, phase 15a's configuration without dropout from one seeded start
+     (weights of the seed, Adam moments drawn from it): (a) one process over
+     NCCL (world size 1) under data parallelism, FSDP, ZeRO-1 and tensor
+     parallelism, 2 + 5 steps at batch 16 each against the unwrapped
+     trainer's (loss, gnorm, the parameter updates' cosines), s/step and peak
+     memory beside phase 15a's off row, the collectives' ms a step (a
+     profiler trace); (b) two processes sharing the card over gloo (NCCL
+     takes one rank a card), the fixed table of what that carries, each
+     strategy at degree 2 on 8 + 8 rows against one process's step on the 16,
+     ``check_grad_norms`` and ``check_param_sync`` true, every bias by TMA,
+     tensor parallelism with the monitoring forward (its split FFN
+     LayerNorm's rows gathered for K4) against one process's, s/step, peak
+     memory and the host ms in gloo's collectives a step; (c) ``cli.train
+     --num-processes=2 --fsdp=2`` on phase 11's rows with the recipe's flags
+     (2 steps, a validation, a checkpoint written by rank 0 alone), the
+     checkpoint restored into one process equal to the files, and
+     ``cli.validate`` on two processes against one, one row a forward: the
+     same mIoU (the two CLIs' runs and the one-process validation side by
+     side);
+ 18. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -4341,6 +4361,598 @@ def kernel_entry(name, source, replaces, launches, rows, unit, per_key):
     )
 
 
+
+# ---------------------------------------------------------------- phase 17
+
+# (a): the steps of each strategy at degree 1, and their tolerances against
+# the unwrapped trainer (bf16, the same seeded weights, moments and batches).
+# DDP, FSDP and ZeRO-1 were bit-equal to it; TP, whose row-parallel products
+# add their bias after the sum, read at most 2.14e-5 (loss) and 1.00e-4
+# (gnorm) relative in four whole runs (calls AG-AL of PR 13's chip runs,
+# H100 80GB HBM3, 700 W); the limits are about 5x those readings
+PAR_WARM, PAR_TIMED = 2, 5
+PAR_LOSS_TOL, PAR_GNORM_TOL, PAR_COSINE_MIN = 1e-4, 5e-4, 0.9999
+# (b): one step of 8 + 8 rows against one process's step on the 16
+PAR2_LOSS_TOL, PAR2_GNORM_TOL, PAR2_COSINE_MIN = 1e-3, 1e-2, 0.999
+# the strategies, from the distributed config at degree 1; fsdp and tp turn
+# on there only above 1, so the Trainer's switch names them
+PAR_STRATEGIES = {"ddp": ({}, None), "fsdp": ({}, ("fsdp",)), "zero1": (dict(zero1=True), None),
+                  "tp": ({}, ("tp",))}
+# (b)'s fixed table: NCCL takes one rank a card ("Duplicate GPU detected"),
+# so two processes sharing the card reach each other over gloo, which
+# carries all-reduce, broadcast, all-gather and reduce-scatter for CUDA
+# tensors on this machine (and aborts the process on a CUDA send/recv,
+# which no strategy here uses): every strategy runs at degree 2
+GLOO_ON_ONE_CARD = {
+    "ddp": ("runs", "data 2: the gradients all-reduced"),
+    "fsdp": ("runs", "fsdp 2: parameters all-gathered, gradients reduce-scattered"),
+    "zero1": ("runs", "data 2 + zero1: gradients all-reduced, updated slices all-gathered"),
+    "tp": ("runs", "tensor 2: activations all-reduced and all-gathered"),
+}
+PAR_DEGREE2 = {"ddp": dict(data_parallel=2), "fsdp": dict(fsdp=2),
+               "zero1": dict(data_parallel=2, zero1=True), "tp": dict(tensor_parallel=2)}
+# (b)'s strategies that also run the monitoring forward (the split FFN
+# LayerNorm's gathered rows through K4), against the reference's
+PAR2_MONITORED = ("tp",)
+PAR_CLI_ROWS = 32  # phase 17c's training epoch: 2 steps of TRAIN_BATCH
+
+
+def seeded_moments(state, gen):
+    """The optimizer state ``state`` (a ``state_dict``) with count 3, first
+    moments N(0, 1e-3) and second moments U(1e-4, 1e-2), drawn on the card
+    from ``gen``: with the second moments above the gradients' rounding
+    noise, an update is smooth in the gradient, so two runs' updates compare
+    tensor by tensor (a key bias, whose gradient is zero up to rounding,
+    would otherwise move by ±lr)."""
+    out = {}
+    for k, v in state.items():
+        if k == "count":
+            out[k] = 3
+        elif isinstance(v, dict):
+            out[k] = {}
+            for n, t in v.items():
+                x = torch.empty(t.shape, dtype=t.dtype, device="cuda")
+                out[k][n] = (x.normal_(0, 1e-3, generator=gen) if k == "mu"
+                             else x.uniform_(1e-4, 1e-2, generator=gen))
+        else:
+            out[k] = v
+    return out
+
+
+def parallel_start_state(monitor: bool = False):
+    """(config, class table, whole start state on the card, the unwrapped
+    trainer holding it): OFA-Base 512px, phase 15a's configuration without
+    dropout, the weights of the seed and seeded Adam moments; every process
+    builds the same."""
+    from ifseg_torch.train.trainer import Trainer
+
+    cfg = train_config("bfloat16", monitor=monitor, dropout=False)
+    tokens, lengths = class_table(SEED)
+    ref = Trainer(cfg, tokens, lengths, total_num_updates=100).init_state()
+    state = {"model": {k: v.cuda() for k, v in ref.state_dict()["model"].items()},
+             "optimizer": seeded_moments(ref.optimizer.state_dict(),
+                                         torch.Generator(device="cuda").manual_seed(SEED))}
+    ref.load_state_dict(state)
+    return cfg, tokens, lengths, state, ref
+
+
+def update_cosines(before, after, want):
+    """min over the moved tensors of cos(after - before, want - before), the
+    tensor that gives it, and the share of all the moved entries' squared
+    update that differs."""
+    worst, name, num, den = 1.0, None, 0.0, 0.0
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        b = before[k].cuda()
+        dw, da = (w.cuda() - b).double(), (after[k].cuda() - b).double()
+        if not torch.any(dw):
+            continue
+        cos = float(torch.dot(dw.flatten(), da.flatten()) / (dw.norm() * da.norm()).clamp(min=1e-300))
+        if cos < worst:
+            worst, name = cos, k
+        num += float((da - dw).square().sum())
+        den += float(dw.square().sum())
+    return worst, name, (num / max(den, 1e-300)) ** 0.5
+
+
+def collective_ms(step, backend: str) -> float:
+    """The time of one ``step()`` spent in collectives, from a profiler
+    trace, in ms: over NCCL the card's time in its kernels, over gloo
+    (whose collectives on CUDA tensors run on the host) the host time of its
+    ``gloo:*`` events, with the host's activity alone traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if backend == "nccl" else [])
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        step()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        key = ev.key.lower()
+        if (backend == "nccl" and "nccl" in key
+                and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA):
+            t = getattr(ev, "self_device_time_total", None)
+            us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        elif backend == "gloo" and key.startswith("gloo:"):
+            us += ev.cpu_time_total
+    return us / 1e3
+
+
+def whole_model(trainer):
+    """The trainer's whole parameters and buffers on the card, copied (a
+    collective under a mesh)."""
+    return {k: v.detach().clone() for k, v in trainer.whole_state().items()}
+
+
+def phase_parallel_single(card: str, off_row: dict):
+    """(a) each strategy on one process over NCCL (world size 1) against the
+    unwrapped trainer: the same start, 2 + 5 steps at batch 16."""
+    import copy
+
+    import torch.distributed as dist
+
+    from ifseg_torch.config import DistributedConfig
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.parallel.mesh import ProcessMesh
+    from ifseg_torch.train.trainer import Trainer
+
+    t_start = time.perf_counter()
+    cfg, tokens, lengths, state, unwrapped = parallel_start_state()
+    rng = np.random.default_rng(SEED + 17)
+    batches = [train_batch(rng, TRAIN_BATCH, real=False) for _ in range(PAR_WARM + PAR_TIMED)]
+    before = state["model"]
+
+    def run(trainer, mesh):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        logs, times = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = trainer.train_step(b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            logs.append(dict(loss=float(out["loss"]), gnorm=float(out["gnorm"]),
+                             skipped=float(out["n_nonfinite"])))
+        counts, routes = fa.launch_counts(), fa.bias_route_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        after = whole_model(trainer)
+        t0 = time.perf_counter()
+        coll = collective_ms(lambda: trainer.train_step(batches[-1]), "nccl") if mesh else 0.0
+        return dict(logs=logs, s_per_step=float(np.mean(times[PAR_WARM:])), peak_gib=peak,
+                    launches=counts, routes=routes, collective_ms=coll,
+                    profile_s=time.perf_counter() - t0), after
+
+    ref, ref_after = run(unwrapped, None)
+    del unwrapped
+    torch.cuda.empty_cache()
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/pg", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    out = {"unwrapped": ref}
+    try:
+        mesh = ProcessMesh((1, 1, 1), 0, "cuda")
+        for name, (dist_kw, strategies) in PAR_STRATEGIES.items():
+            t0 = time.perf_counter()
+            scfg = copy.deepcopy(cfg)
+            scfg.distributed = DistributedConfig(**dist_kw)
+            # built on the start weights (no init of its own), then the whole
+            # start state cut to this rank's parts
+            trainer = Trainer(scfg, tokens, lengths, total_num_updates=100, mesh=mesh,
+                              strategies=strategies).init_state(state["model"])
+            trainer.load_state_dict(state)
+            build_s = time.perf_counter() - t0
+            res, after = run(trainer, mesh)
+            del trainer
+            torch.cuda.empty_cache()
+            cos, worst, diff = update_cosines(before, after, ref_after)
+            loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                           for a, b in zip(res["logs"], ref["logs"]))
+            gnorm_err = max(abs(a["gnorm"] - b["gnorm"]) / abs(b["gnorm"])
+                            for a, b in zip(res["logs"], ref["logs"]))
+            res.update(loss_rel=loss_err, gnorm_rel=gnorm_err, min_cosine=cos,
+                       min_cosine_tensor=worst, update_rel=diff, build_s=build_s,
+                       wall_s=time.perf_counter() - t0)
+            log(f"[17a] {name} at degree 1 (NCCL, world 1), OFA-Base batch {TRAIN_BATCH}: "
+                f"{res['s_per_step']:.4f} s/step, peak {res['peak_gib']:.2f} GiB, collectives "
+                f"{res['collective_ms']:.3f} ms a step, beside the unwrapped trainer's "
+                f"{ref['s_per_step']:.4f} s/step and {ref['peak_gib']:.2f} GiB and phase 15a's off "
+                f"row {off_row['s_per_step']:.4f} s/step and {off_row['max_memory_gib']:.2f} GiB; "
+                f"against the unwrapped over {len(batches)} steps: loss {loss_err:.2e} relative "
+                f"(tolerance {PAR_LOSS_TOL}), gnorm {gnorm_err:.2e} (tolerance {PAR_GNORM_TOL}), "
+                f"parameter updates: least cosine {cos:.7f} ({worst}; tolerance "
+                f"{PAR_COSINE_MIN}), ||Δ - Δ_ref|| / ||Δ_ref|| {diff:.2e}; launches "
+                f"{res['launches']}, bias routes {res['routes']}; built in {build_s:.1f} s, the "
+                f"profiled step {res['profile_s']:.1f} s, {res['wall_s']:.1f} s in all; on {card}")
+            if (loss_err > PAR_LOSS_TOL or gnorm_err > PAR_GNORM_TOL or cos < PAR_COSINE_MIN
+                    or any(lg["skipped"] for lg in res["logs"])):
+                fail(f"[17a] {name} at degree 1 departs from the unwrapped trainer")
+            if res["routes"]["fwd_bias_threads"] or res["routes"]["bwd_bias_copies"]:
+                fail(f"[17a] {name}: a bias not fetched by TMA")
+            out[name] = res
+    finally:
+        dist.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"[17a] {out['wall_s']:.1f} s in all")
+    return out
+
+
+def free_ports(n: int):
+    """``n`` distinct free ports (their sockets held open together)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def start_ranks(argv_for_rank, n: int, log_prefix: str):
+    """Start ``n`` processes (``argv_for_rank(rank)``), each writing its
+    output to ``{log_prefix}{rank}.log``."""
+    procs = []
+    for r in range(n):
+        with open(f"{log_prefix}{r}.log", "w") as out:
+            procs.append(subprocess.Popen([sys.executable, *argv_for_rank(r)], cwd=REPO,
+                                          stdout=out, stderr=subprocess.STDOUT))
+    procs_logs = [(p, f"{log_prefix}{r}.log") for r, p in enumerate(procs)]
+    return procs_logs
+
+
+def stop_ranks(procs_logs):
+    for p, _ in procs_logs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def wait_ranks(procs_logs, timeout: float, tag: str):
+    """Wait for the processes of ``start_ranks`` to end, all killed once
+    ``timeout`` s have passed; the end of a failed one's output goes into
+    the failure message."""
+    end = time.monotonic() + timeout
+    try:
+        for p, _ in procs_logs:
+            p.wait(timeout=max(end - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop_ranks(procs_logs)
+    bad = [r for r, (p, _) in enumerate(procs_logs) if p.returncode != 0]
+    if bad:
+        tails = "\n".join(f"rank {r}: {Path(procs_logs[r][1]).read_text()[-2500:]}" for r in bad)
+        fail(f"[17] {tag}: rank(s) {bad} failed\n{tails}")
+
+
+def parallel_worker(rank: int, port: int, out_path: str):
+    """(b) in one of two processes sharing the card over gloo: the reference
+    one-process step on the 16 rows (rank 0), then each strategy at degree 2
+    on this rank's 8 rows; the results go to ``out_path``."""
+    import copy
+
+    import torch.distributed as dist
+
+    from ifseg_torch.config import DistributedConfig
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.parallel.mesh import batch_rows, initialize_distributed, mesh_from_config
+    from ifseg_torch.train.trainer import Trainer
+    from ifseg_torch.utils.reliability import check_grad_norms, check_param_sync
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, device, backend="gloo")
+    # the reference runs the monitoring forward too, for the monitored strategies
+    cfg, tokens, lengths, state, ref = parallel_start_state(monitor=True)
+    rng = np.random.default_rng(SEED + 171)
+    batch = train_batch(rng, TRAIN_BATCH, real=True)
+    timed = train_batch(rng, TRAIN_BATCH, real=True)
+    before = state["model"]
+    result = dict(rank=rank, strategies={}, start_s=time.perf_counter() - t_start)
+    scalars = lambda logs: {k: float(v) for k, v in logs.items()
+                            if isinstance(v, torch.Tensor) and v.dim() == 0}
+    areas = lambda logs: {k: v.cpu().tolist() for k, v in logs.items() if k.startswith("area")}
+    if rank == 0:
+        logs = ref.train_step(batch)
+        ref_logs, ref_areas = scalars(logs), areas(logs)
+        ref_after = whole_model(ref)
+    del ref
+    torch.cuda.empty_cache()
+    dist.barrier()
+    for name, kw in PAR_DEGREE2.items():
+        t0 = time.perf_counter()
+        scfg = copy.deepcopy(cfg)
+        scfg.distributed = DistributedConfig(**kw)
+        scfg.criterion.monitor_real_batch = name in PAR2_MONITORED
+        mesh = mesh_from_config(scfg.distributed, device)
+        trainer = Trainer(scfg, tokens, lengths, total_num_updates=100,
+                          mesh=mesh).init_state(state["model"])
+        trainer.load_state_dict(state)
+        build_s = time.perf_counter() - t0
+        idx = batch_rows(TRAIN_BATCH, mesh)
+        rows = lambda b: {k: v[idx] for k, v in b.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        ln.reset_launches()
+        out = trainer.train_step(rows(batch))
+        res = dict(scalars(out), launches=fa.launch_counts(), routes=fa.bias_route_counts(),
+                   ln_launches=ln.LAUNCHES, monitored=name in PAR2_MONITORED,
+                   grad_norms_agree=check_grad_norms(float(out["gnorm"]), group=mesh.host_group),
+                   params_in_sync=check_param_sync(trainer.fingerprint(), group=mesh.host_group))
+        if res["monitored"]:
+            res["areas"] = areas(out)
+        after = whole_model(trainer)
+        scfg.criterion.monitor_real_batch = False  # the timed steps are the others' steps
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.train_step(rows(timed))
+        torch.cuda.synchronize()
+        res.update(s_per_step=time.perf_counter() - t1,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   collective_ms=collective_ms(lambda: trainer.train_step(rows(timed)), "gloo"),
+                   build_s=build_s)
+        if rank == 0:
+            cos, worst, diff = update_cosines(before, after, ref_after)
+            rel = lambda k: abs(res[k] - ref_logs[k]) / abs(ref_logs[k])
+            res.update(ref=ref_logs, min_cosine=cos, min_cosine_tensor=worst, update_rel=diff,
+                       loss_rel=rel("loss"), gnorm_rel=rel("gnorm"))
+            if res["monitored"]:
+                res.update(nll_rel=rel("nll_loss"), ref_areas=ref_areas)
+        del trainer, after
+        torch.cuda.empty_cache()
+        res["wall_s"] = time.perf_counter() - t0
+        result["strategies"][name] = res
+    result["wall_s"] = time.perf_counter() - t_start
+    Path(out_path).write_text(json.dumps(result))
+    dist.destroy_process_group()
+
+
+def phase_parallel_shared(card: str):
+    """(b) two processes sharing the card, the fixed table's strategies at
+    degree 2, each against one process's step on the same 16 rows."""
+    log("[17b] two processes on one card: NCCL takes one rank a card, so they run over gloo; "
+        "the strategies it lets run at degree 2: " + "; ".join(
+            f"{k}: {v[0]} ({v[1]})" for k, v in GLOO_ON_ONE_CARD.items()))
+    port, = free_ports(1)
+    tmp = tempfile.mkdtemp()
+    outs = [f"{tmp}/rank{r}.json" for r in range(2)]
+    t0 = time.perf_counter()
+    wait_ranks(start_ranks(lambda r: [str(Path(__file__).resolve()), "--parallel-worker",
+                                      str(r), str(port), outs[r]], 2, f"{tmp}/rank"),
+               900, "shared")
+    wall = time.perf_counter() - t0
+    res = [json.loads(Path(o).read_text()) for o in outs]
+    summary = {}
+    for name in PAR_DEGREE2:
+        r0, r1 = res[0]["strategies"][name], res[1]["strategies"][name]
+        monitored = ""
+        if r0["monitored"]:
+            same = [np.array_equal(r0["areas"][k], r0["ref_areas"][k]) for k in r0["ref_areas"]]
+            monitored = (f"monitoring forward: nll_loss {r0['nll_loss']!r} against "
+                         f"{r0['ref']['nll_loss']!r} ({r0['nll_rel']:.2e} relative, tolerance "
+                         f"{PAR2_LOSS_TOL}), {sum(same)} of {len(same)} confusion areas equal, "
+                         f"rank 1's logs equal to rank 0's: {r0['areas'] == r1['areas']}, K4 "
+                         f"launches a rank {r0['ln_launches']} / {r1['ln_launches']}; ")
+        log(f"[17b] {name} at degree 2 (gloo, two processes on the card): loss {r0['loss']!r} "
+            f"against one process's {r0['ref']['loss']!r} ({r0['loss_rel']:.2e} relative, "
+            f"tolerance {PAR2_LOSS_TOL}), gnorm {r0['gnorm']!r} against {r0['ref']['gnorm']!r} "
+            f"({r0['gnorm_rel']:.2e}, tolerance {PAR2_GNORM_TOL}), parameter updates: least "
+            f"cosine {r0['min_cosine']:.6f} ({r0['min_cosine_tensor']}; tolerance "
+            f"{PAR2_COSINE_MIN}), ||Δ - Δ_ref|| / ||Δ_ref|| {r0['update_rel']:.2e}; {monitored}"
+            f"check_grad_norms {r0['grad_norms_agree']} / {r1['grad_norms_agree']}, "
+            f"check_param_sync {r0['params_in_sync']} / {r1['params_in_sync']}; "
+            f"{r0['s_per_step']:.4f} / {r1['s_per_step']:.4f} s/step (the step after the "
+            f"compared one), peak {r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB, host ms in "
+            f"gloo collectives a step {r0['collective_ms']:.1f} / {r1['collective_ms']:.1f} by "
+            f"rank; launches a rank {r0['launches']}, bias routes {r0['routes']} / "
+            f"{r1['routes']}; built in {r0['build_s']:.1f} / {r1['build_s']:.1f} s, "
+            f"{r0['wall_s']:.1f} / {r1['wall_s']:.1f} s in all; on {card}")
+        if (r0["loss_rel"] > PAR2_LOSS_TOL or r0["gnorm_rel"] > PAR2_GNORM_TOL
+                or r0["min_cosine"] < PAR2_COSINE_MIN or r0["loss"] != r1["loss"]
+                or not all(r[k] for r in (r0, r1) for k in ("grad_norms_agree", "params_in_sync"))):
+            fail(f"[17b] {name} at degree 2 departs from one process")
+        if any(r["routes"]["fwd_bias_threads"] or r["routes"]["bwd_bias_copies"]
+               for r in (r0, r1)):
+            fail(f"[17b] {name} at degree 2: a bias not fetched by TMA")
+        if r0["monitored"] and (r0["nll_rel"] > PAR2_LOSS_TOL or r0["areas"] != r1["areas"]
+                                or min(r0["ln_launches"], r1["ln_launches"]) < 1):
+            fail(f"[17b] {name} at degree 2: the monitoring forward departs from one process's")
+        summary[name] = dict(rank0=r0, rank1=r1)
+    log(f"[17b] {wall:.1f} s for both processes (start {res[0]['start_s']:.1f} / "
+        f"{res[1]['start_s']:.1f} s: the start weights and the reference trainer; then four "
+        f"strategies' trainers each)")
+    return dict(table=GLOO_ON_ONE_CARD, strategies=summary, wall_s=wall)
+
+
+def cli_worker(kind: str, argv_json: str, out_path: str):
+    """(c) in one process of a two-process CLI run: the CLI's main; its
+    summary, this rank's checkpoint writes and kernel launches go to
+    ``out_path``."""
+    from ifseg_torch.checkpoint import manager
+    from ifseg_torch.config import from_flags
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+
+    writes = []
+    write_state = manager.CheckpointManager._write_state
+
+    def recorded(self, name, state):
+        writes.append(name)
+        return write_state(self, name, state)
+
+    manager.CheckpointManager._write_state = recorded
+    argv = json.loads(argv_json)
+    fa.reset_launches()
+    ln.reset_launches()
+    if kind == "train":
+        from ifseg_torch.cli import train
+
+        run = train.main(from_flags(argv), device="cuda:0", backend="gloo")
+        summary = dict(num_updates=run["num_updates"], stop=run["stop"],
+                       saves=[s["name"] for s in run["saves"]],
+                       valid=[e["valid"] for e in run["epochs"]],
+                       step_s=[e["step_s"] for e in run["epochs"]])
+    else:
+        from ifseg_torch.cli import validate
+
+        logs = []
+        vals = validate.main(from_flags(argv), device="cuda:0", backend="gloo", logs_out=logs)
+        summary = dict(vals=vals, areas={k: np.asarray(v).tolist()
+                                         for k, v in summed_areas(logs).items()})
+    summary.update(writes=writes, launches=fa.launch_counts(), ln_launches=ln.LAUNCHES)
+    Path(out_path).write_text(json.dumps(summary, default=float))
+
+
+def summed_areas(logs):
+    """The confusion areas of per-group logs, summed in fp64."""
+    return {k: np.sum([np.asarray(lg[k], np.float64) for lg in logs], axis=0)
+            for k in logs[0] if k.startswith("area")}
+
+
+def miou(areas, suffix=""):
+    """The unrounded mIoU of summed areas (nanmean of intersect / union)."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return float(np.nanmean(areas["area_intersect" + suffix] / areas["area_union" + suffix]))
+
+
+def phase_parallel_cli(card: str, tmp: str, valid_tsv: str, ckpt_file: str):
+    """(c) ``cli.train`` and ``cli.validate`` as a user runs them with two
+    processes on the card (gloo), against one process.  The two-process
+    runs of both CLIs and the one-process validation share no file, so they
+    run side by side: their seconds are those of a shared card and host."""
+    from ifseg_torch.checkpoint.manager import CheckpointManager
+    from ifseg_torch.cli import validate as cli_validate
+    from ifseg_torch.config import from_flags
+    from ifseg_torch.train.trainer import Trainer
+
+    train_tsv = f"{tmp}/train17.tsv"
+    with open(valid_tsv) as src, open(train_tsv, "w") as dst:
+        rows = src.readlines()
+        dst.writelines((rows * -(-PAR_CLI_ROWS // len(rows)))[:PAR_CLI_ROWS])
+    save = f"{tmp}/ckpt17"
+    base = common_sh_argv(f"{train_tsv},{valid_tsv}", save, ckpt_file)
+    base = [a for a in base if a not in RESET_FLAGS] + [
+        f"--epoch-row-count={PAR_CLI_ROWS}", "--max-epoch=1", "--batch-size-valid=8",
+        "--fsdp=2", "--check-param-sync-interval=1"]
+    # validation of phase 11's rows, one row a forward (common.sh's
+    # --batch-size-valid=1), so a row's result does not depend on its group
+    vargv = ade_argv(valid_tsv, ckpt_file) + ["--batch-size-valid=1"]
+    ports = dict(zip(("train", "validate"), free_ports(2)))
+
+    def start(kind, argv):
+        outs = [f"{tmp}/{kind}{r}.json" for r in range(2)]
+        flags = lambda r: argv + ["--num-processes=2", f"--process-id={r}",
+                                  f"--coordinator-address=127.0.0.1:{ports[kind]}"]
+        procs = start_ranks(lambda r: [str(Path(__file__).resolve()), "--cli-worker", kind,
+                                       json.dumps(flags(r)), outs[r]], 2, f"{tmp}/{kind}")
+        return outs, procs
+
+    t0 = time.perf_counter()
+    train_outs, train_procs = start("train", base)
+    valid_outs, valid_procs = start("validate", vargv)
+    try:
+        one_logs = []
+        one = cli_validate.main(from_flags(vargv), logs_out=one_logs)
+        one_s = time.perf_counter() - t0
+        wait_ranks(valid_procs, 900, "validate")
+        two_s = time.perf_counter() - t0
+        wait_ranks(train_procs, 900, "train")
+        train_s = time.perf_counter() - t0
+    finally:
+        stop_ranks(train_procs + valid_procs)
+    runs = [json.loads(Path(o).read_text()) for o in train_outs]
+    vruns = [json.loads(Path(o).read_text()) for o in valid_outs]
+
+    a, b = runs
+    log(f"[17c] cli.train --num-processes=2 --fsdp=2 (gloo, both on the card), common.sh + "
+        f"ade.sh flags, {PAR_CLI_ROWS} rows at batch {TRAIN_BATCH}: {a['num_updates']} / "
+        f"{b['num_updates']} updates, validation {a['valid'][0]}, saves {a['saves']} written by "
+        f"rank 0 ({a['writes']}) and rank 1 ({b['writes']}), step s {a['step_s']}, "
+        f"{train_s:.1f} s for both processes (beside the validations below); launches by rank "
+        f"{a['launches']} / {b['launches']}, layer_norm {a['ln_launches']} / "
+        f"{b['ln_launches']}; on {card}")
+    if not (a["num_updates"] == b["num_updates"] == PAR_CLI_ROWS // TRAIN_BATCH
+            and a["writes"] and a["writes"] == a["saves"] and not b["writes"]
+            and a["valid"] == b["valid"] and a["valid"][0] is not None):
+        fail("[17c] the two-process cli.train run")
+
+    # the checkpoint into one process, and back out equal to the files
+    ckpt = CheckpointManager(from_flags(base).checkpoint)
+    saved = ckpt.load(ckpt.latest())
+    trainer = Trainer(from_flags([a for a in base if a != "--fsdp=2"]),
+                      total_num_updates=100).init_state()
+    trainer.load_state_dict(saved)
+    now = trainer.state_dict()
+    same = all(torch.equal(now["model"][k], v) for k, v in saved["model"].items())
+    same &= all(torch.equal(now["optimizer"][m][k], v) for m in ("mu", "nu")
+                for k, v in saved["optimizer"][m].items())
+    same &= now["step"] == saved["step"] == a["num_updates"]
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"[17c] one-process resume of {ckpt.latest()}: model and Adam state equal to the files: "
+        f"{same}")
+    if not same:
+        fail("[17c] the one-process resume differs from the two-process checkpoint")
+
+    one_areas = summed_areas(one_logs)
+    two_areas = {k: np.asarray(v) for k, v in vruns[0]["areas"].items()}
+    log(f"[17c] cli.validate on phase 11's {VALID_ROWS} rows, one row a forward: two processes "
+        f"{vruns[0]['vals']} ({two_s:.1f} s) against one process {dict(one)} ({one_s:.1f} s; "
+        f"both beside the two-process cli.train); unrounded mIoU {miou(two_areas)!r} against "
+        f"{miou(one_areas)!r}, after label propagation "
+        f"{miou(two_areas, '_resnet_postprocess')!r} against "
+        f"{miou(one_areas, '_resnet_postprocess')!r}; pixels counted "
+        f"{one_areas['area_label'].sum():.0f}; every area equal: "
+        f"{all(np.array_equal(two_areas[k], v) for k, v in one_areas.items())}; on {card}")
+    for r in vruns:
+        areas = {k: np.asarray(v) for k, v in r["areas"].items()}
+        if (r["vals"]["num_images"] != one["num_images"] or areas.keys() != one_areas.keys()
+                or not all(np.array_equal(areas[k], v) for k, v in one_areas.items())):
+            fail("[17c] cli.validate on two processes: its areas and mIoU are not the "
+                 "one-process ones")
+    return dict(train=runs, train_s=train_s, resume_equal=bool(same), validate=vruns,
+                validate_one=dict(one), validate_s=two_s, validate_one_s=one_s,
+                miou=miou(one_areas), miou_two=miou(two_areas))
+
+
+def parallel_paths(parallel):
+    """Phase 17's launch counts by path: (the training kernels' paths: each
+    strategy at degree 1 over NCCL, at degree 2 on one card over gloo with
+    both ranks' counts, and the two-process cli.train; K1's paths: the
+    two-process cli.train's monitoring forwards and validation, the
+    two-process cli.validate, the monitored strategies' forwards at degree
+    2; K4's paths: the same)."""
+    add = lambda runs: {k: sum(r[k] for r in runs) for k in runs[0]}
+    cli17, shared = parallel["cli"], parallel["shared"]["strategies"]
+    train = {f"parallel_{k}_degree1": v["launches"] for k, v in parallel["single"].items()
+             if k in PAR_STRATEGIES}
+    train.update({f"parallel_{k}_degree2": add([v["rank0"]["launches"], v["rank1"]["launches"]])
+                  for k, v in shared.items()})
+    train["parallel_cli_train"] = add([r["launches"] for r in cli17["train"]])
+    monitored = [k for k, v in shared.items() if v["rank0"]["monitored"]]
+    k1 = dict(parallel_cli_train=train["parallel_cli_train"]["infer"],
+              parallel_validate=sum(r["launches"]["infer"] for r in cli17["validate"]),
+              **{f"parallel_{k}_monitoring_degree2": sum(r["launches"]["infer"]
+                                                         for r in shared[k].values())
+                 for k in monitored})
+    ln = dict(parallel_cli_train=sum(r["ln_launches"] for r in cli17["train"]),
+              parallel_validate=sum(r["ln_launches"] for r in cli17["validate"]),
+              **{f"parallel_{k}_monitoring_degree2": sum(r["ln_launches"]
+                                                         for r in shared[k].values())
+                 for k in monitored})
+    return train, k1, ln
+
+
 def main():
     card = phase_card()
     sys.path.insert(0, str(REPO))
@@ -4394,9 +5006,14 @@ def main():
         torch.cuda.empty_cache()
         options = dict(prefix=phase_prefix_train(card, stack["remat"]["ofa_base"]["off"]))
         options["flags"] = phase_options(card, tmp, validate["tsv"], validate["ckpt"])
+        torch.cuda.empty_cache()
+        parallel = dict(cli=phase_parallel_cli(card, tmp, validate["tsv"], validate["ckpt"]))
     torch.cuda.empty_cache()
     options["served"] = phase_prefix_eval_serve(card)
     options["generate"] = phase_generate(card)
+    torch.cuda.empty_cache()
+    parallel["single"] = phase_parallel_single(card, stack["remat"]["ofa_base"]["off"])
+    parallel["shared"] = phase_parallel_shared(card)
 
     fwd_src = "ifseg_torch/csrc/flash_attention_bias_fwd.cu"
     dq_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dq.cu"
@@ -4423,6 +5040,9 @@ def main():
                        **{f"{k}_training": v["launches"] for k, v in flags16["runs"].items()},
                        train_cli_bitfit=flags16["cli"]["--bitfit"]["launches"],
                        train_cli_prompt=flags16["cli"]["--encoder-prompt"]["launches"])
+    # phase 17's paths, each driven with the counts set to 0 before and read after
+    par_train, par_k1, par_ln = parallel_paths(parallel)
+    stack_paths.update(par_train)
     served16, gen16 = options["served"], options["generate"]
     # the forward without stats runs on ten main paths; each was driven with
     # the counts set to 0 just before and read just after
@@ -4436,7 +5056,8 @@ def main():
                     **{k: v["infer"] for k, v in stack_paths.items() if k.startswith("train_cli")},
                     evaluation_prefix=served16["eval_launches"]["infer"],
                     serving_prompted=served16["serve_launches"]["infer"],
-                    generate_recompute=gen16["recompute"]["launches"]["infer"])
+                    generate_recompute=gen16["recompute"]["launches"]["infer"],
+                    **par_k1)
     ln_paths = dict(serving=serve["ln_launches"], evaluation=evaluation["ln_launches"],
                     monitoring=train["ln_launches"], validate=validate["ln_launches"],
                     train_cli=train_cli["ln_launches"],
@@ -4453,6 +5074,7 @@ def main():
                     evaluation_prefix=served16["eval_ln_launches"],
                     serving_prompted=served16["serve_ln_launches"],
                     generate_recompute=gen16["recompute"]["launches"]["layer_norm"],
+                    **par_ln,
                     huge_serving=huge["serve"]["ln_launches"] - huge["serve"]["ln_wide_launches"],
                     huge_evaluation=(huge["evaluation"]["ln_launches"]
                                      - huge["evaluation"]["ln_wide_launches"]))
@@ -4549,6 +5171,7 @@ def main():
                     "train": train, "train_gradients": grads, "huge": huge, "validate": validate,
                     "train_cli": train_cli, "serving_surface": surface, "codecs": codecs,
                     "converted": converted, "training_stack": stack, "options": options,
+                    "parallel": parallel,
                     "ptxas": ptxas,
                     "card_line": card}))
     log(json.dumps({"kernels": kernels}))
@@ -4559,4 +5182,12 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    # phase 17's worker processes enter here; run with no arguments, the smoke run
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-worker":
+        sys.path.insert(0, str(REPO))
+        parallel_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) > 1 and sys.argv[1] == "--cli-worker":
+        sys.path.insert(0, str(REPO))
+        cli_worker(sys.argv[2], sys.argv[3], sys.argv[4])
+    else:
+        main()

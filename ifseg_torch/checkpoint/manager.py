@@ -23,6 +23,11 @@ A directory is written whole under a temporary name and then renamed into
 place (``os.replace``), as are the manifest, the extra file and the links:
 a directory that exists is complete.  Saves are synchronous; the format is
 the port's own and does not read orbax directories.
+
+With several processes one manager writes (``writer=True`` on rank 0; the
+state it is given is the whole one, ``Trainer.state_dict`` gathers it) and
+the others keep the same manifest in memory without touching the disk, so
+every rank names, rotates and restores the same checkpoints.
 """
 
 import json
@@ -40,8 +45,9 @@ LINKS = ("checkpoint_last", "checkpoint_best")
 
 
 class CheckpointManager:
-    def __init__(self, cfg, save_dir: Optional[str] = None):
+    def __init__(self, cfg, save_dir: Optional[str] = None, writer: bool = True):
         self.cfg = cfg
+        self.writer = writer
         self.save_dir = os.path.abspath(save_dir or cfg.save_dir)
         os.makedirs(self.save_dir, exist_ok=True)
         self._manifest_path = os.path.join(self.save_dir, "manifest.json")
@@ -66,6 +72,8 @@ class CheckpointManager:
         os.replace(tmp, path)
 
     def _write_manifest(self) -> None:
+        if not self.writer:
+            return
         self._write_json(self._manifest_path, self.manifest)
         for link, name in zip(LINKS, (self.manifest.get("last"), self.manifest.get("best"))):
             if name:
@@ -105,9 +113,10 @@ class CheckpointManager:
             return None
         # checkpoint_{epoch}_{upd}.pt / checkpoint_{epoch}.pt in the reference
         name = f"checkpoint_{epoch}" if updates is None else f"checkpoint_{epoch}_{updates}"
-        if extra is not None:
-            self._write_json(self._path(name) + ".extra.json", _jsonable(extra))
-        self._write_state(name, state)
+        if self.writer:
+            if extra is not None:
+                self._write_json(self._path(name) + ".extra.json", _jsonable(extra))
+            self._write_state(name, state)
 
         if updates is not None:
             self.manifest["intervals"].append({"name": name, "updates": updates})
@@ -151,7 +160,7 @@ class CheckpointManager:
                 self.manifest["epochs"].remove(e)
 
     def _remove(self, name: str) -> None:
-        if name in (self.manifest.get("last"), self.manifest.get("best")):
+        if not self.writer or name in (self.manifest.get("last"), self.manifest.get("best")):
             return
         path = self._path(name)
         if os.path.isdir(path):

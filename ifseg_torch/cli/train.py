@@ -22,12 +22,29 @@ plateau controller steps on each validation's best-checkpoint metric and
 sets the lr scale.  ``--encoder/decoder-layers-to-keep`` prune the
 pretrained checkpoint before it is loaded.
 
+Several processes (``--num-processes``, ``--coordinator-address``,
+``--process-id``, as the JAX CLI takes them; each process is one device,
+``cuda:{process_id % cards}`` unless ``--device`` names one, NCCL unless
+``--dist-backend=gloo``): the mesh of ``--data-parallel``, ``--fsdp`` and
+``--tensor-parallel`` (``--zero1``), each data x fsdp rank reading its
+contiguous slice of every TSV and stepping on ``--batch-size`` / (data x
+fsdp) rows of the global batch, the epoch counting the global rows.  Host
+barriers stand before the first step and each validation; a heartbeat
+(``IFSEG_HEARTBEAT`` seconds, 600 by default) logs a loop that stops making
+progress; at each log interval the gradient norms are compared across the
+ranks (``--check-grad-consistency``) and every
+``--check-param-sync-interval`` updates the parameter fingerprints.  The
+stop (``--max-update``, ``--stop-time-hours``, the non-finite streak) is
+agreed by all ranks after every step, so they stop after the same update
+and save the same cursor.  Validation evaluates each rank's slice of the
+valid TSV and sums the areas and CE over the ranks; only rank 0 logs and
+writes checkpoints, of the whole state in the one-process layout.
+
 One deliberate difference (ROADMAP.md C.3): a stop on ``--max-update`` or
 ``--stop-time-hours`` inside an epoch saves a mid-epoch checkpoint with the
 cursor, not the JAX package's epoch-complete one, so a resume goes on inside
 that epoch; and a resume restores the plateau controller, which the JAX
-CLI builds anew.  Not ported: meshes and barriers, the heartbeat and
-cross-host sanitizers (ROADMAP.md A.9), profiling spans (A.10).
+CLI builds anew.  Not ported: profiling spans (A.10).
 """
 
 import logging
@@ -41,16 +58,43 @@ import torch
 from ifseg_torch.checkpoint.convert import fabricate_ofa_base_checkpoint, load_model
 from ifseg_torch.checkpoint.manager import CheckpointManager
 from ifseg_torch.config import Config, from_flags
-from ifseg_torch.eval.evaluator import Evaluator
+from ifseg_torch.eval.evaluator import Evaluator, reduce_across_ranks
+from ifseg_torch.parallel import comm
+from ifseg_torch.parallel.mesh import (
+    ProcessMesh,
+    coordination_barrier,
+    default_device,
+    initialize_distributed,
+    local_batch_slice,
+    mesh_from_config,
+    shutdown_distributed,
+)
 from ifseg_torch.tasks.segmentation import SegmentationTask
 from ifseg_torch.train.trainer import Trainer
 from ifseg_torch.utils import metrics as metrics_lib
 from ifseg_torch.utils.progress import progress_bar
+from ifseg_torch.utils.reliability import Heartbeat, check_grad_norms, check_param_sync
 
 logger = logging.getLogger("ifseg_torch.train")
 
 
-def main(cfg: Config, device: Optional[Union[str, torch.device]] = None) -> Dict[str, Any]:
+def start_processes(cfg: Config, device: Optional[Union[str, torch.device]] = None,
+                    backend: Optional[str] = None) -> Tuple[torch.device, ProcessMesh]:
+    """(this process's device, the mesh): the process group started from
+    the three process flags (nothing for one process), the device
+    ``device`` or ``cuda:{process_id % cards}``."""
+    d = cfg.distributed
+    if device is None:
+        device = default_device(d.process_id) if d.num_processes > 1 else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (pass device='cpu' to run on the CPU)")
+    initialize_distributed(d.coordinator_address, d.num_processes, d.process_id, device, backend)
+    return device, mesh_from_config(d, device)
+
+
+def main(cfg: Config, device: Optional[Union[str, torch.device]] = None,
+         backend: Optional[str] = None) -> Dict[str, Any]:
     """Train as ``cfg`` says and return what happened: ``epochs`` (per
     epoch, the smoothed training meters; each step's wall seconds, alone and
     with the fetch of the next batch; each batch's wait on the host
@@ -58,13 +102,24 @@ def main(cfg: Config, device: Optional[Union[str, torch.device]] = None) -> Dict
     ``num_updates``, ``start_epoch``, ``restored_updates``,
     ``resumed_iterations``, ``restore_s``, ``saves`` (name and seconds of
     each save), ``stop`` (why training ended early, or None), ``best`` and
-    ``best_metric``.  ``device=None`` means ``"cuda"`` and raises when no
-    card is present."""
+    ``best_metric``.  ``device=None`` means ``"cuda"`` (``cuda:{process_id
+    % cards}`` for several processes) and raises when no card is present;
+    ``backend`` names the process group's backend (NCCL for a card by
+    default)."""
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s")
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train: no CUDA device (pass device='cpu' to run on the CPU)")
+    device, mesh = start_processes(cfg, device, backend)
+    try:
+        return _train(cfg, device, mesh)
+    finally:
+        if cfg.distributed.num_processes > 1:
+            shutdown_distributed()
+
+
+def _train(cfg: Config, device: torch.device, mesh: ProcessMesh) -> Dict[str, Any]:
+    if mesh.rank > 0:  # rank 0 logs for all
+        logging.getLogger("ifseg_torch").setLevel(logging.WARNING)
+    logger.info("mesh %s over %d processes", mesh.shape, mesh.world)
 
     # the image-free fast path: with no monitoring forward, no step reads the
     # real images, so the rows are never decoded
@@ -76,27 +131,31 @@ def main(cfg: Config, device: Optional[Union[str, torch.device]] = None) -> Dict
 
     metrics_lib.reset()
     task = SegmentationTask.setup_task(cfg)
+    task.data_slice = (mesh.index("batch"), mesh.size("batch"))
     train_ds = task.load_dataset("train", epoch=1)
     task.load_dataset("valid")
 
-    # total updates for the cosine schedule (ref train.py:176-184)
+    # total updates for the cosine schedule (ref train.py:176-184), over the
+    # rows of every data x fsdp rank
     global_batch = cfg.optimization.batch_size * max(cfg.optimization.update_freq, 1)
-    iters_per_epoch = len(train_ds) // global_batch
+    iters_per_epoch = len(train_ds) * mesh.size("batch") // global_batch
     total_updates = cfg.optimization.max_epoch * max(iters_per_epoch, 1)
     logger.info("iters/epoch %d, total updates %d", iters_per_epoch, total_updates)
 
     trainer = Trainer(cfg, train_ds.class_tokens, train_ds.class_lengths,
-                      total_num_updates=total_updates, device=device)
+                      total_num_updates=total_updates, device=device, mesh=mesh)
     trainer.init_state(maybe_restore_pretrained(cfg, trainer.device))
 
     run: Dict[str, Any] = dict(epochs=[], saves=[], stop=None)
-    ckpt = CheckpointManager(cfg.checkpoint)
+    ckpt = CheckpointManager(cfg.checkpoint, writer=mesh.rank == 0)
     t0 = time.perf_counter()
     start_epoch, resume_iter = restore_training_state(cfg, trainer, ckpt)
     run.update(restore_s=time.perf_counter() - t0, start_epoch=start_epoch,
                resumed_iterations=(resume_iter or {}).get("iterations_in_epoch", 0),
                restored_updates=trainer.get_num_updates())
     evaluator = Evaluator(cfg, trainer.eval_model(), device=trainer.device)
+    # every rank built and restored before the first collective of a step
+    coordination_barrier("cli_train_start", mesh=mesh)
 
     # early stop (ref train.py should_stop_early :207-233): validations in a
     # row without a better best metric
@@ -154,7 +213,8 @@ def maybe_restore_pretrained(cfg: Config, device) -> Optional[Dict[str, torch.Te
     the reset flags, ref utils/checkpoint_utils.py:205-229), else
     ``--restore-file``; a ``.pt`` file through the vocab surgery, or a
     checkpoint directory of the port.  Under ``--dry-weights`` an absent
-    file is first fabricated with ``ofa_base.pt``'s shapes (on ``device``).
+    file is first fabricated with ``ofa_base.pt``'s shapes (on ``device``;
+    by rank 0, the others waiting for it).
     ``--encoder/decoder-layers-to-keep`` prune the file's layers first."""
     ck = cfg.checkpoint
     if ck.finetune_from_model:
@@ -165,7 +225,9 @@ def maybe_restore_pretrained(cfg: Config, device) -> Optional[Dict[str, torch.Te
     else:
         path = ck.restore_file
     if path and not os.path.exists(path) and ck.dry_weights:
-        fabricate_ofa_base_checkpoint(path, cfg.model, device=device)
+        if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+            fabricate_ofa_base_checkpoint(path, cfg.model, device=device)
+        coordination_barrier("dry_weights")
     if not path or not os.path.exists(path):
         if path:
             logger.warning("restore file %s not found; training from scratch", path)
@@ -212,11 +274,53 @@ def restore_training_state(cfg: Config, trainer: Trainer,
 
 
 def _save(ckpt, saves: list, epoch: int, trainer: Trainer, **kw) -> None:
+    """Save on every rank: the whole state is gathered (a collective) and
+    the writer (rank 0) writes it."""
     if ckpt.cfg.no_save:  # not even the copy of the state to the host
         return
     t0 = time.perf_counter()
     name = ckpt.save(epoch, trainer.state_dict(), **kw)
     saves.append(dict(name=name, s=time.perf_counter() - t0))
+
+
+STOP_REASONS = {1: "num_updates {n} >= max_update {mu}",
+                2: "training time exceeded stop_time_hours {sth}"}
+
+
+def stop_code(cfg: Config, num_updates: int, train_start: Optional[float],
+              mesh: ProcessMesh) -> int:
+    """0 to go on, 1 at ``--max-update``, 2 past ``--stop-time-hours``:
+    the largest over the ranks (each rank's clock decides its own part),
+    so every rank stops after the same update."""
+    mu, sth = cfg.optimization.max_update, cfg.optimization.stop_time_hours
+    code = 0
+    if mu > 0 and num_updates >= mu:
+        code = 1
+    elif sth > 0 and train_start is not None and (time.time() - train_start) / 3600.0 > sth:
+        code = 2
+    if mesh.distributed:
+        code = comm.max_across(code, mesh.host_group)
+    return code
+
+
+def sanitizers_due(cfg: Config, num_updates: int) -> Tuple[bool, bool]:
+    """(compare the gradient norms, compare the parameter fingerprints) at
+    a log interval, as the flags ask."""
+    psi = cfg.common.check_param_sync_interval
+    return cfg.common.check_grad_consistency, psi > 0 and num_updates % psi == 0
+
+
+def run_sanitizers(cfg: Config, trainer: Trainer, gnorm: float) -> None:
+    """The cross-process checks at a log interval (the reference checks its
+    gradient norms every step, trainer.py:1408-1445): a desync raises."""
+    mesh = trainer.mesh
+    if not mesh.distributed:
+        return
+    grads, params = sanitizers_due(cfg, trainer.get_num_updates())
+    if grads and not check_grad_norms(gnorm, group=mesh.host_group):
+        raise RuntimeError("grad norms inconsistent across processes: replicas desynced")
+    if params and not check_param_sync(trainer.fingerprint(), group=mesh.host_group):
+        raise RuntimeError("parameter fingerprints diverged across processes")
 
 
 def _host_logs(logs: Dict[str, Any]) -> Dict[str, Any]:
@@ -234,7 +338,7 @@ def train_epoch(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: in
     if epoch > 1:
         task.load_dataset("train", epoch=epoch)
     global_batch = cfg.optimization.batch_size * max(cfg.optimization.update_freq, 1)
-    itr = task.get_batch_iterator("train", batch_size=global_batch,
+    itr = task.get_batch_iterator("train", batch_size=local_batch_slice(global_batch, trainer.mesh),
                                   seed=cfg.optimization.seed, epoch=epoch)
     base_iter = 0
     if resume_iter:
@@ -260,11 +364,14 @@ def train_epoch(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: in
     consecutive_nonfinite = 0
     stop_reason = None
     completed = True
+    heartbeat = Heartbeat(timeout=float(os.environ.get("IFSEG_HEARTBEAT", "600"))).start()
     try:
         with metrics_lib.aggregate("train_epoch") as agg:
             progress = progress_bar(
                 itr.next_epoch_itr(), total=len(itr), epoch=epoch,
-                log_interval=cfg.common.log_interval, log_format=cfg.common.log_format,
+                log_interval=cfg.common.log_interval,
+                # the json format prints; the other ranks' loggers are silenced
+                log_format=cfg.common.log_format if trainer.mesh.rank == 0 else "simple",
                 tag="train", tensorboard_logdir=cfg.common.tensorboard_logdir,
                 wandb_project=cfg.common.wandb_project)
             batch_iter = iter(progress)
@@ -304,14 +411,16 @@ def train_epoch(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: in
                 t_step = time.perf_counter()
                 logs = trainer.train_step(current)
                 t_end = time.perf_counter()  # the step reads the card once: a sync
+                heartbeat.beat()
                 dt = t_end - t_step
                 step_s.append(dt)
                 iter_s.append(t_end - t_iter)
                 step_time_ema = dt if step_time_ema == 0.0 else 0.9 * step_time_ema + 0.1 * dt
                 logs_buffer.append(logs)
                 # the step skips an update whose gradient is not finite (a
-                # host value, no read of the card); a streak of them aborts
-                # (the NanDetector escalation)
+                # host value, no read of the card, the same on every rank:
+                # the global norm decides it); a streak of them aborts (the
+                # NanDetector escalation)
                 consecutive_nonfinite = consecutive_nonfinite + 1 if logs["n_nonfinite"] else 0
                 limit = cfg.common.max_consecutive_nonfinite
                 if limit > 0 and consecutive_nonfinite >= limit:
@@ -322,12 +431,11 @@ def train_epoch(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: in
                 siu = cfg.checkpoint.save_interval_updates
                 # the count does not advance on a skipped update: save once
                 save_now = siu > 0 and num_updates % siu == 0 and num_updates > last_interval_save
-                mu, sth = cfg.optimization.max_update, cfg.optimization.stop_time_hours
-                if mu > 0 and num_updates >= mu:
-                    stop_reason = f"num_updates {num_updates} >= max_update {mu}"
-                elif (sth > 0 and train_start is not None
-                      and (time.time() - train_start) / 3600.0 > sth):
-                    stop_reason = f"training time exceeded stop_time_hours {sth}"
+                code = stop_code(cfg, num_updates, train_start, trainer.mesh)
+                if code:
+                    stop_reason = STOP_REASONS[code].format(
+                        n=num_updates, mu=cfg.optimization.max_update,
+                        sth=cfg.optimization.stop_time_hours)
                 if stop_reason is not None:
                     # a stop before the epoch's last batch saves the cursor
                     completed = base_iter + i + 1 >= len(itr)
@@ -351,11 +459,13 @@ def train_epoch(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: in
                     metrics_lib.log_scalar_sum("data_stalls", data_stalls)
                     data_wait, data_stalls, assembly_time = 0.0, 0, 0.0
                     progress.log(agg.get_smoothed_values(), step=num_updates)
+                    run_sanitizers(cfg, trainer, float(logs["gnorm"]))
             if logs_buffer:
                 task.reduce_metrics([_host_logs(lg) for lg in logs_buffer])
             record["train"] = agg.get_smoothed_values()
             progress.print(record["train"], tag="train", step=trainer.get_num_updates())
     finally:
+        heartbeat.stop()
         itr.close()
     metrics_lib.reset_meters("train_epoch")
     return stop_reason, completed
@@ -364,8 +474,12 @@ def train_epoch(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: in
 def validate(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: int,
              evaluator: Evaluator) -> dict:
     """Native-resolution evaluation over the valid TSV (ref train.py:434-516),
-    of the trainer's weights or, under ``--uses-ema``, its EMA copy."""
+    of the trainer's weights or, under ``--uses-ema``, its EMA copy.  With
+    several processes each evaluates its slice of the rows and the sums are
+    summed over the data x fsdp ranks."""
     ds = task.datasets["valid"]
+    mesh = trainer.mesh
+    coordination_barrier(f"validate_start_epoch{epoch}", mesh=mesh)
     # fresh meters per validation: without a reset the per-class areas
     # would accumulate across epochs
     metrics_lib.reset_meters("valid")
@@ -376,21 +490,34 @@ def validate(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: int,
         # serving copy from it
         trainer.sync_eval_weights()
         logs = evaluator.eval_dataset(ds, batch_size=max(cfg.optimization.batch_size_valid, 1))
+        num_images = len(ds)
+        if mesh.distributed:
+            logs, num_images = reduce_across_ranks(logs, num_images, mesh.group("batch"),
+                                                   mesh.device)
         task.reduce_metrics(logs)
         vals = agg.get_smoothed_values()
-        vals["num_images"] = len(ds)
+        vals["num_images"] = num_images
         vals["sec"] = round(time.time() - t0, 1)
     logger.info("valid epoch %d: %s", epoch, " | ".join(f"{k} {v}" for k, v in vals.items()))
     return vals
 
 
+def pop_process_flags(argv: List[str]) -> Tuple[Optional[str], Optional[str]]:
+    """Take the port's own ``--device=`` and ``--dist-backend=`` out of
+    ``argv`` -> (device, backend)."""
+    found = {"--device=": None, "--dist-backend=": None}
+    for tok in list(argv):
+        for prefix in found:
+            if tok.startswith(prefix):
+                found[prefix] = tok.split("=", 1)[1]
+                argv.remove(tok)
+    return found["--device="], found["--dist-backend="]
+
+
 def cli_main(argv: Optional[List[str]] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = None
-    for tok in [t for t in argv if t.startswith("--device=")]:
-        device = tok.split("=", 1)[1]
-        argv.remove(tok)
-    main(from_flags(argv), device=device)
+    device, backend = pop_process_flags(argv)
+    main(from_flags(argv), device=device, **({"backend": backend} if backend else {}))
 
 
 if __name__ == "__main__":

@@ -14,6 +14,12 @@ reduction) and the same ``vals``.  The weights come from a fairseq ``.pt``
 file or a checkpoint directory of ``cli.train`` such as
 ``<save_dir>/checkpoint_best`` (``checkpoint/convert.py:load_model``; under
 ``--uses-ema`` its EMA weights).
+
+Several processes (``--num-processes``, ``--coordinator-address``,
+``--process-id``; ``--device`` and ``--dist-backend`` as ``cli.train`` takes
+them): each evaluates its contiguous slice of the rows, the areas and CE
+sums are summed over the processes, and every process returns the same
+values, which rank 0 logs.
 """
 
 import logging
@@ -25,7 +31,8 @@ import torch
 
 from ifseg_torch.checkpoint.convert import load_model
 from ifseg_torch.config import Config, from_flags
-from ifseg_torch.eval.evaluator import Evaluator
+from ifseg_torch.eval.evaluator import Evaluator, reduce_across_ranks
+from ifseg_torch.parallel.mesh import shutdown_distributed
 from ifseg_torch.tasks.segmentation import SegmentationTask
 from ifseg_torch.utils import metrics as metrics_lib
 
@@ -33,19 +40,31 @@ logger = logging.getLogger("ifseg_torch.validate")
 
 
 def main(cfg: Config, device: Optional[Union[str, torch.device]] = None,
-         logs_out: Optional[list] = None) -> dict:
+         logs_out: Optional[list] = None, backend: Optional[str] = None) -> dict:
     """Validate ``cfg.checkpoint.restore_file`` on the last TSV of
     ``cfg.task.data`` and return the smoothed meters (``loss``,
     ``nll_loss``, ``aAcc``, ``mIoU``, ``mAcc`` and their
     ``_resnet_postprocess`` variants when label propagation is on) with
     ``num_images`` and ``sec``.  ``device=None`` means ``"cuda"`` and raises
     when no card is present.  ``logs_out``, when given, receives the
-    per-group logs (summed areas and CE) the meters were reduced from."""
+    per-group logs (summed areas and CE) the meters were reduced from (with
+    several processes, their one sum over the processes)."""
+    from ifseg_torch.cli.train import start_processes
+
     logging.basicConfig(level=logging.INFO, stream=sys.stdout)
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("validate: no CUDA device (pass device='cpu' to run on the CPU)")
+    device, mesh = start_processes(cfg, device, backend)
+    try:
+        return _validate(cfg, device, mesh, logs_out)
+    finally:
+        if cfg.distributed.num_processes > 1:
+            shutdown_distributed()
+
+
+def _validate(cfg: Config, device, mesh, logs_out) -> dict:
+    if mesh.rank > 0:
+        logging.getLogger("ifseg_torch").setLevel(logging.WARNING)
     task = SegmentationTask.setup_task(cfg)
+    task.data_slice = (mesh.rank, mesh.world)
     ds = task.load_dataset("valid")
     model = load_model(cfg.checkpoint.restore_file, cfg.model, ema=cfg.task.uses_ema)
     evaluator = Evaluator(cfg, model, device=device)
@@ -56,23 +75,26 @@ def main(cfg: Config, device: Optional[Union[str, torch.device]] = None,
         # --batch-size-valid groups same-bucket rows into one padded forward;
         # host decoding overlaps the device's work
         logs = evaluator.eval_dataset(ds, batch_size=max(cfg.optimization.batch_size_valid, 1))
+        num_images = len(ds)
+        if mesh.distributed:
+            logs, num_images = reduce_across_ranks(logs, num_images, mesh.group("world"),
+                                                   mesh.device)
         task.reduce_metrics(logs)
         if logs_out is not None:
             logs_out.extend(logs)
         vals = agg.get_smoothed_values()
-        vals["num_images"] = len(ds)
+        vals["num_images"] = num_images
         vals["sec"] = round(time.time() - t0, 1)
     logger.info("validate: %s", " | ".join(f"{k} {v}" for k, v in vals.items()))
     return vals
 
 
 def cli_main(argv: Optional[List[str]] = None) -> None:
+    from ifseg_torch.cli.train import pop_process_flags
+
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = None
-    for tok in [t for t in argv if t.startswith("--device=")]:
-        device = tok.split("=", 1)[1]
-        argv.remove(tok)
-    main(from_flags(argv), device=device)
+    device, backend = pop_process_flags(argv)
+    main(from_flags(argv), device=device, **({"backend": backend} if backend else {}))
 
 
 if __name__ == "__main__":

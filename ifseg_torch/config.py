@@ -12,10 +12,9 @@ flag means the same thing in both.  Three kinds of field:
   ``criterion_update_freq``, ``freeze_embedding_iter``, ``ignore_eos``,
   ``sentence_avg``, ``fixed_validation_seed``, ``log_file``, ``profile``):
   inert here too;
-- those the JAX package honours and the port does not yet (the whole
-  ``distributed`` section, ``check_grad_consistency``,
-  ``check_param_sync_interval``): a non-default value raises, naming the
-  ROADMAP.md item that brings them.
+- those the JAX package honours and the port does not yet (the pipeline,
+  context and expert fields of the ``distributed`` section): a non-default
+  value raises, naming the ROADMAP.md item that brings them.
 
 ``from_flags`` parses the ``--flag-name=value`` strings of
 ``run_scripts/IFSeg/*.sh`` into a ``Config`` as the JAX package's does; a
@@ -350,14 +349,20 @@ def _refuse_unported(section, names, item: str) -> None:
         if getattr(section, f.name) != default:
             raise NotImplementedError(
                 f"--{f.name.replace('_', '-')}={getattr(section, f.name)!r} is not ported "
-                f"(ROADMAP.md {item}); the port runs one process on one device")
+                f"(ROADMAP.md {item})")
+
+
+A9B_FIELDS = ("pipeline_parallel", "pipeline_chunks", "context_parallel", "moe_experts",
+              "moe_freq", "moe_assignment")
 
 
 @dataclass
 class DistributedConfig:
     """The JAX package's mesh and process layout (data, fsdp, tensor,
-    pipeline, context and expert parallelism, ZeRO-1, the processes).  Not
-    ported (ROADMAP.md A.9): every field must keep its default."""
+    pipeline, context and expert parallelism, ZeRO-1, the processes).  The
+    processes, data, fsdp, tensor parallelism and ZeRO-1 are honoured
+    (``parallel/``); the pipeline, context and expert fields are not ported
+    (ROADMAP.md A.9b) and must keep their defaults."""
 
     data_parallel: int = -1
     tensor_parallel: int = 1
@@ -374,7 +379,7 @@ class DistributedConfig:
     process_id: int = 0
 
     def __post_init__(self):
-        _refuse_unported(self, {f.name for f in dataclasses.fields(self)}, "A.9")
+        _refuse_unported(self, A9B_FIELDS, "A.9b")
 
 
 @dataclass
@@ -388,15 +393,13 @@ class CommonConfig:
     profile: bool = False  # parsed, never read (as in JAX)
     ema_decay: float = 0.0  # 0 disables EMA
     ema_fp32: bool = False
-    # the cross-process sanitizers of the JAX CLI (utils/reliability.py):
-    # not ported (ROADMAP.md A.9), so both must keep their defaults
+    # the cross-process sanitizers of the training CLI (utils/reliability.py):
+    # the gradient norms compared across processes at each log, and the
+    # parameter fingerprints every N updates (0 = never)
     check_grad_consistency: bool = True
     check_param_sync_interval: int = 0
     # abort after this many updates in a row skipped for a non-finite gradient
     max_consecutive_nonfinite: int = 10
-
-    def __post_init__(self):
-        _refuse_unported(self, ("check_grad_consistency", "check_param_sync_interval"), "A.9")
 
 
 @dataclass

@@ -13,8 +13,12 @@ the worker count or on a resume.  A background thread builds batches ahead
 of the consumer (``buffer_size`` of them); with ``num_workers > 0`` it
 builds each batch's rows on that many threads (decoding, resizing and the
 colour conversions run mostly in zlib, the PNG unfilter and numpy, outside
-the interpreter lock), where the JAX package forks shared-memory worker
-processes (``data/shm_feed.py``, not ported: ROADMAP.md A.9).
+the interpreter lock).  ``feed="shm"`` takes the JAX package's backend
+instead: ``num_workers`` forked processes build whole batches into
+shared-memory slots (``data/shm_feed.py``), the same batches in the same
+order.  No CLI selects it yet: the JAX package turns it on with
+``num_workers > 0``, which here means row threads, and the two backends
+are not yet timed against each other on the card.
 """
 
 import queue
@@ -40,7 +44,12 @@ class EpochBatchIterator:
         drop_last: bool = True,
         num_workers: int = 0,  # >0: threads that build a batch's rows
         row_offset: int = 0,  # global row index of local row 0
+        feed: str = "thread",  # or "shm": num_workers processes build batches
     ):
+        if feed not in ("thread", "shm") or (feed == "shm" and num_workers < 1):
+            raise ValueError(f"feed {feed!r} with {num_workers} workers: take thread, or shm "
+                             "with at least one worker")
+        self.feed = feed
         self.num_rows = num_rows
         self.batch_size = batch_size
         self.make_example = make_example
@@ -89,7 +98,8 @@ class EpochBatchIterator:
                 self._next_offset = self._cur.count
             self._cur.close()
         # else: _next_offset holds a restored mid-epoch position (or 0)
-        self._cur = _PrefetchIterator(self, self.epoch, self._next_offset)
+        kind = _ShmIterator if self.feed == "shm" else _PrefetchIterator
+        self._cur = kind(self, self.epoch, self._next_offset)
         return self._cur
 
     def close(self) -> None:
@@ -178,3 +188,65 @@ class _PrefetchIterator:
             raise RuntimeError("the batch producer thread did not stop")
         if self._pool is not None:
             self._pool.shutdown(wait=True)
+
+
+def _to_array_dict(batch):
+    """The numeric arrays of a batch (a dict or a ``SegBatch``-like
+    dataclass), for the fixed-shape shared-memory slots."""
+    items = batch.items() if isinstance(batch, dict) else vars(batch).items()
+    out = {}
+    for k, v in items:
+        if v is None or not hasattr(v, "shape"):
+            continue
+        arr = np.asarray(v)
+        if np.issubdtype(arr.dtype, np.number) or arr.dtype == bool:
+            out[k] = arr
+    return out
+
+
+class _ShmIterator:
+    """The shared-memory backend (``data/shm_feed.py``): the interface of
+    ``_PrefetchIterator``, batches as dicts of the batch's arrays, copied
+    out of their slots."""
+
+    def __init__(self, parent: EpochBatchIterator, epoch: int, start_batch: int):
+        from ifseg_torch.data.shm_feed import ShmBatchFeed
+
+        self.count = start_batch
+        self.total = len(parent)
+        self.exhausted = start_batch >= self.total
+        self._feed = None
+        if self.exhausted:
+            return
+        template = _to_array_dict(parent._make_batch(epoch, start_batch))
+
+        def make(i):
+            b = start_batch + i
+            return None if b >= self.total else _to_array_dict(parent._make_batch(epoch, b))
+
+        self._feed = ShmBatchFeed(make, template, num_workers=parent.num_workers,
+                                  slots_per_worker=max(parent.buffer_size, 2))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.exhausted:
+            self.close()
+            raise StopIteration
+        try:
+            batch = self._feed.get()
+        except StopIteration:
+            self.exhausted = True
+            self.close()
+            raise
+        self.count += 1
+        if self.count >= self.total:
+            self.exhausted = True
+        # out of the slot: the consumer may keep the batch past the slot's reuse
+        return {k: v.copy() for k, v in batch.items()}
+
+    def close(self):
+        if self._feed is not None:
+            self._feed.close()
+            self._feed = None

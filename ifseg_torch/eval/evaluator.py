@@ -22,6 +22,11 @@ dataset, not per group.  The evaluator changes nothing of the model it is
 given: it runs a serving copy (``serving_copy``) whose cast weights it
 refreshes from that model at every ``eval_dataset``, so one evaluator built on
 a trainer's model evaluates the weights as they stand.
+
+With several processes each evaluates its slice of the rows and
+``reduce_across_ranks`` sums the groups' areas and CE sums over the ranks
+(``utils.metrics.cross_process_sum``): the areas are sums of pixel counts,
+so the mIoU is the one-process mIoU on all the rows.
 """
 
 import copy
@@ -38,6 +43,7 @@ from ifseg_torch.models.encoder import compute_dtype
 from ifseg_torch.models.segofa import SegOFA
 from ifseg_torch.ops.histogram import confusion_areas
 from ifseg_torch.ops.resize import bilinear_matrix_dyn
+from ifseg_torch.utils import metrics as metrics_lib
 
 BUCKET = 256  # pixel granularity of shape buckets
 ROW_CHUNK = 128  # original-resolution rows upsampled per step
@@ -148,6 +154,23 @@ def _upsampled_areas_dyn(grid, target, valid, num_classes: int, uh, uw, chunks: 
         ce_sum = ce_sum + ((lse - zt) * wv).sum()
         ce_cnt = ce_cnt + wv.sum()
     return tuple(areas), (ce_sum, ce_cnt)
+
+
+def reduce_across_ranks(logs: List[Dict[str, np.ndarray]], num_rows: int, group,
+                        device=None):
+    """([one dict of the sums over every rank's groups], the rows over every
+    rank): the areas, ``nll_sum`` and ``nll_cnt`` summed; ``nll_loss`` and
+    ``loss`` their ratio again."""
+    keys = [k for k in (logs[0] if logs else {}) if k not in ("nll_loss", "loss")]
+    local = {k: sum(np.asarray(log[k], np.float64) for log in logs) for k in keys}
+    local["num_rows"] = float(num_rows)
+    total = metrics_lib.cross_process_sum(local, group, device)
+    rows = int(total.pop("num_rows"))
+    if not keys:
+        return [], rows
+    total["nll_loss"] = total["nll_sum"] / max(float(total["nll_cnt"]), 1.0)
+    total["loss"] = total["nll_loss"]
+    return [total], rows
 
 
 class Evaluator:

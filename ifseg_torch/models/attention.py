@@ -128,6 +128,10 @@ def plain_attention(q, k, v, bias, key_padding_mask, causal: bool, num_heads: in
 
 
 class MultiheadAttention(nn.Module):
+    # tensor parallelism (parallel/tensor.py): num_heads is then this rank's
+    # share of the heads and c_attn is used by its slice
+    tp = None
+
     def __init__(self, embed_dim: int, num_heads: int, scale_factor: float = 2.0,
                  scale_heads: bool = True, dropout: float = 0.0, use_flash: bool = True):
         super().__init__()
@@ -168,8 +172,9 @@ class MultiheadAttention(nn.Module):
         else:
             out = flash_attention_bias_packed_infer(*packed)
         if self.c_attn is not None:
+            c_attn = self.c_attn if self.tp is None else self.tp.part(self.c_attn, 0)
             out = out.view(b, lq, self.num_heads, self.head_dim)
-            out = (out * self.c_attn.to(out.dtype)[:, None]).reshape(b, lq, self.embed_dim)
+            out = (out * c_attn.to(out.dtype)[:, None]).reshape(b, lq, -1)
         return self.out_proj(out)
 
     def _prepend(self, prompt_kv, k, v, bias, key_padding_mask):

@@ -39,7 +39,7 @@ from ifseg_torch.ops.flash_attention import row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .ar_cache import check_ar_length
 from .attention import Dropout, Linear, prefixed_pack
-from .encoder import LayerDrop, _ids, compute_dtype, stack_tables
+from .encoder import LayerDrop, _ids, compute_dtype, stack_tables, tp_part
 from .layers import DecoderLayer, LayerNorm, PromptEncoder, run_layer
 from .position import (
     gather_grid_bias_all_layers,
@@ -53,6 +53,10 @@ from .position import (
 
 
 class Decoder(nn.Module):
+    # tensor parallelism (parallel/tensor.py): the bias packs and prefixes
+    # are built for this rank's heads
+    tp = None
+
     def __init__(self, cfg: ModelConfig, embed_tokens: nn.Embedding):
         super().__init__()
         self.cfg = cfg
@@ -118,6 +122,7 @@ class Decoder(nn.Module):
         scaling = float(cfg.decoder_embed_dim / heads * cfg.attn_scale_factor) ** -0.5
         q = (q_linear(q_pos) * scaling).reshape(q_pos.shape[0], heads, -1)
         k = k_linear(k_pos).reshape(k_pos.shape[0], heads, -1)
+        q, k = tp_part(self.tp, q, 1), tp_part(self.tp, k, 1)
         return torch.einsum("qhd,khd->hqk", q, k)
 
     def _seg_pos_embed(self, h: int, w: int, valid_mats=None) -> torch.Tensor:
@@ -216,8 +221,8 @@ class Decoder(nn.Module):
         seg_bucket = make_image_bucket_position(sb, (2 * sb - 1) * (2 * sb - 1) + 3)
         ident_interp = valid_mats is None and (sb, sb) == (h, w)
         seg_all = gather_grid_bias_all_layers(
-            stack_tables(self.seg_rel_pos_table_list), seg_bucket, (sb, sb), bos=True,
-            dtype=cd if ident_interp else torch.float32,
+            tp_part(self.tp, stack_tables(self.seg_rel_pos_table_list), -1), seg_bucket,
+            (sb, sb), bos=True, dtype=cd if ident_interp else torch.float32,
         )
         if valid_mats is not None:
             seg_all = torch.stack(
@@ -233,6 +238,8 @@ class Decoder(nn.Module):
         # under prefix tuning P zero columns go in front
         prompts = self.prompt_kv_all()
         p = 0 if prompts is None else prompts.shape[3]
+        if prompts is not None:
+            prompts = tp_part(self.tp, prompts, 2)
         pack, body = prefixed_pack(seg_all.shape, p, cd, seg_all.device)
         body.copy_(seg_all).add_(self_bias0.to(cd))
 

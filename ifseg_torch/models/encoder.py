@@ -45,6 +45,12 @@ from .position import (
 )
 from .resnet import RESNET_LAYERS, ResNetStem
 
+
+def tp_part(tp, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's head slice of ``x`` on ``dim`` under tensor parallelism
+    (``parallel/tensor.py``), else ``x``."""
+    return x if tp is None else tp.part(x, dim)
+
 PAD = 1
 
 
@@ -81,9 +87,13 @@ class LayerDrop(nn.Module):
 
 def class_mean_embeddings(embed_table, class_tokens, class_lengths):
     """Per-class mean of category-word token embeddings (EmbeddingBag mean
-    mode, encoder_module.py:147-148).  embed_table (V, D); class_tokens
-    (C, T) padded ids; class_lengths (C,)."""
-    emb = embed_table[class_tokens]  # (C, T, D)
+    mode, encoder_module.py:147-148).  embed_table (V, D), or the embedding
+    module that looks its rows up; class_tokens (C, T) padded ids;
+    class_lengths (C,)."""
+    if isinstance(embed_table, nn.Module):
+        emb = embed_table(class_tokens)  # (C, T, D)
+    else:
+        emb = embed_table[class_tokens]
     t = class_tokens.shape[1]
     steps = torch.arange(t, device=class_tokens.device)
     mask = (steps[None, :] < class_lengths[:, None]).to(emb.dtype)
@@ -92,6 +102,10 @@ def class_mean_embeddings(embed_table, class_tokens, class_lengths):
 
 
 class Encoder(nn.Module):
+    # tensor parallelism (parallel/tensor.py): the bias packs and prefixes
+    # are built for this rank's heads
+    tp = None
+
     def __init__(self, cfg: ModelConfig, embed_tokens: nn.Embedding):
         super().__init__()
         self.cfg = cfg
@@ -155,6 +169,7 @@ class Encoder(nn.Module):
         l = pos_embed.shape[0]
         q = (self.pos_q_linear(pos_embed) * scaling).reshape(l, heads, -1)
         k = self.pos_k_linear(pos_embed).reshape(l, heads, -1)
+        q, k = tp_part(self.tp, q, 1), tp_part(self.tp, k, 1)
         return torch.einsum("qhd,khd->hqk", q, k)
 
     def _image_pos_embed(self, h: int, w: int) -> torch.Tensor:
@@ -281,13 +296,14 @@ class Encoder(nn.Module):
         bias0 = self._abs_bias(pos_all)
         token_bucket = make_token_bucket_position(cfg.token_bucket_size)[:src_len, :src_len]
         tok_all = gather_rel_bias_all_layers(
-            stack_tables(self.token_rel_pos_table_list), token_bucket
+            tp_part(self.tp, stack_tables(self.token_rel_pos_table_list), -1), token_bucket
         )
         if img_all is None:
             image_bucket = image_rp_bucket_for_grid(*rel_bias_grid_hw, cfg.image_bucket_size)
             ident_interp = tuple(rel_bias_grid_hw) == tuple(image_hw)
             img_all = gather_grid_bias_all_layers(
-                stack_tables(self.image_rel_pos_table_list), image_bucket, rel_bias_grid_hw,
+                tp_part(self.tp, stack_tables(self.image_rel_pos_table_list), -1),
+                image_bucket, rel_bias_grid_hw,
                 dtype=cd if ident_interp else torch.float32,
             )
             if not ident_interp:
@@ -296,6 +312,8 @@ class Encoder(nn.Module):
                 )
         prompts = self.prompt_kv_all()
         p = 0 if prompts is None else prompts.shape[3]
+        if prompts is not None:
+            prompts = tp_part(self.tp, prompts, 2)
         pack, body = prefixed_pack((tok_all.shape[0], *bias0.shape), p, cd, bias0.device)
         body.copy_(bias0.to(cd))
         body[..., hw:, hw:].add_(tok_all.to(cd))
@@ -405,7 +423,7 @@ class Encoder(nn.Module):
         (B, hw) class ids in [0, num_classes); class_tokens (C, Tname) padded
         category-word token ids; class_lengths (C,)."""
         h = w = self.cfg.patch_image_size // 16
-        class_embeds = class_mean_embeddings(self.embed_tokens.weight, class_tokens, class_lengths)
+        class_embeds = class_mean_embeddings(self.embed_tokens, class_tokens, class_lengths)
         image_embed = class_embeds[grid_ids]  # (B, hw, D)
         image_pad = torch.zeros(grid_ids.shape, dtype=torch.bool, device=src_tokens.device)
         return self._encode_tokens(src_tokens, image_embed, image_pad, (h, w), (h, w))

@@ -11,7 +11,7 @@ attention, after the FFN and on the FFN activation) and DropPath follow
 ``Adapter`` (a bottleneck on the FFN output before the residual) and
 ``PromptEncoder`` (the per-layer key/value prefixes of prefix tuning) are the
 option paths of unify_transformer_layer.py:49-94 and encoder_module.py:989-1027;
-MoE is not ported (ROADMAP.md A.9).
+MoE is not ported (ROADMAP.md A.9b).
 
 ``run_layer`` runs a layer under activation checkpointing where the model
 config asks for it (``checkpoint_activations``, ``remat_policy``) and a

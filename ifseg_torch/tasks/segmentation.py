@@ -36,6 +36,10 @@ class SegmentationTask:
         self.dict = dictionary
         self.bpe = bpe
         self.datasets: Dict[str, SegmentationDataset] = {}
+        # (slice id, slice count): the contiguous part of each TSV this
+        # process reads (its data x fsdp rank among the ranks that split the
+        # batch, ref file_dataset.py:40-45)
+        self.data_slice = (0, 1)
 
     @classmethod
     def setup_task(cls, cfg) -> "SegmentationTask":
@@ -69,7 +73,8 @@ class SegmentationTask:
             table_path = paths[(epoch - 1) % (len(paths) - 1)]
         else:
             table_path = paths[-1]
-        file_ds = FileDataset(table_path, self.cfg.selected_cols)
+        file_ds = FileDataset(table_path, self.cfg.selected_cols, slice_id=self.data_slice[0],
+                              slice_count=self.data_slice[1])
         if split == "train" and self.cfg.epoch_row_count > -1:
             logger.info("epoch row count -> %d", self.cfg.epoch_row_count)
             file_ds.set_total_row_count(self.cfg.epoch_row_count)

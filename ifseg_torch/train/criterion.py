@@ -119,26 +119,29 @@ def upsampled_areas(grid_logits, target, valid, num_classes: int, row_chunks: in
 
 
 def compute_imfree_loss(aux_logits, aux_target, num_seg: int, patch_hw: Tuple[int, int],
-                        label_smoothing: float = 0.0, row_chunks: int = 8):
+                        label_smoothing: float = 0.0, row_chunks: int = 8, count=None):
     """Image-free training loss: mean CE over non-unknown cells.  aux_logits
     (B, 1+hw, C) decoder output on the artificial image; aux_target (B, S, S)
-    int class ids."""
+    int class ids.  ``count``: the cells the mean is over, where they are
+    more than these rows' (a batch split across processes: each process's
+    share of the global mean)."""
     grid = _grid_from_logits(aux_logits, patch_hw)
     valid = aux_target != num_seg
     out = upsampled_ce(grid, aux_target, valid, label_smoothing, row_chunks)
-    return out.loss_sum / out.count.clamp(min=1.0)
+    return out.loss_sum / (out.count if count is None else count).clamp(min=1.0)
 
 
 def compute_monitor_outputs(logits, target, downsampled_target, num_seg: int,
                             patch_hw: Tuple[int, int], label_smoothing: float = 0.0,
-                            row_chunks: int = 8) -> Dict[str, torch.Tensor]:
+                            row_chunks: int = 8, count=None) -> Dict[str, torch.Tensor]:
     """Monitoring pass on the real image: display loss + full-resolution and
     low-resolution confusion areas.  logits (B, 1+hw, C); target (B, S, S);
-    downsampled_target (B, hw).  The caller runs it without gradients."""
+    downsampled_target (B, hw).  The caller runs it without gradients.
+    ``count`` as ``compute_imfree_loss`` takes it."""
     grid = _grid_from_logits(logits, patch_hw)
     valid = target != num_seg
     out = upsampled_ce(grid, target, valid, label_smoothing, row_chunks)
-    nll = out.loss_sum / out.count.clamp(min=1.0)
+    nll = out.loss_sum / (out.count if count is None else count).clamp(min=1.0)
     ai, ap, al, au = upsampled_areas(grid, target, valid, num_seg, row_chunks)
 
     h, w = patch_hw

@@ -54,7 +54,7 @@ gradients by clip_norm / max(norm, clip_norm) and returns the norm.
 
 import math
 import re
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -305,6 +305,16 @@ class JaxLeaf:
             return t.permute(2, 3, 1, 0)
         return t
 
+    def view_parts(self, parts: Dict[int, "Part"]) -> Dict[int, "Part"]:
+        """A parameter's split dims (torch dims) as dims of the JAX view."""
+        if self.layout == "linear":
+            return {1 - d: p for d, p in parts.items()}
+        if self.layout == "conv":
+            return {(2, 3, 1, 0).index(d): p for d, p in parts.items()}
+        if self.layout == "stacked":
+            return {d + 1: p for d, p in parts.items()}
+        return dict(parts)
+
     def unview(self, x: torch.Tensor) -> List[torch.Tensor]:
         """A JAX-layout tensor as the port's tensors, in ``index`` order."""
         if self.layout == "stacked":
@@ -403,6 +413,68 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
+class Part(NamedTuple):
+    """A tensor's dim split ``n`` ways over ``group``; this rank holds slice
+    ``index``."""
+    group: Any
+    n: int
+    index: int
+
+
+class Sharding:
+    """Where an optimizer's tensors are parts of larger ones (fully sharded
+    parameters, tensor-parallel splits, ZeRO-1 state): for each tensor,
+    ``{torch dim: Part}``.  Elementwise updates need nothing of it; the
+    reductions over a whole tensor (Lamb's norms, Adafactor's moments and
+    RMS, the global norm) sum their partial sums over the parts' groups, so
+    an update computed part by part equals the update of the whole tensor,
+    and ``state_dict`` / ``load_state_dict`` gather and cut the state."""
+
+    def __init__(self, parts: Sequence[Dict[int, Part]]):
+        self.parts = list(parts)
+
+    def subset(self, idx: Sequence[int]) -> "Sharding":
+        return Sharding([self.parts[i] for i in idx])
+
+    def groups(self, i: int) -> List[Any]:
+        """The groups over which tensor ``i`` is split."""
+        return [p.group for _, p in sorted(self.parts[i].items())]
+
+
+def sum_over_parts(values: List[torch.Tensor], groups: List[List[Any]]) -> List[torch.Tensor]:
+    """``values[j]`` summed over each group of ``groups[j]``: one all-reduce
+    a group for all the values it splits."""
+    from ifseg_torch.parallel.comm import all_reduce
+
+    out = list(values)
+    distinct = []
+    for gs in groups:
+        for g in gs:
+            if not any(g is h for h in distinct):
+                distinct.append(g)
+    for g in distinct:
+        idx = [j for j, gs in enumerate(groups) if any(g is h for h in gs)]
+        flat = all_reduce(torch.stack([out[j] for j in idx]), g)
+        for k, j in enumerate(idx):
+            out[j] = flat[k]
+    return out
+
+
+def _gather_parts(t: torch.Tensor, parts: Dict[int, Part]) -> torch.Tensor:
+    from ifseg_torch.parallel.comm import all_gather_dim
+
+    for d, p in sorted(parts.items()):
+        t = all_gather_dim(t, d, p.group)
+    return t
+
+
+def _cut_parts(t: torch.Tensor, parts: Dict[int, Part]) -> torch.Tensor:
+    for d, p in sorted(parts.items()):
+        size = t.shape[d] // p.n
+        t = t.narrow(d, p.index * size, size)
+    return t
+
+
 class Optimizer:
     """An optimizer over a fixed list of fp32 parameters: ``update(grads)``
     returns the updates (one tensor per parameter, to be added) and advances
@@ -412,14 +484,16 @@ class Optimizer:
     (parameter names, or JAX paths for a per-leaf state)."""
 
     state_keys: Tuple[str, ...] = ()
+    sharding: Optional[Sharding] = None
 
     def __init__(self, params: Sequence[torch.Tensor], learning_rate: Callable[[int], float],
-                 names: Optional[Sequence[str]] = None):
+                 names: Optional[Sequence[str]] = None, sharding: Optional[Sharding] = None):
         self.params = list(params)
         self.learning_rate = learning_rate
         self.names = list(names) if names is not None else [str(i) for i in range(len(self.params))]
         self.keys = self.names
         self.count = 0
+        self.sharding = sharding
 
     def _lr(self):
         return f32(self.learning_rate(self.count))
@@ -432,18 +506,31 @@ class Optimizer:
         if self.params:
             torch._foreach_add_(self.params, self.update(grads))
 
+    def _state_parts(self, k: str, j: int) -> Dict[int, Part]:
+        """The split dims of state ``k`` of key ``j``: a state per
+        parameter is split as the parameter."""
+        return self.sharding.parts[j]
+
     def state_dict(self) -> Dict:
+        """The count and the state by key, whole (gathered from the ranks'
+        parts under a ``sharding``: a collective), as CPU copies."""
         out = {"count": self.count}
         for k in self.state_keys:
-            out[k] = {key: _host(t) for key, t in zip(self.keys, getattr(self, k))}
+            ts = getattr(self, k)
+            if self.sharding is not None:
+                ts = [_gather_parts(t, self._state_parts(k, j)) for j, t in enumerate(ts)]
+            out[k] = {key: _host(t) for key, t in zip(self.keys, ts)}
         return out
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
+        """Take a whole state (``state_dict``'s), cut to this rank's parts."""
         self.count = int(state["count"])
         for k in self.state_keys:
-            for key, t in zip(self.keys, getattr(self, k)):
-                t.copy_(state[k][key])
+            for j, (key, t) in enumerate(zip(self.keys, getattr(self, k))):
+                whole = state[k][key]
+                t.copy_(whole if self.sharding is None
+                        else _cut_parts(whole, self._state_parts(k, j)))
 
     def _zeros(self):
         return [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
@@ -542,9 +629,13 @@ class Lamb(Optimizer):
         # by 4e-5 at a 768 x 3072 weight (3e-3 at 45M elements)
         pn = torch._foreach_norm(self.params, 2, dtype=torch.float64)
         un = torch._foreach_norm(u, 2, dtype=torch.float64)
-        for leaf in self.leaves:
-            p_norm = torch.stack([pn[i] for i in leaf.index]).square().sum().sqrt()
-            u_norm = torch.stack([un[i] for i in leaf.index]).square().sum().sqrt()
+        p_sq = [torch.stack([pn[i] for i in leaf.index]).square().sum() for leaf in self.leaves]
+        u_sq = [torch.stack([un[i] for i in leaf.index]).square().sum() for leaf in self.leaves]
+        if self.sharding is not None:  # the norms of the whole tensors
+            groups = [self.sharding.groups(leaf.index[0]) for leaf in self.leaves]
+            p_sq, u_sq = sum_over_parts(p_sq, groups), sum_over_parts(u_sq, groups)
+        for leaf, p2, u2 in zip(self.leaves, p_sq, u_sq):
+            p_norm, u_norm = p2.sqrt(), u2.sqrt()
             ok = (p_norm > 0.0) & (u_norm > 0.0)
             trust = torch.where(ok, p_norm / torch.where(ok, u_norm, 1.0), 1.0).float()
             torch._foreach_mul_([u[i] for i in leaf.index], trust * float(-lr))
@@ -678,16 +769,21 @@ class Adafactor(Optimizer):
     def __init__(self, params, learning_rate, leaves: List[JaxLeaf],
                  weight_decay_rate: Optional[float] = None, min_dim_size_to_factor: int = 128,
                  decay_rate: float = 0.8, clipping_threshold: float = 1.0, eps: float = 1e-30,
-                 min_scale: float = 1e-3, names=None):
-        super().__init__(params, learning_rate, names)
+                 min_scale: float = 1e-3, names=None, sharding: Optional[Sharding] = None):
+        super().__init__(params, learning_rate, names, sharding)
         self.leaves = leaves
         self.keys = [leaf.path for leaf in leaves]
         self.weight_decay_rate, self.decay_rate = weight_decay_rate, decay_rate
         self.clipping_threshold, self.eps, self.min_scale = clipping_threshold, eps, min_scale
         self.dims, self.v_row, self.v_col, self.v = [], [], [], []
-        for leaf in leaves:
+        # per leaf, its split dims as dims of the JAX view
+        self.vparts = [{} if sharding is None else leaf.view_parts(sharding.parts[leaf.index[0]])
+                       for leaf in leaves]
+        for leaf, vparts in zip(leaves, self.vparts):
             x = leaf.view(self.params)
-            dims = _factored_dims(tuple(x.shape), min_dim_size_to_factor)
+            whole = [n * (vparts[v].n if v in vparts else 1) for v, n in enumerate(x.shape)]
+            # the factored axes of the whole tensor, as there
+            dims = _factored_dims(tuple(whole), min_dim_size_to_factor)
             self.dims.append(dims)
             one = torch.zeros(1, dtype=torch.float32, device=x.device)
             if dims is None:
@@ -702,6 +798,36 @@ class Adafactor(Optimizer):
                                               dtype=torch.float32, device=x.device))
                 self.v.append(one.clone())
 
+    @staticmethod
+    def _without(vparts: Dict[int, Part], dim: int) -> Dict[int, Part]:
+        """The split dims of a tensor reduced over view dim ``dim``."""
+        return {v - (v > dim): p for v, p in vparts.items() if v != dim}
+
+    def _state_parts(self, k: str, j: int) -> Dict[int, Part]:
+        dims, vparts = self.dims[j], self.vparts[j]
+        if dims is None:
+            return vparts if k == "v" else {}
+        if k == "v":
+            return {}
+        return self._without(vparts, dims[1] if k == "v_row" else dims[0])
+
+    @staticmethod
+    def _mean(x: torch.Tensor, vparts: Dict[int, Part], dim: Optional[int] = None,
+              keepdim: bool = False) -> torch.Tensor:
+        """The mean over ``dim`` (all dims when None) of the whole tensor
+        that ``x`` is this rank's part of."""
+        dims = list(range(x.dim())) if dim is None else [dim]
+        split = [vparts[d] for d in dims if d in vparts]
+        if not split:
+            return x.mean() if dim is None else x.mean(dim, keepdim=keepdim)
+        from ifseg_torch.parallel.comm import all_reduce_groups
+
+        total = x.sum() if dim is None else x.sum(dim, keepdim=keepdim)
+        count = 1
+        for d in dims:
+            count *= x.shape[d] * (vparts[d].n if d in vparts else 1)
+        return all_reduce_groups(total, [p.group for p in split]) / count
+
     @torch.no_grad()
     def update(self, grads):
         t = f32(self.count + 1)
@@ -713,22 +839,24 @@ class Adafactor(Optimizer):
             g = leaf.view(grads).float()
             p = leaf.view(self.params)
             g2 = g * g + self.eps
-            dims = self.dims[j]
+            dims, vp = self.dims[j], self.vparts[j]
             if dims is None:
                 self.v[j] = decay * self.v[j] + keep * g2
                 u = g * self.v[j] ** -0.5
             else:
                 d1, d0 = dims
-                self.v_row[j] = decay * self.v_row[j] + keep * g2.mean(d0)
-                self.v_col[j] = decay * self.v_col[j] + keep * g2.mean(d1)
+                self.v_row[j] = decay * self.v_row[j] + keep * self._mean(g2, vp, d0)
+                self.v_col[j] = decay * self.v_col[j] + keep * self._mean(g2, vp, d1)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = self.v_row[j].mean(reduced_d1, keepdim=True)
+                row_col_mean = self._mean(self.v_row[j], self._without(vp, d0), reduced_d1,
+                                          keepdim=True)
                 row_factor = (self.v_row[j] / row_col_mean) ** -0.5
                 col_factor = self.v_col[j] ** -0.5
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-            u = u / torch.clamp(u.square().mean().sqrt() / self.clipping_threshold, min=1.0)
+            u = u / torch.clamp(self._mean(u.square(), vp).sqrt() / self.clipping_threshold,
+                                min=1.0)
             u = lr * u
-            rms = p.square().mean().sqrt()
+            rms = self._mean(p.square(), vp).sqrt()
             u = u * torch.where(rms <= self.min_scale, self.min_scale, rms)
             if self.weight_decay_rate is not None:
                 u = u + self.weight_decay_rate * p
@@ -811,8 +939,15 @@ OPTIMIZERS = ("adam", "adafactor", "lamb", "fused_lamb", "sgd", "nag", "adagrad"
               "adamax", "composite")
 
 
-def _single_optimizer(name: str, params, names, schedule, opt_cfg, paths) -> Optimizer:
+def _single_optimizer(name: str, params, names, schedule, opt_cfg, paths,
+                      sharding: Optional[Sharding] = None) -> Optimizer:
     """One optimizer by the reference's name over ``params``."""
+    opt = _build_single(name, params, names, schedule, opt_cfg, paths, sharding)
+    opt.sharding = sharding
+    return opt
+
+
+def _build_single(name, params, names, schedule, opt_cfg, paths, sharding) -> Optimizer:
     wd = getattr(opt_cfg, "weight_decay", 0.0)
     betas = getattr(opt_cfg, "adam_betas", (0.9, 0.999))
     leaves = lambda: jax_leaves(names, paths)
@@ -820,7 +955,8 @@ def _single_optimizer(name: str, params, names, schedule, opt_cfg, paths) -> Opt
         return FairseqAdam(params, schedule, b1=betas[0], b2=betas[1],
                            eps=getattr(opt_cfg, "adam_eps", 1e-8), weight_decay=wd, names=names)
     if name == "adafactor":
-        return Adafactor(params, schedule, leaves(), weight_decay_rate=wd or None, names=names)
+        return Adafactor(params, schedule, leaves(), weight_decay_rate=wd or None, names=names,
+                         sharding=sharding)
     if name in ("lamb", "fused_lamb"):
         return Lamb(params, schedule, leaves(), b1=betas[0], b2=betas[1], weight_decay=wd,
                     names=names)
@@ -866,7 +1002,7 @@ def composite_labels(names: Sequence[str], paths: Dict[str, Tuple[str, str]], gr
 
 
 def composite(params, names, paths, groups, base_name: str, opt_cfg,
-              total_num_updates: int) -> Composite:
+              total_num_updates: int, sharding: Optional[Sharding] = None) -> Composite:
     """The groups of ``parse_composite_groups`` over ``params``, each with its
     optimizer and a schedule of the configured kind at its own lr."""
     sched_for = lambda lr: build_schedule(getattr(opt_cfg, "lr_scheduler", "cosine"), lr,
@@ -879,16 +1015,26 @@ def composite(params, names, paths, groups, base_name: str, opt_cfg,
         idx = [i for i, lab in enumerate(labels) if lab == label]
         members.append((label, _single_optimizer(
             opt_name, [params[i] for i in idx], [names[i] for i in idx], sched_for(lr), opt_cfg,
-            paths), idx))
+            paths, None if sharding is None else sharding.subset(idx)), idx))
     return Composite(params, members, names)
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], clip_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], clip_norm: float,
+                        sharding: Optional[Sharding] = None) -> torch.Tensor:
     """Scale ``grads`` in place by clip_norm / max(norm, clip_norm) and return
-    the global norm before clipping (fp32 scalar tensor, no host sync)."""
+    the global norm before clipping (fp32 scalar tensor, no host sync).
+    Under a ``sharding`` the gradients are parts of larger ones: each
+    part's squared norm is summed over its groups, so a gradient whole on
+    every rank of a group counts once."""
     if not grads:
         return torch.zeros(())
     norms = torch._foreach_norm([g.float() for g in grads])
+    if sharding is not None and any(sharding.parts):
+        split = [i for i, parts in enumerate(sharding.parts) if parts]
+        sq = sum_over_parts([norms[i].square() for i in split], [sharding.groups(i) for i in split])
+        norms = list(norms)
+        for i, v in zip(split, sq):
+            norms[i] = v.sqrt()
     gnorm = torch.linalg.vector_norm(torch.stack(norms))
     if clip_norm > 0:
         scale = clip_norm / torch.clamp(gnorm, min=clip_norm)
@@ -952,25 +1098,32 @@ def freeze_mask(model: nn.Module, model_cfg) -> Dict[str, bool]:
     return {name: trainable(name) for name, _ in model.named_parameters()}
 
 
-def build_optimizer(model: nn.Module, model_cfg, opt_cfg, total_num_updates: int
+def build_optimizer(model: nn.Module, model_cfg, opt_cfg, total_num_updates: int,
+                    views: Optional[Dict[str, torch.Tensor]] = None,
+                    parts: Optional[Dict[str, Dict[int, Part]]] = None,
                     ) -> Tuple[Optimizer, Callable[[int], float], Dict[str, bool]]:
     """(optimizer over the trainable parameters, the schedule of the base lr,
     freeze mask).  Clipping happens outside: it needs the raw gradient norm
-    for logging."""
+    for logging.  ``views`` puts a tensor of its own in place of a
+    parameter (ZeRO-1: the rank's slice of it), and ``parts`` says where
+    each tensor the optimizer updates is a part of a larger one
+    (``Sharding``)."""
     scheduler = getattr(opt_cfg, "lr_scheduler", "cosine")
     schedule = build_schedule(scheduler, opt_cfg.lr, total_num_updates, opt_cfg)
     mask = freeze_mask(model, model_cfg)
     named = [(name, p) for name, p in model.named_parameters() if mask[name]]
-    names, params = [n for n, _ in named], [p for _, p in named]
+    names = [n for n, _ in named]
+    params = [p if views is None else views.get(n, p) for n, p in named]
+    sharding = None if parts is None else Sharding([parts.get(n, {}) for n in names])
     paths = jax_paths(model)
     name = getattr(opt_cfg, "optimizer", "adam")
     if name == "composite":
         optimizer = composite(params, names, paths,
                               parse_composite_groups(getattr(opt_cfg, "composite_groups", "")),
                               getattr(opt_cfg, "composite_base", "adam"), opt_cfg,
-                              total_num_updates)
+                              total_num_updates, sharding)
     else:
-        optimizer = _single_optimizer(name, params, names, schedule, opt_cfg, paths)
+        optimizer = _single_optimizer(name, params, names, schedule, opt_cfg, paths, sharding)
     if scheduler == "reduce_lr_on_plateau":
         optimizer = LrScaled(optimizer)
     return optimizer, schedule, mask

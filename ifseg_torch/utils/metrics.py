@@ -8,8 +8,8 @@ vectorized per-class IoU accumulation work), TimeMeter, StopwatchMeter,
 
 A copy of the JAX package's ``utils/metrics.py``.  Meters hold numpy
 values; a torch tensor is read back to the host when it is logged.
-``cross_process_sum`` is the identity on one process; its reduction across
-processes comes with the port's multi-process work (``torch.distributed``).
+``cross_process_sum`` sums a logging dict over the processes of a
+``torch.distributed`` group (the identity on one process).
 
 The segmentation deriveds (seg_criterion.py:552-572): aAcc = Σintersect/Σpred,
 mIoU = nanmean(intersect/union), mAcc = nanmean(intersect/label).
@@ -321,15 +321,31 @@ def load_state_dict(state):
         _aggregators.setdefault(name, MetersDict()).load_state_dict(agg_state)
 
 
-def cross_process_sum(logging_output: Dict[str, Any]) -> Dict[str, Any]:
-    """Sum a logging dict across processes (the reference's fast-stat-sync
-    path, trainer.py:1368-1407 / all_reduce_dict).  One process: identity.
-    With ``torch.distributed`` initialised it raises: the reduction across
-    processes is not ported yet (ROADMAP.md A.9)."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        raise NotImplementedError(
-            "cross_process_sum across processes is not ported yet (ROADMAP.md A.9)")
-    return logging_output
+def cross_process_sum(logging_output: Dict[str, Any], group=None,
+                      device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """Sum a logging dict across the processes of ``group`` (the world by
+    default; the reference's fast-stat-sync path, trainer.py:1368-1407 /
+    all_reduce_dict): every numeric entry (a number or an array) becomes
+    its sum over the processes, as a numpy value; other entries pass as
+    they are.  One all-reduce of the entries flattened in key order, in
+    fp64, on ``device`` (the CPU by default; a NCCL group needs its card).
+    One process: the identity."""
+    if not (torch.distributed.is_available() and torch.distributed.is_initialized()) \
+            or torch.distributed.get_world_size(group) == 1:
+        return logging_output
+    keys = [k for k in sorted(logging_output)
+            if isinstance(logging_output[k], (int, float, np.ndarray, np.number, torch.Tensor))]
+    values = [np.asarray(_to_numpy(logging_output[k]), dtype=np.float64) for k in keys]
+    flat = torch.from_numpy(np.concatenate([v.reshape(-1) for v in values]) if values
+                            else np.zeros(0)).to(device or "cpu")
+    torch.distributed.all_reduce(flat, group=group)
+    flat = flat.cpu().numpy()
+    out = dict(logging_output)
+    offset = 0
+    for k, v in zip(keys, values):
+        out[k] = flat[offset:offset + v.size].reshape(v.shape)
+        offset += v.size
+    return out
 
 
 # ----------------------------------------------------- segmentation deriveds
