@@ -6,8 +6,8 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every kernel with nvcc and the host C++ sources of the PNG
-     decoder, the JPEG decoder and encoder and the dense CRF with c++ (one
-     process per source, all at once), with each kernel instantiation's
+     decoder, the JPEG decoder and encoder, the dense CRF and the experts'
+     auction with c++ (one process per source, all at once), with each kernel instantiation's
      registers, spill and stack from the ``-Xptxas -v`` summary, and the
      HGMMA count and shared memory of the three wgmma attention libraries at
      both head dims;
@@ -167,10 +167,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``Evaluator`` launches K1 at P + L keys in both self-attentions, and
      ``SegServer`` answers as the same weights without the prompt encoders
      (the JAX package's served path applies no prefix); (d) generation,
-     batch 2 x beam 5, 150 classes: the KV-cached generator over 1,022
+     batch 2 x beam 5, 150 classes: the KV-cached generator over 256
      tokens and the uncached one (``decode_ar``, K1 and K4 counted) over
      32, ms a generated token; ``decode_ar``'s logits against ``ar_step``'s
-     at each of 1,024 positions; the cached generator on the card against
+     at each of 258 positions; the cached generator on the card against
      the CPU (fp32 both) over 64 tokens; an ensemble of two weight sets (and
      of one twice, equal to the model alone); a trie-constrained run.  Phase 3
      also checks K1 at ``decode_ar``'s sites and phase 3t times the four
@@ -188,14 +188,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``check_grad_norms`` and ``check_param_sync`` true, every bias by TMA,
      tensor parallelism with the monitoring forward (its split FFN
      LayerNorm's rows gathered for K4) against one process's, s/step, peak
-     memory and the host ms in gloo's collectives a step; (c) ``cli.train
+     memory and the host ms in gloo's collectives a step
+     (``parallel.comm.TRAFFIC``); (c) ``cli.train
      --num-processes=2 --fsdp=2`` on phase 11's rows with the recipe's flags
      (2 steps, a validation, a checkpoint written by rank 0 alone), the
      checkpoint restored into one process equal to the files, and
      ``cli.validate`` on two processes against one, one row a forward: the
      same mIoU (the two CLIs' runs and the one-process validation side by
      side);
- 18. one JSON line listing every kernel, the nvidia-smi line, and the last
+ 18. the model axis's programs, two processes sharing the card over gloo
+     from 17b's start: the GPipe pipeline (``--pipeline-parallel=2``) at 2
+     and 4 microbatches and ring attention (``--context-parallel=2``), each
+     against one process's step on the 16 rows (17b's tolerances; the
+     pipeline at 2 and the ring also with the monitoring forward), and the
+     BASE experts (``--moe-experts=2 --moe-freq=2``) with Sinkhorn and with
+     the auction: one expert layer on the step's activations against the
+     dense loop, every expert at exactly its capacity, the auction's score
+     at least Sinkhorn's, the experts moving; s/step, peak memory, the
+     collectives' calls, bytes and host ms a step, the kernels' launches
+     a rank;
+ 19. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -254,13 +266,13 @@ HUGE_SERVE_BATCH = 8
 HUGE_TRAIN_BATCH = 16
 HUGE_CHECK_LAYERS = 2  # encoder and decoder layers of the CPU comparisons at Huge's width
 # phase 16: prefix tuning's P (the config's default length) on both sides,
-# the generator's batch and beam, its lengths: the cached generator at the
-# longest the token relative bias covers (1,022 tokens; the JAX package's seg
-# pin of 1,024 fails on a shape mismatch there), the uncached one at 32, and
+# the generator's batch and beam, its lengths: the cached generator at 256
+# tokens (up to 1,022, the longest the token relative bias covers, runs the
+# same code; 256 keeps the run inside its time), the uncached one at 32, and
 # the card-against-CPU comparison (fp32 both) at 64
 PROMPT_LEN = 100
 GEN_BATCH, GEN_BEAM = 2, 5
-GEN_MAX_LEN, GEN_RECOMPUTE_LEN, GEN_COMPARE_LEN = 1022, 32, 64
+GEN_MAX_LEN, GEN_RECOMPUTE_LEN, GEN_COMPARE_LEN = 256, 32, 64
 AR_LOGIT_REL_TOL = 5e-2  # decode_ar (bf16, kernels) against ar_step (fp32), ||Δ|| / ||ref||
 GEN_SCORE_REL_TOL = 1e-3  # the cached generator's scores, card fp32 against CPU fp32
 
@@ -361,13 +373,14 @@ def phase_card() -> str:
 
 def phase_build():
     from ifseg_torch.data import jpeg, png
-    from ifseg_torch.ops import build, crf
+    from ifseg_torch.ops import balanced_assignment, build, crf
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
 
     # the CUDA sources and the host C++ sources of the PNG decoder, the JPEG
-    # codec and the dense CRF, all at once
-    host_sources = (png.SOURCE, jpeg.DECODER, jpeg.ENCODER, crf.SOURCE)
+    # codec, the dense CRF and the experts' auction, all at once
+    host_sources = (png.SOURCE, jpeg.DECODER, jpeg.ENCODER, crf.SOURCE,
+                    balanced_assignment.SOURCE)
     t0 = time.perf_counter()
     results = build.build([*fa.KERNELS, ln.KERNEL, *host_sources])
     log(f"[2] built {sorted(results)} in {time.perf_counter() - t0:.1f} s")
@@ -3627,7 +3640,7 @@ def phase_infer_jpeg(card: str, tmp: str, ckpt: str):
 
 REMAT_WARM, REMAT_TIMED = 2, 5  # OFA-Base steps under each checkpointing policy
 HUGE_REMAT_BATCH = 32  # above the recipe's 16: "auto" takes save-attn on an 80 GB card
-HUGE_REMAT_WARM, HUGE_REMAT_TIMED = 2, 3
+HUGE_REMAT_WARM, HUGE_REMAT_TIMED = 1, 2
 OPT_REL_TOL = 1e-5  # an optimizer's fp32 update on the card against the same on the CPU
 STACK_ROWS = 32  # phase 15's CLI epochs: 2 steps of TRAIN_BATCH
 # the flags phase 15 adds to the recipe's (the groups need --optimizer=composite,
@@ -3852,8 +3865,8 @@ def phase_train_cli_stack(card: str, tmp: str, valid_tsv: str, ckpt_file: str):
             restored.append(dict(name=name, **{k: same(now[k], saved[k]) for k in saved}))
         return out
 
-    def recording_pretrained(cfg, device):
-        loaded["sd"] = pretrained(cfg, device)
+    def recording_pretrained(cfg, device, plan=None):
+        loaded["sd"] = pretrained(cfg, device, plan)
         return loaded["sd"]
 
     cli_train.restore_training_state = checked_restore
@@ -4181,7 +4194,7 @@ def first_divergence(card_tokens, cpu_tokens):
 
 def phase_generate(card: str):
     """(d) Generation with OFA-Base (150 classes, random weights from SEED),
-    batch 2 x beam 5: the KV-cached generator at 1,022 tokens, the uncached
+    batch 2 x beam 5: the KV-cached generator at GEN_MAX_LEN tokens, the uncached
     one (decode_ar) at 32, decode_ar's logits against ar_step's at every
     position, the cached generator on the card against the CPU (fp32 both),
     an ensemble and a trie-constrained run."""
@@ -4238,7 +4251,7 @@ def phase_generate(card: str):
     del gen
 
     # decode_ar (bf16, kernels) against ar_step (fp32) at every position of the
-    # best beams (BOS, the 1,022 classes, EOS: 1,024 positions)
+    # best beams (BOS, the GEN_MAX_LEN classes, EOS)
     n_pos = best.shape[1]
     with torch.no_grad():
         full = model.decoder.decode_ar(best, enc).float()
@@ -4456,28 +4469,22 @@ def update_cosines(before, after, want):
     return worst, name, (num / max(den, 1e-300)) ** 0.5
 
 
-def collective_ms(step, backend: str) -> float:
-    """The time of one ``step()`` spent in collectives, from a profiler
-    trace, in ms: over NCCL the card's time in its kernels, over gloo
-    (whose collectives on CUDA tensors run on the host) the host time of its
-    ``gloo:*`` events, with the host's activity alone traced."""
+def collective_ms(step) -> float:
+    """The card's time in NCCL's kernels during one ``step()``, in ms, from
+    a profiler trace.  (Over gloo, whose collectives on CUDA tensors run on
+    the host, ``parallel.comm.TRAFFIC`` counts the host seconds in them.)"""
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if backend == "nccl" else [])
     torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
     us = 0.0
     for ev in prof.key_averages():
-        key = ev.key.lower()
-        if (backend == "nccl" and "nccl" in key
+        if ("nccl" in ev.key.lower()
                 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA):
             t = getattr(ev, "self_device_time_total", None)
             us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
-        elif backend == "gloo" and key.startswith("gloo:"):
-            us += ev.cpu_time_total
     return us / 1e3
 
 
@@ -4523,7 +4530,7 @@ def phase_parallel_single(card: str, off_row: dict):
         peak = torch.cuda.max_memory_allocated() / 2**30
         after = whole_model(trainer)
         t0 = time.perf_counter()
-        coll = collective_ms(lambda: trainer.train_step(batches[-1]), "nccl") if mesh else 0.0
+        coll = collective_ms(lambda: trainer.train_step(batches[-1])) if mesh else 0.0
         return dict(logs=logs, s_per_step=float(np.mean(times[PAR_WARM:])), peak_gib=peak,
                     launches=counts, routes=routes, collective_ms=coll,
                     profile_s=time.perf_counter() - t0), after
@@ -4644,6 +4651,7 @@ def parallel_worker(rank: int, port: int, out_path: str):
     from ifseg_torch.config import DistributedConfig
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.parallel import comm
     from ifseg_torch.parallel.mesh import batch_rows, initialize_distributed, mesh_from_config
     from ifseg_torch.train.trainer import Trainer
     from ifseg_torch.utils.reliability import check_grad_norms, check_param_sync
@@ -4693,13 +4701,14 @@ def parallel_worker(rank: int, port: int, out_path: str):
             res["areas"] = areas(out)
         after = whole_model(trainer)
         scfg.criterion.monitor_real_batch = False  # the timed steps are the others' steps
+        comm.reset_traffic()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         trainer.train_step(rows(timed))
         torch.cuda.synchronize()
         res.update(s_per_step=time.perf_counter() - t1,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   collective_ms=collective_ms(lambda: trainer.train_step(rows(timed)), "gloo"),
+                   collective_ms=1e3 * sum(v[2] for v in comm.TRAFFIC.values()),
                    build_s=build_s)
         if rank == 0:
             cos, worst, diff = update_cosines(before, after, ref_after)
@@ -4925,6 +4934,268 @@ def phase_parallel_cli(card: str, tmp: str, valid_tsv: str, ckpt_file: str):
                 miou=miou(one_areas), miou_two=miou(two_areas))
 
 
+# ---------------------------------------------------------------- phase 18
+
+# the model axis's programs on two processes sharing the card over gloo (as
+# 17b), OFA-Base batch 16, 17b's start: the pipeline at 2 and 4 microbatches
+# and the ring against one process's step on the 16 rows (17b's
+# tolerances), the pipeline at 2 and the ring also with the monitoring
+# forward; the experts (no one-process step to compare with) with Sinkhorn
+# and with the auction, one of their layers held against the dense loop
+MODEL_AXIS = {
+    "pipeline_c2": dict(pipeline_parallel=2, pipeline_chunks=2),
+    "pipeline_c4": dict(pipeline_parallel=2, pipeline_chunks=4),
+    "context": dict(context_parallel=2),
+    "moe_sinkhorn": dict(moe_experts=2, moe_freq=2),
+    "moe_auction": dict(moe_experts=2, moe_freq=2, moe_assignment="auction"),
+}
+MODEL_AXIS_COMPARED = ("pipeline_c2", "pipeline_c4", "context")
+MODEL_AXIS_MONITORED = ("pipeline_c2", "context")
+MOE_CHECK_LAYER = "encoder.layers.1.moe"  # the first expert layer (moe_freq 2)
+MOE_REL_TOL = 1e-3  # base_moe_layer against the dense loop, ||Δ|| / ||ref||, bf16 rows
+
+
+def moe_start(state, gen):
+    """17b's start state with, in each MoE layer (every moe_freq-th), the
+    whole (E, ...) expert tensors in place of its dense FFN, drawn on the
+    card from ``gen`` with the JAX initializers' scales."""
+    from ifseg_torch.parallel.moe import init_moe_params
+
+    kw = MODEL_AXIS["moe_sinkhorn"]
+    cfg = train_config("bfloat16", monitor=False, dropout=False).model
+    out = dict(state)
+    for side in ("encoder", "decoder"):
+        n, d, f = (getattr(cfg, f"{side}_{k}") for k in ("layers", "embed_dim", "ffn_embed_dim"))
+        for i in range(kw["moe_freq"] - 1, n, kw["moe_freq"]):
+            base = f"{side}.layers.{i}"
+            for k in [k for k in out if k.startswith((f"{base}.fc", f"{base}.ffn_layernorm"))]:
+                del out[k]
+            for k, v in init_moe_params(gen, kw["moe_experts"], d, f).items():
+                out[f"{base}.moe.{k}"] = v
+    return out
+
+
+def moe_layer_check(trainer, x):
+    """One MoE layer of ``trainer`` (its weights after the step, this rank's
+    expert) on the step's real activations ``x`` (the layer's input rows):
+    ``base_moe_layer`` against the dense loop over the whole experts, the
+    tokens each expert got in each rank's slice, and the auction's total
+    score against Sinkhorn's on this rank's slice."""
+    from ifseg_torch.ops.balanced_assignment import (
+        balanced_assignment_auction,
+        balanced_assignment_sinkhorn,
+    )
+    from ifseg_torch.parallel import comm
+    from ifseg_torch.parallel.moe import ASSIGNMENTS, base_moe_layer, dense_reference
+
+    plan = trainer.plan
+    mod = dict(trainer.model.named_modules())[MOE_CHECK_LAYER]
+    e = plan.moe_experts
+    flat = x.reshape(-1, x.shape[-1])
+    flat = flat[:flat.shape[0] - flat.shape[0] % (e * e)]
+    params = {"centroids": mod.centroids, "wi": mod.wi, "wo": mod.wo}
+    with torch.no_grad():
+        got = base_moe_layer(params, flat, plan.group, plan.moe_assignment)
+        whole = {k: comm.all_gather_dim(v.detach(), 0, plan.group) for k, v in params.items()}
+        want = dense_reference(whole, flat, e, ASSIGNMENTS[plan.moe_assignment])
+        per = flat.shape[0] // e
+        counts, totals = [], {}
+        for sl in range(e):
+            scores = flat[sl * per:(sl + 1) * per].float() @ whole["centroids"].float().t()
+            counts.append(torch.bincount(ASSIGNMENTS[plan.moe_assignment](scores),
+                                         minlength=e).tolist())
+            if sl == plan.index:
+                rows = torch.arange(per, device=scores.device)
+                for name, fn in (("sinkhorn", balanced_assignment_sinkhorn),
+                                 ("auction", balanced_assignment_auction)):
+                    totals[name] = float(scores[rows, fn(scores)].sum())
+    rel = float((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-30))
+    return dict(rel=rel, rows=int(flat.shape[0]), cap=per // e, counts=counts, totals=totals)
+
+
+def model_axis_worker(rank: int, port: int, out_path: str):
+    """Phase 18 in one of two processes sharing the card over gloo: the
+    reference one-process step on the 16 rows (rank 0), then each program
+    of MODEL_AXIS: a compared step (the counts set to 0 before, read after)
+    and a timed one (the collectives' calls, bytes and host seconds); the
+    results go to ``out_path``."""
+    import copy
+
+    import torch.distributed as dist
+
+    from ifseg_torch.config import DistributedConfig
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.parallel import comm
+    from ifseg_torch.parallel.mesh import batch_rows, initialize_distributed, mesh_from_config
+    from ifseg_torch.train.trainer import Trainer
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, device, backend="gloo")
+    cfg, tokens, lengths, state, ref = parallel_start_state(monitor=True)
+    rng = np.random.default_rng(SEED + 181)
+    batch = train_batch(rng, TRAIN_BATCH, real=True)
+    timed = train_batch(rng, TRAIN_BATCH, real=True)
+    result = dict(rank=rank, programs={}, start_s=time.perf_counter() - t_start)
+    scalars = lambda logs: {k: float(v) for k, v in logs.items()
+                            if isinstance(v, torch.Tensor) and v.dim() == 0}
+    if rank == 0:
+        ref_logs = scalars(ref.train_step(batch))
+        ref_after = whole_model(ref)
+    del ref
+    torch.cuda.empty_cache()
+    moe_state = None
+    dist.barrier()
+    for name, kw in MODEL_AXIS.items():
+        t0 = time.perf_counter()
+        scfg = copy.deepcopy(cfg)
+        scfg.distributed = DistributedConfig(**kw)
+        scfg.criterion.monitor_real_batch = name in MODEL_AXIS_MONITORED
+        mesh = mesh_from_config(scfg.distributed, device)
+        moe = name.startswith("moe")
+        if moe and moe_state is None:
+            moe_state = moe_start(state["model"], torch.Generator(device="cuda").manual_seed(SEED))
+        trainer = Trainer(scfg, tokens, lengths, total_num_updates=100, mesh=mesh).init_state(
+            moe_state if moe else state["model"])
+        if moe:  # seeded moments for the experts' model too
+            trainer.load_state_dict({"optimizer": seeded_moments(
+                trainer.optimizer.state_dict(), torch.Generator(device="cuda").manual_seed(SEED))})
+        else:
+            trainer.load_state_dict(state)
+        before = whole_model(trainer) if moe else state["model"]
+        build_s = time.perf_counter() - t0
+        idx = batch_rows(TRAIN_BATCH, mesh)
+        rows = lambda b: {k: v[idx] for k, v in b.items()}
+        captured = {}
+        hook = (dict(trainer.model.named_modules())[MOE_CHECK_LAYER].register_forward_hook(
+            lambda m, args, out: captured.setdefault("x", args[0].detach())) if moe else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        ln.reset_launches()
+        out = trainer.train_step(rows(batch))
+        res = dict(scalars(out), launches=fa.launch_counts(), routes=fa.bias_route_counts(),
+                   ln_launches=ln.LAUNCHES, monitored=name in MODEL_AXIS_MONITORED)
+        after = whole_model(trainer)
+        if hook is not None:
+            hook.remove()
+            res["moe_check"] = moe_layer_check(trainer, captured["x"])
+            moved = [k for k in after if ".moe." in k and not torch.equal(after[k], before[k])]
+            res["experts_moved"] = len(moved)
+        scfg.criterion.monitor_real_batch = False  # the timed step is the training step alone
+        comm.reset_traffic()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.train_step(rows(timed))
+        torch.cuda.synchronize()
+        res.update(s_per_step=time.perf_counter() - t1,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   traffic={k: list(v) for k, v in comm.TRAFFIC.items()},
+                   gloo_ms=1e3 * sum(v[2] for v in comm.TRAFFIC.values()), build_s=build_s)
+        if rank == 0 and name in MODEL_AXIS_COMPARED:
+            cos, worst, diff = update_cosines(before, after, ref_after)
+            rel = lambda k: abs(res[k] - ref_logs[k]) / abs(ref_logs[k])
+            res.update(ref=ref_logs, min_cosine=cos, min_cosine_tensor=worst, update_rel=diff,
+                       loss_rel=rel("loss"), gnorm_rel=rel("gnorm"))
+            if res["monitored"]:
+                res["nll_rel"] = rel("nll_loss")
+        del trainer, after
+        torch.cuda.empty_cache()
+        res["wall_s"] = time.perf_counter() - t0
+        result["programs"][name] = res
+    result["wall_s"] = time.perf_counter() - t_start
+    Path(out_path).write_text(json.dumps(result))
+    dist.destroy_process_group()
+
+
+def phase_model_axis(card: str):
+    """Phase 18: the model axis's programs (MODEL_AXIS) on two processes
+    sharing the card over gloo, through ``Trainer.train_step``."""
+    from ifseg_torch.parallel.comm import PPERMUTE_ROUTE
+
+    log("[18] the model axis's programs on two processes sharing the card (gloo): a ppermute "
+        f"as {PPERMUTE_ROUTE['gloo']}, the all-to-all as all_to_all_single")
+    port, = free_ports(1)
+    tmp = tempfile.mkdtemp()
+    outs = [f"{tmp}/rank{r}.json" for r in range(2)]
+    t0 = time.perf_counter()
+    wait_ranks(start_ranks(lambda r: [str(Path(__file__).resolve()), "--model-axis-worker",
+                                      str(r), str(port), outs[r]], 2, f"{tmp}/rank"),
+               900, "model axis")
+    wall = time.perf_counter() - t0
+    res = [json.loads(Path(o).read_text()) for o in outs]
+    summary = {}
+    for name in MODEL_AXIS:
+        r0, r1 = res[0]["programs"][name], res[1]["programs"][name]
+        traffic = "; ".join(
+            f"{k} {r0['traffic'][k][0]} calls, {r0['traffic'][k][1] / 2**20:.1f} MiB, "
+            f"{1e3 * r0['traffic'][k][2]:.1f} ms" for k in sorted(r0["traffic"]))
+        line = (f"[18] {name}: loss {r0['loss']!r} / {r1['loss']!r}, gnorm {r0['gnorm']!r}; "
+                f"{r0['s_per_step']:.4f} / {r1['s_per_step']:.4f} s/step (the step after the "
+                f"compared one), peak {r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB, host ms in "
+                f"gloo a step {r0['gloo_ms']:.1f} / {r1['gloo_ms']:.1f} by rank; rank 0's "
+                f"collectives a step: {traffic}; launches a rank {r0['launches']} / "
+                f"{r1['launches']}, K4 {r0['ln_launches']} / {r1['ln_launches']}, bias routes "
+                f"{r0['routes']}; built in {r0['build_s']:.1f} s, {r0['wall_s']:.1f} s in all")
+        if name in MODEL_AXIS_COMPARED:
+            line += (f"; against one process's step: loss {r0['ref']['loss']!r} "
+                     f"({r0['loss_rel']:.2e} relative, tolerance {PAR2_LOSS_TOL}), gnorm "
+                     f"{r0['ref']['gnorm']!r} ({r0['gnorm_rel']:.2e}, tolerance "
+                     f"{PAR2_GNORM_TOL}), least update cosine {r0['min_cosine']:.6f} "
+                     f"({r0['min_cosine_tensor']}; tolerance {PAR2_COSINE_MIN}), "
+                     f"||Δ - Δ_ref|| / ||Δ_ref|| {r0['update_rel']:.2e}")
+            if r0["monitored"]:
+                line += (f", monitoring nll_loss {r0['nll_loss']!r} against "
+                         f"{r0['ref']['nll_loss']!r} ({r0['nll_rel']:.2e})")
+        if "moe_check" in r0:
+            for rank, r in enumerate((r0, r1)):
+                c = r["moe_check"]
+                line += (f"; rank {rank} {MOE_CHECK_LAYER} on the step's {c['rows']} rows: "
+                         f"||Δ|| / ||dense|| {c['rel']:.2e} (tolerance {MOE_REL_TOL}), tokens an "
+                         f"expert by slice {c['counts']} (cap {c['cap']}), total score auction "
+                         f"{c['totals']['auction']!r} / Sinkhorn {c['totals']['sinkhorn']!r}, "
+                         f"expert tensors moved {r['experts_moved']}")
+        log(line + f"; on {card}")
+        if r0["loss"] != r1["loss"] or not np.isfinite(r0["loss"]):
+            fail(f"[18] {name}: the ranks' losses differ or are not finite")
+        if any(r["routes"]["fwd_bias_threads"] or r["routes"]["bwd_bias_copies"]
+               for r in (r0, r1)):
+            fail(f"[18] {name}: a bias not fetched by TMA")
+        if name in MODEL_AXIS_COMPARED and (
+                r0["loss_rel"] > PAR2_LOSS_TOL or r0["gnorm_rel"] > PAR2_GNORM_TOL
+                or r0["min_cosine"] < PAR2_COSINE_MIN
+                or (r0["monitored"] and r0["nll_rel"] > PAR2_LOSS_TOL)):
+            fail(f"[18] {name} departs from one process's step")
+        for r in (r0, r1) if "moe_check" in r0 else ():
+            c = r["moe_check"]
+            if (c["rel"] > MOE_REL_TOL or any(n != c["cap"] for row in c["counts"] for n in row)
+                    or c["totals"]["auction"] < c["totals"]["sinkhorn"] - 1e-3 * abs(
+                        c["totals"]["sinkhorn"]) or r["experts_moved"] < 6):
+                fail(f"[18] {name}: the expert layer check failed: {c}, "
+                     f"moved {r['experts_moved']}")
+        summary[name] = dict(rank0=r0, rank1=r1)
+    log(f"[18] {wall:.1f} s for both processes (start {res[0]['start_s']:.1f} / "
+        f"{res[1]['start_s']:.1f} s)")
+    return dict(programs=summary, wall_s=wall, ppermute_route=PPERMUTE_ROUTE["gloo"])
+
+
+def model_axis_paths(model_axis):
+    """Phase 18's launch counts by path, both ranks' summed: (the training
+    kernels' paths: each program's compared step; K1's and K4's: the
+    monitored programs' forwards)."""
+    add = lambda runs: {k: sum(r[k] for r in runs) for k in runs[0]}
+    progs = model_axis["programs"]
+    train = {f"model_axis_{k}": add([v["rank0"]["launches"], v["rank1"]["launches"]])
+             for k, v in progs.items()}
+    monitored = [k for k, v in progs.items() if v["rank0"]["monitored"]]
+    k1 = {f"model_axis_{k}_monitoring": sum(r["launches"]["infer"] for r in progs[k].values())
+          for k in monitored}
+    ln = {f"model_axis_{k}_monitoring": sum(r["ln_launches"] for r in progs[k].values())
+          for k in monitored}
+    return train, k1, ln
+
+
 def parallel_paths(parallel):
     """Phase 17's launch counts by path: (the training kernels' paths: each
     strategy at degree 1 over NCCL, at degree 2 on one card over gloo with
@@ -5014,6 +5285,7 @@ def main():
     torch.cuda.empty_cache()
     parallel["single"] = phase_parallel_single(card, stack["remat"]["ofa_base"]["off"])
     parallel["shared"] = phase_parallel_shared(card)
+    model_axis = phase_model_axis(card)
 
     fwd_src = "ifseg_torch/csrc/flash_attention_bias_fwd.cu"
     dq_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dq.cu"
@@ -5043,6 +5315,9 @@ def main():
     # phase 17's paths, each driven with the counts set to 0 before and read after
     par_train, par_k1, par_ln = parallel_paths(parallel)
     stack_paths.update(par_train)
+    # phase 18's paths (each program's compared step, both ranks), the same way
+    ma_train, ma_k1, ma_ln = model_axis_paths(model_axis)
+    stack_paths.update(ma_train)
     served16, gen16 = options["served"], options["generate"]
     # the forward without stats runs on ten main paths; each was driven with
     # the counts set to 0 just before and read just after
@@ -5057,7 +5332,7 @@ def main():
                     evaluation_prefix=served16["eval_launches"]["infer"],
                     serving_prompted=served16["serve_launches"]["infer"],
                     generate_recompute=gen16["recompute"]["launches"]["infer"],
-                    **par_k1)
+                    **par_k1, **ma_k1)
     ln_paths = dict(serving=serve["ln_launches"], evaluation=evaluation["ln_launches"],
                     monitoring=train["ln_launches"], validate=validate["ln_launches"],
                     train_cli=train_cli["ln_launches"],
@@ -5074,7 +5349,7 @@ def main():
                     evaluation_prefix=served16["eval_ln_launches"],
                     serving_prompted=served16["serve_ln_launches"],
                     generate_recompute=gen16["recompute"]["launches"]["layer_norm"],
-                    **par_ln,
+                    **par_ln, **ma_ln,
                     huge_serving=huge["serve"]["ln_launches"] - huge["serve"]["ln_wide_launches"],
                     huge_evaluation=(huge["evaluation"]["ln_launches"]
                                      - huge["evaluation"]["ln_wide_launches"]))
@@ -5171,7 +5446,7 @@ def main():
                     "train": train, "train_gradients": grads, "huge": huge, "validate": validate,
                     "train_cli": train_cli, "serving_surface": surface, "codecs": codecs,
                     "converted": converted, "training_stack": stack, "options": options,
-                    "parallel": parallel,
+                    "parallel": parallel, "model_axis": model_axis,
                     "ptxas": ptxas,
                     "card_line": card}))
     log(json.dumps({"kernels": kernels}))
@@ -5186,6 +5461,9 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-worker":
         sys.path.insert(0, str(REPO))
         parallel_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) > 1 and sys.argv[1] == "--model-axis-worker":
+        sys.path.insert(0, str(REPO))
+        model_axis_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif len(sys.argv) > 1 and sys.argv[1] == "--cli-worker":
         sys.path.insert(0, str(REPO))
         cli_worker(sys.argv[2], sys.argv[3], sys.argv[4])

@@ -17,6 +17,7 @@ layout (the inverse of that package's torch -> flax converter):
   prompt_encoder/{embedding,trans_0,trans_2}
                                      -> ``<side>_prompt_encoder.{embedding,trans.0,trans.2}``
   layers_{i}/adapter/{down,up}_proj  -> ``layers.{i}.adapter.{down,up}_proj``
+  layers_{i}/moe/{centroids,wi,wo}   -> ``layers.{i}.moe.{centroids,wi,wo}`` (as they are)
 
 ``adam_state_from_jax`` carries the Adam moments of a JAX optimizer state
 over in the same layout, so both trainers can start from the same moments.
@@ -126,10 +127,14 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                             "final_layer_norm", "attn_ln", "self_attn_ln", "cross_attn_ln"):
                 if ln_name in lp:
                     put_ln(f"{base}.{ln_name}", lp[ln_name])
-            put_linear(f"{base}.fc1", lp["ffn"]["fc1"])
-            put_linear(f"{base}.fc2", lp["ffn"]["fc2"])
-            if "ffn_layernorm" in lp["ffn"]:
-                put_ln(f"{base}.ffn_layernorm", lp["ffn"]["ffn_layernorm"])
+            if "moe" in lp:  # the experts, (E, ...) in both layouts
+                for leaf in ("centroids", "wi", "wo"):
+                    sd[f"{base}.moe.{leaf}"] = np.asarray(lp["moe"][leaf])
+            else:
+                put_linear(f"{base}.fc1", lp["ffn"]["fc1"])
+                put_linear(f"{base}.fc2", lp["ffn"]["fc2"])
+                if "ffn_layernorm" in lp["ffn"]:
+                    put_ln(f"{base}.ffn_layernorm", lp["ffn"]["ffn_layernorm"])
             if "w_resid" in lp:
                 sd[f"{base}.w_resid"] = np.asarray(lp["w_resid"])
             if "adapter" in lp:
@@ -323,8 +328,8 @@ def prune_layers(sd: Dict[str, torch.Tensor], encoder_layers_to_keep: Optional[s
 
 
 def load_model(path: str, model_cfg, ema: bool = False, encoder_layers_to_keep: str = "",
-               decoder_layers_to_keep: str = ""):
-    """A ``SegOFA(model_cfg)`` with the weights of ``path``, on the CPU: a
+               decoder_layers_to_keep: str = "", plan=None):
+    """A ``SegOFA(model_cfg, plan)`` with the weights of ``path``, on the CPU: a
     fairseq ``.pt`` file (its envelope or a bare state dict; a port state
     dict saved with ``torch.save`` is one), loaded into a fresh model from
     ``torch.Generator`` seed 0 with ``convert_torch_state_dict``; or a
@@ -333,12 +338,16 @@ def load_model(path: str, model_cfg, ema: bool = False, encoder_layers_to_keep: 
     strictly, its parameters replaced by ``ema.pt``'s when ``ema`` is set
     and the checkpoint has an EMA copy.  The layers-to-keep lists prune the
     checkpoint first (``prune_layers``), so a shallower ``model_cfg`` takes
-    the kept layers.  The counterpart of the JAX package's
-    ``cli/infer.py:load_params``, which reads orbax directories instead."""
+    the kept layers.  With a plan of experts the model holds them where a
+    ``.pt`` file such as ``ofa_base.pt`` has none: they keep their fresh
+    initialisation (and the file's dense FFN tensors of those layers are
+    left unused), as the JAX package's reconcile does.  The counterpart of
+    the JAX package's ``cli/infer.py:load_params``, which reads orbax
+    directories instead."""
     from ifseg_torch.models.segofa import SegOFA
 
     prune = lambda sd: prune_layers(sd, encoder_layers_to_keep, decoder_layers_to_keep)
-    model = SegOFA(model_cfg).init(torch.Generator().manual_seed(0))
+    model = SegOFA(model_cfg, plan).init(torch.Generator().manual_seed(0))
     if os.path.isdir(path):
         model.load_state_dict(prune(
             torch.load(os.path.join(path, "model.pt"), map_location="cpu", weights_only=True)),

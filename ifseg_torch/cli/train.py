@@ -26,7 +26,12 @@ Several processes (``--num-processes``, ``--coordinator-address``,
 ``--process-id``, as the JAX CLI takes them; each process is one device,
 ``cuda:{process_id % cards}`` unless ``--device`` names one, NCCL unless
 ``--dist-backend=gloo``): the mesh of ``--data-parallel``, ``--fsdp`` and
-``--tensor-parallel`` (``--zero1``), each data x fsdp rank reading its
+``--tensor-parallel`` (``--zero1``), or of the model axis's programs in
+place of tensor parallelism (``--pipeline-parallel``, ``--pipeline-chunks``,
+``--context-parallel``, ``--moe-experts``, ``--moe-freq``,
+``--moe-assignment``: the trainer's plan, which its evaluator's model
+shares; the pretrained file's missing experts keep their fresh
+initialisation), each data x fsdp rank reading its
 contiguous slice of every TSV and stepping on ``--batch-size`` / (data x
 fsdp) rows of the global batch, the epoch counting the global rows.  Host
 barriers stand before the first step and each validation; a heartbeat
@@ -144,7 +149,7 @@ def _train(cfg: Config, device: torch.device, mesh: ProcessMesh) -> Dict[str, An
 
     trainer = Trainer(cfg, train_ds.class_tokens, train_ds.class_lengths,
                       total_num_updates=total_updates, device=device, mesh=mesh)
-    trainer.init_state(maybe_restore_pretrained(cfg, trainer.device))
+    trainer.init_state(maybe_restore_pretrained(cfg, trainer.device, trainer.plan))
 
     run: Dict[str, Any] = dict(epochs=[], saves=[], stop=None)
     ckpt = CheckpointManager(cfg.checkpoint, writer=mesh.rank == 0)
@@ -207,7 +212,7 @@ def _train(cfg: Config, device: torch.device, mesh: ProcessMesh) -> Dict[str, An
     return run
 
 
-def maybe_restore_pretrained(cfg: Config, device) -> Optional[Dict[str, torch.Tensor]]:
+def maybe_restore_pretrained(cfg: Config, device, plan=None) -> Optional[Dict[str, torch.Tensor]]:
     """The starting weights as a state dict, or None for random ones:
     ``--finetune-from-model`` (a fresh run from those weights, exclusive with
     the reset flags, ref utils/checkpoint_utils.py:205-229), else
@@ -215,7 +220,9 @@ def maybe_restore_pretrained(cfg: Config, device) -> Optional[Dict[str, torch.Te
     checkpoint directory of the port.  Under ``--dry-weights`` an absent
     file is first fabricated with ``ofa_base.pt``'s shapes (on ``device``;
     by rank 0, the others waiting for it).
-    ``--encoder/decoder-layers-to-keep`` prune the file's layers first."""
+    ``--encoder/decoder-layers-to-keep`` prune the file's layers first.
+    ``plan``: the trainer's, whose experts a file without them leaves at
+    their fresh initialisation (``load_model``)."""
     ck = cfg.checkpoint
     if ck.finetune_from_model:
         if ck.reset_optimizer or ck.reset_dataloader or ck.reset_meters:
@@ -238,7 +245,7 @@ def maybe_restore_pretrained(cfg: Config, device) -> Optional[Dict[str, torch.Te
         logger.info("pruning checkpoint layers (encoder keep=%s, decoder keep=%s)",
                     ek or "all", dk or "all")
     return load_model(path, cfg.model, encoder_layers_to_keep=ek,
-                      decoder_layers_to_keep=dk).state_dict()
+                      decoder_layers_to_keep=dk, plan=plan).state_dict()
 
 
 def restore_training_state(cfg: Config, trainer: Trainer,
@@ -497,7 +504,8 @@ def validate(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: int,
         task.reduce_metrics(logs)
         vals = agg.get_smoothed_values()
         vals["num_images"] = num_images
-        vals["sec"] = round(time.time() - t0, 1)
+        # the slowest rank's: the validation ends when every rank has its areas
+        vals["sec"] = round(comm.max_across(time.time() - t0, mesh.host_group), 1)
     logger.info("valid epoch %d: %s", epoch, " | ".join(f"{k} {v}" for k, v in vals.items()))
     return vals
 

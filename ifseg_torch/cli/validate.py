@@ -19,7 +19,10 @@ Several processes (``--num-processes``, ``--coordinator-address``,
 ``--process-id``; ``--device`` and ``--dist-backend`` as ``cli.train`` takes
 them): each evaluates its contiguous slice of the rows, the areas and CE
 sums are summed over the processes, and every process returns the same
-values, which rank 0 logs.
+values, which rank 0 logs.  The model is built without a plan, as the JAX
+CLI builds it: under ``--pipeline-parallel``, ``--context-parallel`` or
+``--moe-experts`` the processes still each evaluate their slice of the rows
+with the whole model.
 """
 
 import logging
@@ -32,6 +35,7 @@ import torch
 from ifseg_torch.checkpoint.convert import load_model
 from ifseg_torch.config import Config, from_flags
 from ifseg_torch.eval.evaluator import Evaluator, reduce_across_ranks
+from ifseg_torch.parallel import comm
 from ifseg_torch.parallel.mesh import shutdown_distributed
 from ifseg_torch.tasks.segmentation import SegmentationTask
 from ifseg_torch.utils import metrics as metrics_lib
@@ -84,7 +88,8 @@ def _validate(cfg: Config, device, mesh, logs_out) -> dict:
             logs_out.extend(logs)
         vals = agg.get_smoothed_values()
         vals["num_images"] = num_images
-        vals["sec"] = round(time.time() - t0, 1)
+        # the slowest rank's, so that every process returns the same values
+        vals["sec"] = round(comm.max_across(time.time() - t0, mesh.host_group), 1)
     logger.info("validate: %s", " | ".join(f"{k} {v}" for k, v in vals.items()))
     return vals
 

@@ -339,30 +339,11 @@ class CheckpointConfig:
     dry_weights: bool = False
 
 
-def _refuse_unported(section, names, item: str) -> None:
-    """Raise where one of ``names`` of ``section`` is off its default: the
-    JAX package honours those fields and the port does not yet."""
-    for f in dataclasses.fields(section):
-        if f.name not in names:
-            continue
-        default = f.default if f.default is not dataclasses.MISSING else f.default_factory()
-        if getattr(section, f.name) != default:
-            raise NotImplementedError(
-                f"--{f.name.replace('_', '-')}={getattr(section, f.name)!r} is not ported "
-                f"(ROADMAP.md {item})")
-
-
-A9B_FIELDS = ("pipeline_parallel", "pipeline_chunks", "context_parallel", "moe_experts",
-              "moe_freq", "moe_assignment")
-
-
 @dataclass
 class DistributedConfig:
     """The JAX package's mesh and process layout (data, fsdp, tensor,
-    pipeline, context and expert parallelism, ZeRO-1, the processes).  The
-    processes, data, fsdp, tensor parallelism and ZeRO-1 are honoured
-    (``parallel/``); the pipeline, context and expert fields are not ported
-    (ROADMAP.md A.9b) and must keep their defaults."""
+    pipeline, context and expert parallelism, ZeRO-1, the processes), all
+    honoured (``parallel/``)."""
 
     data_parallel: int = -1
     tensor_parallel: int = 1
@@ -377,9 +358,6 @@ class DistributedConfig:
     coordinator_address: Optional[str] = None
     num_processes: int = 1
     process_id: int = 0
-
-    def __post_init__(self):
-        _refuse_unported(self, A9B_FIELDS, "A.9b")
 
 
 @dataclass

@@ -24,6 +24,13 @@ their plain versions for CPU tensors.  The plain softmax attention below
 Pallas kernel, on whatever device the tensors are: attention dropout > 0 in
 training, a (B, H, Lq, Lk) bias, grouped cross-attention, and every site of
 a model built with ``use_flash_attention=False``.
+
+Under ``--context-parallel`` (a self-attention built with ``plan``) the
+site rings (``parallel/context.py:ring_attention``) where the JAX package's
+does: more than one rank on the ring, as many queries as keys (no prefix),
+no attention dropout in training, and no 4-D bias.  The ring is fp32
+einsums with an online softmax, as in the JAX package; the other sites keep
+the kernels.
 """
 
 import torch
@@ -36,6 +43,7 @@ from ifseg_torch.ops.flash_attention import (
     flash_attention_bias_packed_infer,
     flash_attention_bias_packed_stats,
 )
+from ifseg_torch.parallel.context import ring_attention
 
 
 class Dropout(nn.Module):
@@ -133,8 +141,10 @@ class MultiheadAttention(nn.Module):
     tp = None
 
     def __init__(self, embed_dim: int, num_heads: int, scale_factor: float = 2.0,
-                 scale_heads: bool = True, dropout: float = 0.0, use_flash: bool = True):
+                 scale_heads: bool = True, dropout: float = 0.0, use_flash: bool = True,
+                 plan=None):
         super().__init__()
+        self.plan = plan
         self.dropout = Dropout(dropout)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
@@ -164,7 +174,11 @@ class MultiheadAttention(nn.Module):
             k, v, bias, key_padding_mask = self._prepend(prompt_kv, k, v, bias, key_padding_mask)
         packed = (q, k, v, bias, key_padding_mask, causal, self.num_heads)
         dropping = self.training and self.dropout.rate > 0.0
-        if (not self.use_flash or dropping or k.shape[0] != b
+        if (self.plan is not None and self.plan.context_parallel > 1 and not dropping
+                and q.shape[1] == k.shape[1] and k.shape[0] == b
+                and (bias is None or bias.dim() == 3)):
+            out = ring_attention(*packed, group=self.plan.group)
+        elif (not self.use_flash or dropping or k.shape[0] != b
                 or (bias is not None and bias.dim() != 3)):
             out = plain_attention(*packed, dropout=self.dropout if dropping else None)
         elif torch.is_grad_enabled():

@@ -26,6 +26,12 @@ per-layer key/value prefixes once a forward, prepended in self-attention by
 visible); ``decode_served`` applies none, as the JAX package's
 ``decode_served`` calls its layers without them
 (``ifseg_tpu/models/decoder.py:464-467``; ROADMAP.md C.4).
+
+Built with a ``ParallelPlan``, as the encoder: experts in every
+``moe_freq``-th layer, ring self-attention, and under the pipeline
+``forward``'s layer stack through the GPipe schedule (``_run_layers_pp``),
+the encoder context and masks read by microbatch and the cross bias by
+every stage.
 """
 
 from typing import Dict, Optional
@@ -39,8 +45,9 @@ from ifseg_torch.ops.flash_attention import row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .ar_cache import check_ar_length
 from .attention import Dropout, Linear, prefixed_pack
-from .encoder import LayerDrop, _ids, compute_dtype, stack_tables, tp_part
-from .layers import DecoderLayer, LayerNorm, PromptEncoder, run_layer
+from .encoder import LayerDrop, _ids, compute_dtype, pipeline_stages, stack_tables, tp_part
+from .layers import DecoderLayer, LayerNorm, PromptEncoder, moe_layer, run_layer
+from ifseg_torch.parallel.pipeline import gpipe
 from .position import (
     gather_grid_bias_all_layers,
     gather_rel_bias_all_layers,
@@ -57,9 +64,11 @@ class Decoder(nn.Module):
     # are built for this rank's heads
     tp = None
 
-    def __init__(self, cfg: ModelConfig, embed_tokens: nn.Embedding):
+    def __init__(self, cfg: ModelConfig, embed_tokens: nn.Embedding, plan=None):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
+        pp = plan is not None and plan.pipeline_parallel > 1
         d = cfg.decoder_embed_dim
         heads = cfg.decoder_attention_heads
         nl = cfg.decoder_layers
@@ -97,10 +106,11 @@ class Decoder(nn.Module):
                 scale_resids=cfg.scale_resids, activation_fn=cfg.activation_fn,
                 use_adapter=cfg.adapter, adapter_dim=cfg.adapter_dim,
                 dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
-                activation_dropout=cfg.activation_dropout, drop_path_rate=float(rate),
-                use_flash=cfg.use_flash_attention,
+                activation_dropout=cfg.activation_dropout,
+                drop_path_rate=0.0 if pp else float(rate),
+                use_flash=cfg.use_flash_attention, plan=plan, use_moe=moe_layer(plan, i),
             )
-            for rate in np.linspace(0, cfg.decoder_drop_path_rate, nl)
+            for i, rate in enumerate(np.linspace(0, cfg.decoder_drop_path_rate, nl))
         )
         self.layer_norm = LayerNorm(d)
         self.dropout_layer = Dropout(cfg.dropout)
@@ -245,12 +255,43 @@ class Decoder(nn.Module):
 
         enc = encoder_out["encoder_out"]
         enc_pad = encoder_out["encoder_padding_mask"]
+        if self.plan is not None and self.plan.pipeline_parallel > 1:
+            x = self._run_layers_pp(x, enc, enc_pad, pack, cross_bias, prompts,
+                                    self_padding_mask, not full_context_alignment)
+            return self.output_layer(self.layer_norm(x, cd))
         for i, (layer, self_bias) in enumerate(zip(self.layers, pack.unbind(0))):
             args = (x, enc, enc_pad, self_bias, cross_bias, self_padding_mask,
                     not full_context_alignment) + (() if prompts is None else (prompts[i],))
             x = self.layerdrop(run_layer(layer, cfg, *args), x)
         x = self.layer_norm(x, cd)
         return self.output_layer(x)
+
+    def _run_layers_pp(self, x, enc, enc_pad, pack, cross_bias, prompts, self_padding_mask,
+                       causal: bool):
+        """``forward``'s layer stack through the GPipe schedule (the JAX
+        package's ``_run_layers_pp``): the encoder context and the masks
+        read by microbatch, the cross bias by every stage, each layer's self
+        bias (and prefix) from the pack."""
+        cfg = self.cfg
+        layers, lps = pipeline_stages(self.plan, self.layers, cfg.decoder_layerdrop,
+                                      cfg.decoder_drop_path_rate, self.training, "decoder")
+        s = self.plan.pipeline_parallel
+        consts = [pack.view(s, lps, *pack.shape[1:])]
+        if prompts is not None:
+            consts.append(prompts.view(s, lps, *prompts.shape[1:]))
+        rows = [enc, enc_pad] + ([] if self_padding_mask is None else [self_padding_mask])
+
+        def stage_fn(carry, row, stage, bcast, mb):
+            xx = carry[0]
+            sp = row[2] if len(row) > 2 else None
+            for j, layer in enumerate(layers):
+                args = (xx, row[0], row[1], stage[0][j], bcast[0], sp, causal) + (
+                    () if prompts is None else (stage[1][j],))
+                xx = run_layer(layer, cfg, *args)
+            return [xx]
+
+        return gpipe(stage_fn, [x], self.plan.group, chunks=self.plan.chunks, mb_consts=rows,
+                     stage_consts=consts, bcast=[cross_bias], modules=layers)[0]
 
     def decode_served(self, bos_tokens, encoder_out, pre, full_context_alignment: bool = False):
         """Surrogate decode with precomputed biases -> (B, 1+hw, num_seg) fp32."""

@@ -19,8 +19,15 @@ prefix, as the JAX package's ``encode_served`` applies none
 (``ifseg_tpu/models/encoder.py:520-537`` against ``_run_layers`` :291-295):
 a prompt-tuned model served by ``SegServer`` answers without its prefixes
 while its evaluator and trainer apply them (ROADMAP.md C.4).
+
+Built with a ``ParallelPlan`` (``parallel/plan.py``): every ``moe_freq``-th
+layer holds experts, self-attention rings under context parallelism, and
+under ``--pipeline-parallel`` the three in-graph forwards run the layer
+stack through the GPipe schedule (``_run_layers_pp``), stage s running
+layers [s·L/S, (s+1)·L/S).
 """
 
+import logging
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -31,7 +38,7 @@ from ifseg_torch.config import ModelConfig
 from ifseg_torch.ops.flash_attention import row_padded
 from ifseg_torch.ops.resize import bilinear_dyn_tensor, resize_bilinear
 from .attention import Dropout, Linear, prefixed_pack
-from .layers import EncoderLayer, LayerNorm, PromptEncoder, run_layer
+from .layers import EncoderLayer, LayerNorm, PromptEncoder, moe_layer, run_layer
 from .position import (
     gather_grid_bias_all_layers,
     gather_rel_bias_all_layers,
@@ -44,6 +51,7 @@ from .position import (
     make_token_bucket_position,
 )
 from .resnet import RESNET_LAYERS, ResNetStem
+from ifseg_torch.parallel.pipeline import gpipe
 
 
 def tp_part(tp, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -52,6 +60,8 @@ def tp_part(tp, x: torch.Tensor, dim: int) -> torch.Tensor:
     return x if tp is None else tp.part(x, dim)
 
 PAD = 1
+
+logger = logging.getLogger(__name__)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -85,6 +95,24 @@ class LayerDrop(nn.Module):
         return torch.where(keep, x_new, x_old)
 
 
+def pipeline_stages(plan, layers, layerdrop: float, drop_path_rate: float, training: bool,
+                    side: str):
+    """(this stage's layers, layers a stage) under the pipeline.  LayerDrop
+    raises there and stochastic depth is off (the layers are built without
+    it), with the JAX package's warning, as its scanned stage body has
+    neither."""
+    if layerdrop > 0:
+        raise NotImplementedError(f"--{side}-layerdrop is not supported with --pipeline-parallel")
+    if drop_path_rate > 0 and training:
+        logger.warning("--pipeline-parallel disables %s stochastic depth "
+                       "(drop_path_rate=%.2f ignored)", side, drop_path_rate)
+    s = plan.pipeline_parallel
+    if len(layers) % s:
+        raise ValueError(f"{len(layers)} layers not divisible by {s} pipeline stages")
+    lps = len(layers) // s
+    return list(layers)[plan.index * lps:(plan.index + 1) * lps], lps
+
+
 def class_mean_embeddings(embed_table, class_tokens, class_lengths):
     """Per-class mean of category-word token embeddings (EmbeddingBag mean
     mode, encoder_module.py:147-148).  embed_table (V, D), or the embedding
@@ -106,9 +134,11 @@ class Encoder(nn.Module):
     # are built for this rank's heads
     tp = None
 
-    def __init__(self, cfg: ModelConfig, embed_tokens: nn.Embedding):
+    def __init__(self, cfg: ModelConfig, embed_tokens: nn.Embedding, plan=None):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
+        pp = plan is not None and plan.pipeline_parallel > 1
         d = cfg.encoder_embed_dim
         heads = cfg.encoder_attention_heads
         nl = cfg.encoder_layers
@@ -141,10 +171,12 @@ class Encoder(nn.Module):
                 scale_resids=cfg.scale_resids, activation_fn=cfg.activation_fn,
                 use_adapter=cfg.adapter, adapter_dim=cfg.adapter_dim,
                 dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
-                activation_dropout=cfg.activation_dropout, drop_path_rate=float(rate),
-                use_flash=cfg.use_flash_attention,
+                activation_dropout=cfg.activation_dropout,
+                # no stochastic depth under the pipeline (pipeline_stages)
+                drop_path_rate=0.0 if pp else float(rate),
+                use_flash=cfg.use_flash_attention, plan=plan, use_moe=moe_layer(plan, i),
             )
-            for rate in np.linspace(0, cfg.encoder_drop_path_rate, nl)
+            for i, rate in enumerate(np.linspace(0, cfg.encoder_drop_path_rate, nl))
         )
         self.layer_norm = LayerNorm(d)
         self.dropout_layer = Dropout(cfg.dropout)
@@ -318,10 +350,35 @@ class Encoder(nn.Module):
         body.copy_(bias0.to(cd))
         body[..., hw:, hw:].add_(tok_all.to(cd))
         body[..., :hw, :hw].add_(img_all.to(cd))
+        if self.plan is not None and self.plan.pipeline_parallel > 1:
+            return self.layer_norm(self._run_layers_pp(x, padding_mask, pack, prompts), cd)
         for i, (layer, bias) in enumerate(zip(self.layers, pack.unbind(0))):
             args = (x, padding_mask, bias) + (() if prompts is None else (prompts[i],))
             x = self.layerdrop(run_layer(layer, cfg, *args), x)
         return self.layer_norm(x, cd)
+
+    def _run_layers_pp(self, x, padding_mask, pack, prompts):
+        """The layer stack through the GPipe schedule over the plan's model
+        axis (the JAX package's ``_run_layers_pp``): this stage's layers on
+        each microbatch, each with its bias from the pack (and its prefix),
+        the padding mask read by microbatch."""
+        cfg = self.cfg
+        layers, lps = pipeline_stages(self.plan, self.layers, cfg.encoder_layerdrop,
+                                      cfg.encoder_drop_path_rate, self.training, "encoder")
+        s = self.plan.pipeline_parallel
+        consts = [pack.view(s, lps, *pack.shape[1:])]
+        if prompts is not None:
+            consts.append(prompts.view(s, lps, *prompts.shape[1:]))
+
+        def stage_fn(carry, row, stage, bcast, mb):
+            xx = carry[0]
+            for j, layer in enumerate(layers):
+                args = (xx, row[0], stage[0][j]) + (() if prompts is None else (stage[1][j],))
+                xx = run_layer(layer, cfg, *args)
+            return [xx]
+
+        return gpipe(stage_fn, [x], self.plan.group, chunks=self.plan.chunks,
+                     mb_consts=[padding_mask], stage_consts=consts, modules=layers)[0]
 
     def _encode_tokens(self, src_tokens, image_embed, image_pad, image_hw, rel_bias_grid_hw,
                        resnet_feats=None, pos_img=None, img_all=None) -> Dict:

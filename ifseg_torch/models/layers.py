@@ -10,8 +10,12 @@ attention, after the FFN and on the FFN activation) and DropPath follow
 (``attention.set_generator``); in eval mode they are the identity.
 ``Adapter`` (a bottleneck on the FFN output before the residual) and
 ``PromptEncoder`` (the per-layer key/value prefixes of prefix tuning) are the
-option paths of unify_transformer_layer.py:49-94 and encoder_module.py:989-1027;
-MoE is not ported (ROADMAP.md A.9b).
+option paths of unify_transformer_layer.py:49-94 and encoder_module.py:989-1027.
+A layer built with ``use_moe`` (``moe_layer``: every ``moe_freq``-th one
+under ``--moe-experts``) holds ``moe`` (``models/moe_ffn.py``) in place of
+fc1, the FFN LayerNorm and fc2, as the JAX package's layer holds ``moe`` in
+place of ``ffn``; its output has no dropout, as there.  Self-attention takes
+the plan (``plan=``) for ring attention under ``--context-parallel``.
 
 ``run_layer`` runs a layer under activation checkpointing where the model
 config asks for it (``checkpoint_activations``, ``remat_policy``) and a
@@ -44,6 +48,7 @@ from ifseg_torch.ops.flash_attention import ATTN_FWD_STATS_OP
 from ifseg_torch.ops.gelu import gelu_poly
 from ifseg_torch.ops.layer_norm import fused_layer_norm
 from .attention import Dropout, Linear, MultiheadAttention
+from .moe_ffn import MoEFeedForward
 
 REMAT_POLICIES = ("full", "save-attn", "save-attn-ffn")
 # the ops whose outputs a policy saves; the FFN activation is the output of
@@ -214,15 +219,24 @@ class PromptEncoder(nn.Module):
             self.num_layers, 2, self.num_heads, self.length, self.head_dim)
 
 
+def moe_layer(plan, i: int) -> bool:
+    """Whether layer ``i`` holds experts: every ``plan.moe_freq``-th layer
+    under more than one expert (the JAX package's ``_moe_layer``)."""
+    return (plan is not None and plan.moe_experts > 1
+            and i % plan.moe_freq == plan.moe_freq - 1)
+
+
 class FeedForward(nn.Module):
-    """fc1 -> activation -> ffn_layernorm (scale_fc) -> fc2.
+    """fc1 -> activation -> ffn_layernorm (scale_fc) -> fc2, or with
+    ``plan`` the BASE experts (``MoEFeedForward``).
 
     The layers below inherit it, so its parameters sit on the layer under the
     reference names (``layers.{i}.fc1``, not ``layers.{i}.ffn.fc1``)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, activation_fn: str = "gelu_tanh",
                  scale_fc: bool = True, dropout: float = 0.0, activation_dropout: float = 0.0,
-                 drop_path_rate: float = 0.0, use_adapter: bool = False, adapter_dim: int = 200):
+                 drop_path_rate: float = 0.0, use_adapter: bool = False, adapter_dim: int = 200,
+                 moe_plan=None):
         super().__init__()
         if activation_fn not in ACTIVATIONS:
             raise NotImplementedError(f"activation {activation_fn!r} is not ported")
@@ -230,17 +244,25 @@ class FeedForward(nn.Module):
         self.dropout = Dropout(dropout)
         self.activation_dropout = Dropout(activation_dropout)
         self.drop_path = DropPath(drop_path_rate)
-        self.fc1 = Linear(embed_dim, ffn_dim)
-        self.fc2 = Linear(ffn_dim, embed_dim)
-        self.ffn_layernorm = LayerNorm(ffn_dim) if scale_fc else None
+        if moe_plan is None:
+            self.moe = None
+            self.fc1 = Linear(embed_dim, ffn_dim)
+            self.fc2 = Linear(ffn_dim, embed_dim)
+            self.ffn_layernorm = LayerNorm(ffn_dim) if scale_fc else None
+        else:
+            self.moe = MoEFeedForward(embed_dim, ffn_dim, moe_plan)
+            self.fc1 = self.fc2 = self.ffn_layernorm = None
         self.adapter = Adapter(embed_dim, adapter_dim) if use_adapter else None
 
     def ffn(self, x):
-        """The FFN, then the adapter where there is one."""
-        y = self.activation_dropout(self.act(self.fc1(x)))
-        if self.ffn_layernorm is not None:
-            y = self.ffn_layernorm(y, x.dtype)
-        y = self.dropout(self.fc2(y))
+        """The FFN (or the experts), then the adapter where there is one."""
+        if self.moe is not None:
+            y = self.moe(x)
+        else:
+            y = self.activation_dropout(self.act(self.fc1(x)))
+            if self.ffn_layernorm is not None:
+                y = self.ffn_layernorm(y, x.dtype)
+            y = self.dropout(self.fc2(y))
         return y if self.adapter is None else self.adapter(y)
 
 
@@ -251,11 +273,13 @@ class EncoderLayer(FeedForward):
                  scale_resids: bool = False, activation_fn: str = "gelu_tanh",
                  use_adapter: bool = False, adapter_dim: int = 200, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 drop_path_rate: float = 0.0, use_flash: bool = True):
+                 drop_path_rate: float = 0.0, use_flash: bool = True, plan=None,
+                 use_moe: bool = False):
         super().__init__(embed_dim, ffn_dim, activation_fn, scale_fc, dropout,
-                         activation_dropout, drop_path_rate, use_adapter, adapter_dim)
+                         activation_dropout, drop_path_rate, use_adapter, adapter_dim,
+                         plan if use_moe else None)
         self.self_attn = MultiheadAttention(embed_dim, num_heads, attn_scale_factor, scale_heads,
-                                            attention_dropout, use_flash)
+                                            attention_dropout, use_flash, plan)
         self.self_attn_layer_norm = LayerNorm(embed_dim)
         self.attn_ln = LayerNorm(embed_dim) if scale_attn else None
         self.final_layer_norm = LayerNorm(embed_dim)
@@ -285,11 +309,13 @@ class DecoderLayer(FeedForward):
                  scale_resids: bool = False, activation_fn: str = "gelu_tanh",
                  use_adapter: bool = False, adapter_dim: int = 200, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 drop_path_rate: float = 0.0, use_flash: bool = True):
+                 drop_path_rate: float = 0.0, use_flash: bool = True, plan=None,
+                 use_moe: bool = False):
         super().__init__(embed_dim, ffn_dim, activation_fn, scale_fc, dropout,
-                         activation_dropout, drop_path_rate, use_adapter, adapter_dim)
+                         activation_dropout, drop_path_rate, use_adapter, adapter_dim,
+                         plan if use_moe else None)
         self.self_attn = MultiheadAttention(embed_dim, num_heads, attn_scale_factor, scale_heads,
-                                            attention_dropout, use_flash)
+                                            attention_dropout, use_flash, plan)
         self.self_attn_layer_norm = LayerNorm(embed_dim)
         self.self_attn_ln = LayerNorm(embed_dim) if scale_attn else None
         self.encoder_attn = MultiheadAttention(embed_dim, num_heads, attn_scale_factor,

@@ -26,15 +26,20 @@ from ifseg_torch.config import ModelConfig
 from .attention import Linear
 from .decoder import Decoder
 from .encoder import Encoder
+from .moe_ffn import MoEFeedForward
+from ifseg_torch.parallel.moe import init_moe_params
 
 
 class SegOFA(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    """``plan``: the model axis's program (``parallel/plan.py``), or None."""
+
+    def __init__(self, cfg: ModelConfig, plan=None):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
         embed_tokens = nn.Embedding(cfg.vocab_size, cfg.encoder_embed_dim)
-        self.encoder = Encoder(cfg, embed_tokens)
-        self.decoder = Decoder(cfg, embed_tokens)
+        self.encoder = Encoder(cfg, embed_tokens, plan)
+        self.decoder = Decoder(cfg, embed_tokens, plan)
 
     def forward(self, src_tokens=None, patch_images=None, patch_masks=None, bos_tokens=None,
                 aux_grid_ids=None, aux_src_tokens=None, class_tokens=None, class_lengths=None,
@@ -80,8 +85,9 @@ class SegOFA(nn.Module):
         generator, or a CUDA one to build a large model on the card), in a
         fixed module order: lecun-normal linears and convs with zero biases,
         normal(0, dim^-0.5) embeddings, normal(0, 0.1) relative-position
-        tables; LayerNorms, FrozenBNs and head gains keep their identity
-        values.  Returns self."""
+        tables, the experts as ``parallel.moe.init_moe_params`` draws them;
+        LayerNorms, FrozenBNs and head gains keep their identity values.
+        Returns self."""
 
         def normal_(t: torch.Tensor, std: float):
             t.copy_(torch.randn(t.shape, generator=generator, device=generator.device) * std)
@@ -96,6 +102,10 @@ class SegOFA(nn.Module):
             elif isinstance(mod, nn.Embedding):
                 rel_table = "rel_pos_table_list" in name
                 normal_(mod.weight, 0.1 if rel_table else mod.embedding_dim ** -0.5)
+            elif isinstance(mod, MoEFeedForward):
+                e, d, f = mod.wi.shape
+                for k, v in init_moe_params(generator, e, d, f).items():
+                    getattr(mod, k).copy_(v)
         return self
 
     def serving_linears(self):

@@ -13,6 +13,9 @@ Rules (the JAX package's ``parallel/sharding.py``, GSPMD there):
   FSDP — parameters of two dims or more also split over 'fsdp' on the
          largest dim that is not split yet and divides evenly (at least 8
          a rank); an embedding table only on its rows.
+  MoE  — the BASE experts (``layers.N.moe.{centroids,wi,wo}``, stacked
+         (E, ...)) split over 'model' on the expert dim, one expert a rank,
+         whatever holds the other parameters (``shardings_for_plan``).
   ZeRO-1 — the optimizer state also split over 'data' the same way, the
          parameters staying whole.
 
@@ -51,6 +54,26 @@ TP_RULES: List[Tuple[str, int]] = [
     (r"(^|\.)image_proj\.weight$", 0),
 ]
 
+# the BASE experts: one expert a rank of the 'model' dim
+MOE_RULES: List[Tuple[str, int]] = [
+    (r"\.moe\.(centroids|wi|wo)$", 0),
+]
+
+
+def shardings_for_plan(dist_cfg, tp: Optional[bool] = None) -> List[Tuple[str, int]]:
+    """The rules that place parameters on the 'model' dim for a distributed
+    config (the JAX package's ``shardings_for_plan``): TP's only where tensor
+    parallelism holds that dim (above degree 1, or as ``tp`` says), the
+    experts' wherever there are experts; a pipeline or ring keeps every
+    other parameter whole there."""
+    if tp is None:
+        tp = max(getattr(dist_cfg, "tensor_parallel", 1), 1) > 1
+    rules = list(TP_RULES) if tp else []
+    if max(getattr(dist_cfg, "moe_experts", 0), 0) > 1:
+        rules += MOE_RULES
+    return rules
+
+
 # view dim -> torch dim, by jax_paths layout (None: the stacked layer dim)
 _CONV = (2, 3, 1, 0)
 
@@ -65,20 +88,21 @@ def _view_to_torch(layout: str, ndim: int) -> List[Optional[int]]:
     return list(range(ndim))
 
 
-def tp_dim(name: str, shape, model: int) -> Optional[int]:
+def tp_dim(name: str, shape, model: int, rules=TP_RULES) -> Optional[int]:
     """The torch dim of ``name`` split over a 'model' dim of size
-    ``model``, or None."""
-    for pat, dim in TP_RULES:
+    ``model`` by the first of ``rules`` that matches, or None."""
+    for pat, dim in rules:
         if re.search(pat, name):
             return dim if dim < len(shape) and shape[dim] % model == 0 else None
     return None
 
 
 def param_layout(name: str, shape, path: str, layout: str, n_stack: int, mesh_shape: Dict[str, int],
-                 axes=("model", "fsdp")) -> Dict[int, str]:
+                 axes=("model", "fsdp"), model_rules=TP_RULES) -> Dict[int, str]:
     """``{torch dim: mesh dim}`` of one parameter, as the JAX package's
-    ``_spec_for`` places its leaf over the mesh dims ``axes`` ("model" for
-    TP, "fsdp"; "data" for the optimizer state under ZeRO-1, as
+    ``_spec_for`` places its leaf over the mesh dims ``axes`` ("model" by
+    ``model_rules``, TP's by default or ``shardings_for_plan``'s; "fsdp";
+    "data" for the optimizer state under ZeRO-1, as
     ``opt_state_shardings`` places it).  A dim of size 1 in ``axes`` is
     placed like a larger one (the JAX package leaves it out): its split is
     whole."""
@@ -86,7 +110,7 @@ def param_layout(name: str, shape, path: str, layout: str, n_stack: int, mesh_sh
     view_shape = [n_stack if t is None else shape[t] for t in to_torch]
     spec: List[Optional[str]] = [None] * len(view_shape)
     if "model" in axes:
-        d = tp_dim(name, shape, mesh_shape["model"])
+        d = tp_dim(name, shape, mesh_shape["model"], model_rules)
         if d is not None:
             spec[to_torch.index(d)] = "model"
 
@@ -107,7 +131,7 @@ def param_layout(name: str, shape, path: str, layout: str, n_stack: int, mesh_sh
 
 
 def model_layouts(model: nn.Module, mesh_shape: Dict[str, int],
-                  axes=("model", "fsdp")) -> Dict[str, Dict[int, str]]:
+                  axes=("model", "fsdp"), model_rules=TP_RULES) -> Dict[str, Dict[int, str]]:
     """name -> layout, for every parameter of ``model`` (whole, as built)."""
     paths = jax_paths(model)
     n_stack = Counter(path for path, _ in paths.values())
@@ -115,7 +139,7 @@ def model_layouts(model: nn.Module, mesh_shape: Dict[str, int],
     for name, p in model.named_parameters():
         path, layout = paths[name]
         out[name] = param_layout(name, tuple(p.shape), path, layout, n_stack[path], mesh_shape,
-                                 axes)
+                                 axes, model_rules)
     return out
 
 

@@ -47,7 +47,15 @@ the logs of the one-process step on the whole batch.  The strategies:
   - ``tp``: Megatron tensor parallelism over the 'model' group
     (``parallel/tensor.py``);
   - ``zero1``: the optimizer state split over the 'data' group: each data
-    rank updates its slice of each parameter, then the slices are gathered.
+    rank updates its slice of each parameter, then the slices are gathered;
+  - the model axis's programs (``cfg.distributed``'s pipeline, context and
+    expert fields, a ``ParallelPlan`` the model is built with): the ranks
+    of a 'model' group step on the same rows.  Every parameter is whole on
+    every rank of the group except the experts (one a rank, their
+    gradients summed over the batch group only), and every gradient comes
+    out whole on every rank (the programs' boundaries make it so), except
+    that under the pipeline a layer's gradient exists on its stage alone:
+    the layers' gradients are summed over the 'model' group too.
 
 The per-tensor reductions of the optimizers and the global norm sum over
 the ranks that hold parts of a tensor (``train/optim.py``, ``Sharding``), so
@@ -55,8 +63,8 @@ the step equals the one-process step on the same global batch.
 ``state_dict`` gathers the whole state (a collective) in the one-process
 layout and ``load_state_dict`` cuts a whole state to this rank's parts, so
 a checkpoint moves between layouts.  Dropout draws from a generator per
-data rank (the ranks of a tensor-parallel group share one): masks differ
-from the one-process run's (ROADMAP.md C.3).
+data rank (the ranks of a tensor-parallel group or of a pipeline share
+one): masks differ from the one-process run's (ROADMAP.md C.3).
 """
 
 from contextlib import nullcontext
@@ -76,7 +84,13 @@ from ifseg_torch.parallel import comm
 from ifseg_torch.parallel.fsdp import FullyShardedParams
 from ifseg_torch.parallel.mesh import ProcessMesh
 from ifseg_torch.parallel.plan import plan_from_config
-from ifseg_torch.parallel.sharding import gather_whole, local_part, model_layouts, restrict
+from ifseg_torch.parallel.sharding import (
+    gather_whole,
+    local_part,
+    model_layouts,
+    restrict,
+    shardings_for_plan,
+)
 from ifseg_torch.parallel.tensor import apply_tensor_parallel
 from ifseg_torch.train import optim as optim_lib
 from ifseg_torch.train.criterion import (
@@ -224,7 +238,7 @@ class Trainer:
         """Build the model (from the state dict ``params``, or random weights
         from the configured seed), the optimizer and the EMA copy."""
         cfg = self.cfg
-        model = SegOFA(cfg.model)
+        model = SegOFA(cfg.model, self.plan)
         if params is None:
             model.init(torch.Generator().manual_seed(cfg.optimization.seed))
         else:
@@ -244,6 +258,10 @@ class Trainer:
             self.model, cfg.model, cfg.optimization, self.total_num_updates, views, parts)
         # the trainable parameters (this rank's parts), in the optimizer's order
         self._trainable = [(n, p) for n, p in self.model.named_parameters() if self.mask[n]]
+        # under the pipeline a layer's gradient exists on its stage alone
+        pp = self.plan is not None and self.plan.pipeline_parallel > 1
+        self._stage_grads = {n for n, _ in self._trainable
+                             if pp and n.startswith(("encoder.layers.", "decoder.layers."))}
         opt = cfg.optimization
         self.plateau = (optim_lib.ReduceLROnPlateau(
             shrink=opt.lr_shrink, patience=opt.lr_patience,
@@ -268,12 +286,15 @@ class Trainer:
         return the optimizer's (views, parts): under ZeRO-1 its tensors are
         the rank's slices of the parameters."""
         mesh = self.mesh
-        axes = ({"model"} if "tp" in self.strategies else set()) | (
+        rules = shardings_for_plan(self.cfg.distributed, tp="tp" in self.strategies)
+        axes = ({"model"} if rules else set()) | (
             {"fsdp"} if "fsdp" in self.strategies else set())
         state_axes = axes | ({"data"} if "zero1" in self.strategies else set())
-        self.layouts = model_layouts(self.model, mesh.shape, axes=state_axes)
+        self.layouts = model_layouts(self.model, mesh.shape, axes=state_axes, model_rules=rules)
         if "tp" in self.strategies:
             apply_tensor_parallel(self.model, mesh.group("model"))
+        else:
+            self._cut_experts(self.model)
         if "fsdp" in self.strategies:
             dims = {n: d for n, lay in self.layouts.items() for d, a in lay.items() if a == "fsdp"}
             self.fsdp = FullyShardedParams(self.model, dims, mesh.group("fsdp"))
@@ -286,6 +307,18 @@ class Trainer:
             parts[name] = {d: optim_lib.Part(mesh.group(a), mesh.size(a), mesh.index(a))
                            for d, a in lay.items()}
         return views, parts
+
+    @torch.no_grad()
+    def _cut_experts(self, model: SegOFA) -> None:
+        """Cut ``model``'s (E, ...) expert tensors to this rank's expert (the
+        'model' dims of the layouts, where TP does not hold that dim)."""
+        mods = dict(model.named_modules())
+        for name, p in list(model.named_parameters()):
+            cut = restrict(self.layouts.get(name, {}), ("model",))
+            if cut:
+                mname, _, pname = name.rpartition(".")
+                setattr(mods[mname], pname, torch.nn.Parameter(
+                    local_part(p.detach(), cut, self.mesh).clone(), requires_grad=p.requires_grad))
 
     def param_layout(self, name: str) -> Dict[int, str]:
         """The dims of parameter ``name`` split across ranks (TP, FSDP)."""
@@ -414,19 +447,28 @@ class Trainer:
         holding the EMA weights as they stood then; else the training model
         itself.  Under TP or FSDP, where the training model holds parts, it
         is always a whole module of its own (the counterpart of the JAX
-        evaluator's ``_localize_params``).  ``sync_eval_weights`` brings it
-        up to date."""
-        split = bool(self.fsdp is not None or "tp" in self.strategies)
+        evaluator's ``_localize_params``), built with the trainer's plan and
+        holding the rank's expert where there are experts.
+        ``sync_eval_weights`` brings it up to date."""
+        split = self._split
         if not split and not (self.cfg.task.uses_ema and self.ema is not None):
             return self.model
         if self._ema_model is None:
             if split:
-                self._ema_model = SegOFA(self.cfg.model).to(self.device)
+                self._ema_model = SegOFA(self.cfg.model, self.plan).to(self.device)
+                if "tp" not in self.strategies:
+                    self._cut_experts(self._ema_model)
             else:
                 self._ema_model = copy.deepcopy(self.model, {id(self.generator): self.generator})
             self._ema_model.requires_grad_(False)
             self.sync_eval_weights()
         return self._ema_model
+
+    @property
+    def _split(self) -> bool:
+        """Whether the model holds parts that a whole evaluation model must
+        gather (TP, FSDP); the experts stay one a rank in every copy."""
+        return bool(self.fsdp is not None or "tp" in self.strategies)
 
     @torch.no_grad()
     def sync_eval_weights(self) -> None:
@@ -439,13 +481,15 @@ class Trainer:
         if self._ema_model is None:
             return
         ema = self.cfg.task.uses_ema and self.ema is not None
-        if not self.layouts:
+        if not self._split:  # a copy holding the same parts as the model
             for name, p in self._ema_model.named_parameters():
                 p.copy_(self.ema[name])
             return
         src = dict(self.model.named_parameters())
+        axes = ("model", "fsdp") if "tp" in self.strategies else ("fsdp",)
         for name, p in self._ema_model.named_parameters():
-            p.copy_(self._whole_tensor(name, self.ema[name] if ema else src[name].detach()))
+            t = self.ema[name] if ema else src[name].detach()
+            p.copy_(gather_whole(t, restrict(self.layouts[name], axes), self.mesh))
         for name, b in self._ema_model.named_buffers():
             b.copy_(dict(self.model.named_buffers())[name])
 
@@ -554,13 +598,16 @@ class Trainer:
         """Sum the gradients over the data x fsdp ranks, in place: one
         all-reduce of the flattened gradients a group.  An FSDP shard's
         gradient was already summed over 'fsdp' by its gather's backward,
-        so it is summed over 'data' only."""
+        so it is summed over 'data' only.  Under the pipeline the layers'
+        gradients are then summed over 'model' (each stage holds its own
+        layers')."""
         mesh = self.mesh
         if not mesh.distributed:
             return
         by_group: Dict[str, list] = {"batch": [], "data": []}
         for name, g in zip(names, grads):
             by_group["data" if "fsdp" in self.param_layout(name).values() else "batch"].append(g)
+        by_group["model"] = [g for name, g in zip(names, grads) if name in self._stage_grads]
         for axis, gs in by_group.items():
             if gs:
                 flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in gs]), mesh.group(axis))

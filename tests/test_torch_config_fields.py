@@ -2,10 +2,9 @@
 the port's with the same default (one case a field), so a flag means the
 same thing in both; the option flags this port honours parse to the JAX
 values; the process and mesh fields and the cross-process sanitizers parse
-to the JAX values and reach what reads them (one case a field); the fields
-the JAX package honours and the port does not yet (the pipeline, context
-and expert fields of the ``distributed`` section, ROADMAP.md A.9b) raise at
-a value off their default.
+to the JAX values and reach what reads them (one case a field), the
+pipeline, context and expert fields too (ROADMAP.md A.9b, ported since
+with the model axis's programs).
 """
 
 import dataclasses
@@ -17,21 +16,21 @@ from ifseg_tpu import config as jconf
 
 FIELDS = [(section.name, f.name) for section in dataclasses.fields(jconf.Config)
           for f in dataclasses.fields(section.default_factory())]
-# the fields the port refuses off their default (ROADMAP.md A.9b), with a value each
-UNPORTED = {("distributed", name): value for name, value in dict(
-    pipeline_parallel="2", pipeline_chunks="4", context_parallel="2", moe_experts="4",
-    moe_freq="3", moe_assignment="auction").items()}
-# the fields ported with the process layout, with a value each
+# the fields ported with the process layout and the model axis's programs,
+# with a value each
 PORTED = {("common", "check_grad_consistency"): "false",
           ("common", "check_param_sync_interval"): "10",
           **{("distributed", name): value for name, value in dict(
               data_parallel="1", tensor_parallel="2", fsdp="2", zero1="true",
               coordinator_address="localhost:1234", num_processes="2",
-              process_id="1").items()}}
+              process_id="1", pipeline_parallel="2", pipeline_chunks="4",
+              context_parallel="2", moe_experts="4", moe_freq="3",
+              moe_assignment="auction").items()}}
 
 
 def test_the_unported_list_covers_the_distributed_section():
-    assert {n for s, n in {**UNPORTED, **PORTED} if s == "distributed"} == {
+    # every field of the section is ported and held in PORTED
+    assert {n for s, n in PORTED if s == "distributed"} == {
         f.name for f in dataclasses.fields(jconf.DistributedConfig)}
 
 
@@ -60,20 +59,6 @@ def test_option_flags_parse_as_in_jax():
         True, True, 64, 32, 128, "gelu_poly", False)
 
 
-@pytest.mark.parametrize("section,name", sorted(UNPORTED), ids=[f"{s}.{n}" for s, n in
-                                                                 sorted(UNPORTED)])
-def test_unported_field_raises_off_its_default(section, name):
-    value = UNPORTED[(section, name)]
-    flag = f"--{name.replace('_', '-')}={value}"
-    jconf.from_flags([flag])  # the JAX package takes it
-    with pytest.raises(NotImplementedError, match="A.9b"):
-        tconf.from_flags([flag])
-    # at the default, nothing raises
-    default = getattr(getattr(jconf.Config(), section), name)
-    if default is not None:
-        tconf.from_flags([f"--{name.replace('_', '-')}={default}"])
-
-
 def _honoured(cfg, name, monkeypatch):
     """What the port makes of the field: the value its reader sees."""
     from ifseg_torch.cli import train
@@ -97,6 +82,15 @@ def _honoured(cfg, name, monkeypatch):
             MeshConfig(-1, d.fsdp, 1), 4)[1]
     if name == "zero1":
         return "zero1" in configured_strategies(d)
+    if name in A9B_READERS:
+        from ifseg_torch.parallel.mesh import ProcessMesh
+        from ifseg_torch.parallel.plan import plan_from_config
+
+        # a field of a program, with the program it belongs to switched on
+        for key, value in A9B_WITH[name].items():
+            setattr(d, key, value)
+        plan = plan_from_config(d, ProcessMesh((1, 1, model_axis_size(d)), 0, join=False))
+        return A9B_READERS[name](plan)
     if name == "check_grad_consistency":
         return train.sanitizers_due(cfg, 7)[0]
     if name == "check_param_sync_interval":
@@ -104,9 +98,35 @@ def _honoured(cfg, name, monkeypatch):
     raise KeyError(name)
 
 
+def _moe_layers(plan):
+    from ifseg_torch.models.layers import moe_layer
+
+    return tuple(i for i in range(6) if moe_layer(plan, i))
+
+
+def _assignment(plan):
+    from ifseg_torch.parallel.moe import ASSIGNMENTS
+
+    return ASSIGNMENTS[plan.moe_assignment].__name__
+
+
+# the readers of the model axis's fields (the plan the trainer and the
+# model take; which layers hold experts; the assignment the layer calls)
+A9B_READERS = {"pipeline_parallel": lambda p: p.pipeline_parallel,
+               "pipeline_chunks": lambda p: p.chunks,
+               "context_parallel": lambda p: p.context_parallel,
+               "moe_experts": lambda p: (p.moe_experts, _moe_layers(p)),
+               "moe_freq": _moe_layers, "moe_assignment": _assignment}
+A9B_WITH = {"pipeline_parallel": {}, "pipeline_chunks": dict(pipeline_parallel=2),
+            "context_parallel": {}, "moe_experts": {}, "moe_freq": dict(moe_experts=2),
+            "moe_assignment": dict(moe_experts=2)}
+
 HONOURED = {"check_grad_consistency": False, "check_param_sync_interval": (True, False),
             "data_parallel": 1, "tensor_parallel": 2, "fsdp": 2, "zero1": True,
-            "coordinator_address": "localhost:1234", "num_processes": 2, "process_id": 1}
+            "coordinator_address": "localhost:1234", "num_processes": 2, "process_id": 1,
+            "pipeline_parallel": 2, "pipeline_chunks": 4, "context_parallel": 2,
+            "moe_experts": (4, (1, 3, 5)), "moe_freq": (2, 5),
+            "moe_assignment": "balanced_assignment_auction"}
 
 
 @pytest.mark.parametrize("section,name", sorted(PORTED), ids=[f"{s}.{n}" for s, n in

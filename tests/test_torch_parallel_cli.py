@@ -12,7 +12,15 @@ and dropout off:
 - the saved state is the whole one: a one-process trainer restores it and
   hands back exactly what was saved;
 - ``cli.validate`` on that checkpoint over 2 processes (each its slice of
-  the rows) gives the one-process areas and mIoU exactly.
+  the rows) gives the one-process areas and mIoU exactly;
+- ``cli.train --pipeline-parallel=2`` on two processes stopped at
+  ``--max-update=1`` and resumed to 2 stops, resumes and saves as one
+  process does with the same flags (without the pipeline): the same
+  updates, stops and saves, and the last checkpoint's weights within 1e-6
+  of the one-process run's over the whole model.  Tensor by tensor they
+  differ by no more than the two Adam steps can move a tensor (2 · lr a
+  entry): a key bias, whose gradient is zero up to rounding, takes ±lr
+  from the sign of that noise, which the pipeline's sums round otherwise.
 """
 
 import json
@@ -169,3 +177,40 @@ def test_validate_on_two_processes_equals_one_process(trained):
         assert run["vals"]["mIoU"] == one["mIoU"]
         for k, v in areas.items():
             np.testing.assert_array_equal(run["areas"][k], v)
+
+
+@pytest.fixture(scope="module")
+def pipelined(trained):
+    from ifseg_torch.cli import train
+    from ifseg_torch.config import from_flags
+
+    runs = {}
+    for tag in ("two", "one"):
+        save = trained["tmp"] / f"pp-{tag}"
+        out = []
+        for stop in (1, 2):
+            argv = _argv(trained["data"], save, "--max-epoch=1", f"--max-update={stop}")
+            if tag == "two":
+                out.append(_run_two("train", argv + ["--pipeline-parallel=2"], trained["tmp"],
+                                    f"pp{stop}")[0])
+            else:
+                run = train.main(from_flags(argv), device="cpu")
+                out.append(dict(num_updates=run["num_updates"], stop=run["stop"],
+                                saves=[x["name"] for x in run["saves"]]))
+        runs[tag] = dict(runs=out, last=torch.load(save / out[-1]["saves"][-1] / "model.pt"))
+    return runs
+
+
+def test_pipeline_cli_stops_and_resumes_as_one_process(pipelined):
+    two, one = pipelined["two"], pipelined["one"]
+    for a, b in zip(two["runs"], one["runs"]):
+        assert a["num_updates"] == b["num_updates"] and a["stop"] == b["stop"]
+        assert a["saves"] == b["saves"]
+    assert two["runs"][-1]["num_updates"] == 2
+    assert two["last"].keys() == one["last"].keys()
+    keys = [k for k, v in one["last"].items() if v.is_floating_point()]
+    flat = lambda sd: torch.cat([sd[k].double().reshape(-1) for k in keys])
+    assert float((flat(two["last"]) - flat(one["last"])).norm()) <= 1e-6 * float(
+        flat(one["last"]).norm())
+    for k in keys:
+        assert float((two["last"][k].double() - one["last"][k].double()).abs().max()) <= 2e-3, k
