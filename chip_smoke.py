@@ -101,7 +101,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      resume ms, checkpoint bytes, validation img/s and mIoU, peak memory;
  13. the serving surface at OFA-Base full width and depth, phase 11's
      fabricated checkpoint: ``ifseg_torch.cli.serve`` (150 ADE classes,
-     batches of 8, a 5 ms window) over HTTP on localhost, 64 PNG requests of
+     batches of 8, a 5 ms window) over HTTP on localhost, 32 PNG requests of
      480 x 640 to 1,024 x 1,366 from 1 and from 8 clients, every answer (mask
      PNG or JSON areas) held to ``forward_served`` on the padded batch that
      held its image, a GIF body refused with 400; requests/s, latency p50 and
@@ -207,7 +207,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      at least Sinkhorn's, the experts moving; s/step, peak memory, the
      collectives' calls, bytes and host ms a step, the kernels' launches
      a rank;
- 19. one JSON line listing every kernel, the nvidia-smi line, and the last
+ 19. the training run's surface, OFA-Base at full width and depth, phase
+     11's fabricated checkpoint and rows: (a) ``cli.train`` with the recipe's
+     flags for 2 updates with ``--tensorboard-logdir`` under
+     ``utils/profiling.py``'s ``profile_to``: the Chrome trace holds one
+     ``train_step-{i}`` span an update with the forward with stats, di, the
+     dq + dbias and the dk + dv kernels each launched 18 times inside it;
+     the event file, read back by the script's own reader (the TFRecord
+     framing and both CRC-32Cs, the Event, Summary and Value fields), holds
+     exactly the logged stats; (b) that run's state written in the layout
+     ``tools/orbax_to_torch.py`` writes (no ``generator.pt`` and no
+     ``plateau.pt``, the extra file as the JAX CLI writes it, the manifest
+     taken over) and ``cli.train`` resumed from it at the saved epoch and
+     update, every restored part equal to the files and the trainer's
+     generator equal to a card generator seeded with seed + step; (c) ``LightConv`` and ``DynamicConv``
+     at width 768 over 1,025 tokens (kernel 3 with 4 heads, kernel 31 with
+     16, causal and not): forward and backward in fp32 and bf16 on the card
+     against the CPU's fp32 on 2 rows, ms a call at batch 16, and
+     ``DummySegTask()`` with no device making its batches on the card;
+     launch counts set to 0 before (a) and (b) and read after;
+ 20. one JSON line listing every kernel, the nvidia-smi line, and the last
      line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``ifseg_tpu``.
@@ -2701,9 +2720,11 @@ def phase_train_cli(card: str, tmp: str, valid_tsv: str, ckpt_file: str, valid_g
         if decoded.get("train", 0) != 0 or fast["num_updates"] != 3:
             fail(f"the fast path decoded training rows: {decoded}")
 
-        # ---- the counted run's first epoch on one thread (--num-workers=0)
+        # ---- the counted run's first 2 batches on one thread (--num-workers=0;
+        # 2 of the epoch's 3, which leaves room for phase 19)
         serial = cli_train.main(flags(f"{tmp}/serial", "--max-epoch=1", "--validate-interval=2",
-                                      "--no-save", "--num-workers=0"))
+                                      "--no-save", "--num-workers=0",
+                                      f"--epoch-row-count={2 * TRAIN_BATCH}"))
         check_finite(serial, "the run on one thread")
         serial_steps = serial["epochs"][0]["step_s"]
         log(f"[12] --num-workers=0: {np.mean(serial['epochs'][0]['iter_s'][1:]):.4f} s/step "
@@ -2730,7 +2751,7 @@ def phase_train_cli(card: str, tmp: str, valid_tsv: str, ckpt_file: str, valid_g
 DAEMON_SHAPES = [(480, 640), (640, 480), (600, 800), (512, 683), (768, 1024), (1024, 768),
                  (900, 1200), (1024, 1366)]
 DAEMON_IMAGES = 16  # distinct PNG files, each sent DAEMON_REQUESTS / DAEMON_IMAGES times a run
-DAEMON_REQUESTS = 64
+DAEMON_REQUESTS = 32  # a run: each PNG file twice (13), each JPEG file and PNG twin once (14c)
 DAEMON_CLIENTS = 8
 DAEMON_MAX_BATCH = 8
 INT8_BATCHES = (8, 32)
@@ -4391,6 +4412,10 @@ PAR2_LOSS_TOL, PAR2_GNORM_TOL, PAR2_COSINE_MIN = 1e-3, 1e-2, 0.999
 # on there only above 1, so the Trainer's switch names them
 PAR_STRATEGIES = {"ddp": ({}, None), "fsdp": ({}, ("fsdp",)), "zero1": (dict(zero1=True), None),
                   "tp": ({}, ("tp",))}
+# the strategies whose step is profiled for NCCL's kernels at world 1: DDP's
+# and TP's all-reduces launch none there (0.000 ms in every run), so their
+# profiled step (3-5 s each) is left out, which leaves room for phase 19
+PAR_PROFILED = ("fsdp", "zero1")
 # (b)'s fixed table: NCCL takes one rank a card ("Duplicate GPU detected"),
 # so two processes sharing the card reach each other over gloo, which
 # carries all-reduce, broadcast, all-gather and reduce-scatter for CUDA
@@ -4512,7 +4537,7 @@ def phase_parallel_single(card: str, off_row: dict):
     batches = [train_batch(rng, TRAIN_BATCH, real=False) for _ in range(PAR_WARM + PAR_TIMED)]
     before = state["model"]
 
-    def run(trainer, mesh):
+    def run(trainer, mesh, profile=False):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4530,7 +4555,7 @@ def phase_parallel_single(card: str, off_row: dict):
         peak = torch.cuda.max_memory_allocated() / 2**30
         after = whole_model(trainer)
         t0 = time.perf_counter()
-        coll = collective_ms(lambda: trainer.train_step(batches[-1])) if mesh else 0.0
+        coll = collective_ms(lambda: trainer.train_step(batches[-1])) if profile else None
         return dict(logs=logs, s_per_step=float(np.mean(times[PAR_WARM:])), peak_gib=peak,
                     launches=counts, routes=routes, collective_ms=coll,
                     profile_s=time.perf_counter() - t0), after
@@ -4554,7 +4579,7 @@ def phase_parallel_single(card: str, off_row: dict):
                               strategies=strategies).init_state(state["model"])
             trainer.load_state_dict(state)
             build_s = time.perf_counter() - t0
-            res, after = run(trainer, mesh)
+            res, after = run(trainer, mesh, profile=name in PAR_PROFILED)
             del trainer
             torch.cuda.empty_cache()
             cos, worst, diff = update_cosines(before, after, ref_after)
@@ -4567,7 +4592,9 @@ def phase_parallel_single(card: str, off_row: dict):
                        wall_s=time.perf_counter() - t0)
             log(f"[17a] {name} at degree 1 (NCCL, world 1), OFA-Base batch {TRAIN_BATCH}: "
                 f"{res['s_per_step']:.4f} s/step, peak {res['peak_gib']:.2f} GiB, collectives "
-                f"{res['collective_ms']:.3f} ms a step, beside the unwrapped trainer's "
+                + (f"{res['collective_ms']:.3f} ms a step" if res["collective_ms"] is not None
+                   else "not profiled (none launch at world 1)")
+                + f", beside the unwrapped trainer's "
                 f"{ref['s_per_step']:.4f} s/step and {ref['peak_gib']:.2f} GiB and phase 15a's off "
                 f"row {off_row['s_per_step']:.4f} s/step and {off_row['max_memory_gib']:.2f} GiB; "
                 f"against the unwrapped over {len(batches)} steps: loss {loss_err:.2e} relative "
@@ -5180,6 +5207,397 @@ def phase_model_axis(card: str):
     return dict(programs=summary, wall_s=wall, ppermute_route=PPERMUTE_ROUTE["gloo"])
 
 
+# ---------------------------------------------------------------- phase 19: the training run's surface
+
+SURFACE_ROWS = 32  # phase 19's epochs: 2 steps of TRAIN_BATCH
+# LightConv / DynamicConv at OFA-Base's width over the decoder's 1,025
+# tokens: (kernel, heads) the JAX defaults and a wide kernel; each causal
+# and not, forward and backward, bf16 and fp32, timed at the training batch
+# and held to the CPU's fp32 on LIGHTCONV_CHECK_ROWS rows
+LIGHTCONV_CASES = ((3, 4), (31, 16))
+LIGHTCONV_TOKENS = 1025
+LIGHTCONV_CHECK_ROWS = 2
+# ||Δ|| / ||ref|| of the output and of each gradient against the CPU's fp32:
+# the card's fp32 sums in another order; bf16 rounds the input, the kernels
+# and the output (2^-8), as phase 7's gradient tolerance allows
+LIGHTCONV_FP32_TOL, LIGHTCONV_BF16_TOL = 1e-5, GRAD_REL_TOL
+# the four training kernels in each train_step span of a monitored batch-16 step
+SPAN_KERNELS = ("stats", "bwd_di", "bwd_dq", "bwd_dkv")
+
+
+def _crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli), bit by bit: the script's own, for reading the
+    event file the port wrote."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc ^= b
+        for _ in range(8):
+            crc = (crc >> 1) ^ (0x82F63B78 & -(crc & 1))
+    return crc ^ 0xFFFFFFFF
+
+
+def _masked(crc: int) -> int:
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _varint(data: bytes, i: int):
+    """(the protocol-buffer varint at ``data[i]``, the offset after it)."""
+    value, shift = 0, 0
+    while True:
+        b = data[i]
+        i += 1
+        value |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return value, i
+
+
+def _proto_fields(data: bytes):
+    """(field number, value) of a serialized protocol buffer: varints as
+    ints, fixed64 / fixed32 as raw bytes, length-delimited as bytes."""
+    out, i = [], 0
+    while i < len(data):
+        key, i = _varint(data, i)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            v, i = _varint(data, i)
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            v, i = data[i:i + n], i + n
+        elif wire == 2:
+            n, i = _varint(data, i)
+            v, i = data[i:i + n], i + n
+        else:
+            fail(f"[19] event file: wire type {wire} of field {field}")
+        out.append((field, v))
+    return out
+
+
+def read_event_file(path: str):
+    """(file_version, [(tag, step, value)]) of a TensorBoard event file,
+    each TFRecord's length and data CRCs checked."""
+    import struct
+
+    data = Path(path).read_bytes()
+    i, version, scalars = 0, None, []
+    while i < len(data):
+        length = struct.unpack("<Q", data[i:i + 8])[0]
+        if struct.unpack("<I", data[i + 8:i + 12])[0] != _masked(_crc32c(data[i:i + 8])):
+            fail(f"[19] event file {path}: a record's length CRC is wrong")
+        record = data[i + 12:i + 12 + length]
+        if struct.unpack("<I", data[i + 12 + length:i + 16 + length])[0] != _masked(
+                _crc32c(record)):
+            fail(f"[19] event file {path}: a record's data CRC is wrong")
+        i += 16 + length
+        fields = dict(_proto_fields(record))  # Event: 1 wall_time, 2 step, 3 version, 5 summary
+        if 3 in fields:
+            version = fields[3].decode()
+        for f, summary_value in _proto_fields(fields.get(5, b"")):  # Summary: 1 value
+            value = dict(_proto_fields(summary_value))  # Value: 1 tag, 2 simple_value
+            scalars.append((value[1].decode(), fields.get(2, 0),
+                            struct.unpack("<f", value[2])[0]))
+    return version, scalars
+
+
+def card_generator_state(seed: int) -> torch.Tensor:
+    """The state of a card's generator seeded with ``seed``."""
+    return torch.Generator(device="cuda").manual_seed(seed).get_state()
+
+
+def kernel_family(name: str):
+    """The port's kernel a trace's kernel name is, or None: the demangled
+    ``void (anonymous namespace)::attn_bias_fwd_kernel<__nv_bfloat16, true,
+    64>(...)`` (its STATS argument tells K1-stats from K1), or mangled."""
+    import re
+
+    m = re.search(r"attn_bias_fwd_kernel(?:<[^,<>]+, (true|false),|I\w+?L(b[01])E)", name)
+    if m:
+        return "stats" if m.group(1) == "true" or m.group(2) == "b1" else "infer"
+    for key, family in (("attn_bwd_di_kernel", "bwd_di"), ("attn_bias_bwd_dq_kernel", "bwd_dq"),
+                        ("attn_bias_bwd_dkv_kernel", "bwd_dkv")):
+        if key in name:
+            return family
+    if re.search(r"(?<![\w:])(?:\(anonymous namespace\)::)?layer_norm(?:_wide)?_kernel\b",
+                 name.replace("at::native::", "at_native_")):
+        return "layer_norm"
+    return None
+
+
+def spans_and_kernels(trace_dir: str):
+    """From the Chrome trace ``profile_to`` wrote: each ``train_step-{i}``
+    span (host) and, inside it, the port's kernels by family, each kernel
+    placed by its launch on the host (its own start on the card when the
+    trace has no launch event for it)."""
+    traces = sorted(Path(trace_dir).glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"[19] profile_to wrote {len(traces)} traces to {trace_dir}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith("train_step-")]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kernels = [(kernel_family(e["name"]), launch_ts.get(e.get("args", {}).get("correlation"),
+                                                         e["ts"]))
+               for e in events if e.get("cat") == "kernel"]
+    by_span = {}
+    for s in spans:
+        counts = {}
+        for fam, ts in kernels:
+            if fam is not None and s["ts"] <= ts <= s["ts"] + s["dur"]:
+                counts[fam] = counts.get(fam, 0) + 1
+        by_span.setdefault(s["name"], []).append(counts)
+    n_kernels = sum(1 for fam, _ in kernels if fam is not None)
+    n_placed = sum(1 for e in events if e.get("cat") == "kernel"
+                   and e.get("args", {}).get("correlation") in launch_ts)
+    return by_span, dict(trace_mib=traces[0].stat().st_size / 2**20, events=len(events),
+                         port_kernels=n_kernels, placed_by_launch=n_placed)
+
+
+def phase_run_surface(card: str, tmp: str, valid_tsv: str, ckpt_file: str):
+    """Phase 19 (a) and (b): ``cli.train`` with spans and the TensorBoard
+    mirror under ``profile_to``, then a run resumed from a save directory of
+    the layout ``tools/orbax_to_torch.py`` writes."""
+    from numbers import Number
+
+    from ifseg_torch.checkpoint.manager import CheckpointManager
+    from ifseg_torch.cli import train as cli_train
+    from ifseg_torch.config import from_flags
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+    from ifseg_torch.train.trainer import Trainer
+    from ifseg_torch.utils import metrics as metrics_lib
+    from ifseg_torch.utils.profiling import profile_to
+
+    train_tsv = f"{tmp}/surface_train.tsv"
+    with open(valid_tsv) as src, open(train_tsv, "w") as dst:
+        rows = src.readlines()
+        dst.writelines((rows * -(-SURFACE_ROWS // len(rows)))[:SURFACE_ROWS])
+    tb_dir, trace_dir = f"{tmp}/surface_tb", f"{tmp}/surface_trace"
+
+    def flags(save_dir, *extra, resets=True):
+        argv = common_sh_argv(f"{train_tsv},{valid_tsv}", save_dir, ckpt_file)
+        argv = [a for a in argv if resets or a not in RESET_FLAGS]
+        # no validation and no save: the phase reads the steps; an EMA copy,
+        # so the converter's ema.pt is in the layout
+        return from_flags(argv + [f"--epoch-row-count={SURFACE_ROWS}", "--validate-interval=3",
+                                  "--log-interval=1", "--no-save", "--ema-decay=0.999",
+                                  f"--num-workers={CLI_WORKERS}", *extra])
+
+    last, logged, restored = {}, [], []
+    step, make_bar, restore = Trainer.train_step, cli_train.progress_bar, cli_train.restore_training_state
+
+    def recording_step(self, batch):
+        last["trainer"] = self
+        return step(self, batch)
+
+    def recording_bar(*a, **kw):
+        bar = make_bar(*a, **kw)
+        inner = getattr(bar, "bar", bar)
+        for kind in ("log", "print"):
+            def call(stats, tag=None, step=None, _f=getattr(inner, kind)):
+                logged.append((tag or inner.tag or "train", step or inner.i, dict(stats)))
+                return _f(stats, tag, step)
+            setattr(inner, kind, call)
+        return bar
+
+    def checked_restore(cfg, trainer, ckpt):
+        name = ckpt.latest()
+        out = restore(cfg, trainer, ckpt)
+        if name is None:
+            return out
+        saved, now = ckpt.load(name), trainer.state_dict()
+        seed = cfg.optimization.seed + int(saved["step"])
+        restored.append(dict(
+            name=name, epoch=out[0], step=now["step"],
+            model=all(torch.equal(now["model"][k], v) for k, v in saved["model"].items()),
+            ema=saved.get("ema") is None or all(torch.equal(now["ema"][k], v)
+                                                for k, v in saved["ema"].items()),
+            optimizer=now["optimizer"]["count"] == saved["optimizer"]["count"] and all(
+                torch.equal(now["optimizer"][m][k], v) for m in ("mu", "nu")
+                for k, v in saved["optimizer"][m].items()),
+            generator=torch.equal(now["generator"], card_generator_state(seed)),
+            plateau="plateau" not in saved))
+        return out
+
+    Trainer.train_step, cli_train.progress_bar = recording_step, recording_bar
+    cli_train.restore_training_state = checked_restore
+    result = {}
+    try:
+        # ---- (a) 2 updates with spans and the TensorBoard mirror, under profile_to
+        fa.reset_launches()
+        ln.reset_launches()
+        cfg = flags(f"{tmp}/surface_a", "--max-epoch=1", f"--tensorboard-logdir={tb_dir}")
+        t0 = time.perf_counter()
+        with profile_to(trace_dir):
+            run = cli_train.main(cfg)
+            torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+        steps = run["num_updates"]
+        t0 = time.perf_counter()
+        by_span, trace = spans_and_kernels(trace_dir)
+        trace["read_s"] = time.perf_counter() - t0
+        per_step = sum(n for *_, n in SITES)
+        want_spans = [f"train_step-{i}" for i in range(steps)]
+        log(f"[19a] cli.train.main, recipe + --tensorboard-logdir under profile_to: {steps} "
+            f"updates in {main_s:.1f} s; attention launches {counts}, layer_norm launches "
+            f"{ln_launches}; trace {trace}; spans {by_span}; on {card}")
+        if steps != 2 or sorted(by_span) != want_spans or any(len(v) != 1 for v in by_span.values()):
+            fail(f"[19a] the trace does not hold one train_step span an update: {sorted(by_span)}")
+        for name, (inside,) in by_span.items():
+            if any(inside.get(k, 0) != per_step for k in SPAN_KERNELS):
+                fail(f"[19a] {name}: the training kernels did not launch {per_step} times each "
+                     f"inside the span: {inside}")
+        if {k: counts[k] for k in SPAN_KERNELS} != {k: per_step * steps for k in SPAN_KERNELS}:
+            fail(f"[19a] the training kernels' counts {counts} are not {per_step} a step")
+        events = sorted(Path(tb_dir).glob("events.out.tfevents.*"))
+        if len(events) != 1:
+            fail(f"[19a] {len(events)} event files in {tb_dir}")
+        version, scalars = read_event_file(str(events[0]))
+        want = [(f"{tag}/{k}", st, float(np.float32(v))) for tag, st, stats in logged
+                for k, v in stats.items() if isinstance(v, Number)]
+        log(f"[19a] event file {events[0].name}: {version}, {len(scalars)} scalars (the logged "
+            f"stats give {len(want)}); first {scalars[:3]}")
+        if version != "brain.Event:2" or scalars != want or len(want) < 2 * steps:
+            fail("[19a] the event file's scalars are not the logged stats")
+        result["spans"] = dict(launches=counts, ln_launches=ln_launches, main_s=main_s,
+                               steps=steps, by_span=by_span, trace=trace,
+                               scalars=len(scalars), event_file=events[0].name,
+                               step_s=run["epochs"][0]["step_s"])
+        trainer = last.pop("trainer")
+
+        # ---- (b) a save directory of the converter's layout, resumed
+        state = trainer.state_dict()
+        del trainer
+        converted = f"{tmp}/surface_converted"
+        mgr = CheckpointManager(cfg.checkpoint, save_dir=converted)
+        mgr.write("checkpoint_1", {
+            "model": state["model"], "ema": state["ema"], "optimizer": state["optimizer"],
+            "step": state["step"]})
+        with open(f"{converted}/checkpoint_1.extra.json", "w") as fp:  # as the JAX CLI writes it
+            json.dump({"epoch": 1, "metrics": metrics_lib.state_dict()}, fp,
+                      default=lambda o: o.tolist())
+        mgr.adopt_manifest({"best": None, "best_metric": None, "bests": [], "intervals": [],
+                            "epochs": [{"epoch": 1, "name": "checkpoint_1"}],
+                            "last": "checkpoint_1"})
+        del state
+        files = sorted(p.name for p in Path(converted, "checkpoint_1").iterdir())
+        links = {k: Path(converted, k).resolve().name for k in ("checkpoint_last",)}
+        fa.reset_launches()
+        ln.reset_launches()
+        t0 = time.perf_counter()
+        # no pretrained file to load first: the restored state replaces the weights
+        resumed = cli_train.main(flags(converted, "--max-epoch=2", "--restore-file=",
+                                       resets=False))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        rcounts, rln = fa.launch_counts(), ln.LAUNCHES
+        log(f"[19b] a save directory of tools/orbax_to_torch.py's layout ({files}, links "
+            f"{links}): cli.train resumed at epoch {resumed['start_epoch']} with "
+            f"{resumed['restored_updates']} updates restored, {resumed['num_updates']} at the "
+            f"end, in {resume_s:.1f} s; restored {restored}; launches {rcounts}, layer_norm "
+            f"{rln}; on {card}")
+        if files != ["ema.pt", "model.pt", "optimizer.pt", "step.pt"]:
+            fail(f"[19b] the converted layout holds {files}")
+        if ((resumed["start_epoch"], resumed["restored_updates"], resumed["num_updates"])
+                != (2, steps, 2 * steps) or len(restored) != 1
+                or not all(restored[0][k] for k in ("model", "ema", "optimizer", "generator",
+                                                    "plateau"))):
+            fail("[19b] the resume did not start at the saved epoch and update with the saved "
+                 "state and the generator seeded from the step")
+        if {k: rcounts[k] for k in SPAN_KERNELS} != {k: per_step * steps for k in SPAN_KERNELS}:
+            fail(f"[19b] the resumed steps' training kernels {rcounts}")
+        result["converted_resume"] = dict(launches=rcounts, ln_launches=rln, main_s=resume_s,
+                                          restored=restored, files=files,
+                                          step_s=resumed["epochs"][0]["step_s"])
+    finally:
+        Trainer.train_step, cli_train.progress_bar = step, make_bar
+        cli_train.restore_training_state = restore
+    return result
+
+
+def rel_norm_err(got, want) -> float:
+    want = want.double()
+    return float((got.double().cpu() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def phase_lightconv(card: str):
+    """Phase 19 (c): ``LightConv`` and ``DynamicConv`` at OFA-Base's width
+    over 1,025 tokens: forward and backward in bf16 and fp32 on the card
+    against the CPU's fp32 on the first rows (the same weights, input and
+    cotangent), and ms a call at the training batch."""
+    import copy
+
+    from ifseg_torch.models.lightconv import DynamicConv, LightConv
+
+    d, rows_all = BASE["width"], TRAIN_BATCH
+    gen = torch.Generator().manual_seed(SEED)
+    x_all = torch.randn(rows_all, LIGHTCONV_TOKENS, d, generator=gen)
+    cot_all = torch.randn(rows_all, LIGHTCONV_TOKENS, d, generator=gen)
+    out, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    for kind in ("LightConv", "DynamicConv"):
+        for k, h in LIGHTCONV_CASES:
+            for causal in (False, True):
+                mod = (LightConv(k, h, causal) if kind == "LightConv"
+                       else DynamicConv(d, k, h, causal)).init(torch.Generator().manual_seed(k))
+                if kind == "LightConv":  # past the near-uniform init
+                    with torch.no_grad():
+                        mod.weight.mul_(20.0)
+
+                def run(m, x, cot):
+                    m.zero_grad(set_to_none=True)
+                    x = x.detach().requires_grad_(True)
+                    y = m(x)
+                    (y.float() * cot).sum().backward()
+                    return y.detach(), x.grad, [p.grad for p in m.parameters()]
+
+                rows = LIGHTCONV_CHECK_ROWS
+                ref = run(mod, x_all[:rows], cot_all[:rows])
+                card_mod = copy.deepcopy(mod).cuda()
+                row = dict(module=kind, kernel=k, heads=h, causal=causal)
+                for dtype in (torch.float32, torch.bfloat16):
+                    name = str(dtype).split(".")[1]
+                    x, cot = x_all.cuda().to(dtype), cot_all.cuda()
+                    got = run(card_mod, x[:rows], cot[:rows])
+                    errs = [rel_norm_err(got[0], ref[0]), rel_norm_err(got[1], ref[1])] + [
+                        rel_norm_err(g, r) for g, r in zip(got[2], ref[2])]
+                    worst[name] = max(worst[name], max(errs))
+                    with torch.no_grad():
+                        fwd = cuda_ms(lambda: card_mod(x), iters=5)
+                    both = cuda_ms(lambda: run(card_mod, x, cot), iters=3)
+                    row[name] = dict(max_rel_err=max(errs), fwd_ms=fwd, fwd_bwd_ms=both)
+                    tol = LIGHTCONV_FP32_TOL if dtype == torch.float32 else LIGHTCONV_BF16_TOL
+                    if max(errs) > tol or not all(torch.isfinite(t).all() for t in got[:2]):
+                        fail(f"[19c] {kind} k {k} h {h} causal {causal} {name}: card against "
+                             f"the CPU's fp32 {errs} (tolerance {tol})")
+                out.append(row)
+                log(f"[19c] {kind}, kernel {k}, {h} heads, causal {causal}, d {d}, "
+                    f"{LIGHTCONV_TOKENS} tokens: fp32 {row['float32']['fwd_ms']:.3f} ms forward, "
+                    f"{row['float32']['fwd_bwd_ms']:.3f} ms forward + backward, bf16 "
+                    f"{row['bfloat16']['fwd_ms']:.3f} / {row['bfloat16']['fwd_bwd_ms']:.3f} ms "
+                    f"at batch {rows_all}; card against the CPU's fp32 on {rows} rows: fp32 "
+                    f"{row['float32']['max_rel_err']:.2e}, bf16 {row['bfloat16']['max_rel_err']:.2e}"
+                    f"; on {card}")
+                del card_mod
+    torch.cuda.empty_cache()
+
+    # the synthetic task of the throughput benchmark: made on the card when no
+    # device is given, as Trainer, Evaluator and SegServer are
+    from ifseg_torch.benchmark.dummy_seg import DummySegTask
+
+    task = DummySegTask(train_config("bfloat16", monitor=True))
+    batch = next(task.batches(1, TRAIN_BATCH))
+    devices = sorted({str(t.device) for t in [task.class_tokens, *batch.values()]})
+    log(f"[19c] DummySegTask() with no device: {devices}, patch_images "
+        f"{tuple(batch['patch_images'].shape)}; on {card}")
+    if devices != ["cuda:0"]:
+        fail(f"[19c] DummySegTask() made its tensors on {devices}, not the card")
+    return dict(cases=out, worst_rel_err=worst, check_rows=LIGHTCONV_CHECK_ROWS,
+                batch=rows_all, tokens=LIGHTCONV_TOKENS,
+                tolerance=dict(float32=LIGHTCONV_FP32_TOL, bfloat16=LIGHTCONV_BF16_TOL))
+
+
 def model_axis_paths(model_axis):
     """Phase 18's launch counts by path, both ranks' summed: (the training
     kernels' paths: each program's compared step; K1's and K4's: the
@@ -5224,11 +5642,24 @@ def parallel_paths(parallel):
     return train, k1, ln
 
 
+PHASE_S = {}  # seconds of each group of phases, in the order they ran
+_MARK = [time.perf_counter()]
+
+
+def mark(tag: str) -> None:
+    """Log the seconds since the previous mark as ``tag``'s."""
+    now = time.perf_counter()
+    PHASE_S[tag] = round(now - _MARK[0], 1)
+    _MARK[0] = now
+    log(f"[time] {tag}: {PHASE_S[tag]} s")
+
+
 def main():
     card = phase_card()
     sys.path.insert(0, str(REPO))
 
     ptxas = phase_build()
+    mark("1-2 card and build")
     sites = phase_kernels()
     ln_rows, ln_train = phase_layer_norm()
     train_rows = phase_train_kernels()
@@ -5239,6 +5670,7 @@ def main():
     # phase 15's SegOFA-Huge step at batch 32: its sites checked, not timed
     phase_train_kernels(HUGE, HUGE_REMAT_BATCH, f"[3t huge b{HUGE_REMAT_BATCH}]",
                         checks_only=True)
+    mark("3 kernels")
     torch.cuda.empty_cache()
     server, weights, serve = phase_serve(card)
     cpu = phase_cpu_reference(server, weights)
@@ -5250,6 +5682,7 @@ def main():
     torch.cuda.empty_cache()
     train = phase_train(card)
     grads = phase_train_gradients()
+    mark("4-9 serving, evaluation, training")
 
     huge = dict(serve=phase_huge_serve(card), logits=phase_huge_logits())
     trainer, huge["train"] = phase_huge_train(card)
@@ -5259,33 +5692,47 @@ def main():
     huge["gradients"] = phase_train_gradients(
         HUGE["arch"], GRAD_TENSORS_HUGE, "[10]", encoder_layers=HUGE_CHECK_LAYERS,
         decoder_layers=HUGE_CHECK_LAYERS)
+    mark("10 SegOFA-Huge")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         validate = phase_validate(card, tmp)
+        mark("11 validate")
         torch.cuda.empty_cache()
         train_cli = phase_train_cli(card, tmp, validate["tsv"], validate["ckpt"],
                                     len(validate["group_sizes"]))
+        mark("12 train CLI")
         torch.cuda.empty_cache()
         codecs, jpeg_files = phase_codecs(card)
         surface = phase_serving_surface(card, tmp, validate["ckpt"], jpeg_files)
         torch.cuda.empty_cache()
         converted = phase_convert_validate(card, tmp, validate["ckpt"], jpeg_files)
+        mark("13-14 serving surface, JPEG files")
         torch.cuda.empty_cache()
         stack = dict(remat=phase_remat(card, huge["train"]["max_memory_gib"]))
         stack["optimizers"] = phase_optimizers(card)
         stack["train_cli"] = phase_train_cli_stack(card, tmp, validate["tsv"], validate["ckpt"])
+        mark("15 training stack")
         torch.cuda.empty_cache()
         options = dict(prefix=phase_prefix_train(card, stack["remat"]["ofa_base"]["off"]))
         options["flags"] = phase_options(card, tmp, validate["tsv"], validate["ckpt"])
+        mark("16a-b options")
         torch.cuda.empty_cache()
         parallel = dict(cli=phase_parallel_cli(card, tmp, validate["tsv"], validate["ckpt"]))
+        mark("17c two-process CLIs")
+        torch.cuda.empty_cache()
+        run_surface = phase_run_surface(card, tmp, validate["tsv"], validate["ckpt"])
     torch.cuda.empty_cache()
+    run_surface["lightconv"] = phase_lightconv(card)
+    mark("19 the training run's surface")
     options["served"] = phase_prefix_eval_serve(card)
     options["generate"] = phase_generate(card)
+    mark("16c-d prompted serving, generation")
     torch.cuda.empty_cache()
     parallel["single"] = phase_parallel_single(card, stack["remat"]["ofa_base"]["off"])
     parallel["shared"] = phase_parallel_shared(card)
+    mark("17a-b strategies")
     model_axis = phase_model_axis(card)
+    mark("18 model axis")
 
     fwd_src = "ifseg_torch/csrc/flash_attention_bias_fwd.cu"
     dq_src = "ifseg_torch/csrc/flash_attention_bias_bwd_dq.cu"
@@ -5318,6 +5765,10 @@ def main():
     # phase 18's paths (each program's compared step, both ranks), the same way
     ma_train, ma_k1, ma_ln = model_axis_paths(model_axis)
     stack_paths.update(ma_train)
+    # phase 19's: cli.train under profile_to with the TensorBoard mirror, and
+    # the run resumed from the converter's layout, each the same way
+    stack_paths.update(train_cli_spans=run_surface["spans"]["launches"],
+                       train_cli_converted_resume=run_surface["converted_resume"]["launches"])
     served16, gen16 = options["served"], options["generate"]
     # the forward without stats runs on ten main paths; each was driven with
     # the counts set to 0 just before and read just after
@@ -5346,6 +5797,8 @@ def main():
                     train_cli_stack_pruned=stack_cli["pruned_ln_launches"],
                     train_cli_bitfit=flags16["cli"]["--bitfit"]["ln_launches"],
                     train_cli_prompt=flags16["cli"]["--encoder-prompt"]["ln_launches"],
+                    train_cli_spans=run_surface["spans"]["ln_launches"],
+                    train_cli_converted_resume=run_surface["converted_resume"]["ln_launches"],
                     evaluation_prefix=served16["eval_ln_launches"],
                     serving_prompted=served16["serve_ln_launches"],
                     generate_recompute=gen16["recompute"]["launches"]["layer_norm"],
@@ -5447,7 +5900,7 @@ def main():
                     "train_cli": train_cli, "serving_surface": surface, "codecs": codecs,
                     "converted": converted, "training_stack": stack, "options": options,
                     "parallel": parallel, "model_axis": model_axis,
-                    "ptxas": ptxas,
+                    "run_surface": run_surface, "phase_s": PHASE_S, "ptxas": ptxas,
                     "card_line": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -19,8 +19,14 @@ layout (the inverse of that package's torch -> flax converter):
   layers_{i}/adapter/{down,up}_proj  -> ``layers.{i}.adapter.{down,up}_proj``
   layers_{i}/moe/{centroids,wi,wo}   -> ``layers.{i}.moe.{centroids,wi,wo}`` (as they are)
 
-``adam_state_from_jax`` carries the Adam moments of a JAX optimizer state
-over in the same layout, so both trainers can start from the same moments.
+``optimizer_state_from_jax`` carries a JAX optimizer state (every
+optimizer of ``train/optim.py``, composite groups, the plateau's lr scale)
+over as the port's optimizer state, in the same layout
+(``adam_state_from_jax`` the Adam moments alone): with it
+``tools/orbax_to_torch.py`` turns a save directory of the JAX package into
+one the port's ``cli.train`` resumes from.
+``lightconv_state_from_jax`` carries the parameters of ``LightConv`` and
+``DynamicConv``.
 
 ``load_torch_checkpoint`` reads a fairseq ``.pt`` file, and ``load_model``
 loads one, or a checkpoint directory of ``checkpoint/manager.py``, into a
@@ -168,17 +174,24 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
-def _find_adam_state(node):
-    """The first node of an optimizer-state tree that has count, mu and nu."""
-    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+def _find(node, found):
+    """The first node of an optimizer-state tree (any nesting of named
+    tuples, tuples and dicts), depth first, for which ``found`` holds."""
+    if found(node):
         return node
     children = node.values() if isinstance(node, dict) else (
         node if isinstance(node, (tuple, list)) else ())
     for child in children:
-        found = _find_adam_state(child)
-        if found is not None:
-            return found
+        hit = _find(child, found)
+        if hit is not None:
+            return hit
     return None
+
+
+def _state_with(node, *fields):
+    """The first named tuple of an optimizer-state tree that has all of
+    ``fields`` (a plain tuple's ``count`` method is no field)."""
+    return _find(node, lambda n: set(fields) <= set(getattr(n, "_fields", ())))
 
 
 def _fill_masked(tree, params):
@@ -193,17 +206,124 @@ def adam_state_from_jax(opt_state: Any, params: Dict[str, Any]) -> Dict[str, Any
     """The Adam state inside a JAX optimizer state (any nesting of tuples and
     dicts around a node with ``count``, ``mu`` and ``nu``) -> ``{"count": int,
     "mu": state dict, "nu": state dict}`` under the port's parameter names,
-    for ``FairseqAdam.load_state``.  ``params`` is the JAX parameter tree; it
-    gives the moments of frozen parameters, which JAX does not keep, their
-    shape (zeros)."""
-    adam = _find_adam_state(opt_state)
-    if adam is None:
+    for ``FairseqAdam.load_state``: the Adam case of
+    ``optimizer_state_from_jax`` without a port optimizer (the port-only
+    decoder image table's moments are zeros, Adam's initial state).
+    ``params`` is the JAX parameter tree; it gives the moments of frozen
+    parameters, which JAX does not keep, their shape (zeros)."""
+    if _state_with(opt_state, "count", "mu", "nu") is None:
         raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
-    return {
-        "count": int(np.asarray(adam.count)),
-        "mu": state_dict_from_jax(_fill_masked(adam.mu, params)),
-        "nu": state_dict_from_jax(_fill_masked(adam.nu, params)),
-    }
+    return _counted_state(opt_state, params, ("mu", "nu"))
+
+
+def _counted_state(opt_state: Any, params: Dict[str, Any], keys, optimizer=None) -> Dict[str, Any]:
+    """``{"count": int, k: state for k in keys}`` from a JAX optimizer state:
+    its first ``count`` and, for each ``k``, the first node with that field.
+    A state per parameter goes through ``state_dict_from_jax`` with the
+    placeholders of frozen parameters as zeros.  With ``optimizer`` (the
+    port's), the port-only decoder image table keeps the optimizer's initial
+    state and Adafactor's per-leaf state is taken by JAX path; without it
+    that table's state is zeros."""
+    from ifseg_torch.train import optim
+
+    def fail(what):
+        whose = f" for the port's {type(optimizer).__name__}" if optimizer is not None else ""
+        raise ValueError(f"no {what} in the JAX optimizer state{whose}: the runs' optimizer "
+                         "flags differ")
+
+    node = _state_with(opt_state, "count")
+    if node is None:
+        fail("count")
+    out: Dict[str, Any] = {"count": int(np.asarray(node.count))}
+    port_only = optimizer is not None and "embed_image_positions" not in params["decoder"]
+    for k in keys:
+        node = _state_with(opt_state, k)
+        if node is None:
+            fail(k)
+        tree = getattr(node, k)
+        if isinstance(optimizer, optim.Adafactor):
+            flat = {"/".join(str(getattr(p, "key", p)) for p in path): leaf
+                    for path, leaf in _leaves_with_paths(tree)}
+            out[k] = {path: torch.from_numpy(np.array(flat[path], dtype=np.float32))
+                      if path in flat else t.detach().cpu().clone()
+                      for path, t in zip(optimizer.keys, getattr(optimizer, k))}
+            continue
+        sd = state_dict_from_jax(_fill_masked(tree, params))
+        out[k] = sd if optimizer is None else {
+            n: t.detach().cpu().clone()
+            if port_only and n == "decoder.embed_image_positions.weight" else sd[n]
+            for n, t in zip(optimizer.keys, getattr(optimizer, k))}
+    return out
+
+
+def optimizer_state_from_jax(opt_state: Any, params: Dict[str, Any], optimizer) -> Dict[str, Any]:
+    """A JAX optimizer state (``TrainState.opt_state`` of the JAX package's
+    ``build_optimizer``) -> what ``optimizer.load_state_dict`` takes, for the
+    port's optimizer of the same configuration (``Trainer.optimizer``).
+
+    Each optax state node is found by the fields the port's state keys are
+    named after (``count``; Adam's, Lamb's and Adamax's ``mu``/``nu``;
+    ``trace``; ``sum_of_squares``; ``e_g``/``e_x``; Adafactor's
+    ``v_row``/``v_col``/``v``), under the freeze partition
+    (``_counted_state``).  A state per parameter goes through
+    ``state_dict_from_jax``; the placeholders of frozen parameters become
+    zeros (``_fill_masked``) and the port's own decoder image position
+    table, which has no JAX leaf, keeps the optimizer's initial state.
+    Adafactor's state is per JAX leaf in the JAX layout on both sides
+    (``JaxLeaf.view``), so it is taken by path as it is: a transposed
+    kernel's ``v_row`` and ``v_col`` and the stacked tables' leading layer
+    dim need no change.  A composite's groups are the JAX partition's
+    labels (``base``, ``g0``, ...), each with its own count; ``LrScaled``
+    takes the plateau scale of ``with_lr_scale`` and fairseq Adam its own.
+    Lamb's trust ratio is recomputed at every update and saves nothing."""
+    from ifseg_torch.train import optim
+
+    if isinstance(optimizer, optim.LrScaled):
+        scaled = _state_with(opt_state, "lr_scale", "inner")
+        if scaled is None:
+            raise ValueError("no lr scale (with_lr_scale) in the JAX optimizer state for the "
+                             "port's LrScaled: the runs' optimizer flags differ")
+        out = optimizer_state_from_jax(scaled.inner, params, optimizer.inner)
+        if "lr_scale" in out:  # fairseq Adam's own, as ``LrScaled.state_dict`` keeps it
+            out["inner_lr_scale"] = out["lr_scale"]
+        return dict(out, lr_scale=float(np.asarray(scaled.lr_scale)))
+    if isinstance(optimizer, optim.Composite):
+        labels = [label for label, _, _ in optimizer.members]
+        part = _find(opt_state, lambda n: isinstance(getattr(n, "inner_states", None), dict)
+                     and set(labels) <= set(n.inner_states))
+        if part is None:
+            raise ValueError(f"no composite partition with the groups {labels} in the JAX "
+                             "optimizer state for the port's Composite: the runs' optimizer "
+                             "flags differ")
+        groups = {label: optimizer_state_from_jax(part.inner_states[label], params, opt)
+                  for label, opt, _ in optimizer.members}
+        return {"count": groups["base"]["count"], "groups": groups}
+
+    out = _counted_state(opt_state, params, optimizer.state_keys, optimizer)
+    if isinstance(optimizer, optim.FairseqAdam):
+        out["lr_scale"] = float(np.asarray(_state_with(opt_state, "mu", "lr_scale").lr_scale))
+    return out
+
+
+def _leaves_with_paths(tree, prefix=()):
+    """(path, leaf) of every array of a nested dict; the placeholders of
+    frozen parameters (no ``shape``) are left out."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves_with_paths(v, prefix + (k,))
+    elif hasattr(tree, "shape"):
+        yield prefix, tree
+
+
+def lightconv_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The parameters of the JAX package's ``LightConv`` (``weight`` (h, k))
+    or ``DynamicConv`` (``weight_linear/kernel`` (c, h*k)) -> the state dict
+    of the port's module of the same name (``weight``, or the ``Linear``
+    weight ``weight_linear.weight`` (h*k, c))."""
+    if "weight_linear" in params:
+        return {"weight_linear.weight": torch.from_numpy(
+            np.array(np.asarray(params["weight_linear"]["kernel"]).T, dtype=np.float32))}
+    return {"weight": torch.from_numpy(np.array(params["weight"], dtype=np.float32))}
 
 
 # ------------------------------------------------- a pretrained .pt file

@@ -22,7 +22,10 @@ The torch counterpart of the JAX package's orbax-backed
 A directory is written whole under a temporary name and then renamed into
 place (``os.replace``), as are the manifest, the extra file and the links:
 a directory that exists is complete.  Saves are synchronous; the format is
-the port's own and does not read orbax directories.
+the port's own.  The JAX package's orbax directories are read by
+``tools/orbax_to_torch.py`` (it needs ``jax`` and ``orbax``, which the port
+never imports), which writes this layout through ``write`` and
+``adopt_manifest``.
 
 With several processes one manager writes (``writer=True`` on rank 0; the
 state it is given is the whole one, ``Trainer.state_dict`` gathers it) and
@@ -114,9 +117,7 @@ class CheckpointManager:
         # checkpoint_{epoch}_{upd}.pt / checkpoint_{epoch}.pt in the reference
         name = f"checkpoint_{epoch}" if updates is None else f"checkpoint_{epoch}_{updates}"
         if self.writer:
-            if extra is not None:
-                self._write_json(self._path(name) + ".extra.json", _jsonable(extra))
-            self._write_state(name, state)
+            self.write(name, state, extra)
 
         if updates is not None:
             self.manifest["intervals"].append({"name": name, "updates": updates})
@@ -167,6 +168,23 @@ class CheckpointManager:
             shutil.rmtree(path, ignore_errors=True)
             if os.path.exists(path + ".extra.json"):
                 os.remove(path + ".extra.json")
+
+    def write(self, name: str, state: Dict[str, Any],
+              extra: Optional[Dict[str, Any]] = None) -> None:
+        """Write ``state`` (and ``extra``) as checkpoint ``name``, as ``save``
+        writes one, without naming it in the manifest: the way in for the
+        checkpoints of another run, whose manifest ``adopt_manifest`` then
+        takes."""
+        if extra is not None:
+            self._write_json(self._path(name) + ".extra.json", _jsonable(extra))
+        self._write_state(name, state)
+
+    def adopt_manifest(self, manifest: Dict[str, Any]) -> None:
+        """Take ``manifest`` (the JAX schema) as this directory's and write it
+        with its ``checkpoint_last`` / ``checkpoint_best`` links."""
+        self.manifest = dict(manifest)
+        self.manifest.setdefault("intervals", [])
+        self._write_manifest()
 
     # ------------------------------------------------------------------- load
 

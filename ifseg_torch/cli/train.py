@@ -49,7 +49,14 @@ One deliberate difference (ROADMAP.md C.3): a stop on ``--max-update`` or
 ``--stop-time-hours`` inside an epoch saves a mid-epoch checkpoint with the
 cursor, not the JAX package's epoch-complete one, so a resume goes on inside
 that epoch; and a resume restores the plateau controller, which the JAX
-CLI builds anew.  Not ported: profiling spans (A.10).
+CLI builds anew.
+
+Each step runs inside ``utils/profiling.py``'s ``span("train_step-{i}")``
+(a ``record_function`` range, an NVTX range on the card) and ``StepTimer``,
+whose watchdog warns of a step far slower than the recent ones, as the JAX
+CLI does; ``--tensorboard-logdir`` and ``--wandb-project`` mirror the
+logged stats (``utils/progress.py``).  A run the JAX CLI saved resumes here
+after ``tools/orbax_to_torch.py`` has converted its save directory.
 """
 
 import logging
@@ -77,6 +84,7 @@ from ifseg_torch.parallel.mesh import (
 from ifseg_torch.tasks.segmentation import SegmentationTask
 from ifseg_torch.train.trainer import Trainer
 from ifseg_torch.utils import metrics as metrics_lib
+from ifseg_torch.utils.profiling import StepTimer, span
 from ifseg_torch.utils.progress import progress_bar
 from ifseg_torch.utils.reliability import Heartbeat, check_grad_norms, check_param_sync
 
@@ -371,16 +379,20 @@ def train_epoch(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: in
     consecutive_nonfinite = 0
     stop_reason = None
     completed = True
+    timer = StepTimer()
+    lead = trainer.mesh.rank == 0
     heartbeat = Heartbeat(timeout=float(os.environ.get("IFSEG_HEARTBEAT", "600"))).start()
     try:
         with metrics_lib.aggregate("train_epoch") as agg:
             progress = progress_bar(
                 itr.next_epoch_itr(), total=len(itr), epoch=epoch,
                 log_interval=cfg.common.log_interval,
-                # the json format prints; the other ranks' loggers are silenced
-                log_format=cfg.common.log_format if trainer.mesh.rank == 0 else "simple",
-                tag="train", tensorboard_logdir=cfg.common.tensorboard_logdir,
-                wandb_project=cfg.common.wandb_project)
+                # the json format prints and the mirrors write on rank 0 alone:
+                # the stats are global, and one process a card would make one
+                # event file (or W&B run) a rank
+                log_format=cfg.common.log_format if lead else "simple",
+                tag="train", tensorboard_logdir=cfg.common.tensorboard_logdir if lead else None,
+                wandb_project=cfg.common.wandb_project if lead else None)
             batch_iter = iter(progress)
             # data-stall accounting: the wait on the host pipeline (TSV ->
             # augmentations -> collate), apart from the upload to the card
@@ -416,7 +428,8 @@ def train_epoch(cfg: Config, task: SegmentationTask, trainer: Trainer, epoch: in
                 t_iter = time.perf_counter()
                 current, pending = pending, fetch()
                 t_step = time.perf_counter()
-                logs = trainer.train_step(current)
+                with timer, span(f"train_step-{i}"):
+                    logs = trainer.train_step(current)
                 t_end = time.perf_counter()  # the step reads the card once: a sync
                 heartbeat.beat()
                 dt = t_end - t_step

@@ -365,7 +365,7 @@ class CommonConfig:
     log_interval: int = 10
     log_format: str = "simple"  # simple | json
     log_file: Optional[str] = None  # parsed, never read (as in JAX)
-    # parsed; a non-empty value raises (utils/progress.py, ROADMAP.md A.10)
+    # the progress bar's TensorBoard and W&B mirrors (utils/progress.py)
     tensorboard_logdir: Optional[str] = None
     wandb_project: Optional[str] = None
     profile: bool = False  # parsed, never read (as in JAX)

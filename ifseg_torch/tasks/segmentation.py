@@ -10,6 +10,8 @@ A copy of the JAX package's ``tasks/segmentation.py`` (tasks/mm_tasks/segmentati
     (ofa_task.py:120-165): contiguous batches, no shuffling
   - ``reduce_metrics`` aggregates per-class areas into mIoU/aAcc/mAcc meters
     (segmentation.py:231-264, seg_criterion.py:415-572)
+
+Registered as the task "segmentation" (``tasks/registry.py``).
 """
 
 import logging
@@ -22,6 +24,7 @@ from ifseg_torch.config import Config, TaskConfig
 from ifseg_torch.data.file_dataset import FileDataset
 from ifseg_torch.data.iterators import EpochBatchIterator
 from ifseg_torch.data.segmentation_dataset import SegmentationDataset
+from ifseg_torch.tasks.registry import register_task
 from ifseg_torch.tokenization.bert_bpe import BertBPE
 from ifseg_torch.tokenization.dictionary import Dictionary, build_seg_dictionary
 from ifseg_torch.tokenization.gpt2_bpe import GPT2BPE
@@ -30,6 +33,7 @@ from ifseg_torch.utils import metrics as metrics_lib
 logger = logging.getLogger(__name__)
 
 
+@register_task("segmentation")
 class SegmentationTask:
     def __init__(self, cfg: TaskConfig, dictionary: Dictionary, bpe):
         self.cfg = cfg

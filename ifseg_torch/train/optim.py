@@ -918,10 +918,18 @@ class LrScaled(Optimizer):
         return u
 
     def state_dict(self) -> Dict:
-        return dict(self.inner.state_dict(), lr_scale=self.lr_scale)
+        """The inner state with ``lr_scale`` this scale; an inner scale of its
+        own (fairseq Adam's) is kept as ``inner_lr_scale``."""
+        inner = self.inner.state_dict()
+        if "lr_scale" in inner:
+            inner["inner_lr_scale"] = inner["lr_scale"]
+        return dict(inner, lr_scale=self.lr_scale)
 
     def load_state_dict(self, state: Dict) -> None:
-        self.inner.load_state_dict(state)
+        inner = {k: v for k, v in state.items() if k not in ("lr_scale", "inner_lr_scale")}
+        if "inner_lr_scale" in state:
+            inner["lr_scale"] = state["inner_lr_scale"]
+        self.inner.load_state_dict(inner)
         self.lr_scale = float(state.get("lr_scale", 1.0))
 
 

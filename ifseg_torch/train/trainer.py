@@ -376,8 +376,9 @@ class Trainer:
         """Take the parts of a ``state_dict()`` that ``state`` holds (all, or
         e.g. only ``model`` and ``ema``), in place: the optimizer keeps its
         parameter tensors.  Under a mesh each whole tensor is cut to this
-        rank's part; a data rank other than 0 seeds its generator from the
-        step instead of taking the saved (rank 0's) state."""
+        rank's part; a data rank other than 0, or any rank of a state that
+        has a step but no generator (a converted JAX run's), seeds its
+        generator from the step instead of taking a saved (rank 0's) state."""
         if "model" in state:
             if self.layouts:
                 self._load_whole(state["model"])
@@ -393,9 +394,9 @@ class Trainer:
             self.step = int(state["step"])
         if "generator" in state:
             self.generator.set_state(state["generator"])
-            if self.mesh.index("batch") > 0:
-                self.generator.manual_seed(rank_seed(
-                    self.cfg.optimization.seed + self.step, self.mesh.index("batch")))
+        if "step" in state and ("generator" not in state or self.mesh.index("batch") > 0):
+            self.generator.manual_seed(rank_seed(
+                self.cfg.optimization.seed + self.step, self.mesh.index("batch")))
         if state.get("plateau") is not None and self.plateau is not None:
             self.plateau.load_state_dict(state["plateau"])
 

@@ -2,17 +2,27 @@
 formats), a copy of the JAX package's ``utils/progress.py``.
 
 A progress bar wraps a batch iterator; ``log`` emits at intervals, ``print``
-emits end-of-epoch stats.  The TensorBoard and W&B mirrors are not ported:
-neither package is on the card's machine, and a ``tensorboard_logdir`` or
-``wandb_project`` raises (ROADMAP.md A.10).
+emits end-of-epoch stats.  ``tensorboard_logdir`` adds the TensorBoard
+mirror: each numeric stat as the scalar ``<tag>/<name>`` at ``step`` (the
+bar's count when none is given), one writer a log dir, written by the
+port's own event writer (``utils/tb_events.py``: the JAX package's
+``tensorboardX`` is not on the card's machine).  ``wandb_project`` adds the
+W&B mirror, as the JAX package's: ``wandb.init`` with the run name of
+``$WANDB_NAME`` and ``wandb.log`` of the numeric stats; without the
+``wandb`` package it logs the JAX package's warning and mirrors nothing.
 """
 
 import json
 import logging
+import os
 from numbers import Number
 from typing import Any, Dict, Iterable, Optional
 
+from ifseg_torch.utils.tb_events import EventFileWriter
+
 logger = logging.getLogger(__name__)
+
+_tb_writers: Dict[str, Any] = {}
 
 
 def progress_bar(
@@ -25,12 +35,15 @@ def progress_bar(
     tensorboard_logdir: Optional[str] = None,
     wandb_project: Optional[str] = None,
 ):
-    if tensorboard_logdir or wandb_project:
-        raise NotImplementedError(
-            "the TensorBoard and W&B mirrors of the progress bar are not ported "
-            "(ROADMAP.md A.10): drop --tensorboard-logdir and --wandb-project")
-    cls = JsonProgressBar if log_format == "json" else SimpleProgressBar
-    return cls(iterator, total, epoch, log_interval, tag)
+    if log_format == "json":
+        bar = JsonProgressBar(iterator, total, epoch, log_interval, tag)
+    else:
+        bar = SimpleProgressBar(iterator, total, epoch, log_interval, tag)
+    if tensorboard_logdir:
+        bar = TensorboardWrapper(bar, tensorboard_logdir)
+    if wandb_project:
+        bar = WandbWrapper(bar, wandb_project)
+    return bar
 
 
 def _fmt_stats(stats: Dict[str, Any]) -> str:
@@ -89,3 +102,60 @@ class JsonProgressBar(BaseProgressBar):
 
     def print(self, stats, tag=None, step=None):
         self._emit(stats, step)
+
+
+class TensorboardWrapper:
+    def __init__(self, bar: BaseProgressBar, logdir: str):
+        self.bar = bar
+        if logdir not in _tb_writers:
+            _tb_writers[logdir] = EventFileWriter(logdir)
+        self.writer = _tb_writers[logdir]
+
+    def __iter__(self):
+        return iter(self.bar)
+
+    def _write(self, stats, tag, step):
+        tag = tag or self.bar.tag or "train"
+        for k, v in stats.items():
+            if isinstance(v, Number):
+                self.writer.add_scalar(f"{tag}/{k}", float(v), step or self.bar.i)
+
+    def log(self, stats, tag=None, step=None):
+        self._write(stats, tag, step)
+        self.bar.log(stats, tag, step)
+
+    def print(self, stats, tag=None, step=None):
+        self._write(stats, tag, step)
+        self.bar.print(stats, tag, step)
+
+
+class WandbWrapper:
+    def __init__(self, bar: BaseProgressBar, project: str):
+        self.bar = bar
+        self.run = None
+        try:
+            import wandb
+
+            self.run = wandb.init(
+                project=project, name=os.environ.get("WANDB_NAME"), reinit=False
+            )
+        except Exception:  # no package, no login: the run goes on unmirrored, as in JAX
+            logger.warning("wandb unavailable; W&B logging disabled")
+
+    def __iter__(self):
+        return iter(self.bar)
+
+    def _write(self, stats, step):
+        if self.run is None:
+            return
+        import wandb
+
+        wandb.log({k: v for k, v in stats.items() if isinstance(v, Number)}, step=step)
+
+    def log(self, stats, tag=None, step=None):
+        self._write(stats, step)
+        self.bar.log(stats, tag, step)
+
+    def print(self, stats, tag=None, step=None):
+        self._write(stats, step)
+        self.bar.print(stats, tag, step)

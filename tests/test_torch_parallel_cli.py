@@ -7,8 +7,8 @@ and dropout off:
 
 - ``cli.train --fsdp=2 --max-update=2``: both ranks stop after the same
   update (ROADMAP.md C.5) with the same reason, validate once, and only rank
-  0 writes checkpoint files; the parameter-sync and grad-norm sanitizers run
-  at every log;
+  0 writes checkpoint files and the TensorBoard event file; the
+  parameter-sync and grad-norm sanitizers run at every log;
 - the saved state is the whole one: a one-process trainer restores it and
   hands back exactly what was saved;
 - ``cli.validate`` on that checkpoint over 2 processes (each its slice of
@@ -109,7 +109,7 @@ def trained(tmp_path_factory):
     data = f"{train},{valid}"
     save_dir = tmp / "ckpt"
     argv = _argv(data, save_dir, "--fsdp=2", "--max-epoch=2", "--max-update=2",
-                 "--check-param-sync-interval=1")
+                 "--check-param-sync-interval=1", f"--tensorboard-logdir={tmp / 'tb'}")
     return dict(tmp=tmp, data=data, valid=valid, save_dir=save_dir, argv=argv,
                 runs=_run_two("train", argv, tmp, "train"))
 
@@ -126,6 +126,18 @@ def test_rank_0_alone_writes_the_checkpoint(trained):
     assert a["writes"] == a["saves"] != [] and b["writes"] == []
     assert sorted(os.listdir(trained["save_dir"] / a["saves"][-1])) == [
         "generator.pt", "model.pt", "optimizer.pt", "step.pt"]
+
+
+def test_rank_0_alone_writes_the_tensorboard_events(trained):
+    """One event file for the run, each (tag, step) in it once: the other
+    rank writes none."""
+    from tensorboard.backend.event_processing.event_file_loader import EventFileLoader
+
+    files = os.listdir(trained["tmp"] / "tb")
+    assert len(files) == 1 and files[0].startswith("events.out.tfevents."), files
+    pairs = [(v.tag, e.step) for e in EventFileLoader(str(trained["tmp"] / "tb" / files[0])).Load()
+             for v in e.summary.value]
+    assert len(pairs) == len(set(pairs)) and ("train/loss", 1) in pairs, pairs
 
 
 def test_one_process_resume_restores_what_was_saved(trained):

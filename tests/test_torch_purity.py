@@ -69,8 +69,47 @@ def test_importing_every_module_loads_no_jax():
                  "ifseg_torch.ops.gelu", "ifseg_torch.models.ar_cache",
                  "ifseg_torch.ops.ngram_block", "ifseg_torch.generate",
                  "ifseg_torch.generate.search", "ifseg_torch.generate.sequence_generator",
-                 "ifseg_torch.generate.trie", "ifseg_torch.generate.lexical"):
+                 "ifseg_torch.generate.trie", "ifseg_torch.generate.lexical",
+                 *NEW_MODULES):
         assert name in report["modules"], name
+
+
+# the modules that completed the port of every JAX module
+NEW_MODULES = ("ifseg_torch.utils.profiling", "ifseg_torch.utils.tb_events",
+               "ifseg_torch.tasks.registry", "ifseg_torch.models.lightconv")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_the_module_alone_loads_no_jax(module):
+    """Each imported alone in a fresh interpreter pulls in nothing of
+    ``FORBIDDEN``."""
+    code = ("import importlib, json, sys; importlib.import_module(%r); "
+            "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in %r)))"
+            % (module, FORBIDDEN))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_no_port_module_imports_the_orbax_tool():
+    """``tools/orbax_to_torch.py`` imports JAX and orbax: no module of the
+    port, nor ``chip_smoke.py``, may import it (or anything of ``tools``)."""
+    tool = REPO / "tools" / "orbax_to_torch.py"
+    assert "import orbax.checkpoint" in tool.read_text()
+    for path in _sources():
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            assert not any(n.split(".")[0] in ("tools", "orbax_to_torch")
+                           or n.endswith("orbax_to_torch") for n in names), path
+        assert "orbax_to_torch" not in path.read_text().replace(
+            "tools/orbax_to_torch.py", ""), path
 
 
 def _sources():
@@ -97,7 +136,8 @@ def test_the_scan_covers_the_evaluation_slice():
                  "ifseg_torch/ops/gelu.py", "ifseg_torch/models/ar_cache.py",
                  "ifseg_torch/ops/ngram_block.py", "ifseg_torch/generate/__init__.py",
                  "ifseg_torch/generate/search.py", "ifseg_torch/generate/sequence_generator.py",
-                 "ifseg_torch/generate/trie.py", "ifseg_torch/generate/lexical.py"):
+                 "ifseg_torch/generate/trie.py", "ifseg_torch/generate/lexical.py",
+                 *(m.replace(".", "/") + ".py" for m in NEW_MODULES)):
         assert path in scanned, path
 
 

@@ -122,13 +122,15 @@ def test_dummy_batch_has_the_jax_keys_shapes_and_dtypes(size, num_seg):
         assert 0 <= int(got[k].min()) and int(got[k].max()) < num_seg
     assert 4 <= int(got["src_tokens"].min()) and int(got["src_tokens"].max()) < 1000
     assert not got["bos_tokens"].any()
-    again = tdummy.dummy_seg_batch(tcfg, 3, torch.Generator().manual_seed(1), src_len=20)
+    again = tdummy.dummy_seg_batch(tcfg, 3, torch.Generator().manual_seed(1), device="cpu",
+                                   src_len=20)
     assert all(torch.equal(got[k], again[k]) for k in got)
 
 
 def test_dummy_task_matches_the_jax_task():
     jcfg, tcfg = _cfgs(patch_image_size=64, num_seg_tokens=5)
-    jtask, ttask = jdummy.DummySegTask(jcfg, src_len=12), tdummy.DummySegTask(tcfg, src_len=12)
+    jtask = jdummy.DummySegTask(jcfg, src_len=12)
+    ttask = tdummy.DummySegTask(tcfg, src_len=12, device="cpu")
     assert tuple(ttask.class_tokens.shape) == jtask.class_tokens.shape
     assert tuple(ttask.class_lengths.shape) == jtask.class_lengths.shape
     assert ttask.class_tokens.dtype == ttask.class_lengths.dtype == torch.int32
@@ -137,3 +139,15 @@ def test_dummy_task_matches_the_jax_task():
     assert [{k: tuple(v.shape) for k, v in b.items()} for b in tb] == \
         [{k: v.shape for k, v in b.items()} for b in jb]
     assert not torch.equal(tb[0]["patch_images"], tb[1]["patch_images"])
+
+
+def test_dummy_task_is_made_on_the_card_unless_the_cpu_is_asked_for(monkeypatch):
+    """As ``Trainer``, ``Evaluator`` and ``SegServer``: no device means the
+    card, which raises where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = _cfgs(patch_image_size=64, num_seg_tokens=5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdummy.DummySegTask(tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdummy.dummy_seg_batch(tcfg, 2, torch.Generator())
+    assert tdummy.DummySegTask(tcfg, device="cpu").device.type == "cpu"
