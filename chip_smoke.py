@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every kernel with nvcc and the host C++ sources of the PNG
-     decoder, the JPEG decoder and encoder, the dense CRF and the experts'
-     auction with c++ (one process per source, all at once), with each kernel instantiation's
+     decoder, the JPEG decoder and encoder, the GIF, BMP (RLE) and TIFF
+     decoders, the dense CRF and the experts' auction with c++ (one process per source,
+     all at once), with each kernel instantiation's
      registers, spill and stack from the ``-Xptxas -v`` summary, and the
      HGMMA count and shared memory of the three wgmma attention libraries at
      both head dims;
@@ -104,7 +105,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      batches of 8, a 5 ms window) over HTTP on localhost, 32 PNG requests of
      480 x 640 to 1,024 x 1,366 from 1 and from 8 clients, every answer (mask
      PNG or JSON areas) held to ``forward_served`` on the padded batch that
-     held its image, a GIF body refused with 400; requests/s, latency p50 and
+     held its image, a malformed GIF body (one PIL refuses) refused with 400;
+     requests/s, latency p50 and
      p99, mean batch size, host ms a request against card ms a batch, K1 and
      K4 launches a batch; int8 ``SegServer`` beside bf16 at batches 8 and 32
      (report, resident bytes, ms/forward, argmax agreement, logit error);
@@ -127,12 +129,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      label PNGs made from the seed, every row held to pinned digests, then
      ``cli.validate.main`` on the card with the ADE flags over the TSV it
      wrote (launch counts set to 0 before and read after), its cheapest
-     group against the fp32 CPU ``Evaluator``; (c) phase 13's daemon with
-     half of its requests JPEG files and half PNG files of the same pixels,
-     from 1 and from 8 clients, each JPEG answer equal to its PNG twin's and
+     group against the fp32 CPU ``Evaluator``; (e) every file of
+     tests/torch_image_files/ (GIF, BMP, TIFF, CMYK / YCCK and block-smoothed
+     progressive JPEG) decoded on the host, its mode, shape and the SHA-256
+     of its pixels and of its RGB held to PIL's (digests.json), then GIF,
+     BMP (RLE8, RLE4, 24 bits) and TIFF (raw, LZW, Deflate, CMYK) files of
+     1,024 x 1,366 written on the host, each held to the arrays it was
+     written from, and the full-size CMYK, YCCK and cut progressive JPEG
+     files; host ms a file by format and size, the full-size ones beside an
+     RGB JPEG's decode and the resize to 512 x 512; (c) phase 13's daemon
+     with 12 of the JPEG files and (e)'s full-size GIF, RLE8 BMP, LZW TIFF
+     and CMYK JPEG files, each beside a PNG file of the same pixels (32
+     requests), from 1 and
+     from 8 clients, each answer equal to its PNG twin's and
      to a row of the batch that held it; (d) ``cli.infer`` on
-     assets/cat_dog.jpeg with ``--output=*.jpg``, its overlay's bytes held to
-     ``encode_jpeg`` of the overlay, stage ms;
+     assets/cat_dog.jpeg with ``--output=*.jpg``, and on (e)'s CMYK JPEG with
+     ``--output=*.bmp`` and ``--output=*.tif`` (no CRF), each overlay's bytes
+     held to the port's writer (``encode_jpeg``, ``encode_bmp``,
+     ``encode_tiff``) of the overlay, stage ms, K1 and K4 launches;
  15. the rest of the training stack: (a) OFA-Base ``Trainer`` steps at batch
      16 with dropout and drop-path 0.1, from the same seed, weights and
      batches, with the layers not checkpointed, under save-attn and under
@@ -391,15 +405,16 @@ def phase_card() -> str:
 # ---------------------------------------------------------------- phase 2
 
 def phase_build():
-    from ifseg_torch.data import jpeg, png
+    from ifseg_torch.data import bmp, gif, jpeg, png, tiff
     from ifseg_torch.ops import balanced_assignment, build, crf
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
 
     # the CUDA sources and the host C++ sources of the PNG decoder, the JPEG
-    # codec, the dense CRF and the experts' auction, all at once
-    host_sources = (png.SOURCE, jpeg.DECODER, jpeg.ENCODER, crf.SOURCE,
-                    balanced_assignment.SOURCE)
+    # codec, the GIF, BMP and TIFF decoders, the dense CRF and the experts'
+    # auction, all at once
+    host_sources = (png.SOURCE, jpeg.DECODER, jpeg.ENCODER, gif.SOURCE, bmp.SOURCE, tiff.SOURCE,
+                    crf.SOURCE, balanced_assignment.SOURCE)
     t0 = time.perf_counter()
     results = build.build([*fa.KERNELS, ln.KERNEL, *host_sources])
     log(f"[2] built {sorted(results)} in {time.perf_counter() - t0:.1f} s")
@@ -2751,7 +2766,7 @@ def phase_train_cli(card: str, tmp: str, valid_tsv: str, ckpt_file: str, valid_g
 DAEMON_SHAPES = [(480, 640), (640, 480), (600, 800), (512, 683), (768, 1024), (1024, 768),
                  (900, 1200), (1024, 1366)]
 DAEMON_IMAGES = 16  # distinct PNG files, each sent DAEMON_REQUESTS / DAEMON_IMAGES times a run
-DAEMON_REQUESTS = 32  # a run: each PNG file twice (13), each JPEG file and PNG twin once (14c)
+DAEMON_REQUESTS = 32  # a run: each PNG file twice (13); 16 files and their PNG twins once (14c)
 DAEMON_CLIENTS = 8
 DAEMON_MAX_BATCH = 8
 INT8_BATCHES = (8, 32)
@@ -2889,7 +2904,8 @@ def drive_daemon(base: str, bodies, clients: int, json_every: int = 2):
     return [a for a, _ in done], wall, [dt for _, dt in done]
 
 
-# a GIF file's first bytes: a format the daemon does not take
+# a malformed GIF file (its graphic control extension is cut short): PIL
+# refuses it, and so does the daemon, with 400
 GIF_BODY = b"GIF89a\x01\x00\x01\x00\x80\x00\x00\x00\x00\x00\xff\xff\xff!\xf9\x04\x01;"
 
 
@@ -2989,7 +3005,7 @@ def phase_daemon(card: str, ckpt: str):
 
         status, _, out, _ = http_post(f"{base}/segment", GIF_BODY)
         if status != 400:
-            fail(f"a GIF body got {status}, not 400: {out[:200]!r}")
+            fail(f"a malformed GIF body got {status}, not 400: {out[:200]!r}")
 
         batches = []
         plain_forward = recording_forward(svc, batches)
@@ -3277,11 +3293,11 @@ def infer_cpu_reference(cli_infer, hooked, seen, card_pre, tmp: str):
                 pixel_argmax_differs=pixels, cpu_wall_s=wall)
 
 
-def phase_serving_surface(card: str, tmp: str, ckpt: str, jpeg_files):
-    """Phase 13 and phase 14's JPEG paths through the same daemon and CLI."""
+def phase_serving_surface(card: str, tmp: str, ckpt: str, jpeg_files, image_files):
+    """Phase 13 and phase 14's image-file paths through the same daemon and CLI."""
     daemon, svc = phase_daemon(card, ckpt)
     try:
-        daemon_jpeg = phase_daemon_jpeg(card, svc, jpeg_files)
+        daemon_jpeg = phase_daemon_jpeg(card, svc, jpeg_files, image_files)
         int8 = phase_int8(card, ckpt, svc)
     finally:
         svc.close()
@@ -3289,7 +3305,8 @@ def phase_serving_surface(card: str, tmp: str, ckpt: str, jpeg_files):
     torch.cuda.empty_cache()
     infer = phase_infer(card, tmp, ckpt)
     return dict(daemon=daemon, int8=int8, infer=infer, daemon_jpeg=daemon_jpeg,
-                infer_jpeg=phase_infer_jpeg(card, tmp, ckpt))
+                infer_jpeg=phase_infer_jpeg(card, tmp, ckpt),
+                infer_formats=phase_infer_formats(card, tmp, ckpt))
 
 
 # ---------------------------------------------------------------- phase 14: the files of the JAX CLIs
@@ -3423,6 +3440,155 @@ def phase_codecs(card: str):
     return dict(sizes=sizes, cat_dog_decode_ms=cat_ms), files
 
 
+IMAGE_FILES = REPO / "tests" / "torch_image_files"
+# (e)'s files at the largest size of phase 14's originals
+FULL_SIZE = (1024, 1366)
+# (e)'s full-size files that phase 14c sends to the daemon, one of each other format
+DAEMON_FORMAT_FILES = ("gif_1024x1366.gif", "bmp_rle8_1024x1366.bmp", "tiff_lzw_1024x1366.tif",
+                       "jpeg_cmyk_1024x1366.jpg")
+# (e)'s file that 14d gives cli.infer
+INFER_FORMAT_FILE = "jpeg_cmyk_256x192.jpg"
+# 14c sends this many of phase 14's JPEG files beside the four files above, each
+# with its PNG twin: a run stays at DAEMON_REQUESTS requests
+DAEMON_JPEG_FILES = DAEMON_REQUESTS // 2 - len(DAEMON_FORMAT_FILES)
+INFER_FORMAT_OUTPUTS = (".bmp", ".tif")
+
+
+def cmyk_to_rgb_plain(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's Convert.c ``cmyk2rgb`` in numpy (nk - nk * c / 255, rounded
+    as MULDIV255): the plain version of csrc/png_unfilter.cpp's
+    ``cmyk_to_rgb``."""
+    nk = 255 - cmyk[:, :, 3:].astype(np.uint16)  # every step below fits 16 bits
+    t = cmyk[:, :, :3] * nk + np.uint16(128)
+    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+
+
+def full_size_files():
+    """{name: (file, (pixels, mode, palette) the port must decode or None,
+    the RGB it must give or None)} at FULL_SIZE, from smooth_image through
+    the numpy writers of tests/torch_image_writers.py (which the tests hold
+    to PIL) and the port's own: GIF (LZW), BMP (RLE8, RLE4, 24 bits), TIFF
+    (uncompressed; LZW with the predictor at one code a byte, the decoder's
+    most; Deflate tiles; CMYK, its RGB from ``cmyk_to_rgb_plain``); a YCCK
+    file from the full-size CMYK JPEG fixture; assets/cat_dog.jpeg cut in
+    half, which libjpeg-turbo block-smooths (1,440 x 560).  The last two are
+    timed, not checked: their pixels come from PIL only."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_image_writers as W
+    from ifseg_torch.data.bmp import encode_bmp
+    from ifseg_torch.data.tiff import encode_tiff
+
+    h, w = FULL_SIZE
+    tag = f"{h}x{w}"
+    rgb = smooth_image(h, w, 1600)
+    idx = (rgb[:, :, 0] >> 5 << 5) | (rgb[:, :, 1] >> 5 << 2) | (rgb[:, :, 2] >> 6)
+    v = np.arange(256)
+    pal = np.stack([(v >> 5) * 255 // 7, (v >> 2 & 7) * 255 // 7, (v & 3) * 85], 1).astype(np.uint8)
+    idx16, pal16 = rgb[:, :, 1] >> 4, pal[::17]
+    cmyk = np.dstack([rgb, rgb[:, :, 1]])
+    as_rgb = (rgb, "RGB", None), rgb
+    cmyk_jpeg = (IMAGE_FILES / f"jpeg_cmyk_{tag}.jpg").read_bytes()
+    cat_dog = (REPO / "assets" / "cat_dog.jpeg").read_bytes()
+    return {
+        f"gif_{tag}.gif": (W.gif_file([dict(indices=idx)], (w, h), global_palette=pal),
+                           (idx, "P", pal), pal[idx]),
+        f"bmp_rle8_{tag}.bmp": (W.bmp_file(idx, 8, palette=pal, compression=1), (idx, "P", pal),
+                                pal[idx]),
+        f"bmp_rle4_{tag}.bmp": (W.bmp_file(idx16, 4, palette=pal16, compression=2),
+                                (idx16, "P", pal16), pal16[idx16]),
+        f"bmp_24bit_{tag}.bmp": (encode_bmp(rgb), *as_rgb),
+        f"tiff_{tag}.tif": (encode_tiff(rgb), *as_rgb),
+        f"tiff_lzw_{tag}.tif": (W.tiff_file(rgb, 8, 2, compression=5, predictor=2,
+                                            rows_per_strip=64, lzw_literals=True), *as_rgb),
+        f"tiff_deflate_tiles_{tag}.tif": (W.tiff_file(rgb, 8, 2, compression=8, predictor=2,
+                                                      tile=(256, 256)), *as_rgb),
+        f"tiff_cmyk_{tag}.tif": (W.tiff_file(cmyk, 8, 5, rows_per_strip=64), (cmyk, "CMYK", None),
+                                 cmyk_to_rgb_plain(cmyk)),
+        f"jpeg_ycck_{tag}.jpg": (W.ycck_jpeg(cmyk_jpeg), None, None),
+        "jpeg_progressive_cut_560x1440.jpg": (cat_dog[:len(cat_dog) // 2], None, None),
+    }
+
+
+def phase_image_files(card: str, jpeg_sizes):
+    """(e): every file of tests/torch_image_files/ decoded by the port on the
+    host (``decode_image``, ``decode_image_rgb``), its mode, shape and the
+    SHA-256 of its pixels and of its RGB held to the ones PIL gives
+    (digests.json, written by tools/make_image_fixtures.py and recomputed
+    with PIL by tests/test_torch_image_files.py); then ``full_size_files``,
+    each held to the pixels, mode, palette and RGB it was written from; host
+    ms a file (median of 5, of 3 at full size; one thread) by format and
+    size, the full-size ones beside 14a's RGB JPEG decode at that size
+    (``jpeg_sizes``) and the PIL-bilinear resize of such a file to OFA-Base's
+    512 x 512.  Returns the timings and {name: bytes} of every file."""
+    from ifseg_torch.data import image
+    from ifseg_torch.data.image import image_digest
+    from ifseg_torch.data.transforms import pil_resize
+
+    t0 = time.perf_counter()
+    image.load()
+    build_s = time.perf_counter() - t0
+    table = json.loads((IMAGE_FILES / "digests.json").read_text())
+    files, rows = {}, []
+    for name in sorted(table):
+        data = (IMAGE_FILES / name).read_bytes()
+        want = table[name]
+        pixels, mode, _ = image.decode_image(data)
+        rgb = image.decode_image_rgb(data)
+        got = dict(mode=mode, shape=list(pixels.shape), pixels=image_digest(pixels),
+                   rgb=image_digest(rgb))
+        if got != want:
+            fail(f"[14e] {name}: the port decodes {got}, PIL {want}")
+        files[name] = data
+        rows.append(dict(file=name, format=image.image_format(data), mode=mode,
+                         size=f"{pixels.shape[0]}x{pixels.shape[1]}", bytes=len(data),
+                         decode_ms=host_ms(lambda: image.decode_image(data), reps=5),
+                         rgb_ms=host_ms(lambda: image.decode_image_rgb(data), reps=5)))
+    t0 = time.perf_counter()
+    full = full_size_files()
+    write_s = time.perf_counter() - t0
+    for name, (data, want, want_rgb) in full.items():
+        pixels, mode, palette = image.decode_image(data)
+        rgb = image.decode_image_rgb(data)
+        if want is not None and not (
+                mode == want[1] and np.array_equal(pixels, want[0])
+                and (palette is None) == (want[2] is None)
+                and (palette is None or np.array_equal(palette, want[2]))
+                and np.array_equal(rgb, want_rgb)):
+            fail(f"[14e] {name}: the port decodes {mode} {pixels.shape}, not the {want[1]} "
+                 f"{want[0].shape} it was written from, or another palette or RGB")
+        files[name] = data
+        rows.append(dict(file=name, format=image.image_format(data), mode=mode,
+                         size=f"{pixels.shape[0]}x{pixels.shape[1]}", bytes=len(data),
+                         full_size=True, checked=want is not None,
+                         decode_ms=host_ms(lambda: image.decode_image(data)),
+                         rgb_ms=host_ms(lambda: image.decode_image_rgb(data))))
+    for r in rows:
+        log(f"[14e] {r['format']} {r['file']} ({r['mode']}, {r['size']}, {r['bytes']} bytes): "
+            f"decode {r['decode_ms']:.3f} ms, to RGB {r['rgb_ms']:.3f} ms a file; host, one thread")
+    by_format = {}
+    for r in rows:
+        by_format.setdefault(r["format"], []).append(r)
+    for fmt, rs in by_format.items():
+        at_full = [r for r in rs if r.get("full_size")]
+        log(f"[14e] {fmt}: {len(rs) - len(at_full)} fixtures equal PIL's mode, shape, pixels "
+            f"and RGB; {sum(r['checked'] for r in at_full)} full-size files equal the arrays "
+            f"they were written from, {sum(not r['checked'] for r in at_full)} are timed only; "
+            f"to RGB {min(r['rgb_ms'] for r in rs):.3f}-{max(r['rgb_ms'] for r in rs):.3f} ms "
+            f"a file; beside {card}")
+    h, w = FULL_SIZE
+    big = np.asarray(full[f"bmp_24bit_{h}x{w}.bmp"][2])
+    resize_ms = host_ms(lambda: pil_resize(big, (512, 512)))
+    slowest = max((r for r in rows if r.get("full_size")), key=lambda r: r["rgb_ms"])
+    jpeg_ms = jpeg_sizes[f"{h}x{w}"]["decode_ms"]
+    log(f"[14e] at {h} x {w}: the slowest to RGB {slowest['file']} {slowest['rgb_ms']:.3f} ms, "
+        f"beside an RGB JPEG's decode {jpeg_ms:.3f} ms (14a) and the PIL-bilinear resize to "
+        f"512 x 512 {resize_ms:.3f} ms; {len(rows)} files in "
+        f"{sum(r['bytes'] for r in rows)} bytes; codecs loaded in {build_s:.2f} s; the "
+        f"full-size files written in {write_s:.2f} s")
+    return dict(files=rows, build_s=build_s, write_s=write_s, resize_ms=resize_ms,
+                jpeg_decode_ms=jpeg_ms), files
+
+
 def phase_convert_validate(card: str, tmp: str, ckpt: str, files):
     """(b): ``python -m ifseg_torch.cli.convert_dataset --mode=ade`` over
     phase 14's JPEG originals and label PNGs made from the seed, each row
@@ -3511,13 +3677,15 @@ def phase_convert_validate(card: str, tmp: str, ckpt: str, files):
     return result
 
 
-def phase_daemon_jpeg(card: str, svc, files):
-    """(c): the daemon of phase 13 answers JPEG bodies: half of each run's
-    DAEMON_REQUESTS are phase 14's JPEG files, half PNG files of the pixels
-    the port decodes from them (every other request asks for JSON), from 1
-    and from DAEMON_CLIENTS clients; a JPEG body's net input equals its PNG
-    twin's bit for bit, every answer is the class ids of a batch row that
-    held its image, and each JPEG answer equals its PNG twin's."""
+def phase_daemon_jpeg(card: str, svc, files, image_files):
+    """(c): the daemon of phase 13 answers JPEG, GIF, BMP and TIFF bodies:
+    each run sends (e)'s DAEMON_FORMAT_FILES (a GIF, an RLE8 BMP, an LZW
+    TIFF and a CMYK JPEG file of FULL_SIZE) and DAEMON_JPEG_FILES of phase
+    14's JPEG files, each beside a PNG file of the RGB pixels the port
+    decodes from it (every other pair asks for JSON), from 1 and from
+    DAEMON_CLIENTS clients; a body's net input equals its
+    PNG twin's bit for bit, every answer is the class ids of a batch row
+    that held its image, and each answer equals its PNG twin's."""
     import threading
     from http.server import ThreadingHTTPServer
 
@@ -3529,6 +3697,9 @@ def phase_daemon_jpeg(card: str, svc, files):
     from ifseg_torch.ops import layer_norm as ln
 
     bodies, host = [], dict(jpeg_decode_ms=[], png_decode_ms=[], resize_ms=[], jpeg_preprocess_ms=[])
+    for name in DAEMON_FORMAT_FILES:  # the other formats first, then the JPEG files
+        bodies += [image_files[name], encode_png(decode_image_rgb(image_files[name]))]
+    files = files[:DAEMON_JPEG_FILES]
     for _, data, pixels in files:
         twin = encode_png(pixels)
         bodies += [data, twin]
@@ -3537,10 +3708,12 @@ def phase_daemon_jpeg(card: str, svc, files):
         rgb = decode_image_rgb(data)
         host["resize_ms"].append(host_ms(lambda: pil_resize(rgb, (svc.size, svc.size)), reps=1))
         host["jpeg_preprocess_ms"].append(host_ms(lambda: svc._preprocess(data), reps=1))
+    if len(bodies) != DAEMON_REQUESTS:
+        fail(f"[14c] {len(bodies)} bodies, not one a request of a run's {DAEMON_REQUESTS}")
     nets = [svc._preprocess(b) for b in bodies]
     for k in range(0, len(nets), 2):
         if nets[k][1] != nets[k + 1][1] or not np.array_equal(nets[k][0], nets[k + 1][0]):
-            fail(f"JPEG file {k // 2}: the daemon's net input differs from its PNG twin's")
+            fail(f"body {k // 2}: the daemon's net input differs from its PNG twin's")
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), cli_serve._make_handler(svc))
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     server_thread.start()
@@ -3570,28 +3743,33 @@ def phase_daemon_jpeg(card: str, svc, files):
     k1_per = sum(n for *_, n in SITES)
     ln_per = ln_launches_per_forward(svc.server.model, position_lns=False)
     if counts["infer"] != k1_per * n_batches or ln_launches != ln_per * n_batches:
-        fail("the daemon's batches of JPEG and PNG bodies did not launch K1 and K4 at every site")
+        fail("the daemon's batches of JPEG, GIF, BMP, TIFF and PNG bodies did not launch K1 "
+             "and K4 at every site")
     grid_of = batch_rows(svc, batches)
-    same = 0
+    same = formats_equal = 0
     for clients, run in runs.items():
         got = {}
         for i, status, ctype, out in run["answers"]:
             got[i] = check_answer(svc, grid_of, nets[i % len(nets)], f"[14c] request {i} "
                                   f"({clients} clients)", status, ctype, out,
                                   as_json=i % 4 in (2, 3))
-        for i in got:  # a JPEG request and its PNG twin's, the same format asked
+        for i in got:  # a request and its PNG twin's, the same format asked
             if i % 2 == 0:
                 a, b = got[i], got[i + 1]
                 if not (a == b if isinstance(a, dict) else np.array_equal(a, b)):
-                    fail(f"[14c] request {i} ({clients} clients): the JPEG body's answer differs "
+                    fail(f"[14c] request {i} ({clients} clients): the body's answer differs "
                          f"from its PNG twin's")
                 same += 1
+                formats_equal += i < 2 * len(DAEMON_FORMAT_FILES)
     result = dict(launches=counts["infer"], ln_launches=ln_launches, pairs_equal=same,
+                  other_formats_equal=formats_equal,
                   host_ms={k: float(np.mean(v)) for k, v in host.items()},
                   images_answered_two_ways=sum(len(r) > 1 for r in grid_of.values()))
     for clients, run in runs.items():
         del run["answers"]
-        log(f"[14c] {clients} client(s), {DAEMON_REQUESTS} requests, half JPEG: "
+        log(f"[14c] {clients} client(s), {DAEMON_REQUESTS} requests, {len(files)} JPEG and "
+            f"{len(DAEMON_FORMAT_FILES)} GIF / RLE8 BMP / LZW TIFF / CMYK JPEG files of "
+            f"{FULL_SIZE[0]} x {FULL_SIZE[1]} beside PNG twins: "
             f"{run['requests_per_s']:.2f} requests/s, latency p50 {run['p50_ms']:.1f} ms, p99 "
             f"{run['p99_ms']:.1f} ms, {run['batches']} batches, mean batch size "
             f"{run['mean_batch']:.2f}, on {card}")
@@ -3600,7 +3778,8 @@ def phase_daemon_jpeg(card: str, svc, files):
         f"twin's {hm['png_decode_ms']:.2f}, PIL bilinear resize {hm['resize_ms']:.2f}, a JPEG "
         f"request's preprocess {hm['jpeg_preprocess_ms']:.2f}; K1 {counts['infer']} and K4 "
         f"{ln_launches} launches over {n_batches} batches ({k1_per} and {ln_per} a batch); "
-        f"{same} JPEG answers equal their PNG twins'; beside {card}")
+        f"{same} answers equal their PNG twins' ({formats_equal} of them GIF, BMP, TIFF and "
+        f"CMYK JPEG); beside {card}")
     result["runs"] = {str(c): r for c, r in runs.items()}
     return result
 
@@ -3655,6 +3834,56 @@ def phase_infer_jpeg(card: str, tmp: str, ckpt: str):
         f"is encode_jpeg of the overlay; K1 {counts['infer']}, K4 {ln_launches} launches; on {card}")
     return dict(ms=got["ms"], wall_s=wall, areas=got["areas"], launches=counts["infer"],
                 ln_launches=ln_launches, overlay_bytes=len(written))
+
+
+def phase_infer_formats(card: str, tmp: str, ckpt: str):
+    """(d), other writers: ``cli.infer`` on (e)'s CMYK JPEG file (cat, dog;
+    no CRF) with ``--output=*.bmp`` and ``--output=*.tif``, launch counts set
+    to 0 before each run and read after; each overlay's bytes against the
+    port's writer (``encode_bmp``, ``encode_tiff``, the bytes PIL's ``save``
+    writes) of the overlay made again from the mask it wrote and the image
+    decoded to RGB."""
+    from ifseg_torch.cli import infer as cli_infer
+    from ifseg_torch.data.image import decode_image_rgb
+    from ifseg_torch.data.png import decode_png_rgb
+    from ifseg_torch.models.segofa import SegOFA
+    from ifseg_torch.ops import flash_attention as fa
+    from ifseg_torch.ops import layer_norm as ln
+
+    with torch.device("meta"):
+        ln_per = ln_launches_per_forward(SegOFA(base_config("bfloat16")), position_lns=True)
+    k1_per = sum(n for *_, n in SITES)
+    image = IMAGE_FILES / INFER_FORMAT_FILE
+    rgb = decode_image_rgb(image.read_bytes())
+    runs = {}
+    for ext in INFER_FORMAT_OUTPUTS:
+        out = f"{tmp}/cmyk_overlay{ext}"
+        fa.reset_launches()
+        ln.reset_launches()
+        t0 = time.perf_counter()
+        got = cli_infer.main([f"--image={image}", f"--checkpoint={ckpt}",
+                              f"--category-list={CAT_DOG_CATEGORIES}", "--arch=segofa_base",
+                              f"--bpe-dir={REPO / 'assets' / 'BPE'}", "--crf-iters=0",
+                              f"--output={out}"])
+        wall = time.perf_counter() - t0
+        counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+        if counts["infer"] != k1_per or ln_launches != ln_per:
+            fail(f"cli.infer --output=*{ext} launched K1 {counts['infer']} and K4 {ln_launches} "
+                 f"times, not {k1_per} and {ln_per}")
+        written = Path(out).read_bytes()
+        colours = decode_png_rgb(Path(got["mask"]).read_bytes())
+        overlay = (0.5 * colours + (1 - 0.5) * rgb).astype(np.uint8)  # the CLI's --alpha=0.5
+        if written != cli_infer.WRITERS[ext](overlay) or decode_image_rgb(written).shape != rgb.shape:
+            fail(f"cli.infer's {ext} overlay is not the port's writer of its overlay")
+        runs[ext] = dict(ms=got["ms"], wall_s=wall, launches=counts["infer"],
+                         ln_launches=ln_launches, overlay_bytes=len(written))
+        log(f"[14d] cli.infer {INFER_FORMAT_FILE} ({rgb.shape[0]} x {rgb.shape[1]}, CMYK) -> "
+            f"{ext}, {CAT_DOG_CATEGORIES!r}, no CRF: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in got["ms"].items())
+            + f" ms; {wall:.1f} s with the checkpoint's load; the overlay ({len(written)} bytes) "
+            f"is the port's {ext} writer of the overlay; K1 {counts['infer']}, K4 {ln_launches} "
+            f"launches; on {card}")
+    return runs
 
 
 # ---------------------------------------------------------------- phase 15: the rest of the training stack
@@ -5703,10 +5932,11 @@ def main():
         mark("12 train CLI")
         torch.cuda.empty_cache()
         codecs, jpeg_files = phase_codecs(card)
-        surface = phase_serving_surface(card, tmp, validate["ckpt"], jpeg_files)
+        codecs["image_files"], image_files = phase_image_files(card, codecs["sizes"])
+        surface = phase_serving_surface(card, tmp, validate["ckpt"], jpeg_files, image_files)
         torch.cuda.empty_cache()
         converted = phase_convert_validate(card, tmp, validate["ckpt"], jpeg_files)
-        mark("13-14 serving surface, JPEG files")
+        mark("13-14 serving surface, image files")
         torch.cuda.empty_cache()
         stack = dict(remat=phase_remat(card, huge["train"]["max_memory_gib"]))
         stack["optimizers"] = phase_optimizers(card)
@@ -5770,7 +6000,7 @@ def main():
     stack_paths.update(train_cli_spans=run_surface["spans"]["launches"],
                        train_cli_converted_resume=run_surface["converted_resume"]["launches"])
     served16, gen16 = options["served"], options["generate"]
-    # the forward without stats runs on ten main paths; each was driven with
+    # the forward without stats runs on these main paths; each was driven with
     # the counts set to 0 just before and read just after
     k1_paths = dict(serving=serve["launches"], evaluation=evaluation["launches"],
                     monitoring=counts["infer"], validate=validate["launches"],
@@ -5778,6 +6008,8 @@ def main():
                     infer=surface["infer"]["launches"],
                     serve_daemon_jpeg=surface["daemon_jpeg"]["launches"],
                     infer_jpeg=surface["infer_jpeg"]["launches"],
+                    **{f"infer_cmyk_to_{ext[1:]}": r["launches"]
+                       for ext, r in surface["infer_formats"].items()},
                     validate_converted=converted["launches"],
                     **{k: v["infer"] for k, v in stack_paths.items() if k.startswith("train_cli")},
                     evaluation_prefix=served16["eval_launches"]["infer"],
@@ -5791,6 +6023,8 @@ def main():
                     infer=surface["infer"]["ln_launches"],
                     serve_daemon_jpeg=surface["daemon_jpeg"]["ln_launches"],
                     infer_jpeg=surface["infer_jpeg"]["ln_launches"],
+                    **{f"infer_cmyk_to_{ext[1:]}": r["ln_launches"]
+                       for ext, r in surface["infer_formats"].items()},
                     validate_converted=converted["ln_launches"],
                     train_cli_stack=stack_cli["ln_launches"],
                     train_cli_stack_resume=stack_cli["resume_ln_launches"],

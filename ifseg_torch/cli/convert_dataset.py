@@ -7,11 +7,12 @@ codecs in place of PIL (``data/image.py``): each TSV row is
 ``base64(PNG image) \t base64(label PNG) \t id \t line_id`` with the label
 values shifted so 0 = ignore and v = class v-1 (the loader's inverse shift,
 data/mm_data/segmentation_dataset.py:230-234).  The image is kept in its mode
-(a JPEG original as its L or RGB pixels, a PNG one as its own mode and
-palette), as PIL's ``save`` keeps it; the label is written as an 8-bit gray
-PNG after the 256-entry lookup.  The PNG bytes differ from PIL's (another
-zlib stream, no filters), what both packages' readers decode from each row
-does not.
+(a JPEG original as its L or RGB pixels, a PNG, GIF, BMP or TIFF one as its
+own mode and palette), as PIL's ``save`` keeps it, and a mode PNG cannot
+hold (a CMYK JPEG or TIFF) fails the run, as PIL's PNG writer fails it;
+the label is written as an 8-bit gray PNG after the 256-entry lookup.  The
+PNG bytes differ from PIL's (another zlib stream, no filters), what both
+packages' readers decode from each row does not.
 
 Modes (label remaps taken verbatim from the notebooks):
   ade          ADEChallengeData2016 layout: raw values 0..149 -> class+1,
@@ -44,7 +45,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ifseg_torch.data import jpeg, png
+from ifseg_torch.data import image, png
 from ifseg_torch.data.image import decode_image
 
 logger = logging.getLogger(__name__)
@@ -126,7 +127,7 @@ def convert_row(args):
     if img_path is None:
         return None
     with open(img_path, "rb") as fp:
-        image = decode_image(fp.read())
+        pixels = decode_image(fp.read())
     with open(seg_path, "rb") as fp:
         seg = decode_image(fp.read())[0].copy()
     lut = np.zeros(256, np.uint8)
@@ -134,7 +135,7 @@ def convert_row(args):
         if 0 <= k < 256:
             lut[k] = v
     seg = lut[seg]
-    return "\t".join([_b64_png(*image), _b64_png(seg), stem, str(line_id)])
+    return "\t".join([_b64_png(*pixels), _b64_png(seg), stem, str(line_id)])
 
 
 def main(argv=None):
@@ -157,8 +158,7 @@ def main(argv=None):
     logger.info("%d annotation files", len(tasks))
     os.makedirs(os.path.dirname(os.path.abspath(args.output)), exist_ok=True)
     # build the codecs here, once: the workers only load them
-    jpeg.load()
-    png.load()
+    image.load()
     with get_context("spawn").Pool(args.workers) as pool:
         rows = [r for r in pool.imap(convert_row, tasks, chunksize=8) if r]
     rows.sort(key=lambda x: int(x.rsplit("\t", 1)[-1]))

@@ -18,10 +18,12 @@ given:
 mean field on the model's device (``ops/crf_device.py``), ``cpp`` on the host
 (``ops/crf.py``).  The checkpoint is a ``.pt`` file or a checkpoint
 directory of ``cli.train`` (``checkpoint/convert.py:load_model``).  The image
-is a PNG or JPEG file (``data/image.py``); the overlay is written as PNG or,
-for ``--output`` named ``*.jpg`` or ``*.jpeg``, as the JPEG that PIL's
-``save`` writes (``data/jpeg.py:encode_jpeg``); the mask
-beside it is always a PNG file.
+is a PNG, JPEG, GIF, BMP or TIFF file (``data/image.py``); the overlay is
+written in the format ``--output``'s extension names, with the bytes PIL's
+``save`` writes: PNG, JPEG for ``*.jpg``/``*.jpeg``
+(``data/jpeg.py:encode_jpeg``), BMP for ``*.bmp`` (``data/bmp.py``) and
+uncompressed TIFF for ``*.tif``/``*.tiff`` (``data/tiff.py``); the mask beside
+it is always a PNG file.
 """
 
 import argparse
@@ -36,10 +38,12 @@ import torch
 
 from ifseg_torch.checkpoint.convert import load_model
 from ifseg_torch.config import Config, model_config_for_arch
+from ifseg_torch.data.bmp import encode_bmp
 from ifseg_torch.data.image import decode_image_rgb
 from ifseg_torch.data.jpeg import encode_jpeg
 from ifseg_torch.data.png import encode_png
 from ifseg_torch.data.segmentation_dataset import prompt_tokens
+from ifseg_torch.data.tiff import encode_tiff
 from ifseg_torch.data.transforms import KeepRatioResize, normalize_image
 from ifseg_torch.eval.evaluator import masked_label_propagation
 from ifseg_torch.ops.crf import dense_crf
@@ -49,7 +53,8 @@ from ifseg_torch.ops.resize import bilinear_matrix
 logger = logging.getLogger(__name__)
 
 # the overlay's writer by the extension of --output, as PIL picks its format
-WRITERS = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg}
+WRITERS = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".bmp": encode_bmp,
+           ".tif": encode_tiff, ".tiff": encode_tiff}
 
 
 def _colormap(n):
@@ -95,7 +100,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ext = os.path.splitext(args.output)[1].lower()
     if ext not in WRITERS:
         raise ValueError(f"--output={args.output}: {ext or 'no extension'} is not a format this "
-                         f"CLI writes (name it *.png or *.jpg)")
+                         f"CLI writes (name it *.png, *.jpg, *.jpeg, *.bmp, *.tif or *.tiff)")
     categories = [c.strip() for c in args.category_list.split(",") if c.strip()]
     num_seg = len(categories)
     cfg = Config()

@@ -17,7 +17,15 @@
 //                      component's downsampled width is above 2, h1v2 always,
 //                      replication otherwise; edges replicate the last sample
 //   colour             YCbCr -> RGB with the tables of jdcolor.c; the colour
-//                      space chosen as jdapimin.c default_decompress_parms does
+//                      space chosen as jdapimin.c default_decompress_parms does;
+//                      4-component files as libjpeg's JCS_CMYK output (YCCK
+//                      through jdcolor.c ycck_cmyk_convert), inverted as PIL
+//                      reads every CMYK JPEG ("CMYK;I", Adobe's polarity)
+//   smoothing          progressive files whose scans leave any of the first
+//                      nine AC coefficients unrefined are block-smoothed as
+//                      libjpeg-turbo 2.1+ does (jdcoefct.c smoothing_ok and
+//                      decompress_smooth_data: the 5 x 5 neighbourhood of DC
+//                      values, the DC too where no AC is known yet)
 //
 // A cut file decodes as PIL decodes it with ImageFile.LOAD_TRUNCATED_IMAGES
 // (which the JAX package sets): PIL appends an EOI marker where the data ends,
@@ -30,10 +38,8 @@
 // buffers the whole image (progressive or multi-scan), since no output pass
 // ever starts, and the decoded image otherwise.
 //
-// A progressive file whose scans leave one of the first nine AC coefficients
-// unrefined would be block-smoothed by libjpeg-turbo (jdcoefct.c); it is
-// refused, as are arithmetic coding, lossless and hierarchical files,
-// precisions other than 8 bits, DNL and 4-component (CMYK/YCCK) files. Built
+// Arithmetic coding, lossless and hierarchical files, precisions other than 8
+// bits, DNL and component counts other than 1, 3 and 4 are refused. Built
 // with the host C++ compiler at first use (`ifseg_torch/ops/build.py`) and
 // called through ctypes.
 
@@ -103,6 +109,7 @@ struct Component {
     bool latched = false;       // quantization table copied at its first scan
     uint16_t quant[64];         // natural order
     int coef_bits[64];          // Al of the last scan that coded each coefficient, -1 if none
+    int prev_bits[64];          // coef_bits before the last scan of this component
     std::vector<uint8_t> plane; // IDCT output: (hib * 8) x (wib * 8)
 };
 
@@ -364,6 +371,28 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) 
     }
 }
 
+// jdcolor.c build_ycc_rgb_table, SCALEBITS 16
+struct YccTables {
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    YccTables() {
+        const int64_t one_half = int64_t{1} << 15;
+        auto fix = [](double x) { return static_cast<int64_t>(x * 65536.0 + 0.5); };
+        for (int i = 0; i < 256; ++i) {
+            const int64_t x = i - 128;
+            cr_r[i] = static_cast<int>((fix(1.40200) * x + one_half) >> 16);
+            cb_b[i] = static_cast<int>((fix(1.77200) * x + one_half) >> 16);
+            cr_g[i] = -fix(0.71414) * x;
+            cb_g[i] = -fix(0.34414) * x + one_half;
+        }
+    }
+};
+
+// the coefficients block smoothing reads: the DC and the first nine AC ones
+// in zig-zag order (jdcoefct.c SAVED_COEFS)
+constexpr int kSmoothCoefs = 10;
+constexpr int kAllRows = 1 << 30;
+
 class Decoder {
    public:
     Decoder(const uint8_t* d, size_t n) : d_(d), n_(n) {
@@ -407,7 +436,6 @@ class Decoder {
             pos = segment(at, true);
         }
         if (!scans_) throw Error("broken JPEG: no scan before EOI");
-        if (progressive_) check_smoothing();
         output(out);
     }
 
@@ -418,12 +446,9 @@ class Decoder {
     }
 
     int channels() const {
-        if (comps_.size() == 1) return 1;
-        if (comps_.size() == 3) return 3;
-        if (comps_.size() == 4)
-            throw Error("4-component (CMYK/YCCK) JPEG files are not supported");
-        throw Error("JPEG files of " + std::to_string(comps_.size()) +
-                    " components are not supported");
+        const size_t n = comps_.size();
+        if (n == 1 || n == 3 || n == 4) return static_cast<int>(n);
+        throw Error("JPEG files of " + std::to_string(n) + " components are not supported");
     }
 
     // jdapimin.c default_decompress_parms, for 3 components: YCbCr or RGB
@@ -532,7 +557,7 @@ class Decoder {
             vmax_ = std::max(vmax_, c.v);
         }
         sof_seen_ = true;
-        channels();  // refuse CMYK and odd component counts before any data
+        channels();  // refuse odd component counts before any data
         mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
         mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
         for (Component& c : comps_) {
@@ -544,6 +569,7 @@ class Decoder {
             c.bh = mcuy_ * c.v;
             c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
             for (int& bits : c.coef_bits) bits = -1;
+            for (int& bits : c.prev_bits) bits = 0;
         }
     }
 
@@ -603,8 +629,13 @@ class Decoder {
         if (progressive_) {
             if (ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1) || al > 13 || (ah && ah - 1 != al))
                 throw Error("broken JPEG: bad progression parameters");
-            for (Component* c : sc)
+            // jdphuff.c start_pass_phuff_decoder: the bits before this scan
+            // are kept for the rows smoothing reaches past its data
+            for (Component* c : sc) {
+                for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k)
+                    c->prev_bits[k] = scans_ ? c->coef_bits[k] : 0;
                 for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+            }
         }
         for (Component* c : sc) {
             c->dc_pred = 0;
@@ -619,6 +650,7 @@ class Decoder {
         if (!scans_) buffered_ = progressive_ || ns < static_cast<int>(comps_.size());
         BitReader br(d_, n_, data);
         eobrun_ = 0;
+        last_good_ = kAllRows;
         const bool single = ns == 1;
         const int mx = single ? sc[0]->wib : mcux_;
         const int my = single ? sc[0]->hib : mcuy_;
@@ -644,6 +676,10 @@ class Decoder {
                             for (int h = 0; h < c->h; ++h)
                                 block(br, *c, x * c->h + h, y * c->v + v, ss, se, ah, al);
                 }
+                // the iMCU row where the data ran out: smoothing takes the bits
+                // before this scan below it (jdcoefct.c last_good_iMCU_row)
+                if (br.insufficient() && last_good_ == kAllRows)
+                    last_good_ = single ? y / sc[0]->v : y;
             }
         }
         ++scans_;
@@ -743,28 +779,137 @@ class Decoder {
     }
 
     // jdcoefct.c smoothing_ok: libjpeg-turbo smooths a progressive image whose
-    // DC is known and whose first nine AC coefficients are not all refined to
-    // bit 0; this decoder does not, so it refuses such a file
-    void check_smoothing() const {
+    // quantizers of the DC and the first nine AC coefficients are nonzero,
+    // whose DC is known and whose first nine AC coefficients are not all
+    // refined to bit 0
+    bool smoothing_ok() const {
+        if (!progressive_) return false;
         bool useful = false;
         for (const Component& c : comps_) {
-            if (!c.latched) return;
-            for (int k = 0; k < 10; ++k)
-                if (c.quant[kNaturalOrder[k]] == 0) return;
-            if (c.coef_bits[0] < 0) return;
-            for (int k = 1; k < 10; ++k)
+            if (!c.latched) return false;
+            for (int k = 0; k < kSmoothCoefs; ++k)
+                if (c.quant[kNaturalOrder[k]] == 0) return false;
+            if (c.coef_bits[0] < 0) return false;
+            for (int k = 1; k < kSmoothCoefs; ++k)
                 if (c.coef_bits[k] != 0) useful = true;
         }
-        if (useful)
-            throw Error("progressive JPEG files whose scans leave coefficients unrefined are not "
-                        "supported (libjpeg would block-smooth them)");
+        return useful;
+    }
+
+    // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1+): each block's
+    // zero coefficients among the first nine AC ones that are not known to
+    // full precision are estimated from the DC values of its 5 x 5
+    // neighbourhood, and its DC too where no AC coefficient is known at all;
+    // then the IDCT. Rows past last_good_ take the bits before the last scan.
+    void smooth_component(Component& c) {
+        const int total = mcuy_, last_row = total - 1, stride = c.wib * 8;
+        int latch[kSmoothCoefs], prev_latch[kSmoothCoefs];
+        for (int k = 0; k < kSmoothCoefs; ++k) {
+            latch[k] = c.coef_bits[k];
+            prev_latch[k] = scans_ > 1 ? c.prev_bits[k] : -1;
+        }
+        int64_t q[kSmoothCoefs];  // Q00, Q01, Q10, Q20, Q11, Q02, Q03, Q12, Q21, Q30
+        for (int k = 0; k < kSmoothCoefs; ++k) q[k] = c.quant[kNaturalOrder[k]];
+        int16_t ws[64];
+        for (int out_row = 0; out_row < total; ++out_row) {
+            int block_rows = c.v;
+            if (out_row == last_row) {
+                block_rows = c.hib % c.v;
+                if (block_rows == 0) block_rows = c.v;
+            }
+            const int* bits = out_row > last_good_ ? prev_latch : latch;
+            bool change_dc = true;
+            for (int k = 1; k < kSmoothCoefs; ++k) change_dc = change_dc && bits[k] == -1;
+            const int image_block_rows = block_rows * total;
+            for (int br = 0; br < block_rows; ++br) {
+                const int image_block_row = out_row * block_rows + br;
+                const int row = out_row * c.v + br;
+                const int prev = image_block_row > 0 ? row - 1 : row;
+                const int pprev = image_block_row > 1 ? row - 2 : prev;
+                const int next = image_block_row < image_block_rows - 1 ? row + 1 : row;
+                const int nnext = image_block_row < image_block_rows - 2 ? row + 2 : next;
+                const int rows[5] = {pprev, prev, row, next, nnext};
+                for (int bn = 0; bn < c.wib; ++bn) {
+                    // dc[r][j]: the DC of row rows[r], column bn + j - 2 (clamped)
+                    int dc[5][5];
+                    for (int r = 0; r < 5; ++r)
+                        for (int j = 0; j < 5; ++j) {
+                            const int col = std::min(std::max(bn + j - 2, 0), c.wib - 1);
+                            dc[r][j] = c.coef[(static_cast<size_t>(rows[r]) * c.bw + col) * 64];
+                        }
+                    std::memcpy(ws, c.coef.data() + (static_cast<size_t>(row) * c.bw + bn) * 64,
+                                sizeof(ws));
+                    smooth_block(ws, dc, bits, change_dc, q);
+                    idct_islow(ws, c.quant, c.plane.data() + static_cast<size_t>(row) * 8 * stride + bn * 8,
+                               stride);
+                }
+            }
+        }
+    }
+
+    // one block's estimates (jdcoefct.c decompress_smooth_data's inner loop):
+    // d[r][j] is libjpeg's DC(5 r + j + 1), q[k] the quantizer of zig-zag
+    // coefficient k, bits[k] its Al
+    static void smooth_block(int16_t* ws, const int (&d)[5][5], const int* bits, bool change_dc,
+                             const int64_t* q) {
+        const int64_t q00 = q[0];
+        auto D = [&](int i) { return static_cast<int64_t>(d[(i - 1) / 5][(i - 1) % 5]); };
+        auto predict = [&](int k, int pos, int64_t sum) {
+            const int al = bits[k];
+            if (al == 0 || ws[pos] != 0) return;
+            const int64_t num = q00 * sum, qk = q[k];
+            int pred = static_cast<int>(((qk << 7) + (num >= 0 ? num : -num)) / (qk << 8));
+            if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+            ws[pos] = static_cast<int16_t>(num >= 0 ? pred : -pred);
+        };
+        predict(1, 1, change_dc
+            ? -D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) - 13 * D(9) + 3 * D(10) -
+              3 * D(11) + 38 * D(12) - 38 * D(14) + 3 * D(15) - 3 * D(16) + 13 * D(17) -
+              13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) + D(25)
+            : -7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15));
+        predict(2, 8, change_dc
+            ? -D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) + 13 * D(7) + 38 * D(8) +
+              13 * D(9) - D(10) + D(16) - 13 * D(17) - 38 * D(18) - 13 * D(19) + D(20) + D(21) +
+              3 * D(22) + 3 * D(23) + 3 * D(24) + D(25)
+            : -7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23));
+        predict(3, 16, change_dc
+            ? D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) - 14 * D(13) - 5 * D(14) +
+              2 * D(17) + 7 * D(18) + 2 * D(19) + D(23)
+            : -D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23));
+        predict(4, 9, change_dc
+            ? -D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) + 9 * D(19) + D(21) - D(25)
+            : D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) + D(22) - D(24) + D(4) -
+              D(6) + 10 * D(7) - 10 * D(9));
+        predict(5, 2, change_dc
+            ? 2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) - 14 * D(13) + 7 * D(14) +
+              D(15) + 2 * D(17) - 5 * D(18) + 2 * D(19)
+            : -D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15));
+        if (!change_dc) return;
+        predict(6, 3, D(7) - D(9) + 2 * D(12) - 2 * D(14) + D(17) - D(19));
+        predict(7, 10, D(7) - 3 * D(8) + D(9) - D(17) + 3 * D(18) - D(19));
+        predict(8, 17, D(7) - D(9) - 3 * D(12) + 3 * D(14) + D(17) - D(19));
+        predict(9, 24, D(7) + 2 * D(8) + D(9) - D(17) - 2 * D(18) - D(19));
+        const int64_t num = q00 * (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) -
+                                   6 * D(6) + 6 * D(7) + 42 * D(8) + 6 * D(9) - 6 * D(10) -
+                                   8 * D(11) + 42 * D(12) + 152 * D(13) + 42 * D(14) -
+                                   8 * D(15) - 6 * D(16) + 6 * D(17) + 42 * D(18) + 6 * D(19) -
+                                   6 * D(20) - 2 * D(21) - 6 * D(22) - 8 * D(23) - 6 * D(24) -
+                                   2 * D(25));
+        const int pred = static_cast<int>(((q00 << 7) + (num >= 0 ? num : -num)) / (q00 << 8));
+        ws[0] = static_cast<int16_t>(num >= 0 ? pred : -pred);
     }
 
     void output(uint8_t* out) {
+        const bool smooth = smoothing_ok();
         for (Component& c : comps_) {
             if (!c.latched) std::memset(c.quant, 0, sizeof(c.quant));  // jddctmgr.c: all zero, mid-gray
             const int stride = c.wib * 8;
-            c.plane.assign(static_cast<size_t>(c.hib) * 8 * stride, 0);
+            // the smoothed rows of the last iMCU row may run past hib blocks
+            c.plane.assign(static_cast<size_t>(mcuy_ * c.v) * 8 * stride, 0);
+            if (smooth) {
+                smooth_component(c);
+                continue;
+            }
             for (int by = 0; by < c.hib; ++by)
                 for (int bx = 0; bx < c.wib; ++bx)
                     idct_islow(c.coef.data() + (static_cast<size_t>(by) * c.bw + bx) * 64, c.quant,
@@ -775,11 +920,16 @@ class Decoder {
             upsample(comps_[0], out);
             return;
         }
-        std::vector<uint8_t> full(3 * npix);
-        for (int i = 0; i < 3; ++i) upsample(comps_[i], full.data() + i * npix);
+        const int nc = static_cast<int>(comps_.size());
+        std::vector<uint8_t> full(nc * npix);
+        for (int i = 0; i < nc; ++i) upsample(comps_[i], full.data() + i * npix);
         const uint8_t* p0 = full.data();
         const uint8_t* p1 = p0 + npix;
         const uint8_t* p2 = p1 + npix;
+        if (nc == 4) {
+            cmyk(p0, p1, p2, p2 + npix, npix, out);
+            return;
+        }
         if (!ycc()) {
             for (size_t i = 0; i < npix; ++i) {
                 out[3 * i] = p0[i];
@@ -788,23 +938,37 @@ class Decoder {
             }
             return;
         }
-        // jdcolor.c build_ycc_rgb_table, SCALEBITS 16
-        int cr_r[256], cb_b[256];
-        int64_t cr_g[256], cb_g[256];
-        const int64_t one_half = int64_t{1} << 15;
-        auto fix = [](double x) { return static_cast<int64_t>(x * 65536.0 + 0.5); };
-        for (int i = 0; i < 256; ++i) {
-            const int64_t x = i - 128;
-            cr_r[i] = static_cast<int>((fix(1.40200) * x + one_half) >> 16);
-            cb_b[i] = static_cast<int>((fix(1.77200) * x + one_half) >> 16);
-            cr_g[i] = -fix(0.71414) * x;
-            cb_g[i] = -fix(0.34414) * x + one_half;
-        }
+        const YccTables t;
         for (size_t i = 0; i < npix; ++i) {
             const int y = p0[i], cb = p1[i], cr = p2[i];
-            out[3 * i] = clamp255(y + cr_r[cr]);
-            out[3 * i + 1] = clamp255(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> 16));
-            out[3 * i + 2] = clamp255(y + cb_b[cb]);
+            out[3 * i] = clamp255(y + t.cr_r[cr]);
+            out[3 * i + 1] = clamp255(y + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+            out[3 * i + 2] = clamp255(y + t.cb_b[cb]);
+        }
+    }
+
+    // jdapimin.c default_decompress_parms for 4 components: Adobe transform 0
+    // is CMYK, any other YCCK, no Adobe marker CMYK; the JCS_CMYK output as
+    // PIL unpacks it ("CMYK;I": every sample inverted)
+    void cmyk(const uint8_t* p0, const uint8_t* p1, const uint8_t* p2, const uint8_t* p3,
+              size_t npix, uint8_t* out) const {
+        if (!saw_adobe_ || adobe_transform_ == 0) {
+            for (size_t i = 0; i < npix; ++i) {
+                out[4 * i] = static_cast<uint8_t>(255 - p0[i]);
+                out[4 * i + 1] = static_cast<uint8_t>(255 - p1[i]);
+                out[4 * i + 2] = static_cast<uint8_t>(255 - p2[i]);
+                out[4 * i + 3] = static_cast<uint8_t>(255 - p3[i]);
+            }
+            return;
+        }
+        const YccTables t;  // jdcolor.c ycck_cmyk_convert
+        for (size_t i = 0; i < npix; ++i) {
+            const int y = p0[i], cb = p1[i], cr = p2[i];
+            out[4 * i] = static_cast<uint8_t>(255 - clamp255(255 - (y + t.cr_r[cr])));
+            out[4 * i + 1] = static_cast<uint8_t>(
+                255 - clamp255(255 - (y + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> 16))));
+            out[4 * i + 2] = static_cast<uint8_t>(255 - clamp255(255 - (y + t.cb_b[cb])));
+            out[4 * i + 3] = static_cast<uint8_t>(255 - p3[i]);
         }
     }
 
@@ -881,6 +1045,7 @@ class Decoder {
     int adobe_transform_ = 0;
     int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
     int restart_interval_ = 0, eobrun_ = 0, scans_ = 0;
+    int last_good_ = kAllRows;  // the last iMCU row the latest scan decoded from data
     bool buffered_ = false;
 };
 
@@ -892,7 +1057,7 @@ void copy_error(const char* what, char* err, int64_t cap) {
 
 }  // namespace
 
-// info[0..2] = height, width, output channels (1 gray, 3 RGB) of the JPEG file
+// info[0..2] = height, width, output channels (1 gray, 3 RGB, 4 CMYK) of the JPEG file
 // data[0..size). Returns 0, or 1 with a message in err.
 extern "C" int64_t jpeg_header(const uint8_t* data, int64_t size, int64_t* info, char* err,
                                int64_t err_cap) {

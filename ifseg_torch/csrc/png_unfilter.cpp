@@ -1,4 +1,5 @@
-// PNG row filters undone on the host (the one sequential loop of PNG decoding).
+// PNG row filters undone on the host (the one sequential loop of PNG decoding),
+// and the CMYK to RGB conversion of `to_rgb`.
 //
 // `np.asarray(PIL.Image.open(...))` decodes the TSV rows of the JAX package's
 // data pipeline; the port decodes them with `zlib` and this loop
@@ -7,9 +8,10 @@
 // 3 Average, 4 Paeth, PNG specification section 9). Average and Paeth read
 // the pixel to the left once it is reconstructed, so a row is a chain of
 // dependent bytes that numpy cannot vectorise; a Python loop costs about a
-// second an image. Built with the host C++ compiler at first use
-// (`ifseg_torch/ops/build.py`) and called through ctypes, which releases the
-// interpreter lock for the call.
+// second an image. `cmyk_to_rgb` is Pillow's Convert.c `cmyk2rgb`, which
+// numpy runs as a chain of 16-bit temporaries about ten times slower. Built
+// with the host C++ compiler at first use (`ifseg_torch/ops/build.py`) and
+// called through ctypes, which releases the interpreter lock for the call.
 
 #include <cstdint>
 #include <cstdlib>
@@ -75,4 +77,16 @@ extern "C" int64_t png_unfilter(const uint8_t* raw, uint8_t* out, int64_t height
         prev = dst;
     }
     return 0;
+}
+
+// in: n pixels of C, M, Y, K bytes; out: n pixels of R, G, B bytes, each
+// (255 - K) - (255 - K) * C / 255 rounded as Pillow's MULDIV255.
+extern "C" void cmyk_to_rgb(const uint8_t* in, uint8_t* out, int64_t n) {
+    for (int64_t i = 0; i < n; ++i, in += 4, out += 3) {
+        const uint32_t nk = 255 - in[3];
+        for (int c = 0; c < 3; ++c) {
+            const uint32_t t = in[c] * nk + 128;
+            out[c] = static_cast<uint8_t>(nk - (((t >> 8) + t) >> 8));
+        }
+    }
 }

@@ -2,16 +2,17 @@
 
 ``decode_jpeg(data)`` returns what ``np.asarray(PIL.Image.open(BytesIO(data)))``
 returns, bit for bit: (h, w) uint8 for a 1-component file, (h, w, 3) uint8
-RGB for a 3-component one, baseline, extended or progressive, with restart
-intervals, as the libjpeg-turbo that PIL links decodes it with its default
-settings (the accurate integer IDCT, fancy upsampling); a cut file as PIL
-decodes it under the JAX package's ``ImageFile.LOAD_TRUNCATED_IMAGES =
-True`` (a file cut before the end of its first scan header raises, as
-there).  Arithmetic-coded, lossless, hierarchical and 12-bit files, DNL,
-4-component (CMYK/YCCK) files and progressive files that libjpeg-turbo
-would block-smooth (their scans leave coefficients unrefined, a cut file's
-too) raise ``ValueError``.  EXIF orientation is not applied, as
-``Image.open`` does not apply it.
+RGB for a 3-component one, (h, w, 4) uint8 for a 4-component (CMYK or YCCK)
+one as PIL's mode "CMYK" holds it (libjpeg's CMYK output, every sample
+inverted: PIL reads Adobe's polarity), baseline, extended or progressive,
+with restart intervals, as the libjpeg-turbo that PIL links decodes it with
+its default settings (the accurate integer IDCT, fancy upsampling, and the
+block smoothing of a progressive image whose scans leave coefficients
+unrefined); a cut file as PIL decodes it under the JAX package's
+``ImageFile.LOAD_TRUNCATED_IMAGES = True`` (a file cut before the end of its
+first scan header raises, as there).  Arithmetic-coded, lossless,
+hierarchical and 12-bit files and DNL raise ``ValueError``.  EXIF
+orientation is not applied, as ``Image.open`` does not apply it.
 
 ``encode_jpeg(arr, quality=75, subsampling=None)`` returns the bytes of
 ``PIL.Image.fromarray(arr).save(buf, "JPEG", quality=quality,

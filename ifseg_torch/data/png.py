@@ -56,22 +56,24 @@ _COLOUR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8))
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
 # encode_png's modes: (colour type, bit depth, samples a pixel)
-_MODES = {"1": (0, 1, 1), "L": (0, 8, 1), "P": (3, 8, 1), "I;16": (0, 16, 1), "LA": (4, 8, 2),
-          "RGB": (2, 8, 3), "RGBA": (6, 8, 4)}
+_MODES = {"1": (0, 1, 1), "L": (0, 8, 1), "P": (3, 8, 1), "I;16": (0, 16, 1),
+          "I;16B": (0, 16, 1), "LA": (4, 8, 2), "RGB": (2, 8, 3), "RGBA": (6, 8, 4)}
 
 
 @lru_cache(maxsize=None)
-def _unfilter():
-    fn = build.load(SOURCE).png_unfilter
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64]
-    fn.restype = ctypes.c_int64
-    return fn
+def _lib():
+    lib = build.load(SOURCE)
+    lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_int64, ctypes.c_int64]
+    lib.png_unfilter.restype = ctypes.c_int64
+    lib.cmyk_to_rgb.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+    lib.cmyk_to_rgb.restype = None
+    return lib
 
 
 def load():
     """Build (if need be) and load the unfilter loop now, not at the first decode."""
-    _unfilter()
+    _lib()
 
 
 def _chunks(data: bytes):
@@ -149,17 +151,25 @@ def decode_png_rgb(data: bytes) -> np.ndarray:
     return to_rgb(pixels, _palette_table(palette, None) if colour == 3 else None)
 
 
-def to_rgb(pixels: np.ndarray, palette=None) -> np.ndarray:
-    """``decode_png``'s pixels (palette indices where ``palette``, an (n, 3)
-    or (n, 4) table, is given) as PIL's ``convert("RGB")`` gives them."""
+def to_rgb(pixels: np.ndarray, palette=None, mode=None) -> np.ndarray:
+    """Decoded pixels as PIL's ``convert("RGB")`` gives them: palette indices
+    ("P", or "PA" with its alpha) where ``palette``, an (n, 3) or (n, 4)
+    table, is given, an index past its end black; for ``mode`` "CMYK" (an
+    (h, w, 4) array) Pillow's ``cmyk2rgb``; otherwise as the array's shape
+    and dtype say (gray, gray + alpha, RGB, RGBA, 1-bit, 16-bit)."""
     if palette is not None:
         table = np.zeros((256, 3), np.uint8)
         entries = np.asarray(palette, np.uint8)[:256, :3]
         table[: len(entries)] = entries
-        return table[pixels]
+        return np.take(table, pixels if pixels.ndim == 2 else pixels[:, :, 0], axis=0)
+    if mode == "CMYK":  # Convert.c cmyk2rgb, in csrc/png_unfilter.cpp
+        src = np.ascontiguousarray(pixels, np.uint8)
+        out = np.empty(src.shape[:2] + (3,), np.uint8)
+        _lib().cmyk_to_rgb(src.ctypes.data, out.ctypes.data, src.shape[0] * src.shape[1])
+        return out
     if pixels.dtype == bool:
         pixels = pixels.astype(np.uint8) * np.uint8(255)
-    elif pixels.dtype == np.uint16:  # "I;16": PIL clips to 255
+    elif pixels.dtype.kind == "u" and pixels.dtype.itemsize == 2:  # "I;16": PIL clips to 255
         pixels = np.minimum(pixels, 255).astype(np.uint8)
     if pixels.ndim == 2:
         return np.repeat(pixels[:, :, None], 3, axis=2)
@@ -171,7 +181,8 @@ def to_rgb(pixels: np.ndarray, palette=None) -> np.ndarray:
 def encode_png(arr: np.ndarray, mode: str = None, palette=None) -> bytes:
     """A PNG file of ``arr`` in PIL's ``mode``: "1" ((h, w) bool), "L" and
     "P" ((h, w) uint8; "P" writes ``palette``, (n, 3) or (n, 4) uint8, as PLTE
-    and its alpha as tRNS), "I;16" ((h, w) uint16), "LA", "RGB" and "RGBA"
+    and its alpha as tRNS), "I;16" ((h, w) uint16; "I;16B" big-endian), "LA",
+    "RGB" and "RGBA"
     ((h, w, 2/3/4) uint8).  ``mode`` defaults to what the array's shape and
     dtype say ("P" where a palette is given).  No filter, zlib level 6."""
     arr = np.asarray(arr)
@@ -181,7 +192,8 @@ def encode_png(arr: np.ndarray, mode: str = None, palette=None) -> bytes:
         raise ValueError(f"encode_png takes modes {sorted(_MODES)}, not {mode} "
                          f"({arr.shape} {arr.dtype})")
     colour, depth, channels = _MODES[mode]
-    want_dtype = {1: bool, 8: np.uint8, 16: np.uint16}[depth]
+    wide = np.dtype(">u2") if mode == "I;16B" else np.dtype(np.uint16)
+    want_dtype = {1: bool, 8: np.uint8, 16: wide}[depth]
     shape_ok = arr.ndim == 2 if channels == 1 else (arr.ndim == 3 and arr.shape[2] == channels)
     if not shape_ok or arr.dtype != want_dtype:
         raise ValueError(f"encode_png mode {mode} takes {channels}-channel "
@@ -231,7 +243,7 @@ def _palette_table(palette, trns):
 def _unfiltered(src: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     """(h, stride) bytes of one (sub-)image whose h filtered rows are ``src``."""
     out = np.empty((h, stride), np.uint8)
-    bad = _unfilter()(src.ctypes.data, out.ctypes.data, h, stride, bpp)
+    bad = _lib().png_unfilter(src.ctypes.data, out.ctypes.data, h, stride, bpp)
     if bad:
         raise ValueError(f"broken PNG: row {bad - 1} has filter type {src[(bad - 1) * (stride + 1)]}")
     return out
@@ -243,11 +255,22 @@ def _samples(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
     if depth == 8:
         return rows[:, : w * channels].reshape(h, w, channels)
     if depth == 16:
-        return rows[:, : 2 * w * channels].view(">u2").astype(np.uint16).reshape(h, w, channels)
-    # 1, 2 or 4 bits a sample, one channel, the first sample in the high bits
+        return words16(rows, w * channels, ">u2").astype(np.uint16).reshape(h, w, channels)
+    return unpack_bits(rows, depth, w)[:, :, None]
+
+
+def words16(rows: np.ndarray, count: int, order: str) -> np.ndarray:
+    """(h, count) 16-bit words of the first 2 * count bytes of each of the
+    (h, row bytes) rows, in ``order`` ("<u2" or ">u2")."""
+    return np.ascontiguousarray(rows[:, :2 * count]).view(order)
+
+
+def unpack_bits(rows: np.ndarray, depth: int, width: int) -> np.ndarray:
+    """(h, width) uint8 samples of (h, row bytes) rows packed at ``depth`` =
+    1, 2 or 4 bits a sample, the first sample in the high bits."""
     shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-    samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)
-    return np.ascontiguousarray(samples[:, :w])[:, :, None]
+    samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(rows.shape[0], -1)
+    return np.ascontiguousarray(samples[:, :width])
 
 
 def _decode(data: bytes):

@@ -4,12 +4,12 @@ A copy of the JAX package's ``data/segmentation_dataset.py`` (reference
 data/mm_data/segmentation_dataset.py):
 
   - each row is a base64 image, a base64 label image and an id; both are
-    decoded by ``data/image.py``, PNG or JPEG by their signature (what PIL
-    gives: palette files as raw indices, no ``.convert``, a cut file as PIL
-    reads it under the JAX package's ``LOAD_TRUNCATED_IMAGES``); a 2-D image
-    is replicated to three channels,
-    an alpha channel dropped, and the image kept BGR through the transforms
-    (ref :213-218);
+    decoded by ``data/image.py``, PNG, JPEG, GIF, BMP or TIFF by their
+    signature (what PIL gives: palette files as raw indices, no
+    ``.convert``, a cut file as PIL reads it under the JAX package's
+    ``LOAD_TRUNCATED_IMAGES``); a 2-D image is replicated to three
+    channels, a fourth channel (alpha, or a CMYK file's K) dropped, and the
+    image kept BGR through the transforms (ref :213-218);
   - the label shift: 0 -> 255 -> -1 -> unknown = num_seg (ref :230-234);
   - training rows: ResizeRatioRange(0.5, 2.0, min_size=s) + RandomCrop(s,
     0.75) + RandomFlip(0.5) + PhotoMetricDistortion (ref :157-163), each
@@ -182,7 +182,8 @@ class SegmentationDataset:
 
     def _decode_row(self, index: int):
         image_b64, seg_b64, uniq_id = self.dataset[index]
-        # PNG or JPEG by signature, the pixels PIL's np.asarray gives (no convert)
+        # by signature, the pixels PIL's np.asarray gives (no convert); a 4-channel
+        # row (RGBA, CMYK) keeps its first three channels, as the JAX row does
         image_arr = decode_image(base64.urlsafe_b64decode(image_b64))[0]
         if image_arr.ndim < 3:
             image_arr = np.repeat(image_arr[:, :, None], 3, axis=2)

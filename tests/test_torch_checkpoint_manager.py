@@ -22,7 +22,7 @@ from ifseg_torch.train.trainer import Trainer
 from ifseg_tpu.checkpoint.manager import CheckpointManager as JaxManager
 from ifseg_tpu.config import CheckpointConfig as JaxCkptCfg
 
-from torch_port_utils import TINY, class_table
+from torch_port_utils import TINY, class_table, passed_tmp  # noqa: F401  (the fixture)
 
 METRICS = [0.1, 0.3, 0.2, 0.5, 0.4, 0.45]
 
@@ -58,38 +58,38 @@ SEQUENCES = {
 
 
 @pytest.mark.parametrize("name", SEQUENCES)
-def test_saves_equal_jax_manifest_and_survivors(tmp_path, name):
+def test_saves_equal_jax_manifest_and_survivors(passed_tmp, name):
     sequence, kw = SEQUENCES[name]
-    tmgr, tman, tnames, textras = _run(TorchManager, TorchCkptCfg, tmp_path / "t", sequence, **kw)
-    jmgr, jman, jnames, jextras = _run(JaxManager, JaxCkptCfg, tmp_path / "j", sequence, **kw)
+    tmgr, tman, tnames, textras = _run(TorchManager, TorchCkptCfg, passed_tmp / "t", sequence, **kw)
+    jmgr, jman, jnames, jextras = _run(JaxManager, JaxCkptCfg, passed_tmp / "j", sequence, **kw)
     assert tman == jman
     assert tnames == jnames and textras == jextras
     assert tmgr.latest() == jmgr.latest() and tmgr.best() == jmgr.best()
     assert tmgr.load_extra(tmgr.latest()) == jmgr.load_extra(jmgr.latest())
     for link, name_ in (("checkpoint_last", tman.get("last")), ("checkpoint_best", tman["best"])):
         if name_:
-            assert os.readlink(tmp_path / "t" / link) == name_
+            assert os.readlink(passed_tmp / "t" / link) == name_
 
 
-def test_latest_falls_back_when_the_newest_directory_is_missing(tmp_path):
+def test_latest_falls_back_when_the_newest_directory_is_missing(passed_tmp):
     """Through the epoch saves from the newest, then the mid-epoch saves, as
     the JAX manager does."""
     sequence = [(1, 0.1, None), (2, None, 7), (2, None, 8)]
-    mgrs = [_run(m, c, tmp_path / d, sequence, keep_interval_updates=-1, keep_last_epochs=2)[0]
+    mgrs = [_run(m, c, passed_tmp / d, sequence, keep_interval_updates=-1, keep_last_epochs=2)[0]
             for m, c, d in ((TorchManager, TorchCkptCfg, "t"), (JaxManager, JaxCkptCfg, "j"))]
     assert [m.latest() for m in mgrs] == ["checkpoint_2_8"] * 2
     for gone, want in (("checkpoint_2_8", "checkpoint_1"), ("checkpoint_1", "checkpoint_2_7")):
         for m, d in zip(mgrs, "tj"):
-            os.rename(tmp_path / d / gone, tmp_path / d / f"gone_{gone}")
+            os.rename(passed_tmp / d / gone, passed_tmp / d / f"gone_{gone}")
         assert [m.latest() for m in mgrs] == [want] * 2
     # a manifest read afresh falls back the same way
-    assert TorchManager(TorchCkptCfg(save_dir=str(tmp_path / "t"))).latest() == "checkpoint_2_7"
+    assert TorchManager(TorchCkptCfg(save_dir=str(passed_tmp / "t"))).latest() == "checkpoint_2_7"
 
 
-def test_no_save_writes_nothing(tmp_path):
-    mgr = TorchManager(TorchCkptCfg(save_dir=str(tmp_path), no_save=True))
+def test_no_save_writes_nothing(passed_tmp):
+    mgr = TorchManager(TorchCkptCfg(save_dir=str(passed_tmp), no_save=True))
     mgr.save(1, {"w": np.zeros(2)}, val_metric=0.5)
-    assert os.listdir(tmp_path) == [] and mgr.latest() is None
+    assert os.listdir(passed_tmp) == [] and mgr.latest() is None
 
 
 def _tiny_trainer(ema: bool):
@@ -102,13 +102,13 @@ def _tiny_trainer(ema: bool):
 
 
 @pytest.mark.parametrize("ema", [False, True], ids=["no-ema", "ema"])
-def test_trainer_state_round_trip(tmp_path, ema):
+def test_trainer_state_round_trip(passed_tmp, ema):
     from torch_port_utils import train_batch
 
     trainer = _tiny_trainer(ema)
     trainer.train_step(train_batch(0))
     saved = trainer.state_dict()
-    mgr = TorchManager(TorchCkptCfg(save_dir=str(tmp_path)))
+    mgr = TorchManager(TorchCkptCfg(save_dir=str(passed_tmp)))
     mgr.save(1, saved, extra={"epoch": 1}, val_metric=0.5)
     loaded = mgr.load("checkpoint_1")
     assert set(loaded) == ({"model", "ema", "optimizer", "step", "generator"} - (set() if ema
@@ -136,7 +136,7 @@ def test_trainer_state_round_trip(tmp_path, ema):
         assert torch.equal(a, b), k
 
     # load_model reads the directory through its link; under ema the EMA weights
-    model = load_model(str(tmp_path / "checkpoint_best"), trainer.cfg.model, ema=ema)
+    model = load_model(str(passed_tmp / "checkpoint_best"), trainer.cfg.model, ema=ema)
     want = saved["ema"] if ema else saved["model"]
     for k, p in model.named_parameters():
         assert torch.equal(p.detach(), want[k]), k

@@ -145,7 +145,7 @@ def test_workers_only_load_the_codecs_the_parent_built(tmp_path, originals, monk
     class Context:
         def Pool(self, n):
             assert jpeg._decoder.cache_info().currsize == 1
-            assert png._unfilter.cache_info().currsize == 1
+            assert png._lib.cache_info().currsize == 1
             return multiprocessing.get_context(methods[-1]).Pool(n, initializer=_no_compiler)
 
     monkeypatch.setattr(tconvert, "get_context", lambda method: methods.append(method) or Context())

@@ -1,0 +1,170 @@
+"""GIF, BMP, TIFF and CMYK JPEG files through the port's entry points against
+the JAX package's, which read them with PIL, on the CPU at a tiny width:
+
+  - TSV rows whose images are GIF (palette and gray), BMP (24-bit and
+    palette), TIFF (LZW RGB, CMYK) and CMYK / YCCK JPEG files: the
+    port's ``SegmentationDataset`` gives the JAX package's training examples
+    and evaluation samples, byte for byte (a 4-channel row's first three
+    channels, flipped to BGR, as the JAX ``_decode_row`` takes them);
+  - ``cli.convert_dataset`` over GIF, BMP and TIFF originals (a 16-bit one
+    and big-endian tiles too; ``--image-exts=.gif,.bmp,.tif``): the same
+    rows as the JAX CLI's, each
+    row's image decoded by PIL and by the port to the same array, mode and
+    palette (a GIF's transparency index kept as its tRNS chunk);
+  - ``cli.infer`` on a CMYK JPEG file with ``--output=*.bmp`` and
+    ``--output=*.tif`` (no CRF, fp32): the BMP overlay's bytes equal the JAX
+    CLI's (PIL's ``save``), the TIFF overlay's equal PIL's ``save`` of that
+    overlay, the masks equal.
+"""
+
+import base64
+import io
+
+import numpy as np
+import pytest
+from PIL import Image
+
+import ifseg_torch.cli.infer as tinfer
+import ifseg_tpu.cli.convert_dataset as jconvert
+import ifseg_tpu.cli.infer as jinfer
+import ifseg_tpu.config as jconfig
+import torch_image_writers as W
+from ifseg_torch.cli import convert_dataset as tconvert
+from ifseg_torch.config import model_config_for_arch as torch_model_config
+from ifseg_torch.data.image import decode_image
+
+from test_torch_cut_files import _datasets
+from test_torch_infer import _argv, _pixels, _tiny, checkpoint  # noqa: F401  (the fixture)
+from torch_port_utils import JAX_ONLY
+from utils import png_b64
+
+
+def _originals(seed: int = 7):
+    """(extension, file bytes) of each format, smooth pixels of odd sizes."""
+    rng = np.random.default_rng(seed)
+
+    def smooth(h, w):
+        base = rng.integers(0, 256, (h // 6 + 2, w // 6 + 2, 3)).astype(np.uint8)
+        return np.repeat(np.repeat(base, 6, 0), 6, 1)[:h, :w]
+
+    a, b, c = smooth(70, 93), smooth(81, 64), smooth(66, 101)
+    return [
+        (".gif", W.pil_save(Image.fromarray(a), "GIF")),
+        (".gif", W.gif_file([dict(indices=rng.integers(0, 16, (50, 77)), bits=4,
+                                  palette=rng.integers(0, 256, (16, 3)), transparency=2,
+                                  interlace=1)], (77, 50))),
+        (".gif", W.pil_save(Image.fromarray(b[:, :, 0]), "GIF")),
+        (".bmp", W.pil_save(Image.fromarray(b), "BMP")),
+        (".bmp", W.pil_save(Image.fromarray(c).quantize(30), "BMP")),
+        (".tif", W.pil_save(Image.fromarray(c), "TIFF", compression="tiff_lzw")),
+        (".tif", W.pil_save(Image.fromarray(a[:, :, 1].astype(np.uint16) * 250), "TIFF")),
+        (".tif", W.pil_save(Image.fromarray(np.dstack([b, b[:, :, 0]]), "CMYK"), "TIFF")),
+        (".jpg", W.ycck_jpeg(W.pil_save(Image.fromarray(np.dstack([c, c[:, :, 2]]), "CMYK"),
+                                        "JPEG"))),
+        (".jpg", W.pil_save(Image.fromarray(np.dstack([a, a[:, :, 0]]), "CMYK"), "JPEG",
+                            progressive=True)),
+    ]
+
+
+def _tsv(path):
+    """The originals as TSV rows, but the 16-bit one: the port's dataset
+    resizes uint8 rows only (cv2 resizes a uint16 one; ROADMAP C.13)."""
+    rng = np.random.default_rng(8)
+    with open(path, "w") as fp:
+        for i, (_, data) in enumerate(o for k, o in enumerate(_originals()) if k != 6):
+            h, w = decode_image(data)[0].shape[:2]
+            seg = rng.integers(0, 4, (h // 8 + 1, w // 8 + 1)).astype(np.uint8)
+            seg = np.repeat(np.repeat(seg, 8, 0), 8, 1)[:h, :w]
+            fp.write(f"{base64.urlsafe_b64encode(data).decode()}\t{png_b64(seg)}\t{i}\n")
+    return str(path)
+
+
+def test_dataset_rows_equal_jax(tmp_path, bpe_dir):
+    tsv = _tsv(tmp_path / "rows.tsv")
+    got_ds, want_ds = _datasets(tsv, bpe_dir, "valid")
+    for i in range(len(want_ds)):
+        got_row, want_row = got_ds._decode_row(i), want_ds._decode_row(i)
+        for a, b in zip(got_row[:2], want_row[:2]):
+            assert a.dtype == b.dtype and np.array_equal(a, b), i
+        got, want = got_ds.get_eval_sample(i), want_ds.get_eval_sample(i)
+        for f in ("source", "patch_image", "target", "patch_mask"):
+            a, b = getattr(got, f, None), getattr(want, f, None)
+            if b is not None:
+                assert a.dtype == b.dtype and np.array_equal(a, b), (i, f)
+    got_ds, want_ds = _datasets(tsv, bpe_dir, "train")
+    for i in range(len(want_ds)):
+        ga, gb = np.random.default_rng((4, i)), np.random.default_rng((4, i))
+        got, want = got_ds.get_train_example(i, ga), want_ds.get_train_example(i, gb)
+        for k in want:
+            if k != "id":
+                assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), (i, k)
+
+
+def _pil_row(b64: str):
+    im = Image.open(io.BytesIO(base64.urlsafe_b64decode(b64)))
+    return np.asarray(im), im.mode, im.getpalette(), im.info.get("transparency")
+
+
+def test_convert_dataset_rows_equal_jax(tmp_path):
+    images, labels = tmp_path / "images", tmp_path / "annotations"
+    images.mkdir()
+    labels.mkdir()
+    # a CMYK original fails both CLIs (tests/test_torch_convert_dataset.py)
+    originals = [o for o in _originals()[:7]] + [(".tif", W.tiff_file(
+        np.random.default_rng(9).integers(0, 256, (33, 47, 3)), 8, 2, "MM", 8, 2, tile=(16, 16)))]
+    for i, (ext, data) in enumerate(originals):
+        (images / f"img_{i:02d}{ext}").write_bytes(data)
+        h, w = decode_image(data)[0].shape[:2]
+        Image.fromarray((np.arange(h * w) % 151).astype(np.uint8).reshape(h, w)).save(
+            labels / f"img_{i:02d}.png")
+    args = ["--mode=ade", f"--images={images}", f"--annotations={labels}", "--workers=2",
+            "--image-exts=.gif,.bmp,.tif"]
+    jconvert.main(args + [f"--output={tmp_path / 'jax.tsv'}"])
+    assert tconvert.main(args + [f"--output={tmp_path / 'torch.tsv'}"]) == len(originals)
+    want = [r.rstrip("\n").split("\t") for r in open(tmp_path / "jax.tsv")]
+    got = [r.rstrip("\n").split("\t") for r in open(tmp_path / "torch.tsv")]
+    assert [r[2:] for r in got] == [r[2:] for r in want] and len(got) == len(originals)
+    for g, w in zip(got, want):
+        for col in (0, 1):
+            a, b = _pil_row(g[col]), _pil_row(w[col])
+            assert a[1] == b[1] and a[0].dtype == b[0].dtype and np.array_equal(a[0], b[0]), g[2]
+            assert a[2] == b[2] and a[3] == b[3], g[2]  # palette and transparency
+            port = decode_image(base64.urlsafe_b64decode(g[col]))[0]
+            assert np.array_equal(port, a[0]), g[2]
+
+
+def test_infer_on_a_cmyk_jpeg_writes_bmp_and_tiff_as_jax(checkpoint, bpe_dir, tmp_path,
+                                                          monkeypatch):
+    monkeypatch.setenv("IFSEG_JIT_CACHE", "")
+    monkeypatch.setattr(jconfig, "model_config_for_arch",
+                        _tiny(jconfig.model_config_for_arch, dtype="float32", **JAX_ONLY))
+    monkeypatch.setattr(tinfer, "model_config_for_arch",
+                        _tiny(torch_model_config, dtype="float32"))
+    image = tmp_path / "cmyk.jpg"
+    image.write_bytes(_originals()[-1][1])
+    assert Image.open(image).mode == "CMYK"
+    jout = str(tmp_path / "jax.bmp")
+    jinfer.main(_argv(str(image), checkpoint, bpe_dir, jout)[:-1] + ["--crf-iters=0"])
+    want = open(jout, "rb").read()
+    overlay = np.asarray(Image.open(jout))
+    for ext in (".bmp", ".tif"):
+        tout = str(tmp_path / f"torch{ext}")
+        result = tinfer.main(_argv(str(image), checkpoint, bpe_dir, tout)[:-1]
+                             + ["--crf-iters=0", "--device=cpu"])
+        got = open(tout, "rb").read()
+        assert got == (want if ext == ".bmp" else W.pil_save(Image.fromarray(overlay), "TIFF"))
+        np.testing.assert_array_equal(_pixels(result["mask"]),
+                                      _pixels(str(tmp_path / "jax_mask.png")))
+    assert sum(result["areas"].values()) == overlay.shape[0] * overlay.shape[1]
+
+
+@pytest.mark.parametrize("ext", [".gif", ".bmp", ".tif", ".jpg"])
+def test_serve_and_infer_read_each_format(ext):
+    """The daemon's and the CLI's reader (``decode_image_rgb``) on each
+    format: PIL's ``convert("RGB")``."""
+    from ifseg_torch.data.image import decode_image_rgb
+
+    for e, data in _originals():
+        if e == ext:
+            want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+            np.testing.assert_array_equal(decode_image_rgb(data), want)

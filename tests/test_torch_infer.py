@@ -16,7 +16,7 @@ against the JAX ``jax``, ``cpp`` against ``cpp``):
 Then ``assets/cat_dog.jpeg`` (a progressive JPEG) through both CLIs with
 ``--output=*.jpg`` and no CRF: the overlay files are the same bytes (the
 port's ``encode_jpeg`` against PIL's ``save``) and the masks the same pixels.
-Outputs of other formats raise.
+Outputs of formats the CLI does not write (GIF, WebP, none) raise.
 """
 
 import io
@@ -162,9 +162,9 @@ def test_jpeg_in_and_out_match_jax(checkpoint, bpe_dir, tmp_path, monkeypatch):
 
 
 def test_outputs_are_png_files(image, checkpoint, bpe_dir, tmp_path):
-    """Or JPEG files: other formats raise, naming the extension."""
-    for name in ("o.bmp", "o.gif", "o"):
-        with pytest.raises(ValueError, match="name it \\*.png or \\*.jpg"):
+    """Or JPEG, BMP or TIFF files: other formats raise, naming the ones written."""
+    for name in ("o.gif", "o.webp", "o"):
+        with pytest.raises(ValueError, match="name it \\*.png, \\*.jpg, \\*.jpeg, \\*.bmp"):
             tinfer.main(_argv(image, checkpoint, bpe_dir, str(tmp_path / name)) + ["--device=cpu"])
 
 

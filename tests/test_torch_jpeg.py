@@ -7,9 +7,10 @@ sweep of PIL-written files: sizes from 1 x 1 to 120 x 161 with odd sides,
 gray and RGB at 4:4:4, 4:2:2 and 4:2:0, qualities 1, 50, 75, 95 and 100,
 baseline and progressive, with and without restart intervals; on random
 files under hypothesis; on ``assets/cat_dog.jpeg`` (progressive, 4:4:4).
-Every tolerance here is zero.  The refused files (arithmetic coding, 12-bit,
-lossless, CMYK, truncated, progressive files libjpeg-turbo would smooth)
-raise ``ValueError`` naming what they are.  The digests ``chip_smoke.py``
+Every tolerance here is zero.  CMYK files and progressive files that
+libjpeg-turbo block-smooths decode as PIL decodes them; the refused files
+(arithmetic coding, 12-bit, lossless, DNL, cut before the first scan) raise
+``ValueError`` naming what they are.  The digests ``chip_smoke.py``
 phase 14 pins are recomputed with PIL.
 """
 
@@ -169,11 +170,12 @@ def test_refused_files_raise(monkeypatch):
         decode_jpeg(_with_sof(data, marker=0xC3))
     with pytest.raises(ValueError, match="12-bit"):
         decode_jpeg(_with_sof(data, precision=12))
+    # a CMYK file decodes as PIL reads it (Adobe's inverted samples); more in
+    # tests/test_torch_image_files.py
     cmyk = io.BytesIO()
     Image.fromarray(np.dstack([arr, arr[:, :, :1]]), "CMYK").save(cmyk, "JPEG")
     assert Image.open(cmyk).mode == "CMYK"
-    with pytest.raises(ValueError, match="CMYK"):
-        decode_jpeg(cmyk.getvalue())
+    _same(cmyk.getvalue())
     # cut inside the header, before the first scan's header ends: PIL raises
     # even under the flag (a cut further on decodes: tests/test_torch_truncated.py)
     first_scan = data.index(b"\xff\xda")
@@ -188,17 +190,18 @@ def test_refused_files_raise(monkeypatch):
         decode_jpeg(data.replace(b"\xff\xc0\x00\x11\x08\x00\x18", b"\xff\xc0\x00\x11\x08\x00\x00"))
 
 
-def test_unrefined_progressive_files_raise():
+def test_unrefined_progressive_files_are_smoothed_as_pil():
     """PIL's progressive files refine every coefficient to bit 0; drop the
-    scans after the first two and libjpeg-turbo would block-smooth the
-    coefficients left coarse, which this decoder refuses."""
+    scans after the first k and libjpeg-turbo block-smooths the coefficients
+    left coarse (and the DC, where no AC scan came): equal to PIL's pixels at
+    every k."""
     data = _pil_jpeg(_pixels(40, 48, "RGB", seed=6), progressive=True)
     scans = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
     assert len(scans) >= 6
-    cut = data[:scans[2]] + b"\xff\xd9"
-    assert _pil(cut).shape == (40, 48, 3)
-    with pytest.raises(ValueError, match="unrefined"):
-        decode_jpeg(cut)
+    for k in range(1, len(scans)):
+        cut = data[:scans[k]] + b"\xff\xd9"
+        assert _pil(cut).shape == (40, 48, 3)
+        _same(cut)
 
 
 def test_encode_rejects_other_arrays():

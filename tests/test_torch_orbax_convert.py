@@ -43,7 +43,7 @@ from ifseg_tpu.train.trainer import Trainer as JaxTrainer
 
 from torch_orbax_utils import (NUM_SEG, TOTAL, flags, port_trainer, restore, seeded_grads,
                                tiny_params, tool, trace_each_model_once)  # noqa: F401
-from torch_port_utils import class_table, train_batch
+from torch_port_utils import class_table, passed_tmp, train_batch  # noqa: F401  (the fixture)
 
 
 def _trainer_state_equal(trainer, host, names):
@@ -61,9 +61,9 @@ def _trainer_state_equal(trainer, host, names):
     assert any(adam["mu"][n].any() for n in names)
 
 
-def test_trainer_checkpoints_convert_bit_for_bit(tmp_path):
+def test_trainer_checkpoints_convert_bit_for_bit(passed_tmp):
     """A JAX Trainer's interval and epoch checkpoints, with EMA."""
-    argv = flags(tmp_path / "jax", "--optimizer=adam")
+    argv = flags(passed_tmp / "jax", "--optimizer=adam")
     jcfg = jax_flags(argv)
     tokens, lengths = class_table(NUM_SEG)
     mesh = build_mesh(MeshConfig(data_parallel=1), devices=jax.devices()[:1])
@@ -83,16 +83,16 @@ def test_trainer_checkpoints_convert_bit_for_bit(tmp_path):
     snapshots["checkpoint_1"] = jax.device_get(jtr.state)
     jmgr.finalize()
 
-    out = tool.convert(str(tmp_path / "jax"), str(tmp_path / "port"), argv)
+    out = tool.convert(str(passed_tmp / "jax"), str(passed_tmp / "port"), argv)
     assert out == {"converted": ["checkpoint_1", "checkpoint_1_1"], "last": "checkpoint_1",
                    "best": "checkpoint_1"}
-    port = tmp_path / "port"
+    port = passed_tmp / "port"
     assert json.loads((port / "manifest.json").read_text()) == jmgr.manifest
     assert os.readlink(port / "checkpoint_last") == os.readlink(port / "checkpoint_best") == \
         "checkpoint_1"
     for name in snapshots:
         assert (port / f"{name}.extra.json").read_bytes() == \
-            (tmp_path / "jax" / f"{name}.extra.json").read_bytes()
+            (passed_tmp / "jax" / f"{name}.extra.json").read_bytes()
         assert sorted(p.name for p in (port / name).iterdir()) == [
             "ema.pt", "model.pt", "optimizer.pt", "step.pt"]
     for name, host in snapshots.items():
@@ -104,9 +104,9 @@ def test_trainer_checkpoints_convert_bit_for_bit(tmp_path):
                            torch.Generator().manual_seed(seed).get_state())
 
 
-def test_sharded_save_converts_as_the_unsharded_one(tmp_path):
+def test_sharded_save_converts_as_the_unsharded_one(passed_tmp):
     """The same state saved whole and saved as FSDP shards over 8 devices."""
-    argv = flags(tmp_path / "whole", "--optimizer=adam")
+    argv = flags(passed_tmp / "whole", "--optimizer=adam")
     jcfg = jax_flags(argv)
     rng = np.random.default_rng(5)
     params = jax.tree_util.tree_map(jnp.asarray, tiny_params())
@@ -119,7 +119,7 @@ def test_sharded_save_converts_as_the_unsharded_one(tmp_path):
     whole.save(1, host, extra={"epoch": 1})
     whole.finalize()
 
-    fcfg = jax_flags(flags(tmp_path / "sharded", "--optimizer=adam", "--fsdp=8",
+    fcfg = jax_flags(flags(passed_tmp / "sharded", "--optimizer=adam", "--fsdp=8",
                             "--data-parallel=1"))
     tokens, lengths = class_table(NUM_SEG)
     mesh = build_mesh(MeshConfig(data_parallel=1, fsdp=8), devices=jax.devices()[:8])
@@ -131,16 +131,16 @@ def test_sharded_save_converts_as_the_unsharded_one(tmp_path):
     # as the manager writes under several processes: the sharded arrays, not a host copy
     jmgr._ckptr.save(jmgr._path("checkpoint_1"), {"state": sharded}, force=True)
     jmgr.finalize()
-    meta = tool.ocp.StandardCheckpointer().metadata(str(tmp_path / "sharded" / "checkpoint_1"))
+    meta = tool.ocp.StandardCheckpointer().metadata(str(passed_tmp / "sharded" / "checkpoint_1"))
     kernel = meta.item_metadata.tree["state"]["params"]["encoder"]["layers_0"]["ffn"]["fc1"]
     assert tuple(kernel["kernel"].sharding.partition_spec) == (None, "fsdp")
     assert np.prod(kernel["kernel"].sharding.shape) == 8
 
     for d in ("whole", "sharded"):
-        tool.convert(str(tmp_path / d), str(tmp_path / f"{d}_port"), argv)
+        tool.convert(str(passed_tmp / d), str(passed_tmp / f"{d}_port"), argv)
     for f in ("model.pt", "ema.pt", "optimizer.pt", "step.pt"):
-        a = torch.load(tmp_path / "whole_port" / "checkpoint_1" / f, weights_only=True)
-        b = torch.load(tmp_path / "sharded_port" / "checkpoint_1" / f, weights_only=True)
+        a = torch.load(passed_tmp / "whole_port" / "checkpoint_1" / f, weights_only=True)
+        b = torch.load(passed_tmp / "sharded_port" / "checkpoint_1" / f, weights_only=True)
         assert _same(a, b), f
 
 
@@ -152,8 +152,8 @@ def _same(a, b) -> bool:
     return a == b
 
 
-def _saved_run(tmp_path):
-    argv = flags(tmp_path / "jax", "--optimizer=adam")
+def _saved_run(passed_tmp):
+    argv = flags(passed_tmp / "jax", "--optimizer=adam")
     jcfg = jax_flags(argv)
     params = jax.tree_util.tree_map(jnp.asarray, tiny_params())
     tx, _, _ = jo.build_optimizer(params, jcfg.model, jcfg.optimization, TOTAL)
@@ -165,17 +165,17 @@ def _saved_run(tmp_path):
     return argv
 
 
-def test_refuses_and_writes_nothing(tmp_path):
-    argv = _saved_run(tmp_path)
-    jax_dir, port = str(tmp_path / "jax"), tmp_path / "port"
+def test_refuses_and_writes_nothing(passed_tmp):
+    argv = _saved_run(passed_tmp)
+    jax_dir, port = str(passed_tmp / "jax"), passed_tmp / "port"
     # a user's directory of the staging name beside the target is left alone
-    (tmp_path / "port.partial").mkdir()
-    (tmp_path / "port.partial" / "mine").write_text("y")
+    (passed_tmp / "port.partial").mkdir()
+    (passed_tmp / "port.partial" / "mine").write_text("y")
     # another optimizer, another width: another tree
     for other in (["--optimizer=sgd"], ["--encoder-ffn-embed-dim=96"]):
         with pytest.raises(tool.RefusedError, match="does not match the checkpoint"):
             tool.convert(jax_dir, str(port), argv + other)
-        assert not port.exists() and sorted(os.listdir(tmp_path)) == ["jax", "port.partial"]
+        assert not port.exists() and sorted(os.listdir(passed_tmp)) == ["jax", "port.partial"]
     port.mkdir()
     (port / "keep").write_text("x")
     with pytest.raises(tool.RefusedError, match="not empty"):
@@ -183,25 +183,25 @@ def test_refuses_and_writes_nothing(tmp_path):
     assert os.listdir(port) == ["keep"]
     # an asynchronous save that never committed: orbax's temporary directory
     # holds it, the manifest already names it
-    os.rename(tmp_path / "jax" / "checkpoint_1",
-              tmp_path / "jax" / "checkpoint_1.orbax-checkpoint-tmp-1234")
+    os.rename(passed_tmp / "jax" / "checkpoint_1",
+              passed_tmp / "jax" / "checkpoint_1.orbax-checkpoint-tmp-1234")
     with pytest.raises(tool.RefusedError, match="never committed"):
-        tool.convert(jax_dir, str(tmp_path / "port2"), argv)
-    assert not (tmp_path / "port2").exists()
+        tool.convert(jax_dir, str(passed_tmp / "port2"), argv)
+    assert not (passed_tmp / "port2").exists()
     with pytest.raises(SystemExit, match="never committed"):
-        tool.main([jax_dir, str(tmp_path / "port2"), *argv])
-    os.rename(tmp_path / "jax" / "checkpoint_1.orbax-checkpoint-tmp-1234",
-              tmp_path / "jax" / "checkpoint_1")
-    tool.convert(jax_dir, str(tmp_path / "port2"), argv)
-    assert (tmp_path / "port.partial" / "mine").read_text() == "y"
-    assert sorted(os.listdir(tmp_path)) == ["jax", "port", "port.partial", "port2"]
+        tool.main([jax_dir, str(passed_tmp / "port2"), *argv])
+    os.rename(passed_tmp / "jax" / "checkpoint_1.orbax-checkpoint-tmp-1234",
+              passed_tmp / "jax" / "checkpoint_1")
+    tool.convert(jax_dir, str(passed_tmp / "port2"), argv)
+    assert (passed_tmp / "port.partial" / "mine").read_text() == "y"
+    assert sorted(os.listdir(passed_tmp)) == ["jax", "port", "port.partial", "port2"]
 
 
-def test_a_converted_state_seeds_the_generator_from_the_step(tmp_path):
+def test_a_converted_state_seeds_the_generator_from_the_step(passed_tmp):
     """A state with a step and no generator (the converter's) seeds the
     dropout generator with seed + step on every data rank's rule; a saved
     generator is taken as it is on rank 0."""
-    argv = flags(tmp_path / "x", "--optimizer=adam")
+    argv = flags(passed_tmp / "x", "--optimizer=adam")
     trainer = port_trainer(argv)
     seed = trainer.cfg.optimization.seed
     trainer.load_state_dict({"step": 7})
@@ -223,7 +223,7 @@ SKILL_FLAGS = ("--arch=segofa_tiny", "--encoder-embed-dim=32", "--encoder-ffn-em
                "--data-parallel=1")
 
 
-def test_a_jax_cli_epoch_resumes_in_the_port_cli(tmp_path, monkeypatch):
+def test_a_jax_cli_epoch_resumes_in_the_port_cli(passed_tmp, monkeypatch):
     import ifseg_torch.cli.train as ttrain
     import ifseg_tpu.cli.train as jtrain
     from ifseg_torch.utils import metrics as tmetrics
@@ -231,17 +231,17 @@ def test_a_jax_cli_epoch_resumes_in_the_port_cli(tmp_path, monkeypatch):
     from utils import make_seg_tsv
 
     monkeypatch.setenv("IFSEG_JIT_CACHE", "")  # leave the tests' JAX cache alone
-    train = make_seg_tsv(str(tmp_path / "train.tsv"), rows=4, seed=11)
-    valid = make_seg_tsv(str(tmp_path / "valid.tsv"), rows=2, seed=12)
+    train = make_seg_tsv(str(passed_tmp / "train.tsv"), rows=4, seed=11)
+    valid = make_seg_tsv(str(passed_tmp / "valid.tsv"), rows=2, seed=12)
     argv = [f"{train},{valid}", *SKILL_FLAGS]
     # no validation in the JAX epoch (its evaluator's compile is most of the
     # cost); the port validates its own epoch
     jtrain.main(jax_flags(argv + ["--max-epoch=1", "--validate-interval=2",
-                                  f"--save-dir={tmp_path / 'jax'}"]))
-    extra = json.loads((tmp_path / "jax" / "checkpoint_1.extra.json").read_text())
+                                  f"--save-dir={passed_tmp / 'jax'}"]))
+    extra = json.loads((passed_tmp / "jax" / "checkpoint_1.extra.json").read_text())
 
-    port = str(tmp_path / "port")
-    assert tool.convert(str(tmp_path / "jax"), port, argv)["last"] == "checkpoint_1"
+    port = str(passed_tmp / "port")
+    assert tool.convert(str(passed_tmp / "jax"), port, argv)["last"] == "checkpoint_1"
     restored = {}
     cli_restore = ttrain.restore_training_state
 

@@ -29,7 +29,7 @@ from ifseg_tpu.train.trainer import TrainState
 
 from torch_orbax_utils import (NUM_SEG, TOTAL, flags, port_trainer, restore, seeded_grads,
                                tiny_params, tool, trace_each_model_once)  # noqa: F401
-from torch_port_utils import train_batch
+from torch_port_utils import passed_tmp, train_batch  # noqa: F401  (the fixture)
 
 RTOL, ATOL = 1e-5, 1e-7  # tests/test_torch_optimizers.py's
 
@@ -71,8 +71,8 @@ CASES["plateau"] = ("--optimizer=adam", "--lr-scheduler=reduce_lr_on_plateau")
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_resumed_update_matches_jax(case, tmp_path):
-    argv = flags(tmp_path / "jax", *CASES[case])
+def test_resumed_update_matches_jax(case, passed_tmp):
+    argv = flags(passed_tmp / "jax", *CASES[case])
     jcfg = jax_flags(argv)
     params = jax.tree_util.tree_map(jnp.asarray, tiny_params())
     tx, _, _ = jo.build_optimizer(params, jcfg.model, jcfg.optimization, TOTAL)
@@ -87,10 +87,10 @@ def test_resumed_update_matches_jax(case, tmp_path):
     jmgr = JaxManager(jcfg.checkpoint)
     jmgr.save(1, saved, extra={"epoch": 1, "metrics": {}})
     jmgr.finalize()
-    tool.convert(str(tmp_path / "jax"), str(tmp_path / "port"), argv)
+    tool.convert(str(passed_tmp / "jax"), str(passed_tmp / "port"), argv)
 
     trainer = port_trainer(argv)
-    restore(trainer, str(tmp_path / "port"))
+    restore(trainer, str(passed_tmp / "port"))
     host = jax.device_get(saved)
     model = state_dict_from_jax(host.params)
     for k, v in trainer.model.state_dict().items():

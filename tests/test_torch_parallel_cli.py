@@ -25,6 +25,7 @@ and dropout off:
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -102,16 +103,21 @@ def _run_two(kind, argv, tmp_path, tag):
 
 
 @pytest.fixture(scope="module")
-def trained(tmp_path_factory):
+def trained(request, tmp_path_factory):
+    """The two-process run; its directory is removed after the module when
+    the module's tests passed."""
     tmp = tmp_path_factory.mktemp("cli")
+    failed = request.session.testsfailed
     train = make_seg_tsv(str(tmp / "train.tsv"), rows=8, num_seg=3, size=(64, 64), seed=1)
     valid = make_seg_tsv(str(tmp / "valid.tsv"), rows=6, num_seg=3, size=(80, 96), seed=2)
     data = f"{train},{valid}"
     save_dir = tmp / "ckpt"
     argv = _argv(data, save_dir, "--fsdp=2", "--max-epoch=2", "--max-update=2",
                  "--check-param-sync-interval=1", f"--tensorboard-logdir={tmp / 'tb'}")
-    return dict(tmp=tmp, data=data, valid=valid, save_dir=save_dir, argv=argv,
-                runs=_run_two("train", argv, tmp, "train"))
+    yield dict(tmp=tmp, data=data, valid=valid, save_dir=save_dir, argv=argv,
+               runs=_run_two("train", argv, tmp, "train"))
+    if request.session.testsfailed == failed:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def test_both_ranks_stop_after_the_same_update(trained):

@@ -244,10 +244,16 @@ def test_concurrent_requests_are_batched(daemon):
 
 
 def test_bad_bodies_get_400(daemon, monkeypatch):
+    """A body PIL refuses gets 400; a GIF body, which the JAX daemon reads
+    through PIL, is answered as its PNG twin is."""
     base, _ = daemon
-    gif = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(gif, format="GIF")
-    for body in (gif.getvalue(), b"not an image", _jpeg()[:200]):
+    pixels = np.random.default_rng(3).integers(0, 256, (8, 8, 3), dtype=np.uint8)
+    gif, twin = io.BytesIO(), io.BytesIO()
+    Image.fromarray(pixels).save(gif, format="GIF")
+    Image.open(io.BytesIO(gif.getvalue())).convert("RGB").save(twin, format="PNG")
+    status, _, out = _post(base + "/segment", gif.getvalue())
+    assert status == 200 and out == _post(base + "/segment", twin.getvalue())[2]
+    for body in (b"not an image", _jpeg()[:200]):
         status, _, out = _post(base + "/segment", body)
         assert status == 400, out
     # a PNG cut inside its image data is what the JAX daemon decodes under

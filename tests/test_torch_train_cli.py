@@ -42,7 +42,7 @@ from ifseg_tpu.config import from_flags as jax_flags
 from ifseg_tpu.models.segofa import SegOFAVariables
 from ifseg_tpu.utils import metrics as jmetrics
 
-from torch_port_utils import TINY, class_table, perturb
+from torch_port_utils import TINY, class_table, passed_tmp, perturb  # noqa: F401  (the fixture)
 from utils import make_seg_tsv
 
 AREAS = ("_area_intersect", "_area_pred_label", "_area_label", "_area_union")
@@ -89,15 +89,15 @@ def _capture(monkeypatch, train_mod, metrics_mod):
     return seen
 
 
-def test_train_matches_jax(tmp_path, tsvs, monkeypatch):
+def test_train_matches_jax(passed_tmp, tsvs, monkeypatch):
     monkeypatch.setenv("IFSEG_JIT_CACHE", "")  # leave the tests' JAX cache alone
-    weights = str(tmp_path / "tiny.pt")
+    weights = str(passed_tmp / "tiny.pt")
     tail = ["--max-epoch=1", f"--restore-file={weights}", "--dtype=float32", "--dropout=0.0",
             "--encoder-drop-path-rate=0.0", "--decoder-drop-path-rate=0.0"]
-    train4 = make_seg_tsv(str(tmp_path / "train4.tsv"), rows=4, num_seg=3, size=(300, 260), seed=11)
+    train4 = make_seg_tsv(str(passed_tmp / "train4.tsv"), rows=4, num_seg=3, size=(300, 260), seed=11)
     data = f"{train4},{tsvs.split(',')[1]}"  # 4 rows: one epoch of 2 steps
-    targv = _argv(data, tmp_path / "t", 256, *tail)
-    jargv = _argv(data, tmp_path / "j", 256, *tail, "--data-parallel=1")
+    targv = _argv(data, passed_tmp / "t", 256, *tail)
+    jargv = _argv(data, passed_tmp / "j", 256, *tail, "--data-parallel=1")
     jcfg = jax_flags(jargv)
     _, params = SegOFAVariables.init(jcfg.model, jax.random.PRNGKey(5))
     sd = flax_to_torch_state_dict(perturb(params, 5))
@@ -121,8 +121,8 @@ def test_train_matches_jax(tmp_path, tsvs, monkeypatch):
     for k in ("_area_pred_label", "_area_intersect"):
         assert np.abs(got[k] - want[k]).sum() / 2 <= 1e-3 * pixels, k
 
-    final = torch.load(tmp_path / "t" / "checkpoint_1" / "model.pt", weights_only=True)
-    jparams = state_dict_from_jax(load_params(str(tmp_path / "j" / "checkpoint_1"), jcfg))
+    final = torch.load(passed_tmp / "t" / "checkpoint_1" / "model.pt", weights_only=True)
+    jparams = state_dict_from_jax(load_params(str(passed_tmp / "j" / "checkpoint_1"), jcfg))
     for k, v in jparams.items():
         np.testing.assert_allclose(final[k].numpy(), np.asarray(v), atol=1e-5, err_msg=k)
 
@@ -137,9 +137,13 @@ def _main(tsvs, save_dir, *extra):
 
 
 @pytest.fixture(scope="module")
-def unbroken(tsvs, tmp_path_factory):
+def unbroken(request, tsvs, tmp_path_factory):
+    """An unbroken 2-epoch run, removed after the module when its tests passed."""
     save_dir = tmp_path_factory.mktemp("unbroken")
-    return save_dir, _main(tsvs, save_dir, "--max-epoch=2")
+    failed = request.session.testsfailed
+    yield save_dir, _main(tsvs, save_dir, "--max-epoch=2")
+    if request.session.testsfailed == failed:
+        shutil.rmtree(save_dir, ignore_errors=True)
 
 
 def _learning(stats):
@@ -164,65 +168,65 @@ def _same_state(a, b):
                 assert u == v, (part, k)
 
 
-def test_resume_after_an_epoch_equals_an_unbroken_run(tsvs, tmp_path, unbroken):
+def test_resume_after_an_epoch_equals_an_unbroken_run(tsvs, passed_tmp, unbroken):
     full_dir, full = unbroken
     assert full["num_updates"] == 6 and full["best"] in ("checkpoint_1", "checkpoint_2")
-    first = _main(tsvs, tmp_path, "--max-epoch=2", "--max-update=3")
+    first = _main(tsvs, passed_tmp, "--max-epoch=2", "--max-update=3")
     assert first["stop"].startswith("num_updates 3") and first["num_updates"] == 3
-    assert os.path.isdir(tmp_path / "checkpoint_1")  # the epoch ran to its end: an epoch save
-    second = _main(tsvs, tmp_path, "--max-epoch=2")
+    assert os.path.isdir(passed_tmp / "checkpoint_1")  # the epoch ran to its end: an epoch save
+    second = _main(tsvs, passed_tmp, "--max-epoch=2")
     assert (second["start_epoch"], second["restored_updates"], second["num_updates"]) == (2, 3, 6)
-    _same_state(full_dir / "checkpoint_2", tmp_path / "checkpoint_2")
+    _same_state(full_dir / "checkpoint_2", passed_tmp / "checkpoint_2")
     assert _learning(second["epochs"][-1]["train"]) == _learning(full["epochs"][-1]["train"])
     assert second["epochs"][-1]["valid"]["mIoU"] == full["epochs"][-1]["valid"]["mIoU"]
 
 
-def test_stop_inside_an_epoch_resumes_from_the_cursor(tsvs, tmp_path, unbroken):
+def test_stop_inside_an_epoch_resumes_from_the_cursor(tsvs, passed_tmp, unbroken):
     full_dir, full = unbroken
-    first = _main(tsvs, tmp_path, "--max-epoch=2", "--max-update=4")
+    first = _main(tsvs, passed_tmp, "--max-epoch=2", "--max-update=4")
     assert first["stop"].startswith("num_updates 4")
-    ckpt = CheckpointManager(torch_flags(_argv(tsvs, tmp_path, 64)).checkpoint)
+    ckpt = CheckpointManager(torch_flags(_argv(tsvs, passed_tmp, 64)).checkpoint)
     assert ckpt.latest() == ckpt.manifest["last"] == "checkpoint_2_4"
-    assert not os.path.exists(tmp_path / "checkpoint_2")  # no epoch-complete save (C.5)
+    assert not os.path.exists(passed_tmp / "checkpoint_2")  # no epoch-complete save (C.5)
     assert ckpt.load_extra("checkpoint_2_4")["iterator"] == {
         "epoch": 2, "iterations_in_epoch": 1, "seed": 7}
-    second = _main(tsvs, tmp_path, "--max-epoch=2")
+    second = _main(tsvs, passed_tmp, "--max-epoch=2")
     assert (second["start_epoch"], second["resumed_iterations"], second["restored_updates"]) == (
         2, 1, 4)
     assert len(second["epochs"][0]["step_s"]) == 2
-    _same_state(full_dir / "checkpoint_2", tmp_path / "checkpoint_2")
+    _same_state(full_dir / "checkpoint_2", passed_tmp / "checkpoint_2")
     # the epoch's meters went with the cursor: its loss is over all 3 steps
     assert second["epochs"][-1]["train"]["loss"] == full["epochs"][-1]["train"]["loss"]
 
 
-def test_row_workers_and_save_interval_give_the_same_run(tsvs, tmp_path, unbroken):
+def test_row_workers_and_save_interval_give_the_same_run(tsvs, passed_tmp, unbroken):
     full_dir, _ = unbroken
-    run = _main(tsvs, tmp_path, "--max-epoch=2", "--num-workers=3", "--save-interval-updates=2",
+    run = _main(tsvs, passed_tmp, "--max-epoch=2", "--num-workers=3", "--save-interval-updates=2",
                 "--keep-interval-updates=1")
     assert [s["name"] for s in run["saves"]] == [
         "checkpoint_1_2", "checkpoint_1", "checkpoint_2_4", "checkpoint_2_6", "checkpoint_2"]
-    ckpt = CheckpointManager(torch_flags(_argv(tsvs, tmp_path, 64)).checkpoint)
+    ckpt = CheckpointManager(torch_flags(_argv(tsvs, passed_tmp, 64)).checkpoint)
     assert [i["name"] for i in ckpt.manifest["intervals"]] == ["checkpoint_2_6"]
-    _same_state(full_dir / "checkpoint_2", tmp_path / "checkpoint_2")
+    _same_state(full_dir / "checkpoint_2", passed_tmp / "checkpoint_2")
 
 
-def test_patience_stops_the_run(tsvs, tmp_path):
+def test_patience_stops_the_run(tsvs, passed_tmp):
     """With lr 0 the metric never improves on epoch 1's: patience 1 ends
     the run at epoch 2 of 5."""
-    run = _main(tsvs, tmp_path, "--max-epoch=5", "--patience=1", "--lr=0.0")
+    run = _main(tsvs, passed_tmp, "--max-epoch=5", "--patience=1", "--lr=0.0")
     assert run["stop"] == "patience" and [e["epoch"] for e in run["epochs"]] == [1, 2]
-    ckpt = CheckpointManager(torch_flags(_argv(tsvs, tmp_path, 64)).checkpoint)
+    ckpt = CheckpointManager(torch_flags(_argv(tsvs, passed_tmp, 64)).checkpoint)
     assert ckpt.manifest["last"] == "checkpoint_2" and ckpt.manifest["best"] == "checkpoint_1"
-    assert os.readlink(tmp_path / "checkpoint_best") == "checkpoint_1"
+    assert os.readlink(passed_tmp / "checkpoint_best") == "checkpoint_1"
 
 
 @pytest.mark.parametrize("flag,epoch,updates,meters", [
     ("", 3, 6, True), ("--reset-optimizer", 3, 0, True), ("--reset-dataloader", 1, 6, True),
     ("--reset-meters", 3, 6, False)])
-def test_reset_flags(tsvs, tmp_path, unbroken, monkeypatch, flag, epoch, updates, meters):
+def test_reset_flags(tsvs, passed_tmp, unbroken, monkeypatch, flag, epoch, updates, meters):
     full_dir, _ = unbroken
-    shutil.copytree(full_dir, tmp_path / "ckpt", symlinks=True)
-    cfg = torch_flags(_argv(tsvs, tmp_path / "ckpt", 64, *RESUME, *[flag] * bool(flag)))
+    shutil.copytree(full_dir, passed_tmp / "ckpt", symlinks=True)
+    cfg = torch_flags(_argv(tsvs, passed_tmp / "ckpt", 64, *RESUME, *[flag] * bool(flag)))
     tokens, lengths = class_table(3)
     trainer = Trainer(cfg, tokens, lengths, total_num_updates=6, device="cpu").init_state()
     loaded = []
@@ -236,12 +240,12 @@ def test_reset_flags(tsvs, tmp_path, unbroken, monkeypatch, flag, epoch, updates
 
 
 @pytest.mark.parametrize("uses_ema", [True, False])
-def test_eval_weights_follow_the_ema_copy_only_when_synced(tsvs, tmp_path, uses_ema):
+def test_eval_weights_follow_the_ema_copy_only_when_synced(tsvs, passed_tmp, uses_ema):
     """Under --uses-ema validation reads a module of its own that holds the
     EMA weights as of the last ``sync_eval_weights``; else the training
     model itself."""
     extra = RESUME if uses_ema else ("--ema-decay=0.9",)
-    cfg = torch_flags(_argv(tsvs, tmp_path, 64, *extra))
+    cfg = torch_flags(_argv(tsvs, passed_tmp, 64, *extra))
     tokens, lengths = class_table(3)
     trainer = Trainer(cfg, tokens, lengths, total_num_updates=6, device="cpu").init_state()
     model = trainer.eval_model()
@@ -262,32 +266,32 @@ def test_eval_weights_follow_the_ema_copy_only_when_synced(tsvs, tmp_path, uses_
         assert torch.equal(p, after[k]), k
 
 
-def test_finetune_with_a_reset_flag_raises(tsvs, tmp_path):
-    cfg = torch_flags(_argv(tsvs, tmp_path, 64, "--finetune-from-model=w.pt", "--reset-meters"))
+def test_finetune_with_a_reset_flag_raises(tsvs, passed_tmp):
+    cfg = torch_flags(_argv(tsvs, passed_tmp, 64, "--finetune-from-model=w.pt", "--reset-meters"))
     with pytest.raises(ValueError, match="finetune-from-model"):
         ttrain.maybe_restore_pretrained(cfg, "cpu")
     # the layers-to-keep flags are taken now (prune_layers): without a
     # restore file there is nothing to prune and nothing is loaded
-    cfg = torch_flags(_argv(tsvs, tmp_path, 64, "--encoder-layers-to-keep=0,1"))
+    cfg = torch_flags(_argv(tsvs, passed_tmp, 64, "--encoder-layers-to-keep=0,1"))
     assert ttrain.maybe_restore_pretrained(cfg, "cpu") is None
 
 
-def test_fast_path_decodes_no_training_row(tsvs, tmp_path, monkeypatch):
+def test_fast_path_decodes_no_training_row(tsvs, passed_tmp, monkeypatch):
     decoded = []
     decode = SegmentationDataset._decode_row
     monkeypatch.setattr(SegmentationDataset, "_decode_row",
                         lambda self, i: decoded.append(self.split) or decode(self, i))
-    run = _main(tsvs, tmp_path, "--max-epoch=1", "--monitor-real-batch=false")
+    run = _main(tsvs, passed_tmp, "--max-epoch=1", "--monitor-real-batch=false")
     assert run["num_updates"] == 3 and "mIoU" not in run["epochs"][0]["train"]
     assert decoded == ["valid", "valid"]  # the validation rows only
 
 
-def test_main_runs_on_the_card_unless_told_otherwise(tsvs, tmp_path):
+def test_main_runs_on_the_card_unless_told_otherwise(tsvs, passed_tmp):
     if torch.cuda.is_available():
         pytest.skip("a card is present: main would run on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        ttrain.main(torch_flags(_argv(tsvs, tmp_path, 64)))
-    assert not os.path.exists(tmp_path / "manifest.json")
+        ttrain.main(torch_flags(_argv(tsvs, passed_tmp, 64)))
+    assert not os.path.exists(passed_tmp / "manifest.json")
 
 
 def test_cli_main_reads_the_device_flag(monkeypatch):

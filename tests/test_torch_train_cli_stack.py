@@ -21,6 +21,7 @@ from ifseg_torch.config import from_flags as torch_flags
 from ifseg_tpu.train.optim import ReduceLROnPlateau as JaxPlateau
 
 from test_torch_train_cli import RESUME, _argv, tsvs  # noqa: F401  (the TSV fixture)
+from torch_port_utils import passed_tmp  # noqa: F401  (the fixture)
 
 STACK = ("--lr-scheduler=reduce_lr_on_plateau", "--lr-patience=0", "--lr-shrink=0.5",
          "--optimizer=composite",
@@ -45,23 +46,23 @@ def _equal(a, b, where=""):
         assert a == b, where
 
 
-def test_plateau_composite_checkpointed_run_resumes_bit_for_bit(tsvs, tmp_path):
-    cfg, full = _main(tsvs, tmp_path / "full", "--max-epoch=3")
+def test_plateau_composite_checkpointed_run_resumes_bit_for_bit(tsvs, passed_tmp):
+    cfg, full = _main(tsvs, passed_tmp / "full", "--max-epoch=3")
     assert cfg.model.checkpoint_activations and cfg.model.remat_policy == "save-attn"
     assert cfg.optimization.optimizer == "composite"
     plateau = JaxPlateau(shrink=0.5, patience=0, maximize=True)
     want = [plateau.step(float(e["valid"]["mIoU"])) for e in full["epochs"]]
     assert [e["lr_scale"] for e in full["epochs"]] == want
 
-    _main(tsvs, tmp_path / "split", "--max-epoch=2")
-    _, resumed = _main(tsvs, tmp_path / "split", "--max-epoch=3")
+    _main(tsvs, passed_tmp / "split", "--max-epoch=2")
+    _, resumed = _main(tsvs, passed_tmp / "split", "--max-epoch=3")
     assert (resumed["start_epoch"], resumed["restored_updates"]) == (3, 6)
     assert resumed["epochs"][-1]["lr_scale"] == full["epochs"][-1]["lr_scale"]
     parts = ("model", "ema", "optimizer", "step", "generator", "plateau")
-    saved = {p: torch.load(tmp_path / "full" / "checkpoint_3" / f"{p}.pt", weights_only=True)
+    saved = {p: torch.load(passed_tmp / "full" / "checkpoint_3" / f"{p}.pt", weights_only=True)
              for p in parts}
     for p in parts:
-        _equal(torch.load(tmp_path / "split" / "checkpoint_3" / f"{p}.pt", weights_only=True),
+        _equal(torch.load(passed_tmp / "split" / "checkpoint_3" / f"{p}.pt", weights_only=True),
                saved[p], p)
     opt = saved["optimizer"]
     assert set(opt["groups"]) == {"base", "g0"} and opt["count"] == 9
@@ -70,12 +71,12 @@ def test_plateau_composite_checkpointed_run_resumes_bit_for_bit(tsvs, tmp_path):
     assert not any(k.startswith("decoder.") for k in opt["groups"]["base"]["mu"])
 
 
-def test_layers_to_keep_prune_the_restore_file(tsvs, tmp_path):
-    _main(tsvs, tmp_path / "deep", "--max-epoch=1")
-    restore = tmp_path / "deep" / "checkpoint_last"
+def test_layers_to_keep_prune_the_restore_file(tsvs, passed_tmp):
+    _main(tsvs, passed_tmp / "deep", "--max-epoch=1")
+    restore = passed_tmp / "deep" / "checkpoint_last"
     keep = ("--encoder-layers=1", "--decoder-layers=1", "--encoder-layers-to-keep=1",
             "--decoder-layers-to-keep=0", f"--restore-file={restore}")
-    cfg = torch_flags(_argv(tsvs, tmp_path / "shallow", 64, *RESUME, *STACK, *keep))
+    cfg = torch_flags(_argv(tsvs, passed_tmp / "shallow", 64, *RESUME, *STACK, *keep))
     loaded = ttrain.maybe_restore_pretrained(cfg, "cpu")
     file = torch.load(restore / "model.pt", weights_only=True)
     want = prune_layers(file, "1", "0")
@@ -83,5 +84,5 @@ def test_layers_to_keep_prune_the_restore_file(tsvs, tmp_path):
     for k in want:
         assert torch.equal(loaded[k], want[k]), k
     assert torch.equal(loaded["encoder.layers.0.fc1.weight"], file["encoder.layers.1.fc1.weight"])
-    _, run = _main(tsvs, tmp_path / "shallow", *keep, "--max-epoch=1", "--max-update=1")
+    _, run = _main(tsvs, passed_tmp / "shallow", *keep, "--max-epoch=1", "--max-update=1")
     assert run["num_updates"] == 1 and run["start_epoch"] == 1

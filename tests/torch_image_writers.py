@@ -1,0 +1,436 @@
+"""Image files written by hand, for the layouts PIL's writers do not make:
+GIF frames with local palettes, transparency, offsets, interlacing and an
+LZW stream that fills its table without a clear code; BMP files with every
+header, RLE8 / RLE4 and bitfields; TIFF files in both byte orders with
+strips or tiles, planar configurations 1 and 2, PackBits / LZW / Deflate and
+the horizontal predictor; a YCCK JPEG.  Used by ``tests/test_torch_*``, by
+``tools/make_image_fixtures.py`` and by ``chip_smoke.py`` phase 14e (numpy
+only: the card's machine runs them without PIL); PIL is what the tests hold
+them against.
+"""
+
+import io
+import struct
+import zlib
+
+import numpy as np
+
+# ------------------------------------------------------------------ GIF
+
+
+def gif_lzw(indices, bits: int, clear_every: int = 4096) -> bytes:
+    """GIF LZW codes (LSB first) of ``indices`` at minimum code size ``bits``.
+    ``clear_every=None`` never sends a clear code after the first: the table
+    fills to 4,096 entries and the codes stay 12 bits wide."""
+    clear, end = 1 << bits, (1 << bits) + 1
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    width = bits + 1
+    table = {(i,): i for i in range(clear)}
+    nxt = end + 1
+    put(clear, width)
+    seq = ()
+    for v in (int(x) for x in np.asarray(indices).reshape(-1)):
+        cand = seq + (v,)
+        if cand in table:
+            seq = cand
+            continue
+        put(table[seq], width)
+        if nxt < 4096:
+            table[cand] = nxt
+            nxt += 1
+            if nxt > (1 << width) and width < 12:
+                width += 1
+        elif clear_every is not None:
+            put(clear, width)
+            table = {(i,): i for i in range(clear)}
+            nxt, width = end + 1, bits + 1
+        seq = (v,)
+    if seq:
+        put(table[seq], width)
+        if nxt < 4096:
+            nxt += 1
+            if nxt > (1 << width) and width < 12:
+                width += 1
+    put(end, width)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def gif_file(frames, screen, global_palette=None, version=b"GIF89a", comment=None, loop=None,
+             junk=b"") -> bytes:
+    """A GIF file.  ``frames``: dicts with ``indices`` (h, w), optional ``x``,
+    ``y``, ``palette`` (local, (2**k, 3)), ``interlace``, ``transparency``,
+    ``bits`` (LZW minimum code size) and ``clear_every``."""
+    w, h = screen
+    flags = 0
+    pal = b""
+    if global_palette is not None:
+        k = int(np.log2(len(global_palette)))
+        flags = 0x80 | (k - 1)
+        pal = np.asarray(global_palette, np.uint8).tobytes()
+    out = bytearray(version + struct.pack("<HHBBB", w, h, flags, 0, 0) + pal)
+    if loop is not None:
+        out += b"!\xff\x0bNETSCAPE2.0" + b"\x03\x01" + struct.pack("<H", loop) + b"\0"
+    if comment is not None:
+        out += b"!\xfe" + _sub_blocks(comment)
+    out += junk
+    for f in frames:
+        idx = np.asarray(f["indices"], np.uint8)
+        fh, fw = idx.shape
+        t = f.get("transparency")
+        out += b"!\xf9\x04" + struct.pack("<BHB", 1 if t is not None else 0, 10, t or 0) + b"\0"
+        fflags = 0
+        local = b""
+        if f.get("palette") is not None:
+            k = int(np.log2(len(f["palette"])))
+            fflags |= 0x80 | (k - 1)
+            local = np.asarray(f["palette"], np.uint8).tobytes()
+        rows = idx
+        if f.get("interlace"):
+            fflags |= 0x40
+            order = [*range(0, fh, 8), *range(4, fh, 8), *range(2, fh, 4), *range(1, fh, 2)]
+            rows = idx[order]
+        out += b"," + struct.pack("<HHHHB", f.get("x", 0), f.get("y", 0), fw, fh, fflags) + local
+        bits = f.get("bits", 8)
+        out += bytes([bits]) + _sub_blocks(gif_lzw(rows, bits, f.get("clear_every", 4096)))
+    return bytes(out + b";")
+
+
+# ------------------------------------------------------------------ BMP
+
+
+def _rle8(rows) -> bytes:
+    out = bytearray()
+    for row in rows:
+        i, n = 0, len(row)
+        while i < n:
+            j = i
+            while j < n and j - i < 255 and row[j] == row[i]:
+                j += 1
+            if j - i >= 3 or n - i < 3:
+                out += bytes([j - i, row[i]])
+                i = j
+            else:  # an absolute run of up to 255 bytes, padded to a word
+                k = min(n - i, 255)
+                out += bytes([0, k]) + bytes(row[i:i + k]) + (b"\0" if k % 2 else b"")
+                i += k
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def _rle4(rows) -> bytes:
+    """RLE4: absolute runs of an even count of at least 4 pixels where the
+    pixels vary, runs of alternating pixel pairs elsewhere."""
+    out = bytearray()
+    for row in rows:
+        i, n = 0, len(row)
+        while i < n:
+            j = i + 1
+            while j < n and j - i < 255 and row[j] == row[i + (j - i) % 2]:
+                j += 1
+            if j - i < 4 and n - i >= 4:
+                k = min((n - i) // 2 * 2, 252)
+                pix = row[i:i + k]
+                packed = bytes((pix[a] << 4) | pix[a + 1] for a in range(0, k, 2))
+                out += bytes([0, k]) + packed + (b"\0" if len(packed) % 2 else b"")
+                i += k
+                continue
+            out += bytes([j - i, (row[i] << 4) | (row[i + 1] if i + 1 < n else 0)])
+            i = j
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def bmp_file(pixels, bits: int, header: int = 40, palette=None, compression: int = 0,
+             masks=None, top_down: bool = False, colors_used: int = 0) -> bytes:
+    """A BMP file of ``pixels``: (h, w) indices for 1/4/8 bits with
+    ``palette`` (n, 3) RGB, (h, w, 3) RGB at 16 (5-5-5, or ``masks``) / 24 /
+    32 bits, (h, w, 4) RGBA at 32 bits with alpha ``masks``."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    order = px if top_down else px[::-1]
+    if compression in (1, 2):
+        body = (_rle8 if compression == 1 else _rle4)([list(map(int, r)) for r in order])
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        if bits in (1, 4, 8):
+            per = 8 // bits
+            pad = np.zeros((h, -(-w // per) * per), np.uint8)
+            pad[:, :w] = order
+            packed = np.zeros((h, pad.shape[1] // per), np.uint8)
+            for k in range(per):
+                packed |= (pad[:, k::per] << (8 - bits * (k + 1))).astype(np.uint8)
+            raw = packed
+        elif bits == 16:
+            r, g, b = (order[:, :, c].astype(np.uint32) for c in range(3))
+            if masks == (0xF800, 0x7E0, 0x1F):
+                v = ((r >> 3) << 11) | ((g >> 2) << 5) | (b >> 3)
+            else:
+                v = ((r >> 3) << 10) | ((g >> 3) << 5) | (b >> 3)
+            raw = v.astype("<u2").view(np.uint8).reshape(h, -1)
+        elif bits == 24:
+            raw = order[:, :, ::-1].reshape(h, -1)
+        else:
+            m = masks or (0xFF0000, 0xFF00, 0xFF, 0)
+            v = np.zeros((h, w), np.uint64)
+            for c, mask in enumerate(m):
+                if mask and c < px.shape[2]:
+                    shift = (mask & -mask).bit_length() - 1
+                    v |= order[:, :, c].astype(np.uint64) << np.uint64(shift)
+            raw = v.astype("<u4").view(np.uint8).reshape(h, -1)
+        rows = np.zeros((h, stride), np.uint8)
+        rows[:, :raw.shape[1]] = raw
+        body = rows.tobytes()
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        if header != 12:
+            p = np.concatenate([p, np.zeros((len(p), 1), np.uint8)], axis=1)
+        pal = p.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+        extra = b""
+    else:
+        height = (2 ** 32 - h) if top_down else h
+        info = struct.pack("<IiIHHIIiiII", header, w, height, 1, bits, compression, len(body),
+                           2835, 2835, colors_used, 0)
+        extra = b""
+        if compression == 3:
+            m = tuple(masks) + (0,) * (4 - len(masks))
+            if header == 40:
+                extra = struct.pack("<III", *m[:3])
+            else:
+                info += struct.pack("<IIII", *m)
+        if header > len(info):
+            info += bytes(header - len(info))
+        info = info[:header]
+    offset = 14 + len(info) + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + info + extra + pal
+            + body)
+
+
+# ------------------------------------------------------------------ TIFF
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW (MSB first, early change) of ``data``, one clear code at the
+    start and another whenever the table fills."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            out.append((acc >> (nacc - 8)) & 255)
+            nacc -= 8
+        acc &= (1 << nacc) - 1
+
+    width, table, nxt = 9, {bytes([i]): i for i in range(256)}, 258
+    put(256, width)
+    seq = b""
+    for v in data:
+        cand = seq + bytes([v])
+        if cand in table:
+            seq = cand
+            continue
+        put(table[seq], width)
+        table[cand] = nxt
+        nxt += 1
+        if nxt >= (1 << width) and width < 12:
+            width += 1
+        if nxt >= 4094:
+            put(256, width)
+            width, table, nxt = 9, {bytes([i]): i for i in range(256)}, 258
+        seq = bytes([v])
+    if seq:
+        put(table[seq], width)
+        nxt += 1
+        if nxt >= (1 << width) and width < 12:
+            width += 1
+    put(257, width)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def tiff_lzw_literals(data: bytes, run: int = 250) -> bytes:
+    """TIFF LZW of ``data`` in one 9-bit code a byte: a clear code before each
+    ``run`` bytes keeps the table below its first width change.  The
+    decoder's most codes a byte, written by numpy at any size."""
+    v = np.zeros(-(-len(data) // run) * run, np.uint16)
+    v[:len(data)] = np.frombuffer(data, np.uint8)
+    codes = np.full((len(v) // run, run + 1), 256, np.uint16)
+    codes[:, 1:] = v.reshape(-1, run)
+    codes = np.append(codes.reshape(-1)[:len(data) + len(codes)], 257)
+    bits = (codes[:, None] >> np.arange(8, -1, -1, dtype=np.uint16)) & 1
+    return np.packbits(bits.astype(np.uint8).reshape(-1)).tobytes()
+
+
+def packbits(data: bytes) -> bytes:
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 2:
+            out += bytes([(257 - (j - i)) & 255, data[i]])
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and data[j] == data[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _predict(block: np.ndarray, bits: int, samples: int, order: str) -> np.ndarray:
+    """Horizontal differencing of (rows, row bytes) file-order data."""
+    h, n = block.shape
+    if bits == 8:
+        v = block.reshape(h, -1, samples).astype(np.int16)
+        d = np.diff(v, axis=1, prepend=0)
+        d[:, 0] = v[:, 0]
+        return (d & 255).astype(np.uint8).reshape(h, n)
+    dt = "<u2" if order == "II" else ">u2"
+    v = block.copy().view(dt).reshape(h, -1, samples).astype(np.int64)
+    d = np.diff(v, axis=1, prepend=0)
+    d[:, 0] = v[:, 0]
+    return (d & 0xFFFF).astype(dt).reshape(h, -1).view(np.uint8)
+
+
+def tiff_file(samples, bits, photometric: int, order: str = "II", compression: int = 1,
+              predictor: int = 1, planar: int = 1, rows_per_strip=None, tile=None, extra=(),
+              colormap=None, fill: int = 1, sample_format=None, lzw_literals: bool = False) -> bytes:
+    """A one-page TIFF of ``samples`` ((h, w) or (h, w, spp) integers at
+    ``bits`` per sample, 1 to 16): strips of ``rows_per_strip`` rows or tiles
+    of ``tile`` = (width, length); LZW by ``tiff_lzw_literals`` where
+    ``lzw_literals``."""
+    e = "<" if order == "II" else ">"
+    s = np.asarray(samples)
+    if s.ndim == 2:
+        s = s[:, :, None]
+    h, w, spp = s.shape
+    dt = np.dtype(e + "u2") if bits == 16 else np.uint8
+
+    def pack_rows(block):  # (rows, width, n) samples -> (rows, row bytes)
+        r, cw, n = block.shape
+        if bits == 16:
+            return block.astype(dt).reshape(r, -1).view(np.uint8)
+        if bits == 8:
+            return block.astype(np.uint8).reshape(r, -1)
+        flat = block.reshape(r, -1).astype(np.uint8)
+        per = 8 // bits
+        padded = np.zeros((r, -(-flat.shape[1] // per) * per), np.uint8)
+        padded[:, :flat.shape[1]] = flat
+        out = np.zeros((r, padded.shape[1] // per), np.uint8)
+        for k in range(per):
+            out |= (padded[:, k::per] << (8 - bits * (k + 1))).astype(np.uint8)
+        return out
+
+    tw, th = tile if tile else (w, rows_per_strip or h)
+    planes = [s[:, :, i:i + 1] for i in range(spp)] if planar == 2 else [s]
+    chunks = []
+    for plane in planes:
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                if tile:
+                    block = np.zeros((th, tw, plane.shape[2]), plane.dtype)
+                    part = plane[y:y + th, x:x + tw]
+                    block[:part.shape[0], :part.shape[1]] = part
+                else:
+                    block = plane[y:y + th]
+                rows = pack_rows(block)
+                if predictor == 2:
+                    rows = _predict(rows, bits, plane.shape[2], order)
+                raw = rows.tobytes()
+                if compression == 5:
+                    raw = (tiff_lzw_literals if lzw_literals else tiff_lzw)(raw)
+                elif compression in (8, 32946):
+                    raw = zlib.compress(raw, 6)
+                elif compression == 32773:
+                    raw = packbits(raw)
+                if fill == 2:  # the stored bytes, compressed or not, bit-reversed
+                    rev = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+                    raw = rev[np.frombuffer(raw, np.uint8)].tobytes()
+                chunks.append(raw)
+    bps = (bits,) * spp
+    entries = [(256, 4, (w,)), (257, 4, (h,)), (258, 3, bps), (259, 3, (compression,)),
+               (262, 3, (photometric,)), (277, 3, (spp,)), (284, 3, (planar,))]
+    if fill != 1:
+        entries.append((266, 3, (fill,)))
+    if predictor != 1:
+        entries.append((317, 3, (predictor,)))
+    if colormap is not None:
+        cm = np.asarray(colormap, np.uint16)
+        entries.append((320, 3, tuple(int(v) for v in cm.T.reshape(-1))))
+    if extra:
+        entries.append((338, 3, tuple(extra)))
+    if sample_format is not None:
+        entries.append((339, 3, tuple(sample_format)))
+    data_at = 8
+    blob = b"".join(chunks)
+    offsets = np.cumsum([0] + [len(c) for c in chunks[:-1]]) + data_at
+    counts = [len(c) for c in chunks]
+    if tile:
+        entries += [(322, 3, (tw,)), (323, 3, (th,)), (324, 4, tuple(offsets)), (325, 4, tuple(counts))]
+    else:
+        entries += [(273, 4, tuple(offsets)), (278, 4, (th,)), (279, 4, tuple(counts))]
+    entries.sort()
+    ifd_at = data_at + len(blob) + (len(blob) % 2)
+    ifd_size = 2 + 12 * len(entries) + 4
+    after = ifd_at + ifd_size
+    ifd, tail = struct.pack(e + "H", len(entries)), b""
+    for tag, typ, vals in entries:
+        code = "H" if typ == 3 else "I"
+        body = struct.pack(e + code * len(vals), *(int(v) for v in vals))
+        if len(body) <= 4:
+            ifd += struct.pack(e + "HHI", tag, typ, len(vals)) + body.ljust(4, b"\0")
+        else:
+            ifd += struct.pack(e + "HHII", tag, typ, len(vals), after + len(tail))
+            tail += body + (b"\0" if len(body) % 2 else b"")
+    head = (b"II*\0" if order == "II" else b"MM\0*") + struct.pack(e + "I", ifd_at)
+    return head + blob + b"\0" * (len(blob) % 2) + ifd + struct.pack(e + "I", 0) + tail
+
+
+# ------------------------------------------------------------------ JPEG
+
+
+def ycck_jpeg(cmyk_jpeg: bytes) -> bytes:
+    """A YCCK file: the Adobe marker of PIL's CMYK JPEG set to transform 2,
+    so its four components are read as Y, Cb, Cr and K."""
+    at = cmyk_jpeg.index(b"\xff\xee")
+    out = bytearray(cmyk_jpeg)
+    assert out[at + 4:at + 9] == b"Adobe"
+    out[at + 4 + 11] = 2
+    return bytes(out)
+
+
+def without_adobe(jpeg: bytes) -> bytes:
+    """The file with its Adobe APP14 segment taken out."""
+    at = jpeg.index(b"\xff\xee")
+    n = (jpeg[at + 2] << 8) | jpeg[at + 3]
+    return jpeg[:at] + jpeg[at + 2 + n:]
+
+
+def pil_save(img, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, fmt, **kw)
+    return buf.getvalue()

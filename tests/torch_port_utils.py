@@ -6,8 +6,11 @@ BNs at identity, which would hide those paths), and the same numbers are
 loaded into the port through ``state_dict_from_jax``.
 """
 
+import shutil
+
 import jax
 import numpy as np
+import pytest
 import torch
 
 from ifseg_torch.checkpoint.convert import state_dict_from_jax
@@ -100,3 +103,17 @@ def train_batch(seed: int, batch: int = 2, src_len: int = 10, size: int = 64, nu
         "aux_grid_ids": rng.integers(0, num_seg, size=(batch, hw16)).astype(np.int32),
         "aux_target": aux_target,
     }
+
+
+@pytest.fixture
+def passed_tmp(request, tmp_path):
+    """A directory under the test's ``tmp_path`` for the checkpoints a test
+    writes, removed at teardown once the test has passed, so that the base
+    temps pytest keeps do not fill the disk; a failed test keeps its files.
+    Import it into a test module to use it."""
+    path = tmp_path / "run"
+    path.mkdir()
+    failed = request.session.testsfailed
+    yield path
+    if request.session.testsfailed == failed:
+        shutil.rmtree(path, ignore_errors=True)

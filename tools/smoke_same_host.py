@@ -45,7 +45,7 @@ def groups(lines: List[Line]) -> Dict[str, float]:
               ("10 SegOFA-Huge", first(lines, starts("[10] SegOFA-Huge"))),
               ("11 validate", first(lines, starts("fabricated an ofa_base"))),
               ("12 train CLI", after_last(lines, "[11]")),
-              ("13-14 serving surface, JPEG files", first(lines, starts("[14a] "))),
+              ("13-14 serving surface, image files", first(lines, starts("[14a] "))),
               ("15 training stack", first(lines, starts("[15a]"))),
               ("16a-b options", first(lines, starts("[16a]"))),
               ("17c two-process CLIs", after_last(lines, "[16b]")),
