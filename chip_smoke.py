@@ -405,16 +405,16 @@ def phase_card() -> str:
 # ---------------------------------------------------------------- phase 2
 
 def phase_build():
-    from ifseg_torch.data import bmp, gif, jpeg, png, tiff
+    from ifseg_torch.data import bmp, gif, jpeg, png, tiff, webp
     from ifseg_torch.ops import balanced_assignment, build, crf
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
 
     # the CUDA sources and the host C++ sources of the PNG decoder, the JPEG
-    # codec, the GIF, BMP and TIFF decoders, the dense CRF and the experts'
-    # auction, all at once
+    # codec, the GIF, BMP, TIFF and WebP (VP8, VP8L) decoders, the dense CRF
+    # and the experts' auction, all at once
     host_sources = (png.SOURCE, jpeg.DECODER, jpeg.ENCODER, gif.SOURCE, bmp.SOURCE, tiff.SOURCE,
-                    crf.SOURCE, balanced_assignment.SOURCE)
+                    *webp.SOURCES, crf.SOURCE, balanced_assignment.SOURCE)
     t0 = time.perf_counter()
     results = build.build([*fa.KERNELS, ln.KERNEL, *host_sources])
     log(f"[2] built {sorted(results)} in {time.perf_counter() - t0:.1f} s")
@@ -3444,14 +3444,18 @@ IMAGE_FILES = REPO / "tests" / "torch_image_files"
 # (e)'s files at the largest size of phase 14's originals
 FULL_SIZE = (1024, 1366)
 # (e)'s full-size files that phase 14c sends to the daemon, one of each other format
+# (WebP lossy and lossless)
 DAEMON_FORMAT_FILES = ("gif_1024x1366.gif", "bmp_rle8_1024x1366.bmp", "tiff_lzw_1024x1366.tif",
-                       "jpeg_cmyk_1024x1366.jpg")
-# (e)'s file that 14d gives cli.infer
-INFER_FORMAT_FILE = "jpeg_cmyk_256x192.jpg"
-# 14c sends this many of phase 14's JPEG files beside the four files above, each
+                       "jpeg_cmyk_1024x1366.jpg", "webp_lossy_1024x1366.webp",
+                       "webp_lossless_1024x1366.webp")
+# 14c sends this many of phase 14's JPEG files beside the files above, each
 # with its PNG twin: a run stays at DAEMON_REQUESTS requests
 DAEMON_JPEG_FILES = DAEMON_REQUESTS // 2 - len(DAEMON_FORMAT_FILES)
-INFER_FORMAT_OUTPUTS = (".bmp", ".tif")
+# (e)'s files that 14d gives cli.infer, each with the writer of its overlay: a
+# CMYK JPEG to a BMP, a lossy WebP with a lossless alpha plane to a TIFF
+INFER_FORMAT_RUNS = (("jpeg_cmyk_256x192.jpg", ".bmp"), ("webp_alpha_lossless.webp", ".tif"))
+# (e)'s WebP files at FULL_SIZE, timed beside the resize and 14a's JPEG
+WEBP_FULL_SIZE = ("webp_lossy_1024x1366.webp", "webp_lossless_1024x1366.webp")
 
 
 def cmyk_to_rgb_plain(cmyk: np.ndarray) -> np.ndarray:
@@ -3516,10 +3520,11 @@ def phase_image_files(card: str, jpeg_sizes):
     (digests.json, written by tools/make_image_fixtures.py and recomputed
     with PIL by tests/test_torch_image_files.py); then ``full_size_files``,
     each held to the pixels, mode, palette and RGB it was written from; host
-    ms a file (median of 5, of 3 at full size; one thread) by format and
-    size, the full-size ones beside 14a's RGB JPEG decode at that size
-    (``jpeg_sizes``) and the PIL-bilinear resize of such a file to OFA-Base's
-    512 x 512.  Returns the timings and {name: bytes} of every file."""
+    ms a file (median of 3; one thread) by format and size, the full-size
+    ones (and the WebP fixtures of that size) beside 14a's RGB JPEG decode at
+    that size (``jpeg_sizes``) and the PIL-bilinear resize of such a file to
+    OFA-Base's 512 x 512.  Returns the timings and {name: bytes} of every
+    file."""
     from ifseg_torch.data import image
     from ifseg_torch.data.image import image_digest
     from ifseg_torch.data.transforms import pil_resize
@@ -3541,8 +3546,8 @@ def phase_image_files(card: str, jpeg_sizes):
         files[name] = data
         rows.append(dict(file=name, format=image.image_format(data), mode=mode,
                          size=f"{pixels.shape[0]}x{pixels.shape[1]}", bytes=len(data),
-                         decode_ms=host_ms(lambda: image.decode_image(data), reps=5),
-                         rgb_ms=host_ms(lambda: image.decode_image_rgb(data), reps=5)))
+                         decode_ms=host_ms(lambda: image.decode_image(data)),
+                         rgb_ms=host_ms(lambda: image.decode_image_rgb(data))))
     t0 = time.perf_counter()
     full = full_size_files()
     write_s = time.perf_counter() - t0
@@ -3585,8 +3590,13 @@ def phase_image_files(card: str, jpeg_sizes):
         f"512 x 512 {resize_ms:.3f} ms; {len(rows)} files in "
         f"{sum(r['bytes'] for r in rows)} bytes; codecs loaded in {build_s:.2f} s; the "
         f"full-size files written in {write_s:.2f} s")
+    webp_ms = {r["file"]: r["rgb_ms"] for r in rows if r["file"] in WEBP_FULL_SIZE}
+    log(f"[14e] WebP at {h} x {w} to RGB (median of 3, one thread): "
+        + ", ".join(f"{n} ({len(files[n])} bytes) {ms:.3f} ms" for n, ms in webp_ms.items())
+        + f", beside an RGB JPEG's decode {jpeg_ms:.3f} ms (14a) and the PIL-bilinear resize "
+        f"to 512 x 512 {resize_ms:.3f} ms; host of {card}")
     return dict(files=rows, build_s=build_s, write_s=write_s, resize_ms=resize_ms,
-                jpeg_decode_ms=jpeg_ms), files
+                jpeg_decode_ms=jpeg_ms, webp_full_size_ms=webp_ms), files
 
 
 def phase_convert_validate(card: str, tmp: str, ckpt: str, files):
@@ -3678,9 +3688,10 @@ def phase_convert_validate(card: str, tmp: str, ckpt: str, files):
 
 
 def phase_daemon_jpeg(card: str, svc, files, image_files):
-    """(c): the daemon of phase 13 answers JPEG, GIF, BMP and TIFF bodies:
-    each run sends (e)'s DAEMON_FORMAT_FILES (a GIF, an RLE8 BMP, an LZW
-    TIFF and a CMYK JPEG file of FULL_SIZE) and DAEMON_JPEG_FILES of phase
+    """(c): the daemon of phase 13 answers JPEG, GIF, BMP, TIFF and WebP
+    bodies: each run sends (e)'s DAEMON_FORMAT_FILES (a GIF, an RLE8 BMP, an
+    LZW TIFF, a CMYK JPEG, a lossy and a lossless WebP file of FULL_SIZE)
+    and DAEMON_JPEG_FILES of phase
     14's JPEG files, each beside a PNG file of the RGB pixels the port
     decodes from it (every other pair asks for JSON), from 1 and from
     DAEMON_CLIENTS clients; a body's net input equals its
@@ -3743,8 +3754,8 @@ def phase_daemon_jpeg(card: str, svc, files, image_files):
     k1_per = sum(n for *_, n in SITES)
     ln_per = ln_launches_per_forward(svc.server.model, position_lns=False)
     if counts["infer"] != k1_per * n_batches or ln_launches != ln_per * n_batches:
-        fail("the daemon's batches of JPEG, GIF, BMP, TIFF and PNG bodies did not launch K1 "
-             "and K4 at every site")
+        fail("the daemon's batches of JPEG, GIF, BMP, TIFF, WebP and PNG bodies did not launch "
+             "K1 and K4 at every site")
     grid_of = batch_rows(svc, batches)
     same = formats_equal = 0
     for clients, run in runs.items():
@@ -3768,7 +3779,7 @@ def phase_daemon_jpeg(card: str, svc, files, image_files):
     for clients, run in runs.items():
         del run["answers"]
         log(f"[14c] {clients} client(s), {DAEMON_REQUESTS} requests, {len(files)} JPEG and "
-            f"{len(DAEMON_FORMAT_FILES)} GIF / RLE8 BMP / LZW TIFF / CMYK JPEG files of "
+            f"{len(DAEMON_FORMAT_FILES)} GIF / RLE8 BMP / LZW TIFF / CMYK JPEG / WebP files of "
             f"{FULL_SIZE[0]} x {FULL_SIZE[1]} beside PNG twins: "
             f"{run['requests_per_s']:.2f} requests/s, latency p50 {run['p50_ms']:.1f} ms, p99 "
             f"{run['p99_ms']:.1f} ms, {run['batches']} batches, mean batch size "
@@ -3778,8 +3789,8 @@ def phase_daemon_jpeg(card: str, svc, files, image_files):
         f"twin's {hm['png_decode_ms']:.2f}, PIL bilinear resize {hm['resize_ms']:.2f}, a JPEG "
         f"request's preprocess {hm['jpeg_preprocess_ms']:.2f}; K1 {counts['infer']} and K4 "
         f"{ln_launches} launches over {n_batches} batches ({k1_per} and {ln_per} a batch); "
-        f"{same} answers equal their PNG twins' ({formats_equal} of them GIF, BMP, TIFF and "
-        f"CMYK JPEG); beside {card}")
+        f"{same} answers equal their PNG twins' ({formats_equal} of them GIF, BMP, TIFF, "
+        f"CMYK JPEG and WebP); beside {card}")
     result["runs"] = {str(c): r for c, r in runs.items()}
     return result
 
@@ -3837,12 +3848,13 @@ def phase_infer_jpeg(card: str, tmp: str, ckpt: str):
 
 
 def phase_infer_formats(card: str, tmp: str, ckpt: str):
-    """(d), other writers: ``cli.infer`` on (e)'s CMYK JPEG file (cat, dog;
-    no CRF) with ``--output=*.bmp`` and ``--output=*.tif``, launch counts set
-    to 0 before each run and read after; each overlay's bytes against the
-    port's writer (``encode_bmp``, ``encode_tiff``, the bytes PIL's ``save``
-    writes) of the overlay made again from the mask it wrote and the image
-    decoded to RGB."""
+    """(d), other readers and writers: ``cli.infer`` (cat, dog; no CRF) on
+    (e)'s CMYK JPEG file with ``--output=*.bmp`` and on its lossy WebP file
+    with a lossless alpha plane with ``--output=*.tif``
+    (INFER_FORMAT_RUNS), launch counts set to 0 before each run and read
+    after; each overlay's bytes against the port's writer (``encode_bmp``,
+    ``encode_tiff``, the bytes PIL's ``save`` writes) of the overlay made
+    again from the mask it wrote and the image decoded to RGB."""
     from ifseg_torch.cli import infer as cli_infer
     from ifseg_torch.data.image import decode_image_rgb
     from ifseg_torch.data.png import decode_png_rgb
@@ -3853,11 +3865,11 @@ def phase_infer_formats(card: str, tmp: str, ckpt: str):
     with torch.device("meta"):
         ln_per = ln_launches_per_forward(SegOFA(base_config("bfloat16")), position_lns=True)
     k1_per = sum(n for *_, n in SITES)
-    image = IMAGE_FILES / INFER_FORMAT_FILE
-    rgb = decode_image_rgb(image.read_bytes())
     runs = {}
-    for ext in INFER_FORMAT_OUTPUTS:
-        out = f"{tmp}/cmyk_overlay{ext}"
+    for name, ext in INFER_FORMAT_RUNS:
+        image = IMAGE_FILES / name
+        rgb = decode_image_rgb(image.read_bytes())
+        out = f"{tmp}/{image.stem}_overlay{ext}"
         fa.reset_launches()
         ln.reset_launches()
         t0 = time.perf_counter()
@@ -3875,9 +3887,9 @@ def phase_infer_formats(card: str, tmp: str, ckpt: str):
         overlay = (0.5 * colours + (1 - 0.5) * rgb).astype(np.uint8)  # the CLI's --alpha=0.5
         if written != cli_infer.WRITERS[ext](overlay) or decode_image_rgb(written).shape != rgb.shape:
             fail(f"cli.infer's {ext} overlay is not the port's writer of its overlay")
-        runs[ext] = dict(ms=got["ms"], wall_s=wall, launches=counts["infer"],
+        runs[ext] = dict(image=name, ms=got["ms"], wall_s=wall, launches=counts["infer"],
                          ln_launches=ln_launches, overlay_bytes=len(written))
-        log(f"[14d] cli.infer {INFER_FORMAT_FILE} ({rgb.shape[0]} x {rgb.shape[1]}, CMYK) -> "
+        log(f"[14d] cli.infer {name} ({rgb.shape[0]} x {rgb.shape[1]}) -> "
             f"{ext}, {CAT_DOG_CATEGORIES!r}, no CRF: "
             + ", ".join(f"{k} {v:.1f}" for k, v in got["ms"].items())
             + f" ms; {wall:.1f} s with the checkpoint's load; the overlay ({len(written)} bytes) "

@@ -1,6 +1,6 @@
 """Image files by their signature, decoded as PIL 12.1 decodes them: PNG
 (``data/png.py``), JPEG (``data/jpeg.py``), GIF (``data/gif.py``), BMP
-(``data/bmp.py``) and TIFF (``data/tiff.py``).
+(``data/bmp.py``), TIFF (``data/tiff.py``) and WebP (``data/webp.py``).
 
 ``decode_image(data)`` returns ``(pixels, mode, palette)``: the pixels as
 ``np.asarray(PIL.Image.open(BytesIO(data)))`` gives them, PIL's mode name
@@ -8,8 +8,8 @@
 for a palette image, its palette ((n, 3) uint8 RGB, or (n, 4) with the
 alpha of a PNG's tRNS chunk or a GIF's transparency index).
 ``decode_image_rgb(data)`` returns
-``np.asarray(PIL.Image.open(BytesIO(data)).convert("RGB"))``.  WebP, ICO,
-PSD, JBIG2 and JPEG 2000 files, and anything else, raise ``ValueError``
+``np.asarray(PIL.Image.open(BytesIO(data)).convert("RGB"))``.  ICO, PSD,
+JBIG2, JPEG 2000 and BigTIFF files, and anything else, raise ``ValueError``
 naming the format.  ``image_digest`` is the SHA-256 that
 ``tests/torch_image_files/digests.json`` holds of PIL's arrays.
 """
@@ -18,18 +18,18 @@ import hashlib
 
 import numpy as np
 
-from ifseg_torch.data import bmp, gif, jpeg, png, tiff
+from ifseg_torch.data import bmp, gif, jpeg, png, tiff, webp
 
 # the leading bytes of the formats PIL reads that the port does not
 _OTHER_FORMATS = ((b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"), (b"\x97JB2", "JBIG2"),
                   (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"),
                   (b"II+\x00", "BigTIFF"), (b"MM\x00+", "BigTIFF"))
-_READ = ("PNG", "JPEG", "GIF", "BMP", "TIFF")
+_READ = ("PNG", "JPEG", "GIF", "BMP", "TIFF", "WebP")
 
 
 def image_format(data: bytes) -> str:
-    """"PNG", "JPEG", "GIF", "BMP" or "TIFF" from the file's signature;
-    ValueError for anything else."""
+    """"PNG", "JPEG", "GIF", "BMP", "TIFF" or "WebP" from the file's
+    signature; ValueError for anything else."""
     if data[:8] == png.SIGNATURE:
         return "PNG"
     if data[:3] == jpeg.SIGNATURE:
@@ -40,10 +40,9 @@ def image_format(data: bytes) -> str:
         return "BMP"
     if data[:4] in tiff.SIGNATURES:
         return "TIFF"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        name = "WebP"
-    else:
-        name = next((n for sig, n in _OTHER_FORMATS if data.startswith(sig)), None)
+    if webp.is_webp(data):
+        return "WebP"
+    name = next((n for sig, n in _OTHER_FORMATS if data.startswith(sig)), None)
     if name:
         raise ValueError(f"{name} files are not supported ({', '.join(_READ[:-1])} and "
                          f"{_READ[-1]} only)")
@@ -62,6 +61,8 @@ def decode_image(data: bytes):
         return bmp.decode_bmp_image(data)
     if fmt == "TIFF":
         return tiff.decode_tiff_image(data)
+    if fmt == "WebP":
+        return webp.decode_webp_image(data)
     pixels = jpeg.decode_jpeg(data)
     return pixels, {1: "L", 3: "RGB", 4: "CMYK"}[pixels.shape[2] if pixels.ndim == 3 else 1], None
 
@@ -74,6 +75,8 @@ def decode_image_rgb(data: bytes) -> np.ndarray:
         return png.decode_png_rgb(data)
     if fmt == "GIF":
         return gif.decode_gif_rgb(data)
+    if fmt == "WebP":
+        return webp.decode_webp_rgb(data)
     pixels, mode, palette = decode_image(data)
     return png.to_rgb(pixels, palette, mode)
 
@@ -81,7 +84,7 @@ def decode_image_rgb(data: bytes) -> np.ndarray:
 def load():
     """Build (if need be) and load every host codec now, not at its first
     file: the parent of a worker pool calls it so that the workers only load."""
-    for codec in (png, jpeg, gif, bmp, tiff):
+    for codec in (png, jpeg, gif, bmp, tiff, webp):
         codec.load()
 
 

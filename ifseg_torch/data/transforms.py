@@ -3,7 +3,8 @@
 The JAX package's ``data/transforms.py`` resizes with ``cv2.resize`` and
 converts colours with ``cv2.cvtColor`` (mmcv's image ops are cv2-backed).
 The port depends on no image library, so this module reproduces what cv2
-computes for uint8 images, bit for bit.
+computes for uint8 images, and for the uint16 images of 16-bit grey rows,
+bit for bit.
 
 ``resize_image`` with ``INTER_LINEAR`` semantics:
 
@@ -18,13 +19,30 @@ computes for uint8 images, bit for bit.
     clamped but whose weights are not, in the arithmetic of cv2's vector code,
     ``(((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16) + 2) >> 2``.
 
+``resize_image`` of a uint16 image is not fixed point but float32, in one
+of two ways (a big-endian ``>u2`` image is read as cv2 reads it, its bytes
+taken in the native order, so each value comes back byte-swapped):
+
+  - from a source of at least 2 x 2 pixels cv2 calls IPP's linear resize:
+    source coordinates ``(x + 0.5) * scale - 0.5`` in float64, split at
+    their floor, the fraction clamped to 0 at either edge and then made
+    float32 (a fraction that rounds up to 1 moves to the next index with
+    fraction 0); each pass is one fused multiply-add ``fma(b - a, f, a)``
+    in float32, the horizontal pass over the integer samples and the
+    vertical one over its float32 results; rounded half to even;
+  - from a source one pixel wide or high, cv2's own float path: the uint8
+    rule's float32 coordinates and edges, weights ``1 - f`` and ``f`` in
+    float32 and each pass ``a * (1 - f) + b * f`` in float32, rounded half
+    to even.
+
 ``resize_image(..., nearest=True)``, ``INTER_NEAREST``: output x reads source
 ``min(floor(x * (1 / (out / in))), in - 1)`` in float64, for labels of any
 integer dtype (``ops/resize.py``'s nearest rule, which the artificial grids
 use, is another one).
 
 ``bgr_to_hsv_u8`` and ``hsv_to_bgr_u8``, ``COLOR_BGR2HSV`` and
-``COLOR_HSV2BGR`` on 8-bit images (hue 0..179):
+``COLOR_HSV2BGR`` on 8-bit images (hue 0..179; cv2 refuses a uint16 image
+there, and so does ``bgr_to_hsv_u8``, with ``ValueError``):
 
   - to HSV in integers: ``v = max``, ``diff = max - min``,
     ``s = (diff * sdiv[v] + 2^11) >> 12``, hue from the sector of the maximum
@@ -145,16 +163,73 @@ def _nearest_source(n_in: int, n_out: int) -> np.ndarray:
                       n_in - 1)
 
 
+def _ipp_axis(n_in: int, n_out: int):
+    """IPP's source index and float32 fraction for each output position
+    along one axis (see the module docstring)."""
+    c = (np.arange(n_out, dtype=np.float64) + 0.5) * (1.0 / (float(n_out) / n_in)) - 0.5
+    s = np.floor(c).astype(np.int64)
+    f = c - s
+    f[s < 0] = 0.0
+    s[s < 0] = 0
+    f[s >= n_in - 1] = 0.0
+    s = np.minimum(s, n_in - 1)
+    f = f.astype(np.float32)
+    up = f == np.float32(1)
+    s[up] += 1
+    f[up] = 0
+    return s, np.minimum(s + 1, n_in - 1), f
+
+
+def _lerp_fma(a: np.ndarray, b: np.ndarray, f: np.ndarray) -> np.ndarray:
+    """float32 ``fma(b - a, f, a)``: ``b - a`` rounded to float32, the product
+    and sum in 80-bit long double (which hold them whole), rounded once."""
+    d = (b - a).astype(np.longdouble)
+    d *= f
+    d += a
+    return d.astype(np.float32)
+
+
+def _bilinear_u16(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    x = img.astype(np.float32).reshape(h, w, -1)
+    if h > 1 and w > 1:  # IPP's linear resize
+        x0, x1, fx = _ipp_axis(w, out_w)
+        y0, y1, fy = _ipp_axis(h, out_h)
+        hor = _lerp_fma(x[:, x0], x[:, x1], fx[None, :, None])
+        out = _lerp_fma(hor[y0], hor[y1], fy[:, None, None])
+    else:  # cv2's float path
+        sx, fx = _coords(w, out_w)
+        fx[sx < 0] = 0
+        sx[sx < 0] = 0
+        edge = sx >= w - 1
+        fx[edge] = 0
+        sx[edge] = w - 1
+        left, right = x[:, sx], x[:, np.minimum(sx + 1, w - 1)]
+        hor = left * (np.float32(1) - fx)[None, :, None] + right * fx[None, :, None]
+        hor[:, edge] = left[:, edge]
+        sy, fy = _coords(h, out_h)
+        top, low = hor[np.clip(sy, 0, h - 1)], hor[np.clip(sy + 1, 0, h - 1)]
+        out = top * (np.float32(1) - fy)[:, None, None] + low * fy[:, None, None]
+    out = np.clip(np.rint(out), 0, 65535).astype(np.uint16)
+    return out.reshape((out_h, out_w) + img.shape[2:])
+
+
 def resize_image(img: np.ndarray, out_hw: Tuple[int, int], nearest: bool = False) -> np.ndarray:
     """``cv2.resize(img, (out_w, out_h), interpolation=...)`` for an image
-    (h, w) or (h, w, c): ``INTER_LINEAR`` for uint8, or ``INTER_NEAREST``
-    (``nearest``) for any dtype."""
+    (h, w) or (h, w, c): ``INTER_LINEAR`` for uint8 or uint16 (a big-endian
+    one's bytes read as native, as cv2 reads them), or ``INTER_NEAREST`` (``nearest``) for any
+    dtype."""
     h, w = img.shape[:2]
     out_h, out_w = out_hw
     if nearest:
         return img[_nearest_source(h, out_h)[:, None], _nearest_source(w, out_w)[None, :]]
+    if img.dtype == np.uint16 or img.dtype == np.dtype(">u2"):
+        img = img.view(np.uint16).copy()  # cv2 takes a big-endian array's bytes as native
+        if (h, w) == (out_h, out_w):
+            return img
+        return _bilinear_u16(img, out_h, out_w)
     if img.dtype != np.uint8:
-        raise TypeError(f"resize_image takes uint8 images, not {img.dtype}")
+        raise TypeError(f"resize_image takes uint8 or uint16 images, not {img.dtype}")
     if (h, w) == (out_h, out_w):
         return img.copy()
     if (h, w) == (2 * out_h, 2 * out_w):
@@ -331,7 +406,10 @@ _SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 
 
 
 def bgr_to_hsv_u8(img: np.ndarray) -> np.ndarray:
-    """``cv2.cvtColor(img, cv2.COLOR_BGR2HSV)`` of a uint8 (..., 3) image."""
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2HSV)`` of a uint8 (..., 3) image;
+    ValueError for any other dtype, which cv2 refuses too."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"BGR to HSV takes uint8 images, not {img.dtype} (cv2 refuses it too)")
     bgr = img.astype(np.int32)
     b, g, r = bgr[..., 0], bgr[..., 1], bgr[..., 2]
     v = bgr.max(axis=-1)
@@ -373,7 +451,11 @@ def hsv_to_bgr_u8(hsv: np.ndarray) -> np.ndarray:
 
 class PhotoMetricDistortion:
     """mmseg PhotoMetricDistortion on BGR uint8: random brightness, random
-    contrast (before or after), saturation and hue jitter in HSV."""
+    contrast (before or after), saturation and hue jitter in HSV.  A uint16
+    image (a 16-bit grey row) becomes clipped uint8 at its first brightness
+    or contrast draw, comes back uint16 with no draw, and raises ValueError
+    at a saturation or hue draw that finds it still uint16, as the JAX
+    package's cv2 ``cvtColor`` raises."""
 
     def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
                  saturation_range=(0.5, 1.5), hue_delta=18):

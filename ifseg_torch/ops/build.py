@@ -7,7 +7,8 @@ has a plain C interface and compiles on its own into
 is taken over the source, the shared headers it may include (``csrc/*.cuh``
 for a CUDA source, ``csrc/*.h`` for a host one) and the flags, so an edited
 source or header is never served from a stale library.  The build happens
-at first use (or when ``build`` is called up front); ``build`` starts one
+at first use (or when ``build`` is called up front); this module is the
+only one of the package that loads a shared library.  ``build`` starts one
 compiler per source, all at once, and each writes a file of its own that
 ``os.replace`` puts in place, so processes that build at the same time
 never see a torn library.
@@ -125,3 +126,13 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(str(build([name])[name].path))
         return _LIBS[name]
+
+
+def load_built(path: Path) -> ctypes.CDLL:
+    """A library that ``build`` made in the ``_build`` directory of this or
+    another checkout (the timing tools compare checkouts); nothing else is
+    loaded: the package reads no system or bundled codec library."""
+    path = Path(path)
+    if path.parent.name != BUILD_DIR.name or not path.name.startswith("lib") or path.suffix != ".so":
+        raise ValueError(f"{path} is not a library of a checkout's {BUILD_DIR.name}/")
+    return ctypes.CDLL(str(path))

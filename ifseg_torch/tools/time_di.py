@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from ifseg_torch.ops import build
+
 PEAK_BYTES_PER_S = 3.35e12
 # (site, batch, Lq, heads, head dim)
 SITES = [
@@ -58,7 +60,7 @@ def queued_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 
 
 def entry(library: Path, with_head_dim: bool):
-    fn = ctypes.CDLL(str(library)).flash_attention_bwd_di
+    fn = build.load_built(library).flash_attention_bwd_di
     fn.argtypes = [_P] * 3 + [_I] * (4 if with_head_dim else 3) + [_P]
     fn.restype = ctypes.c_int
     return fn
@@ -86,7 +88,6 @@ def call(fn, with_head_dim, g, o, di, b, h, d, lq):
 
 
 def main():
-    from ifseg_torch.ops import build
     from ifseg_torch.ops import flash_attention as fa
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])

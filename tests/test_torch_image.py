@@ -6,8 +6,8 @@ modes against PIL, exactly:
     every mode PIL writes and for gray and RGB JPEG files;
   - ``decode_image_rgb`` gives ``np.asarray(Image.open(...).convert("RGB"))``
     for the same files, 16-bit and interlaced PNG files included;
-  - GIF, BMP and TIFF files decode as PIL decodes them, and WebP, which the
-    port does not read yet, raises ``ValueError`` naming the format;
+  - GIF, BMP, TIFF and WebP files decode as PIL decodes them, and a file of
+    no image format raises ``ValueError`` naming the formats read;
   - ``encode_png`` writes each mode ("1", "L", "P" with PLTE and tRNS, "I;16",
     "LA", "RGB", "RGBA") so that PIL reads back the same mode, pixels and
     palette.
@@ -118,21 +118,15 @@ OTHER_FORMATS = ["GIF", "BMP", "TIFF"] + (["WEBP"] if features.check("webp") els
 
 @pytest.mark.parametrize("fmt", OTHER_FORMATS)
 def test_other_formats_raise_naming_them(fmt):
-    """GIF, BMP and TIFF files decode as PIL decodes them (mode, pixels and
-    RGB; every variant in ``tests/test_torch_image_files.py``); WebP, which
-    the port does not read yet, raises naming it, and so does a file of no
-    image format."""
+    """GIF, BMP, TIFF and WebP files decode as PIL decodes them (mode,
+    pixels and RGB; every variant in ``tests/test_torch_image_files.py`` and
+    ``tests/test_torch_webp.py``); a file of no image format raises naming
+    the formats read."""
     data = _save(Image.fromarray(np.arange(48, dtype=np.uint8).reshape(4, 4, 3)), fmt)
-    if fmt == "WEBP":
-        with pytest.raises(ValueError, match="WebP files are not supported"):
-            decode_image(data)
-        with pytest.raises(ValueError, match="WebP"):
-            decode_image_rgb(data)
-    else:
-        pil = Image.open(io.BytesIO(data))
-        pixels, mode, _ = decode_image(data)
-        assert mode == pil.mode
-        np.testing.assert_array_equal(pixels, np.asarray(pil))
-        np.testing.assert_array_equal(decode_image_rgb(data), np.asarray(pil.convert("RGB")))
-    with pytest.raises(ValueError, match="not a PNG, JPEG, GIF, BMP or TIFF file"):
+    pil = Image.open(io.BytesIO(data))
+    pixels, mode, _ = decode_image(data)
+    assert mode == pil.mode
+    np.testing.assert_array_equal(pixels, np.asarray(pil))
+    np.testing.assert_array_equal(decode_image_rgb(data), np.asarray(pil.convert("RGB")))
+    with pytest.raises(ValueError, match="not a PNG, JPEG, GIF, BMP, TIFF or WebP file"):
         decode_image(b"plain text, no image")

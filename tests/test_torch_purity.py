@@ -234,3 +234,42 @@ def test_importing_the_jpeg_codec_starts_no_compiler():
     assert [c[-1].rsplit("/", 1)[-1] for c in report["calls"]] == ["jpeg_encode.cpp",
                                                                  "jpeg_decode.cpp"], report
     assert sum(n.endswith(".so") for n in report["built"]) == 2, report
+
+
+def _loads_a_library(node) -> bool:
+    """A call of ``ctypes.CDLL``/``PyDLL``/``WinDLL``, ``ctypes.cdll.*``,
+    ``cdll.LoadLibrary`` or ``ctypes.util.find_library``."""
+    if not isinstance(node, ast.Call):
+        return False
+    func = node.func
+    names = []
+    while isinstance(func, ast.Attribute):
+        names.append(func.attr)
+        func = func.value
+    if isinstance(func, ast.Name):
+        names.append(func.id)
+    return bool({"CDLL", "PyDLL", "WinDLL", "cdll", "pydll", "LoadLibrary",
+                 "find_library"} & set(names))
+
+
+@pytest.mark.parametrize("path", sorted((REPO / "ifseg_torch").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_library_is_loaded_outside_the_build_module(path):
+    """The port loads no system or wheel-bundled library (PIL's wheel ships
+    libwebp, libjpeg ...): only ``ops/build.py`` calls ``ctypes.CDLL``, on
+    what it built into a checkout's ``_build/``."""
+    calls = [node.lineno for node in ast.walk(ast.parse(path.read_text(), filename=str(path)))
+             if _loads_a_library(node)]
+    if path.relative_to(REPO).as_posix() == "ifseg_torch/ops/build.py":
+        assert len(calls) == 2, calls  # load() and load_built()
+    else:
+        assert not calls, f"{path.name} loads a library at lines {calls}"
+
+
+def test_load_built_takes_only_built_libraries(tmp_path):
+    from ifseg_torch.ops import build
+
+    for bad in ("/usr/lib/x86_64-linux-gnu/libwebp.so", tmp_path / "libx.so",
+                tmp_path / "_build" / "x.so"):
+        with pytest.raises(ValueError, match="_build"):
+            build.load_built(bad)

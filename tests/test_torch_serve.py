@@ -16,6 +16,10 @@ package's, and the ``cli.serve`` daemon end to end over HTTP.
     input's size as PIL's nearest resize does, for a JPEG body as for a PNG
     one; JSON areas sum to grid²; concurrent requests are batched; a GIF or
     broken body gets 400, a failing worker 500.
+  - WebP bodies (lossy, lossless with alpha, an animation): the network
+    input equals the JAX daemon's ``_preprocess`` and the answer equals the
+    PNG twin's (PIL's ``convert("RGB")`` of the body); a cut or damaged
+    WebP body gets 400, as the JAX daemon's PIL refuses it.
 """
 
 import io
@@ -267,6 +271,49 @@ def test_bad_bodies_get_400(daemon, monkeypatch):
     Image.fromarray(np.zeros((30, 40, 3), np.uint8)).save(black, format="PNG")
     assert status == 200 and out == _post(base + "/segment", black.getvalue())[2]
     assert _post(base + "/nowhere", b"")[0] == 404
+
+
+def _webps(seed=5):
+    rng = np.random.default_rng(seed)
+    rgba = np.repeat(np.repeat(rng.integers(0, 256, (11, 14, 4), dtype=np.uint8), 3, 0), 3, 1)
+    rgba = rgba[:31, :41]
+    out = {}
+    for name, img, kw in (("lossy", Image.fromarray(rgba[:, :, :3]), dict(quality=70)),
+                          ("lossless-rgba", Image.fromarray(rgba, "RGBA"), dict(lossless=True)),
+                          ("animated", Image.fromarray(rgba[:, :, :3]),
+                           dict(save_all=True, append_images=[Image.fromarray(rgba[::-1, :, :3])]))):
+        buf = io.BytesIO()
+        img.save(buf, format="WEBP", **kw)
+        out[name] = buf.getvalue()
+    return out
+
+
+@pytest.mark.parametrize("kind", ["lossy", "lossless-rgba", "animated"])
+def test_webp_bodies_answer_as_their_png_twins(daemon, kind):
+    base, svc = daemon
+    data = _webps()[kind]
+    got, orig = svc._preprocess(data)
+    want, want_orig = jserve.SegService._preprocess(types.SimpleNamespace(size=SIZE), data)
+    assert orig == want_orig == (31, 41)
+    np.testing.assert_array_equal(got, want)
+    twin = io.BytesIO()
+    Image.open(io.BytesIO(data)).convert("RGB").save(twin, format="PNG")
+    status, ctype, out = _post(base + "/segment", data)
+    assert status == 200 and ctype == "image/png"
+    assert out == _post(base + "/segment", twin.getvalue())[2]
+    status, _, out = _post(base + "/segment?format=json", data)
+    assert status == 200 and out == _post(base + "/segment?format=json", twin.getvalue())[2]
+
+
+def test_broken_webp_bodies_get_400(daemon):
+    base, _ = daemon
+    data = _webps()["lossy"]
+    broken = data[:12] + b"VP8Y" + data[16:]
+    for body in (data[:len(data) // 2], data[:-3], broken):
+        with pytest.raises(Exception):
+            jserve.SegService._preprocess(types.SimpleNamespace(size=SIZE), body)
+        status, _, out = _post(base + "/segment", body)
+        assert status == 400, out
 
 
 def test_a_failing_worker_gets_500_and_the_worker_survives(daemon, monkeypatch):

@@ -96,6 +96,39 @@ def test_validate_matches_jax_on_unpadded_rows(tmp_path, bpe_dir, checkpoint, mo
     assert got["loss"] == got["nll_loss"]
 
 
+def test_validate_matches_jax_on_webp_rows(tmp_path, bpe_dir, checkpoint, monkeypatch):
+    """The same unpadded rows with their images as lossy and lossless (RGBA)
+    WebP files, which the JAX CLI reads through PIL: equal areas."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    monkeypatch.setenv("IFSEG_JIT_CACHE", "")
+    png_tsv = make_seg_tsv(str(tmp_path / "png.tsv"), rows=3, num_seg=3, size=(256, 256), seed=6)
+    rows = []
+    for i, line in enumerate(open(png_tsv)):
+        img_b64, seg_b64, uid = line.rstrip("\n").split("\t")
+        rgb = np.asarray(Image.open(io.BytesIO(base64.urlsafe_b64decode(img_b64))))
+        buf = io.BytesIO()
+        if i % 2:
+            Image.fromarray(np.dstack([rgb, rgb[:, :, 0]]), "RGBA").save(buf, "WEBP", lossless=True)
+        else:
+            Image.fromarray(rgb).save(buf, "WEBP", quality=80)
+        rows.append(f"{base64.urlsafe_b64encode(buf.getvalue()).decode()}\t{seg_b64}\t{uid}\n")
+    tsv = tmp_path / "webp.tsv"
+    tsv.write_text("".join(rows))
+    argv = _argv(str(tsv), checkpoint, bpe_dir, 256)
+    got = tval.main(torch_flags(argv), device="cpu")
+    got_m = _meters(tmetrics)
+    want = jval.main(jax_flags(argv))
+    want_m = _meters(jmetrics)
+    assert got["num_images"] == want["num_images"] == 3
+    for k in AREAS + POST:
+        assert np.array_equal(got_m[k], want_m[k]), k
+    np.testing.assert_allclose(got_m["loss"], want_m["loss"], rtol=1e-5)
+
+
 def test_validate_padded_rows_match_jax_on_normalized_rows(tmp_path, bpe_dir, checkpoint):
     """200 x 240 rows resize to 256 x 307: padded into the (256, 512) bucket."""
     tsv = make_seg_tsv(str(tmp_path / "valid.tsv"), rows=3, num_seg=3, size=(200, 240), seed=5)

@@ -3,15 +3,21 @@ GIF frames with local palettes, transparency, offsets, interlacing and an
 LZW stream that fills its table without a clear code; BMP files with every
 header, RLE8 / RLE4 and bitfields; TIFF files in both byte orders with
 strips or tiles, planar configurations 1 and 2, PackBits / LZW / Deflate and
-the horizontal predictor; a YCCK JPEG.  Used by ``tests/test_torch_*``, by
-``tools/make_image_fixtures.py`` and by ``chip_smoke.py`` phase 14e (numpy
-only: the card's machine runs them without PIL); PIL is what the tests hold
-them against.
+the horizontal predictor; a YCCK JPEG; WebP files with the encoder settings
+PIL's ``save`` does not expose (``webp_encode``, through the libwebp that
+PIL's wheel bundles), animations with offset frames and rewritten alpha
+filters.  Used by ``tests/test_torch_*``, by ``tools/make_image_fixtures.py``
+and by ``chip_smoke.py`` phase 14e (numpy only, but ``webp_encode``: the
+card's machine runs them without PIL); PIL is what the tests hold them
+against.
 """
 
+import ctypes
+import functools
 import io
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -434,3 +440,134 @@ def pil_save(img, fmt: str, **kw) -> bytes:
     buf = io.BytesIO()
     img.save(buf, fmt, **kw)
     return buf.getvalue()
+
+
+# ------------------------------------------------------------------- WebP
+
+class _WebPConfig(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_float if n in ("quality", "target_PSNR") else ctypes.c_int) for n in (
+        "lossless quality method image_hint target_size target_PSNR segments sns_strength "
+        "filter_strength filter_sharpness filter_type autofilter alpha_compression "
+        "alpha_filtering alpha_quality pass_ show_compressed preprocessing partitions "
+        "partition_limit emulate_jpeg_size thread_level low_memory near_lossless exact "
+        "use_delta_palette use_sharp_yuv qmin qmax").split()] + [("_spare", ctypes.c_uint8 * 256)]
+
+
+class _WebPPicture(ctypes.Structure):
+    _fields_ = [("use_argb", ctypes.c_int), ("colorspace", ctypes.c_int),
+                ("width", ctypes.c_int), ("height", ctypes.c_int),
+                ("y", ctypes.c_void_p), ("u", ctypes.c_void_p), ("v", ctypes.c_void_p),
+                ("y_stride", ctypes.c_int), ("uv_stride", ctypes.c_int),
+                ("a", ctypes.c_void_p), ("a_stride", ctypes.c_int), ("pad1", ctypes.c_uint32 * 2),
+                ("argb", ctypes.c_void_p), ("argb_stride", ctypes.c_int),
+                ("pad2", ctypes.c_uint32 * 3), ("writer", ctypes.c_void_p),
+                ("custom_ptr", ctypes.c_void_p), ("extra_info_type", ctypes.c_int),
+                ("extra_info", ctypes.c_void_p), ("stats", ctypes.c_void_p),
+                ("error_code", ctypes.c_int), ("progress_hook", ctypes.c_void_p),
+                ("user_data", ctypes.c_void_p), ("pad3", ctypes.c_uint32 * 3),
+                ("pad4", ctypes.c_void_p), ("pad5", ctypes.c_void_p),
+                ("pad6", ctypes.c_uint32 * 8), ("memory_", ctypes.c_void_p),
+                ("memory_argb_", ctypes.c_void_p), ("pad7", ctypes.c_void_p * 2),
+                ("_spare", ctypes.c_uint8 * 256)]
+
+
+class _WebPMemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", ctypes.c_void_p), ("size", ctypes.c_size_t),
+                ("max_size", ctypes.c_size_t), ("pad", ctypes.c_uint32 * 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _libwebp():
+    """The libwebp that PIL's wheel bundles (test and tool code only; the
+    port loads no codec library)."""
+    import PIL
+    from PIL import _webp  # noqa: F401  (loads the libraries libwebp needs)
+    libs = Path(PIL.__file__).resolve().parents[1] / "pillow.libs"
+    path = next(iter(sorted(libs.glob("libwebp-*.so*"))))
+    return ctypes.CDLL(str(path))
+
+
+_ENCODER_ABI = 0x020F
+
+
+def webp_encode(pixels, **config) -> bytes:
+    """A WebP file of an (h, w, 3) RGB or (h, w, 4) RGBA uint8 array through
+    libwebp's ``WebPEncode`` with the given ``WebPConfig`` fields (on top of
+    the default preset at ``quality``), which PIL's ``save`` does not expose:
+    ``segments``, ``partitions``, ``filter_type``, ``filter_sharpness``,
+    ``alpha_compression``, ``alpha_filtering`` ..."""
+    lib = _libwebp()
+    arr = np.ascontiguousarray(pixels, np.uint8)
+    h, w, c = arr.shape
+    cfg = _WebPConfig()
+    assert lib.WebPConfigInitInternal(ctypes.byref(cfg), 0, ctypes.c_float(
+        config.pop("quality", 75.0)), _ENCODER_ABI)
+    for key, value in config.items():
+        setattr(cfg, "pass_" if key == "pass" else key, value)
+    assert lib.WebPValidateConfig(ctypes.byref(cfg)), config
+    pic = _WebPPicture()
+    assert lib.WebPPictureInitInternal(ctypes.byref(pic), _ENCODER_ABI)
+    pic.width, pic.height, pic.use_argb = w, h, int(cfg.lossless)
+    importer = lib.WebPPictureImportRGBA if c == 4 else lib.WebPPictureImportRGB
+    assert importer(ctypes.byref(pic), arr.ctypes.data_as(ctypes.c_void_p), w * c)
+    out = _WebPMemoryWriter()
+    lib.WebPMemoryWriterInit(ctypes.byref(out))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p)
+    pic.custom_ptr = ctypes.cast(ctypes.byref(out), ctypes.c_void_p)
+    try:
+        assert lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic)), pic.error_code
+        return ctypes.string_at(out.mem, out.size)
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+        lib.WebPMemoryWriterClear(ctypes.byref(out))
+
+
+def riff_chunks(data: bytes):
+    """(fourcc, payload) of each top-level chunk of a RIFF WebP file."""
+    pos, out = 12, []
+    while pos + 8 <= len(data):
+        size = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def riff_file(chunks) -> bytes:
+    """A RIFF WebP file of (fourcc, payload) chunks, each padded to even."""
+    body = b"".join(t + struct.pack("<I", len(p)) + p + b"\0" * (len(p) & 1) for t, p in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def vp8x_chunk(width: int, height: int, flags: int) -> tuple:
+    return b"VP8X", bytes([flags, 0, 0, 0]) + (width - 1).to_bytes(3, "little") + \
+        (height - 1).to_bytes(3, "little")
+
+
+def webp_animation(frames, canvas, alpha: bool, background=(255, 255, 255, 255)) -> bytes:
+    """An animated WebP file: each frame (still WebP file, x, y) placed at
+    (x, y) (even) on a ``canvas`` = (width, height), its image chunks (ALPH
+    and VP8, or VP8L) in an ANMF chunk."""
+    chunks = [vp8x_chunk(*canvas, 0x02 | (0x10 if alpha else 0)),
+              (b"ANIM", bytes(background) + b"\0\0")]
+    for still, x, y in frames:
+        parts = [(t, p) for t, p in riff_chunks(still) if t in (b"ALPH", b"VP8 ", b"VP8L")]
+        tag, payload = parts[-1]
+        if tag == b"VP8L":
+            bits = int.from_bytes(payload[1:5], "little")
+            w, h = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+        else:
+            w, h = (int.from_bytes(payload[6:8], "little") & 0x3FFF,
+                    int.from_bytes(payload[8:10], "little") & 0x3FFF)
+        body = b"".join(t + struct.pack("<I", len(p)) + p + b"\0" * (len(p) & 1) for t, p in parts)
+        header = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, w - 1, h - 1, 100))
+        chunks.append((b"ANMF", header + b"\0" + body))
+    return riff_file(chunks)
+
+
+def with_alpha_filter(data: bytes, filter_method: int) -> bytes:
+    """The file with the filter bits of its ALPH header byte set to
+    ``filter_method`` (its alpha data unchanged: the decoder then unfilters
+    what was not filtered)."""
+    chunks = [(t, bytes([(p[0] & ~0x0C) | (filter_method << 2)]) + p[1:] if t == b"ALPH" else p)
+              for t, p in riff_chunks(data)]
+    return riff_file(chunks)

@@ -14,7 +14,17 @@ BGRA in a V5 header, 1-bit top-down), TIFF (uncompressed, LZW with the
 predictor big-endian, Deflate tiles, PackBits planar, 1-bit, 16-bit,
 palette, CMYK) and JPEG (CMYK, YCCK, CMYK without the Adobe marker, a
 progressive file whose later scans are dropped, a cut progressive YCCK file
-that libjpeg-turbo block-smooths, a CMYK file of 1,024 x 1,366).  Needs PIL; run from the repository root:
+that libjpeg-turbo block-smooths, a CMYK file of 1,024 x 1,366) and WebP
+(lossy at several sizes, qualities and methods, one of 1,024 x 1,366; one
+and four segments, four token partitions, the simple and the normal loop
+filter, sharpness 5; lossless palettes of 2, 4, 16 and 256 colours (the
+last two and the 1,024 x 1,366 file with a colour cache, the others without),
+an ``exact`` RGBA file; lossy + alpha with a raw ``ALPH`` chunk whose filter byte is set to
+each of 0 to 3, and with a lossless one; ``VP8X`` with ICCP / EXIF / XMP;
+RGB and RGBA animations and a crafted one whose first frame is smaller
+than the canvas, at an offset).  The WebP files PIL's ``save`` cannot make
+come from ``torch_image_writers.webp_encode`` (the libwebp PIL bundles).
+Needs PIL; run from the repository root:
 
   python tools/make_image_fixtures.py
 """
@@ -116,6 +126,65 @@ def files():
     full = np.repeat(np.repeat(blocks.integers(0, 252, (33, 44, 4)), 32, 0), 32, 1)[:1024, :1366]
     full = (full + blocks.integers(0, 4, full.shape)).astype(np.uint8)
     out["jpeg_cmyk_1024x1366.jpg"] = W.pil_save(Image.fromarray(full, "CMYK"), "JPEG")
+    out.update(webp_files())
+    return out
+
+
+def webp_files():
+    rng = np.random.default_rng(17)
+    small = _smooth(rng, 37, 45)
+    mid = _smooth(rng, 80, 96)
+    big = _smooth(rng, 192, 256)
+    rgba = np.dstack([small, _smooth(rng, 37, 45, 1)])
+    out = {}
+    # lossy, through PIL's writer
+    out["webp_lossy_1x1.webp"] = W.pil_save(Image.fromarray(small[:1, :1]), "WEBP", quality=80)
+    out["webp_lossy_17x9_q10_m0.webp"] = W.pil_save(Image.fromarray(small[:9, :17]), "WEBP",
+                                                    quality=10, method=0)
+    out["webp_lossy_45x37_q95_m6.webp"] = W.pil_save(Image.fromarray(small), "WEBP", quality=95,
+                                                     method=6)
+    out["webp_lossy_256x192.webp"] = W.pil_save(Image.fromarray(big), "WEBP")
+    # the encoder settings PIL's writer does not expose
+    out["webp_lossy_4_segments_4_partitions_sharpness_5.webp"] = W.webp_encode(
+        mid, quality=60, method=0, segments=4, partitions=2, filter_type=1, filter_strength=80,
+        filter_sharpness=5)
+    out["webp_lossy_1_segment_simple_filter.webp"] = W.webp_encode(
+        mid, quality=40, segments=1, filter_type=0, filter_strength=70)
+    # lossless: palettes (pixel bundling at <= 2, 4 and 16 colours), exact RGBA
+    for colours in (2, 4, 16, 256):
+        im = Image.fromarray(mid).quantize(colours).convert("RGB")
+        out[f"webp_lossless_palette_{colours}.webp"] = W.pil_save(im, "WEBP", lossless=True)
+    out["webp_lossless_rgba_exact.webp"] = W.pil_save(
+        Image.fromarray(rgba, "RGBA"), "WEBP", lossless=True, exact=True)
+    out["webp_lossless_rgb_no_cache.webp"] = W.pil_save(Image.fromarray(small), "WEBP",
+                                                        lossless=True, quality=0, method=0)
+    # lossy + alpha: raw ALPH with each filter byte, and lossless ALPH
+    raw = W.webp_encode(rgba, quality=70, alpha_compression=0, alpha_filtering=0)
+    for f in range(4):
+        out[f"webp_alpha_raw_filter_{f}.webp"] = W.with_alpha_filter(raw, f)
+    out["webp_alpha_lossless.webp"] = W.webp_encode(rgba, quality=70, alpha_compression=1,
+                                                    alpha_filtering=2)
+    out["webp_vp8x_iccp_exif_xmp.webp"] = W.pil_save(
+        Image.fromarray(small), "WEBP", quality=70, icc_profile=bytes(range(48)),
+        exif=b"Exif\x00\x00" + bytes(20), xmp=b"<x:xmpmeta/>")
+    # animations: PIL's writer, and a first frame smaller than the canvas
+    frames = [Image.fromarray(small), Image.fromarray(small[::-1])]
+    out["webp_animated_rgb.webp"] = W.pil_save(frames[0], "WEBP", save_all=True,
+                                               append_images=frames[1:], quality=60)
+    frames = [Image.fromarray(rgba, "RGBA"), Image.fromarray(rgba[:, ::-1], "RGBA")]
+    out["webp_animated_rgba.webp"] = W.pil_save(frames[0], "WEBP", save_all=True,
+                                                append_images=frames[1:], quality=60)
+    first = W.pil_save(Image.fromarray(small[:20, :30]), "WEBP", quality=60)
+    second = W.pil_save(Image.fromarray(small), "WEBP", quality=60)
+    out["webp_animated_offset_frame.webp"] = W.webp_animation(
+        [(first, 6, 10), (second, 0, 0)], (64, 48), alpha=False)
+    # the largest size the JAX CLIs' originals take, lossy and lossless
+    blocks = np.random.default_rng(1367)
+    full = np.repeat(np.repeat(blocks.integers(0, 252, (33, 44, 3)), 32, 0), 32, 1)[:1024, :1366]
+    ramp = (np.arange(1366)[None, :, None] // 6 + np.arange(1024)[:, None, None] // 8) % 40
+    full = (full // 2 + ramp).astype(np.uint8)
+    out["webp_lossy_1024x1366.webp"] = W.pil_save(Image.fromarray(full), "WEBP", quality=70)
+    out["webp_lossless_1024x1366.webp"] = W.pil_save(Image.fromarray(full), "WEBP", lossless=True)
     return out
 
 
