@@ -203,7 +203,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      tensor parallelism with the monitoring forward (its split FFN
      LayerNorm's rows gathered for K4) against one process's, s/step, peak
      memory and the host ms in gloo's collectives a step
-     (``parallel.comm.TRAFFIC``); (c) ``cli.train
+     (``parallel.comm.TRAFFIC``); in (a) and (b), with the start state on
+     the host, each strategy's peak above the card's bytes before its
+     build and above the step's start, the most whole FSDP bytes alive at
+     once, the all-gathers and reduce-scatters a step with their bytes, and
+     the script's predicted saving of FSDP's per-unit gathering, FSDP's
+     peak at degree 2 below DDP's by at least half of it; (c) ``cli.train
      --num-processes=2 --fsdp=2`` on phase 11's rows with the recipe's flags
      (2 steps, a validation, a checkpoint written by rank 0 alone), the
      checkpoint restored into one process equal to the files, and
@@ -4699,20 +4704,103 @@ def seeded_moments(state, gen):
 
 
 def parallel_start_state(monitor: bool = False):
-    """(config, class table, whole start state on the card, the unwrapped
-    trainer holding it): OFA-Base 512px, phase 15a's configuration without
-    dropout, the weights of the seed and seeded Adam moments; every process
-    builds the same."""
+    """(config, class table, whole start state on the host, the unwrapped
+    trainer holding it, the card's allocated bytes before that trainer was
+    built): OFA-Base 512px, phase 15a's configuration without dropout, the
+    weights of the seed and seeded Adam moments; every process builds the
+    same.  The start state stays on the host, so that the card holds only
+    what each strategy's trainer holds."""
     from ifseg_torch.train.trainer import Trainer
 
     cfg = train_config("bfloat16", monitor=monitor, dropout=False)
     tokens, lengths = class_table(SEED)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     ref = Trainer(cfg, tokens, lengths, total_num_updates=100).init_state()
-    state = {"model": {k: v.cuda() for k, v in ref.state_dict()["model"].items()},
-             "optimizer": seeded_moments(ref.optimizer.state_dict(),
-                                         torch.Generator(device="cuda").manual_seed(SEED))}
+    moments = seeded_moments(ref.optimizer.state_dict(),
+                             torch.Generator(device="cuda").manual_seed(SEED))
+    state = {"model": ref.state_dict()["model"],
+             "optimizer": {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v)
+                           for k, v in moments.items()}}
+    del moments
     ref.load_state_dict(state)
-    return cfg, tokens, lengths, state, ref
+    return cfg, tokens, lengths, state, ref, base
+
+
+def fsdp_prediction(trainer, whole):
+    """The script's own count of what per-unit gathering saves against a
+    whole-step gather: the fp32 bytes of the parameters split over 'fsdp'
+    (``whole``: the whole start weights) and of their gradients (the
+    trainable ones), less those of the largest unit other than the root
+    (each layer, the token embedding, the stem), which is whole at once."""
+    import re
+
+    split = [n for n, lay in trainer.layouts.items() if "fsdp" in lay.values()]
+    units = {}
+    for n in split:
+        m = re.match(r"((encoder|decoder)\.layers\.\d+|encoder\.embed_tokens|"
+                     r"encoder\.embed_images)\.", n)
+        b = whole[n].numel() * 4 * (2 if trainer.mask[n] else 1)
+        if m:
+            units[m.group(1)] = units.get(m.group(1), 0) + b
+    params = sum(whole[n].numel() * 4 for n in split)
+    grads = sum(whole[n].numel() * 4 for n in split if trainer.mask[n])
+    largest = max(units, key=units.get)
+    return dict(split_param_gib=params / 2**30, split_grad_gib=grads / 2**30,
+                largest_unit=largest, largest_unit_gib=units[largest] / 2**30,
+                saving_gib=(params + grads - units[largest]) / 2**30)
+
+
+def memory_start(trainer):
+    """Reset the card's peak, the collectives' counts and the FSDP
+    tracker's peak before a strategy's steps; the card's allocated bytes."""
+    from ifseg_torch.parallel import comm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset_traffic()
+    if getattr(trainer, "fsdp", None) is not None:
+        trainer.fsdp.tracker.reset_peak()
+    return torch.cuda.memory_allocated()
+
+
+def memory_read(trainer, base, start, steps):
+    """After a strategy's ``steps`` steps: its peak above the card's bytes
+    before its trainer was built (``base``: its own parameters, optimizer
+    state, activations, gradients and transients) and above the step's
+    start (``start``), the most whole FSDP bytes alive at once and the
+    module's bound, and the all-gathers and reduce-scatters a step with the
+    bytes each rank hands to them."""
+    from ifseg_torch.parallel import comm
+
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    fsdp = getattr(trainer, "fsdp", None)
+    coll = {k: [comm.TRAFFIC[k][0] / steps, comm.TRAFFIC[k][1] / steps / 2**30]
+            if k in comm.TRAFFIC else [0.0, 0.0] for k in ("all_gather", "reduce_scatter")}
+    return dict(peak_over_base_gib=(peak - base) / 2**30, peak_over_start_gib=(peak - start) / 2**30,
+                whole_gib=None if fsdp is None else fsdp.tracker.peak_bytes / 2**30,
+                whole_units=None if fsdp is None else fsdp.tracker.peak_units,
+                whole_bound_gib=None if fsdp is None else fsdp.max_whole_bytes() / 2**30,
+                collectives=coll)
+
+
+def memory_text(m, prediction=None) -> str:
+    """``memory_read``'s figures (and a prediction) as a log fragment."""
+    whole = ("no FSDP units" if m["whole_gib"] is None else
+             f"whole FSDP bytes at most {m['whole_gib']:.3f} GiB at once ({m['whole_units']} unit(s) "
+             f"besides the root; the module's bound {m['whole_bound_gib']:.3f} GiB)")
+    c = m["collectives"]
+    text = (f"peak {m['peak_over_base_gib']:.3f} GiB above the card's bytes before the build "
+            f"({m['peak_over_start_gib']:.3f} GiB above the step's start), {whole}, a step "
+            f"{c['all_gather'][0]:g} all-gathers ({c['all_gather'][1]:.3f} GiB handed) and "
+            f"{c['reduce_scatter'][0]:g} reduce-scatters ({c['reduce_scatter'][1]:.3f} GiB)")
+    if prediction is not None:
+        text += (f"; predicted saving against a whole-step gather {prediction['saving_gib']:.3f} "
+                 f"GiB (split parameters {prediction['split_param_gib']:.3f} + their gradients "
+                 f"{prediction['split_grad_gib']:.3f} - the largest unit, "
+                 f"{prediction['largest_unit']}, {prediction['largest_unit_gib']:.3f})")
+    return text
 
 
 def update_cosines(before, after, want):
@@ -4773,15 +4861,14 @@ def phase_parallel_single(card: str, off_row: dict):
     from ifseg_torch.train.trainer import Trainer
 
     t_start = time.perf_counter()
-    cfg, tokens, lengths, state, unwrapped = parallel_start_state()
+    cfg, tokens, lengths, state, unwrapped, unwrapped_base = parallel_start_state()
     rng = np.random.default_rng(SEED + 17)
     batches = [train_batch(rng, TRAIN_BATCH, real=False) for _ in range(PAR_WARM + PAR_TIMED)]
     before = state["model"]
 
-    def run(trainer, mesh, profile=False):
-        torch.cuda.synchronize()
+    def run(trainer, mesh, base, profile=False):
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        start = memory_start(trainer)
         fa.reset_launches()
         logs, times = [], []
         for b in batches:
@@ -4794,14 +4881,15 @@ def phase_parallel_single(card: str, off_row: dict):
                              skipped=float(out["n_nonfinite"])))
         counts, routes = fa.launch_counts(), fa.bias_route_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
+        memory = memory_read(trainer, base, start, len(batches))
         after = whole_model(trainer)
         t0 = time.perf_counter()
         coll = collective_ms(lambda: trainer.train_step(batches[-1])) if profile else None
         return dict(logs=logs, s_per_step=float(np.mean(times[PAR_WARM:])), peak_gib=peak,
-                    launches=counts, routes=routes, collective_ms=coll,
+                    memory=memory, launches=counts, routes=routes, collective_ms=coll,
                     profile_s=time.perf_counter() - t0), after
 
-    ref, ref_after = run(unwrapped, None)
+    ref, ref_after = run(unwrapped, None, unwrapped_base)
     del unwrapped
     torch.cuda.empty_cache()
     store = tempfile.mkdtemp()
@@ -4814,13 +4902,18 @@ def phase_parallel_single(card: str, off_row: dict):
             t0 = time.perf_counter()
             scfg = copy.deepcopy(cfg)
             scfg.distributed = DistributedConfig(**dist_kw)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
             # built on the start weights (no init of its own), then the whole
             # start state cut to this rank's parts
             trainer = Trainer(scfg, tokens, lengths, total_num_updates=100, mesh=mesh,
                               strategies=strategies).init_state(state["model"])
             trainer.load_state_dict(state)
             build_s = time.perf_counter() - t0
-            res, after = run(trainer, mesh, profile=name in PAR_PROFILED)
+            prediction = (fsdp_prediction(trainer, state["model"]) if trainer.fsdp is not None
+                          else None)
+            res, after = run(trainer, mesh, base, profile=name in PAR_PROFILED)
+            res["prediction"] = prediction
             del trainer
             torch.cuda.empty_cache()
             cos, worst, diff = update_cosines(before, after, ref_after)
@@ -4835,8 +4928,9 @@ def phase_parallel_single(card: str, off_row: dict):
                 f"{res['s_per_step']:.4f} s/step, peak {res['peak_gib']:.2f} GiB, collectives "
                 + (f"{res['collective_ms']:.3f} ms a step" if res["collective_ms"] is not None
                    else "not profiled (none launch at world 1)")
-                + f", beside the unwrapped trainer's "
-                f"{ref['s_per_step']:.4f} s/step and {ref['peak_gib']:.2f} GiB and phase 15a's off "
+                + f"; {memory_text(res['memory'], prediction)}; beside the unwrapped trainer's "
+                f"{ref['s_per_step']:.4f} s/step, {ref['peak_gib']:.2f} GiB ("
+                f"{memory_text(ref['memory'])}) and phase 15a's off "
                 f"row {off_row['s_per_step']:.4f} s/step and {off_row['max_memory_gib']:.2f} GiB; "
                 f"against the unwrapped over {len(batches)} steps: loss {loss_err:.2e} relative "
                 f"(tolerance {PAR_LOSS_TOL}), gnorm {gnorm_err:.2e} (tolerance {PAR_GNORM_TOL}), "
@@ -4928,7 +5022,7 @@ def parallel_worker(rank: int, port: int, out_path: str):
     device = torch.device("cuda", 0)
     initialize_distributed(f"127.0.0.1:{port}", 2, rank, device, backend="gloo")
     # the reference runs the monitoring forward too, for the monitored strategies
-    cfg, tokens, lengths, state, ref = parallel_start_state(monitor=True)
+    cfg, tokens, lengths, state, ref, _ = parallel_start_state(monitor=True)
     rng = np.random.default_rng(SEED + 171)
     batch = train_batch(rng, TRAIN_BATCH, real=True)
     timed = train_batch(rng, TRAIN_BATCH, real=True)
@@ -4950,14 +5044,15 @@ def parallel_worker(rank: int, port: int, out_path: str):
         scfg.distributed = DistributedConfig(**kw)
         scfg.criterion.monitor_real_batch = name in PAR2_MONITORED
         mesh = mesh_from_config(scfg.distributed, device)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         trainer = Trainer(scfg, tokens, lengths, total_num_updates=100,
                           mesh=mesh).init_state(state["model"])
         trainer.load_state_dict(state)
         build_s = time.perf_counter() - t0
         idx = batch_rows(TRAIN_BATCH, mesh)
         rows = lambda b: {k: v[idx] for k, v in b.items()}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        start = memory_start(trainer)
         fa.reset_launches()
         ln.reset_launches()
         out = trainer.train_step(rows(batch))
@@ -4977,7 +5072,9 @@ def parallel_worker(rank: int, port: int, out_path: str):
         res.update(s_per_step=time.perf_counter() - t1,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    collective_ms=1e3 * sum(v[2] for v in comm.TRAFFIC.values()),
-                   build_s=build_s)
+                   memory=memory_read(trainer, base, start, 1), build_s=build_s,
+                   prediction=(fsdp_prediction(trainer, state["model"])
+                               if trainer.fsdp is not None else None))
         if rank == 0:
             cos, worst, diff = update_cosines(before, after, ref_after)
             rel = lambda k: abs(res[k] - ref_logs[k]) / abs(ref_logs[k])
@@ -5034,6 +5131,9 @@ def phase_parallel_shared(card: str):
             f"rank; launches a rank {r0['launches']}, bias routes {r0['routes']} / "
             f"{r1['routes']}; built in {r0['build_s']:.1f} / {r1['build_s']:.1f} s, "
             f"{r0['wall_s']:.1f} / {r1['wall_s']:.1f} s in all; on {card}")
+        for r, rr in enumerate((r0, r1)):
+            log(f"[17b] {name} at degree 2, rank {r}, over the compared step and the one after: "
+                f"{memory_text(rr['memory'], rr['prediction'])}; on {card}")
         if (r0["loss_rel"] > PAR2_LOSS_TOL or r0["gnorm_rel"] > PAR2_GNORM_TOL
                 or r0["min_cosine"] < PAR2_COSINE_MIN or r0["loss"] != r1["loss"]
                 or not all(r[k] for r in (r0, r1) for k in ("grad_norms_agree", "params_in_sync"))):
@@ -5045,6 +5145,23 @@ def phase_parallel_shared(card: str):
                                 or min(r0["ln_launches"], r1["ln_launches"]) < 1):
             fail(f"[17b] {name} at degree 2: the monitoring forward departs from one process's")
         summary[name] = dict(rank0=r0, rank1=r1)
+    # FSDP's point: its peak (its own tensors: shards, half the moments, one
+    # unit whole at a time) below DDP's (whole parameters, moments and the
+    # casts its layers save) by at least half of what per-unit gathering is
+    # predicted to save against a whole-step gather
+    for r in ("rank0", "rank1"):
+        peaks = {k: v[r]["memory"]["peak_over_base_gib"] for k, v in summary.items()}
+        above = {k: v[r]["memory"]["peak_over_start_gib"] for k, v in summary.items()}
+        saving = summary["fsdp"][r]["prediction"]["saving_gib"]
+        gap = peaks["ddp"] - peaks["fsdp"]
+        log(f"[17b] {r}: peaks above the card's bytes before each build, GiB: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in peaks.items())
+            + "; above the step's start: " + ", ".join(f"{k} {v:.3f}" for k, v in above.items())
+            + f"; FSDP below DDP by {gap:.3f} GiB ({above['ddp'] - above['fsdp']:.3f} above the "
+            f"step's start), half the predicted saving {saving / 2:.3f} GiB; on {card}")
+        if gap < saving / 2:
+            fail(f"[17b] {r}: FSDP's peak is {gap:.3f} GiB below DDP's, less than half the "
+                 f"predicted saving of per-unit gathering ({saving:.3f} GiB)")
     log(f"[17b] {wall:.1f} s for both processes (start {res[0]['start_s']:.1f} / "
         f"{res[1]['start_s']:.1f} s: the start weights and the reference trainer; then four "
         f"strategies' trainers each)")
@@ -5301,7 +5418,7 @@ def model_axis_worker(rank: int, port: int, out_path: str):
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     initialize_distributed(f"127.0.0.1:{port}", 2, rank, device, backend="gloo")
-    cfg, tokens, lengths, state, ref = parallel_start_state(monitor=True)
+    cfg, tokens, lengths, state, ref, _ = parallel_start_state(monitor=True)
     rng = np.random.default_rng(SEED + 181)
     batch = train_batch(rng, TRAIN_BATCH, real=True)
     timed = train_batch(rng, TRAIN_BATCH, real=True)

@@ -98,18 +98,34 @@ def _context_fn(generator, policy: str):
     return context_fn
 
 
+def _gathered(unit, tokens: bool = False):
+    """The block with the layer's FSDP unit whole (``parallel/fsdp.py``),
+    where it has one."""
+    return nullcontext() if unit is None else unit.use(tokens)
+
+
 def run_layer(layer: nn.Module, cfg, *args):
     """``layer(*args)``, checkpointed under ``cfg.checkpoint_activations``
     when a gradient flows (see the module docstring).  An unresolved "auto"
-    takes save-attn, as the JAX package does."""
+    takes save-attn, as the JAX package does.  A layer of an FSDP unit
+    (``layer.fsdp_unit``) is gathered around its call: inside the
+    checkpointed region, so that the recompute gathers again, or else with
+    its saved weights as tokens, gathered again in the backward."""
+    unit = getattr(layer, "fsdp_unit", None)
     if not (cfg.checkpoint_activations and torch.is_grad_enabled()):
-        return layer(*args)
+        with _gathered(unit, tokens=True):
+            return layer(*args)
     policy = "save-attn" if cfg.remat_policy == "auto" else cfg.remat_policy
     if policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r}: take auto, {', '.join(REMAT_POLICIES)}")
     generator = next((m.generator for m in layer.modules()
                       if getattr(m, "generator", None) is not None), None)
-    return checkpoint(layer, *args, use_reentrant=False,
+
+    def gathered_layer(*a):
+        with _gathered(unit):
+            return layer(*a)
+
+    return checkpoint(gathered_layer, *args, use_reentrant=False,
                       context_fn=_context_fn(generator, policy))
 
 

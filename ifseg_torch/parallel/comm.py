@@ -2,9 +2,11 @@
 
 Each takes a process group, or None for one process, where it is the
 identity.  Sums only: a mean is a sum over a count the caller knows.  A
-gather is ``all_gather_into_tensor`` and a reduce-scatter
-``reduce_scatter_tensor`` on the dim moved to the front, on NCCL and on
-gloo alike: gloo carries both for CUDA tensors as well as for CPU ones
+gather is ``all_gather_into_tensor`` of the inputs flattened end to end,
+each whole tensor then one concatenation of the ranks' slices on its dim;
+a reduce-scatter is ``reduce_scatter_tensor`` of each tensor's slices laid
+out rank by rank; on NCCL and on gloo alike: gloo carries both for CUDA
+tensors as well as for CPU ones
 (with all-reduce, broadcast and all-gather; on the H100's machine it
 aborts the process on a CUDA send/recv, which no strategy here uses).  No
 tensor leaves its device.
@@ -21,9 +23,10 @@ The autograd functions are Megatron's four (tensor parallelism over the
 - ``all_reduce_both``: all-reduce both ways (a sum over a split dim whose
   result every rank consumes in its own way, the split LayerNorm's row
   statistics);
-- ``gather_params``: all-gather forward, reduce-scatter backward (FSDP
-  shards made whole for a step), each in one collective over all the
-  shards, flattened end to end.
+- ``gather_params``: all-gather forward, reduce-scatter backward (the
+  shards of an FSDP unit made whole where the unit computes, the experts'
+  centroids), each in one collective over all the shards, flattened end
+  to end.
 
 The model axis's programs (the GPipe pipeline, ring attention, the BASE
 mixture of experts) add:
@@ -53,7 +56,7 @@ when it is queued), for the measurements; ``reset_traffic`` sets it to 0.
 
 import time
 from collections import defaultdict
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -101,47 +104,72 @@ def all_reduce_groups(x: torch.Tensor, groups: Iterable) -> torch.Tensor:
     return x
 
 
-def all_gather_many(xs: Sequence[torch.Tensor], dims: Sequence[int], group) -> List[torch.Tensor]:
+def _flatten(xs: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """``xs`` flattened end to end in ``dtype``: one copy (a cast where the
+    dtype differs), or the tensor itself where it is one of that dtype."""
+    if all(x.dtype == dtype for x in xs):
+        return xs[0].reshape(-1) if len(xs) == 1 else torch.cat([x.reshape(-1) for x in xs])
+    flat = torch.empty(sum(x.numel() for x in xs), dtype=dtype, device=xs[0].device)
+    offset = 0
+    for x in xs:
+        flat[offset:offset + x.numel()].view(x.shape).copy_(x)
+        offset += x.numel()
+    return flat
+
+
+def all_gather_many(xs: Sequence[torch.Tensor], dims: Sequence[int], group,
+                    dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
     """For each ``xs[i]``, the ranks' equal slices on ``dims[i]`` concatenated
-    in rank order: one all-gather of all of them flattened (one dtype)."""
+    in rank order: one all-gather of all of them flattened (in ``dtype``,
+    else their one dtype), then one concatenation a tensor."""
     if group is None:
-        return list(xs)
+        return [x if dtype is None else x.to(dtype) for x in xs]
     n = group_size(group)
-    moved = [x.movedim(d % x.dim(), 0).contiguous() for x, d in zip(xs, dims)]
-    flat = torch.cat([m.reshape(-1) for m in moved])
+    flat = _flatten(xs, dtype or xs[0].dtype)
     out = torch.empty(n * flat.numel(), dtype=flat.dtype, device=flat.device)
     t0 = time.perf_counter()
     dist.all_gather_into_tensor(out, flat, group=group)
     _count("all_gather", t0, flat)
-    out = out.view(n, -1)
+    rows = out.view(n, -1)
     whole, offset = [], 0
-    for m, d in zip(moved, dims):
-        k = m.numel()
-        piece = out[:, offset:offset + k].reshape(n * m.shape[0], *m.shape[1:])
-        whole.append(piece.movedim(0, d % m.dim()).contiguous().clone())
+    for x, d in zip(xs, dims):
+        k = x.numel()
+        whole.append(torch.cat([rows[r, offset:offset + k].view(x.shape) for r in range(n)],
+                               dim=d % x.dim()))
         offset += k
     return whole
 
 
-def reduce_scatter_many(xs: Sequence[torch.Tensor], dims: Sequence[int],
-                        group) -> List[torch.Tensor]:
+def reduce_scatter_many(xs: Sequence[torch.Tensor], dims: Sequence[int], group,
+                        dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
     """For each ``xs[i]``, its sum over ``group``, this rank's equal slice on
-    ``dims[i]``: one reduce-scatter of all of them flattened."""
+    ``dims[i]`` (a view of one buffer): one reduce-scatter of all of them
+    laid out rank by rank in ``dtype`` (else their one dtype), each
+    tensor's slices written there by one copy (and cast)."""
     if group is None:
-        return list(xs)
+        return [x if dtype is None else x.to(dtype) for x in xs]
     n = group_size(group)
-    moved = [x.movedim(d % x.dim(), 0).contiguous() for x, d in zip(xs, dims)]
+    shapes = []
+    for x, d in zip(xs, dims):
+        d = d % x.dim()
+        shapes.append((d, x.shape[:d] + (x.shape[d] // n,) + x.shape[d + 1:]))
+    total = sum(x.numel() for x in xs) // n
     # row r: every tensor's slice r, flattened and laid end to end
-    flat = torch.cat([m.reshape(n, -1) for m in moved], dim=1)
-    out = torch.empty(flat.shape[1], dtype=flat.dtype, device=flat.device)
+    flat = torch.empty(n, total, dtype=dtype or xs[0].dtype, device=xs[0].device)
+    offset = 0
+    for x, (d, shape) in zip(xs, shapes):
+        k = x.numel() // n
+        flat[:, offset:offset + k].view(n, *shape).copy_(
+            x.unflatten(d, (n, shape[d])).movedim(d, 0))
+        offset += k
+    out = torch.empty(total, dtype=flat.dtype, device=flat.device)
     t0 = time.perf_counter()
-    dist.reduce_scatter_tensor(out, flat.reshape(-1), group=group)
+    dist.reduce_scatter_tensor(out, flat.view(-1), group=group)
     _count("reduce_scatter", t0, flat)
     parts, offset = [], 0
-    for m, d in zip(moved, dims):
-        k = m.numel() // n
-        part = out[offset:offset + k].reshape(m.shape[0] // n, *m.shape[1:])
-        parts.append(part.movedim(0, d % m.dim()).contiguous())
+    for x, (_, shape) in zip(xs, shapes):
+        k = x.numel() // n
+        parts.append(out[offset:offset + k].view(shape))
         offset += k
     return parts
 
@@ -209,18 +237,23 @@ class _GatherFrom(torch.autograd.Function):
 
 class _GatherParams(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, dims, group, *shards):
-        ctx.dims, ctx.group = dims, group
-        ctx.shapes = [(s.shape, s.dtype, s.device) for s in shards]
-        whole = all_gather_many(shards, dims, group)
+    def forward(ctx, dims, group, dtype, on_backward, *shards):
+        ctx.dims, ctx.group, ctx.on_backward = dims, group, on_backward
+        ctx.dtype, ctx.device = shards[0].dtype, shards[0].device
+        whole = all_gather_many(shards, dims, group, dtype)
         ctx.whole_shapes = [w.shape for w in whole]
         return tuple(whole)
 
     @staticmethod
     def backward(ctx, *grads):
-        grads = [torch.zeros(shape, dtype=dt, device=dev) if g is None else g
-                 for g, shape, (_, dt, dev) in zip(grads, ctx.whole_shapes, ctx.shapes)]
-        return (None, None, *reduce_scatter_many(grads, ctx.dims, ctx.group))
+        if ctx.on_backward is not None:
+            ctx.on_backward()
+        zero = torch.zeros((), dtype=ctx.dtype, device=ctx.device)
+        grads = [zero.expand(shape) if g is None else g
+                 for g, shape in zip(grads, ctx.whole_shapes)]
+        # cast back to the shards' dtype in the reduce-scatter's own copy
+        return (None, None, None, None,
+                *reduce_scatter_many(grads, ctx.dims, ctx.group, ctx.dtype))
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -240,16 +273,20 @@ def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def gather_params(shards: Sequence[torch.Tensor], dims: Sequence[int], group,
-                  grad: bool = True) -> List[torch.Tensor]:
-    """The whole tensors of FSDP shards, in one all-gather: with ``grad``,
-    the gradients that reach them are summed over the group and each shard
-    takes its slice, in one reduce-scatter when the backward has reached
-    them all."""
+                  dtype: Optional[torch.dtype] = None,
+                  on_backward: Optional[Callable[[], None]] = None) -> List[torch.Tensor]:
+    """The whole tensors of sharded parameters, in one all-gather (each
+    shard cast to ``dtype`` first where one is given: a cast commutes with
+    the gather, and half the bytes travel).  Where a gradient flows, the
+    gradients that reach them are cast back to the shards' dtype (zeros
+    for one that none reaches), summed over the group and cut to each
+    shard's slice in one reduce-scatter, when the backward has reached
+    them all; ``on_backward`` is called just before it."""
     if group is None or not shards:
-        return list(shards)
-    if grad and torch.is_grad_enabled():
-        return list(_GatherParams.apply(list(dims), group, *shards))
-    return all_gather_many([s.detach() for s in shards], dims, group)
+        return [s if dtype is None else s.to(dtype) for s in shards]
+    if torch.is_grad_enabled() and any(s.requires_grad for s in shards):
+        return list(_GatherParams.apply(list(dims), group, dtype, on_backward, *shards))
+    return all_gather_many([s.detach() for s in shards], dims, group, dtype)
 
 
 def _ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]], group) -> torch.Tensor:

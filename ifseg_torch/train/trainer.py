@@ -42,8 +42,11 @@ the logs of the one-process step on the whole batch.  The strategies:
 
   - data parallel: always, over the mesh's batch group;
   - ``fsdp``: the parameters, gradients, optimizer state and EMA split
-    over the 'fsdp' group between steps (``parallel/fsdp.py``), gathered
-    whole for the forward and its backward;
+    over the 'fsdp' group between steps (``parallel/fsdp.py``); in the step
+    each layer (and the embedding, the stem) is gathered whole where it
+    computes and freed after, gathered again for its backward, and its
+    gradients reduce-scattered as soon as that backward is done; the rest
+    (the root unit) is gathered around each forward;
   - ``tp``: Megatron tensor parallelism over the 'model' group
     (``parallel/tensor.py``);
   - ``zero1``: the optimizer state split over the 'data' group: each data
@@ -297,7 +300,9 @@ class Trainer:
             self._cut_experts(self.model)
         if "fsdp" in self.strategies:
             dims = {n: d for n, lay in self.layouts.items() for d, a in lay.items() if a == "fsdp"}
-            self.fsdp = FullyShardedParams(self.model, dims, mesh.group("fsdp"))
+            self.fsdp = FullyShardedParams(
+                self.model, dims, mesh.group("fsdp"), compute_dtype(self.cfg.model),
+                pipeline=self.plan is not None and self.plan.pipeline_parallel > 1)
         views, parts = {}, {}
         for name, p in self.model.named_parameters():
             lay = self.layouts[name]
@@ -324,15 +329,18 @@ class Trainer:
         """The dims of parameter ``name`` split across ranks (TP, FSDP)."""
         return restrict(self.layouts.get(name, {}), ("model", "fsdp"))
 
-    def _whole(self, grad: bool):
-        """The block with the parameters whole (FSDP), else as they are."""
-        return self.fsdp.gathered(grad) if self.fsdp is not None else nullcontext()
+    def _root(self):
+        """The block with the FSDP root unit whole (the other units gather
+        where they compute), else as it is."""
+        return self.fsdp.root.use() if self.fsdp is not None else nullcontext()
 
+    @torch.no_grad()
     def _fold_frozen_stem(self) -> None:
         """A frozen stem: fold the batch norms into the convolutions, once
-        per change of its weights."""
+        per change of its weights (the stem's FSDP unit gathered for it)."""
         if self.cfg.model.freeze_entire_resnet or self.cfg.model.freeze_resnet:
-            with self._whole(grad=False):
+            unit = None if self.fsdp is None else self.fsdp.units.get("encoder.embed_images")
+            with nullcontext() if unit is None else unit.use():
                 self.model.encoder.embed_images.fold(compute_dtype(self.cfg.model))
 
     def load_optimizer_state(self, state: Dict) -> None:
@@ -573,7 +581,7 @@ class Trainer:
         cfg = self.cfg
         hw16 = cfg.model.patch_image_size // 16
         self.model.eval()
-        with self._whole(grad=False):
+        with self._root():
             logits = self._real_logits(batch)
         return compute_monitor_outputs(
             logits, self._labels(batch["target"]),
@@ -642,9 +650,11 @@ class Trainer:
             p.grad = None
         losses = []
         for i, mb in enumerate(micro):
-            with self._whole(grad=True):
+            with self._root():
                 loss = loss_fn(mb) if counts is None else loss_fn(mb, counts[i])
-                (loss / ufreq).backward()
+            (loss / ufreq).backward()
+            if self.fsdp is not None:
+                self.fsdp.drop()  # a frozen unit's re-gathered weights
             losses.append(loss.detach())
         # a trainable parameter the loss does not reach still decays
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for _, p in named]

@@ -15,9 +15,11 @@ parts (``Trainer.load_state_dict``): with every parameter off zero and the
 second moments above the gradients' rounding noise, the update is smooth
 in the gradient.  The cases: data 2, fsdp 2, data 2 + zero1, tensor 2 under Adam; Lamb
 and Adafactor (whose updates reduce over whole tensors) under fsdp 2 and
-zero1; save-attn activation checkpointing under fsdp 2; prefix tuning
-(4-D all-layer bias packs) under tensor 2; and fsdp 2 x tensor 2 on four
-processes.  Both process counts are spawned once for the file.
+zero1; save-attn and full activation checkpointing under fsdp 2; two
+microbatches a step under fsdp 2 (the one-process step takes the rows in
+the order that makes its microbatches the ranks' together); prefix tuning
+(4-D all-layer bias packs) under tensor 2; and fsdp 2 x tensor 2 and
+fsdp 2 x pipeline 2 (the layers in FSDP's root unit) on four processes.  Both process counts are spawned once for the file.
 """
 
 import numpy as np
@@ -37,10 +39,14 @@ CASES = {
     "tensor2-adam": dict(world=2, dist=dict(tensor_parallel=2)),
     "fsdp2-save-attn": dict(world=2, dist=dict(fsdp=2),
                             model=dict(checkpoint_activations=True, remat_policy="save-attn")),
+    "fsdp2-full": dict(world=2, dist=dict(fsdp=2),
+                       model=dict(checkpoint_activations=True, remat_policy="full")),
+    "fsdp2-update-freq2": dict(world=2, dist=dict(fsdp=2), update_freq=2),
     "tensor2-prefix": dict(world=2, dist=dict(tensor_parallel=2),
                            model=dict(encoder_prompt=True, decoder_prompt=True,
                                       encoder_prompt_length=4, decoder_prompt_length=3)),
     "fsdp2xtensor2-adam": dict(world=4, dist=dict(fsdp=2, tensor_parallel=2)),
+    "fsdp2xpipeline2": dict(world=4, dist=dict(fsdp=2, pipeline_parallel=2, pipeline_chunks=2)),
 }
 BATCH = 4
 
@@ -82,12 +88,19 @@ def _run_case(case):
     def build(dist_cfg, mesh=None):
         cfg = tiny_config(**case.get("model", {}))
         cfg.optimization.optimizer = case.get("opt", "adam")
+        cfg.optimization.update_freq = case.get("update_freq", 1)
         cfg.distributed = dist_cfg
         tokens, lengths = class_table()
         return Trainer(cfg, tokens, lengths, total_num_updates=10, device="cpu",
                        mesh=mesh).init_state()
 
     batch = global_batch(3, BATCH)
+    dist_cfg = DistributedConfig(**case["dist"])
+    mesh = mesh_from_config(dist_cfg, "cpu")
+    # microbatch i of the one-process step: the ranks' microbatches i together
+    ufreq = case.get("update_freq", 1)
+    blocks = np.arange(BATCH).reshape(mesh.size("batch"), ufreq, -1)
+    ref_batch = rows(batch, blocks.transpose(1, 0, 2).reshape(-1))
     ref = build(DistributedConfig())
     # every parameter off zero (the key biases start at 0 and their
     # gradient is rounding noise), then the same whole state into both
@@ -97,11 +110,9 @@ def _run_case(case):
     state = seeded_state(ref.optimizer.state_dict(), rng)
     ref.load_state_dict({"model": weights, "optimizer": state})
     before = {k: v.clone() for k, v in ref.state_dict()["model"].items()}
-    ref_logs = ref.train_step(batch)
+    ref_logs = ref.train_step(ref_batch)
     ref_after = ref.state_dict()["model"]
 
-    dist_cfg = DistributedConfig(**case["dist"])
-    mesh = mesh_from_config(dist_cfg, "cpu")
     tr = build(dist_cfg, mesh)
     tr.load_state_dict({"model": weights, "optimizer": state})  # cut to each rank's parts
     logs = tr.train_step(rows(batch, batch_rows(BATCH, mesh)))
