@@ -310,7 +310,7 @@ HUGE_CHECK_LAYERS = 2  # encoder and decoder layers of the CPU comparisons at Hu
 # the card-against-CPU comparison (fp32 both) at 64
 PROMPT_LEN = 100
 GEN_BATCH, GEN_BEAM = 2, 5
-GEN_MAX_LEN, GEN_RECOMPUTE_LEN, GEN_COMPARE_LEN = 256, 32, 64
+GEN_MAX_LEN, GEN_RECOMPUTE_LEN, GEN_COMPARE_LEN = 256, 32, 32
 AR_LOGIT_REL_TOL = 5e-2  # decode_ar (bf16, kernels) against ar_step (fp32), ||Δ|| / ||ref||
 GEN_SCORE_REL_TOL = 1e-3  # the cached generator's scores, card fp32 against CPU fp32
 
@@ -410,16 +410,16 @@ def phase_card() -> str:
 # ---------------------------------------------------------------- phase 2
 
 def phase_build():
-    from ifseg_torch.data import bmp, gif, jpeg, png, tiff, webp
+    from ifseg_torch.data import bmp, gif, jpeg, jpeg2000, png, tiff, webp
     from ifseg_torch.ops import balanced_assignment, build, crf
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
 
     # the CUDA sources and the host C++ sources of the PNG decoder, the JPEG
-    # codec, the GIF, BMP, TIFF and WebP (VP8, VP8L) decoders, the dense CRF
-    # and the experts' auction, all at once
+    # codec, the GIF, BMP, TIFF, WebP (VP8, VP8L) and JPEG 2000 decoders, the
+    # dense CRF and the experts' auction, all at once
     host_sources = (png.SOURCE, jpeg.DECODER, jpeg.ENCODER, gif.SOURCE, bmp.SOURCE, tiff.SOURCE,
-                    *webp.SOURCES, crf.SOURCE, balanced_assignment.SOURCE)
+                    *webp.SOURCES, jpeg2000.SOURCE, crf.SOURCE, balanced_assignment.SOURCE)
     t0 = time.perf_counter()
     results = build.build([*fa.KERNELS, ln.KERNEL, *host_sources])
     log(f"[2] built {sorted(results)} in {time.perf_counter() - t0:.1f} s")
@@ -3449,10 +3449,11 @@ IMAGE_FILES = REPO / "tests" / "torch_image_files"
 # (e)'s files at the largest size of phase 14's originals
 FULL_SIZE = (1024, 1366)
 # (e)'s full-size files that phase 14c sends to the daemon, one of each other format
-# (WebP lossy and lossless)
+# (WebP lossy and lossless; JPEG 2000 as a JP2 file and as a raw codestream)
 DAEMON_FORMAT_FILES = ("gif_1024x1366.gif", "bmp_rle8_1024x1366.bmp", "tiff_lzw_1024x1366.tif",
                        "jpeg_cmyk_1024x1366.jpg", "webp_lossy_1024x1366.webp",
-                       "webp_lossless_1024x1366.webp")
+                       "webp_lossless_1024x1366.webp", "jp2_rgb_irreversible_1024x1366.jp2",
+                       "j2k_rgb_reversible_1024x1366.j2k")
 # 14c sends this many of phase 14's JPEG files beside the files above, each
 # with its PNG twin: a run stays at DAEMON_REQUESTS requests
 DAEMON_JPEG_FILES = DAEMON_REQUESTS // 2 - len(DAEMON_FORMAT_FILES)
@@ -3461,6 +3462,10 @@ DAEMON_JPEG_FILES = DAEMON_REQUESTS // 2 - len(DAEMON_FORMAT_FILES)
 INFER_FORMAT_RUNS = (("jpeg_cmyk_256x192.jpg", ".bmp"), ("webp_alpha_lossless.webp", ".tif"))
 # (e)'s WebP files at FULL_SIZE, timed beside the resize and 14a's JPEG
 WEBP_FULL_SIZE = ("webp_lossy_1024x1366.webp", "webp_lossless_1024x1366.webp")
+# (e)'s JPEG 2000 files at FULL_SIZE (5/3 and 9/7), timed likewise
+JPEG2000_FULL_SIZE = ("jp2_rgb_reversible_1024x1366.jp2", "jp2_rgb_irreversible_1024x1366.jp2")
+# 14d's cli.infer run on a JPEG 2000 file, held to the run on its PNG twin
+INFER_JPEG2000 = "jp2_rgba_tiles_offsets.jp2"
 
 
 def cmyk_to_rgb_plain(cmyk: np.ndarray) -> np.ndarray:
@@ -3480,10 +3485,13 @@ def full_size_files():
     (uncompressed; LZW with the predictor at one code a byte, the decoder's
     most; Deflate tiles; CMYK, its RGB from ``cmyk_to_rgb_plain``); a YCCK
     file from the full-size CMYK JPEG fixture; assets/cat_dog.jpeg cut in
-    half, which libjpeg-turbo block-smooths (1,440 x 560).  The last two are
-    timed, not checked: their pixels come from PIL only."""
+    half, which libjpeg-turbo block-smooths (1,440 x 560), timed, not
+    checked: their pixels come from PIL only; the raw codestream of the
+    full-size reversible JP2 fixture, held to the port's decode of that
+    fixture (which (e) holds to PIL's digests first)."""
     sys.path.insert(0, str(REPO / "tests"))
     import torch_image_writers as W
+    from ifseg_torch.data import image
     from ifseg_torch.data.bmp import encode_bmp
     from ifseg_torch.data.tiff import encode_tiff
 
@@ -3498,7 +3506,11 @@ def full_size_files():
     as_rgb = (rgb, "RGB", None), rgb
     cmyk_jpeg = (IMAGE_FILES / f"jpeg_cmyk_{tag}.jpg").read_bytes()
     cat_dog = (REPO / "assets" / "cat_dog.jpeg").read_bytes()
+    jp2 = (IMAGE_FILES / f"jp2_rgb_reversible_{tag}.jp2").read_bytes()
+    codestream = [p for kind, p in W.jp2_boxes(jp2, 12) if kind == b"jp2c"][0]
     return {
+        f"j2k_rgb_reversible_{tag}.j2k": (codestream, image.decode_image(jp2),
+                                          image.decode_image_rgb(jp2)),
         f"gif_{tag}.gif": (W.gif_file([dict(indices=idx)], (w, h), global_palette=pal),
                            (idx, "P", pal), pal[idx]),
         f"bmp_rle8_{tag}.bmp": (W.bmp_file(idx, 8, palette=pal, compression=1), (idx, "P", pal),
@@ -3600,8 +3612,19 @@ def phase_image_files(card: str, jpeg_sizes):
         + ", ".join(f"{n} ({len(files[n])} bytes) {ms:.3f} ms" for n, ms in webp_ms.items())
         + f", beside an RGB JPEG's decode {jpeg_ms:.3f} ms (14a) and the PIL-bilinear resize "
         f"to 512 x 512 {resize_ms:.3f} ms; host of {card}")
+    j2k_ms = {r["file"]: r["rgb_ms"] for r in rows if r["file"] in JPEG2000_FULL_SIZE}
+    j2k_rows = [r for r in rows if r["format"] == "JPEG 2000"]
+    log(f"[14e] JPEG 2000 at {h} x {w} to RGB (median of 3, one thread): "
+        + ", ".join(f"{n} ({len(files[n])} bytes) {ms:.3f} ms" for n, ms in j2k_ms.items())
+        + f", beside WebP's {', '.join(f'{ms:.3f}' for ms in webp_ms.values())} ms, an RGB "
+        f"JPEG's decode {jpeg_ms:.3f} ms (14a) and the PIL-bilinear resize to 512 x 512 "
+        f"{resize_ms:.3f} ms; {len(j2k_rows)} JPEG 2000 files equal PIL's digests or their "
+        f"JP2 twin; host of {card}")
+    if len(j2k_ms) != len(JPEG2000_FULL_SIZE):
+        fail(f"[14e] the JPEG 2000 files of {h} x {w} were not all decoded: {sorted(j2k_ms)}")
     return dict(files=rows, build_s=build_s, write_s=write_s, resize_ms=resize_ms,
-                jpeg_decode_ms=jpeg_ms, webp_full_size_ms=webp_ms), files
+                jpeg_decode_ms=jpeg_ms, webp_full_size_ms=webp_ms,
+                jpeg2000_full_size_ms=j2k_ms), files
 
 
 def phase_convert_validate(card: str, tmp: str, ckpt: str, files):
@@ -3693,9 +3716,10 @@ def phase_convert_validate(card: str, tmp: str, ckpt: str, files):
 
 
 def phase_daemon_jpeg(card: str, svc, files, image_files):
-    """(c): the daemon of phase 13 answers JPEG, GIF, BMP, TIFF and WebP
-    bodies: each run sends (e)'s DAEMON_FORMAT_FILES (a GIF, an RLE8 BMP, an
-    LZW TIFF, a CMYK JPEG, a lossy and a lossless WebP file of FULL_SIZE)
+    """(c): the daemon of phase 13 answers JPEG, GIF, BMP, TIFF, WebP and
+    JPEG 2000 bodies: each run sends (e)'s DAEMON_FORMAT_FILES (a GIF, an
+    RLE8 BMP, an LZW TIFF, a CMYK JPEG, a lossy and a lossless WebP file, a
+    9/7 JP2 file and a 5/3 raw codestream of FULL_SIZE)
     and DAEMON_JPEG_FILES of phase
     14's JPEG files, each beside a PNG file of the RGB pixels the port
     decodes from it (every other pair asks for JSON), from 1 and from
@@ -3759,8 +3783,8 @@ def phase_daemon_jpeg(card: str, svc, files, image_files):
     k1_per = sum(n for *_, n in SITES)
     ln_per = ln_launches_per_forward(svc.server.model, position_lns=False)
     if counts["infer"] != k1_per * n_batches or ln_launches != ln_per * n_batches:
-        fail("the daemon's batches of JPEG, GIF, BMP, TIFF, WebP and PNG bodies did not launch "
-             "K1 and K4 at every site")
+        fail("the daemon's batches of JPEG, GIF, BMP, TIFF, WebP, JPEG 2000 and PNG bodies did "
+             "not launch K1 and K4 at every site")
     grid_of = batch_rows(svc, batches)
     same = formats_equal = 0
     for clients, run in runs.items():
@@ -3784,7 +3808,8 @@ def phase_daemon_jpeg(card: str, svc, files, image_files):
     for clients, run in runs.items():
         del run["answers"]
         log(f"[14c] {clients} client(s), {DAEMON_REQUESTS} requests, {len(files)} JPEG and "
-            f"{len(DAEMON_FORMAT_FILES)} GIF / RLE8 BMP / LZW TIFF / CMYK JPEG / WebP files of "
+            f"{len(DAEMON_FORMAT_FILES)} GIF / RLE8 BMP / LZW TIFF / CMYK JPEG / WebP / JPEG 2000 "
+            f"files of "
             f"{FULL_SIZE[0]} x {FULL_SIZE[1]} beside PNG twins: "
             f"{run['requests_per_s']:.2f} requests/s, latency p50 {run['p50_ms']:.1f} ms, p99 "
             f"{run['p99_ms']:.1f} ms, {run['batches']} batches, mean batch size "
@@ -3795,7 +3820,7 @@ def phase_daemon_jpeg(card: str, svc, files, image_files):
         f"request's preprocess {hm['jpeg_preprocess_ms']:.2f}; K1 {counts['infer']} and K4 "
         f"{ln_launches} launches over {n_batches} batches ({k1_per} and {ln_per} a batch); "
         f"{same} answers equal their PNG twins' ({formats_equal} of them GIF, BMP, TIFF, "
-        f"CMYK JPEG and WebP); beside {card}")
+        f"CMYK JPEG, WebP and JPEG 2000 (JP2 and raw)); beside {card}")
     result["runs"] = {str(c): r for c, r in runs.items()}
     return result
 
@@ -3859,10 +3884,12 @@ def phase_infer_formats(card: str, tmp: str, ckpt: str):
     (INFER_FORMAT_RUNS), launch counts set to 0 before each run and read
     after; each overlay's bytes against the port's writer (``encode_bmp``,
     ``encode_tiff``, the bytes PIL's ``save`` writes) of the overlay made
-    again from the mask it wrote and the image decoded to RGB."""
+    again from the mask it wrote and the image decoded to RGB.  Then on
+    (e)'s INFER_JPEG2000 file and on its PNG twin: the same overlay and mask
+    bytes."""
     from ifseg_torch.cli import infer as cli_infer
     from ifseg_torch.data.image import decode_image_rgb
-    from ifseg_torch.data.png import decode_png_rgb
+    from ifseg_torch.data.png import decode_png_rgb, encode_png
     from ifseg_torch.models.segofa import SegOFA
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
@@ -3900,6 +3927,39 @@ def phase_infer_formats(card: str, tmp: str, ckpt: str):
             + f" ms; {wall:.1f} s with the checkpoint's load; the overlay ({len(written)} bytes) "
             f"is the port's {ext} writer of the overlay; K1 {counts['infer']}, K4 {ln_launches} "
             f"launches; on {card}")
+    # a JPEG 2000 file (RGBA JP2, tiles at an offset) and its PNG twin, the
+    # PNG of the RGB the port decodes from it: the same overlay and mask bytes
+    image = IMAGE_FILES / INFER_JPEG2000
+    twin = Path(tmp) / f"{image.stem}_twin.png"
+    rgb = decode_image_rgb(image.read_bytes())
+    twin.write_bytes(encode_png(rgb))
+    written = {}
+    for src in (image, twin):
+        out = f"{tmp}/{src.stem}_overlay.png"
+        fa.reset_launches()
+        ln.reset_launches()
+        t0 = time.perf_counter()
+        got = cli_infer.main([f"--image={src}", f"--checkpoint={ckpt}",
+                              f"--category-list={CAT_DOG_CATEGORIES}", "--arch=segofa_base",
+                              f"--bpe-dir={REPO / 'assets' / 'BPE'}", "--crf-iters=0",
+                              f"--output={out}"])
+        wall = time.perf_counter() - t0
+        counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+        if counts["infer"] != k1_per or ln_launches != ln_per:
+            fail(f"cli.infer on {src.name} launched K1 {counts['infer']} and K4 {ln_launches} "
+                 f"times, not {k1_per} and {ln_per}")
+        written[src] = (Path(out).read_bytes(), Path(got["mask"]).read_bytes())
+        if src == image:
+            runs["jpeg2000"] = dict(image=image.name, ms=got["ms"], wall_s=wall,
+                                    launches=counts["infer"], ln_launches=ln_launches,
+                                    overlay_bytes=len(written[src][0]))
+    if written[image] != written[twin]:
+        fail(f"cli.infer's overlay or mask of {image.name} differs from its PNG twin's")
+    run = runs["jpeg2000"]
+    log(f"[14d] cli.infer {image.name} ({rgb.shape[0]} x {rgb.shape[1]}, RGBA JP2 in tiles at an "
+        f"offset) -> .png, no CRF: " + ", ".join(f"{k} {v:.1f}" for k, v in run["ms"].items())
+        + f" ms; the overlay ({run['overlay_bytes']} bytes) and the mask equal its PNG twin's "
+        f"byte for byte; K1 {run['launches']}, K4 {run['ln_launches']} launches a run; on {card}")
     return runs
 
 
@@ -6138,7 +6198,8 @@ def main():
                     serve_daemon_jpeg=surface["daemon_jpeg"]["launches"],
                     infer_jpeg=surface["infer_jpeg"]["launches"],
                     **{f"infer_cmyk_to_{ext[1:]}": r["launches"]
-                       for ext, r in surface["infer_formats"].items()},
+                       for ext, r in surface["infer_formats"].items() if ext.startswith(".")},
+                    infer_jpeg2000=surface["infer_formats"]["jpeg2000"]["launches"],
                     validate_converted=converted["launches"],
                     **{k: v["infer"] for k, v in stack_paths.items() if k.startswith("train_cli")},
                     evaluation_prefix=served16["eval_launches"]["infer"],
@@ -6153,7 +6214,8 @@ def main():
                     serve_daemon_jpeg=surface["daemon_jpeg"]["ln_launches"],
                     infer_jpeg=surface["infer_jpeg"]["ln_launches"],
                     **{f"infer_cmyk_to_{ext[1:]}": r["ln_launches"]
-                       for ext, r in surface["infer_formats"].items()},
+                       for ext, r in surface["infer_formats"].items() if ext.startswith(".")},
+                    infer_jpeg2000=surface["infer_formats"]["jpeg2000"]["ln_launches"],
                     validate_converted=converted["ln_launches"],
                     train_cli_stack=stack_cli["ln_launches"],
                     train_cli_stack_resume=stack_cli["resume_ln_launches"],

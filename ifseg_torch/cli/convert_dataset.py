@@ -7,8 +7,8 @@ codecs in place of PIL (``data/image.py``): each TSV row is
 ``base64(PNG image) \t base64(label PNG) \t id \t line_id`` with the label
 values shifted so 0 = ignore and v = class v-1 (the loader's inverse shift,
 data/mm_data/segmentation_dataset.py:230-234).  The image is kept in its mode
-(a JPEG original as its L or RGB pixels, a PNG, GIF, BMP, TIFF or WebP one as its
-own mode and palette), as PIL's ``save`` keeps it, and a mode PNG cannot
+(a JPEG original as its L or RGB pixels, a PNG, GIF, BMP, TIFF, WebP or
+JPEG 2000 one as its own mode and palette), as PIL's ``save`` keeps it, and a mode PNG cannot
 hold (a CMYK JPEG or TIFF) fails the run, as PIL's PNG writer fails it;
 the label is written as an 8-bit gray PNG after the 256-entry lookup.  The
 PNG bytes differ from PIL's (another zlib stream, no filters), what both

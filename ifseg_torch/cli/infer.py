@@ -18,8 +18,8 @@ given:
 mean field on the model's device (``ops/crf_device.py``), ``cpp`` on the host
 (``ops/crf.py``).  The checkpoint is a ``.pt`` file or a checkpoint
 directory of ``cli.train`` (``checkpoint/convert.py:load_model``).  The image
-is a PNG, JPEG, GIF, BMP, TIFF or WebP file (``data/image.py``); the overlay is
-written in the format ``--output``'s extension names, with the bytes PIL's
+is a PNG, JPEG, GIF, BMP, TIFF, WebP or JPEG 2000 file (``data/image.py``); the
+overlay is written in the format ``--output``'s extension names, with the bytes PIL's
 ``save`` writes: PNG, JPEG for ``*.jpg``/``*.jpeg``
 (``data/jpeg.py:encode_jpeg``), BMP for ``*.bmp`` (``data/bmp.py``) and
 uncompressed TIFF for ``*.tif``/``*.tiff`` (``data/tiff.py``); the mask beside

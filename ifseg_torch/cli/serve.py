@@ -10,8 +10,8 @@ the card unless ``--device=cpu`` is given:
       --category-list='cat, dog' --port=8321 [--max-batch=8] \\
       [--batch-timeout-ms=5] [--quantize=int8] [--device=cpu]
 
-  POST /segment            body = a PNG, JPEG, GIF, BMP, TIFF or WebP file (any
-                           other format, or a file PIL refuses: 400)
+  POST /segment            body = a PNG, JPEG, GIF, BMP, TIFF, WebP or JPEG 2000
+                           file (any other format, or a file PIL refuses: 400)
                            ?format=png (default; the class-id mask at the
                            model grid, resized to the input's size) | json
                            (areas)
@@ -21,8 +21,8 @@ the card unless ``--device=cpu`` is given:
 The request's pixels are decoded and resized as the JAX package's PIL calls
 do (``data/image.py:decode_image_rgb``, ``data/transforms.py:pil_resize``),
 so the network's input is the JAX daemon's bit for bit.  Where that daemon
-takes any format PIL reads, this one takes PNG, JPEG, GIF, BMP, TIFF and
-WebP files (ROADMAP A.11 lists the rest).
+takes any format PIL reads, this one takes PNG, JPEG, GIF, BMP, TIFF, WebP
+and JPEG 2000 files (ROADMAP A.11 lists the rest).
 """
 
 import argparse

@@ -1,6 +1,7 @@
 """Image files by their signature, decoded as PIL 12.1 decodes them: PNG
 (``data/png.py``), JPEG (``data/jpeg.py``), GIF (``data/gif.py``), BMP
-(``data/bmp.py``), TIFF (``data/tiff.py``) and WebP (``data/webp.py``).
+(``data/bmp.py``), TIFF (``data/tiff.py``), WebP (``data/webp.py``) and
+JPEG 2000, JP2 files and raw codestreams (``data/jpeg2000.py``).
 
 ``decode_image(data)`` returns ``(pixels, mode, palette)``: the pixels as
 ``np.asarray(PIL.Image.open(BytesIO(data)))`` gives them, PIL's mode name
@@ -9,8 +10,8 @@ for a palette image, its palette ((n, 3) uint8 RGB, or (n, 4) with the
 alpha of a PNG's tRNS chunk or a GIF's transparency index).
 ``decode_image_rgb(data)`` returns
 ``np.asarray(PIL.Image.open(BytesIO(data)).convert("RGB"))``.  ICO, PSD,
-JBIG2, JPEG 2000 and BigTIFF files, and anything else, raise ``ValueError``
-naming the format.  ``image_digest`` is the SHA-256 that
+JBIG2 and BigTIFF files, and anything else, raise ``ValueError`` naming the
+format.  ``image_digest`` is the SHA-256 that
 ``tests/torch_image_files/digests.json`` holds of PIL's arrays.
 """
 
@@ -18,18 +19,17 @@ import hashlib
 
 import numpy as np
 
-from ifseg_torch.data import bmp, gif, jpeg, png, tiff, webp
+from ifseg_torch.data import bmp, gif, jpeg, jpeg2000, png, tiff, webp
 
 # the leading bytes of the formats PIL reads that the port does not
 _OTHER_FORMATS = ((b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"), (b"\x97JB2", "JBIG2"),
-                  (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"),
                   (b"II+\x00", "BigTIFF"), (b"MM\x00+", "BigTIFF"))
-_READ = ("PNG", "JPEG", "GIF", "BMP", "TIFF", "WebP")
+_READ = ("PNG", "JPEG", "GIF", "BMP", "TIFF", "WebP", "JPEG 2000")
 
 
 def image_format(data: bytes) -> str:
-    """"PNG", "JPEG", "GIF", "BMP", "TIFF" or "WebP" from the file's
-    signature; ValueError for anything else."""
+    """"PNG", "JPEG", "GIF", "BMP", "TIFF", "WebP" or "JPEG 2000" from the
+    file's signature; ValueError for anything else."""
     if data[:8] == png.SIGNATURE:
         return "PNG"
     if data[:3] == jpeg.SIGNATURE:
@@ -42,6 +42,8 @@ def image_format(data: bytes) -> str:
         return "TIFF"
     if webp.is_webp(data):
         return "WebP"
+    if jpeg2000.is_jpeg2000(data):
+        return "JPEG 2000"
     name = next((n for sig, n in _OTHER_FORMATS if data.startswith(sig)), None)
     if name:
         raise ValueError(f"{name} files are not supported ({', '.join(_READ[:-1])} and "
@@ -63,6 +65,8 @@ def decode_image(data: bytes):
         return tiff.decode_tiff_image(data)
     if fmt == "WebP":
         return webp.decode_webp_image(data)
+    if fmt == "JPEG 2000":
+        return jpeg2000.decode_jpeg2000_image(data)
     pixels = jpeg.decode_jpeg(data)
     return pixels, {1: "L", 3: "RGB", 4: "CMYK"}[pixels.shape[2] if pixels.ndim == 3 else 1], None
 
@@ -77,6 +81,8 @@ def decode_image_rgb(data: bytes) -> np.ndarray:
         return gif.decode_gif_rgb(data)
     if fmt == "WebP":
         return webp.decode_webp_rgb(data)
+    if fmt == "JPEG 2000":
+        return jpeg2000.decode_jpeg2000_rgb(data)
     pixels, mode, palette = decode_image(data)
     return png.to_rgb(pixels, palette, mode)
 
@@ -84,7 +90,7 @@ def decode_image_rgb(data: bytes) -> np.ndarray:
 def load():
     """Build (if need be) and load every host codec now, not at its first
     file: the parent of a worker pool calls it so that the workers only load."""
-    for codec in (png, jpeg, gif, bmp, tiff, webp):
+    for codec in (png, jpeg, gif, bmp, tiff, webp, jpeg2000):
         codec.load()
 
 

@@ -4,8 +4,8 @@ A copy of the JAX package's ``data/segmentation_dataset.py`` (reference
 data/mm_data/segmentation_dataset.py):
 
   - each row is a base64 image, a base64 label image and an id; both are
-    decoded by ``data/image.py``, PNG, JPEG, GIF, BMP, TIFF or WebP by their
-    signature (what PIL gives: palette files as raw indices, no
+    decoded by ``data/image.py``, PNG, JPEG, GIF, BMP, TIFF, WebP or JPEG 2000 by
+    their signature (what PIL gives: palette files as raw indices, no
     ``.convert``, a cut file as PIL reads it under the JAX package's
     ``LOAD_TRUNCATED_IMAGES``); a 2-D image is replicated to three
     channels, a fourth channel (alpha, or a CMYK file's K) dropped, and the

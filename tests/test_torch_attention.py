@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 import ifseg_tpu.ops.flash_attention as jfa
 from ifseg_torch.ops import flash_attention as tfa
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 
 @pytest.fixture(autouse=True)

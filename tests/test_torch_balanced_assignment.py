@@ -13,6 +13,7 @@ auction's).
 
 import numpy as np
 import pytest
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 SHAPES = {  # name: (tokens, experts, seed)
     "32x4": (32, 4, 0),

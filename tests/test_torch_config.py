@@ -14,6 +14,7 @@ import pytest
 
 from ifseg_torch import config as tconf
 from ifseg_tpu import config as jconf
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -13,6 +13,7 @@ import pytest
 
 from ifseg_torch import config as tconf
 from ifseg_tpu import config as jconf
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 FIELDS = [(section.name, f.name) for section in dataclasses.fields(jconf.Config)
           for f in dataclasses.fields(section.default_factory())]

@@ -22,6 +22,7 @@ from PIL import Image
 import ifseg_tpu.cli.convert_dataset as jconvert
 from ifseg_torch.cli import convert_dataset as tconvert
 from ifseg_torch.data.png import decode_png
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 MODES = ["ade", "coco_fine", "coco_unseen", "generic"]
 

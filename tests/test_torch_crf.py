@@ -34,6 +34,7 @@ from ifseg_torch.ops import crf as tcrf
 from ifseg_torch.ops import crf_device as tdev
 from ifseg_tpu.ops import crf as jcrf
 from ifseg_tpu.ops import crf_jax as jdev
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 H, W, C = 16, 20, 3
 ITERS = 10

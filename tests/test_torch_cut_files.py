@@ -43,6 +43,7 @@ from ifseg_tpu.tasks.segmentation import SegmentationTask as JaxTask
 from test_torch_png import _png_by_hand
 from torch_image_writers import ycck_jpeg
 from utils import png_b64
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 
 @pytest.fixture(autouse=True)

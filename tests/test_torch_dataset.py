@@ -29,6 +29,7 @@ from ifseg_tpu.tokenization.dictionary import build_seg_dictionary as jax_dict
 from ifseg_tpu.tokenization.gpt2_bpe import GPT2BPE as JaxBPE
 
 from utils import make_seg_tsv
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 FIELDS = ("patch_image", "src_tokens", "bos_token", "ori_semantic_seg")
 

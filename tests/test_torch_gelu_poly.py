@@ -17,6 +17,7 @@ import torch
 
 from ifseg_torch.ops.gelu import gelu_poly as t_gelu
 from ifseg_tpu.ops.gelu import gelu_poly as j_gelu
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 
 def _all_finite_bf16_as_f32():

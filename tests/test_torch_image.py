@@ -23,6 +23,7 @@ from ifseg_torch.data.image import decode_image, decode_image_rgb
 from ifseg_torch.data.png import decode_png_image, encode_png
 
 from test_torch_png import _png_by_hand
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 
 def _save(img: Image.Image, fmt: str, **kw) -> bytes:
@@ -113,20 +114,21 @@ def test_rgb_of_16_bit_and_interlaced_pngs(colour, depth, interlace):
     np.testing.assert_array_equal(decode_image_rgb(data), want)
 
 
-OTHER_FORMATS = ["GIF", "BMP", "TIFF"] + (["WEBP"] if features.check("webp") else [])
+OTHER_FORMATS = (["GIF", "BMP", "TIFF"] + (["WEBP"] if features.check("webp") else [])
+                 + (["JPEG2000"] if features.check("jpg_2000") else []))
 
 
 @pytest.mark.parametrize("fmt", OTHER_FORMATS)
 def test_other_formats_raise_naming_them(fmt):
-    """GIF, BMP, TIFF and WebP files decode as PIL decodes them (mode,
-    pixels and RGB; every variant in ``tests/test_torch_image_files.py`` and
-    ``tests/test_torch_webp.py``); a file of no image format raises naming
-    the formats read."""
+    """GIF, BMP, TIFF, WebP and JPEG 2000 files decode as PIL decodes them
+    (mode, pixels and RGB; every variant in ``tests/test_torch_image_files.py``,
+    ``tests/test_torch_webp.py`` and ``tests/test_torch_jpeg2000.py``); a file
+    of no image format raises naming the formats read."""
     data = _save(Image.fromarray(np.arange(48, dtype=np.uint8).reshape(4, 4, 3)), fmt)
     pil = Image.open(io.BytesIO(data))
     pixels, mode, _ = decode_image(data)
     assert mode == pil.mode
     np.testing.assert_array_equal(pixels, np.asarray(pil))
     np.testing.assert_array_equal(decode_image_rgb(data), np.asarray(pil.convert("RGB")))
-    with pytest.raises(ValueError, match="not a PNG, JPEG, GIF, BMP, TIFF or WebP file"):
+    with pytest.raises(ValueError, match="not a PNG, JPEG, GIF, BMP, TIFF, WebP or JPEG 2000 file"):
         decode_image(b"plain text, no image")

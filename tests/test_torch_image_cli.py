@@ -1,23 +1,26 @@
-"""GIF, BMP, TIFF, CMYK JPEG and WebP files through the port's entry points
-against the JAX package's, which read them with PIL, on the CPU at a tiny
-width:
+"""GIF, BMP, TIFF, CMYK JPEG, WebP and JPEG 2000 files through the port's
+entry points against the JAX package's, which read them with PIL, on the CPU
+at a tiny width:
 
   - TSV rows whose images are GIF (palette and gray), BMP (24-bit and
-    palette), TIFF (LZW RGB, 16-bit grey, CMYK), CMYK / YCCK JPEG and WebP
-    (lossy, lossless RGBA) files: the
+    palette), TIFF (LZW RGB, 16-bit grey, CMYK), CMYK / YCCK JPEG, WebP
+    (lossy, lossless RGBA) and JPEG 2000 (JP2 RGB, RGBA and palette, a raw
+    grey codestream) files: the
     port's ``SegmentationDataset`` gives the JAX package's training examples
     and evaluation samples, byte for byte (a 4-channel row's first three
     channels, flipped to BGR, as the JAX ``_decode_row`` takes them);
-  - ``cli.convert_dataset`` over GIF, BMP, TIFF and WebP originals (a 16-bit
-    one and big-endian tiles too; ``--image-exts=.gif,.bmp,.tif,.webp``): the same
+  - ``cli.convert_dataset`` over GIF, BMP, TIFF, WebP and JPEG 2000 originals
+    (a 16-bit one and big-endian tiles too;
+    ``--image-exts=.gif,.bmp,.tif,.webp,.jp2,.j2k``): the same
     rows as the JAX CLI's, each
     row's image decoded by PIL and by the port to the same array, mode and
     palette (a GIF's transparency index kept as its tRNS chunk);
   - ``cli.infer`` on a CMYK JPEG file with ``--output=*.bmp`` and
     ``--output=*.tif`` (no CRF, fp32): the BMP overlay's bytes equal the JAX
     CLI's (PIL's ``save``), the TIFF overlay's equal PIL's ``save`` of that
-    overlay, the masks equal; and on a lossy WebP file with alpha: the
-    overlay's and the mask's pixels equal the JAX CLI's.
+    overlay, the masks equal; on a lossy WebP file with alpha and on a raw
+    JPEG 2000 codestream: the overlay's and the mask's pixels equal the JAX
+    CLI's.
 """
 
 import base64
@@ -81,12 +84,30 @@ def _webp_originals(seed: int = 9):
     ]
 
 
+def _jpeg2000_originals(seed: int = 10):
+    """(".jp2" or ".j2k", file bytes): JP2 RGB (5/3), RGBA in tiles at an
+    offset and a palette, a raw grey codestream (9/7, two layers)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (13, 16, 4)).astype(np.uint8)
+    rgba = np.repeat(np.repeat(base, 6, 0), 6, 1)[:71, :89]
+    palette = W.jp2_palette(W.pil_save(Image.fromarray(rgba[:58, :77, 0] // 16), "JPEG2000"),
+                            rng.integers(0, 256, (16, 3)))
+    return [
+        (".jp2", W.pil_save(Image.fromarray(rgba[:, :, :3]), "JPEG2000")),
+        (".jp2", W.pil_save(Image.fromarray(rgba[:64], "RGBA"), "JPEG2000", tile_size=(32, 32),
+                            offset=(3, 5))),
+        (".jp2", palette),
+        (".j2k", W.pil_save(Image.fromarray(rgba[:, :80, 1]), "JPEG2000", no_jp2=True,
+                            irreversible=True, quality_layers=[20, 5])),
+    ]
+
+
 def _tsv(path):
-    """The originals as TSV rows, the 16-bit grey TIFF and the WebP files
-    among them."""
+    """The originals as TSV rows, the 16-bit grey TIFF, the WebP and the
+    JPEG 2000 files among them."""
     rng = np.random.default_rng(8)
     with open(path, "w") as fp:
-        for i, (_, data) in enumerate(_originals() + _webp_originals()):
+        for i, (_, data) in enumerate(_originals() + _webp_originals() + _jpeg2000_originals()):
             h, w = decode_image(data)[0].shape[:2]
             seg = rng.integers(0, 4, (h // 8 + 1, w // 8 + 1)).astype(np.uint8)
             seg = np.repeat(np.repeat(seg, 8, 0), 8, 1)[:h, :w]
@@ -133,14 +154,14 @@ def test_convert_dataset_rows_equal_jax(tmp_path):
     # a CMYK original fails both CLIs (tests/test_torch_convert_dataset.py)
     originals = [o for o in _originals()[:7]] + [(".tif", W.tiff_file(
         np.random.default_rng(9).integers(0, 256, (33, 47, 3)), 8, 2, "MM", 8, 2, tile=(16, 16)))
-    ] + _webp_originals()
+    ] + _webp_originals() + _jpeg2000_originals()
     for i, (ext, data) in enumerate(originals):
         (images / f"img_{i:02d}{ext}").write_bytes(data)
         h, w = decode_image(data)[0].shape[:2]
         Image.fromarray((np.arange(h * w) % 151).astype(np.uint8).reshape(h, w)).save(
             labels / f"img_{i:02d}.png")
     args = ["--mode=ade", f"--images={images}", f"--annotations={labels}", "--workers=2",
-            "--image-exts=.gif,.bmp,.tif,.webp"]
+            "--image-exts=.gif,.bmp,.tif,.webp,.jp2,.j2k"]
     jconvert.main(args + [f"--output={tmp_path / 'jax.tsv'}"])
     assert tconvert.main(args + [f"--output={tmp_path / 'torch.tsv'}"]) == len(originals)
     want = [r.rstrip("\n").split("\t") for r in open(tmp_path / "jax.tsv")]
@@ -197,13 +218,30 @@ def test_infer_on_a_webp_with_alpha_as_jax(checkpoint, bpe_dir, tmp_path, monkey
     np.testing.assert_array_equal(_pixels(result["mask"]), _pixels(str(tmp_path / "jax_mask.png")))
 
 
-@pytest.mark.parametrize("ext", [".gif", ".bmp", ".tif", ".jpg", ".webp"])
+def test_infer_on_a_jpeg2000_codestream_as_jax(checkpoint, bpe_dir, tmp_path, monkeypatch):
+    monkeypatch.setenv("IFSEG_JIT_CACHE", "")
+    monkeypatch.setattr(jconfig, "model_config_for_arch",
+                        _tiny(jconfig.model_config_for_arch, dtype="float32", **JAX_ONLY))
+    monkeypatch.setattr(tinfer, "model_config_for_arch",
+                        _tiny(torch_model_config, dtype="float32"))
+    image = tmp_path / "grey.j2k"
+    image.write_bytes(_jpeg2000_originals()[3][1])
+    assert Image.open(image).format == "JPEG2000"
+    jout, tout = str(tmp_path / "jax.png"), str(tmp_path / "torch.png")
+    jinfer.main(_argv(str(image), checkpoint, bpe_dir, jout)[:-1] + ["--crf-iters=0"])
+    result = tinfer.main(_argv(str(image), checkpoint, bpe_dir, tout)[:-1]
+                         + ["--crf-iters=0", "--device=cpu"])
+    np.testing.assert_array_equal(_pixels(tout), _pixels(jout))
+    np.testing.assert_array_equal(_pixels(result["mask"]), _pixels(str(tmp_path / "jax_mask.png")))
+
+
+@pytest.mark.parametrize("ext", [".gif", ".bmp", ".tif", ".jpg", ".webp", ".jp2", ".j2k"])
 def test_serve_and_infer_read_each_format(ext):
     """The daemon's and the CLI's reader (``decode_image_rgb``) on each
     format: PIL's ``convert("RGB")``."""
     from ifseg_torch.data.image import decode_image_rgb
 
-    for e, data in _originals() + _webp_originals():
+    for e, data in _originals() + _webp_originals() + _jpeg2000_originals():
         if e == ext:
             want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
             np.testing.assert_array_equal(decode_image_rgb(data), want)

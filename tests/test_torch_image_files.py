@@ -16,9 +16,10 @@
     JAX package's ``ImageFile.LOAD_TRUNCATED_IMAGES`` or raises where PIL
     raises (CMYK JPEG cuts: ``tests/test_torch_cut_files.py``);
   - the formats and layouts PIL refuses, and those the port leaves for later
-    (ICO, PSD, JPEG 2000, JPEG-in-TIFF, floating-point TIFF), raise
-    ``ValueError`` naming them; a WebP file, which the port once refused,
-    decodes as PIL decodes it (every WebP variant: ``test_torch_webp.py``);
+    (ICO, PSD, JPEG-in-TIFF, floating-point TIFF), raise ``ValueError``
+    naming them; a WebP file and a JPEG 2000 file, which the port once
+    refused, decode as PIL decodes them (every WebP variant:
+    ``test_torch_webp.py``; JPEG 2000: ``test_torch_jpeg2000.py``);
   - ``encode_bmp`` and ``encode_tiff`` write the bytes of PIL's ``save``;
   - ``tests/torch_image_files/digests.json`` holds PIL's mode, shape and
     digests of every committed fixture (``chip_smoke.py`` phase 14e checks
@@ -41,6 +42,7 @@ from ifseg_torch.data.bmp import encode_bmp
 from ifseg_torch.data.image import decode_image, decode_image_rgb, image_digest
 from ifseg_torch.data.png import to_rgb
 from ifseg_torch.data.tiff import encode_tiff
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 FIXTURES = Path(__file__).parent / "torch_image_files"
 
@@ -370,7 +372,7 @@ def _refused():
     return [
         ("webp", W.pil_save(Image.fromarray(rgb), "WEBP"), None),  # read since WebP was ported
         ("ico", W.pil_save(Image.fromarray(rgb), "ICO"), "ICO files are not supported"),
-        ("jpeg2000", W.pil_save(Image.fromarray(rgb), "JPEG2000"), "JPEG 2000 files are not"),
+        ("jpeg2000", W.pil_save(Image.fromarray(rgb), "JPEG2000"), None),  # read since ported
         ("psd", b"8BPS\x00\x01" + bytes(40), "PSD files are not supported"),
         ("jpeg-in-tiff", jpeg_tiff, "TIFF compression JPEG is not supported"),
         ("float-tiff", float_tiff, "floating-point TIFF"),
@@ -382,7 +384,8 @@ def _refused():
         ("bmp-2bit", W.bmp_file(rgb, 24, 40)[:28] + b"\x02\0" + W.bmp_file(rgb, 24, 40)[30:],
          "BMP pixel depth 2"),
         ("gif-no-image", b"GIF89a\x01\0\x01\0\0\0\0;", "no image"),
-        ("text", b"plain text, no image", "not a PNG, JPEG, GIF, BMP, TIFF or WebP file"),
+        ("text", b"plain text, no image",
+         "not a PNG, JPEG, GIF, BMP, TIFF, WebP or JPEG 2000 file"),
     ]
 
 

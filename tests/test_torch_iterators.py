@@ -16,6 +16,7 @@ from ifseg_torch.tasks.segmentation import SegmentationTask as TorchTask
 from ifseg_tpu.data.iterators import EpochBatchIterator as JaxIterator
 
 from utils import make_seg_tsv
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 
 def make_example(i, rng):

@@ -26,6 +26,7 @@ from PIL import Image, ImageFile
 
 import chip_smoke
 from ifseg_torch.data.jpeg import decode_jpeg, encode_jpeg
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 SIZES = [(1, 1), (3, 5), (8, 8), (9, 17), (16, 16), (17, 33), (31, 2), (2, 31), (40, 41),
          (64, 65), (120, 161)]

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from ifseg_torch.models.layers import LayerNorm as TorchLayerNorm
 from ifseg_torch.ops import layer_norm as tln
 from ifseg_tpu.ops import layer_norm as jln
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 EPS = 1e-5
 

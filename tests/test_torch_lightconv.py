@@ -18,6 +18,7 @@ from ifseg_torch.checkpoint.convert import lightconv_state_from_jax
 from ifseg_torch.models import lightconv as tl
 from ifseg_torch.models.attention import set_generator
 from ifseg_tpu.models import lightconv as jl
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 TOL = 1e-5
 CASES = [(3, 4, False), (3, 4, True), (4, 2, False), (4, 2, True), (7, 8, False)]

@@ -27,6 +27,7 @@ from ifseg_torch.train import optim as to
 from ifseg_tpu.train import optim as jo
 
 from test_torch_optimizers import COMPOSITE, OPTIMIZERS, PORT_ONLY, _pair_and_optimizers
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 TOTAL = 50
 KNOBS = types.SimpleNamespace(

@@ -12,6 +12,7 @@ from ifseg_torch.tasks.segmentation import SegmentationTask as TorchTask
 from ifseg_torch.utils import metrics as tm
 from ifseg_tpu.tasks.segmentation import SegmentationTask as JaxTask
 from ifseg_tpu.utils import metrics as jm
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 AREAS = ("area_intersect", "area_pred_label", "area_label", "area_union")
 

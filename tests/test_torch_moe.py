@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from torch_parallel_utils import spawn
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 D, F, TOKENS = 16, 32, 64
 

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 from torch_parallel_utils import class_table, spawn, tiny_config
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 
 def _trainer(dist_kw):

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from utils import make_seg_tsv
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIMS = dict(encoder_embed_dim=32, encoder_ffn_embed_dim=64, encoder_layers=2,

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 from torch_parallel_utils import class_table, global_batch, rows, spawn, tiny_config
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 CASES = {
     "data2-adam": dict(world=2, dist=dict(data_parallel=2)),

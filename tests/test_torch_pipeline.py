@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from torch_parallel_utils import spawn
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 D = 6
 

@@ -18,6 +18,7 @@ from PIL import Image
 import chip_smoke
 from ifseg_torch.data.png import decode_png
 from utils import make_seg_tsv
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 SIZES = [(1, 1), (1, 9), (7, 1), (3, 5), (17, 33), (64, 100), (120, 161)]
 

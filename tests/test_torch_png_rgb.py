@@ -24,6 +24,7 @@ import chip_smoke
 from ifseg_torch.data.png import decode_png, decode_png_rgb, encode_png
 from ifseg_torch.data.transforms import normalize_image, pil_resize
 from ifseg_tpu.data.transforms import normalize_image as jax_normalize_image
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 SIZES = [(1, 1), (3, 5), (17, 33), (64, 100)]
 

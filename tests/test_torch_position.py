@@ -15,6 +15,7 @@ import ifseg_tpu.models.position as jpos
 import ifseg_tpu.ops.resize as jresize
 import ifseg_torch.models.position as tpos
 import ifseg_torch.ops.resize as tresize
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 TOL = 1e-5
 

@@ -41,6 +41,7 @@ from ifseg_tpu.utils import profiling as jprof
 from ifseg_tpu.utils import progress as jprogress
 
 from utils import make_seg_tsv
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 DURATIONS = [
     [5.0, 4.0, 3.0] + [0.1] * 6 + [1.2, 0.1, 0.9, 0.11] + [0.1] * 60 + [2.0, 0.5, 0.05],

@@ -5,8 +5,8 @@ package's data pipeline uses (PIL, cv2, regex), which the tests may use.
 Three checks: a fresh interpreter imports ``ifseg_torch`` and every
 submodule and reports what ended up in ``sys.modules``; an AST scan of the
 package and of ``chip_smoke.py`` finds no import statement naming those
-packages; importing the PNG decoder starts no compiler (its host C++ source
-is built at the first decode).
+packages; importing the PNG, JPEG or JPEG 2000 codec starts no compiler (its
+host C++ source is built at the first decode).
 """
 
 import ast
@@ -16,6 +16,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ifseg_tpu", "PIL", "cv2", "regex")
@@ -70,7 +71,7 @@ def test_importing_every_module_loads_no_jax():
                  "ifseg_torch.ops.ngram_block", "ifseg_torch.generate",
                  "ifseg_torch.generate.search", "ifseg_torch.generate.sequence_generator",
                  "ifseg_torch.generate.trie", "ifseg_torch.generate.lexical",
-                 *NEW_MODULES):
+                 "ifseg_torch.data.jpeg2000", *NEW_MODULES):
         assert name in report["modules"], name
 
 
@@ -234,6 +235,48 @@ def test_importing_the_jpeg_codec_starts_no_compiler():
     assert [c[-1].rsplit("/", 1)[-1] for c in report["calls"]] == ["jpeg_encode.cpp",
                                                                  "jpeg_decode.cpp"], report
     assert sum(n.endswith(".so") for n in report["built"]) == 2, report
+
+
+JPEG2000_BUILD_SCRIPT = r"""
+import json, pathlib, subprocess, tempfile
+calls = []
+popen_init = subprocess.Popen.__init__
+def spy(self, args, *a, **k):
+    calls.append([str(x) for x in args])
+    return popen_init(self, args, *a, **k)
+subprocess.Popen.__init__ = spy
+import ifseg_torch.data.jpeg2000 as jpeg2000
+import ifseg_torch.data.image as image
+import ifseg_torch.cli.serve
+at_import = len(calls)
+from ifseg_torch.ops import build
+build.BUILD_DIR = pathlib.Path(tempfile.mkdtemp())  # nothing built there yet
+data = pathlib.Path("tests/torch_image_files/j2k_l_45x37.j2k").read_bytes()
+pixels, mode, _ = image.decode_image(data)
+jpeg2000.decode_jpeg2000_rgb(data)
+built = sorted(p.name for p in build.BUILD_DIR.iterdir())
+print(json.dumps({"at_import": at_import, "calls": calls, "ok": [mode, list(pixels.shape)],
+                  "built": built}))
+"""
+
+
+def test_importing_the_jpeg2000_decoder_starts_no_compiler():
+    """Importing the JPEG 2000 decoder and its users starts no compiler; the
+    first decode builds ``csrc/jpeg2000_decode.cpp``, once."""
+    import json
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", JPEG2000_BUILD_SCRIPT], cwd=str(REPO), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["at_import"] == 0, report
+    assert report["ok"] == ["L", [37, 45]] and len(report["calls"]) == 1, report
+    assert report["calls"][0][-1].endswith("csrc/jpeg2000_decode.cpp"), report
+    assert [n for n in report["built"] if n.endswith(".so")] == [
+        n for n in report["built"] if n.startswith("libjpeg2000_decode-") and n.endswith(".so")]
+    assert len([n for n in report["built"] if n.endswith(".so")]) == 1, report
 
 
 def _loads_a_library(node) -> bool:

@@ -21,6 +21,7 @@ from ifseg_torch.models import position as tpos
 from ifseg_torch.ops import resize as tresize
 from ifseg_tpu.models import position as jpos
 from ifseg_tpu.ops import resize as jresize
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 DYN_CASES = [
     # (in_size, out_pad, out_valid, in_valid)

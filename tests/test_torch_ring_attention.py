@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from torch_parallel_utils import spawn
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 CASES = {  # name: (ring, b, h, l, d, bias, masked, causal, seed)
     "bias": (4, 2, 3, 32, 8, True, False, False, 0),

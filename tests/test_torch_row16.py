@@ -29,6 +29,7 @@ from ifseg_tpu.data import transforms as jt
 from test_torch_cut_files import _datasets
 from test_torch_evaluator import AREAS, ListDS, _assert_same, _evaluators, pair  # noqa: F401
 from utils import png_b64
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 _SIZES = [((37, 45), (23, 61)), ((64, 48), (32, 24)), ((17, 9), (40, 33)),
           ((100, 131), (77, 200)), ((300, 41), (129, 90)), ((1, 7), (5, 3)),

@@ -28,6 +28,7 @@ from ifseg_torch.benchmark import dummy_seg as tdummy
 from ifseg_torch.cli import score as tscore
 from ifseg_torch.config import Config
 from ifseg_torch.utils import scoring as tscoring
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 WORDS = ["the", "The", "cat", "sat", "on", "a", "mat", "dog", "ran", "fast", "red", "Sky"]
 

@@ -40,6 +40,7 @@ from ifseg_tpu.generate.sequence_generator import (
 )
 from ifseg_tpu.generate.trie import ConstraintTrie as JTrie
 from ifseg_tpu.ops.ngram_block import ngram_repeat_mask as j_ngram
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 BOS, PAD, EOS, UNK = 0, 1, 2, 3
 

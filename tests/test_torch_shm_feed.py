@@ -11,6 +11,7 @@ import pytest
 
 from ifseg_torch.data.iterators import EpochBatchIterator
 from ifseg_torch.data.shm_feed import ShmBatchFeed, WorkerError
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 
 def _batch(i):

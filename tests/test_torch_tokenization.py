@@ -25,6 +25,7 @@ from ifseg_tpu.data.segmentation_dataset import SegmentationDataset as JaxDatase
 from ifseg_tpu.tokenization import bert_bpe as jbert
 from ifseg_tpu.tokenization import dictionary as jdict
 from ifseg_tpu.tokenization import gpt2_bpe as jgpt2
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 REPO = Path(__file__).resolve().parents[1]
 PATTERN = regex.compile(jgpt2._GPT2_PATTERN)

@@ -14,6 +14,7 @@ from ifseg_tpu.config import from_flags as jax_flags
 from ifseg_tpu.tasks.segmentation import SegmentationTask as JaxTask
 
 from utils import make_seg_tsv
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 FIELDS = ("patch_images", "src_tokens", "bos_tokens", "target", "downsampled_target",
           "aux_grid_ids", "aux_target", "ids")

@@ -17,6 +17,7 @@ import pytest
 
 from ifseg_torch.data import transforms as tt
 from ifseg_tpu.data import transforms as jt
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 SEEDS = range(200)
 

@@ -12,6 +12,7 @@ from hypothesis import strategies as st
 
 from ifseg_torch.data import transforms as tt
 from ifseg_tpu.data import transforms as jt
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 BOX = (2048, 512)  # (4s, s) at patch_image_size 512
 

@@ -32,6 +32,7 @@ from PIL import Image
 
 import torch_image_writers as W
 from ifseg_torch.data.image import decode_image, decode_image_rgb, image_digest, image_format
+import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
 FIXTURES = Path(__file__).parent / "torch_image_files"
 WEBP_FIXTURES = sorted(p.name for p in FIXTURES.glob("*.webp"))

@@ -6,7 +6,8 @@ strips or tiles, planar configurations 1 and 2, PackBits / LZW / Deflate and
 the horizontal predictor; a YCCK JPEG; WebP files with the encoder settings
 PIL's ``save`` does not expose (``webp_encode``, through the libwebp that
 PIL's wheel bundles), animations with offset frames and rewritten alpha
-filters.  Used by ``tests/test_torch_*``, by ``tools/make_image_fixtures.py``
+filters; JP2 header boxes rewritten (a ``pclr`` palette, colour spaces),
+codestreams cut into tile-parts or given another precision.  Used by ``tests/test_torch_*``, by ``tools/make_image_fixtures.py``
 and by ``chip_smoke.py`` phase 14e (numpy only, but ``webp_encode``: the
 card's machine runs them without PIL); PIL is what the tests hold them
 against.
@@ -571,3 +572,72 @@ def with_alpha_filter(data: bytes, filter_method: int) -> bytes:
     chunks = [(t, bytes([(p[0] & ~0x0C) | (filter_method << 2)]) + p[1:] if t == b"ALPH" else p)
               for t, p in riff_chunks(data)]
     return riff_file(chunks)
+
+
+# ------------------------------------------------------------- JPEG 2000
+
+def jp2_boxes(data: bytes, start: int = 0, end: int = None):
+    """[(type, payload)] of the boxes from ``start`` (a JP2 file: 12, after
+    its signature box) to ``end``; a box of length 0 runs to the end."""
+    end = len(data) if end is None else end
+    out, pos = [], start
+    while pos + 8 <= end:
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        length = length or end - pos
+        out.append((kind, data[pos + 8:pos + length]))
+        pos += length
+    return out
+
+
+def jp2_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I4s", len(payload) + 8, kind) + payload
+
+
+def jp2_rewrite_header(jp2: bytes, rewrite) -> bytes:
+    """A JP2 file whose ``jp2h`` sub-boxes are ``rewrite([(type, payload)])``."""
+    out = jp2[:12]
+    for kind, payload in jp2_boxes(jp2, 12):
+        if kind == b"jp2h":
+            payload = b"".join(jp2_box(k, p) for k, p in rewrite(jp2_boxes(payload)))
+        out += jp2_box(kind, payload)
+    return out
+
+
+def jp2_palette(jp2: bytes, palette, colour: int = 16) -> bytes:
+    """A one- or two-component JP2 file with a ``pclr`` box of ``palette``
+    ((n, channels) uint8, 8-bit entries) and a ``colr`` box of enumerated
+    space ``colour`` (16: sRGB)."""
+    palette = np.asarray(palette, np.uint8)
+    pclr = struct.pack(">HB", *palette.shape) + bytes([7] * palette.shape[1]) + palette.tobytes()
+    colr = b"\x01\x00\x00" + struct.pack(">I", colour)
+    return jp2_rewrite_header(jp2, lambda boxes: [(k, colr if k == b"colr" else p)
+                                                  for k, p in boxes] + [(b"pclr", pclr)])
+
+
+def j2k_tile_parts(codestream: bytes, parts: int, count: bool = True) -> bytes:
+    """The codestream with each tile's one tile-part cut into ``parts``
+    tile-parts at even shares of its data (TNsot = ``parts``, or 0 with
+    ``count=False``: a reader then learns each tile's end from the EOC)."""
+    pos = codestream.index(b"\xff\x90")
+    out = bytearray(codestream[:pos])
+    while codestream[pos:pos + 2] == b"\xff\x90":
+        isot, psot = struct.unpack(">HI", codestream[pos + 4:pos + 10])
+        sod = codestream.index(b"\xff\x93", pos + 12) + 2
+        header, data = codestream[pos + 12:sod], codestream[sod:pos + psot]
+        cuts = [len(data) * k // parts for k in range(parts + 1)]
+        for k in range(parts):
+            chunk = (header if k == 0 else b"\xff\x93") + data[cuts[k]:cuts[k + 1]]
+            out += struct.pack(">HHHIBB", 0xFF90, 10, isot, 12 + len(chunk), k,
+                               parts if count else 0) + chunk
+        pos += psot
+    return bytes(out + codestream[pos:])
+
+
+def j2k_precision(codestream: bytes, bits: int) -> bytes:
+    """The codestream with every component's SIZ precision set to ``bits``
+    (its sign kept): the same coefficients, another DC shift and range."""
+    out = bytearray(codestream)
+    count = struct.unpack(">H", out[40:42])[0]
+    for c in range(count):
+        out[42 + 3 * c] = (out[42 + 3 * c] & 0x80) | (bits - 1)
+    return bytes(out)

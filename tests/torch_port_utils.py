@@ -4,8 +4,12 @@ The JAX model is initialised on the CPU, its parameters are perturbed with
 numpy (the JAX init leaves relative-position tables at zero and the frozen
 BNs at identity, which would hide those paths), and the same numbers are
 loaded into the port through ``state_dict_from_jax``.
+
+Importing this module also gives each pytest-xdist worker's torch an equal
+share of the CPUs (``pin_torch_threads``): every port test file imports it.
 """
 
+import os
 import shutil
 
 import jax
@@ -18,6 +22,18 @@ from ifseg_torch.config import model_config_for_arch as torch_model_config
 from ifseg_torch.models.segofa import SegOFA as TorchSegOFA
 from ifseg_tpu.config import model_config_for_arch as jax_model_config
 from ifseg_tpu.models.segofa import SegOFAVariables
+
+def pin_torch_threads():
+    """Under pytest-xdist, set torch's intra-op threads to the CPUs this
+    process may use divided by the number of workers (at least 1), so that
+    the workers' thread pools do not oversubscribe the CPUs (torch's default
+    is one thread a CPU in every worker).  A run without xdist is left alone."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 0)
+    if workers > 1:
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+
+
+pin_torch_threads()
 
 # the tiny serving config of tests/test_serving.py
 TINY = dict(

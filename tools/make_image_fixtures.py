@@ -22,8 +22,14 @@ last two and the 1,024 x 1,366 file with a colour cache, the others without),
 an ``exact`` RGBA file; lossy + alpha with a raw ``ALPH`` chunk whose filter byte is set to
 each of 0 to 3, and with a lossless one; ``VP8X`` with ICCP / EXIF / XMP;
 RGB and RGBA animations and a crafted one whose first frame is smaller
-than the canvas, at an offset).  The WebP files PIL's ``save`` cannot make
-come from ``torch_image_writers.webp_encode`` (the libwebp PIL bundles).
+than the canvas, at an offset) and JPEG 2000 (JP2 and raw codestreams: each
+mode PIL's writer takes, both wavelets, the five progressions, tiles at
+offsets, precincts, code-blocks, quality layers by rate and PSNR, PLT; by
+hand around PIL's codestreams a ``pclr`` palette, tile-parts with and
+without their count, 4-, 12-bit and signed precisions, a cut and a flipped
+byte; a 5/3 and a 9/7 file of 1,024 x 1,366).  The WebP files PIL's ``save``
+cannot make come from ``torch_image_writers.webp_encode`` (the libwebp PIL
+bundles).
 Needs PIL; run from the repository root:
 
   python tools/make_image_fixtures.py
@@ -45,7 +51,7 @@ from ifseg_torch.data.image import image_digest  # noqa: E402
 OUT = REPO / "tests" / "torch_image_files"
 
 
-def _smooth(rng, h, w, c=3):
+def _smooth(rng, h, w, c=3, noise=4):
     base = rng.integers(0, 255, (h // 8 + 2, w // 8 + 2, c)).astype(np.float64)
     ys = np.linspace(0, base.shape[0] - 1.01, h)
     xs = np.linspace(0, base.shape[1] - 1.01, w)
@@ -53,7 +59,7 @@ def _smooth(rng, h, w, c=3):
     fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
     img = (base[y0][:, x0] * (1 - fy) * (1 - fx) + base[y0 + 1][:, x0] * fy * (1 - fx)
            + base[y0][:, x0 + 1] * (1 - fy) * fx + base[y0 + 1][:, x0 + 1] * fy * fx)
-    img = np.clip(img + rng.normal(0, 4, img.shape), 0, 255).astype(np.uint8)
+    img = np.clip(img + rng.normal(0, noise, img.shape), 0, 255).astype(np.uint8)
     return img if c > 1 else img[:, :, 0]
 
 
@@ -127,6 +133,7 @@ def files():
     full = (full + blocks.integers(0, 4, full.shape)).astype(np.uint8)
     out["jpeg_cmyk_1024x1366.jpg"] = W.pil_save(Image.fromarray(full, "CMYK"), "JPEG")
     out.update(webp_files())
+    out.update(jpeg2000_files())
     return out
 
 
@@ -185,6 +192,60 @@ def webp_files():
     full = (full // 2 + ramp).astype(np.uint8)
     out["webp_lossy_1024x1366.webp"] = W.pil_save(Image.fromarray(full), "WEBP", quality=70)
     out["webp_lossless_1024x1366.webp"] = W.pil_save(Image.fromarray(full), "WEBP", lossless=True)
+    return out
+
+
+def jpeg2000_files():
+    rng = np.random.default_rng(19)
+    small = _smooth(rng, 37, 45, noise=1)
+    mid = _smooth(rng, 30, 40, noise=1)
+    gray16 = (_smooth(rng, 33, 29, 1).astype(np.uint16) * 257 + rng.integers(0, 257, (33, 29)))
+    def jp2(arr, mode=None, **kw):
+        return W.pil_save(Image.fromarray(arr, mode), "JPEG2000", **kw)
+
+    def j2k(arr, mode=None, **kw):
+        return jp2(arr, mode, no_jp2=True, **kw)
+
+    out = {}
+    # each mode PIL's writer takes, JP2 and raw codestreams, both wavelets
+    out["j2k_l_45x37.j2k"] = j2k(small[:, :, 0])
+    out["jp2_la_irreversible.jp2"] = jp2(small[:, :, :2], "LA", irreversible=True)
+    out["jp2_rgba_tiles_offsets.jp2"] = jp2(np.dstack([small, small[:, :, 0]]), "RGBA",
+                                            tile_size=(16, 16), offset=(5, 3), tile_offset=(2, 1))
+    out["jp2_i16_29x33.jp2"] = jp2(gray16.astype(np.uint16), "I;16")
+    out["jp2_cmyk_irreversible.jp2"] = jp2(np.dstack([small, small[:, :, 1]]), "CMYK",
+                                           irreversible=True)
+    out["j2k_rgb_irreversible_mct_17x9.j2k"] = j2k(small[:9, :17], irreversible=True, mct=1)
+    out["j2k_rgb_1x1.j2k"] = j2k(small[:1, :1])
+    # progressions, precincts, code-blocks, layers, resolutions, PLT, signed
+    out["j2k_rgb_rpcl_precincts.j2k"] = j2k(mid, progression="RPCL", precinct_size=(16, 16),
+                                            codeblock_size=(8, 8), num_resolutions=4)
+    out["j2k_rgb_pcrl_layers_db.j2k"] = j2k(mid, progression="PCRL", quality_mode="dB",
+                                            quality_layers=[28, 34, 40], irreversible=True)
+    out["j2k_rgb_cprl_plt.j2k"] = j2k(mid, progression="CPRL", plt=True, tile_size=(24, 20))
+    out["j2k_rgb_rlcp_signed_rates.j2k"] = j2k(mid, progression="RLCP", signed=True,
+                                               quality_layers=[40, 10], quality_mode="rates")
+    out["j2k_rgb_one_resolution_no_mct.j2k"] = j2k(mid, num_resolutions=1, mct=0)
+    # written by hand around PIL's codestreams: a palette (pclr), tile-parts
+    # with and without their count, other precisions, a cut and a flipped byte
+    out["jp2_palette.jp2"] = W.jp2_palette(jp2(small[:, :, 0] // 16), rng.integers(0, 256, (16, 3)))
+    tiled = j2k(mid, tile_size=(16, 12))
+    out["j2k_tile_parts.j2k"] = W.j2k_tile_parts(tiled, 3)
+    out["j2k_tile_parts_no_count.j2k"] = W.j2k_tile_parts(tiled, 2, count=False)
+    out["j2k_12bit.j2k"] = W.j2k_precision(j2k(small[:, :, 0]), 12)
+    out["j2k_4bit_signed.j2k"] = W.j2k_precision(j2k(small[:, :, 0], signed=True), 4)
+    out["j2k_cut_tiles.j2k"] = tiled[:len(tiled) * 3 // 5]
+    flipped = bytearray(tiled)
+    flipped[len(tiled) // 2] ^= 0x5A
+    out["j2k_flipped_byte.j2k"] = bytes(flipped)
+    # the largest size the JAX CLIs' originals take, each wavelet, cut to a rate
+    blocks = np.random.default_rng(1368)
+    full = np.repeat(np.repeat(blocks.integers(0, 252, (33, 44, 3)), 32, 0), 32, 1)[:1024, :1366]
+    ramp = (np.arange(1366)[None, :, None] // 6 + np.arange(1024)[:, None, None] // 8) % 40
+    full = (full // 2 + ramp).astype(np.uint8)
+    out["jp2_rgb_reversible_1024x1366.jp2"] = jp2(full, quality_layers=[400])
+    out["jp2_rgb_irreversible_1024x1366.jp2"] = jp2(full, irreversible=True,
+                                                    quality_layers=[800, 400])
     return out
 
 
