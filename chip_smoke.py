@@ -3449,11 +3449,13 @@ IMAGE_FILES = REPO / "tests" / "torch_image_files"
 # (e)'s files at the largest size of phase 14's originals
 FULL_SIZE = (1024, 1366)
 # (e)'s full-size files that phase 14c sends to the daemon, one of each other format
-# (WebP lossy and lossless; JPEG 2000 as a JP2 file and as a raw codestream)
+# (WebP lossy and lossless; JPEG 2000 as a JP2 file and as a raw codestream; a
+# PackBits PSD and a raw PPM)
 DAEMON_FORMAT_FILES = ("gif_1024x1366.gif", "bmp_rle8_1024x1366.bmp", "tiff_lzw_1024x1366.tif",
                        "jpeg_cmyk_1024x1366.jpg", "webp_lossy_1024x1366.webp",
                        "webp_lossless_1024x1366.webp", "jp2_rgb_irreversible_1024x1366.jp2",
-                       "j2k_rgb_reversible_1024x1366.j2k")
+                       "j2k_rgb_reversible_1024x1366.j2k", "psd_rgb_rle_1024x1366.psd",
+                       "ppm_p6_1024x1366.ppm")
 # 14c sends this many of phase 14's JPEG files beside the files above, each
 # with its PNG twin: a run stays at DAEMON_REQUESTS requests
 DAEMON_JPEG_FILES = DAEMON_REQUESTS // 2 - len(DAEMON_FORMAT_FILES)
@@ -3466,6 +3468,10 @@ WEBP_FULL_SIZE = ("webp_lossy_1024x1366.webp", "webp_lossless_1024x1366.webp")
 JPEG2000_FULL_SIZE = ("jp2_rgb_reversible_1024x1366.jp2", "jp2_rgb_irreversible_1024x1366.jp2")
 # 14d's cli.infer run on a JPEG 2000 file, held to the run on its PNG twin
 INFER_JPEG2000 = "jp2_rgba_tiles_offsets.jp2"
+# (e)'s full-size PSD, Netpbm and ICO files, timed to RGB beside the resize
+ICON_PSD_NETPBM_FULL_SIZE = ("psd_rgb_rle_1024x1366.psd", "psd_cmyk_1024x1366.psd",
+                             "ppm_p6_1024x1366.ppm", "pgm_16bit_1024x1366.pgm",
+                             "ico_png_1024x1366.ico")
 
 
 def cmyk_to_rgb_plain(cmyk: np.ndarray) -> np.ndarray:
@@ -3488,11 +3494,15 @@ def full_size_files():
     half, which libjpeg-turbo block-smooths (1,440 x 560), timed, not
     checked: their pixels come from PIL only; the raw codestream of the
     full-size reversible JP2 fixture, held to the port's decode of that
-    fixture (which (e) holds to PIL's digests first)."""
+    fixture (which (e) holds to PIL's digests first); PSD (RGB in PackBits,
+    CMYK raw, written inverted as Photoshop stores it), Netpbm (raw P6, and
+    P5 at maxval 65535, PIL's "I") and an ICO of one PNG entry (RGBA, a
+    directory size of 256 that the entry's own size overrides)."""
     sys.path.insert(0, str(REPO / "tests"))
     import torch_image_writers as W
     from ifseg_torch.data import image
     from ifseg_torch.data.bmp import encode_bmp
+    from ifseg_torch.data.png import encode_png
     from ifseg_torch.data.tiff import encode_tiff
 
     h, w = FULL_SIZE
@@ -3508,7 +3518,19 @@ def full_size_files():
     cat_dog = (REPO / "assets" / "cat_dog.jpeg").read_bytes()
     jp2 = (IMAGE_FILES / f"jp2_rgb_reversible_{tag}.jp2").read_bytes()
     codestream = [p for kind, p in W.jp2_boxes(jp2, 12) if kind == b"jp2c"][0]
+    grey16 = rgb[:, :, 0].astype(np.int32) * 257 + rgb[:, :, 1] % 3
+    rgba = np.dstack([rgb, rgb[:, :, 2]])
     return {
+        f"psd_rgb_rle_{tag}.psd": (W.psd_file(np.moveaxis(rgb, 2, 0), 3, compression=1),
+                                   *as_rgb),
+        f"psd_cmyk_{tag}.psd": (W.psd_file(255 - np.moveaxis(cmyk, 2, 0), 4),
+                                (cmyk, "CMYK", None), cmyk_to_rgb_plain(cmyk)),
+        f"ppm_p6_{tag}.ppm": (W.netpbm_file(b"P6", rgb), *as_rgb),
+        f"pgm_16bit_{tag}.pgm": (W.netpbm_file(b"P5", grey16, maxval=65535),
+                                 (grey16, "I", None),
+                                 np.repeat(np.minimum(grey16, 255)[:, :, None], 3, 2).astype(np.uint8)),
+        f"ico_png_{tag}.ico": (W.ico_file([(encode_png(rgba), dict(width=256, height=256))]),
+                               (rgba, "RGBA", None), rgb),
         f"j2k_rgb_reversible_{tag}.j2k": (codestream, image.decode_image(jp2),
                                           image.decode_image_rgb(jp2)),
         f"gif_{tag}.gif": (W.gif_file([dict(indices=idx)], (w, h), global_palette=pal),
@@ -3540,8 +3562,10 @@ def phase_image_files(card: str, jpeg_sizes):
     ms a file (median of 3; one thread) by format and size, the full-size
     ones (and the WebP fixtures of that size) beside 14a's RGB JPEG decode at
     that size (``jpeg_sizes``) and the PIL-bilinear resize of such a file to
-    OFA-Base's 512 x 512.  Returns the timings and {name: bytes} of every
+    OFA-Base's 512 x 512; ``cli.infer``'s Netpbm writer on a full-size
+    overlay, read back.  Returns the timings and {name: bytes} of every
     file."""
+    from ifseg_torch.cli import infer as cli_infer
     from ifseg_torch.data import image
     from ifseg_torch.data.image import image_digest
     from ifseg_torch.data.transforms import pil_resize
@@ -3622,9 +3646,27 @@ def phase_image_files(card: str, jpeg_sizes):
         f"JP2 twin; host of {card}")
     if len(j2k_ms) != len(JPEG2000_FULL_SIZE):
         fail(f"[14e] the JPEG 2000 files of {h} x {w} were not all decoded: {sorted(j2k_ms)}")
+    new_ms = {r["file"]: r["rgb_ms"] for r in rows if r["file"] in ICON_PSD_NETPBM_FULL_SIZE}
+    # cli.infer's Netpbm writer (PIL's P6 whatever the extension) on a
+    # full-size overlay, read back by the port's reader
+    written = {ext: cli_infer.WRITERS[ext](big) for ext in (".ppm", ".pgm", ".pnm")}
+    ppm_ms = host_ms(lambda: cli_infer.WRITERS[".ppm"](big))
+    back, mode, _ = image.decode_image(written[".ppm"])
+    if (len(set(written.values())) != 1 or not written[".ppm"].startswith(b"P6\n%d %d\n255\n" % (w, h))
+            or mode != "RGB" or not np.array_equal(back, big)):
+        fail("[14e] cli.infer's Netpbm writer does not write the P6 file of its overlay")
+    log(f"[14e] PSD, Netpbm and ICO at {h} x {w} to RGB (median of 3, one thread): "
+        + ", ".join(f"{n} ({len(files[n])} bytes) {ms:.3f} ms" for n, ms in new_ms.items())
+        + f", beside an RGB JPEG's decode {jpeg_ms:.3f} ms (14a) and the PIL-bilinear resize to "
+        f"512 x 512 {resize_ms:.3f} ms; cli.infer's .ppm writer {ppm_ms:.3f} ms for that overlay, "
+        f"read back equal to it; host of {card}")
+    if len(new_ms) != len(ICON_PSD_NETPBM_FULL_SIZE):
+        fail(f"[14e] the PSD, Netpbm and ICO files of {h} x {w} were not all decoded: "
+             f"{sorted(new_ms)}")
     return dict(files=rows, build_s=build_s, write_s=write_s, resize_ms=resize_ms,
                 jpeg_decode_ms=jpeg_ms, webp_full_size_ms=webp_ms,
-                jpeg2000_full_size_ms=j2k_ms), files
+                jpeg2000_full_size_ms=j2k_ms, icon_psd_netpbm_full_size_ms=new_ms,
+                ppm_write_ms=ppm_ms), files
 
 
 def phase_convert_validate(card: str, tmp: str, ckpt: str, files):
@@ -3716,10 +3758,11 @@ def phase_convert_validate(card: str, tmp: str, ckpt: str, files):
 
 
 def phase_daemon_jpeg(card: str, svc, files, image_files):
-    """(c): the daemon of phase 13 answers JPEG, GIF, BMP, TIFF, WebP and
-    JPEG 2000 bodies: each run sends (e)'s DAEMON_FORMAT_FILES (a GIF, an
-    RLE8 BMP, an LZW TIFF, a CMYK JPEG, a lossy and a lossless WebP file, a
-    9/7 JP2 file and a 5/3 raw codestream of FULL_SIZE)
+    """(c): the daemon of phase 13 answers JPEG, GIF, BMP, TIFF, WebP,
+    JPEG 2000, PSD and PPM bodies: each run sends (e)'s DAEMON_FORMAT_FILES
+    (a GIF, an RLE8 BMP, an LZW TIFF, a CMYK JPEG, a lossy and a lossless
+    WebP file, a 9/7 JP2 file, a 5/3 raw codestream, a PackBits PSD and a raw
+    PPM of FULL_SIZE)
     and DAEMON_JPEG_FILES of phase
     14's JPEG files, each beside a PNG file of the RGB pixels the port
     decodes from it (every other pair asks for JSON), from 1 and from
@@ -3783,8 +3826,8 @@ def phase_daemon_jpeg(card: str, svc, files, image_files):
     k1_per = sum(n for *_, n in SITES)
     ln_per = ln_launches_per_forward(svc.server.model, position_lns=False)
     if counts["infer"] != k1_per * n_batches or ln_launches != ln_per * n_batches:
-        fail("the daemon's batches of JPEG, GIF, BMP, TIFF, WebP, JPEG 2000 and PNG bodies did "
-             "not launch K1 and K4 at every site")
+        fail("the daemon's batches of JPEG, GIF, BMP, TIFF, WebP, JPEG 2000, PSD, PPM and PNG "
+             "bodies did not launch K1 and K4 at every site")
     grid_of = batch_rows(svc, batches)
     same = formats_equal = 0
     for clients, run in runs.items():
@@ -3809,7 +3852,7 @@ def phase_daemon_jpeg(card: str, svc, files, image_files):
         del run["answers"]
         log(f"[14c] {clients} client(s), {DAEMON_REQUESTS} requests, {len(files)} JPEG and "
             f"{len(DAEMON_FORMAT_FILES)} GIF / RLE8 BMP / LZW TIFF / CMYK JPEG / WebP / JPEG 2000 "
-            f"files of "
+            f"/ PSD / PPM files of "
             f"{FULL_SIZE[0]} x {FULL_SIZE[1]} beside PNG twins: "
             f"{run['requests_per_s']:.2f} requests/s, latency p50 {run['p50_ms']:.1f} ms, p99 "
             f"{run['p99_ms']:.1f} ms, {run['batches']} batches, mean batch size "
@@ -3820,7 +3863,7 @@ def phase_daemon_jpeg(card: str, svc, files, image_files):
         f"request's preprocess {hm['jpeg_preprocess_ms']:.2f}; K1 {counts['infer']} and K4 "
         f"{ln_launches} launches over {n_batches} batches ({k1_per} and {ln_per} a batch); "
         f"{same} answers equal their PNG twins' ({formats_equal} of them GIF, BMP, TIFF, "
-        f"CMYK JPEG, WebP and JPEG 2000 (JP2 and raw)); beside {card}")
+        f"CMYK JPEG, WebP, JPEG 2000 (JP2 and raw), PSD and PPM); beside {card}")
     result["runs"] = {str(c): r for c, r in runs.items()}
     return result
 

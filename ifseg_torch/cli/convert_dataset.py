@@ -7,9 +7,11 @@ codecs in place of PIL (``data/image.py``): each TSV row is
 ``base64(PNG image) \t base64(label PNG) \t id \t line_id`` with the label
 values shifted so 0 = ignore and v = class v-1 (the loader's inverse shift,
 data/mm_data/segmentation_dataset.py:230-234).  The image is kept in its mode
-(a JPEG original as its L or RGB pixels, a PNG, GIF, BMP, TIFF, WebP or
-JPEG 2000 one as its own mode and palette), as PIL's ``save`` keeps it, and a mode PNG cannot
-hold (a CMYK JPEG or TIFF) fails the run, as PIL's PNG writer fails it;
+(a JPEG original as its L or RGB pixels, a PNG, GIF, BMP, TIFF, WebP,
+JPEG 2000, ICO, CUR, Netpbm or PSD one as its own mode and palette, a 16-bit
+PGM's "I" as 16 bits clipped to 0..65535, a palette image without a palette
+as 256 black entries), as PIL's ``save`` keeps it, and a mode PNG cannot hold
+(CMYK, a PFM's "F", a PSD's "LAB") fails the run, as PIL's PNG writer fails it;
 the label is written as an 8-bit gray PNG after the 256-entry lookup.  The
 PNG bytes differ from PIL's (another zlib stream, no filters), what both
 packages' readers decode from each row does not.

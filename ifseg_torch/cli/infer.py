@@ -18,12 +18,14 @@ given:
 mean field on the model's device (``ops/crf_device.py``), ``cpp`` on the host
 (``ops/crf.py``).  The checkpoint is a ``.pt`` file or a checkpoint
 directory of ``cli.train`` (``checkpoint/convert.py:load_model``).  The image
-is a PNG, JPEG, GIF, BMP, TIFF, WebP or JPEG 2000 file (``data/image.py``); the
-overlay is written in the format ``--output``'s extension names, with the bytes PIL's
-``save`` writes: PNG, JPEG for ``*.jpg``/``*.jpeg``
-(``data/jpeg.py:encode_jpeg``), BMP for ``*.bmp`` (``data/bmp.py``) and
-uncompressed TIFF for ``*.tif``/``*.tiff`` (``data/tiff.py``); the mask beside
-it is always a PNG file.
+is a PNG, JPEG, GIF, BMP, TIFF, WebP, JPEG 2000, ICO, CUR, Netpbm (PBM, PGM,
+PPM, PFM) or PSD file (``data/image.py``); the overlay is written in the format
+``--output``'s extension names, with the bytes PIL's ``save`` writes: PNG, JPEG
+for ``*.jpg``/``*.jpeg`` (``data/jpeg.py:encode_jpeg``), BMP for ``*.bmp``
+(``data/bmp.py``), uncompressed TIFF for ``*.tif``/``*.tiff`` (``data/tiff.py``)
+and a P6 file for ``*.pbm``, ``*.pgm``, ``*.ppm``, ``*.pnm`` and ``*.pfm``
+(``data/ppm.py``: PIL writes an RGB image as P6 whatever the Netpbm
+extension); the mask beside it is always a PNG file.
 """
 
 import argparse
@@ -42,6 +44,7 @@ from ifseg_torch.data.bmp import encode_bmp
 from ifseg_torch.data.image import decode_image_rgb
 from ifseg_torch.data.jpeg import encode_jpeg
 from ifseg_torch.data.png import encode_png
+from ifseg_torch.data.ppm import encode_ppm
 from ifseg_torch.data.segmentation_dataset import prompt_tokens
 from ifseg_torch.data.tiff import encode_tiff
 from ifseg_torch.data.transforms import KeepRatioResize, normalize_image
@@ -54,7 +57,8 @@ logger = logging.getLogger(__name__)
 
 # the overlay's writer by the extension of --output, as PIL picks its format
 WRITERS = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".bmp": encode_bmp,
-           ".tif": encode_tiff, ".tiff": encode_tiff}
+           ".tif": encode_tiff, ".tiff": encode_tiff,
+           **{ext: encode_ppm for ext in (".pbm", ".pgm", ".ppm", ".pnm", ".pfm")}}
 
 
 def _colormap(n):
@@ -100,7 +104,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ext = os.path.splitext(args.output)[1].lower()
     if ext not in WRITERS:
         raise ValueError(f"--output={args.output}: {ext or 'no extension'} is not a format this "
-                         f"CLI writes (name it *.png, *.jpg, *.jpeg, *.bmp, *.tif or *.tiff)")
+                         f"CLI writes (name it {', '.join('*' + e for e in WRITERS)})")
     categories = [c.strip() for c in args.category_list.split(",") if c.strip()]
     num_seg = len(categories)
     cfg = Config()

@@ -1,5 +1,5 @@
 // PNG row filters undone on the host (the one sequential loop of PNG decoding),
-// and the CMYK to RGB conversion of `to_rgb`.
+// and the CMYK and Lab to RGB conversions of `to_rgb`.
 //
 // `np.asarray(PIL.Image.open(...))` decodes the TSV rows of the JAX package's
 // data pipeline; the port decodes them with `zlib` and this loop
@@ -9,7 +9,9 @@
 // the pixel to the left once it is reconstructed, so a row is a chain of
 // dependent bytes that numpy cannot vectorise; a Python loop costs about a
 // second an image. `cmyk_to_rgb` is Pillow's Convert.c `cmyk2rgb`, which
-// numpy runs as a chain of 16-bit temporaries about ten times slower. Built
+// numpy runs as a chain of 16-bit temporaries about ten times slower.
+// `lab_to_rgb` is LittleCMS's tetrahedral interpolation of the 16-bit grid
+// that `ifseg_torch/data/lab.py` computes (cmsintrp.c `Eval3Inputs`). Built
 // with the host C++ compiler at first use (`ifseg_torch/ops/build.py`) and
 // called through ctypes, which releases the interpreter lock for the call.
 
@@ -87,6 +89,51 @@ extern "C" void cmyk_to_rgb(const uint8_t* in, uint8_t* out, int64_t n) {
         for (int c = 0; c < 3; ++c) {
             const uint32_t t = in[c] * nk + 128;
             out[c] = static_cast<uint8_t>(nk - (((t >> 8) + t) >> 8));
+        }
+    }
+}
+
+// in: n pixels of L, a, b bytes as PIL stores them (LittleCMS's 8-bit input);
+// out: n pixels of R, G, B bytes; grid: (g, g, g, 3) uint16 nodes indexed L,
+// a, b. Each byte is read as v * 257 (FROM_8_TO_16), placed on the grid in
+// 16.16 fixed point (_cmsToFixedDomain), interpolated over the tetrahedron
+// its three fractions pick, largest first, with LittleCMS's rounding of
+// the int32 sum, and written as FROM_16_TO_8.
+extern "C" void lab_to_rgb(const uint8_t* in, uint8_t* out, int64_t n, const uint16_t* grid,
+                           int64_t g) {
+    const int64_t opta[3] = {3 * g * g, 3 * g, 3};  // the strides of L, a and b
+    for (int64_t i = 0; i < n; ++i, in += 3, out += 3) {
+        int64_t base = 0, step[3];
+        int32_t rest[3];
+        for (int d = 0; d < 3; ++d) {
+            const int32_t v = in[d] * 257;
+            const int32_t a = v * static_cast<int32_t>(g - 1);
+            const int32_t f = a + (a + 0x7fff) / 0xffff;
+            base += (f >> 16) * opta[d];
+            rest[d] = f & 0xffff;
+            step[d] = v == 0xffff ? 0 : opta[d];
+        }
+        // the dimensions by their fraction, largest first (ties in L, a, b order)
+        int o[3] = {0, 1, 2};
+        for (int x = 0; x < 2; ++x)
+            for (int y = 0; y < 2 - x; ++y)
+                if (rest[o[y]] < rest[o[y + 1]]) {
+                    const int t = o[y];
+                    o[y] = o[y + 1];
+                    o[y + 1] = t;
+                }
+        const int64_t k1 = step[o[0]], k2 = k1 + step[o[1]], k3 = k2 + step[o[2]];
+        const uint16_t* p = grid + base;
+        for (int c = 0; c < 3; ++c) {
+            const int32_t c0 = p[c], c1 = p[k1 + c], c2 = p[k2 + c], c3 = p[k3 + c];
+            // LittleCMS sums in int32: wrap as it does
+            const int64_t wide = int64_t{c1 - c0} * rest[o[0]] + int64_t{c2 - c1} * rest[o[1]] +
+                                 int64_t{c3 - c2} * rest[o[2]] + 0x8001;
+            const int32_t sum = static_cast<int32_t>(static_cast<uint32_t>(wide));
+            const int32_t t = static_cast<int32_t>(static_cast<uint32_t>(sum) +
+                                                   static_cast<uint32_t>(sum >> 16));
+            const uint32_t w = static_cast<uint16_t>(c0 + (t >> 16));
+            out[c] = static_cast<uint8_t>(((w * 65281u + 8388608u) >> 24) & 0xff);
         }
     }
 }

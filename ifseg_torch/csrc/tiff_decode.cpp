@@ -11,8 +11,16 @@
 //
 // Each returns the bytes it wrote (at most `cap`), or -1 for broken data;
 // tiff.py raises where a strip or tile comes out short, as libtiff does
-// ("Not enough data"). Built with the host C++ compiler at first use
-// (`ifseg_torch/ops/build.py`) and called through ctypes.
+// ("Not enough data").
+//
+// `packbits_rows` is PIL's own PackBits decoder (PackBitsDecode.c), which
+// its PSD reader (`ifseg_torch/data/psd.py`) uses: the same codes, but row
+// by row: a run or literal that passes the row's end is cut there and the
+// rest of it dropped, an op whose bytes the data does not hold whole waits
+// (the row it would finish is never written), and only whole rows count.
+//
+// Built with the host C++ compiler at first use (`ifseg_torch/ops/build.py`)
+// and called through ctypes.
 
 #include <cstdint>
 #include <cstring>
@@ -101,4 +109,39 @@ extern "C" int64_t tiff_packbits(const uint8_t* in, int64_t n, uint8_t* out, int
         }
     }
     return o;
+}
+
+extern "C" int64_t packbits_rows(const uint8_t* in, int64_t n, uint8_t* out, int64_t rows,
+                                 int64_t row_bytes) {
+    int64_t pos = 0, x = 0, y = 0;
+    uint8_t* row = out;
+    while (y < rows && pos < n) {
+        const int c = in[pos];
+        if (c == 0x80) {  // no-op
+            ++pos;
+            continue;
+        }
+        if (c & 0x80) {  // a run of 257 - c copies of the next byte
+            if (n - pos < 2) break;
+            int64_t k = 257 - c;
+            if (k > row_bytes - x) k = row_bytes - x > 0 ? row_bytes - x : 0;
+            std::memset(row + x, in[pos + 1], static_cast<size_t>(k));
+            x += k;
+            pos += 2;
+        } else {  // c + 1 literal bytes
+            const int64_t len = c + 1;
+            if (n - pos < len + 1) break;
+            int64_t k = len;
+            if (k > row_bytes - x) k = row_bytes - x > 0 ? row_bytes - x : 0;
+            std::memcpy(row + x, in + pos + 1, static_cast<size_t>(k));
+            x += k;
+            pos += len + 1;
+        }
+        if (x >= row_bytes) {
+            x = 0;
+            ++y;
+            row += row_bytes;
+        }
+    }
+    return y;
 }

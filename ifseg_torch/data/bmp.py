@@ -32,7 +32,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from ifseg_torch.data.png import unpack_bits, words16
+from ifseg_torch.data.png import check_pixels, unpack_bits, words16
 from ifseg_torch.ops import build
 
 SOURCE = "bmp_rle"
@@ -74,14 +74,24 @@ def _header(data: bytes):
     ``_bitmap`` reads them."""
     if len(data) < 18:
         raise ValueError("truncated BMP: the file header is cut off")
-    offset = _u32(data, 10)
-    size = _u32(data, 14)
+    return _info(data, 14, _u32(data, 10))
+
+
+def _info(data: bytes, at: int, offset: int, header: int = 0):
+    """``_header``'s tuple from the info header at ``at``: a BMP file's at 14
+    with the file header's pixel ``offset``; a bare bitmap's (an icon's or a
+    cursor's entry) with offset 0, its pixels after its palette.  ``header``
+    is PIL's argument of that name: a cursor's entry at 22 reads 32-bit pixels
+    with their alpha."""
+    if len(data) < at + 4:
+        raise ValueError("truncated BMP: the info header is cut off")
+    size = _u32(data, at)
     if size not in _HEADERS:
         raise ValueError(f"BMP header size {size} is not one PIL reads")
-    head = data[18:14 + size]
+    head = data[at + 4:at + size]
     if len(head) < size - 4:
         raise ValueError("truncated BMP: the info header is cut off")
-    pos = 14 + size
+    pos = at + size
     if size == 12:
         width, height, _, bits = struct.unpack_from("<HHHH", head)
         compression, colors, pad, top_down = _RAW, 0, 3, False
@@ -93,6 +103,8 @@ def _header(data: bytes):
         compression = _u32(head, 12)
         colors = _u32(head, 28)
         pad = 4
+    if width <= 0 or height <= 0:  # PIL's ImageFile identifies no such image
+        raise ValueError(f"broken BMP: size {width} x {height}")
     colors = colors or (1 << bits)
     if offset == 14 + size and bits <= 8:
         offset += 4 * colors
@@ -115,6 +127,8 @@ def _header(data: bytes):
         raw = _MASK_MODES[key]
         if bits == 32 and "A" in raw:
             mode = "RGBA"
+    elif compression == _RAW and bits == 32 and header == 22:
+        mode, raw = "RGBA", "BGRA"
     elif compression not in (_RAW, _RLE8, _RLE4):
         name = {4: "JPEG", 5: "PNG"}.get(compression, str(compression))
         raise ValueError(f"BMP compression {name} is not supported (PIL reads RGB, bitfields, "
@@ -185,7 +199,26 @@ def decode_bmp_image(data: bytes):
     data = bytes(data)
     if data[:2] != SIGNATURE:
         raise ValueError("not a BMP file")
-    mode, raw, width, height, depth, top_down, compression, palette, pad, offset = _header(data)
+    return _decode(data, _header(data))
+
+
+def decode_dib_image(data: bytes, at: int, header: int = 0, cursor: bool = False):
+    """(pixels, PIL's mode, palette or None, pixel data offset) of the bare
+    bitmap whose info header starts at ``at``, as PIL reads an icon's or a
+    cursor's entry: the height halved (the second half is the entry's AND
+    mask), the pixels right after the palette.  PIL checks an icon's size
+    before the halving and a cursor's (``cursor``) after it."""
+    data = bytes(data)
+    info = _info(data, at, 0, header)
+    info = info[:3] + (info[3] // 2,) + info[4:]
+    if cursor and not info[3]:  # a cursor's own size, after the halving, is checked
+        raise ValueError("broken CUR: a bitmap one row high")
+    check_pixels(info[2], info[3] * (1 if cursor else 2), "BMP")
+    return _decode(data, info) + (info[-1],)
+
+
+def _decode(data: bytes, info):
+    mode, raw, width, height, depth, top_down, compression, palette, pad, offset = info
     if compression in (_RLE8, _RLE4):
         if mode == "1":
             raise ValueError("broken BMP: an RLE bitmap with a black-and-white palette")

@@ -57,7 +57,8 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
           (0, 1, 1, 2))
 # encode_png's modes: (colour type, bit depth, samples a pixel)
 _MODES = {"1": (0, 1, 1), "L": (0, 8, 1), "P": (3, 8, 1), "I;16": (0, 16, 1),
-          "I;16B": (0, 16, 1), "LA": (4, 8, 2), "RGB": (2, 8, 3), "RGBA": (6, 8, 4)}
+          "I;16B": (0, 16, 1), "I": (0, 16, 1), "LA": (4, 8, 2), "RGB": (2, 8, 3),
+          "RGBA": (6, 8, 4)}
 
 
 @lru_cache(maxsize=None)
@@ -68,6 +69,9 @@ def _lib():
     lib.png_unfilter.restype = ctypes.c_int64
     lib.cmyk_to_rgb.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
     lib.cmyk_to_rgb.restype = None
+    lib.lab_to_rgb.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                               ctypes.c_void_p, ctypes.c_int64]
+    lib.lab_to_rgb.restype = None
     return lib
 
 
@@ -155,8 +159,15 @@ def to_rgb(pixels: np.ndarray, palette=None, mode=None) -> np.ndarray:
     """Decoded pixels as PIL's ``convert("RGB")`` gives them: palette indices
     ("P", or "PA" with its alpha) where ``palette``, an (n, 3) or (n, 4)
     table, is given, an index past its end black; for ``mode`` "CMYK" (an
-    (h, w, 4) array) Pillow's ``cmyk2rgb``; otherwise as the array's shape
-    and dtype say (gray, gray + alpha, RGB, RGBA, 1-bit, 16-bit)."""
+    (h, w, 4) array) Pillow's ``cmyk2rgb``; for "LAB" LittleCMS's transform
+    to sRGB (``data/lab.py``); otherwise as the array's shape and dtype say
+    (gray, gray + alpha, RGB, RGBA, 1-bit, 16-bit, "I" int32 clipped to
+    0..255, "F" float32 through PIL's ``f2l``: 0 at or below 0 and for NaN,
+    255 at or above 255, truncated between)."""
+    if mode == "LAB":
+        from ifseg_torch.data.lab import lab_to_rgb  # lab.py loads this module's library
+
+        return lab_to_rgb(pixels)
     if palette is not None:
         table = np.zeros((256, 3), np.uint8)
         entries = np.asarray(palette, np.uint8)[:256, :3]
@@ -171,6 +182,11 @@ def to_rgb(pixels: np.ndarray, palette=None, mode=None) -> np.ndarray:
         pixels = pixels.astype(np.uint8) * np.uint8(255)
     elif pixels.dtype.kind == "u" and pixels.dtype.itemsize == 2:  # "I;16": PIL clips to 255
         pixels = np.minimum(pixels, 255).astype(np.uint8)
+    elif pixels.dtype.kind == "i":  # "I"
+        pixels = np.clip(pixels, 0, 255).astype(np.uint8)
+    elif pixels.dtype.kind == "f":  # "F", Convert.c f2l
+        v = np.nan_to_num(pixels.astype(np.float32), nan=0.0)
+        pixels = np.clip(v, 0, 255).astype(np.uint8)
     if pixels.ndim == 2:
         return np.repeat(pixels[:, :, None], 3, axis=2)
     if pixels.shape[2] == 2:  # gray + alpha
@@ -181,10 +197,13 @@ def to_rgb(pixels: np.ndarray, palette=None, mode=None) -> np.ndarray:
 def encode_png(arr: np.ndarray, mode: str = None, palette=None) -> bytes:
     """A PNG file of ``arr`` in PIL's ``mode``: "1" ((h, w) bool), "L" and
     "P" ((h, w) uint8; "P" writes ``palette``, (n, 3) or (n, 4) uint8, as PLTE
-    and its alpha as tRNS), "I;16" ((h, w) uint16; "I;16B" big-endian), "LA",
-    "RGB" and "RGBA"
-    ((h, w, 2/3/4) uint8).  ``mode`` defaults to what the array's shape and
-    dtype say ("P" where a palette is given).  No filter, zlib level 6."""
+    and its alpha as tRNS; an empty palette as 256 black entries, as PIL
+    writes an image with none), "I;16" ((h, w) uint16; "I;16B" big-endian),
+    "I" ((h, w) int32, 16 bits clipped to 0..65535, as PIL writes it), "LA",
+    "RGB" and "RGBA" ((h, w, 2/3/4) uint8).  Other modes ("F", "LAB",
+    "CMYK") raise, as PIL's PNG writer does.  ``mode`` defaults to what the
+    array's shape and dtype say ("P" where a palette is given).  No filter,
+    zlib level 6."""
     arr = np.asarray(arr)
     if mode is None:
         mode = "P" if palette is not None else _mode_of(arr)
@@ -192,6 +211,10 @@ def encode_png(arr: np.ndarray, mode: str = None, palette=None) -> bytes:
         raise ValueError(f"encode_png takes modes {sorted(_MODES)}, not {mode} "
                          f"({arr.shape} {arr.dtype})")
     colour, depth, channels = _MODES[mode]
+    if mode == "I":  # int32, written as PIL writes it: 16 bits, clipped to 0..65535
+        if arr.dtype != np.int32 or arr.ndim != 2:
+            raise ValueError(f"encode_png mode I takes (h, w) int32, not {arr.shape} {arr.dtype}")
+        arr = np.clip(arr, 0, 65535).astype(np.uint16)
     wide = np.dtype(">u2") if mode == "I;16B" else np.dtype(np.uint16)
     want_dtype = {1: bool, 8: np.uint8, 16: wide}[depth]
     shape_ok = arr.ndim == 2 if channels == 1 else (arr.ndim == 3 and arr.shape[2] == channels)
@@ -216,6 +239,8 @@ def encode_png(arr: np.ndarray, mode: str = None, palette=None) -> bytes:
         if palette is None:
             raise ValueError("encode_png mode P needs a palette")
         table = np.asarray(palette, np.uint8)
+        if table.shape == (0, 3):
+            table = np.zeros((256, 3), np.uint8)
         if table.ndim != 2 or table.shape[1] not in (3, 4) or not 0 < len(table) <= 256:
             raise ValueError(f"a palette is (n, 3) or (n, 4) uint8 with n <= 256, not {table.shape}")
         extra = chunk(b"PLTE", np.ascontiguousarray(table[:, :3]).tobytes())
@@ -259,6 +284,13 @@ def _samples(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
     return unpack_bits(rows, depth, w)[:, :, None]
 
 
+def check_pixels(width: int, height: int, what: str):
+    """PIL's decompression bomb check: ValueError for an image of more than
+    twice ``Image.MAX_IMAGE_PIXELS`` (89,478,485) pixels, which PIL refuses."""
+    if max(1, width) * max(1, height) > 2 * 89478485:
+        raise ValueError(f"{what} image of {width} x {height} pixels is larger than PIL opens")
+
+
 def words16(rows: np.ndarray, count: int, order: str) -> np.ndarray:
     """(h, count) 16-bit words of the first 2 * count bytes of each of the
     (h, row bytes) rows, in ``order`` ("<u2" or ">u2")."""
@@ -271,6 +303,36 @@ def unpack_bits(rows: np.ndarray, depth: int, width: int) -> np.ndarray:
     shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
     samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(rows.shape[0], -1)
     return np.ascontiguousarray(samples[:, :width])
+
+
+def _inflate(stream: bytes, rows) -> bytes:
+    """The bytes of the rows (of the sizes ``rows``) that PIL's zlib decoder
+    inflates from ``stream``: one row an ``inflate`` call, up to the end of
+    the data or up to the call that meets an error (a broken code, a wrong
+    checksum after the last row), whose row is lost with the rest.  A stream
+    without an error is inflated in one call."""
+    try:
+        return zlib.decompressobj().decompress(stream, sum(rows))
+    except zlib.error:
+        pass
+    inflater, out, pos, pending = zlib.decompressobj(), [], 0, b""
+    for size in rows:
+        row = b""
+        while len(row) < size:
+            if not pending and pos < len(stream):  # the input in pieces: no quadratic copies
+                pending, pos = stream[pos:pos + 65536], pos + 65536
+            try:
+                part = inflater.decompress(pending, size - len(row))
+            except zlib.error:
+                return b"".join(out)
+            pending = inflater.unconsumed_tail
+            if not part and not pending and pos >= len(stream):
+                break
+            row += part
+        out.append(row)
+        if len(row) < size:
+            break
+    return b"".join(out)
 
 
 def _decode(data: bytes):
@@ -303,9 +365,10 @@ def _decode(data: bytes):
     sizes = [(-(-(h - y0) // dy), -(-(w - x0) // dx)) for x0, y0, dx, dy in passes]
     strides = [(pw * channels * depth + 7) // 8 for _, pw in sizes]
     need = sum(ph * (s + 1) for (ph, pw), s in zip(sizes, strides) if ph and pw)
-    # a cut file inflates to fewer bytes: the rows it lacks stay 0, as in PIL's
-    # image under LOAD_TRUNCATED_IMAGES
-    raw = zlib.decompressobj().decompress(b"".join(idat), need)
+    # a cut or broken file inflates to fewer bytes: the rows it lacks stay 0, as
+    # in PIL's image under LOAD_TRUNCATED_IMAGES
+    raw = _inflate(b"".join(idat), [stride + 1 for (ph, pw), stride in zip(sizes, strides)
+                                    if ph and pw for _ in range(ph)])
     kept, at = 0, 0  # the bytes of the rows inflated whole
     for (ph, pw), stride in zip(sizes, strides):
         if ph and pw:

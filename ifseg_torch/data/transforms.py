@@ -218,7 +218,8 @@ def resize_image(img: np.ndarray, out_hw: Tuple[int, int], nearest: bool = False
     """``cv2.resize(img, (out_w, out_h), interpolation=...)`` for an image
     (h, w) or (h, w, c): ``INTER_LINEAR`` for uint8 or uint16 (a big-endian
     one's bytes read as native, as cv2 reads them), or ``INTER_NEAREST`` (``nearest``) for any
-    dtype."""
+    dtype; an image of the output's size is copied whatever its dtype, as cv2
+    copies it, and any other dtype raises ``TypeError``."""
     h, w = img.shape[:2]
     out_h, out_w = out_hw
     if nearest:
@@ -228,10 +229,12 @@ def resize_image(img: np.ndarray, out_hw: Tuple[int, int], nearest: bool = False
         if (h, w) == (out_h, out_w):
             return img
         return _bilinear_u16(img, out_h, out_w)
-    if img.dtype != np.uint8:
-        raise TypeError(f"resize_image takes uint8 or uint16 images, not {img.dtype}")
-    if (h, w) == (out_h, out_w):
+    if (h, w) == (out_h, out_w):  # cv2 copies an image of the output's size, whatever its type
         return img.copy()
+    if img.dtype != np.uint8:
+        # cv2 refuses int32 (a PGM row of more than 8 bits); its float32
+        # resize (a PFM row) is IPP's, not reproduced here
+        raise TypeError(f"resize_image takes uint8 or uint16 images, not {img.dtype}")
     if (h, w) == (2 * out_h, 2 * out_w):
         s = img.astype(np.int32)
         return ((s[0::2, 0::2] + s[0::2, 1::2] + s[1::2, 0::2] + s[1::2, 1::2] + 2) >> 2

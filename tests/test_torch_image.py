@@ -115,20 +115,24 @@ def test_rgb_of_16_bit_and_interlaced_pngs(colour, depth, interlace):
 
 
 OTHER_FORMATS = (["GIF", "BMP", "TIFF"] + (["WEBP"] if features.check("webp") else [])
-                 + (["JPEG2000"] if features.check("jpg_2000") else []))
+                 + (["JPEG2000"] if features.check("jpg_2000") else []) + ["ICO", "PPM"])
 
 
 @pytest.mark.parametrize("fmt", OTHER_FORMATS)
 def test_other_formats_raise_naming_them(fmt):
-    """GIF, BMP, TIFF, WebP and JPEG 2000 files decode as PIL decodes them
-    (mode, pixels and RGB; every variant in ``tests/test_torch_image_files.py``,
-    ``tests/test_torch_webp.py`` and ``tests/test_torch_jpeg2000.py``); a file
-    of no image format raises naming the formats read."""
-    data = _save(Image.fromarray(np.arange(48, dtype=np.uint8).reshape(4, 4, 3)), fmt)
+    """GIF, BMP, TIFF, WebP, JPEG 2000, ICO and Netpbm files decode as PIL
+    decodes them (mode, pixels and RGB; every variant in
+    ``tests/test_torch_image_files.py``, ``tests/test_torch_webp.py``,
+    ``tests/test_torch_jpeg2000.py``, ``tests/test_torch_ico.py`` and
+    ``tests/test_torch_netpbm.py``); a file of no image format raises naming
+    the formats read."""
+    data = _save(Image.fromarray(np.arange(48, dtype=np.uint8).reshape(4, 4, 3)), fmt,
+                 **({"sizes": [(4, 4)]} if fmt == "ICO" else {}))
     pil = Image.open(io.BytesIO(data))
     pixels, mode, _ = decode_image(data)
     assert mode == pil.mode
     np.testing.assert_array_equal(pixels, np.asarray(pil))
     np.testing.assert_array_equal(decode_image_rgb(data), np.asarray(pil.convert("RGB")))
-    with pytest.raises(ValueError, match="not a PNG, JPEG, GIF, BMP, TIFF, WebP or JPEG 2000 file"):
+    with pytest.raises(ValueError, match="not a PNG, JPEG, GIF, BMP, TIFF, WebP, JPEG 2000, ICO, "
+                                         "CUR, Netpbm or PSD file"):
         decode_image(b"plain text, no image")

@@ -1,6 +1,6 @@
-"""GIF, BMP, TIFF, CMYK JPEG, WebP and JPEG 2000 files through the port's
-entry points against the JAX package's, which read them with PIL, on the CPU
-at a tiny width:
+"""GIF, BMP, TIFF, CMYK JPEG, WebP, JPEG 2000, ICO, CUR, PSD and Netpbm files
+through the port's entry points against the JAX package's, which read them
+with PIL, on the CPU at a tiny width:
 
   - TSV rows whose images are GIF (palette and gray), BMP (24-bit and
     palette), TIFF (LZW RGB, 16-bit grey, CMYK), CMYK / YCCK JPEG, WebP
@@ -20,7 +20,13 @@ at a tiny width:
     CLI's (PIL's ``save``), the TIFF overlay's equal PIL's ``save`` of that
     overlay, the masks equal; on a lossy WebP file with alpha and on a raw
     JPEG 2000 codestream: the overlay's and the mask's pixels equal the JAX
-    CLI's.
+    CLI's; on a PSD file with ``--output=*.ppm``: the overlay's bytes equal
+    the JAX CLI's, the masks equal;
+  - ICO, CUR, PSD and Netpbm rows and originals: the dataset's rows and the
+    converted rows equal the JAX package's; a 16-bit PGM row raises in both
+    at cv2's resize; a PFM row decodes as the JAX row and its float32 resize
+    is refused (the port does not reproduce cv2's); a PFM, Lab or CMYK
+    original fails both converters.
 """
 
 import base64
@@ -99,6 +105,35 @@ def _jpeg2000_originals(seed: int = 10):
         (".jp2", palette),
         (".j2k", W.pil_save(Image.fromarray(rgba[:, :80, 1]), "JPEG2000", no_jp2=True,
                             irreversible=True, quality_layers=[20, 5])),
+    ]
+
+
+def _icon_psd_netpbm_originals(seed: int = 11):
+    """(extension, file bytes): ICO (bitmap entry with an AND mask, PNG
+    entries), CUR, PSD (PackBits RGB, CMYK, indexed, Lab, a 1-bit bitmap),
+    Netpbm (P6, P5, a 16-bit P5, P4, PIL's PyP without a palette)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (13, 16, 4)).astype(np.uint8)
+    px = np.repeat(np.repeat(base, 6, 0), 6, 1)[:73, :91]
+    mask = px[:, :, 3] > 99
+    planes = np.moveaxis(px, 2, 0)
+    pal = rng.integers(0, 256, (256, 3))
+    return [
+        (".ico", W.ico_file([(W.dib(px[:, :, :3], 24, None, mask), dict(width=91, height=73,
+                                                                        bits=24))])),
+        (".ico", W.pil_save(Image.fromarray(px, "RGBA"), "ICO", sizes=[(64, 64), (32, 32)])),
+        (".cur", W.ico_file([(W.dib(px[:60, :70, 0], 8, pal, mask[:60, :70]),
+                              dict(width=70, height=60))], kind=2)),
+        (".psd", W.psd_file(planes[:3], 3, 8, 1)),
+        (".psd", W.psd_file(planes, 4, 8, 0)),
+        (".psd", W.psd_file(planes[:1], 2, 8, 1, palette=pal)),
+        (".psd", W.psd_file(planes[:3, :70, :80], 9, 8, 1)),
+        (".psd", W.psd_file(planes[:1] > 127, 0, 1, 1)),
+        (".ppm", W.netpbm_file(b"P6", px[:, :, :3])),
+        (".pgm", W.netpbm_file(b"P5", px[:, :, 0])),
+        (".pgm", W.netpbm_file(b"P5", px[:, :, 1].astype(int) * 250, maxval=65535)),
+        (".pbm", W.netpbm_file(b"P4", px[:, :, 2] > 127)),
+        (".pnm", W.netpbm_file(b"PyP", px[:, :, 0])),
     ]
 
 
@@ -235,13 +270,151 @@ def test_infer_on_a_jpeg2000_codestream_as_jax(checkpoint, bpe_dir, tmp_path, mo
     np.testing.assert_array_equal(_pixels(result["mask"]), _pixels(str(tmp_path / "jax_mask.png")))
 
 
-@pytest.mark.parametrize("ext", [".gif", ".bmp", ".tif", ".jpg", ".webp", ".jp2", ".j2k"])
+@pytest.mark.parametrize("ext", [".gif", ".bmp", ".tif", ".jpg", ".webp", ".jp2", ".j2k", ".ico",
+                                 ".cur", ".psd", ".ppm", ".pgm", ".pbm", ".pnm"])
 def test_serve_and_infer_read_each_format(ext):
     """The daemon's and the CLI's reader (``decode_image_rgb``) on each
     format: PIL's ``convert("RGB")``."""
     from ifseg_torch.data.image import decode_image_rgb
 
-    for e, data in _originals() + _webp_originals() + _jpeg2000_originals():
+    for e, data in (_originals() + _webp_originals() + _jpeg2000_originals()
+                    + _icon_psd_netpbm_originals()):
         if e == ext:
             want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
             np.testing.assert_array_equal(decode_image_rgb(data), want)
+
+
+def _rows_tsv(path, originals):
+    rng = np.random.default_rng(12)
+    with open(path, "w") as fp:
+        for i, (_, data) in enumerate(originals):
+            h, w = decode_image(data)[0].shape[:2]
+            seg = rng.integers(0, 4, (h // 8 + 1, w // 8 + 1)).astype(np.uint8)
+            seg = np.repeat(np.repeat(seg, 8, 0), 8, 1)[:h, :w]
+            fp.write(f"{base64.urlsafe_b64encode(data).decode()}\t{png_b64(seg)}\t{i}\n")
+    return str(path)
+
+
+def test_icon_psd_netpbm_dataset_rows_equal_jax(tmp_path, bpe_dir):
+    """ICO, CUR, PSD (a CMYK row's first three channels, a Lab row's L, a and
+    b bytes) and Netpbm rows: the JAX package's decoded rows, evaluation
+    samples and training examples; a 16-bit PGM row ("I", int32) and the
+    1-bit rows (bool), which cv2 refuses to resize, raise in both."""
+    originals = _icon_psd_netpbm_originals()
+    tsv = _rows_tsv(tmp_path / "rows.tsv", originals)
+    refused = [i for i, (_, data) in enumerate(originals) if decode_image(data)[1] in ("I", "1")]
+    got_ds, want_ds = _datasets(tsv, bpe_dir, "valid")
+    for i in range(len(want_ds)):
+        got_row, want_row = got_ds._decode_row(i), want_ds._decode_row(i)
+        for a, b in zip(got_row[:2], want_row[:2]):
+            assert a.dtype == b.dtype and np.array_equal(a, b), i
+        if i in refused:  # cv2 refuses the dtype
+            with pytest.raises(Exception):
+                want_ds.get_eval_sample(i)
+            with pytest.raises(TypeError, match="int32|bool"):
+                got_ds.get_eval_sample(i)
+            continue
+        got, want = got_ds.get_eval_sample(i), want_ds.get_eval_sample(i)
+        for f in ("patch_image", "ori_semantic_seg"):
+            a, b = getattr(got, f), getattr(want, f)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (i, f)
+    assert len(refused) == 3
+    got_ds, want_ds = _datasets(tsv, bpe_dir, "train")
+    for i in range(len(want_ds)):
+        ga, gb = np.random.default_rng((5, i)), np.random.default_rng((5, i))
+        if i in refused:
+            with pytest.raises(Exception):
+                want_ds.get_train_example(i, gb)
+            with pytest.raises(TypeError, match="int32|bool"):
+                got_ds.get_train_example(i, ga)
+            continue
+        want = want_ds.get_train_example(i, gb)
+        got = got_ds.get_train_example(i, ga)
+        for k in want:
+            if k != "id":
+                assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), (i, k)
+
+
+def test_a_pfm_row_decodes_as_jax_and_its_float_resize_is_refused(tmp_path, bpe_dir):
+    """A PFM row ("F", float32) decodes to the JAX package's row; cv2's
+    float32 resize (IPP's, whose three-channel border columns the port does
+    not reproduce) is refused with ``TypeError`` where the JAX package
+    resizes (ROADMAP A.11)."""
+    px = np.random.default_rng(13).random((37, 45)).astype(np.float32) * 300 - 20
+    tsv = _rows_tsv(tmp_path / "pfm.tsv", [(".pfm", W.netpbm_file(b"Pf", px))])
+    got_ds, want_ds = _datasets(tsv, bpe_dir, "valid")
+    got_row, want_row = got_ds._decode_row(0), want_ds._decode_row(0)
+    for a, b in zip(got_row[:2], want_row[:2]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert want_ds.get_eval_sample(0).patch_image.dtype == np.float32
+    with pytest.raises(TypeError, match="float32"):
+        got_ds.get_eval_sample(0)
+
+
+def test_icon_psd_netpbm_convert_rows_equal_jax(tmp_path):
+    """``cli.convert_dataset`` over ICO, CUR, PSD and Netpbm originals: each
+    row's image in the mode PIL's PNG writer keeps (RGBA, P, "1", a 16-bit
+    PGM's "I" as 16 bits, a palette image without a palette as 256 black
+    entries), as the JAX CLI writes it."""
+    images, labels = tmp_path / "images", tmp_path / "annotations"
+    images.mkdir()
+    labels.mkdir()
+    originals = [o for o in _icon_psd_netpbm_originals()
+                 if decode_image(o[1])[1] not in ("CMYK", "LAB")]
+    for i, (ext, data) in enumerate(originals):
+        (images / f"img_{i:02d}{ext}").write_bytes(data)
+        h, w = decode_image(data)[0].shape[:2]
+        Image.fromarray((np.arange(h * w) % 151).astype(np.uint8).reshape(h, w)).save(
+            labels / f"img_{i:02d}.png")
+    args = ["--mode=ade", f"--images={images}", f"--annotations={labels}", "--workers=2",
+            "--image-exts=.ico,.cur,.psd,.ppm,.pgm,.pbm,.pnm"]
+    jconvert.main(args + [f"--output={tmp_path / 'jax.tsv'}"])
+    assert tconvert.main(args + [f"--output={tmp_path / 'torch.tsv'}"]) == len(originals)
+    want = [r.rstrip("\n").split("\t") for r in open(tmp_path / "jax.tsv")]
+    got = [r.rstrip("\n").split("\t") for r in open(tmp_path / "torch.tsv")]
+    assert [r[2:] for r in got] == [r[2:] for r in want] and len(got) == len(originals)
+    for g, w in zip(got, want):
+        for col in (0, 1):
+            a, b = _pil_row(g[col]), _pil_row(w[col])
+            assert a[1] == b[1] and a[0].dtype == b[0].dtype and np.array_equal(a[0], b[0]), g[2]
+            assert a[2] == b[2] and a[3] == b[3], g[2]  # palette and transparency
+            port = decode_image(base64.urlsafe_b64decode(g[col]))[0]
+            assert np.array_equal(port, a[0]), g[2]
+
+
+@pytest.mark.parametrize("mode,data", [
+    ("F", W.netpbm_file(b"Pf", np.ones((8, 9), np.float32))),
+    ("LAB", W.psd_file(np.full((3, 8, 9), 100, np.uint8), 9)),
+    ("CMYK", W.psd_file(np.full((4, 8, 9), 100, np.uint8), 4))], ids=["pfm", "lab-psd", "cmyk-psd"])
+def test_an_original_png_cannot_hold_fails_both_converts(tmp_path, mode, data):
+    images, labels = tmp_path / "images", tmp_path / "annotations"
+    images.mkdir()
+    labels.mkdir()
+    (images / "a.img").write_bytes(data)
+    Image.fromarray(np.zeros((8, 9), np.uint8)).save(labels / "a.png")
+    args = ["--mode=ade", f"--images={images}", f"--annotations={labels}", "--workers=1",
+            "--image-exts=.img"]
+    with pytest.raises(OSError, match=mode):
+        jconvert.main(args + [f"--output={tmp_path / 'jax.tsv'}"])
+    with pytest.raises(ValueError, match=mode):
+        tconvert.main(args + [f"--output={tmp_path / 'torch.tsv'}"])
+    assert not (tmp_path / "jax.tsv").exists() and not (tmp_path / "torch.tsv").exists()
+
+
+def test_infer_on_a_psd_writes_ppm_as_jax(checkpoint, bpe_dir, tmp_path, monkeypatch):
+    """``cli.infer --output=*.ppm`` on a PackBits PSD file (no CRF, fp32): the
+    overlay's bytes equal the JAX CLI's (PIL's P6), the masks equal."""
+    monkeypatch.setenv("IFSEG_JIT_CACHE", "")
+    monkeypatch.setattr(jconfig, "model_config_for_arch",
+                        _tiny(jconfig.model_config_for_arch, dtype="float32", **JAX_ONLY))
+    monkeypatch.setattr(tinfer, "model_config_for_arch",
+                        _tiny(torch_model_config, dtype="float32"))
+    image = tmp_path / "rgb.psd"
+    image.write_bytes(_icon_psd_netpbm_originals()[3][1])
+    assert Image.open(image).format == "PSD"
+    jout, tout = str(tmp_path / "jax.ppm"), str(tmp_path / "torch.ppm")
+    jinfer.main(_argv(str(image), checkpoint, bpe_dir, jout)[:-1] + ["--crf-iters=0"])
+    result = tinfer.main(_argv(str(image), checkpoint, bpe_dir, tout)[:-1]
+                         + ["--crf-iters=0", "--device=cpu"])
+    assert open(tout, "rb").read() == open(jout, "rb").read()
+    np.testing.assert_array_equal(_pixels(result["mask"]), _pixels(str(tmp_path / "jax_mask.png")))

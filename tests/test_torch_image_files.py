@@ -16,10 +16,12 @@
     JAX package's ``ImageFile.LOAD_TRUNCATED_IMAGES`` or raises where PIL
     raises (CMYK JPEG cuts: ``tests/test_torch_cut_files.py``);
   - the formats and layouts PIL refuses, and those the port leaves for later
-    (ICO, PSD, JPEG-in-TIFF, floating-point TIFF), raise ``ValueError``
-    naming them; a WebP file and a JPEG 2000 file, which the port once
-    refused, decode as PIL decodes them (every WebP variant:
-    ``test_torch_webp.py``; JPEG 2000: ``test_torch_jpeg2000.py``);
+    (JPEG-in-TIFF, floating-point TIFF, and each format of PIL's ``Image.ID``
+    with a signature that the port does not read: QOI, SGI, DDS, ICNS, PCX,
+    FITS, XPM, ...), raise ``ValueError`` naming them; WebP, JPEG 2000, ICO
+    and PSD files, which the port once refused, decode as PIL decodes them
+    (``test_torch_webp.py``, ``test_torch_jpeg2000.py``, ``test_torch_ico.py``,
+    ``test_torch_psd.py``, ``test_torch_netpbm.py``);
   - ``encode_bmp`` and ``encode_tiff`` write the bytes of PIL's ``save``;
   - ``tests/torch_image_files/digests.json`` holds PIL's mode, shape and
     digests of every committed fixture (``chip_smoke.py`` phase 14e checks
@@ -371,9 +373,9 @@ def _refused():
     float_tiff = W.pil_save(Image.fromarray(rgb[:, :, 0].astype(np.float32)), "TIFF")
     return [
         ("webp", W.pil_save(Image.fromarray(rgb), "WEBP"), None),  # read since WebP was ported
-        ("ico", W.pil_save(Image.fromarray(rgb), "ICO"), "ICO files are not supported"),
+        ("ico", W.pil_save(Image.fromarray(rgb), "ICO", sizes=[(8, 8)]), None),  # read since ported
         ("jpeg2000", W.pil_save(Image.fromarray(rgb), "JPEG2000"), None),  # read since ported
-        ("psd", b"8BPS\x00\x01" + bytes(40), "PSD files are not supported"),
+        ("psd", b"8BPS\x00\x01" + bytes(40), "PSD bitmap at 0 bits is not supported"),
         ("jpeg-in-tiff", jpeg_tiff, "TIFF compression JPEG is not supported"),
         ("float-tiff", float_tiff, "floating-point TIFF"),
         ("ycbcr-tiff", W.tiff_file(rgb, 8, 6), "TIFF photometric YCbCr is not supported"),
@@ -385,7 +387,7 @@ def _refused():
          "BMP pixel depth 2"),
         ("gif-no-image", b"GIF89a\x01\0\x01\0\0\0\0;", "no image"),
         ("text", b"plain text, no image",
-         "not a PNG, JPEG, GIF, BMP, TIFF, WebP or JPEG 2000 file"),
+         "not a PNG, JPEG, GIF, BMP, TIFF, WebP, JPEG 2000, ICO, CUR, Netpbm or PSD file"),
     ]
 
 
@@ -402,6 +404,48 @@ def test_refused_files_raise_naming_why(case):
     with pytest.raises(ValueError, match=message):
         decode_image(data)
     with pytest.raises(ValueError, match=message):
+        decode_image_rgb(data)
+
+
+def _other_formats():
+    """(name, file, the format the message names) of each format PIL opens
+    that the port refuses: PIL's writer's file where it has one, else the
+    signature PIL's plugin accepts."""
+    r = _rng("others")
+    rgb = _smooth(r, 8, 8)
+    im = Image.fromarray(rgb)
+    return [
+        ("qoi", W.pil_save(im, "QOI"), "QOI"),
+        ("sgi", W.pil_save(im, "SGI"), "SGI"),
+        ("dds", W.pil_save(im, "DDS"), "DDS"),
+        ("icns", W.pil_save(im.resize((16, 16)), "ICNS"), "ICNS"),
+        ("pcx", W.pil_save(im, "PCX"), "PCX"),
+        ("dcx", b"\xb1\x68\xde\x3a" + bytes(16), "DCX"),
+        ("fits", b"SIMPLE  =                    T" + b" " * 50, "FITS"),
+        ("xpm", b"/* XPM */\nstatic char *x[] = {\n", "XPM"),
+        ("xbm", W.pil_save(im.convert("1"), "XBM"), "XBM"),
+        ("blp", W.pil_save(im.quantize(16), "BLP"), "BLP"),
+        ("ftex", b"FTEX" + bytes(20), "FTEX"),
+        ("msp", W.pil_save(im.convert("1"), "MSP"), "MSP"),
+        ("sun", b"\x59\xa6\x6a\x95" + bytes(28), "SUN"),
+        ("pixar", b"\x80\xe8\x00\x00" + bytes(20), "PIXAR"),
+        ("xvthumb", b"P7 332\n#XVVERSION\n", "XVThumb"),
+        ("mcidas", b"\x00" * 7 + b"\x04" + bytes(24), "McIdas"),
+        ("eps", W.pil_save(im, "EPS"), "EPS"),
+        ("wmf", b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(20), "WMF"),
+        ("hdf5", b"\x89HDF\r\n\x1a\n" + bytes(8), "HDF5"),
+        ("bigtiff", b"II+\x00\x08\x00\x00\x00" + bytes(16), "BigTIFF"),
+    ]
+
+
+@pytest.mark.parametrize("case", _other_formats(), ids=[c[0] for c in _other_formats()])
+def test_other_pil_formats_raise_naming_them(case):
+    """A format PIL opens that the port does not read: ``ValueError`` naming
+    it, not "not a PNG, ... file"."""
+    name, data, fmt = case
+    with pytest.raises(ValueError, match=f"^{fmt}.* files are not supported"):
+        decode_image(data)
+    with pytest.raises(ValueError, match=f"^{fmt}"):
         decode_image_rgb(data)
 
 
@@ -433,3 +477,25 @@ def test_fixture_digests_are_pils(monkeypatch):
         assert entry["mode"] == mode and tuple(entry["shape"]) == pixels.shape, name
         assert entry["pixels"] == image_digest(pixels) and entry["rgb"] == image_digest(rgb), name
         _same(data)
+
+
+def test_the_fixtures_cover_every_psd_mode_and_netpbm_magic():
+    """At least one fixture a row of PIL's ``PsdImagePlugin.MODES`` and of
+    ``PpmImagePlugin.MODES``, and ICO files with PNG and bitmap entries, and
+    CUR files: what ``chip_smoke.py`` phase 14e holds the port to on the
+    card's machine."""
+    from PIL import PpmImagePlugin, PsdImagePlugin
+
+    names = sorted(p.name for p in FIXTURES.iterdir() if p.name != "digests.json")
+    psd = {struct.unpack(">HH", (FIXTURES / n).read_bytes()[22:26])[::-1]
+           for n in names if n.endswith(".psd")}
+    assert psd == set(PsdImagePlugin.MODES)
+    magics = set()
+    for n in names:
+        data = (FIXTURES / n).read_bytes()
+        if n.endswith((".pbm", ".pgm", ".ppm", ".pnm", ".pfm")):
+            magics.add(data.split(maxsplit=1)[0])
+    assert magics == set(PpmImagePlugin.MODES)
+    icons = [(FIXTURES / n).read_bytes() for n in names if n.endswith(".ico")]
+    assert any(b"\x89PNG" in d for d in icons) and any(b"\x89PNG" not in d for d in icons)
+    assert sum(n.endswith(".cur") for n in names) >= 2

@@ -71,7 +71,8 @@ def test_importing_every_module_loads_no_jax():
                  "ifseg_torch.ops.ngram_block", "ifseg_torch.generate",
                  "ifseg_torch.generate.search", "ifseg_torch.generate.sequence_generator",
                  "ifseg_torch.generate.trie", "ifseg_torch.generate.lexical",
-                 "ifseg_torch.data.jpeg2000", *NEW_MODULES):
+                 "ifseg_torch.data.jpeg2000", "ifseg_torch.data.ico", "ifseg_torch.data.psd",
+                 "ifseg_torch.data.ppm", "ifseg_torch.data.lab", *NEW_MODULES):
         assert name in report["modules"], name
 
 
@@ -277,6 +278,47 @@ def test_importing_the_jpeg2000_decoder_starts_no_compiler():
     assert [n for n in report["built"] if n.endswith(".so")] == [
         n for n in report["built"] if n.startswith("libjpeg2000_decode-") and n.endswith(".so")]
     assert len([n for n in report["built"] if n.endswith(".so")]) == 1, report
+
+
+PSD_BUILD_SCRIPT = r"""
+import json, pathlib, subprocess, tempfile
+calls = []
+popen_init = subprocess.Popen.__init__
+def spy(self, args, *a, **k):
+    calls.append([str(x) for x in args])
+    return popen_init(self, args, *a, **k)
+subprocess.Popen.__init__ = spy
+import ifseg_torch.data.ico, ifseg_torch.data.lab, ifseg_torch.data.ppm, ifseg_torch.data.psd
+import ifseg_torch.data.image as image
+at_import = len(calls)
+from ifseg_torch.ops import build
+build.BUILD_DIR = pathlib.Path(tempfile.mkdtemp())  # nothing built there yet
+data = pathlib.Path("tests/torch_image_files/psd_lab_rle.psd").read_bytes()
+pixels, mode, _ = image.decode_image(data)
+image.decode_image_rgb(data)
+built = sorted(p.name for p in build.BUILD_DIR.iterdir() if p.name.endswith(".so"))
+print(json.dumps({"at_import": at_import, "calls": calls, "ok": [mode, list(pixels.shape)],
+                  "built": built}))
+"""
+
+
+def test_importing_the_icon_psd_netpbm_and_lab_decoders_starts_no_compiler():
+    """Importing the ICO, PSD, Netpbm and Lab modules starts no compiler; a
+    PackBits Lab PSD's first decode to RGB builds the PackBits source and the
+    Lab interpolation's, once each."""
+    import json
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", PSD_BUILD_SCRIPT], cwd=str(REPO), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["at_import"] == 0, report
+    assert report["ok"] == ["LAB", [9, 11, 3]], report
+    assert sorted(c[-1].rsplit("/", 1)[-1] for c in report["calls"]) == [
+        "png_unfilter.cpp", "tiff_decode.cpp"], report
+    assert [n.split("-")[0] for n in report["built"]] == ["libpng_unfilter", "libtiff_decode"]
 
 
 def _loads_a_library(node) -> bool:

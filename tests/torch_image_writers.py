@@ -641,3 +641,129 @@ def j2k_precision(codestream: bytes, bits: int) -> bytes:
     for c in range(count):
         out[42 + 3 * c] = (out[42 + 3 * c] & 0x80) | (bits - 1)
     return bytes(out)
+
+
+# ------------------------------------------------------------- ICO and CUR
+
+
+def dib(pixels, bits: int, palette=None, and_mask=None, header: int = 40, compression: int = 0,
+        masks=None) -> bytes:
+    """An icon's or a cursor's bitmap entry: ``bmp_file``'s info header,
+    palette and pixels with the height doubled, then the AND mask (``and_mask``,
+    (h, w) bool, True transparent: one bit a pixel, rows bottom-up, padded to
+    32 bits; none where ``and_mask`` is None)."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    body = bmp_file(px, bits, header, palette, compression, masks)[14:]
+    if header == 12:
+        body = body[:6] + struct.pack("<H", 2 * h) + body[8:]
+    else:
+        body = body[:8] + struct.pack("<i", 2 * h) + body[12:]
+    if and_mask is None:
+        return body
+    padded = np.zeros((h, (w + 31) // 32 * 32), np.uint8)
+    padded[:, :w] = np.asarray(and_mask, bool)[::-1]
+    return body + np.packbits(padded, axis=1).tobytes()
+
+
+def ico_file(entries, kind: int = 1) -> bytes:
+    """An ICO (``kind`` 1) or CUR (2) file of ``entries``: each (the entry's
+    bytes, a PNG file or a ``dib``; its directory fields: ``width`` and
+    ``height`` (256 written as 0), and optionally ``colours``, ``planes``,
+    ``bits`` (a cursor's hotspot in those two), ``size`` and ``offset``)."""
+    directory, body = b"", b""
+    start = 6 + 16 * len(entries)
+    for data, d in entries:
+        directory += struct.pack("<BBBBHHII", d["width"] % 256, d["height"] % 256,
+                                 d.get("colours", 0), 0, d.get("planes", 1), d.get("bits", 32),
+                                 d.get("size", len(data)), d.get("offset", start + len(body)))
+        body += data
+    return struct.pack("<HHH", 0, kind, len(entries)) + directory + body
+
+
+# --------------------------------------------------------------------- PSD
+
+
+def _pascal(name: bytes, align: int) -> bytes:
+    s = bytes([len(name)]) + name
+    return s + bytes(-len(s) % align)
+
+
+def psd_layer_section(planes) -> bytes:
+    """A layer and mask section holding one layer of ``planes`` ((c, h, w)
+    uint8, channel ids 0, 1, ...), raw, named "layer 1"."""
+    c, h, w = np.asarray(planes).shape
+    extra = struct.pack(">II", 0, 0) + _pascal(b"layer 1", 4)
+    record = struct.pack(">iiiiH", 0, 0, h, w, c)
+    for i in range(c):
+        record += struct.pack(">hI", i, 2 + h * w)
+    record += b"8BIMnorm" + bytes([255, 0, 0, 0]) + struct.pack(">I", len(extra)) + extra
+    data = b"".join(struct.pack(">H", 0) + np.asarray(p, np.uint8).tobytes() for p in planes)
+    info = struct.pack(">h", 1) + record + data
+    info += bytes(len(info) % 2)
+    body = struct.pack(">I", len(info)) + info + struct.pack(">I", 0)
+    return struct.pack(">I", len(body)) + body
+
+
+def psd_file(planes, colour_mode: int, bits: int = 8, compression: int = 0, palette=None,
+             resources=(), layers: bytes = None) -> bytes:
+    """A PSD file of ``planes``: (c, h, w) uint8 channels (at ``bits`` 1, (1,
+    h, w) bool, True a set bit), every channel in the file (extra ones past
+    what the colour mode needs too); ``colour_mode`` Photoshop's (0 bitmap,
+    1 grey, 2 indexed, 3 RGB, 4 CMYK, 7 multichannel, 8 duotone, 9 Lab);
+    ``compression`` 0 raw or 1 PackBits (each row on its own, behind the
+    table of byte counts); ``palette`` (256, 3) for indexed files (written as
+    the colour-mode block, R, G, B planes); ``resources`` (id, name, data);
+    ``layers`` a layer and mask section (``psd_layer_section``; none where
+    None)."""
+    planes = np.asarray(planes)
+    c, h, w = planes.shape
+    rows = (np.packbits(planes.astype(bool), axis=2) if bits == 1
+            else planes.astype(np.uint8))
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, c, h, w, bits, colour_mode)
+    mode_data = b"" if palette is None else np.asarray(palette, np.uint8).T.tobytes()
+    res = b""
+    for rid, name, data in resources:
+        res += b"8BIM" + struct.pack(">H", rid) + _pascal(name, 2) + struct.pack(">I", len(data))
+        res += data + bytes(len(data) % 2)
+    if compression == 0:
+        image = struct.pack(">H", 0) + rows.tobytes()
+    else:
+        packed = [packbits(r.tobytes()) for ch in rows for r in ch]
+        image = (struct.pack(">H", 1) + b"".join(struct.pack(">H", len(p)) for p in packed)
+                 + b"".join(packed))
+    return (head + struct.pack(">I", len(mode_data)) + mode_data + struct.pack(">I", len(res))
+            + res + (layers if layers is not None else struct.pack(">I", 0)) + image)
+
+
+# ------------------------------------------------------------------ Netpbm
+
+
+def netpbm_file(magic: bytes, pixels, maxval: int = 255, scale: float = -1.0,
+                comment: bytes = None, per_line: int = 12) -> bytes:
+    """A Netpbm file: ``magic`` b"P1" to b"P6", b"Pf" or PIL's b"P0CMYK",
+    b"PyP", b"PyRGBA", b"PyCMYK".  ``pixels``: (h, w) bool for P1 / P4 (True
+    black, written 1), else (h, w[, bands]) samples up to ``maxval`` (two
+    bytes big-endian above 255), float32 for Pf (rows bottom-up,
+    little-endian where ``scale`` is negative).  The plain formats write
+    ``per_line`` samples a line; ``comment`` goes in a ``#`` line after the
+    magic."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    head = magic + b"\n" + (b"# " + comment + b"\n" if comment else b"") + b"%d %d\n" % (w, h)
+    if magic in (b"P1", b"P4"):
+        if magic == b"P4":
+            return head + np.packbits(px.astype(bool), axis=1).tobytes()
+        bits = px.astype(np.uint8).reshape(-1)
+        lines = [b"".join(b"%d" % v for v in bits[i:i + 35]) for i in range(0, len(bits), 35)]
+        return head + b"\n".join(lines) + b"\n"
+    if magic == b"Pf":
+        order = "<f4" if scale < 0 else ">f4"
+        return head + b"%r\n" % scale + px[::-1].astype(order).tobytes()
+    head += b"%d\n" % maxval
+    flat = px.reshape(-1)
+    if magic in (b"P2", b"P3"):
+        lines = [b" ".join(b"%d" % v for v in flat[i:i + per_line])
+                 for i in range(0, len(flat), per_line)]
+        return head + b"\n".join(lines) + b"\n"
+    return head + flat.astype(np.uint8 if maxval < 256 else ">u2").tobytes()

@@ -27,7 +27,11 @@ mode PIL's writer takes, both wavelets, the five progressions, tiles at
 offsets, precincts, code-blocks, quality layers by rate and PSNR, PLT; by
 hand around PIL's codestreams a ``pclr`` palette, tile-parts with and
 without their count, 4-, 12-bit and signed precisions, a cut and a flipped
-byte; a 5/3 and a 9/7 file of 1,024 x 1,366).  The WebP files PIL's ``save``
+byte; a 5/3 and a 9/7 file of 1,024 x 1,366) and, small, ICO (PIL's PNG
+entries; bitmap entries at 1 to 32 bits with AND masks), CUR, PSD (each row
+of PIL's ``MODES``, raw and PackBits, an ICC resource, a layer section) and
+Netpbm (each magic number of PIL's table, plain and raw, maxvals 100, 1000
+and 65535, PFM in both byte orders).  The WebP files PIL's ``save``
 cannot make come from ``torch_image_writers.webp_encode`` (the libwebp PIL
 bundles).
 Needs PIL; run from the repository root:
@@ -134,6 +138,7 @@ def files():
     out["jpeg_cmyk_1024x1366.jpg"] = W.pil_save(Image.fromarray(full, "CMYK"), "JPEG")
     out.update(webp_files())
     out.update(jpeg2000_files())
+    out.update(icon_psd_netpbm_files())
     return out
 
 
@@ -246,6 +251,65 @@ def jpeg2000_files():
     out["jp2_rgb_reversible_1024x1366.jp2"] = jp2(full, quality_layers=[400])
     out["jp2_rgb_irreversible_1024x1366.jp2"] = jp2(full, irreversible=True,
                                                     quality_layers=[800, 400])
+    return out
+
+
+def icon_psd_netpbm_files():
+    """Small files (the fixtures' budget is 512 KiB): ICO and CUR, PSD in each
+    row of PIL's ``MODES``, Netpbm in each magic number of PIL's table."""
+    rng = np.random.default_rng(20)
+    small = _smooth(rng, 9, 11)
+    mask = _smooth(rng, 9, 11, 1) > 128
+    pal = rng.integers(0, 256, (256, 3))
+    planes = np.moveaxis(np.dstack([small, _smooth(rng, 9, 11, 1)]), 2, 0)  # 4 channels
+    out = {}
+    # ICO: PIL's writer (PNG entries of three sizes), bitmap entries by hand
+    # at 1, 4, 8, 24 and 32 bits with AND masks; CUR
+    out["ico_pil_png_sizes.ico"] = W.pil_save(Image.fromarray(np.dstack([small, small[:, :, 0]]),
+                                                              "RGBA"), "ICO", sizes=[(9, 9), (4, 4)])
+    out["ico_dib_1_4_8_24_bits.ico"] = W.ico_file(
+        [(W.dib(small[:, :, 0] > 99, 1, pal[:2], mask), dict(width=11, height=9, bits=1)),
+         (W.dib(small[:, :, 1] % 16, 4, pal[:16], mask), dict(width=11, height=9, bits=4)),
+         (W.dib(small[:, :, 2], 8, pal, mask), dict(width=11, height=9, bits=8)),
+         (W.dib(small, 24, None, mask), dict(width=11, height=9, bits=24))])
+    out["ico_dib_32bit_alpha.ico"] = W.ico_file(
+        [(W.dib(np.dstack([small, small[:, :, 1]]), 32, None, mask),
+          dict(width=11, height=9, bits=32))])
+    out["cur_24bit.cur"] = W.ico_file([(W.dib(small, 24, None, mask), dict(width=11, height=9))],
+                                      kind=2)
+    out["cur_32bit_bgra.cur"] = W.ico_file(
+        [(W.dib(np.dstack([small, small[:, :, 2]]), 32, None, mask), dict(width=11, height=9))],
+        kind=2)
+    # PSD: each row of MODES, raw (0) and PackBits (1), resources, a layer
+    resources = [(1039, b"icc", bytes(range(24))), (1005, b"res", bytes(16))]
+    for name, plane_set, colour, bits, comp, kw in (
+            ("bitmap_1bit_rle", planes[:1] > 128, 0, 1, 1, {}),
+            ("bitmap_8bit", planes[:1], 0, 8, 0, {}),
+            ("grey_rle_icc", planes[:1], 1, 8, 1, dict(resources=resources)),
+            ("indexed", planes[:1], 2, 8, 0, dict(palette=pal)),
+            ("rgb_rle", planes[:3], 3, 8, 1, {}),
+            ("rgba_layer", planes, 3, 8, 0, dict(layers=W.psd_layer_section(planes[:3, :4, :5]))),
+            ("cmyk_rle", planes, 4, 8, 1, {}),
+            ("multichannel", planes[:3], 7, 8, 0, {}),
+            ("duotone_rle", planes[:1], 8, 8, 1, {}),
+            ("lab_rle", planes[:3], 9, 8, 1, {})):
+        out[f"psd_{name}.psd"] = W.psd_file(plane_set, colour, bits, comp, **kw)
+    # Netpbm: each magic number, PIL's writer where it has one
+    grey, rgba = small[:, :, 0], np.dstack([small, small[:, :, 1]])
+    out["pbm_plain.pbm"] = W.netpbm_file(b"P1", grey > 120)
+    out["pgm_plain_maxval_1000.pgm"] = W.netpbm_file(b"P2", grey.astype(int) * 3, maxval=1000)
+    out["ppm_plain.ppm"] = W.netpbm_file(b"P3", small, comment=b"plain")
+    out["pbm_pil.pbm"] = W.pil_save(Image.fromarray(grey > 120), "PPM")
+    out["pgm_pil.pgm"] = W.pil_save(Image.fromarray(grey), "PPM")
+    out["pgm_16bit_pil.pgm"] = W.pil_save(Image.fromarray(grey.astype(np.uint16) * 257), "PPM")
+    out["ppm_pil.ppm"] = W.pil_save(Image.fromarray(small), "PPM")
+    out["ppm_maxval_100.ppm"] = W.netpbm_file(b"P6", small.astype(int) * 100 // 255, maxval=100)
+    out["pfm_pil.pfm"] = W.pil_save(Image.fromarray(grey.astype(np.float32) / 3 - 9), "PPM")
+    out["pfm_big_endian.pfm"] = W.netpbm_file(b"Pf", grey.astype(np.float32) / 7, scale=2.0)
+    out["netpbm_p0cmyk.pnm"] = W.netpbm_file(b"P0CMYK", rgba)
+    out["netpbm_pyp.pnm"] = W.netpbm_file(b"PyP", grey)
+    out["netpbm_pyrgba.pnm"] = W.netpbm_file(b"PyRGBA", rgba)
+    out["netpbm_pycmyk.pnm"] = W.netpbm_file(b"PyCMYK", rgba)
     return out
 
 
