@@ -6,9 +6,10 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every kernel with nvcc and the host C++ sources of the PNG
-     decoder, the JPEG decoder and encoder, the GIF, BMP (RLE) and TIFF
-     decoders, the dense CRF and the experts' auction with c++ (one process per source,
-     all at once), with each kernel instantiation's
+     decoder, the JPEG decoder and encoder, the GIF, BMP (RLE), TIFF, WebP
+     and JPEG 2000 decoders, the run-length loops of TGA, SGI, PCX, QOI, IM
+     and DDS, the dense CRF and the experts' auction with c++ (one process
+     per source, all at once), with each kernel instantiation's
      registers, spill and stack from the ``-Xptxas -v`` summary, and the
      HGMMA count and shared memory of the three wgmma attention libraries at
      both head dims;
@@ -136,8 +137,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      BMP (RLE8, RLE4, 24 bits) and TIFF (raw, LZW, Deflate, CMYK) files of
      1,024 x 1,366 written on the host, each held to the arrays it was
      written from, and the full-size CMYK, YCCK and cut progressive JPEG
-     files; host ms a file by format and size, the full-size ones beside an
-     RGB JPEG's decode and the resize to 512 x 512; (c) phase 13's daemon
+     files; the small TGA, SGI, QOI, PCX, DCX, IM, DDS and DIB files and a
+     PFM row that tests/torch_image_writers.py writes (numpy only) against
+     PIL's digests (tests/torch_writer_digests.json), JPEGs whose
+     coefficients pass 16 bits against PIL's with the IDCT the host selects
+     (ROADMAP C.15), the PFM row's float32 resizes against cv2's (C.16),
+     and TGA, SGI, QOI, PCX, IM and DDS files of 1,024 x 1,366 against the
+     arrays they were written from; host ms a file by format and size, the
+     full-size ones beside an RGB JPEG's decode and the resize to 512 x 512;
+     (c) phase 13's daemon
      with 12 of the JPEG files and (e)'s full-size GIF, RLE8 BMP, LZW TIFF
      and CMYK JPEG files, each beside a PNG file of the same pixels (32
      requests), from 1 and
@@ -146,7 +154,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      assets/cat_dog.jpeg with ``--output=*.jpg``, and on (e)'s CMYK JPEG with
      ``--output=*.bmp`` and ``--output=*.tif`` (no CRF), each overlay's bytes
      held to the port's writer (``encode_jpeg``, ``encode_bmp``,
-     ``encode_tiff``) of the overlay, stage ms, K1 and K4 launches;
+     ``encode_tiff``) of the overlay, stage ms, K1 and K4 launches; an RGBA
+     JP2 and its PNG twin to ``.tga`` overlays equal byte for byte and read
+     back;
  15. the rest of the training stack: (a) OFA-Base ``Trainer`` steps at batch
      16 with dropout and drop-path 0.1, from the same seed, weights and
      batches, with the layers not checkpointed, under save-attn and under
@@ -410,16 +420,18 @@ def phase_card() -> str:
 # ---------------------------------------------------------------- phase 2
 
 def phase_build():
-    from ifseg_torch.data import bmp, gif, jpeg, jpeg2000, png, tiff, webp
+    from ifseg_torch.data import bmp, gif, jpeg, jpeg2000, png, tga, tiff, webp
     from ifseg_torch.ops import balanced_assignment, build, crf
     from ifseg_torch.ops import flash_attention as fa
     from ifseg_torch.ops import layer_norm as ln
 
     # the CUDA sources and the host C++ sources of the PNG decoder, the JPEG
     # codec, the GIF, BMP, TIFF, WebP (VP8, VP8L) and JPEG 2000 decoders, the
-    # dense CRF and the experts' auction, all at once
+    # run-length loops of TGA, SGI, PCX, QOI, IM and DDS, the dense CRF and the
+    # experts' auction, all at once
     host_sources = (png.SOURCE, jpeg.DECODER, jpeg.ENCODER, gif.SOURCE, bmp.SOURCE, tiff.SOURCE,
-                    *webp.SOURCES, jpeg2000.SOURCE, crf.SOURCE, balanced_assignment.SOURCE)
+                    *webp.SOURCES, jpeg2000.SOURCE, tga.SOURCE, crf.SOURCE,
+                    balanced_assignment.SOURCE)
     t0 = time.perf_counter()
     results = build.build([*fa.KERNELS, ln.KERNEL, *host_sources])
     log(f"[2] built {sorted(results)} in {time.perf_counter() - t0:.1f} s")
@@ -3472,6 +3484,54 @@ INFER_JPEG2000 = "jp2_rgba_tiles_offsets.jp2"
 ICON_PSD_NETPBM_FULL_SIZE = ("psd_rgb_rle_1024x1366.psd", "psd_cmyk_1024x1366.psd",
                              "ppm_p6_1024x1366.ppm", "pgm_16bit_1024x1366.pgm",
                              "ico_png_1024x1366.ico")
+# (e)'s full-size TGA, SGI, QOI, PCX, IM and DDS files, timed to RGB beside the resize
+RAW_FULL_SIZE = ("tga_rle_1024x1366.tga", "sgi_rle_1024x1366.sgi", "qoi_1024x1366.qoi",
+                 "pcx_1024x1366.pcx", "im_rgb_1024x1366.im", "dds_bc1_1024x1366.dds",
+                 "dds_bgr_1024x1366.dds")
+# PIL's digests of tests/torch_image_writers.raw_format_files(), of the
+# overflow_jpegs() with libjpeg-turbo's SIMD and C IDCTs, and of cv2's resize
+# of the PFM row (pfm_resizes()); tools/make_writer_digests.py writes them,
+# tests/test_torch_writer_digests.py recomputes them
+WRITER_DIGESTS = REPO / "tests" / "torch_writer_digests.json"
+# cv2's linear resizes of the PFM row (float32, its grey in three channels),
+# up and down
+PFM_RESIZES = ((29, 41), (7, 9), (64, 57))
+
+
+def overflow_jpegs():
+    """{name: file}: JPEGs the port's encoder writes at quality 100 with
+    every entry of their quantization tables then set to 255 (their DQT
+    segments rewritten), so that dequantized coefficients pass 16 bits and
+    libjpeg-turbo's SIMD IDCT saturates where its C one wraps (ROADMAP C.15):
+    RGB at 4:2:0 and 4:4:4, grey, and a flat grey one."""
+    from ifseg_torch.data.jpeg import encode_jpeg
+
+    out = {}
+    rgb = smooth_image(48, 64, 2115)
+    for name, arr, sub in (("rgb_420", rgb, None), ("rgb_444", rgb, 0),
+                           ("grey", rgb[:, :, 1], None), ("flat", np.full((16, 24), 250, np.uint8),
+                                                          None)):
+        data = bytearray(encode_jpeg(np.ascontiguousarray(arr), 100, sub))
+        at = 2
+        while data[at:at + 2] != b"\xff\xda":
+            size = int.from_bytes(data[at + 2:at + 4], "big")
+            if data[at:at + 2] == b"\xff\xdb":
+                for table in range(at + 4, at + 2 + size, 65):
+                    data[table + 1:table + 65] = b"\xff" * 64
+            at += 2 + size
+        out[f"jpeg_overflow_{name}.jpg"] = bytes(data)
+    return out
+
+
+def pfm_resizes(data: bytes):
+    """{shape: the port's linear resize} of a PFM row as the dataset holds it
+    (float32, its grey in three channels) at each of PFM_RESIZES."""
+    from ifseg_torch.data.image import decode_image
+    from ifseg_torch.data.transforms import resize_image
+
+    grey = decode_image(data)[0]
+    bgr = np.repeat(grey[:, :, None], 3, axis=2)
+    return {f"{h}x{w}": resize_image(bgr, (h, w)) for h, w in PFM_RESIZES}
 
 
 def cmyk_to_rgb_plain(cmyk: np.ndarray) -> np.ndarray:
@@ -3497,12 +3557,18 @@ def full_size_files():
     fixture (which (e) holds to PIL's digests first); PSD (RGB in PackBits,
     CMYK raw, written inverted as Photoshop stores it), Netpbm (raw P6, and
     P5 at maxval 65535, PIL's "I") and an ICO of one PNG entry (RGBA, a
-    directory size of 256 that the entry's own size overrides)."""
+    directory size of 256 that the entry's own size overrides); run-length
+    TGA and SGI, IM and DDS (BC1 and uncompressed) through
+    ``torch_image_writers.full_size_raw_files`` (the image's columns in
+    pairs, BC1's blocks of two colours each), QOI and PCX through the port's
+    writers (which the tests hold to PIL's ``save``)."""
     sys.path.insert(0, str(REPO / "tests"))
     import torch_image_writers as W
     from ifseg_torch.data import image
     from ifseg_torch.data.bmp import encode_bmp
+    from ifseg_torch.data.pcx import encode_pcx
     from ifseg_torch.data.png import encode_png
+    from ifseg_torch.data.qoi import encode_qoi
     from ifseg_torch.data.tiff import encode_tiff
 
     h, w = FULL_SIZE
@@ -3520,7 +3586,12 @@ def full_size_files():
     codestream = [p for kind, p in W.jp2_boxes(jp2, 12) if kind == b"jp2c"][0]
     grey16 = rgb[:, :, 0].astype(np.int32) * 257 + rgb[:, :, 1] % 3
     rgba = np.dstack([rgb, rgb[:, :, 2]])
+    raw = {name: (data, (px, mode, None), want_rgb) for name, (data, (px, mode), want_rgb)
+           in W.full_size_raw_files(np.repeat(rgb[:, ::2], 2, axis=1)).items()}
     return {
+        **raw,
+        f"qoi_{tag}.qoi": (encode_qoi(rgb), *as_rgb),
+        f"pcx_{tag}.pcx": (encode_pcx(rgb), *as_rgb),
         f"psd_rgb_rle_{tag}.psd": (W.psd_file(np.moveaxis(rgb, 2, 0), 3, compression=1),
                                    *as_rgb),
         f"psd_cmyk_{tag}.psd": (W.psd_file(255 - np.moveaxis(cmyk, 2, 0), 4),
@@ -3563,10 +3634,13 @@ def phase_image_files(card: str, jpeg_sizes):
     ones (and the WebP fixtures of that size) beside 14a's RGB JPEG decode at
     that size (``jpeg_sizes``) and the PIL-bilinear resize of such a file to
     OFA-Base's 512 x 512; ``cli.infer``'s Netpbm writer on a full-size
-    overlay, read back.  Returns the timings and {name: bytes} of every
-    file."""
+    overlay, read back.  Between the two, the small files of
+    ``torch_image_writers.raw_format_files`` held to PIL's digests
+    (WRITER_DIGESTS), the ``overflow_jpegs`` to PIL's with the IDCT this
+    host selects, and a PFM row's float32 resizes to cv2's.  Returns the
+    timings and {name: bytes} of every file."""
     from ifseg_torch.cli import infer as cli_infer
-    from ifseg_torch.data import image
+    from ifseg_torch.data import image, jpeg
     from ifseg_torch.data.image import image_digest
     from ifseg_torch.data.transforms import pil_resize
 
@@ -3589,6 +3663,48 @@ def phase_image_files(card: str, jpeg_sizes):
                          size=f"{pixels.shape[0]}x{pixels.shape[1]}", bytes=len(data),
                          decode_ms=host_ms(lambda: image.decode_image(data)),
                          rgb_ms=host_ms(lambda: image.decode_image_rgb(data))))
+    # the small TGA, SGI, QOI, PCX, DCX, IM, DDS and DIB files and the PFM row,
+    # written here by numpy, each held to PIL's digests
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_image_writers as W
+
+    writer_digests = json.loads(WRITER_DIGESTS.read_text())
+    for name, data in sorted(W.raw_format_files().items()):
+        want = writer_digests["files"][name]
+        pixels, mode, _ = image.decode_image(data)
+        got = dict(format=image.image_format(data).replace("Netpbm", "PPM"), mode=mode,
+                   shape=list(pixels.shape), pixels=image_digest(pixels),
+                   rgb=image_digest(image.decode_image_rgb(data)))
+        if got != want:
+            fail(f"[14e] {name}: the port decodes {got}, PIL {want}")
+        files[name] = data
+        rows.append(dict(file=name, format=got["format"], mode=mode,
+                         size=f"{pixels.shape[0]}x{pixels.shape[1]}", bytes=len(data),
+                         decode_ms=host_ms(lambda: image.decode_image(data)),
+                         rgb_ms=host_ms(lambda: image.decode_image_rgb(data))))
+    # JPEGs whose dequantized coefficients pass 16 bits: the IDCT this host's
+    # libjpeg-turbo would take (ROADMAP C.15)
+    variant = jpeg.idct_variant()
+    overflow = overflow_jpegs()
+    for name, data in overflow.items():
+        want = writer_digests["jpeg_overflow"][name]["c" if variant == "c" else "simd"]
+        if image_digest(jpeg.decode_jpeg(data)) != want:
+            fail(f"[14e] {name}: the port's {variant} IDCT does not give PIL's pixels")
+    differ = sum(v["c"] != v["simd"] for v in writer_digests["jpeg_overflow"].values())
+    log(f"[14e] {len(overflow)} JPEGs whose coefficients pass 16 bits equal PIL's digests with "
+        f"the IDCT this host selects: {variant} (libjpeg-turbo's choice by the CPU's features "
+        f"and JSIMD_FORCE*); {differ} of them differ between the SIMD and the C IDCT")
+    # a PFM row's float32 resizes (ROADMAP C.16)
+    pfm = W.raw_format_files()["pfm_row.pfm"]
+    resized = {k: image_digest(v) for k, v in pfm_resizes(pfm).items()}
+    if resized != writer_digests["pfm_resize"]:
+        fail(f"[14e] the PFM row's float32 resizes are not cv2's: {resized}")
+    pfm_ms = host_ms(lambda: pfm_resizes(pfm))
+    log(f"[14e] the PFM row's float32 resizes to {', '.join(resized)} equal cv2's digests "
+        f"({pfm_ms:.3f} ms for the three); {len(writer_digests['files'])} small TGA, SGI, QOI, "
+        f"PCX, DCX, IM, DDS, DIB and PFM files written by numpy equal PIL's digests; host of "
+        f"{card}")
+
     t0 = time.perf_counter()
     full = full_size_files()
     write_s = time.perf_counter() - t0
@@ -3663,9 +3779,18 @@ def phase_image_files(card: str, jpeg_sizes):
     if len(new_ms) != len(ICON_PSD_NETPBM_FULL_SIZE):
         fail(f"[14e] the PSD, Netpbm and ICO files of {h} x {w} were not all decoded: "
              f"{sorted(new_ms)}")
+    raw_ms = {r["file"]: r["rgb_ms"] for r in rows if r["file"] in RAW_FULL_SIZE}
+    log(f"[14e] TGA, SGI, QOI, PCX, IM and DDS at {h} x {w} to RGB (median of 3, one thread), "
+        f"each equal to the array it was written from: "
+        + ", ".join(f"{n} ({len(files[n])} bytes) {ms:.3f} ms" for n, ms in raw_ms.items())
+        + f", beside the PIL-bilinear resize to 512 x 512 {resize_ms:.3f} ms; host of {card}")
+    if len(raw_ms) != len(RAW_FULL_SIZE):
+        fail(f"[14e] the TGA, SGI, QOI, PCX, IM and DDS files of {h} x {w} were not all "
+             f"decoded: {sorted(raw_ms)}")
     return dict(files=rows, build_s=build_s, write_s=write_s, resize_ms=resize_ms,
                 jpeg_decode_ms=jpeg_ms, webp_full_size_ms=webp_ms,
                 jpeg2000_full_size_ms=j2k_ms, icon_psd_netpbm_full_size_ms=new_ms,
+                raw_full_size_ms=raw_ms, idct=variant, pfm_resize_ms=pfm_ms,
                 ppm_write_ms=ppm_ms), files
 
 
@@ -3960,7 +4085,8 @@ def phase_infer_formats(card: str, tmp: str, ckpt: str):
         written = Path(out).read_bytes()
         colours = decode_png_rgb(Path(got["mask"]).read_bytes())
         overlay = (0.5 * colours + (1 - 0.5) * rgb).astype(np.uint8)  # the CLI's --alpha=0.5
-        if written != cli_infer.WRITERS[ext](overlay) or decode_image_rgb(written).shape != rgb.shape:
+        if (written != cli_infer.encode_overlay(overlay, out)
+                or decode_image_rgb(written).shape != rgb.shape):
             fail(f"cli.infer's {ext} overlay is not the port's writer of its overlay")
         runs[ext] = dict(image=name, ms=got["ms"], wall_s=wall, launches=counts["infer"],
                          ln_launches=ln_launches, overlay_bytes=len(written))
@@ -3971,14 +4097,15 @@ def phase_infer_formats(card: str, tmp: str, ckpt: str):
             f"is the port's {ext} writer of the overlay; K1 {counts['infer']}, K4 {ln_launches} "
             f"launches; on {card}")
     # a JPEG 2000 file (RGBA JP2, tiles at an offset) and its PNG twin, the
-    # PNG of the RGB the port decodes from it: the same overlay and mask bytes
+    # PNG of the RGB the port decodes from it: the same overlay (a TGA file,
+    # read back) and mask bytes
     image = IMAGE_FILES / INFER_JPEG2000
     twin = Path(tmp) / f"{image.stem}_twin.png"
     rgb = decode_image_rgb(image.read_bytes())
     twin.write_bytes(encode_png(rgb))
     written = {}
     for src in (image, twin):
-        out = f"{tmp}/{src.stem}_overlay.png"
+        out = f"{tmp}/{src.stem}_overlay.tga"
         fa.reset_launches()
         ln.reset_launches()
         t0 = time.perf_counter()
@@ -3998,11 +4125,16 @@ def phase_infer_formats(card: str, tmp: str, ckpt: str):
                                     overlay_bytes=len(written[src][0]))
     if written[image] != written[twin]:
         fail(f"cli.infer's overlay or mask of {image.name} differs from its PNG twin's")
+    overlay = (0.5 * decode_png_rgb(written[image][1]) + 0.5 * rgb).astype(np.uint8)
+    if (written[image][0] != cli_infer.encode_overlay(overlay, "overlay.tga")
+            or not np.array_equal(decode_image_rgb(written[image][0]), overlay)):
+        fail(f"cli.infer's .tga overlay of {image.name} is not its overlay, read back")
     run = runs["jpeg2000"]
     log(f"[14d] cli.infer {image.name} ({rgb.shape[0]} x {rgb.shape[1]}, RGBA JP2 in tiles at an "
-        f"offset) -> .png, no CRF: " + ", ".join(f"{k} {v:.1f}" for k, v in run["ms"].items())
-        + f" ms; the overlay ({run['overlay_bytes']} bytes) and the mask equal its PNG twin's "
-        f"byte for byte; K1 {run['launches']}, K4 {run['ln_launches']} launches a run; on {card}")
+        f"offset) -> .tga, no CRF: " + ", ".join(f"{k} {v:.1f}" for k, v in run["ms"].items())
+        + f" ms; the overlay ({run['overlay_bytes']} bytes, the port's TGA writer of the "
+        f"overlay, read back equal to it) and the mask equal its PNG twin's byte for byte; K1 "
+        f"{run['launches']}, K4 {run['ln_launches']} launches a run; on {card}")
     return runs
 
 

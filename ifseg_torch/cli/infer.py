@@ -18,17 +18,24 @@ given:
 mean field on the model's device (``ops/crf_device.py``), ``cpp`` on the host
 (``ops/crf.py``).  The checkpoint is a ``.pt`` file or a checkpoint
 directory of ``cli.train`` (``checkpoint/convert.py:load_model``).  The image
-is a PNG, JPEG, GIF, BMP, TIFF, WebP, JPEG 2000, ICO, CUR, Netpbm (PBM, PGM,
-PPM, PFM) or PSD file (``data/image.py``); the overlay is written in the format
-``--output``'s extension names, with the bytes PIL's ``save`` writes: PNG, JPEG
-for ``*.jpg``/``*.jpeg`` (``data/jpeg.py:encode_jpeg``), BMP for ``*.bmp``
-(``data/bmp.py``), uncompressed TIFF for ``*.tif``/``*.tiff`` (``data/tiff.py``)
-and a P6 file for ``*.pbm``, ``*.pgm``, ``*.ppm``, ``*.pnm`` and ``*.pfm``
-(``data/ppm.py``: PIL writes an RGB image as P6 whatever the Netpbm
-extension); the mask beside it is always a PNG file.
+is any file ``data/image.py`` reads (PNG, JPEG, GIF, BMP, DIB, TIFF, WebP,
+JPEG 2000, ICO, CUR, Netpbm, PSD, TGA, SGI, QOI, PCX, DCX, IM, DDS); the
+overlay is written in the format ``--output``'s extension names, with the
+bytes PIL's ``save`` writes (``WRITERS``): PNG for ``*.png``/``*.apng``, JPEG
+for ``*.jpg``/``*.jpeg``/``*.jfif``/``*.jpe``/``*.mpo``
+(``data/jpeg.py:encode_jpeg``), BMP for ``*.bmp`` and the same without its
+file header for ``*.dib`` (``data/bmp.py``), uncompressed TIFF for
+``*.tif``/``*.tiff`` (``data/tiff.py``), a P6 file for ``*.pbm``, ``*.pgm``,
+``*.ppm``, ``*.pnm`` and ``*.pfm`` (``data/ppm.py``: PIL writes an RGB image
+as P6 whatever the Netpbm extension), raw TGA for ``*.tga``/``*.icb``/
+``*.vda``/``*.vst``, raw SGI for ``*.bw``/``*.rgb``/``*.rgba``/``*.sgi``,
+QOI, run-length PCX, IM and uncompressed DDS (``data/{tga,sgi,qoi,pcx,im,
+dds}.py``; IM and SGI headers hold the file's name); the mask beside it is
+always a PNG file.
 """
 
 import argparse
+import functools
 import logging
 import os
 import sys
@@ -41,11 +48,17 @@ import torch
 from ifseg_torch.checkpoint.convert import load_model
 from ifseg_torch.config import Config, model_config_for_arch
 from ifseg_torch.data.bmp import encode_bmp
+from ifseg_torch.data.dds import encode_dds
+from ifseg_torch.data.im import encode_im
 from ifseg_torch.data.image import decode_image_rgb
 from ifseg_torch.data.jpeg import encode_jpeg
+from ifseg_torch.data.pcx import encode_pcx
 from ifseg_torch.data.png import encode_png
 from ifseg_torch.data.ppm import encode_ppm
+from ifseg_torch.data.qoi import encode_qoi
 from ifseg_torch.data.segmentation_dataset import prompt_tokens
+from ifseg_torch.data.sgi import EXTENSIONS as SGI_EXTENSIONS, encode_sgi
+from ifseg_torch.data.tga import EXTENSIONS as TGA_EXTENSIONS, encode_tga
 from ifseg_torch.data.tiff import encode_tiff
 from ifseg_torch.data.transforms import KeepRatioResize, normalize_image
 from ifseg_torch.eval.evaluator import masked_label_propagation
@@ -58,7 +71,34 @@ logger = logging.getLogger(__name__)
 # the overlay's writer by the extension of --output, as PIL picks its format
 WRITERS = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".bmp": encode_bmp,
            ".tif": encode_tiff, ".tiff": encode_tiff,
-           **{ext: encode_ppm for ext in (".pbm", ".pgm", ".ppm", ".pnm", ".pfm")}}
+           **{ext: encode_ppm for ext in (".pbm", ".pgm", ".ppm", ".pnm", ".pfm")},
+           # another name for bytes of the writers above
+           ".apng": encode_png, ".jfif": encode_jpeg, ".jpe": encode_jpeg, ".mpo": encode_jpeg,
+           ".dib": functools.partial(encode_bmp, header=False),
+           **{ext: encode_tga for ext in TGA_EXTENSIONS},
+           **{ext: encode_sgi for ext in SGI_EXTENSIONS},
+           ".qoi": encode_qoi, ".pcx": encode_pcx, ".im": encode_im, ".dds": encode_dds}
+# the writers whose header holds the file's name, as PIL's IM and SGI ones do
+NAMED = (".im",) + SGI_EXTENSIONS
+
+
+def writer_extension(path: str) -> str:
+    """``path``'s extension, lower case, where ``WRITERS`` has a writer for
+    it; ValueError otherwise."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in WRITERS:
+        raise ValueError(f"--output={path}: {ext or 'no extension'} is not a format this CLI "
+                         f"writes (name it {', '.join('*' + e for e in WRITERS)})")
+    return ext
+
+
+def encode_overlay(overlay: np.ndarray, path: str) -> bytes:
+    """The bytes ``Image.fromarray(overlay).save(path)`` writes: the writer
+    of ``path``'s extension."""
+    ext = writer_extension(path)
+    if ext in NAMED:
+        return WRITERS[ext](overlay, os.path.basename(path))
+    return WRITERS[ext](overlay)
 
 
 def _colormap(n):
@@ -101,10 +141,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     device = torch.device(args.device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("infer: no CUDA device (pass --device=cpu to run on the CPU)")
-    ext = os.path.splitext(args.output)[1].lower()
-    if ext not in WRITERS:
-        raise ValueError(f"--output={args.output}: {ext or 'no extension'} is not a format this "
-                         f"CLI writes (name it {', '.join('*' + e for e in WRITERS)})")
+    writer_extension(args.output)  # an unknown extension fails before the model loads
     categories = [c.strip() for c in args.category_list.split(",") if c.strip()]
     num_seg = len(categories)
     cfg = Config()
@@ -168,7 +205,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     cmap = _colormap(max(num_seg, 8))
     overlay = (args.alpha * cmap[seg % len(cmap)] + (1 - args.alpha) * rgb).astype(np.uint8)
     with open(args.output, "wb") as fp:
-        fp.write(WRITERS[ext](overlay))
+        fp.write(encode_overlay(overlay, args.output))
     seg_path = os.path.splitext(args.output)[0] + "_mask.png"
     with open(seg_path, "wb") as fp:
         fp.write(encode_png(cmap[seg % len(cmap)]))

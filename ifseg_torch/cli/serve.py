@@ -10,9 +10,10 @@ the card unless ``--device=cpu`` is given:
       --category-list='cat, dog' --port=8321 [--max-batch=8] \\
       [--batch-timeout-ms=5] [--quantize=int8] [--device=cpu]
 
-  POST /segment            body = a PNG, JPEG, GIF, BMP, TIFF, WebP, JPEG 2000,
-                           ICO, CUR, Netpbm or PSD file (any other format, or
-                           a file PIL refuses: 400)
+  POST /segment            body = an image file ``data/image.py`` reads (PNG,
+                           JPEG, GIF, BMP, DIB, TIFF, WebP, JPEG 2000, ICO,
+                           CUR, Netpbm, PSD, TGA, SGI, QOI, PCX, DCX, IM,
+                           DDS; any other format, or a file PIL refuses: 400)
                            ?format=png (default; the class-id mask at the
                            model grid, resized to the input's size) | json
                            (areas)
@@ -22,8 +23,8 @@ the card unless ``--device=cpu`` is given:
 The request's pixels are decoded and resized as the JAX package's PIL calls
 do (``data/image.py:decode_image_rgb``, ``data/transforms.py:pil_resize``),
 so the network's input is the JAX daemon's bit for bit.  Where that daemon
-takes any format PIL reads, this one takes PNG, JPEG, GIF, BMP, TIFF, WebP,
-JPEG 2000, ICO, CUR, Netpbm and PSD files (ROADMAP A.11 lists the rest).
+takes any format PIL reads, this one takes the formats above (ROADMAP A.11
+lists the rest).
 """
 
 import argparse

@@ -11,8 +11,13 @@
 //                      refinement; restart intervals, 0xFF fill bytes and
 //                      0xFF00 stuffing; DQT/DHT/DRI between scans; the
 //                      standard Huffman tables where a file defines none
-//   IDCT               the accurate integer IDCT (jidctint.c jpeg_idct_islow)
-//                      with its range-limit table (jdmaster.c)
+//   IDCT               the accurate integer IDCT: libjpeg-turbo's x86-64 SIMD
+//                      one (jidctint-sse2.asm / -avx2.asm: 16-bit dequantizing
+//                      products, sums and saturating packs) where it takes
+//                      it, and its C one (jidctint.c jpeg_idct_islow, with the
+//                      range-limit table of jdmaster.c) under JSIMD_FORCENONE=1
+//                      or off x86-64 (`idct_islow`); the two differ only where
+//                      a block's values pass 16 bits (a cut file's garbage)
 //   upsampling         "fancy" upsampling (jdsample.c): h2v1 and h2v2 where the
 //                      component's downsampled width is above 2, h1v2 always,
 //                      replication otherwise; edges replicate the last sample
@@ -45,6 +50,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <stdexcept>
 #include <string>
@@ -261,25 +267,31 @@ const RangeLimit kRange;
 inline uint8_t clamp255(int x) { return static_cast<uint8_t>(x < 0 ? 0 : (x > 255 ? 255 : x)); }
 
 // jidctint.c jpeg_idct_islow: one block of dequantized coefficients to 8 x 8
-// samples at out (row pitch `stride`)
-void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+// samples at out (row pitch `stride`).  Returns |DC| + 2 * sum |AC| of the
+// dequantized coefficients (see idct_islow).
+int64_t idct_islow_c(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
     int ws[64];
+    int64_t sum = -std::abs(int64_t{in[0]} * q[0]);
     for (int c = 0; c < 8; ++c) {
         const int16_t* ip = in + c;
         const uint16_t* qp = q + c;
         int* wp = ws + c;
         if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 &&
             ip[48] == 0 && ip[56] == 0) {
-            const int dc = static_cast<int>(int64_t{ip[0]} * qp[0] * (1 << kPass1Bits));
+            const int64_t dq = int64_t{ip[0]} * qp[0];
+            sum += 2 * std::abs(dq);
+            const int dc = static_cast<int>(dq * (1 << kPass1Bits));
             for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
             continue;
         }
         int64_t z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
+        sum += 2 * (std::abs(z2) + std::abs(z3));
         int64_t z1 = (z2 + z3) * FIX_0_541196100;
         int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
         int64_t tmp3 = z1 + z2 * FIX_0_765366865;
         z2 = ip[0] * qp[0];
         z3 = ip[32] * qp[32];
+        sum += 2 * (std::abs(z2) + std::abs(z3));
         int64_t tmp0 = (z2 + z3) * (int64_t{1} << kConstBits);
         int64_t tmp1 = (z2 - z3) * (int64_t{1} << kConstBits);
         const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
@@ -289,6 +301,7 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) 
         tmp1 = ip[40] * qp[40];
         tmp2 = ip[24] * qp[24];
         tmp3 = ip[8] * qp[8];
+        sum += 2 * (std::abs(tmp0) + std::abs(tmp1) + std::abs(tmp2) + std::abs(tmp3));
         z1 = tmp0 + tmp3;
         z2 = tmp1 + tmp2;
         z3 = tmp0 + tmp2;
@@ -368,6 +381,126 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) 
         op[5] = kRange.idct[static_cast<int>(descale(tmp12 - tmp1, sh)) & 1023];
         op[3] = kRange.idct[static_cast<int>(descale(tmp13 + tmp0, sh)) & 1023];
         op[4] = kRange.idct[static_cast<int>(descale(tmp13 - tmp0, sh)) & 1023];
+    }
+    return sum;
+}
+
+inline int16_t wrap16(int64_t x) { return static_cast<int16_t>(static_cast<uint16_t>(x)); }
+inline int32_t wrap32(int64_t x) { return static_cast<int32_t>(static_cast<uint32_t>(x)); }
+inline int16_t sat16(int32_t x) {
+    return static_cast<int16_t>(x < -32768 ? -32768 : (x > 32767 ? 32767 : x));
+}
+
+// One pass of jidctint-sse2.asm / jidctint-avx2.asm over eight lines of
+// int16 values (in[k * step] the line's k-th value): the sums of two inputs
+// in 16 bits (paddw), the products pairwise in 32 bits (pmaddwd), the rest
+// in 32 bits that wrap, each output descaled by `shift` with rounding and
+// saturated to 16 bits (packssdw).
+void idct_simd_line(const int16_t* in, int step, int shift, int16_t* out, int out_step) {
+    const int32_t in0 = in[0], in1 = in[step], in2 = in[2 * step], in3 = in[3 * step];
+    const int32_t in4 = in[4 * step], in5 = in[5 * step], in6 = in[6 * step], in7 = in[7 * step];
+    const int32_t f0541 = FIX_0_541196100, f0765 = FIX_0_765366865, f1847 = FIX_1_847759065;
+    const int32_t tmp3 = wrap32(int64_t{in2} * (f0541 + f0765) + int64_t{in6} * f0541);
+    const int32_t tmp2 = wrap32(int64_t{in2} * f0541 + int64_t{in6} * (f0541 - f1847));
+    const int32_t tmp0 = static_cast<int32_t>(static_cast<uint32_t>(wrap16(in0 + in4)) << 16) >>
+                         (16 - kConstBits);
+    const int32_t tmp1 = static_cast<int32_t>(static_cast<uint32_t>(wrap16(in0 - in4)) << 16) >>
+                         (16 - kConstBits);
+    const int32_t tmp10 = wrap32(int64_t{tmp0} + tmp3), tmp13 = wrap32(int64_t{tmp0} - tmp3);
+    const int32_t tmp11 = wrap32(int64_t{tmp1} + tmp2), tmp12 = wrap32(int64_t{tmp1} - tmp2);
+
+    const int32_t z3 = wrap16(in7 + in3), z4 = wrap16(in5 + in1);
+    const int64_t f1175 = FIX_1_175875602, f1961 = FIX_1_961570560, f0390 = FIX_0_390180644;
+    const int64_t f0298 = FIX_0_298631336, f0899 = FIX_0_899976223, f1501 = FIX_1_501321110;
+    const int64_t f2053 = FIX_2_053119869, f2562 = FIX_2_562915447, f3072 = FIX_3_072711026;
+    const int32_t z3p = wrap32(z3 * (f1175 - f1961) + z4 * f1175);
+    const int32_t z4p = wrap32(z3 * f1175 + z4 * (f1175 - f0390));
+    const int32_t o0 = wrap32(int64_t{wrap32(in7 * (f0298 - f0899) + in1 * -f0899)} + z3p);
+    const int32_t o3 = wrap32(int64_t{wrap32(in7 * -f0899 + in1 * (f1501 - f0899))} + z4p);
+    const int32_t o1 = wrap32(int64_t{wrap32(in5 * (f2053 - f2562) + in3 * -f2562)} + z4p);
+    const int32_t o2 = wrap32(int64_t{wrap32(in5 * -f2562 + in3 * (f3072 - f2562))} + z3p);
+    const int32_t round = int32_t{1} << (shift - 1);
+    auto put = [&](int k, int32_t x) {
+        out[k * out_step] = sat16(wrap32(int64_t{x} + round) >> shift);
+    };
+    put(0, wrap32(int64_t{tmp10} + o3));
+    put(7, wrap32(int64_t{tmp10} - o3));
+    put(1, wrap32(int64_t{tmp11} + o2));
+    put(6, wrap32(int64_t{tmp11} - o2));
+    put(2, wrap32(int64_t{tmp12} + o1));
+    put(5, wrap32(int64_t{tmp12} - o1));
+    put(3, wrap32(int64_t{tmp13} + o0));
+    put(4, wrap32(int64_t{tmp13} - o0));
+}
+
+// libjpeg-turbo's x86-64 SIMD jsimd_idct_islow (SSE2 and AVX2 compute the
+// same): the dequantizing products in 16 bits (pmullw); where rows 1-7 of
+// the coefficients are all 0, the first row's values shifted left in 16 bits
+// (psllw) for every row; else the column pass; then the row pass, each value
+// saturated to -128..127 (packsswb) before the +128 (paddb).
+void idct_islow_simd(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+    int16_t ws[64];
+    bool ac_zero = true;
+    for (int i = 8; i < 64 && ac_zero; ++i) ac_zero = in[i] == 0;
+    if (ac_zero) {
+        for (int c = 0; c < 8; ++c) {
+            const int16_t v = wrap16(int32_t{wrap16(int32_t{in[c]} * q[c])} * (1 << kPass1Bits));
+            for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
+        }
+    } else {
+        int16_t dq[64];
+        for (int i = 0; i < 64; ++i) dq[i] = wrap16(int32_t{in[i]} * q[i]);
+        for (int c = 0; c < 8; ++c) idct_simd_line(dq + c, 8, kConstBits - kPass1Bits, ws + c, 8);
+    }
+    for (int r = 0; r < 8; ++r) {
+        int16_t row[8];
+        idct_simd_line(ws + 8 * r, 1, kConstBits + kPass1Bits + 3, row, 1);
+        uint8_t* op = out + static_cast<size_t>(r) * stride;
+        for (int k = 0; k < 8; ++k) {
+            op[k] = static_cast<uint8_t>(std::min(127, std::max(-128, int{row[k]})) + 128);
+        }
+    }
+}
+
+// The IDCT libjpeg-turbo takes (jsimd_x86_64.c init_simd): its SIMD one where
+// the CPU has SSE2 (AVX2 first), unless JSIMD_FORCESSE2=1 or JSIMD_FORCEAVX2=1
+// mask the CPU's features to that one (both: none) or JSIMD_FORCENONE=1
+// turns them off; read once, at the first decode, as libjpeg-turbo reads them.
+enum IdctVariant { kIdctC = 0, kIdctSse2 = 1, kIdctAvx2 = 2 };
+
+int default_idct() {
+#if defined(__x86_64__) || defined(_M_X64)
+    unsigned support = 1u;  // SSE2: every x86-64 CPU
+    __builtin_cpu_init();
+    if (__builtin_cpu_supports("avx2")) support |= 2u;
+#else
+    unsigned support = 0u;
+#endif
+    auto is_one = [](const char* name) {
+        const char* v = std::getenv(name);
+        return v != nullptr && std::strcmp(v, "1") == 0;
+    };
+    if (is_one("JSIMD_FORCESSE2")) support &= 1u;
+    if (is_one("JSIMD_FORCEAVX2")) support &= 2u;
+    if (is_one("JSIMD_FORCENONE")) support = 0u;
+    return (support & 2u) ? kIdctAvx2 : (support & 1u) ? kIdctSse2 : kIdctC;
+}
+
+int& idct_variant() {
+    static int variant = default_idct();
+    return variant;
+}
+
+// The SIMD IDCT computes what the C one computes wherever no value wraps or
+// saturates.  An output is at most |DC| / 8 + (1.387^2 / 8) * sum |AC| of the
+// dequantized coefficients, and a rounding; where |DC| + 2 * sum |AC| <= 4064
+// every output stays within -512..511, which the C IDCT's range table clamps
+// as the SIMD packs do, and every pass within 16 bits (the pass-1 values
+// below 16,384), so the C IDCT's result stands; otherwise the SIMD variant
+// decodes the block again.
+void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+    if (idct_islow_c(in, q, out, stride) > 4064 && idct_variant() != kIdctC) {
+        idct_islow_simd(in, q, out, stride);
     }
 }
 
@@ -1059,6 +1192,15 @@ void copy_error(const char* what, char* err, int64_t cap) {
 
 // info[0..2] = height, width, output channels (1 gray, 3 RGB, 4 CMYK) of the JPEG file
 // data[0..size). Returns 0, or 1 with a message in err.
+// The IDCT variant decodes use (0 C, 1 SSE2, 2 AVX2); `set` >= 0 replaces it
+// for this process (the tests hold each variant against PIL run with the
+// matching JSIMD switch).  Returns the variant in use before the call.
+extern "C" int64_t jpeg_idct_variant(int64_t set) {
+    const int was = idct_variant();
+    if (set >= 0) idct_variant() = static_cast<int>(set);
+    return was;
+}
+
 extern "C" int64_t jpeg_header(const uint8_t* data, int64_t size, int64_t* info, char* err,
                                int64_t err_cap) {
     try {

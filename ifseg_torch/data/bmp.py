@@ -23,7 +23,9 @@ data"), and so do a cut header and what PIL refuses (other depths, JPEG or
 PNG compression, other bitfield layouts).  The RLE streams are decoded by
 ``csrc/bmp_rle.cpp``, built with the host C++ compiler at the first decode
 (``ops/build.py``; a failed build raises).  ``encode_bmp(arr)`` writes the
-bytes of PIL's ``save`` for an (h, w, 3) uint8 RGB array.
+bytes of PIL's ``save`` for an (h, w, 3) uint8 RGB array (``header=False``:
+its DIB save, the same without the file header).  ``decode_dib_file`` reads
+such a DIB file, as PIL's ``DibImageFile`` does.
 """
 
 import ctypes
@@ -202,6 +204,18 @@ def decode_bmp_image(data: bytes):
     return _decode(data, _header(data))
 
 
+def is_dib(data: bytes) -> bool:
+    """PIL's ``_dib_accept``: the file starts with an info header's size."""
+    return len(data) >= 4 and _u32(data, 0) in _HEADERS
+
+
+def decode_dib_file(data: bytes):
+    """(pixels, PIL's mode, palette or None) of a DIB file: a bitmap without
+    the 14-byte file header, its pixels right after its palette."""
+    data = bytes(data)
+    return _decode(data, _info(data, 0, 0))
+
+
 def decode_dib_image(data: bytes, at: int, header: int = 0, cursor: bool = False):
     """(pixels, PIL's mode, palette or None, pixel data offset) of the bare
     bitmap whose info header starts at ``at``, as PIL reads an icon's or a
@@ -247,9 +261,10 @@ def _decode(data: bytes, info):
     return pixels, mode, None
 
 
-def encode_bmp(arr: np.ndarray) -> bytes:
+def encode_bmp(arr: np.ndarray, header: bool = True) -> bytes:
     """The bytes of PIL's ``Image.fromarray(arr).save(buf, "BMP")`` for an
-    (h, w, 3) uint8 RGB array: an info header, 24 bits, bottom-up rows."""
+    (h, w, 3) uint8 RGB array: an info header, 24 bits, bottom-up rows; with
+    ``header=False`` those of its "DIB" save, without the file header."""
     if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
         raise ValueError(f"encode_bmp takes (h, w, 3) uint8, not {arr.shape} {arr.dtype}")
     h, w = arr.shape[:2]
@@ -259,5 +274,7 @@ def encode_bmp(arr: np.ndarray) -> bytes:
     image = stride * h
     ppm = int(96 * 39.3701 + 0.5)
     offset = 14 + 40
-    return (SIGNATURE + struct.pack("<IIIIiiHHIIiiII", offset + image, 0, offset, 40, w, h, 1, 24,
-                                    0, image, ppm, ppm, 0, 0) + rows.tobytes())
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, image, ppm, ppm, 0, 0)
+    if not header:
+        return info + rows.tobytes()
+    return SIGNATURE + struct.pack("<III", offset + image, 0, offset) + info + rows.tobytes()

@@ -29,7 +29,8 @@ halved and no mask (a 32-bit entry at offset 22 reads as "RGBA", others with
 the fourth byte dropped).
 
 Whatever PIL refuses (no entry, a cut directory, a cut header) raises
-``ValueError``.
+``ValueError``; a cursor whose directory PIL cannot read is not named CUR
+(``cur_entry``), as PIL goes on to the formats after it.
 """
 
 import math
@@ -105,12 +106,14 @@ def decode_ico_image(data: bytes):
     return rgba, "RGBA", None
 
 
-def decode_cur_image(data: bytes):
-    """(pixels, PIL's mode, palette or None) of a CUR file (see the module
-    docstring)."""
-    data = bytes(data)
+def cur_entry(data: bytes):
+    """(the directory entry PIL's cursor keeps, the directory's end), or
+    None where PIL's ``_open`` fails before the bitmap's header (no entry, a
+    cut directory, no header size where the entry points): PIL then tries
+    the formats after CUR, as a TGA file whose first bytes are the cursor
+    signature is."""
     if data[:4] != CUR_SIGNATURE or len(data) < 6:
-        raise ValueError("not a CUR file")
+        return None
     count = struct.unpack_from("<H", data, 4)[0]
     pos, kept = 6, b""
     for _ in range(count):
@@ -121,13 +124,25 @@ def decode_cur_image(data: bytes):
             continue
         # PIL's test, ``s[0] > m[0] and s[1] > m[1]``, where a cut entry fails
         if not s or (s[0] > kept[0] and min(len(s), len(kept)) < 2):
-            raise ValueError("truncated CUR: the directory is cut off")
+            return None
         if s[0] > kept[0] and s[1] > kept[1]:
             kept = s
-    if not kept:
-        raise ValueError("broken CUR: no cursor in the directory")
     if len(kept) < 16:
-        raise ValueError("truncated CUR: the directory is cut off")
+        return None
+    header = struct.unpack_from("<I", kept, 12)[0]
+    if len(data) < (header or pos) + 4:  # PIL's read of the bitmap's header size fails
+        return None
+    return kept, pos
+
+
+def decode_cur_image(data: bytes):
+    """(pixels, PIL's mode, palette or None) of a CUR file (see the module
+    docstring)."""
+    data = bytes(data)
+    entry = cur_entry(data)
+    if entry is None:
+        raise ValueError("not a CUR file, or one with no whole directory entry")
+    kept, pos = entry
     header = struct.unpack_from("<I", kept, 12)[0]
     pixels, mode, palette, _ = bmp.decode_dib_image(data, header or pos, header, cursor=True)
     return pixels, mode, palette

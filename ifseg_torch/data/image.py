@@ -1,42 +1,41 @@
-"""Image files by their signature, decoded as PIL 12.1 decodes them: PNG
-(``data/png.py``), JPEG (``data/jpeg.py``), GIF (``data/gif.py``), BMP
-(``data/bmp.py``), TIFF (``data/tiff.py``), WebP (``data/webp.py``),
-JPEG 2000, JP2 files and raw codestreams (``data/jpeg2000.py``), ICO and
-CUR (``data/ico.py``), Netpbm, PBM, PGM, PPM and PFM (``data/ppm.py``) and
-PSD (``data/psd.py``).  The signatures are tried in the order of PIL's
-``Image.ID`` where two could meet: CUR and ICO before Netpbm, Netpbm before
-PSD.
+"""Image files decoded as PIL 12.1 decodes them: PNG (``data/png.py``), JPEG
+(``data/jpeg.py``), GIF (``data/gif.py``), BMP and a headerless DIB
+(``data/bmp.py``), TIFF (``data/tiff.py``), WebP (``data/webp.py``), JPEG
+2000, JP2 files and raw codestreams (``data/jpeg2000.py``), ICO and CUR
+(``data/ico.py``), Netpbm, PBM, PGM, PPM and PFM (``data/ppm.py``), PSD
+(``data/psd.py``), TGA (``data/tga.py``), SGI (``data/sgi.py``), QOI
+(``data/qoi.py``), PCX and DCX (``data/pcx.py``), IM (``data/im.py``) and DDS
+(``data/dds.py``).  The formats are tried in the order of PIL's
+``Image.ID``; TGA and IM have no signature and are named only once their
+header parses as PIL's ``_open`` parses it.
 
 ``decode_image(data)`` returns ``(pixels, mode, palette)``: the pixels as
 ``np.asarray(PIL.Image.open(BytesIO(data)))`` gives them, PIL's mode name
-("1", "L", "P", "I", "I;16", "I;16B", "F", "LA", "PA", "RGB", "RGBA",
-"CMYK" or "LAB") and, for a palette image, its palette ((n, 3) uint8 RGB,
-or (n, 4) with the alpha of a PNG's tRNS chunk or a GIF's transparency
-index; (0, 3) where PIL's image has none).  ``decode_image_rgb(data)``
-returns ``np.asarray(PIL.Image.open(BytesIO(data)).convert("RGB"))``.  The
-formats PIL reads that the port does not (``_OTHER_FORMATS``: QOI, SGI,
-DDS, ICNS, PCX, FITS, XPM, ...) and anything else raise ``ValueError``
-naming the format.  ``image_digest`` is the SHA-256 that
-``tests/torch_image_files/digests.json`` holds of PIL's arrays.
+("1", "L", "P", "I", "I;16", "I;16L", "I;16B", "F", "LA", "PA", "RGB",
+"RGBA", "CMYK", "YCbCr" or "LAB") and, for a palette image, its palette
+((n, 3) uint8 RGB, or (n, 4) with the alpha of a PNG's tRNS chunk, a GIF's
+transparency index or a DDS or TGA colour map; (0, 3) where PIL's image has
+none).  ``decode_image_rgb(data)`` returns
+``np.asarray(PIL.Image.open(BytesIO(data)).convert("RGB"))``.  The formats
+PIL reads that the port does not (``_OTHER_FORMATS``: ICNS, FITS, XPM, ...)
+and anything else raise ``ValueError`` naming the format.  ``image_digest``
+is the SHA-256 that ``tests/torch_image_files/digests.json`` holds of PIL's
+arrays.
 """
 
 import hashlib
 
 import numpy as np
 
-from ifseg_torch.data import bmp, gif, ico, jpeg, jpeg2000, png, ppm, psd, tiff, webp
+from ifseg_torch.data import (bmp, dds, gif, ico, im, jpeg, jpeg2000, pcx, png, ppm, psd, qoi,
+                              sgi, tga, tiff, webp)
 
 # the formats PIL 12.1 opens (or identifies) that the port does not, by the
 # test of each plugin's ``_accept``; the ones that need a program beside PIL
 # (EPS: Ghostscript; WMF and EMF: Windows) or that PIL cannot load either
 # (the BUFR, GRIB, HDF5 and MPEG stubs, JBIG2) say so
 _OTHER_FORMATS = (
-    (lambda d: d.startswith(b"qoif"), "QOI"),
-    (lambda d: d[:2] == b"\x01\xda", "SGI"),
-    (lambda d: d.startswith(b"DDS "), "DDS"),
     (lambda d: d.startswith(b"icns"), "ICNS"),
-    (lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5), "PCX"),
-    (lambda d: d.startswith(b"\xb1\x68\xde\x3a"), "DCX"),
     (lambda d: d.startswith(b"SIMPLE"), "FITS"),
     (lambda d: d.startswith(b"/* XPM */"), "XPM"),
     (lambda d: d[:512].lstrip().startswith(b"#define"), "XBM"),
@@ -64,41 +63,47 @@ _OTHER_FORMATS = (
     (lambda d: d.startswith(b"\x97JB2"), "JBIG2 (PIL cannot read it either)"),
     (lambda d: d[:4] in (b"II+\x00", b"MM\x00+"), "BigTIFF"),
 )
-_READ = ("PNG", "JPEG", "GIF", "BMP", "TIFF", "WebP", "JPEG 2000", "ICO", "CUR", "Netpbm",
-         "PSD")
+# the formats the port reads, in the order of PIL's Image.ID, each with PIL's
+# test of the file's start (TGA and IM: their header parses)
+_FORMATS = (
+    ("BMP", lambda d: d[:2] == bmp.SIGNATURE),
+    ("DIB", bmp.is_dib),
+    ("CUR", lambda d: ico.cur_entry(d) is not None),
+    ("PCX", pcx.is_pcx),
+    ("DCX", lambda d: d[:4] == pcx.DCX_SIGNATURE),
+    ("DDS", lambda d: d[:4] == dds.SIGNATURE),
+    ("GIF", lambda d: d[:6] in gif.SIGNATURES),
+    ("PNG", lambda d: d[:8] == png.SIGNATURE),
+    ("JPEG 2000", jpeg2000.is_jpeg2000),
+    ("ICO", lambda d: d[:4] == ico.ICO_SIGNATURE),
+    ("IM", lambda d: im.im_header(d) is not None),
+    ("JPEG", lambda d: d[:3] == jpeg.SIGNATURE),
+    ("TIFF", lambda d: d[:4] in tiff.SIGNATURES),
+    ("Netpbm", ppm.is_ppm),
+    ("PSD", lambda d: d[:4] == psd.SIGNATURE),
+    ("QOI", lambda d: d[:4] == qoi.SIGNATURE),
+    ("SGI", sgi.is_sgi),
+    ("TGA", lambda d: tga.tga_header(d) is not None),
+    ("WebP", webp.is_webp),
+)
+_READ = tuple(name for name, _ in _FORMATS)
 _DECODERS = {"PNG": png.decode_png_image, "GIF": gif.decode_gif_image,
-             "BMP": bmp.decode_bmp_image, "TIFF": tiff.decode_tiff_image,
-             "WebP": webp.decode_webp_image, "JPEG 2000": jpeg2000.decode_jpeg2000_image,
-             "CUR": ico.decode_cur_image, "ICO": ico.decode_ico_image,
-             "Netpbm": ppm.decode_ppm_image, "PSD": psd.decode_psd_image}
+             "BMP": bmp.decode_bmp_image, "DIB": bmp.decode_dib_file,
+             "TIFF": tiff.decode_tiff_image, "WebP": webp.decode_webp_image,
+             "JPEG 2000": jpeg2000.decode_jpeg2000_image, "CUR": ico.decode_cur_image,
+             "ICO": ico.decode_ico_image, "Netpbm": ppm.decode_ppm_image,
+             "PSD": psd.decode_psd_image, "TGA": tga.decode_tga_image,
+             "SGI": sgi.decode_sgi_image, "QOI": qoi.decode_qoi_image,
+             "PCX": pcx.decode_pcx_image, "DCX": pcx.decode_dcx_image,
+             "IM": im.decode_im_image, "DDS": dds.decode_dds_image}
 
 
 def image_format(data: bytes) -> str:
-    """"PNG", "JPEG", "GIF", "BMP", "TIFF", "WebP", "JPEG 2000", "CUR",
-    "ICO", "Netpbm" or "PSD" from the file's signature; ValueError for
-    anything else."""
-    if data[:8] == png.SIGNATURE:
-        return "PNG"
-    if data[:3] == jpeg.SIGNATURE:
-        return "JPEG"
-    if data[:6] in gif.SIGNATURES:
-        return "GIF"
-    if data[:2] == bmp.SIGNATURE:
-        return "BMP"
-    if data[:4] in tiff.SIGNATURES:
-        return "TIFF"
-    if webp.is_webp(data):
-        return "WebP"
-    if jpeg2000.is_jpeg2000(data):
-        return "JPEG 2000"
-    if data[:4] == ico.CUR_SIGNATURE:
-        return "CUR"
-    if data[:4] == ico.ICO_SIGNATURE:
-        return "ICO"
-    if ppm.is_ppm(data):
-        return "Netpbm"
-    if data[:4] == psd.SIGNATURE:
-        return "PSD"
+    """The name of the format PIL would open the file as, of those the port
+    reads (``_READ``); ValueError for anything else."""
+    for name, accept in _FORMATS:
+        if accept(data):
+            return name
     name = next((n for accept, n in _OTHER_FORMATS if accept(bytes(data[:2056]))), None)
     if name:
         raise ValueError(f"{name} files are not supported ({', '.join(_READ[:-1])} and "
@@ -135,7 +140,7 @@ def decode_image_rgb(data: bytes) -> np.ndarray:
 def load():
     """Build (if need be) and load every host codec now, not at its first
     file: the parent of a worker pool calls it so that the workers only load."""
-    for codec in (png, jpeg, gif, bmp, tiff, webp, jpeg2000, psd):
+    for codec in (png, jpeg, gif, bmp, tiff, webp, jpeg2000, psd, tga):
         codec.load()
 
 

@@ -6,9 +6,11 @@ RGB for a 3-component one, (h, w, 4) uint8 for a 4-component (CMYK or YCCK)
 one as PIL's mode "CMYK" holds it (libjpeg's CMYK output, every sample
 inverted: PIL reads Adobe's polarity), baseline, extended or progressive,
 with restart intervals, as the libjpeg-turbo that PIL links decodes it with
-its default settings (the accurate integer IDCT, fancy upsampling, and the
-block smoothing of a progressive image whose scans leave coefficients
-unrefined); a cut file as PIL decodes it under the JAX package's
+its default settings (the accurate integer IDCT, its x86-64 SIMD version
+where libjpeg-turbo would take it and its C one under ``JSIMD_FORCENONE=1``
+(``idct_variant``), fancy upsampling, and the block smoothing of a
+progressive image whose scans leave coefficients unrefined); a cut file as
+PIL decodes it under the JAX package's
 ``ImageFile.LOAD_TRUNCATED_IMAGES = True`` (a file cut before the end of its
 first scan header raises, as there).  Arithmetic-coded, lossless,
 hierarchical and 12-bit files and DNL raise ``ValueError``.  EXIF
@@ -47,7 +49,22 @@ def _decoder():
     lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
                                 ctypes.c_char_p, ctypes.c_int64]
     lib.jpeg_header.restype = lib.jpeg_decode.restype = ctypes.c_int64
+    lib.jpeg_idct_variant.argtypes = [ctypes.c_int64]
+    lib.jpeg_idct_variant.restype = ctypes.c_int64
     return lib
+
+
+IDCT_VARIANTS = ("c", "sse2", "avx2")
+
+
+def idct_variant(set_to: str = None) -> str:
+    """The IDCT the decoder uses, as libjpeg-turbo picks it: "avx2" or
+    "sse2" (its SIMD IDCT, by the CPU's features) unless ``JSIMD_FORCESSE2``,
+    ``JSIMD_FORCEAVX2`` or ``JSIMD_FORCENONE`` (``"c"``) say otherwise, read
+    at the first decode.  ``set_to`` replaces it for this process; the
+    variant before the call is returned."""
+    was = _decoder().jpeg_idct_variant(IDCT_VARIANTS.index(set_to) if set_to else -1)
+    return IDCT_VARIANTS[was]
 
 
 @lru_cache(maxsize=None)

@@ -3,8 +3,10 @@ C++ loop.
 
 ``decode_png(data)`` returns what ``np.asarray(PIL.Image.open(BytesIO(data)))``
 returns, bit for bit, for every PNG file, interlaced (Adam7) or not, a cut
-one as PIL reads it under the JAX package's ``LOAD_TRUNCATED_IMAGES``
-(``_chunks``; the rows not inflated whole are 0), so the port's data
+one, or one with a row whose filter byte is not 0-4, as PIL reads it under
+the JAX package's ``LOAD_TRUNCATED_IMAGES`` (``_chunks``; the rows not
+inflated whole are 0, and so are the bad row and every row after it, in
+its Adam7 pass and the later passes), so the port's data
 pipeline depends on no image library:
 
   colour type 0, gray        -> (h, w) uint8 (PIL's mode "L"); at bit depth 1,
@@ -160,7 +162,8 @@ def to_rgb(pixels: np.ndarray, palette=None, mode=None) -> np.ndarray:
     ("P", or "PA" with its alpha) where ``palette``, an (n, 3) or (n, 4)
     table, is given, an index past its end black; for ``mode`` "CMYK" (an
     (h, w, 4) array) Pillow's ``cmyk2rgb``; for "LAB" LittleCMS's transform
-    to sRGB (``data/lab.py``); otherwise as the array's shape and dtype say
+    to sRGB (``data/lab.py``); for "YCbCr" Pillow's tables (``data/im.py``);
+    otherwise as the array's shape and dtype say
     (gray, gray + alpha, RGB, RGBA, 1-bit, 16-bit, "I" int32 clipped to
     0..255, "F" float32 through PIL's ``f2l``: 0 at or below 0 and for NaN,
     255 at or above 255, truncated between)."""
@@ -168,6 +171,10 @@ def to_rgb(pixels: np.ndarray, palette=None, mode=None) -> np.ndarray:
         from ifseg_torch.data.lab import lab_to_rgb  # lab.py loads this module's library
 
         return lab_to_rgb(pixels)
+    if mode == "YCbCr":
+        from ifseg_torch.data.im import ycbcr_to_rgb
+
+        return ycbcr_to_rgb(pixels)
     if palette is not None:
         table = np.zeros((256, 3), np.uint8)
         entries = np.asarray(palette, np.uint8)[:256, :3]
@@ -265,13 +272,18 @@ def _palette_table(palette, trns):
     return np.concatenate([rgb, alpha[:, None]], axis=1)
 
 
-def _unfiltered(src: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """(h, stride) bytes of one (sub-)image whose h filtered rows are ``src``."""
+def _unfiltered(src: np.ndarray, h: int, stride: int, bpp: int):
+    """((h, stride) bytes of one (sub-)image whose h filtered rows are
+    ``src``, the count of rows before the first whose filter byte is not
+    0-4).  That row and those after it are 0: PIL's decoder stops there and,
+    under the JAX package's ``LOAD_TRUNCATED_IMAGES``, keeps the rows it
+    wrote."""
     out = np.empty((h, stride), np.uint8)
     bad = _lib().png_unfilter(src.ctypes.data, out.ctypes.data, h, stride, bpp)
-    if bad:
-        raise ValueError(f"broken PNG: row {bad - 1} has filter type {src[(bad - 1) * (stride + 1)]}")
-    return out
+    if not bad:
+        return out, h
+    out[bad - 1:] = 0
+    return out, bad - 1
 
 
 def _samples(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
@@ -289,6 +301,17 @@ def check_pixels(width: int, height: int, what: str):
     twice ``Image.MAX_IMAGE_PIXELS`` (89,478,485) pixels, which PIL refuses."""
     if max(1, width) * max(1, height) > 2 * 89478485:
         raise ValueError(f"{what} image of {width} x {height} pixels is larger than PIL opens")
+
+
+def whole_rows(body: bytes, width: int, height: int, bands: int) -> np.ndarray:
+    """PIL's raw decoder under ``LOAD_TRUNCATED_IMAGES``: (height, width,
+    bands) uint8 of the whole rows of ``width * bands`` bytes that ``body``
+    holds, in file order, the others 0."""
+    stride = width * bands
+    whole = min(height, len(body) // stride) if stride else 0
+    out = np.zeros((height, width, bands), np.uint8)
+    out[:whole] = np.frombuffer(body, np.uint8, count=whole * stride).reshape(whole, width, bands)
+    return out
 
 
 def words16(rows: np.ndarray, count: int, order: str) -> np.ndarray:
@@ -382,8 +405,10 @@ def _decode(data: bytes):
     for (x0, y0, dx, dy), (ph, pw), stride in zip(passes, sizes, strides):
         if not ph or not pw:
             continue
-        rows = _unfiltered(src[at:at + ph * (stride + 1)], ph, stride, bpp)
+        rows, good = _unfiltered(src[at:at + ph * (stride + 1)], ph, stride, bpp)
         at += ph * (stride + 1)
+        if good < ph:  # a bad filter byte: the later passes stay 0
+            src[at:] = 0
         if interlace:
             samples[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
         else:

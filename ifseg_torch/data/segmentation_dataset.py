@@ -4,10 +4,10 @@ A copy of the JAX package's ``data/segmentation_dataset.py`` (reference
 data/mm_data/segmentation_dataset.py):
 
   - each row is a base64 image, a base64 label image and an id; both are
-    decoded by ``data/image.py``, PNG, JPEG, GIF, BMP, TIFF, WebP, JPEG 2000,
-    ICO, CUR, Netpbm or PSD by their signature (what PIL gives: palette files
-    as raw indices, a 16-bit PGM's "I" as int32, which the resize then
-    refuses as cv2 refuses it, no
+    decoded by ``data/image.py``, any format it reads, in the order PIL
+    tries them (what PIL gives: palette files as raw indices, a PFM's "F" as
+    float32, which the transforms take as cv2 does, a 16-bit PGM's "I" as
+    int32, which the resize then refuses as cv2 refuses it, no
     ``.convert``, a cut file as PIL reads it under the JAX package's
     ``LOAD_TRUNCATED_IMAGES``); a 2-D image is replicated to three
     channels, a fourth channel (alpha, or a CMYK file's K) dropped, and the

@@ -3,8 +3,8 @@
 The JAX package's ``data/transforms.py`` resizes with ``cv2.resize`` and
 converts colours with ``cv2.cvtColor`` (mmcv's image ops are cv2-backed).
 The port depends on no image library, so this module reproduces what cv2
-computes for uint8 images, and for the uint16 images of 16-bit grey rows,
-bit for bit.
+computes for uint8 images, for the uint16 images of 16-bit grey rows and
+for the float32 images of PFM rows, bit for bit.
 
 ``resize_image`` with ``INTER_LINEAR`` semantics:
 
@@ -19,21 +19,28 @@ bit for bit.
     clamped but whose weights are not, in the arithmetic of cv2's vector code,
     ``(((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16) + 2) >> 2``.
 
-``resize_image`` of a uint16 image is not fixed point but float32, in one
-of two ways (a big-endian ``>u2`` image is read as cv2 reads it, its bytes
-taken in the native order, so each value comes back byte-swapped):
+``resize_image`` of a uint16 or float32 image is not fixed point but
+float32, in one of two ways (a big-endian ``>u2`` image is read as cv2
+reads it, its bytes taken in the native order, so each value comes back
+byte-swapped):
 
   - from a source of at least 2 x 2 pixels cv2 calls IPP's linear resize:
-    source coordinates ``(x + 0.5) * scale - 0.5`` in float64, split at
+    source coordinates ``(x + 0.5) * (in / out) - 0.5`` in float64, split at
     their floor, the fraction clamped to 0 at either edge and then made
-    float32 (a fraction that rounds up to 1 moves to the next index with
-    fraction 0); each pass is one fused multiply-add ``fma(b - a, f, a)``
-    in float32, the horizontal pass over the integer samples and the
-    vertical one over its float32 results; rounded half to even;
+    float32 (it may round to 1); each pass is one fused multiply-add
+    ``fma(b - a, f, a)`` in float32, the horizontal pass over the samples
+    and the vertical one over its float32 results; a uint16 image is then
+    rounded half to even.  For float32 IPP's border code does the vertical
+    pass of some clamped columns in two roundings, ``a + (b - a) * f``
+    (``_ipp_border_columns``: blocks of 16 columns from each edge, by the
+    channel count), which is what a sweep of shapes, channel counts and
+    ratios against cv2 shows; a clamped position takes its one sample, a
+    clamped row in a clamped column interpolated with itself (which only an
+    infinite or NaN sample can tell: NaN);
   - from a source one pixel wide or high, cv2's own float path: the uint8
     rule's float32 coordinates and edges, weights ``1 - f`` and ``f`` in
-    float32 and each pass ``a * (1 - f) + b * f`` in float32, rounded half
-    to even.
+    float32 and each pass ``a * (1 - f) + b * f`` in float32 (a uint16
+    image rounded half to even).
 
 ``resize_image(..., nearest=True)``, ``INTER_NEAREST``: output x reads source
 ``min(floor(x * (1 / (out / in))), in - 1)`` in float64, for labels of any
@@ -164,20 +171,16 @@ def _nearest_source(n_in: int, n_out: int) -> np.ndarray:
 
 
 def _ipp_axis(n_in: int, n_out: int):
-    """IPP's source index and float32 fraction for each output position
-    along one axis (see the module docstring)."""
-    c = (np.arange(n_out, dtype=np.float64) + 0.5) * (1.0 / (float(n_out) / n_in)) - 0.5
+    """IPP's source indices and float32 fraction for each output position
+    along one axis, and where the index was clamped at either edge (see the
+    module docstring)."""
+    c = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
     s = np.floor(c).astype(np.int64)
     f = c - s
-    f[s < 0] = 0.0
-    s[s < 0] = 0
-    f[s >= n_in - 1] = 0.0
-    s = np.minimum(s, n_in - 1)
-    f = f.astype(np.float32)
-    up = f == np.float32(1)
-    s[up] += 1
-    f[up] = 0
-    return s, np.minimum(s + 1, n_in - 1), f
+    edge = (s < 0) | (s >= n_in - 1)
+    f[edge] = 0.0
+    s = np.clip(s, 0, n_in - 1)
+    return s, np.minimum(s + 1, n_in - 1), f.astype(np.float32), edge
 
 
 def _lerp_fma(a: np.ndarray, b: np.ndarray, f: np.ndarray) -> np.ndarray:
@@ -189,37 +192,80 @@ def _lerp_fma(a: np.ndarray, b: np.ndarray, f: np.ndarray) -> np.ndarray:
     return d.astype(np.float32)
 
 
-def _bilinear_u16(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+def _ipp_border_columns(edge: np.ndarray, channels: int):
+    """The clamped output columns and channels whose vertical pass IPP's
+    32f border code does in two roundings, ``a + (b - a) * f``: on each side
+    the columns go left to right in blocks of 16; a 4-channel image's
+    whole blocks and its last block of 5 or more, a 3-channel image's red and
+    green in its last block of 5 or more; the rest, and every 1-channel
+    column, keep the fused pass."""
+    cols = np.nonzero(edge)[0]
+    out = []
+    for side in (cols[cols < len(edge) // 2], cols[cols >= len(edge) // 2]):
+        whole, rest = len(side) // 16 * 16, len(side) % 16
+        if channels == 4:
+            out.extend(side[:whole].tolist() + (side[whole:].tolist() if rest >= 5 else []))
+        elif channels == 3 and rest >= 5:
+            out.extend(side[whole:].tolist())
+    return np.array(sorted(out), np.int64), slice(0, 4 if channels == 4 else 2)
+
+
+def _cv2_float_lerp(x: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2's own float32 bilinear (a source one pixel wide or high): the
+    uint8 rule's coordinates and edges, each pass ``a * (1 - f) + b * f``."""
+    h, w = x.shape[:2]
+    sx, fx = _coords(w, out_w)
+    fx[sx < 0] = 0
+    sx[sx < 0] = 0
+    edge = sx >= w - 1
+    fx[edge] = 0
+    sx[edge] = w - 1
+    left, right = x[:, sx], x[:, np.minimum(sx + 1, w - 1)]
+    hor = left * (np.float32(1) - fx)[None, :, None] + right * fx[None, :, None]
+    hor[:, edge] = left[:, edge]
+    sy, fy = _coords(h, out_h)
+    top, low = hor[np.clip(sy, 0, h - 1)], hor[np.clip(sy + 1, 0, h - 1)]
+    return top * (np.float32(1) - fy)[:, None, None] + low * fy[:, None, None]
+
+
+def _bilinear_float(img: np.ndarray, out_h: int, out_w: int, is_float: bool) -> np.ndarray:
+    """(out_h, out_w, c) float32 of cv2's linear resize of a uint16 image
+    (``is_float`` False) or a float32 one, before any rounding."""
     h, w = img.shape[:2]
     x = img.astype(np.float32).reshape(h, w, -1)
-    if h > 1 and w > 1:  # IPP's linear resize
-        x0, x1, fx = _ipp_axis(w, out_w)
-        y0, y1, fy = _ipp_axis(h, out_h)
+    if h == 1 or w == 1:
+        return _cv2_float_lerp(x, out_h, out_w)
+    x0, x1, fx, edge = _ipp_axis(w, out_w)
+    y0, y1, fy, top_bottom = _ipp_axis(h, out_h)
+    with np.errstate(invalid="ignore"):  # an infinite sample's lerp is NaN or infinite, as IPP's
         hor = _lerp_fma(x[:, x0], x[:, x1], fx[None, :, None])
+        hor[:, edge] = x[:, x0[edge]]  # a clamped column is its one source sample
         out = _lerp_fma(hor[y0], hor[y1], fy[:, None, None])
-    else:  # cv2's float path
-        sx, fx = _coords(w, out_w)
-        fx[sx < 0] = 0
-        sx[sx < 0] = 0
-        edge = sx >= w - 1
-        fx[edge] = 0
-        sx[edge] = w - 1
-        left, right = x[:, sx], x[:, np.minimum(sx + 1, w - 1)]
-        hor = left * (np.float32(1) - fx)[None, :, None] + right * fx[None, :, None]
-        hor[:, edge] = left[:, edge]
-        sy, fy = _coords(h, out_h)
-        top, low = hor[np.clip(sy, 0, h - 1)], hor[np.clip(sy + 1, 0, h - 1)]
-        out = top * (np.float32(1) - fy)[:, None, None] + low * fy[:, None, None]
-    out = np.clip(np.rint(out), 0, 65535).astype(np.uint16)
-    return out.reshape((out_h, out_w) + img.shape[2:])
+        if is_float:
+            cols, chans = _ipp_border_columns(edge, x.shape[2])
+            if len(cols):
+                a, b = hor[y0][:, cols, chans], hor[y1][:, cols, chans]
+                out[:, cols, chans] = a + (b - a) * fy[:, None, None]
+        # a clamped row is its one row: a copy in the inner columns, and
+        # interpolated with itself in the clamped ones (IPP's border code)
+        rows = hor[y0[top_bottom]]
+        out[top_bottom] = rows
+        out[np.ix_(top_bottom, np.nonzero(edge)[0])] = (rows + (rows - rows))[:, edge]
+    return out
+
+
+def _bilinear_u16(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    out = np.clip(np.rint(_bilinear_float(img, out_h, out_w, False)), 0, 65535)
+    return out.astype(np.uint16).reshape((out_h, out_w) + img.shape[2:])
 
 
 def resize_image(img: np.ndarray, out_hw: Tuple[int, int], nearest: bool = False) -> np.ndarray:
     """``cv2.resize(img, (out_w, out_h), interpolation=...)`` for an image
-    (h, w) or (h, w, c): ``INTER_LINEAR`` for uint8 or uint16 (a big-endian
-    one's bytes read as native, as cv2 reads them), or ``INTER_NEAREST`` (``nearest``) for any
-    dtype; an image of the output's size is copied whatever its dtype, as cv2
-    copies it, and any other dtype raises ``TypeError``."""
+    (h, w) or (h, w, c): ``INTER_LINEAR`` for uint8, uint16 (a big-endian
+    one's bytes read as native, as cv2 reads them) or float32, or
+    ``INTER_NEAREST`` (``nearest``) for any dtype; an image of the output's
+    size is copied whatever its dtype, as cv2 copies it, and any other dtype
+    raises ``TypeError``."""
     h, w = img.shape[:2]
     out_h, out_w = out_hw
     if nearest:
@@ -231,10 +277,10 @@ def resize_image(img: np.ndarray, out_hw: Tuple[int, int], nearest: bool = False
         return _bilinear_u16(img, out_h, out_w)
     if (h, w) == (out_h, out_w):  # cv2 copies an image of the output's size, whatever its type
         return img.copy()
-    if img.dtype != np.uint8:
-        # cv2 refuses int32 (a PGM row of more than 8 bits); its float32
-        # resize (a PFM row) is IPP's, not reproduced here
-        raise TypeError(f"resize_image takes uint8 or uint16 images, not {img.dtype}")
+    if img.dtype == np.float32:
+        return _bilinear_float(img, out_h, out_w, True).reshape((out_h, out_w) + img.shape[2:])
+    if img.dtype != np.uint8:  # cv2 refuses int32 (a PGM row of more than 8 bits) and bool
+        raise TypeError(f"resize_image takes uint8, uint16 or float32 images, not {img.dtype}")
     if (h, w) == (2 * out_h, 2 * out_w):
         s = img.astype(np.int32)
         return ((s[0::2, 0::2] + s[0::2, 1::2] + s[1::2, 0::2] + s[1::2, 1::2] + 2) >> 2
@@ -452,13 +498,98 @@ def hsv_to_bgr_u8(hsv: np.ndarray) -> np.ndarray:
     return np.clip(bgr, 0, 255).astype(np.uint8)
 
 
+# cv2's float32 HSV code: vectors of 8 pixels (AVX2) from each row's start,
+# with fused multiply-adds, then the row's last w % 8 pixels one by one
+_CV2_HSV_F32_BLOCK = 8
+_FLT_EPSILON = np.float32(np.finfo(np.float32).eps)
+
+
+def _bgr_to_hsv_f32(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2HSV)`` of a float32 (h, w, 3) image:
+    hue in degrees, ``s = (max - min) / (|max| + FLT_EPSILON)``, ``v = max``.
+    The hue is ``(difference) * 60 / (max - min + FLT_EPSILON)`` plus 0 (or
+    360 below 0), 120 or 240 by the maximum's channel: in the vector blocks
+    ``60 / x`` in float32 and one fused multiply-add (the 360 chosen where
+    green is below blue); in the row's tail ``60 / x`` in float64 rounded to
+    float32, a fused multiply-add where green or blue is the maximum and,
+    where red is, the product rounded and 360 added where it is negative."""
+    f32, f64 = np.float32, np.float64
+    b, g, r = (img[..., i].astype(f32) for i in range(3))
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    s = diff / (np.abs(v) + _FLT_EPSILON)
+    red = r == v
+    green = (g == v) & ~red
+    term = np.where(red, g - b, np.where(green, b - r, r - g)).astype(f64)
+    offset = np.where(green, 120.0, 240.0)
+    vec_rev = (f32(60) / (diff + _FLT_EPSILON)).astype(f64)
+    vec = (term * vec_rev + np.where(red, np.where(g < b, 360.0, 0.0), offset)).astype(f32)
+    tail_rev = (60.0 / (diff + _FLT_EPSILON).astype(f64)).astype(f32).astype(f64)
+    product = (term * tail_rev).astype(f32)
+    tail = np.where(red, np.where(product < 0, product + f32(360), product),
+                    (term * tail_rev + offset).astype(f32))
+    w = img.shape[1]
+    in_vector = np.arange(w) < w // _CV2_HSV_F32_BLOCK * _CV2_HSV_F32_BLOCK
+    h = np.where(in_vector[None, :], vec, tail)
+    return np.stack([h, s, v], axis=-1).astype(f32)
+
+
+def _hsv_to_bgr_f32(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)`` of a float32 (h, w, 3) image
+    with hue in degrees: ``h * (6 / 360)`` split into its sector and
+    fraction f (truncated in the vector blocks; in the row's tail taken
+    modulo 6 and floored, a sector outside 0..5 read as 0 with f 0, and
+    ``s == 0`` giving v), the four values ``v``, ``v (1 - s)``,
+    ``v (1 - s f)``, ``v (1 - s (1 - f))`` with ``1 - s f`` and
+    ``1 - s (1 - f)`` each one fused multiply-add."""
+    f32 = np.float32
+    h = hsv[..., 0].astype(f32) * (f32(6.0) / f32(360.0))
+    s, v = hsv[..., 1].astype(f32), hsv[..., 2].astype(f32)
+    one = f32(1.0)
+
+    def bgr(sector, frac):
+        def one_minus_s_times(t):  # one rounding: the fp64 product of two fp32 values is exact
+            return (1.0 - s.astype(np.float64) * t).astype(f32)
+
+        tab = np.stack([v, v * (one - s), v * one_minus_s_times(frac),
+                        v * one_minus_s_times(one - frac)], axis=-1)
+        return np.take_along_axis(tab, _SECTORS[sector], axis=-1)
+
+    with np.errstate(invalid="ignore"):
+        vec_sector = np.trunc(h)
+        vec = bgr(vec_sector.astype(np.int64) % 6, h - vec_sector)
+        wrapped = np.fmod(h, f32(6))
+        tail_sector = np.floor(wrapped)
+        outside = ~((tail_sector >= 0) & (tail_sector < 6))
+        frac = np.where(outside, f32(0), wrapped - tail_sector)
+        tail = bgr(np.where(outside, 0, tail_sector).astype(np.int64), frac)
+    tail = np.where((s == 0)[..., None], v[..., None], tail)
+    w = hsv.shape[1]
+    in_vector = np.arange(w) < w // _CV2_HSV_F32_BLOCK * _CV2_HSV_F32_BLOCK
+    return np.where(in_vector[None, :, None], vec, tail).astype(f32)
+
+
+def bgr_to_hsv(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2HSV)`` of a uint8 or float32 image;
+    ValueError for any other dtype, which cv2 refuses too."""
+    return _bgr_to_hsv_f32(img) if img.dtype == np.float32 else bgr_to_hsv_u8(img)
+
+
+def hsv_to_bgr(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)`` of a uint8 or float32 image."""
+    return _hsv_to_bgr_f32(hsv) if hsv.dtype == np.float32 else hsv_to_bgr_u8(hsv)
+
+
 class PhotoMetricDistortion:
     """mmseg PhotoMetricDistortion on BGR uint8: random brightness, random
     contrast (before or after), saturation and hue jitter in HSV.  A uint16
     image (a 16-bit grey row) becomes clipped uint8 at its first brightness
     or contrast draw, comes back uint16 with no draw, and raises ValueError
     at a saturation or hue draw that finds it still uint16, as the JAX
-    package's cv2 ``cvtColor`` raises."""
+    package's cv2 ``cvtColor`` raises.  A float32 image (a PFM row) becomes
+    uint8 at a brightness or contrast draw too, and otherwise goes through
+    cv2's float32 HSV (hue in degrees, the saturation clipped to uint8 and
+    back, the hue truncated and taken modulo 180, as the JAX code does)."""
 
     def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
                  saturation_range=(0.5, 1.5), hue_delta=18):
@@ -481,17 +612,17 @@ class PhotoMetricDistortion:
             img = self._convert(img, alpha=rng.uniform(self.contrast_lower, self.contrast_upper))
         # saturation
         if rng.integers(2):
-            hsv = bgr_to_hsv_u8(img)
+            hsv = bgr_to_hsv(img)
             hsv[:, :, 1] = self._convert(
                 hsv[:, :, 1], alpha=rng.uniform(self.saturation_lower, self.saturation_upper))
-            img = hsv_to_bgr_u8(hsv)
+            img = hsv_to_bgr(hsv)
         # hue
         if rng.integers(2):
-            hsv = bgr_to_hsv_u8(img)
+            hsv = bgr_to_hsv(img)
             hsv[:, :, 0] = (
                 hsv[:, :, 0].astype(int) + rng.integers(-self.hue_delta, self.hue_delta + 1)
             ) % 180
-            img = hsv_to_bgr_u8(hsv)
+            img = hsv_to_bgr(hsv)
         if mode == 0 and rng.integers(2):
             img = self._convert(img, alpha=rng.uniform(self.contrast_lower, self.contrast_upper))
         return img

@@ -133,6 +133,7 @@ def test_other_formats_raise_naming_them(fmt):
     assert mode == pil.mode
     np.testing.assert_array_equal(pixels, np.asarray(pil))
     np.testing.assert_array_equal(decode_image_rgb(data), np.asarray(pil.convert("RGB")))
-    with pytest.raises(ValueError, match="not a PNG, JPEG, GIF, BMP, TIFF, WebP, JPEG 2000, ICO, "
-                                         "CUR, Netpbm or PSD file"):
+    with pytest.raises(ValueError, match="not a BMP, DIB, CUR, PCX, DCX, DDS, GIF, PNG, JPEG 2000, "
+                                         "ICO, IM, JPEG, TIFF, Netpbm, PSD, QOI, SGI, TGA or WebP "
+                                         "file"):
         decode_image(b"plain text, no image")

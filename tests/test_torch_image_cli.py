@@ -24,9 +24,9 @@ with PIL, on the CPU at a tiny width:
     the JAX CLI's, the masks equal;
   - ICO, CUR, PSD and Netpbm rows and originals: the dataset's rows and the
     converted rows equal the JAX package's; a 16-bit PGM row raises in both
-    at cv2's resize; a PFM row decodes as the JAX row and its float32 resize
-    is refused (the port does not reproduce cv2's); a PFM, Lab or CMYK
-    original fails both converters.
+    at cv2's resize; a PFM row's evaluation sample and training examples
+    equal the JAX dataset's (cv2's float32 resize and HSV); a PFM, Lab or
+    CMYK original fails both converters.
 """
 
 import base64
@@ -336,19 +336,33 @@ def test_icon_psd_netpbm_dataset_rows_equal_jax(tmp_path, bpe_dir):
 
 
 def test_a_pfm_row_decodes_as_jax_and_its_float_resize_is_refused(tmp_path, bpe_dir):
-    """A PFM row ("F", float32) decodes to the JAX package's row; cv2's
-    float32 resize (IPP's, whose three-channel border columns the port does
-    not reproduce) is refused with ``TypeError`` where the JAX package
-    resizes (ROADMAP A.11)."""
+    """A PFM row ("F", float32) decodes to the JAX package's row, and its
+    evaluation sample and training examples, through cv2's float32 resize
+    (IPP's) and float32 HSV jitter, equal the JAX dataset's bit for bit:
+    the float32 resize the port once refused (ROADMAP C.16), every draw of
+    ``PhotoMetricDistortion`` over 40 generators (a float32 image stays
+    float32 until a brightness or contrast draw makes it uint8)."""
     px = np.random.default_rng(13).random((37, 45)).astype(np.float32) * 300 - 20
     tsv = _rows_tsv(tmp_path / "pfm.tsv", [(".pfm", W.netpbm_file(b"Pf", px))])
     got_ds, want_ds = _datasets(tsv, bpe_dir, "valid")
     got_row, want_row = got_ds._decode_row(0), want_ds._decode_row(0)
     for a, b in zip(got_row[:2], want_row[:2]):
         assert a.dtype == b.dtype and np.array_equal(a, b)
-    assert want_ds.get_eval_sample(0).patch_image.dtype == np.float32
-    with pytest.raises(TypeError, match="float32"):
-        got_ds.get_eval_sample(0)
+    got, want = got_ds.get_eval_sample(0), want_ds.get_eval_sample(0)
+    assert want.patch_image.dtype == np.float32
+    for f in ("patch_image", "ori_semantic_seg"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    got_ds, want_ds = _datasets(tsv, bpe_dir, "train")
+    dtypes = set()
+    for seed in range(40):
+        want = want_ds.get_train_example(0, np.random.default_rng((5, seed)))
+        got = got_ds.get_train_example(0, np.random.default_rng((5, seed)))
+        dtypes.add(want["patch_image"].dtype)
+        for k in want:
+            if k != "id":
+                assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), (seed, k)
+    assert dtypes == {np.dtype(np.float32), np.dtype(np.uint8)}
 
 
 def test_icon_psd_netpbm_convert_rows_equal_jax(tmp_path):

@@ -17,11 +17,12 @@
     raises (CMYK JPEG cuts: ``tests/test_torch_cut_files.py``);
   - the formats and layouts PIL refuses, and those the port leaves for later
     (JPEG-in-TIFF, floating-point TIFF, and each format of PIL's ``Image.ID``
-    with a signature that the port does not read: QOI, SGI, DDS, ICNS, PCX,
-    FITS, XPM, ...), raise ``ValueError`` naming them; WebP, JPEG 2000, ICO
-    and PSD files, which the port once refused, decode as PIL decodes them
-    (``test_torch_webp.py``, ``test_torch_jpeg2000.py``, ``test_torch_ico.py``,
-    ``test_torch_psd.py``, ``test_torch_netpbm.py``);
+    with a signature that the port does not read: ICNS, FITS, XPM, ...),
+    raise ``ValueError`` naming them; WebP, JPEG 2000, ICO, PSD, QOI, SGI,
+    DDS, PCX and DCX files, which the port once refused, decode as PIL
+    decodes them (``test_torch_webp.py``, ``test_torch_jpeg2000.py``,
+    ``test_torch_ico.py``, ``test_torch_psd.py``, ``test_torch_netpbm.py``,
+    ``test_torch_{tga,sgi,qoi,pcx,im,dds}.py``);
   - ``encode_bmp`` and ``encode_tiff`` write the bytes of PIL's ``save``;
   - ``tests/torch_image_files/digests.json`` holds PIL's mode, shape and
     digests of every committed fixture (``chip_smoke.py`` phase 14e checks
@@ -387,7 +388,8 @@ def _refused():
          "BMP pixel depth 2"),
         ("gif-no-image", b"GIF89a\x01\0\x01\0\0\0\0;", "no image"),
         ("text", b"plain text, no image",
-         "not a PNG, JPEG, GIF, BMP, TIFF, WebP, JPEG 2000, ICO, CUR, Netpbm or PSD file"),
+         "not a BMP, DIB, CUR, PCX, DCX, DDS, GIF, PNG, JPEG 2000, ICO, IM, JPEG, TIFF, Netpbm, "
+         "PSD, QOI, SGI, TGA or WebP file"),
     ]
 
 
@@ -410,17 +412,18 @@ def test_refused_files_raise_naming_why(case):
 def _other_formats():
     """(name, file, the format the message names) of each format PIL opens
     that the port refuses: PIL's writer's file where it has one, else the
-    signature PIL's plugin accepts."""
+    signature PIL's plugin accepts.  The format None: one the port reads now
+    (QOI, SGI, DDS, PCX, DCX), which decodes as PIL decodes it."""
     r = _rng("others")
     rgb = _smooth(r, 8, 8)
     im = Image.fromarray(rgb)
     return [
-        ("qoi", W.pil_save(im, "QOI"), "QOI"),
-        ("sgi", W.pil_save(im, "SGI"), "SGI"),
-        ("dds", W.pil_save(im, "DDS"), "DDS"),
+        ("qoi", W.pil_save(im, "QOI"), None),
+        ("sgi", W.pil_save(im, "SGI"), None),
+        ("dds", W.pil_save(im, "DDS"), None),
         ("icns", W.pil_save(im.resize((16, 16)), "ICNS"), "ICNS"),
-        ("pcx", W.pil_save(im, "PCX"), "PCX"),
-        ("dcx", b"\xb1\x68\xde\x3a" + bytes(16), "DCX"),
+        ("pcx", W.pil_save(im, "PCX"), None),
+        ("dcx", W.dcx_file([W.pil_save(im, "PCX")]), None),
         ("fits", b"SIMPLE  =                    T" + b" " * 50, "FITS"),
         ("xpm", b"/* XPM */\nstatic char *x[] = {\n", "XPM"),
         ("xbm", W.pil_save(im.convert("1"), "XBM"), "XBM"),
@@ -441,8 +444,11 @@ def _other_formats():
 @pytest.mark.parametrize("case", _other_formats(), ids=[c[0] for c in _other_formats()])
 def test_other_pil_formats_raise_naming_them(case):
     """A format PIL opens that the port does not read: ``ValueError`` naming
-    it, not "not a PNG, ... file"."""
+    it, not "not a PNG, ... file"; one the port reads now, PIL's pixels."""
     name, data, fmt = case
+    if fmt is None:
+        _same(data)
+        return
     with pytest.raises(ValueError, match=f"^{fmt}.* files are not supported"):
         decode_image(data)
     with pytest.raises(ValueError, match=f"^{fmt}"):

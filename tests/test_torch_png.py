@@ -13,7 +13,7 @@ import zlib
 
 import numpy as np
 import pytest
-from PIL import Image
+from PIL import Image, ImageFile
 
 import chip_smoke
 from ifseg_torch.data.png import decode_png
@@ -197,7 +197,7 @@ def test_16_bit_files_pil_writes():
     _same(data)
 
 
-def test_broken_files_raise():
+def test_broken_files_raise(monkeypatch):
     good = _save(Image.fromarray(np.zeros((4, 4, 3), np.uint8)))
     with pytest.raises(ValueError, match="signature"):
         decode_png(b"GIF89a" + good[6:])
@@ -207,16 +207,25 @@ def test_broken_files_raise():
     # LOAD_TRUNCATED_IMAGES; a file cut later decodes (tests/test_torch_truncated.py)
     with pytest.raises(ValueError, match="truncated"):
         decode_png(good[:30])
-    # a filter byte of 7 in row 0
-    arr = np.zeros((2, 3), np.uint8)
+    # a filter byte of 7 in row 0 or row 2: PIL raises OSError, and under the
+    # JAX package's LOAD_TRUNCATED_IMAGES keeps the rows before it, as the port
+    # does (ROADMAP C.14)
+    arr = np.arange(1, 19, dtype=np.uint8).reshape(6, 3)
     data = chip_smoke.png_bytes(arr, 0)
-    raw = bytearray(zlib.decompress(data[41:41 + struct.unpack(">I", data[33:37])[0]]))
-    raw[0] = 7
-    idat = zlib.compress(bytes(raw))
-    bad = (data[:33] + struct.pack(">I", len(idat)) + b"IDAT" + idat
-           + struct.pack(">I", zlib.crc32(b"IDAT" + idat)) + data[-12:])
-    with pytest.raises(ValueError, match="row 0 has filter type 7"):
-        decode_png(bad)
+    for row in (0, 2):
+        raw = bytearray(zlib.decompress(data[41:41 + struct.unpack(">I", data[33:37])[0]]))
+        raw[row * 4] = 7
+        idat = zlib.compress(bytes(raw))
+        bad = (data[:33] + struct.pack(">I", len(idat)) + b"IDAT" + idat
+               + struct.pack(">I", zlib.crc32(b"IDAT" + idat)) + data[-12:])
+        with monkeypatch.context() as m:
+            m.setattr(ImageFile, "LOAD_TRUNCATED_IMAGES", False)
+            with pytest.raises(OSError, match="unrecognized data stream"):
+                _pil(bad)
+            m.setattr(ImageFile, "LOAD_TRUNCATED_IMAGES", True)
+            _same(bad)
+        got = decode_png(bad)
+        assert np.array_equal(got[:row], arr[:row]) and not got[row:].any()
 
 
 def test_a_failed_build_raises(tmp_path, monkeypatch):

@@ -16,10 +16,11 @@ package's, and the ``cli.serve`` daemon end to end over HTTP.
     input's size as PIL's nearest resize does, for a JPEG body as for a PNG
     one; JSON areas sum to grid²; concurrent requests are batched; a GIF or
     broken body gets 400, a failing worker 500.
-  - WebP bodies (lossy, lossless with alpha, an animation): the network
-    input equals the JAX daemon's ``_preprocess`` and the answer equals the
-    PNG twin's (PIL's ``convert("RGB")`` of the body); a cut or damaged
-    WebP body gets 400, as the JAX daemon's PIL refuses it.
+  - WebP bodies (lossy, lossless with alpha, an animation), and TGA, SGI,
+    QOI, PCX, IM, DDS and DIB bodies: the network input equals the JAX
+    daemon's ``_preprocess`` and the answer equals the PNG twin's (PIL's
+    ``convert("RGB")`` of the body); a cut or damaged WebP body gets 400, as
+    the JAX daemon's PIL refuses it.
 """
 
 import io
@@ -303,6 +304,38 @@ def test_webp_bodies_answer_as_their_png_twins(daemon, kind):
     assert out == _post(base + "/segment", twin.getvalue())[2]
     status, _, out = _post(base + "/segment?format=json", data)
     assert status == 200 and out == _post(base + "/segment?format=json", twin.getvalue())[2]
+
+
+def _raw_format_bodies():
+    """A body of each raw or run-length format the port reads: TGA (RLE),
+    SGI, QOI, PCX, IM, DDS (BC1) and a headerless DIB."""
+    rng = np.random.default_rng(8)
+    rgb = np.repeat(np.repeat(rng.integers(0, 256, (11, 14, 3), dtype=np.uint8), 3, 0), 3, 1)
+    img = Image.fromarray(rgb[:31, :41])
+    out = {}
+    for fmt, kw in (("TGA", dict(rle=True)), ("SGI", {}), ("QOI", {}), ("PCX", {}), ("IM", {}),
+                    ("DDS", dict(pixel_format="DXT1")), ("DIB", {})):
+        buf = io.BytesIO()
+        img.save(buf, format=fmt, **kw)
+        out[fmt.lower()] = buf.getvalue()
+    return out
+
+
+@pytest.mark.parametrize("kind", sorted(_raw_format_bodies()))
+def test_raw_format_bodies_answer_as_their_png_twins(daemon, kind):
+    """Each body's network input equals the JAX daemon's ``_preprocess`` and
+    its answer equals its PNG twin's."""
+    base, svc = daemon
+    data = _raw_format_bodies()[kind]
+    got, orig = svc._preprocess(data)
+    want, want_orig = jserve.SegService._preprocess(types.SimpleNamespace(size=SIZE), data)
+    assert orig == want_orig == (31, 41)
+    np.testing.assert_array_equal(got, want)
+    twin = io.BytesIO()
+    Image.open(io.BytesIO(data)).convert("RGB").save(twin, format="PNG")
+    status, ctype, out = _post(base + "/segment", data)
+    assert status == 200 and ctype == "image/png"
+    assert out == _post(base + "/segment", twin.getvalue())[2]
 
 
 def test_broken_webp_bodies_get_400(daemon):

@@ -5,6 +5,7 @@ takes (a copy at equal size, its area average at an exact 2x down-scale, the
 fixed-point bilinear otherwise, up and down).
 """
 
+import cv2
 import numpy as np
 import pytest
 from hypothesis import example, given, settings
@@ -58,5 +59,11 @@ def test_imrescale_size_equals_jax():
 
 
 def test_resize_takes_uint8_only():
-    with pytest.raises(TypeError, match="uint8"):
-        tt.resize_image(np.zeros((4, 4, 3), np.float32), (8, 8))
+    """uint8, uint16 and (since ROADMAP C.16) float32 images resize as cv2
+    resizes them; an int32 or bool image, which cv2 refuses, raises."""
+    img = np.random.default_rng(3).random((4, 5, 3)).astype(np.float32) * 300 - 20
+    np.testing.assert_array_equal(tt.resize_image(img, (8, 9)),
+                                  cv2.resize(img, (9, 8), interpolation=cv2.INTER_LINEAR))
+    for dtype in (np.int32, bool):
+        with pytest.raises(TypeError, match="uint8"):
+            tt.resize_image(np.zeros((4, 4, 3), dtype), (8, 8))

@@ -129,6 +129,38 @@ def test_validate_matches_jax_on_webp_rows(tmp_path, bpe_dir, checkpoint, monkey
     np.testing.assert_allclose(got_m["loss"], want_m["loss"], rtol=1e-5)
 
 
+def test_validate_matches_jax_on_raw_format_rows(tmp_path, bpe_dir, checkpoint, monkeypatch):
+    """The same unpadded rows with their images as run-length TGA, SGI, QOI,
+    PCX, IM and BC1 DDS files, which the JAX CLI reads through PIL: equal
+    areas."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    monkeypatch.setenv("IFSEG_JIT_CACHE", "")
+    png_tsv = make_seg_tsv(str(tmp_path / "png.tsv"), rows=6, num_seg=3, size=(256, 256), seed=8)
+    saves = (("TGA", dict(rle=True)), ("SGI", {}), ("QOI", {}), ("PCX", {}), ("IM", {}),
+             ("DDS", dict(pixel_format="DXT1")))
+    rows = []
+    for (fmt, kw), line in zip(saves, open(png_tsv)):
+        img_b64, seg_b64, uid = line.rstrip("\n").split("\t")
+        buf = io.BytesIO()
+        Image.open(io.BytesIO(base64.urlsafe_b64decode(img_b64))).save(buf, fmt, **kw)
+        rows.append(f"{base64.urlsafe_b64encode(buf.getvalue()).decode()}\t{seg_b64}\t{uid}\n")
+    tsv = tmp_path / "raw.tsv"
+    tsv.write_text("".join(rows))
+    argv = _argv(str(tsv), checkpoint, bpe_dir, 256)
+    got = tval.main(torch_flags(argv), device="cpu")
+    got_m = _meters(tmetrics)
+    want = jval.main(jax_flags(argv))
+    want_m = _meters(jmetrics)
+    assert got["num_images"] == want["num_images"] == 6
+    for k in AREAS + POST:
+        assert np.array_equal(got_m[k], want_m[k]), k
+    np.testing.assert_allclose(got_m["loss"], want_m["loss"], rtol=1e-5)
+
+
 def test_validate_padded_rows_match_jax_on_normalized_rows(tmp_path, bpe_dir, checkpoint):
     """200 x 240 rows resize to 256 x 307: padded into the (256, 512) bucket."""
     tsv = make_seg_tsv(str(tmp_path / "valid.tsv"), rows=3, num_seg=3, size=(200, 240), seed=5)

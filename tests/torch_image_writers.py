@@ -767,3 +767,346 @@ def netpbm_file(magic: bytes, pixels, maxval: int = 255, scale: float = -1.0,
                  for i in range(0, len(flat), per_line)]
         return head + b"\n".join(lines) + b"\n"
     return head + flat.astype(np.uint8 if maxval < 256 else ">u2").tobytes()
+
+
+# ------------------------------------------- TGA, SGI, PCX, DCX, IM, DDS, QOI
+
+def _runs(units, limit: int, min_run: int = 2):
+    """[(True, unit, count) for a run of one repeated unit | (False, [units])
+    for literals], greedily, each at most ``limit`` units long."""
+    out, i, n = [], 0, len(units)
+    while i < n:
+        j = i + 1
+        while j < n and j - i < limit and units[j] == units[i]:
+            j += 1
+        if j - i >= min_run:
+            out.append((True, units[i], j - i))
+            i = j
+            continue
+        lit = [units[i]]
+        i += 1
+        while i < n and len(lit) < limit and not (i + 1 < n and units[i + 1] == units[i]):
+            lit.append(units[i])
+            i += 1
+        out.append((False, lit, len(lit)))
+    return out
+
+
+def tga_rle(pixels: bytes, bpp: int, row: int = None) -> bytes:
+    """TGA run-length packets (at most 128 pixels) of the pixel bytes, each
+    ``bpp`` bytes; packets cross rows unless ``row`` (pixels a row) is given."""
+    units = [pixels[i:i + bpp] for i in range(0, len(pixels), bpp)]
+    groups = [units] if row is None else [units[i:i + row] for i in range(0, len(units), row)]
+    out = bytearray()
+    for group in groups:
+        for run, value, count in _runs(group, 128):
+            if run:
+                out += bytes([0x80 | (count - 1)]) + value
+            else:
+                out += bytes([count - 1]) + b"".join(value)
+    return bytes(out)
+
+
+def tga_file(body: bytes, width: int, height: int, kind: int, depth: int, flags: int = 0,
+             id_section: bytes = b"", colour_map: bytes = None, map_start: int = 0,
+             map_depth: int = 24, footer: bool = True) -> bytes:
+    """A TGA file: ``body`` the pixel bytes as stored (RLE packets for kinds
+    9-11), an optional colour map of ``map_depth``-bit entries."""
+    entry = {16: 2, 24: 3, 32: 4}.get(map_depth, 3)
+    count = len(colour_map) // entry if colour_map is not None else 0
+    head = struct.pack("<BBBHHBHHHHBB", len(id_section), int(colour_map is not None), kind,
+                       map_start, count, map_depth if colour_map is not None else 0, 0, 0,
+                       width, height, depth, flags)
+    tail = b"\0" * 8 + b"TRUEVISION-XFILE.\0" if footer else b""
+    return head + id_section + (colour_map or b"") + body + tail
+
+
+def sgi_rle_row(samples, bpc: int) -> bytes:
+    """One SGI RLE row: (count | 0x80) then literals, or count then the value,
+    counts up to 127, ending in a 0 packet; 16-bit words big-endian."""
+    word = (lambda v: bytes([v])) if bpc == 1 else (lambda v: struct.pack(">H", v))
+    out = bytearray()
+    for run, value, count in _runs([int(v) for v in samples], 127, min_run=3):
+        if run:
+            out += word(count) + word(value)
+        else:
+            out += word(0x80 | count) + b"".join(word(v) for v in value)
+    return bytes(out + word(0))
+
+
+def sgi_file(planes, rle: bool = False, name: bytes = b"", dimension: int = None) -> bytes:
+    """An SGI file of (z, h, w) samples (uint8, or uint16 for 2 bytes a
+    sample), rows bottom-up, raw or with PIL's RLE tables."""
+    planes = np.asarray(planes)
+    z, h, w = planes.shape
+    bpc = 2 if planes.dtype == np.uint16 else 1
+    dimension = dimension or (3 if z > 1 else (1 if h == 1 else 2))
+    head = struct.pack(">hBBHHHHll4s79ssl404s", 474, int(rle), bpc, dimension, w, h, z, 0,
+                       255 if bpc == 1 else 65535, b"", name, b"", 0, b"")
+    rows = planes[:, ::-1]
+    if not rle:
+        return head + rows.astype(">u2" if bpc == 2 else np.uint8).tobytes()
+    starts, lengths, body = [], [], bytearray()
+    at = 512 + 8 * z * h
+    for c in range(z):
+        for y in range(h):
+            packed = sgi_rle_row(rows[c, y], bpc)
+            starts.append(at + len(body))
+            lengths.append(len(packed))
+            body += packed
+    return head + struct.pack(f">{z * h}I", *starts) + struct.pack(f">{z * h}I", *lengths) + body
+
+
+def pcx_rle(rows, limit: int = 63, across: bool = False) -> bytes:
+    """PCX run-length bytes of (h, row bytes) rows: runs of 2+ bytes, or of
+    one byte of 0xC0 or more, as 0xC0 | n and the byte; runs stop at each
+    row's end unless ``across``."""
+    rows = np.asarray(rows, np.uint8)
+    groups = [rows.reshape(-1)] if across else list(rows)
+    out = bytearray()
+    for group in groups:
+        values = group.tolist()
+        i = 0
+        while i < len(values):
+            j = i + 1
+            while j < len(values) and j - i < limit and values[j] == values[i]:
+                j += 1
+            if j - i > 1 or values[i] >= 0xC0:
+                out += bytes([0xC0 | (j - i), values[i]])
+            else:
+                out.append(values[i])
+            i = j
+    return bytes(out)
+
+
+def pcx_file(body: bytes, width: int, height: int, bits: int, planes: int, stride: int,
+             version: int = 5, header_palette: bytes = b"\0" * 48, palette: bytes = None) -> bytes:
+    """A PCX file: ``body`` the run-length rows, an optional 256-entry
+    palette after a 12 byte at the end."""
+    head = (struct.pack("<BBBBHHHHHH", 10, version, 1, bits, 0, 0, width - 1, height - 1, 72, 72)
+            + header_palette[:48].ljust(48, b"\0") + struct.pack("<BBHHHH", 0, planes, stride, 1,
+                                                                 width, height) + b"\0" * 54)
+    return head + body + (b"\x0c" + palette if palette is not None else b"")
+
+
+def dcx_file(frames) -> bytes:
+    """A DCX container of PCX files."""
+    offsets, at = [], 4 + 4 * (len(frames) + 1)
+    for f in frames:
+        offsets.append(at)
+        at += len(f)
+    return struct.pack(f"<I{len(frames) + 1}I", 0x3ADE68B1, *offsets, 0) + b"".join(frames)
+
+
+def im_file(lines, body: bytes, lut: bytes = None, newline: bytes = b"\r\n") -> bytes:
+    """An IM file: header ``lines`` ("Key: value"), padded with NULs to 511
+    bytes and a 0x1A, an optional 768-byte LUT, then ``body``."""
+    head = b"".join(line + newline for line in lines)
+    return head + b"\0" * max(0, 511 - len(head)) + b"\x1a" + (lut or b"") + body
+
+
+def dds_file(width: int, height: int, body: bytes, pf_flags: int, fourcc: bytes = b"\0" * 4,
+             bits: int = 0, masks=(0, 0, 0, 0), dxgi: int = None, palette: bytes = b"") -> bytes:
+    """A DDS file: the 124-byte header with the pixel format given, a DX10
+    header where ``dxgi`` is given, a palette for PALETTEINDEXED8."""
+    head = (b"DDS " + struct.pack("<7I", 124, 0x1007, height, width, 0, 0, 0) + b"\0" * 44
+            + struct.pack("<II4sI4I", 32, pf_flags, fourcc, bits, *masks)
+            + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 0, 1)
+    return head + palette + body
+
+
+def qoi_file(pixels, channels: int = None, colorspace: int = 0) -> bytes:
+    """A QOI file of (h, w, 3 or 4) uint8 pixels, as the format's reference
+    encoder writes it: every op, the index table starting empty."""
+    px = np.asarray(pixels, np.uint8)
+    h, w, bands = px.shape
+    flat = px.reshape(-1, bands).tolist()
+    out = bytearray(b"qoif" + struct.pack(">IIBB", w, h, channels or bands, colorspace))
+    seen, prev, run = [None] * 64, (0, 0, 0, 255), 0
+    for i, p in enumerate(flat):
+        p = tuple(p) + ((255,) if bands == 3 else ())
+        if p == prev:
+            run += 1
+            if run == 62 or i == len(flat) - 1:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        h_ = (p[0] * 3 + p[1] * 5 + p[2] * 7 + p[3] * 11) % 64
+        if seen[h_] == p:
+            out.append(h_)
+        else:
+            seen[h_] = p
+            d = [((p[k] - prev[k] + 128) & 255) - 128 for k in range(3)]
+            if p[3] != prev[3]:
+                out += bytes([0xFF, *p])
+            elif all(-2 <= v < 2 for v in d):
+                out.append(0x40 | (d[0] + 2) << 4 | (d[1] + 2) << 2 | (d[2] + 2))
+            elif -32 <= d[1] < 32 and -8 <= d[0] - d[1] < 8 and -8 <= d[2] - d[1] < 8:
+                out += bytes([0x80 | (d[1] + 32), (d[0] - d[1] + 8) << 4 | (d[2] - d[1] + 8)])
+            else:
+                out += bytes([0xFE, *p[:3]])
+        prev = p
+    return bytes(out + b"\0" * 7 + b"\x01")
+
+
+def bc1_blocks(colours, indices) -> bytes:
+    """BC1 (DXT1) blocks of two 5-6-5 ``colours`` ((n, 2) uint16) and indices
+    0 or 1 ((n, 16) bits, the block's pixels in row order): each pixel is one
+    of its block's two colours exactly, whatever their order."""
+    colours = np.asarray(colours, np.uint16)
+    idx = np.asarray(indices, np.uint32)
+    lut = (idx << (2 * np.arange(16, dtype=np.uint32))).sum(axis=1).astype("<u4")
+    blocks = np.zeros((len(colours), 8), np.uint8)
+    blocks[:, :4] = colours.astype("<u2").view(np.uint8).reshape(-1, 4)
+    blocks[:, 4:] = lut.view(np.uint8).reshape(-1, 4)
+    return blocks.tobytes()
+
+
+def expand_565(v) -> np.ndarray:
+    """(..., 3) uint8 RGB of 5-6-5 values, as BcnDecode.c expands them."""
+    v = np.asarray(v, np.uint16)
+    r, g, b = (v >> 11) & 31, (v >> 5) & 63, v & 31
+    return np.stack([r << 3 | r >> 2, g << 2 | g >> 4, b << 3 | b >> 2], -1).astype(np.uint8)
+
+
+def raw_format_files():
+    """{name: file bytes}: small TGA, SGI, QOI, PCX, DCX, IM, DDS and DIB
+    files of every layout the port's readers take (raw and run-length, the
+    DDS block formats, 16-bit SGI) and a PFM row, from seeded arrays; numpy
+    only (``chip_smoke.py`` phase 14e decodes them on the card's machine and
+    holds them to ``torch_writer_digests.json``, which
+    ``tests/test_torch_writer_digests.py`` recomputes with PIL)."""
+    rng = np.random.default_rng(2121)
+    h, w = 13, 19
+    px = np.repeat(rng.integers(0, 256, (h, w // 3 + 1, 4), dtype=np.uint8), 3, axis=1)[:, :w]
+    px[4:7, 5:] = px[4, 5]
+    rgb, grey = px[:, :, :3], px[:, :, 0]
+    bgr = np.ascontiguousarray(rgb[:, :, ::-1])
+    bgra = np.ascontiguousarray(px[:, :, [2, 1, 0, 3]])
+    v16 = (rgb[:, :, 0].astype(np.uint16) >> 3 << 10 | rgb[:, :, 1].astype(np.uint16) >> 3 << 5
+           | rgb[:, :, 2] >> 3 | (grey.astype(np.uint16) & 0x80) << 8)
+    planes = np.moveaxis(px, 2, 0)
+    pal = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    idx = (grey >> 2).astype(np.uint8)
+    blocks = ((w + 3) // 4) * ((h + 3) // 4)
+    out = {
+        "tga_rgb_raw.tga": tga_file(bgr[::-1].tobytes(), w, h, 2, 24),
+        "tga_rgba_raw_flipped.tga": tga_file(bgra[:, ::-1].tobytes(), w, h, 2, 32, 0x38),
+        "tga_rgb_rle_rows.tga": tga_file(tga_rle(bgr.tobytes(), 3, w), w, h, 10, 24, 0x20),
+        "tga_rgba_rle_literals.tga": tga_file(tga_rle(bgra.tobytes(), 4, None), w, h, 10, 32, 0x28),
+        "tga_mapped_rle_15bit.tga": tga_file(tga_rle(idx.tobytes(), 1, w), w, h, 9, 8, 0x20,
+                                             colour_map=rng.integers(0, 256, 128, np.uint8
+                                                                     ).tobytes(), map_start=2,
+                                             map_depth=16),
+        "tga_grey_raw.tga": tga_file(grey[::-1].tobytes(), w, h, 3, 8),
+        "tga_la_rle.tga": tga_file(tga_rle(px[:, :, :2].tobytes(), 2, w), w, h, 11, 16, 0x20),
+        "tga_15bit_raw.tga": tga_file(v16.astype("<u2")[::-1].tobytes(), w, h, 2, 16),
+        "tga_1bit_raw.tga": tga_file(np.packbits(grey > 99, axis=1)[::-1].tobytes(), w, h, 3, 1),
+        "sgi_grey_raw.bw": sgi_file(grey[None]),
+        "sgi_rgb_16bit_raw.rgb": sgi_file(planes[:3].astype(np.uint16) * 257 + 3),
+        "sgi_rgba_rle.rgba": sgi_file(planes, rle=True),
+        "sgi_rgb_16bit_rle.sgi": sgi_file(planes[:3].astype(np.uint16) * 251, rle=True),
+        "qoi_rgb.qoi": qoi_file(rgb),
+        "qoi_rgba.qoi": qoi_file(px),
+        "pcx_rgb.pcx": pcx_file(pcx_rle(np.pad(np.moveaxis(rgb, 2, 1), ((0, 0), (0, 0), (0, 1)))
+                                        .reshape(h, -1)), w, h, 8, 3, w + 1),
+        "pcx_palette.pcx": pcx_file(pcx_rle(np.pad(idx, ((0, 0), (0, 1)))), w, h, 8, 1, w + 1,
+                                    palette=pal.tobytes()),
+        "pcx_16_colours.pcx": pcx_file(pcx_rle(np.concatenate(
+            [np.packbits((grey >> (4 + k)) & 1, axis=1) for k in range(4)], axis=1)), w, h, 1, 4,
+            (w + 7) // 8, 3, header_palette=pal[:16].tobytes()),
+        "pcx_1bit.pcx": pcx_file(pcx_rle(np.packbits(grey > 99, axis=1)), w, h, 1, 1,
+                                 (w + 7) // 8, 2),
+        "dcx_rgb.dcx": dcx_file([pcx_file(pcx_rle(np.moveaxis(rgb[:, :18], 2, 1).reshape(h, -1)),
+                                          18, h, 8, 3, 18)]),
+        "im_rgb.im": im_file([b"Image type: RGB image", b"Image size (x*y): %d*%d" % (w, h)],
+                             np.moveaxis(rgb[::-1], 2, 1).tobytes()),
+        "im_grey.im": im_file([b"Image type: Greyscale image", b"Image size (x*y): %d*%d" % (w, h)],
+                              grey[::-1].tobytes()),
+        "im_palette.im": im_file([b"Image type: Greyscale image",
+                                  b"Image size (x*y): %d*%d" % (w, h), b"Lut: 1"],
+                                 idx[::-1].tobytes(), lut=pal.T.tobytes()),
+        "im_float.im": im_file([b"Image type: L 32F image", b"Image size (x*y): %d*%d" % (w, h)],
+                               (grey[::-1].astype("<f4") / 3 - 7).tobytes()),
+        "im_12bit.im": im_file([b"Image type: L*12 image", b"Image size (x*y): %d*%d" % (w, h)],
+                               rng.integers(0, 256, h * w * 2, dtype=np.uint8).tobytes()),
+        "im_16bit.im": im_file([b"Image type: L 16 image", b"Image size (x*y): %d*%d" % (w, h)],
+                               (grey[::-1].astype("<u2") * 257).tobytes()),
+        "im_ycbcr.im": im_file([b"Image type: YCC image", b"Image size (x*y): %d*%d" % (w, h)],
+                               np.moveaxis(rgb[::-1], 2, 1).tobytes()),
+        "im_planes.im": im_file([b"Image type: RGB3 image", b"Image size (x*y): %d*%d" % (w, h)],
+                                np.moveaxis(rgb[::-1], 2, 0)[[1, 0, 2]].tobytes()),
+        "dds_565.dds": dds_file(w, h, (v16 & 0x7FFF).astype("<u2").tobytes(), 0x40, bits=16,
+                                masks=(0xF800, 0x7E0, 0x1F, 0)),
+        "dds_bgra.dds": dds_file(w, h, bgra.tobytes(), 0x41, bits=32,
+                                 masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000)),
+        "dds_luminance.dds": dds_file(w, h, grey.tobytes(), 0x20000, bits=8),
+        "dds_luminance_alpha.dds": dds_file(w, h, px[:, :, :2].tobytes(), 0x20001, bits=16),
+        "dds_palette.dds": dds_file(w, h, idx.tobytes(), 0x20, bits=8,
+                                    palette=rng.integers(0, 256, 1024, np.uint8).tobytes()),
+        "dds_rgba_dx10.dds": dds_file(w, h, px.tobytes(), 0x4, b"DX10", dxgi=28),
+        "pfm_row.pfm": netpbm_file(b"Pf", (grey.astype(np.float32) * 1.7 - 25).astype(np.float32)),
+        "dib_rgb.dib": bmp_file(rgb, 24)[14:],
+        "dib_palette.dib": bmp_file(idx, 8, palette=pal)[14:],
+    }
+    for name, fourcc, dxgi, size in (("dxt1", b"DXT1", None, 8), ("dxt3", b"DXT3", None, 16),
+                                     ("dxt5", b"DXT5", None, 16), ("bc4", b"BC4U", None, 8),
+                                     ("bc5", b"BC5U", None, 16), ("bc5_signed", b"BC5S", None, 16),
+                                     ("bc1_dx10", b"DX10", 71, 8), ("bc3_dx10", b"DX10", 77, 16)):
+        body = rng.integers(0, 256, blocks * size, dtype=np.uint8).tobytes()
+        out[f"dds_{name}.dds"] = dds_file(w, h, body, 0x4, fourcc, dxgi=dxgi)
+    return out
+
+
+def full_size_raw_files(rgb):
+    """{name: (file bytes, (pixels, mode) the port must decode, the RGB)}:
+    TGA (run-length), SGI (run-length), IM, DDS (BC1 and uncompressed) files
+    of (h, w, 3) uint8 ``rgb`` whose rows come in pairs of equal pixels (w
+    even), written in numpy at full size; each decodes to exactly the array
+    it was written from (BC1: ``rgb`` made of two 5-6-5 colours a block
+    first, the blocks past the edge cut)."""
+    h, w = rgb.shape[:2]
+    pairs = rgb[:, ::2]
+    if w % 2 or (rgb != np.repeat(pairs, 2, axis=1)).any():
+        raise ValueError("full_size_raw_files takes rows of pairs of equal pixels")
+    # TGA: one run packet a pair, rows top-down
+    packets = np.concatenate([np.full(pairs.shape[:2] + (1,), 0x81, np.uint8),
+                              pairs[:, :, ::-1]], axis=2)
+    tga = tga_file(packets.tobytes(), w, h, 10, 24, 0x20)
+    # SGI: each row of each channel as runs of 2, then the end marker; rows bottom-up
+    planes = np.moveaxis(pairs[::-1], 2, 0)  # (3, h, w / 2)
+    rows = np.concatenate([np.stack([np.full_like(planes, 2), planes], 3).reshape(3, h, -1),
+                           np.zeros((3, h, 1), np.uint8)], axis=2)
+    length = rows.shape[2]
+    starts = 512 + 8 * 3 * h + length * np.arange(3 * h)
+    head = struct.pack(">hBBHHHHll4s79ssl404s", 474, 1, 1, 3, w, h, 3, 0, 255, b"", b"", b"", 0,
+                       b"")
+    sgi = (head + starts.astype(">u4").tobytes() + np.full(3 * h, length, ">u4").tobytes()
+           + rows.tobytes())
+    im = im_file([b"Image type: RGB image", b"Image size (x*y): %d*%d" % (w, h)],
+                 np.ascontiguousarray(np.moveaxis(rgb[::-1], 2, 1)).tobytes())
+    # BC1: each 4 x 4 block of its first pixel's 5-6-5 colour and a neighbour
+    # of it, the left half of the block one and the right half the other
+    bh, bw = -(-h // 4), -(-w // 4)
+    corner = np.pad(rgb, ((0, 4 * bh - h), (0, 4 * bw - w), (0, 0)), mode="edge")[::4, ::4]
+    c565 = ((corner[:, :, 0].astype(np.uint16) >> 3) << 11
+            | (corner[:, :, 1].astype(np.uint16) >> 2) << 5 | corner[:, :, 2] >> 3)
+    colours = np.stack([c565, c565 ^ 0x0821], -1).reshape(-1, 2)
+    indices = np.tile(np.tile([0, 0, 1, 1], 4), (bh * bw, 1))
+    block_px = expand_565(colours)[np.arange(bh * bw)[:, None], indices]  # (n, 16, 3)
+    bc1_rgb = block_px.reshape(bh, bw, 4, 4, 3).transpose(0, 2, 1, 3, 4).reshape(
+        4 * bh, 4 * bw, 3)[:h, :w]
+    bc1 = dds_file(w, h, bc1_blocks(colours, indices), 0x4, b"DXT1")
+    dds = dds_file(w, h, np.ascontiguousarray(rgb[:, :, ::-1]).tobytes(), 0x40, bits=24,
+                   masks=(0xFF0000, 0xFF00, 0xFF, 0))
+    rgba = np.dstack([bc1_rgb, np.full((h, w), 255, np.uint8)])
+    return {f"tga_rle_{h}x{w}.tga": (tga, (rgb, "RGB"), rgb),
+            f"sgi_rle_{h}x{w}.sgi": (sgi, (rgb, "RGB"), rgb),
+            f"im_rgb_{h}x{w}.im": (im, (rgb, "RGB"), rgb),
+            f"dds_bc1_{h}x{w}.dds": (bc1, (rgba, "RGBA"), bc1_rgb),
+            f"dds_bgr_{h}x{w}.dds": (dds, (rgb, "RGB"), rgb)}
