@@ -137,13 +137,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      BMP (RLE8, RLE4, 24 bits) and TIFF (raw, LZW, Deflate, CMYK) files of
      1,024 x 1,366 written on the host, each held to the arrays it was
      written from, and the full-size CMYK, YCCK and cut progressive JPEG
-     files; the small TGA, SGI, QOI, PCX, DCX, IM, DDS and DIB files and a
-     PFM row that tests/torch_image_writers.py writes (numpy only) against
-     PIL's digests (tests/torch_writer_digests.json), JPEGs whose
-     coefficients pass 16 bits against PIL's with the IDCT the host selects
-     (ROADMAP C.15), the PFM row's float32 resizes against cv2's (C.16),
-     and TGA, SGI, QOI, PCX, IM and DDS files of 1,024 x 1,366 against the
-     arrays they were written from; host ms a file by format and size, the
+     files; the small TGA, SGI, QOI, PCX, DCX, IM, DDS (every BC6H and BC7
+     mode too), DIB, FTEX, BLP, ICNS, SUN, MSP, XBM, XPM, GBR, PIXAR,
+     XVThumb, McIdas, IMT, SPIDER and FITS files and a PFM row that
+     tests/torch_image_writers.py writes (numpy only) against PIL's digests
+     (tests/torch_writer_digests.json), JPEGs whose coefficients pass 16 bits
+     against PIL's with the IDCT the host selects (ROADMAP C.15), the PFM
+     row's float32 resizes against cv2's (C.16), and TGA, SGI, QOI, PCX, IM,
+     DDS (BC1, BC6H, BC7, uncompressed), BLP2 DXT5 and FITS files of 1,024 x
+     1,366 against the arrays they were written from; host ms a file by
+     format and size, the
      full-size ones beside an RGB JPEG's decode and the resize to 512 x 512;
      (c) phase 13's daemon
      with 12 of the JPEG files and (e)'s full-size GIF, RLE8 BMP, LZW TIFF
@@ -155,8 +158,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``--output=*.bmp`` and ``--output=*.tif`` (no CRF), each overlay's bytes
      held to the port's writer (``encode_jpeg``, ``encode_bmp``,
      ``encode_tiff``) of the overlay, stage ms, K1 and K4 launches; an RGBA
-     JP2 and its PNG twin to ``.tga`` overlays equal byte for byte and read
-     back;
+     JP2, and (e)'s full-size BC7 DDS and FITS files, each beside its PNG
+     twin, to ``.tga`` overlays equal byte for byte and read back;
  15. the rest of the training stack: (a) OFA-Base ``Trainer`` steps at batch
      16 with dropout and drop-path 0.1, from the same seed, weights and
      batches, with the layers not checkpointed, under save-attn and under
@@ -3323,7 +3326,7 @@ def phase_serving_surface(card: str, tmp: str, ckpt: str, jpeg_files, image_file
     infer = phase_infer(card, tmp, ckpt)
     return dict(daemon=daemon, int8=int8, infer=infer, daemon_jpeg=daemon_jpeg,
                 infer_jpeg=phase_infer_jpeg(card, tmp, ckpt),
-                infer_formats=phase_infer_formats(card, tmp, ckpt))
+                infer_formats=phase_infer_formats(card, tmp, ckpt, image_files))
 
 
 # ---------------------------------------------------------------- phase 14: the files of the JAX CLIs
@@ -3480,6 +3483,9 @@ WEBP_FULL_SIZE = ("webp_lossy_1024x1366.webp", "webp_lossless_1024x1366.webp")
 JPEG2000_FULL_SIZE = ("jp2_rgb_reversible_1024x1366.jp2", "jp2_rgb_irreversible_1024x1366.jp2")
 # 14d's cli.infer run on a JPEG 2000 file, held to the run on its PNG twin
 INFER_JPEG2000 = "jp2_rgba_tiles_offsets.jp2"
+# (d)'s full-size files of (e) run beside their PNG twins, with what each is
+INFER_TWIN_FILES = (("dds_bc7_1024x1366.dds", "DDS BC7 blocks of mode 6"),
+                    ("fits_float_1024x1366.fits", "FITS BITPIX -32"))
 # (e)'s full-size PSD, Netpbm and ICO files, timed to RGB beside the resize
 ICON_PSD_NETPBM_FULL_SIZE = ("psd_rgb_rle_1024x1366.psd", "psd_cmyk_1024x1366.psd",
                              "ppm_p6_1024x1366.ppm", "pgm_16bit_1024x1366.pgm",
@@ -3488,6 +3494,9 @@ ICON_PSD_NETPBM_FULL_SIZE = ("psd_rgb_rle_1024x1366.psd", "psd_cmyk_1024x1366.ps
 RAW_FULL_SIZE = ("tga_rle_1024x1366.tga", "sgi_rle_1024x1366.sgi", "qoi_1024x1366.qoi",
                  "pcx_1024x1366.pcx", "im_rgb_1024x1366.im", "dds_bc1_1024x1366.dds",
                  "dds_bgr_1024x1366.dds")
+# (e)'s full-size BC6H and BC7 DDS, BLP2 DXT5 and FITS files, timed to RGB beside the resize
+BLOCK_FULL_SIZE = ("dds_bc6h_1024x1366.dds", "dds_bc7_1024x1366.dds", "blp2_dxt5_1024x1366.blp",
+                   "fits_float_1024x1366.fits")
 # PIL's digests of tests/torch_image_writers.raw_format_files(), of the
 # overflow_jpegs() with libjpeg-turbo's SIMD and C IDCTs, and of cv2's resize
 # of the PFM row (pfm_resizes()); tools/make_writer_digests.py writes them,
@@ -3561,7 +3570,10 @@ def full_size_files():
     TGA and SGI, IM and DDS (BC1 and uncompressed) through
     ``torch_image_writers.full_size_raw_files`` (the image's columns in
     pairs, BC1's blocks of two colours each), QOI and PCX through the port's
-    writers (which the tests hold to PIL's ``save``)."""
+    writers (which the tests hold to PIL's ``save``); DDS BC7 and BC6H, BLP2
+    DXT5 and FITS (BITPIX -32) through
+    ``torch_image_writers.full_size_block_files``, whose pixels are known
+    without a decoder."""
     sys.path.insert(0, str(REPO / "tests"))
     import torch_image_writers as W
     from ifseg_torch.data import image
@@ -3588,8 +3600,11 @@ def full_size_files():
     rgba = np.dstack([rgb, rgb[:, :, 2]])
     raw = {name: (data, (px, mode, None), want_rgb) for name, (data, (px, mode), want_rgb)
            in W.full_size_raw_files(np.repeat(rgb[:, ::2], 2, axis=1)).items()}
+    blocks = {name: (data, (px, mode, None), want_rgb) for name, (data, (px, mode), want_rgb)
+              in W.full_size_block_files(rgb).items()}
     return {
         **raw,
+        **blocks,
         f"qoi_{tag}.qoi": (encode_qoi(rgb), *as_rgb),
         f"pcx_{tag}.pcx": (encode_pcx(rgb), *as_rgb),
         f"psd_rgb_rle_{tag}.psd": (W.psd_file(np.moveaxis(rgb, 2, 0), 3, compression=1),
@@ -3663,8 +3678,10 @@ def phase_image_files(card: str, jpeg_sizes):
                          size=f"{pixels.shape[0]}x{pixels.shape[1]}", bytes=len(data),
                          decode_ms=host_ms(lambda: image.decode_image(data)),
                          rgb_ms=host_ms(lambda: image.decode_image_rgb(data))))
-    # the small TGA, SGI, QOI, PCX, DCX, IM, DDS and DIB files and the PFM row,
-    # written here by numpy, each held to PIL's digests
+    # the small TGA, SGI, QOI, PCX, DCX, IM, DDS (each BC6H and BC7 mode),
+    # DIB, FTEX, BLP, ICNS, SUN, MSP, XBM, XPM, GBR, PIXAR, XVThumb, McIdas,
+    # IMT, SPIDER and FITS files and the PFM row, written here by numpy, each
+    # held to PIL's digests
     sys.path.insert(0, str(REPO / "tests"))
     import torch_image_writers as W
 
@@ -3704,6 +3721,13 @@ def phase_image_files(card: str, jpeg_sizes):
         f"({pfm_ms:.3f} ms for the three); {len(writer_digests['files'])} small TGA, SGI, QOI, "
         f"PCX, DCX, IM, DDS, DIB and PFM files written by numpy equal PIL's digests; host of "
         f"{card}")
+    new_formats = sorted({v["format"] for k, v in writer_digests["files"].items()
+                          if v["format"] not in ("TGA", "SGI", "QOI", "PCX", "DCX", "IM", "DDS",
+                                                 "DIB", "PPM")})
+    bc = sorted(k for k in writer_digests["files"] if k.startswith(("dds_bc6h", "dds_bc7")))
+    log(f"[14e] of them, {len(bc)} DDS files of every BC6H mode (UF16 and SF16) and BC7 mode, "
+        f"and {sum(v['format'] in new_formats for v in writer_digests['files'].values())} "
+        f"{', '.join(new_formats)} files equal PIL's digests on the host of {card}")
 
     t0 = time.perf_counter()
     full = full_size_files()
@@ -3787,11 +3811,19 @@ def phase_image_files(card: str, jpeg_sizes):
     if len(raw_ms) != len(RAW_FULL_SIZE):
         fail(f"[14e] the TGA, SGI, QOI, PCX, IM and DDS files of {h} x {w} were not all "
              f"decoded: {sorted(raw_ms)}")
+    block_ms = {r["file"]: r["rgb_ms"] for r in rows if r["file"] in BLOCK_FULL_SIZE}
+    log(f"[14e] BC6H and BC7 DDS, BLP2 DXT5 and FITS at {h} x {w} to RGB (median of 3, one "
+        f"thread), each equal to the array it was written from: "
+        + ", ".join(f"{n} ({len(files[n])} bytes) {ms:.3f} ms" for n, ms in block_ms.items())
+        + f", beside the PIL-bilinear resize to 512 x 512 {resize_ms:.3f} ms; host of {card}")
+    if len(block_ms) != len(BLOCK_FULL_SIZE):
+        fail(f"[14e] the BC6H, BC7, BLP2 and FITS files of {h} x {w} were not all decoded: "
+             f"{sorted(block_ms)}")
     return dict(files=rows, build_s=build_s, write_s=write_s, resize_ms=resize_ms,
                 jpeg_decode_ms=jpeg_ms, webp_full_size_ms=webp_ms,
                 jpeg2000_full_size_ms=j2k_ms, icon_psd_netpbm_full_size_ms=new_ms,
-                raw_full_size_ms=raw_ms, idct=variant, pfm_resize_ms=pfm_ms,
-                ppm_write_ms=ppm_ms), files
+                raw_full_size_ms=raw_ms, block_full_size_ms=block_ms, idct=variant,
+                pfm_resize_ms=pfm_ms, ppm_write_ms=ppm_ms), files
 
 
 def phase_convert_validate(card: str, tmp: str, ckpt: str, files):
@@ -4045,7 +4077,7 @@ def phase_infer_jpeg(card: str, tmp: str, ckpt: str):
                 ln_launches=ln_launches, overlay_bytes=len(written))
 
 
-def phase_infer_formats(card: str, tmp: str, ckpt: str):
+def phase_infer_formats(card: str, tmp: str, ckpt: str, image_files):
     """(d), other readers and writers: ``cli.infer`` (cat, dog; no CRF) on
     (e)'s CMYK JPEG file with ``--output=*.bmp`` and on its lossy WebP file
     with a lossless alpha plane with ``--output=*.tif``
@@ -4053,8 +4085,9 @@ def phase_infer_formats(card: str, tmp: str, ckpt: str):
     after; each overlay's bytes against the port's writer (``encode_bmp``,
     ``encode_tiff``, the bytes PIL's ``save`` writes) of the overlay made
     again from the mask it wrote and the image decoded to RGB.  Then on
-    (e)'s INFER_JPEG2000 file and on its PNG twin: the same overlay and mask
-    bytes."""
+    (e)'s INFER_JPEG2000 file and on its full-size BC7 DDS and FITS files
+    (INFER_TWIN_FILES, OFA-Base's full width on the card through K1 and K4),
+    each beside its PNG twin: the same overlay and mask bytes."""
     from ifseg_torch.cli import infer as cli_infer
     from ifseg_torch.data.image import decode_image_rgb
     from ifseg_torch.data.png import decode_png_rgb, encode_png
@@ -4096,45 +4129,49 @@ def phase_infer_formats(card: str, tmp: str, ckpt: str):
             + f" ms; {wall:.1f} s with the checkpoint's load; the overlay ({len(written)} bytes) "
             f"is the port's {ext} writer of the overlay; K1 {counts['infer']}, K4 {ln_launches} "
             f"launches; on {card}")
-    # a JPEG 2000 file (RGBA JP2, tiles at an offset) and its PNG twin, the
+    # a JPEG 2000 file (RGBA JP2, tiles at an offset), then (e)'s full-size
+    # BC7 DDS and FITS files (INFER_TWIN_FILES), each beside its PNG twin, the
     # PNG of the RGB the port decodes from it: the same overlay (a TGA file,
     # read back) and mask bytes
-    image = IMAGE_FILES / INFER_JPEG2000
-    twin = Path(tmp) / f"{image.stem}_twin.png"
-    rgb = decode_image_rgb(image.read_bytes())
-    twin.write_bytes(encode_png(rgb))
-    written = {}
-    for src in (image, twin):
-        out = f"{tmp}/{src.stem}_overlay.tga"
-        fa.reset_launches()
-        ln.reset_launches()
-        t0 = time.perf_counter()
-        got = cli_infer.main([f"--image={src}", f"--checkpoint={ckpt}",
-                              f"--category-list={CAT_DOG_CATEGORIES}", "--arch=segofa_base",
-                              f"--bpe-dir={REPO / 'assets' / 'BPE'}", "--crf-iters=0",
-                              f"--output={out}"])
-        wall = time.perf_counter() - t0
-        counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
-        if counts["infer"] != k1_per or ln_launches != ln_per:
-            fail(f"cli.infer on {src.name} launched K1 {counts['infer']} and K4 {ln_launches} "
-                 f"times, not {k1_per} and {ln_per}")
-        written[src] = (Path(out).read_bytes(), Path(got["mask"]).read_bytes())
-        if src == image:
-            runs["jpeg2000"] = dict(image=image.name, ms=got["ms"], wall_s=wall,
-                                    launches=counts["infer"], ln_launches=ln_launches,
-                                    overlay_bytes=len(written[src][0]))
-    if written[image] != written[twin]:
-        fail(f"cli.infer's overlay or mask of {image.name} differs from its PNG twin's")
-    overlay = (0.5 * decode_png_rgb(written[image][1]) + 0.5 * rgb).astype(np.uint8)
-    if (written[image][0] != cli_infer.encode_overlay(overlay, "overlay.tga")
-            or not np.array_equal(decode_image_rgb(written[image][0]), overlay)):
-        fail(f"cli.infer's .tga overlay of {image.name} is not its overlay, read back")
-    run = runs["jpeg2000"]
-    log(f"[14d] cli.infer {image.name} ({rgb.shape[0]} x {rgb.shape[1]}, RGBA JP2 in tiles at an "
-        f"offset) -> .tga, no CRF: " + ", ".join(f"{k} {v:.1f}" for k, v in run["ms"].items())
-        + f" ms; the overlay ({run['overlay_bytes']} bytes, the port's TGA writer of the "
-        f"overlay, read back equal to it) and the mask equal its PNG twin's byte for byte; K1 "
-        f"{run['launches']}, K4 {run['ln_launches']} launches a run; on {card}")
+    for name, label in ((INFER_JPEG2000, "RGBA JP2 in tiles at an offset"),
+                        *INFER_TWIN_FILES):
+        image = Path(tmp) / name
+        image.write_bytes(image_files[name])
+        twin = Path(tmp) / f"{image.stem}_twin.png"
+        rgb = decode_image_rgb(image.read_bytes())
+        twin.write_bytes(encode_png(rgb))
+        written = {}
+        for src in (image, twin):
+            out = f"{tmp}/{src.stem}_overlay.tga"
+            fa.reset_launches()
+            ln.reset_launches()
+            t0 = time.perf_counter()
+            got = cli_infer.main([f"--image={src}", f"--checkpoint={ckpt}",
+                                  f"--category-list={CAT_DOG_CATEGORIES}", "--arch=segofa_base",
+                                  f"--bpe-dir={REPO / 'assets' / 'BPE'}", "--crf-iters=0",
+                                  f"--output={out}"])
+            wall = time.perf_counter() - t0
+            counts, ln_launches = fa.launch_counts(), ln.LAUNCHES
+            if counts["infer"] != k1_per or ln_launches != ln_per:
+                fail(f"cli.infer on {src.name} launched K1 {counts['infer']} and K4 "
+                     f"{ln_launches} times, not {k1_per} and {ln_per}")
+            written[src] = (Path(out).read_bytes(), Path(got["mask"]).read_bytes())
+            if src == image:
+                key = "jpeg2000" if name == INFER_JPEG2000 else image.suffix[1:]
+                runs[key] = run = dict(image=image.name, ms=got["ms"], wall_s=wall,
+                                       launches=counts["infer"], ln_launches=ln_launches,
+                                       overlay_bytes=len(written[src][0]))
+        if written[image] != written[twin]:
+            fail(f"cli.infer's overlay or mask of {image.name} differs from its PNG twin's")
+        overlay = (0.5 * decode_png_rgb(written[image][1]) + 0.5 * rgb).astype(np.uint8)
+        if (written[image][0] != cli_infer.encode_overlay(overlay, "overlay.tga")
+                or not np.array_equal(decode_image_rgb(written[image][0]), overlay)):
+            fail(f"cli.infer's .tga overlay of {image.name} is not its overlay, read back")
+        log(f"[14d] cli.infer {image.name} ({rgb.shape[0]} x {rgb.shape[1]}, {label}) -> .tga, "
+            f"no CRF: " + ", ".join(f"{k} {v:.1f}" for k, v in run["ms"].items())
+            + f" ms; the overlay ({run['overlay_bytes']} bytes, the port's TGA writer of the "
+            f"overlay, read back equal to it) and the mask equal its PNG twin's byte for byte; "
+            f"K1 {run['launches']}, K4 {run['ln_launches']} launches a run; on {card}")
     return runs
 
 

@@ -48,7 +48,7 @@ from pathlib import Path
 import numpy as np
 
 from ifseg_torch.data import image, png
-from ifseg_torch.data.image import decode_image
+from ifseg_torch.data.image import decode_image, load_image
 
 logger = logging.getLogger(__name__)
 
@@ -129,7 +129,7 @@ def convert_row(args):
     if img_path is None:
         return None
     with open(img_path, "rb") as fp:
-        pixels = decode_image(fp.read())
+        pixels = load_image(fp.read())  # what PIL's save writes
     with open(seg_path, "rb") as fp:
         seg = decode_image(fp.read())[0].copy()
     lut = np.zeros(256, np.uint8)

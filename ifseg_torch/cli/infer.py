@@ -19,7 +19,9 @@ mean field on the model's device (``ops/crf_device.py``), ``cpp`` on the host
 (``ops/crf.py``).  The checkpoint is a ``.pt`` file or a checkpoint
 directory of ``cli.train`` (``checkpoint/convert.py:load_model``).  The image
 is any file ``data/image.py`` reads (PNG, JPEG, GIF, BMP, DIB, TIFF, WebP,
-JPEG 2000, ICO, CUR, Netpbm, PSD, TGA, SGI, QOI, PCX, DCX, IM, DDS); the
+JPEG 2000, ICO, CUR, Netpbm, PSD, TGA, SGI, QOI, PCX, DCX, IM, DDS with
+BC1-BC7 blocks, FTEX, BLP, ICNS, SUN, MSP, XBM, XPM, GBR, PIXAR, XVThumb,
+McIdas, IMT, SPIDER, FITS); the
 overlay is written in the format ``--output``'s extension names, with the
 bytes PIL's ``save`` writes (``WRITERS``): PNG for ``*.png``/``*.apng``, JPEG
 for ``*.jpg``/``*.jpeg``/``*.jfif``/``*.jpe``/``*.mpo``
@@ -31,7 +33,10 @@ as P6 whatever the Netpbm extension), raw TGA for ``*.tga``/``*.icb``/
 ``*.vda``/``*.vst``, raw SGI for ``*.bw``/``*.rgb``/``*.rgba``/``*.sgi``,
 QOI, run-length PCX, IM and uncompressed DDS (``data/{tga,sgi,qoi,pcx,im,
 dds}.py``; IM and SGI headers hold the file's name); the mask beside it is
-always a PNG file.
+always a PNG file.  The extensions of the other formats the port reads
+(``REFUSED``) raise before the model loads, naming why: ``.icns`` needs
+PIL's thumbnail encoder, PIL's ``.blp``, ``.msp`` and ``.xbm`` writers fail
+on an RGB image too, and PIL writes none of the rest.
 """
 
 import argparse
@@ -80,12 +85,25 @@ WRITERS = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".bmp"
            ".qoi": encode_qoi, ".pcx": encode_pcx, ".im": encode_im, ".dds": encode_dds}
 # the writers whose header holds the file's name, as PIL's IM and SGI ones do
 NAMED = (".im",) + SGI_EXTENSIONS
+# extensions of formats the port reads but does not write, and why
+REFUSED = {
+    ".icns": "PIL writes ICNS as PNG thumbnails of the image resized to every icon size, an "
+             "encoder the port does not have (ROADMAP A.11.6)",
+    ".blp": "PIL's BLP writer takes palette (P) images only and fails on the RGB overlay too",
+    ".msp": "PIL's MSP writer takes 1-bit images only and fails on the RGB overlay too",
+    ".xbm": "PIL's XBM writer takes 1-bit images only and fails on the RGB overlay too",
+    **{ext: "PIL has no writer for it either" for ext in
+       (".ftc", ".ftu", ".ras", ".gbr", ".fit", ".fits", ".pxr", ".xpm")},
+}
 
 
 def writer_extension(path: str) -> str:
     """``path``'s extension, lower case, where ``WRITERS`` has a writer for
     it; ValueError otherwise."""
     ext = os.path.splitext(path)[1].lower()
+    if ext in REFUSED:
+        raise ValueError(f"--output={path}: the port reads {ext} files but does not write them: "
+                         f"{REFUSED[ext]}")
     if ext not in WRITERS:
         raise ValueError(f"--output={path}: {ext or 'no extension'} is not a format this CLI "
                          f"writes (name it {', '.join('*' + e for e in WRITERS)})")

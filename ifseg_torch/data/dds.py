@@ -14,12 +14,20 @@ the layout, in PIL's order:
   PALETTEINDEXED8 "P", a 1,024-byte RGBA palette before the indices
   FOURCC          DXT1 / BC1, DXT3 / BC2, DXT5 / BC3 "RGBA"; BC4U / ATI1
                   "L"; BC5U / ATI2 and BC5S "RGB"; and through a DX10
-                  header the same (BC1-BC5 typeless or unorm, BC5 snorm)
-                  and R8G8B8A8 "RGBA"
+                  header the same (BC1-BC5 typeless or unorm, BC5 snorm),
+                  BC6H unsigned and signed (DXGI 95, 96) "RGB", BC7
+                  typeless, unorm and unorm sRGB (97-99; the sRGB variant
+                  the same pixels, PIL only sets its gamma) "RGBA", and
+                  R8G8B8A8 "RGBA"
 
 The 4 x 4 blocks are decoded by ``csrc/rle_decode.cpp`` (``bcn``) as
-``BcnDecode.c`` decodes them.  BC6H and BC7, which PIL decodes, raise
-``ValueError`` naming them (ROADMAP A.11); so do what PIL refuses.  A cut
+``BcnDecode.c`` decodes them: BC7's 8 modes (a block of no mode opaque
+black) with their partitions, anchors, p-bits, rotations and index
+selection; BC6H's 14 modes with their delta end points (not sign-extended
+again after the delta, as in PIL), a truncating interpolation and each half
+float clamped to 0..1 and truncated to 8 bits, its 4 reserved modes black.
+What PIL refuses (BC6H typeless, BC4 signed, the sRGB BC1-BC3 codes, ...)
+raises ``ValueError``.  A cut
 file keeps, as PIL reads it under the JAX package's
 ``LOAD_TRUNCATED_IMAGES``, its whole rows (raw layouts), its whole blocks
 (block layouts) or the bytes it holds, the rest read as 0 (the RGB flag's
@@ -41,15 +49,16 @@ from ifseg_torch.ops import build
 SOURCE = "rle_decode"
 SIGNATURE = b"DDS "
 _ALPHAPIXELS, _FOURCC, _PAL8, _RGB, _LUMINANCE = 0x1, 0x4, 0x20, 0x40, 0x20000
-# FOURCC -> (PIL's mode, the bcn kind: 1-5 BC1-BC5, -5 BC5 signed)
+# FOURCC -> (PIL's mode, the bcn kind: 1-5 BC1-BC5, -5 BC5 signed, 6 and -6 BC6H
+# unsigned and signed, 7 BC7)
 _FOURCCS = {b"DXT1": ("RGBA", 1), b"DXT3": ("RGBA", 2), b"DXT5": ("RGBA", 3),
             b"BC4U": ("L", 4), b"ATI1": ("L", 4), b"BC5S": ("RGB", -5), b"BC5U": ("RGB", 5),
             b"ATI2": ("RGB", 5)}
 # DX10's DXGI format -> (mode, kind; 0 for raw RGBA)
 _DXGI = {70: ("RGBA", 1), 71: ("RGBA", 1), 73: ("RGBA", 2), 74: ("RGBA", 2), 76: ("RGBA", 3),
          77: ("RGBA", 3), 79: ("L", 4), 80: ("L", 4), 82: ("RGB", 5), 83: ("RGB", 5),
-         84: ("RGB", -5), 27: ("RGBA", 0), 28: ("RGBA", 0), 29: ("RGBA", 0)}
-_NOT_PORTED = {95: "BC6H", 96: "BC6H", 97: "BC7", 98: "BC7", 99: "BC7"}
+         84: ("RGB", -5), 95: ("RGB", 6), 96: ("RGB", -6), 97: ("RGBA", 7), 98: ("RGBA", 7),
+         99: ("RGBA", 7), 27: ("RGBA", 0), 28: ("RGBA", 0), 29: ("RGBA", 0)}
 
 
 @lru_cache(maxsize=None)
@@ -133,9 +142,6 @@ def decode_dds_image(data: bytes):
             raise ValueError("truncated DDS: the DX10 header is cut off")
         dxgi = struct.unpack_from("<I", data, 128)[0]
         pos = 148
-        if dxgi in _NOT_PORTED:
-            raise ValueError(f"DDS {_NOT_PORTED[dxgi]} blocks are not supported (PIL decodes "
-                             f"them; the port reads BC1-BC5)")
         if dxgi not in _DXGI:
             raise ValueError(f"DDS DXGI format {dxgi} is not one PIL reads")
         mode, kind = _DXGI[dxgi]

@@ -93,7 +93,7 @@ def _chunks(data: bytes):
     run of IDATs ends, a header cut after its length field raises unless that
     length is 0 (PIL reads a chunk of a type it cannot name), a whole header
     whose body is cut raises, and a header cut inside its length field ends
-    the file quietly."""
+    the file quietly.  An IEND before any IDAT raises, as PIL's load does."""
     pos = 8
     stage = 0  # 0 before the image data, 1 in its run of IDATs, 2 after it
     while True:
@@ -121,8 +121,8 @@ def _chunks(data: bytes):
             (crc,) = struct.unpack(">I", data[end - 4:end])
             if not ctype[0] & 0x20 and zlib.crc32(ctype + body) != crc:
                 raise ValueError(f"broken PNG: CRC mismatch in chunk {ctype!r}")
-            if ctype == b"IEND":
-                return
+            if ctype == b"IEND":  # PIL has no tile: "cannot load this image"
+                raise ValueError("broken PNG: IEND before any image data")
             yield ctype, body
         pos = end
 
@@ -314,6 +314,25 @@ def whole_rows(body: bytes, width: int, height: int, bands: int) -> np.ndarray:
     return out
 
 
+def strided_rows(body: bytes, height: int, row_bytes: int, stride: int = 0):
+    """PIL's raw decoder (``RawDecode.c``) with a line stride, under
+    ``LOAD_TRUNCATED_IMAGES``: ((height, row_bytes) uint8, the count of
+    rows decoded) of the rows of
+    ``row_bytes`` bytes, each ``stride`` bytes after the one before
+    (``row_bytes`` where it is 0), that ``body`` holds whole, in file order,
+    the others 0; all 0 for a stride shorter than a row, the decoder's
+    configuration error that the flag leaves unraised."""
+    out = np.zeros((height, row_bytes), np.uint8)
+    step = stride or row_bytes
+    if step < row_bytes or not row_bytes:
+        return out, 0
+    whole = min(height, (len(body) - row_bytes) // step + 1 if len(body) >= row_bytes else 0)
+    if whole:
+        src = np.frombuffer(body, np.uint8, count=min(len(body), whole * step))
+        out[:whole] = np.lib.stride_tricks.as_strided(src, (whole, row_bytes), (step, 1))
+    return out, whole
+
+
 def words16(rows: np.ndarray, count: int, order: str) -> np.ndarray:
     """(h, count) 16-bit words of the first 2 * count bytes of each of the
     (h, row bytes) rows, in ``order`` ("<u2" or ">u2")."""
@@ -330,12 +349,17 @@ def unpack_bits(rows: np.ndarray, depth: int, width: int) -> np.ndarray:
 
 def _inflate(stream: bytes, rows) -> bytes:
     """The bytes of the rows (of the sizes ``rows``) that PIL's zlib decoder
-    inflates from ``stream``: one row an ``inflate`` call, up to the end of
-    the data or up to the call that meets an error (a broken code, a wrong
-    checksum after the last row), whose row is lost with the rest.  A stream
-    without an error is inflated in one call."""
+    inflates from ``stream``: one row an ``inflate`` call, made only while
+    input is left (``ZipDecode.c`` loops while ``avail_in > 0``, so what
+    zlib holds back once a cut stream's last byte is in is lost), up to the
+    call that meets an error (a broken code, a wrong checksum after the
+    last row), whose row is lost with the rest.  A whole stream without an
+    error is inflated in one call."""
+    inflater = zlib.decompressobj()
     try:
-        return zlib.decompressobj().decompress(stream, sum(rows))
+        whole = inflater.decompress(stream, sum(rows))
+        if inflater.eof:
+            return whole
     except zlib.error:
         pass
     inflater, out, pos, pending = zlib.decompressobj(), [], 0, b""
@@ -344,17 +368,19 @@ def _inflate(stream: bytes, rows) -> bytes:
         while len(row) < size:
             if not pending and pos < len(stream):  # the input in pieces: no quadratic copies
                 pending, pos = stream[pos:pos + 65536], pos + 65536
+            if not pending:  # no input left: PIL calls inflate no more
+                break
             try:
                 part = inflater.decompress(pending, size - len(row))
             except zlib.error:
                 return b"".join(out)
-            pending = inflater.unconsumed_tail
-            if not part and not pending and pos >= len(stream):
+            if not part and inflater.unconsumed_tail == pending:
                 break
+            pending = inflater.unconsumed_tail
             row += part
-        out.append(row)
         if len(row) < size:
             break
+        out.append(row)
     return b"".join(out)
 
 

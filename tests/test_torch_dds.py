@@ -9,8 +9,9 @@
   - the uncompressed layouts: the RGB flag's masks (8 to 48 bits, 5-6-5,
     5-5-5-1, 10-10-10-2, masks of 0), luminance and luminance-alpha, an
     RGBA palette, DX10 R8G8B8A8;
-  - BC6H and BC7, which PIL decodes, raise ``ValueError`` naming them; what
-    PIL refuses raises ``ValueError``;
+  - BC6H and BC7 files decode as PIL decodes them (their modes one by one:
+    ``tests/test_torch_bc6h_bc7.py``); what PIL refuses raises
+    ``ValueError``;
   - every cut and seeded byte flips: PIL's pixels, or ``ValueError`` where
     PIL raises;
   - ``encode_dds`` writes the bytes of PIL's ``save``.
@@ -24,7 +25,7 @@ from PIL import Image, ImageFile
 
 import torch_image_writers as W
 from ifseg_torch.data.dds import encode_dds
-from ifseg_torch.data.image import decode_image, image_format
+from ifseg_torch.data.image import image_format
 from torch_pil_checks import as_pil_or_raise, cuts_and_flips, same_as_pil
 import torch_port_utils  # noqa: F401,E402  (pins torch's threads under xdist)
 
@@ -112,10 +113,10 @@ def test_pils_own_uncompressed_files_equal_pil(mode):
 @pytest.mark.parametrize("dxgi,name", [(95, "BC6H"), (96, "BC6H"), (97, "BC7"), (98, "BC7"),
                                        (99, "BC7")])
 def test_bc6h_and_bc7_raise_naming_them(dxgi, name):
+    """Once refused by name, BC6H and BC7 blocks now decode as PIL's."""
     data = _blocks(b"DX10", dxgi, 16, 8, 8, seed=dxgi)
-    Image.open(io.BytesIO(data)).load()  # PIL decodes them
-    with pytest.raises(ValueError, match=name):
-        decode_image(data)
+    assert Image.open(io.BytesIO(data)).pixel_format.startswith(name)
+    same_as_pil(data, "DDS")
 
 
 _REFUSED = {

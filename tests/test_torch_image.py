@@ -133,7 +133,8 @@ def test_other_formats_raise_naming_them(fmt):
     assert mode == pil.mode
     np.testing.assert_array_equal(pixels, np.asarray(pil))
     np.testing.assert_array_equal(decode_image_rgb(data), np.asarray(pil.convert("RGB")))
-    with pytest.raises(ValueError, match="not a BMP, DIB, CUR, PCX, DCX, DDS, GIF, PNG, JPEG 2000, "
-                                         "ICO, IM, JPEG, TIFF, Netpbm, PSD, QOI, SGI, TGA or WebP "
-                                         "file"):
+    with pytest.raises(ValueError, match="not a BLP, BMP, DIB, CUR, PCX, DCX, DDS, FITS, FTEX, "
+                                         "GBR, GIF, PNG, JPEG 2000, ICNS, ICO, IM, IMT, JPEG, "
+                                         "MCIDAS, TIFF, MSP, PIXAR, Netpbm, PSD, QOI, SGI, SPIDER, "
+                                         "SUN, TGA, WebP, XBM, XPM or XVThumb file"):
         decode_image(b"plain text, no image")

@@ -17,12 +17,14 @@
     raises (CMYK JPEG cuts: ``tests/test_torch_cut_files.py``);
   - the formats and layouts PIL refuses, and those the port leaves for later
     (JPEG-in-TIFF, floating-point TIFF, and each format of PIL's ``Image.ID``
-    with a signature that the port does not read: ICNS, FITS, XPM, ...),
+    with a signature that the port does not read: FLI, PCD, AVIF, ...),
     raise ``ValueError`` naming them; WebP, JPEG 2000, ICO, PSD, QOI, SGI,
-    DDS, PCX and DCX files, which the port once refused, decode as PIL
-    decodes them (``test_torch_webp.py``, ``test_torch_jpeg2000.py``,
+    DDS, PCX, DCX, ICNS, FITS, XPM, XBM, BLP, FTEX, MSP, SUN, PIXAR, XVThumb
+    and McIdas files, which the port once refused, decode as PIL decodes
+    them (``test_torch_webp.py``, ``test_torch_jpeg2000.py``,
     ``test_torch_ico.py``, ``test_torch_psd.py``, ``test_torch_netpbm.py``,
-    ``test_torch_{tga,sgi,qoi,pcx,im,dds}.py``);
+    ``test_torch_{tga,sgi,qoi,pcx,im,dds}.py``, ``test_torch_icns.py``,
+    ``test_torch_ftex_blp.py``, ``test_torch_small_rasters.py``);
   - ``encode_bmp`` and ``encode_tiff`` write the bytes of PIL's ``save``;
   - ``tests/torch_image_files/digests.json`` holds PIL's mode, shape and
     digests of every committed fixture (``chip_smoke.py`` phase 14e checks
@@ -388,8 +390,9 @@ def _refused():
          "BMP pixel depth 2"),
         ("gif-no-image", b"GIF89a\x01\0\x01\0\0\0\0;", "no image"),
         ("text", b"plain text, no image",
-         "not a BMP, DIB, CUR, PCX, DCX, DDS, GIF, PNG, JPEG 2000, ICO, IM, JPEG, TIFF, Netpbm, "
-         "PSD, QOI, SGI, TGA or WebP file"),
+         "not a BLP, BMP, DIB, CUR, PCX, DCX, DDS, FITS, FTEX, GBR, GIF, PNG, JPEG 2000, ICNS, "
+         "ICO, IM, IMT, JPEG, MCIDAS, TIFF, MSP, PIXAR, Netpbm, PSD, QOI, SGI, SPIDER, SUN, TGA, "
+         "WebP, XBM, XPM or XVThumb file"),
     ]
 
 
@@ -413,7 +416,8 @@ def _other_formats():
     """(name, file, the format the message names) of each format PIL opens
     that the port refuses: PIL's writer's file where it has one, else the
     signature PIL's plugin accepts.  The format None: one the port reads now
-    (QOI, SGI, DDS, PCX, DCX), which decodes as PIL decodes it."""
+    (QOI, SGI, DDS, PCX, DCX; ICNS, FITS, XPM, XBM, BLP, FTEX, MSP, SUN,
+    PIXAR, XVThumb, McIdas), which decodes as PIL decodes it."""
     r = _rng("others")
     rgb = _smooth(r, 8, 8)
     im = Image.fromarray(rgb)
@@ -421,19 +425,22 @@ def _other_formats():
         ("qoi", W.pil_save(im, "QOI"), None),
         ("sgi", W.pil_save(im, "SGI"), None),
         ("dds", W.pil_save(im, "DDS"), None),
-        ("icns", W.pil_save(im.resize((16, 16)), "ICNS"), "ICNS"),
+        ("icns", W.pil_save(im.resize((16, 16)), "ICNS"), None),
         ("pcx", W.pil_save(im, "PCX"), None),
         ("dcx", W.dcx_file([W.pil_save(im, "PCX")]), None),
-        ("fits", b"SIMPLE  =                    T" + b" " * 50, "FITS"),
-        ("xpm", b"/* XPM */\nstatic char *x[] = {\n", "XPM"),
-        ("xbm", W.pil_save(im.convert("1"), "XBM"), "XBM"),
-        ("blp", W.pil_save(im.quantize(16), "BLP"), "BLP"),
-        ("ftex", b"FTEX" + bytes(20), "FTEX"),
-        ("msp", W.pil_save(im.convert("1"), "MSP"), "MSP"),
-        ("sun", b"\x59\xa6\x6a\x95" + bytes(28), "SUN"),
-        ("pixar", b"\x80\xe8\x00\x00" + bytes(20), "PIXAR"),
-        ("xvthumb", b"P7 332\n#XVVERSION\n", "XVThumb"),
-        ("mcidas", b"\x00" * 7 + b"\x04" + bytes(24), "McIdas"),
+        ("fits", W.fits_file(rgb[:, :, 0], 8), None),
+        ("xpm", W.xpm_file(rgb[:, :, 0] % 5, rgb[0, :5]), None),
+        ("xbm", W.pil_save(im.convert("1"), "XBM"), None),
+        ("blp", W.pil_save(im.quantize(16), "BLP"), None),
+        ("ftex", W.ftex_file(8, 8, rgb.tobytes(), 1), None),
+        ("msp", W.pil_save(im.convert("1"), "MSP"), None),
+        ("sun", W.sun_file(8, 8, 24, rgb[:, :, ::-1].tobytes()), None),
+        ("pixar", W.pixar_file(rgb), None),
+        ("xvthumb", W.xvthumb_file(rgb[:, :, 0]), None),
+        ("mcidas", W.mcidas_file(rgb[:, :, 0], 1), None),
+        ("fli", bytes(4) + b"\x11\xaf" + bytes(8) + b"\x00\x00" + bytes(16), "FLI"),
+        ("pcd", bytes(2048) + b"PCD_IPI" + bytes(16), "PCD"),
+        ("avif", b"\0\0\0\x1cftypavif" + bytes(20), "AVIF"),
         ("eps", W.pil_save(im, "EPS"), "EPS"),
         ("wmf", b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(20), "WMF"),
         ("hdf5", b"\x89HDF\r\n\x1a\n" + bytes(8), "HDF5"),

@@ -239,3 +239,34 @@ def test_a_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="build failed for png_unfilter"):
         build.load("png_unfilter")
     assert not list(tmp_path.glob("*.so"))
+
+
+@pytest.mark.parametrize("size", [(16, 16, 4), (40, 33, 3), (64, 64, 1)])
+def test_a_cut_stream_loses_the_rows_zlib_holds_back(size, monkeypatch):
+    """ROADMAP C.17: PIL's ``ZipDecode.c`` calls ``inflate`` only while input
+    is left, so the rows zlib could still give once a cut stream's last
+    byte is in are lost there (a run-heavy image shows it); every cut of
+    such a file decodes to PIL's rows under ``LOAD_TRUNCATED_IMAGES``."""
+    monkeypatch.setattr(ImageFile, "LOAD_TRUNCATED_IMAGES", True)
+    base = np.random.default_rng(size[0]).integers(0, 256, (5, 5, size[2]), dtype=np.uint8)
+    px = np.repeat(np.repeat(base, 4, 0), 7, 1)[:size[0], :size[1]]
+    data = _save(Image.fromarray(px[:, :, 0] if size[2] == 1 else px))
+    start = data.index(b"IDAT") + 4
+    lost = 0
+    for cut in range(start + 1, len(data) + 1):
+        want = _pil(data[:cut])
+        np.testing.assert_array_equal(decode_png(data[:cut]), want)
+        lost += cut < len(data) - 16 and (want.reshape(len(want), -1) == 0).all(axis=1).sum()
+    assert lost
+
+
+def test_a_png_without_image_data_raises():
+    """ROADMAP C.18: an IEND before any IDAT leaves PIL no tile ("cannot
+    load this image"); the port raises too."""
+    data = _save(Image.fromarray(np.full((4, 5), 7, np.uint8)))
+    at = data.index(b"IDAT")
+    no_idat = data[:at] + b"iDAX" + data[at + 4:]  # an ancillary chunk of no known type
+    with pytest.raises(OSError):
+        np.asarray(Image.open(io.BytesIO(no_idat)))
+    with pytest.raises(ValueError, match="IEND before any image data"):
+        decode_png(no_idat)

@@ -3,8 +3,10 @@ holds the port to on the card's machine (no PIL, no cv2 there): recomputed
 with PIL and cv2 (``tools/make_writer_digests.py``), and the port's decodes
 equal to it here:
 
-  - the small TGA, SGI, QOI, PCX, DCX, IM, DDS and DIB files and the PFM row
-    of ``torch_image_writers.raw_format_files()``: PIL's format, mode, shape
+  - the small TGA, SGI, QOI, PCX, DCX, IM, DDS (each BC6H and BC7 mode
+    too), DIB, FTEX, BLP, ICNS, SUN, MSP, XBM, XPM, GBR, PIXAR, XVThumb,
+    McIdas, IMT, SPIDER and FITS files and the PFM row of
+    ``torch_image_writers.raw_format_files()``: PIL's format, mode, shape
     and digests of the pixels and the RGB;
   - the JPEGs whose dequantized coefficients pass 16 bits
     (``chip_smoke.overflow_jpegs()``): the port's default IDCT gives PIL's

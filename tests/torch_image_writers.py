@@ -15,6 +15,7 @@ against.
 
 import ctypes
 import functools
+import gzip
 import io
 import struct
 import zlib
@@ -974,11 +975,331 @@ def expand_565(v) -> np.ndarray:
     return np.stack([r << 3 | r >> 2, g << 2 | g >> 4, b << 3 | b >> 2], -1).astype(np.uint8)
 
 
+# --------------------------------------------------- BC6H and BC7 DDS blocks
+
+# the BC6H header layouts of the format's description, one a mode in the
+# order of the mode bits ("00", "01", "00010" ... "11110", "00011" ...
+# "01111"), without the mode and partition bits: rN gN bN the red, green and
+# blue of end point N, [hi:lo] bits listed low first, [10:15] bit 15 first
+BC6H_MODE_BITS = (0b00, 0b01, 0b00010, 0b00110, 0b01010, 0b01110, 0b10010, 0b10110, 0b11010,
+                  0b11110, 0b00011, 0b00111, 0b01011, 0b01111)
+BC6H_RESERVED = (0b10011, 0b10111, 0b11011, 0b11111)
+BC6H_LAYOUTS = (
+    "g2[4] b2[4] b3[4] r0[9:0] g0[9:0] b0[9:0] r1[4:0] g3[4] g2[3:0] g1[4:0] b3[0] g3[3:0] "
+    "b1[4:0] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]",
+    "g2[5] g3[4] g3[5] r0[6:0] b3[0] b3[1] b2[4] g0[6:0] b2[5] b3[2] g2[4] b0[6:0] b3[3] b3[5] "
+    "b3[4] r1[5:0] g2[3:0] g1[5:0] g3[3:0] b1[5:0] b2[3:0] r2[5:0] r3[5:0]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[4:0] r0[10] g2[3:0] g1[3:0] g0[10] b3[0] g3[3:0] b1[3:0] b0[10] "
+    "b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[3:0] r0[10] g3[4] g2[3:0] g1[4:0] g0[10] g3[3:0] b1[3:0] b0[10] "
+    "b3[1] b2[3:0] r2[3:0] b3[0] b3[2] r3[3:0] g2[4] b3[3]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[3:0] r0[10] b2[4] g2[3:0] g1[3:0] g0[10] b3[0] g3[3:0] b1[4:0] "
+    "b0[10] b2[3:0] r2[3:0] b3[1] b3[2] r3[3:0] b3[4] b3[3]",
+    "r0[8:0] b2[4] g0[8:0] g2[4] b0[8:0] b3[4] r1[4:0] g3[4] g2[3:0] g1[4:0] b3[0] g3[3:0] "
+    "b1[4:0] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]",
+    "r0[7:0] g3[4] b2[4] g0[7:0] b3[2] g2[4] b0[7:0] b3[3] b3[4] r1[5:0] g2[3:0] g1[4:0] b3[0] "
+    "g3[3:0] b1[4:0] b3[1] b2[3:0] r2[5:0] r3[5:0]",
+    "r0[7:0] b3[0] b2[4] g0[7:0] g2[5] g2[4] b0[7:0] g3[5] b3[4] r1[4:0] g3[4] g2[3:0] g1[5:0] "
+    "g3[3:0] b1[4:0] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]",
+    "r0[7:0] b3[1] b2[4] g0[7:0] b2[5] g2[4] b0[7:0] b3[5] b3[4] r1[4:0] g3[4] g2[3:0] g1[4:0] "
+    "b3[0] g3[3:0] b1[5:0] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]",
+    "r0[5:0] g3[4] b3[0] b3[1] b2[4] g0[5:0] g2[5] b2[5] b3[2] g2[4] b0[5:0] g3[5] b3[3] b3[5] "
+    "b3[4] r1[5:0] g2[3:0] g1[5:0] g3[3:0] b1[5:0] b2[3:0] r2[5:0] r3[5:0]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[9:0] g1[9:0] b1[9:0]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[8:0] r0[10] g1[8:0] g0[10] b1[8:0] b0[10]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[7:0] r0[10:11] g1[7:0] g0[10:11] b1[7:0] b0[10:11]",
+    "r0[9:0] g0[9:0] b0[9:0] r1[3:0] r0[10:15] g1[3:0] g0[10:15] b1[3:0] b0[10:15]",
+)
+# (base end point bits, delta bits of r, g, b; 0 where the end points are not deltas)
+BC6H_PRECISION = ((10, 5, 5, 5), (7, 6, 6, 6), (11, 5, 4, 4), (11, 4, 5, 4), (11, 4, 4, 5),
+                  (9, 5, 5, 5), (8, 6, 5, 5), (8, 5, 6, 5), (8, 5, 5, 6), (6, 0, 0, 0),
+                  (10, 0, 0, 0), (11, 9, 9, 9), (12, 8, 8, 8), (16, 4, 4, 4))
+
+
+def _bc6h_bits(layout: str):
+    """[(end point value 0-11, bit)] of a layout, in stream order."""
+    out = []
+    for token in layout.split():
+        channel, point = "rgb".index(token[0]), int(token[1])
+        hi, _, lo = token[3:-1].partition(":")
+        hi, lo = int(hi), int(lo or hi)
+        bits = range(lo, hi + 1) if hi >= lo else range(lo, hi - 1, -1)
+        out += [(3 * point + channel, b) for b in bits]
+    return out
+
+
+def bc6h_blocks(mode: int, count: int, rng, signed: bool = False) -> np.ndarray:
+    """(count, 16) uint8 BC6H blocks of mode ``mode`` (0-13, see
+    ``BC6H_MODE_BITS``) whose end points mostly decode to half floats in
+    (1/255, 1) (above 0 where ``signed``): each base end point's top bits
+    01 (signed: 001), the deltas small, the partition and index bits random;
+    ``mode`` 14-17 gives the reserved modes' blocks of random bits."""
+    blocks = rng.integers(0, 256, (count, 16), dtype=np.uint8)
+    if mode >= 14:
+        blocks[:, 0] = (blocks[:, 0] & 0xE0) | BC6H_RESERVED[mode - 14]
+        return blocks
+    mode_bits = 2 if mode < 2 else 5
+    base, *deltas = BC6H_PRECISION[mode]
+    top = 1 << (base - (3 if signed else 2))
+    values = np.empty((count, 12), np.int64)
+    values[:, :3] = top | rng.integers(0, top, (count, 3))
+    for e in range(3, 12):
+        width = deltas[e % 3]
+        if width:  # a small signed delta in ``width`` bits
+            span = min(1 << (width - 1), max(2, 1 << (base - 4)))
+            values[:, e] = rng.integers(-span, span, count) & ((1 << width) - 1)
+        else:
+            values[:, e] = top | rng.integers(0, top, count)
+    bits = np.unpackbits(blocks, axis=1, bitorder="little")
+    bits[:, :mode_bits] = (BC6H_MODE_BITS[mode] >> np.arange(mode_bits)) & 1
+    for i, (field, bit) in enumerate(_bc6h_bits(BC6H_LAYOUTS[mode])):
+        bits[:, mode_bits + i] = (values[:, field] >> bit) & 1
+    return np.packbits(bits, axis=1, bitorder="little")
+
+
+def bc7_blocks(mode: int, count: int, rng) -> np.ndarray:
+    """(count, 16) uint8 BC7 blocks of mode ``mode`` (0-7; 8: byte 0 is 0,
+    no mode), the other bits random."""
+    blocks = rng.integers(0, 256, (count, 16), dtype=np.uint8)
+    blocks[:, 0] = 0 if mode == 8 else (blocks[:, 0] & ((0xFF << (mode + 1)) & 0xFF)) | (1 << mode)
+    return blocks
+
+
+# ---------------------------- FTEX, BLP, ICNS and the small raster formats
+
+def ftex_file(width: int, height: int, body: bytes, kind: int, size: int = None,
+              formats: int = 1) -> bytes:
+    """An FTEX file of one format (0 DXT1, 1 raw RGB): its one mipmap right
+    after the 32-byte header, ``size`` its length field (``len(body)``)."""
+    head = b"FTEX" + struct.pack("<7i", 1, width, height, 1, formats, kind, 32)
+    return head + struct.pack("<i", len(body) if size is None else size) + body
+
+
+def blp1_file(width: int, height: int, mipmap: bytes, compression: int = 1, alpha: int = 0,
+              encoding: int = 5, palette: bytes = None, jpeg_header: bytes = b"") -> bytes:
+    """A BLP1 file: palette (compression 1: 256 BGRA entries, then the
+    indices) or JPEG (compression 0: the shared header, then the mipmap)."""
+    head = b"BLP1" + struct.pack("<iIIIiI", compression, alpha, width, height, encoding, 0)
+    if compression == 0:
+        extra = struct.pack("<I", len(jpeg_header)) + jpeg_header
+    else:
+        extra = palette if palette is not None else bytes(1024)
+    start = 28 + 128 + len(extra)
+    table = struct.pack("<16I", start, *[0] * 15) + struct.pack("<16I", len(mipmap), *[0] * 15)
+    return head + table + extra + mipmap
+
+
+def blp2_file(width: int, height: int, mipmap: bytes, encoding: int = 1, alpha: int = 0,
+              alpha_encoding: int = 0, palette: bytes = None) -> bytes:
+    """A BLP2 file: palette (encoding 1) or DXT (encoding 2; alpha encoding
+    0 DXT1, 1 DXT3, 7 DXT5), the mipmap after the 1,024-byte palette."""
+    head = b"BLP2" + struct.pack("<ibbbbII", 1, encoding, alpha, alpha_encoding, 0, width,
+                                 height)
+    table = struct.pack("<16I", 20 + 128 + 1024, *[0] * 15)
+    table += struct.pack("<16I", len(mipmap), *[0] * 15)
+    return head + table + (palette if palette is not None else bytes(1024)) + mipmap
+
+
+def icns_rle(plane: bytes) -> bytes:
+    """One ICNS run-length plane: runs of 3-130 bytes as ``run + 125`` and
+    the byte, literals of 1-128 bytes as ``count - 1`` and the bytes."""
+    out = bytearray()
+    for run, value, count in _runs(list(plane), 128, min_run=3):
+        if run:
+            while count:
+                k = min(count, 130)
+                if k < 3:
+                    out += bytes([k - 1]) + bytes([value] * k)
+                else:
+                    out += bytes([k + 125, value])
+                count -= k
+        else:
+            out += bytes([count - 1]) + bytes(value)
+    return bytes(out)
+
+
+def icns_file(blocks) -> bytes:
+    """An ICNS file of (type, payload) blocks."""
+    body = b"".join(kind + struct.pack(">I", len(payload) + 8) + payload
+                    for kind, payload in blocks)
+    return b"icns" + struct.pack(">I", len(body) + 8) + body
+
+
+def sun_rle(data: bytes) -> bytes:
+    """A Sun raster byte-encoded stream: runs of 3-256 bytes (and any byte
+    0x80) as 0x80, count - 1, value; 0x80 alone as 0x80 0."""
+    out = bytearray()
+    for run, value, count in _runs(list(data), 256, min_run=3):
+        if run:
+            out += bytes([0x80, count - 1, value])
+        else:
+            for v in value:
+                out += b"\x80\x00" if v == 0x80 else bytes([v])
+    return bytes(out)
+
+
+def sun_file(width: int, height: int, depth: int, body: bytes, kind: int = 1,
+             colours: bytes = b"", map_type: int = 1) -> bytes:
+    """A Sun raster file: the 32-byte header, a colour map (planar R, G, B)
+    and ``body``."""
+    head = struct.pack(">8I", 0x59A66A95, width, height, depth, len(body), kind,
+                       map_type if colours else 0, len(colours))
+    return head + colours + body
+
+
+def msp_file(rows, width: int, height: int) -> bytes:
+    """A version 2 (run-length) MSP file of (h, (w + 7) // 8) bit rows."""
+    lines = []
+    for row in np.asarray(rows, np.uint8):
+        out = bytearray()
+        for run, value, count in _runs(list(row), 255, min_run=3):
+            out += bytes([0, count, value]) if run else bytes([count]) + bytes(value)
+        lines.append(bytes(out))
+    words = [0x694C, 0x536E, width, height, 1, 1, 1, 1, width, height, 0, 0, 0, 0, 0, 0]
+    check = 0
+    for word in words:
+        check ^= word
+    words[12] = check
+    return (struct.pack("<16H", *words) + struct.pack(f"<{height}H", *map(len, lines))
+            + b"".join(lines))
+
+
+def xbm_file(bits) -> bytes:
+    """An X11 bitmap of (h, w) bool ``bits`` (the first pixel in a byte's
+    low bit), as PIL's writer lays it out."""
+    bits = np.asarray(bits, bool)
+    h, w = bits.shape
+    rows = np.packbits(bits, axis=1, bitorder="little").reshape(-1)
+    body = ",".join(f"0x{v:02x}" for v in rows)
+    return (f"#define im_width {w}\n#define im_height {h}\nstatic char im_bits[] = {{\n"
+            f"{body}\n}};\n").encode()
+
+
+def xpm_file(indices, colours, chars: int = 1, transparent: bool = False) -> bytes:
+    """An XPM file of (h, w) ``indices`` into ``colours`` ((n, 3) uint8),
+    each colour a key of ``chars`` characters; ``transparent`` adds a None
+    colour no pixel uses."""
+    alphabet = "".join(chr(c) for c in range(35, 127) if chr(c) not in '"\\')
+    keys = []
+    for i in range(len(colours) + int(transparent)):
+        key, j = "", i
+        for _ in range(chars):
+            key, j = alphabet[j % len(alphabet)] + key, j // len(alphabet)
+        keys.append(key)
+    h, w = np.shape(indices)
+    lines = ["/* XPM */", "static char *image[] = {", f'"{w} {h} {len(keys)} {chars}",']
+    lines += [f'"{keys[i]} c #{r:02x}{g:02x}{b:02x}",' for i, (r, g, b) in enumerate(colours)]
+    if transparent:
+        lines.append(f'"{keys[-1]} c None",')
+    lines.append("/* pixels */")
+    lines += ['"' + "".join(keys[i] for i in row) + '",' for row in np.asarray(indices)]
+    return ("\n".join(lines) + "\n};\n").encode()
+
+
+def gbr_file(pixels, version: int = 2, comment: bytes = b"brush") -> bytes:
+    """A GIMP brush of (h, w) grey or (h, w, 4) RGBA uint8 ``pixels``."""
+    px = np.asarray(pixels, np.uint8)
+    h, w = px.shape[:2]
+    depth = 1 if px.ndim == 2 else 4
+    extra = b"" if version == 1 else b"GIMP" + struct.pack(">I", 25)
+    size = 20 + len(extra) + len(comment) + 1
+    return (struct.pack(">5I", size, version, w, h, depth) + extra + comment + b"\0"
+            + px.tobytes())
+
+
+def pixar_file(rgb) -> bytes:
+    """A PIXAR file of (h, w, 3) uint8 RGB (layout (14, 2))."""
+    px = np.asarray(rgb, np.uint8)
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<HHHHHH", head, 416, px.shape[0], px.shape[1], 0, 0, 14, 2)
+    return bytes(head) + px.tobytes()
+
+
+def xvthumb_file(indices) -> bytes:
+    """An XV thumbnail of (h, w) uint8 3-3-2 indices, with comment lines."""
+    h, w = np.shape(indices)
+    head = b"P7 332\n#XVVERSION:Version 2.28\n#BUILTIN:STRUCT\n#END_OF_COMMENTS\n"
+    return head + b"%d %d 255\n" % (w, h) + np.asarray(indices, np.uint8).tobytes()
+
+
+def mcidas_file(samples, size: int, prefix: int = 4) -> bytes:
+    """A McIdas area of (h, w) samples of ``size`` bytes (1, 2 or 4,
+    big-endian), each line after ``prefix`` bytes of its own."""
+    px = np.asarray(samples)
+    h, w = px.shape
+    words = [0] * 64
+    words[1], words[8], words[9], words[10], words[13], words[14], words[33] = (
+        4, h, w, size, 1, prefix, 256)
+    lines = np.zeros((h, prefix + w * size), np.uint8)
+    lines[:, :prefix] = 0xAB
+    lines[:, prefix:] = px.astype({1: "u1", 2: ">u2", 4: ">i4"}[size]).view(np.uint8).reshape(h, -1)
+    return struct.pack(">64i", *words) + lines.tobytes()[prefix:]
+
+
+def imt_file(grey, comment: bytes = b"*IM Tools image") -> bytes:
+    """An IMT file of (h, w) uint8 grey pixels."""
+    h, w = np.shape(grey)
+    head = comment + b"\nwidth %d\nheight %d\npixel n8\n\x0c" % (w, h)
+    return head + np.asarray(grey, np.uint8).tobytes()
+
+
+def spider_file(values, order: str = ">") -> bytes:
+    """A SPIDER 2D image of (h, w) float32 ``values`` in byte order ``order``."""
+    px = np.asarray(values, np.float32)
+    h, w = px.shape
+    record = 4 * w
+    records = -(-1024 // record)
+    head = np.zeros(records * record // 4, np.float32)
+    for i, v in ((0, 1), (1, h), (2, h), (4, 1), (11, w), (12, records),
+                 (21, records * record), (22, record)):
+        head[i] = v
+    return head.astype(f"{order}f4").tobytes() + px.astype(f"{order}f4").tobytes()
+
+
+def _fits_cards(cards) -> bytes:
+    text = b"".join((key.ljust(8) + (b"= " + value.rjust(20) if value is not None else b"")
+                     ).ljust(80) for key, value in cards) + b"END".ljust(80)
+    return text.ljust(-(-len(text) // 2880) * 2880, b" ")
+
+
+def fits_file(values, bitpix: int, pad: bool = True) -> bytes:
+    """A FITS file of (h, w) ``values`` at ``bitpix`` (8, 16, 32, -32, -64),
+    big-endian rows bottom-up, as the format stores them."""
+    px = np.asarray(values)
+    h, w = px.shape
+    layout = {8: "u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    head = _fits_cards([(b"SIMPLE", b"T"), (b"BITPIX", b"%d" % bitpix), (b"NAXIS", b"2"),
+                        (b"NAXIS1", b"%d" % w), (b"NAXIS2", b"%d" % h)])
+    body = px[::-1].astype(layout).tobytes()
+    return head + (body.ljust(-(-len(body) // 2880) * 2880, b"\0") if pad else body)
+
+
+def fits_gzip_file(values, zbitpix: int, pad: bool = False) -> bytes:
+    """A tile-compressed FITS file (``ZCMPTYPE = 'GZIP_1'``) of (h, w)
+    ``values``: an empty primary header, a one-row binary table and its
+    heap, one gzip stream of big-endian 4-byte words (unpadded: PIL reads
+    the heap to the file's end, and padding after it fails there)."""
+    px = np.asarray(values)
+    h, w = px.shape
+    heap = gzip.compress(px.astype(">i4").tobytes(), mtime=0)
+    primary = _fits_cards([(b"SIMPLE", b"T"), (b"BITPIX", b"8"), (b"NAXIS", b"0"),
+                           (b"EXTEND", b"T")])
+    ext = _fits_cards([(b"XTENSION", b"'BINTABLE'"), (b"BITPIX", b"8"), (b"NAXIS", b"2"),
+                       (b"NAXIS1", b"8"), (b"NAXIS2", b"1"), (b"PCOUNT", b"%d" % len(heap)),
+                       (b"GCOUNT", b"1"), (b"TFIELDS", b"1"), (b"ZIMAGE", b"T"),
+                       (b"ZBITPIX", b"%d" % zbitpix), (b"ZNAXIS", b"2"), (b"ZNAXIS1", b"%d" % w),
+                       (b"ZNAXIS2", b"%d" % h), (b"ZCMPTYPE", b"'GZIP_1  '")])
+    body = struct.pack(">ii", len(heap), 0) + heap
+    return primary + ext + (body.ljust(-(-len(body) // 2880) * 2880, b"\0") if pad else body)
+
+
 def raw_format_files():
     """{name: file bytes}: small TGA, SGI, QOI, PCX, DCX, IM, DDS and DIB
     files of every layout the port's readers take (raw and run-length, the
-    DDS block formats, 16-bit SGI) and a PFM row, from seeded arrays; numpy
-    only (``chip_smoke.py`` phase 14e decodes them on the card's machine and
+    DDS block formats, each BC6H and BC7 mode, 16-bit SGI), a PFM row, and
+    FTEX, BLP, ICNS, SUN, MSP, XBM, XPM, GBR, PIXAR, XVThumb, McIdas, IMT,
+    SPIDER and FITS files, from seeded arrays; numpy only (``chip_smoke.py`` phase 14e decodes them on the card's machine and
     holds them to ``torch_writer_digests.json``, which
     ``tests/test_torch_writer_digests.py`` recomputes with PIL)."""
     rng = np.random.default_rng(2121)
@@ -1060,7 +1381,152 @@ def raw_format_files():
                                      ("bc1_dx10", b"DX10", 71, 8), ("bc3_dx10", b"DX10", 77, 16)):
         body = rng.integers(0, 256, blocks * size, dtype=np.uint8).tobytes()
         out[f"dds_{name}.dds"] = dds_file(w, h, body, 0x4, fourcc, dxgi=dxgi)
+    # BC6H (unsigned and signed) and BC7, one file a mode
+    for mode in range(14):
+        for signed in (False, True):
+            body = bc6h_blocks(mode, blocks, rng, signed).tobytes()
+            out[f"dds_bc6h{'s' if signed else ''}_mode{mode:02d}.dds"] = dds_file(
+                w, h, body, 0x4, b"DX10", dxgi=96 if signed else 95)
+    for mode in range(8):
+        out[f"dds_bc7_mode{mode}.dds"] = dds_file(w, h, bc7_blocks(mode, blocks, rng).tobytes(),
+                                                  0x4, b"DX10", dxgi=98)
+    # FTEX, BLP, ICNS and the small raster formats
+    palette = rng.integers(0, 256, 1024, dtype=np.uint8).tobytes()
+    dxt = {k: rng.integers(0, 256, blocks * k, dtype=np.uint8).tobytes() for k in (8, 16)}
+    icon = np.repeat(np.repeat(px[:4, :4], 4, 0), 4, 1)
+    planes = b"".join(icns_rle(np.ascontiguousarray(icon[:, :, c]).tobytes()) for c in range(3))
+    sun_rows = np.pad(bgr.reshape(h, -1), ((0, 0), (0, 1)))
+    bits = grey > 99
+    out.update({
+        "ftex_dxt1.ftu": ftex_file(w, h, dxt[8], 0),
+        "ftex_rgb.ftc": ftex_file(w, h, rgb.tobytes(), 1),
+        "blp1_palette.blp": blp1_file(w, h, idx.tobytes(), 1, 8, 5, palette),
+        "blp2_dxt1.blp": blp2_file(w, h, dxt[8], 2, 1, 0),
+        "blp2_dxt3.blp": blp2_file(w, h, dxt[16], 2, 8, 1),
+        "blp2_dxt5.blp": blp2_file(w, h, dxt[16], 2, 8, 7),
+        "blp2_palette.blp": blp2_file(w, h, idx.tobytes(), 1, 0, 0, palette),
+        "icns_rle_mask.icns": icns_file([(b"is32", planes), (b"s8mk", icon[:, :, 3].tobytes())]),
+        "icns_rle_rgb.icns": icns_file([(b"is32", planes)]),
+        "sun_raw.ras": sun_file(w, h, 24, sun_rows.tobytes()),
+        "sun_rle.ras": sun_file(w, h, 8, sun_rle(idx.tobytes()), 2, palette[:300]),
+        "msp_v2.msp": msp_file(np.packbits(bits, axis=1), w, h),
+        "xbm.xbm": xbm_file(bits),
+        "xpm.xpm": xpm_file(idx % 9, pal[:9], 1),
+        "gbr_v2.gbr": gbr_file(px),
+        "pixar.pxr": pixar_file(rgb),
+        "xvthumb.xv": xvthumb_file(idx),
+        "mcidas_8bit.area": mcidas_file(grey, 1),
+        "mcidas_16bit.area": mcidas_file(grey.astype(np.uint16) * 257, 2),
+        "mcidas_32bit.area": mcidas_file(grey.astype(np.int64) * 3 - 1, 4),
+        "imt.imt": imt_file(grey),
+        "spider.spi": spider_file(grey.astype(np.float32) / 3 - 7),
+        "fits_8bit.fits": fits_file(grey, 8),
+        "fits_float.fits": fits_file(grey / 3 - 7, -32),
+        "fits_gzip.fits": fits_gzip_file(grey.astype(np.int64) * 99, 16),
+    })
     return out
+
+
+def _block_corners(rgb, h: int, w: int):
+    """(bh, bw, c) the first pixel of each 4 x 4 block of ``rgb`` (edge
+    blocks padded)."""
+    bh, bw = -(-h // 4), -(-w // 4)
+    return np.pad(rgb, ((0, 4 * bh - h), (0, 4 * bw - w), (0, 0)), mode="edge")[::4, ::4]
+
+
+def _blocks_to_image(block_px, h: int, w: int):
+    """(h, w, c) of (bh * bw, 16, c) block pixels, the blocks past the edge cut."""
+    bh, bw = -(-h // 4), -(-w // 4)
+    c = block_px.shape[-1]
+    return block_px.reshape(bh, bw, 4, 4, c).transpose(0, 2, 1, 3, 4).reshape(
+        4 * bh, 4 * bw, c)[:h, :w]
+
+
+def bc6h_half_bytes(x10) -> np.ndarray:
+    """uint8 of an unsigned BC6H mode 10 end point's 10-bit values,
+    interpolated with weight 0: the format's unquantization, its 31 / 64
+    to a half float, then clamped to 0..1 and truncated to 8 bits in
+    float32, as PIL converts them."""
+    x = np.asarray(x10, np.int64)
+    unq = np.where(x == 0, 0, np.where(x == 1023, 0xFFFF, ((x << 15) + 0x4000) >> 9))
+    f = (unq * 31 // 64).astype(np.uint16).view(np.float16).astype(np.float32)
+    return (np.clip(f, 0, 1) * np.float32(255)).astype(np.uint8)
+
+
+def full_size_block_files(rgb):
+    """{name: (file bytes, (pixels, mode) the port must decode, the RGB)}:
+    DDS BC7 and BC6H, BLP2 DXT5 and FITS (BITPIX -32) files of (h, w, 3)
+    uint8 ``rgb``, written in numpy at full size; each decodes to an array
+    known without a decoder: BC7 mode 6 blocks of two 8-bit colours (each
+    channel's low bit the end point's p-bit) at weights 0 and 64, BC6H mode
+    10 blocks of one colour (``bc6h_half_bytes``), BLP2 DXT5 blocks of two
+    5-6-5 colours widened by shifts (PIL's Python) and two alphas, sheared
+    where the width is not a multiple of 4 as PIL reads them, and FITS
+    float32 samples stored in the little-endian bytes PIL reads them in."""
+    h, w = rgb.shape[:2]
+    bh, bw = -(-h // 4), -(-w // 4)
+    n = bh * bw
+    corner = _block_corners(rgb, h, w).reshape(n, 3).astype(np.int64)
+    left = (np.arange(16) % 4) < 2  # a block's left half the first colour
+    # BC7 mode 6: bit 6 of byte 0, then R0 R1 G0 G1 B0 B1 A0 A1 (7 bits), P0 P1,
+    # the indices (pixel 0 of 3 bits): 0 or 15
+    e0 = np.concatenate([corner & ~1, np.full((n, 1), 254)], 1)
+    e1 = np.concatenate([(corner ^ 0x21) | 1, np.full((n, 1), 255)], 1)
+    bits = np.zeros((n, 128), np.uint8)
+    bits[:, 6] = 1
+    at = 7
+    for c in range(4):
+        for e in (e0, e1):
+            bits[:, at:at + 7] = (e[:, c:c + 1] >> (1 + np.arange(7))) & 1
+            at += 7
+    bits[:, at], bits[:, at + 1] = 0, 1
+    at += 2
+    bits[:, at + 3:] = ((np.where(left[1:], 0, 15)[:, None] >> np.arange(4)) & 1).reshape(-1)
+    bc7 = np.packbits(bits, axis=1, bitorder="little")
+    bc7_px = _blocks_to_image(np.where(left[None, :, None], e0[:, None, :], e1[:, None, :]),
+                              h, w).astype(np.uint8)
+    # BC6H mode 10 ("00011"): three 10-bit end point 0 values, every index 0
+    x10 = 256 + corner * 239 // 255
+    bits = np.zeros((n, 128), np.uint8)
+    bits[:, :5] = [1, 1, 0, 0, 0]
+    for c in range(3):
+        bits[:, 5 + 10 * c:15 + 10 * c] = (x10[:, c:c + 1] >> np.arange(10)) & 1
+    bc6 = np.packbits(bits, axis=1, bitorder="little")
+    bc6_px = _blocks_to_image(np.repeat(bc6h_half_bytes(x10)[:, None, :], 16, 1), h, w)
+    # BLP2 DXT5: a0 a1, alpha codes 0 / 1, then DXT1's c0 c1 and codes 0 / 1
+    c565 = (corner[:, 0] >> 3 << 11) | (corner[:, 1] >> 2 << 5) | (corner[:, 2] >> 3)
+    c565b = c565 ^ 0x0821
+    blocks = np.zeros((n, 16), np.uint8)
+    blocks[:, 0], blocks[:, 1] = 250, 120
+    codes = np.where(left, 0, 1)
+    alpha = (codes << (3 * np.arange(16))).sum()
+    blocks[:, 2:8] = np.frombuffer(int(alpha).to_bytes(6, "little"), np.uint8)
+    blocks[:, 8:12] = np.stack([c565, c565b], 1).astype("<u2").view(np.uint8).reshape(n, 4)
+    blocks[:, 12:16] = np.frombuffer(int((codes << (2 * np.arange(16))).sum()).to_bytes(
+        4, "little"), np.uint8)
+
+    def widen(c):
+        return np.stack([(c >> 11 & 31) << 3, (c >> 5 & 63) << 2, (c & 31) << 3], -1)
+
+    dxt_px = np.where(left[None, :, None],
+                      np.concatenate([widen(c565), np.full((n, 1), 250)], 1)[:, None, :],
+                      np.concatenate([widen(c565b), np.full((n, 1), 120)], 1)[:, None, :])
+    # PIL reads the rows of the blocks' padded width as rows of the image's
+    dxt_px = _blocks_to_image(dxt_px, 4 * bh, 4 * bw).astype(np.uint8).reshape(-1)[:h * w * 4]
+    dxt_px = dxt_px.reshape(h, w, 4)
+    # FITS -32: grey + 0.25 as float32, little-endian as PIL reads BITPIX -32
+    values = rgb[:, :, 1].astype(np.float32) + np.float32(0.25)
+    head = _fits_cards([(b"SIMPLE", b"T"), (b"BITPIX", b"-32"), (b"NAXIS", b"2"),
+                        (b"NAXIS1", b"%d" % w), (b"NAXIS2", b"%d" % h)])
+    fits = head + values[::-1].astype("<f4").tobytes()
+    grey = np.repeat(rgb[:, :, 1:2], 3, axis=2)
+    return {f"dds_bc7_{h}x{w}.dds": (dds_file(w, h, bc7.tobytes(), 0x4, b"DX10", dxgi=98),
+                                     (bc7_px, "RGBA"), bc7_px[:, :, :3]),
+            f"dds_bc6h_{h}x{w}.dds": (dds_file(w, h, bc6.tobytes(), 0x4, b"DX10", dxgi=95),
+                                      (bc6_px, "RGB"), bc6_px),
+            f"blp2_dxt5_{h}x{w}.blp": (blp2_file(w, h, blocks.tobytes(), 2, 8, 7),
+                                       (dxt_px, "RGBA"), dxt_px[:, :, :3]),
+            f"fits_float_{h}x{w}.fits": (fits, (values, "F"), grey)}
 
 
 def full_size_raw_files(rgb):

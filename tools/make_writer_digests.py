@@ -3,7 +3,9 @@ files ``chip_smoke.py`` phase 14e writes at run time, which the card's
 machine (no PIL, no cv2) holds the port to:
 
   - ``files``: for each of ``tests/torch_image_writers.raw_format_files()``
-    (TGA, SGI, QOI, PCX, DCX, IM, DDS, DIB and a PFM row, numpy only), PIL's
+    (TGA, SGI, QOI, PCX, DCX, IM, DDS with every BC6H and BC7 mode, DIB, a
+    PFM row, FTEX, BLP, ICNS, SUN, MSP, XBM, XPM, GBR, PIXAR, XVThumb,
+    McIdas, IMT, SPIDER and FITS, numpy only), PIL's
     format and mode, the shape of ``np.asarray(Image.open(...))`` and the
     SHA-256 of those pixels and of ``convert("RGB")``;
   - ``jpeg_overflow``: for each of ``chip_smoke.overflow_jpegs()`` (the
